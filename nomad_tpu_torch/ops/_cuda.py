@@ -1,0 +1,228 @@
+"""Build and bind the hand-written CUDA kernels of `csrc/`.
+
+Each kernel source is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface and loaded with ctypes: a
+source that does not include PyTorch's headers builds in seconds, so a
+fresh machine pays the build once per process start, inside the run.
+Libraries go to ``build/torch_kernels/`` beside the package, named by a
+hash of their sources and flags, and are reused while that hash holds.
+All sources are compiled at once, one `nvcc` each, in parallel.
+
+Nothing here runs at import: the build happens on the first launch (or
+an explicit `build_all`).  There is no fallback: a missing `nvcc`, a
+failed build or a refused launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+
+SOURCES = {
+    "score_select": "score_select.cu",
+    "plan_picks": "plan_picks.cu",
+}
+HEADERS = ("walk.cuh",)
+
+# exact IEEE arithmetic: no FMA contraction, no fast math, no
+# flush-to-zero, correctly rounded division
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-fmad=false",
+    "-ftz=false",
+    "-prec-div=true",
+    "-prec-sqrt=true",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler=-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, Dict] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    for exe in candidates:
+        if os.path.exists(exe):
+            return exe
+    raise RuntimeError(
+        "nvcc not found (CUDA_HOME unset and no nvcc on PATH): the CUDA "
+        "kernels cannot be built"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for fname in (SOURCES[name],) + HEADERS:
+        h.update((CSRC / fname).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> Dict[str, Dict]:
+    """Compile every kernel library that is missing, one nvcc per
+    source, all started together.  Returns {name: {"path", "seconds",
+    "cached", "ptxas"}} and raises on any failed build."""
+    names = list(names or SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pending = {}
+    for name in names:
+        path = _lib_path(name)
+        if path.exists():
+            BUILD_LOG.setdefault(
+                name, {"path": str(path), "seconds": 0.0, "cached": True,
+                       "ptxas": ""}
+            )
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )
+        pending[name] = (proc, tmp, path, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, path, t0) in pending.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, path)
+        BUILD_LOG[name] = {"path": str(path), "seconds": seconds,
+                           "cached": False, "ptxas": out}
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return {n: BUILD_LOG[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(BUILD_LOG[name]["path"])
+        lib.nk_error_string.argtypes = [ctypes.c_int]
+        lib.nk_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+_P = ctypes.c_void_p
+_D = ctypes.c_double
+_I = ctypes.c_int
+
+
+class ScoreSelectArgs(ctypes.Structure):
+    """Mirror of `ScoreSelectArgs` in csrc/score_select.cu."""
+
+    _fields_ = [
+        ("cpu_total", _P), ("mem_total", _P), ("disk_total", _P),
+        ("cpu_used", _P), ("mem_used", _P), ("disk_used", _P),
+        ("feasible", _P), ("collisions", _P), ("penalty", _P),
+        ("affinity", _P), ("spread", _P), ("perm", _P),
+        ("s_scratch", _P), ("f_scratch", _P), ("out_i", _P),
+        ("out_best", _P),
+        ("ask_cpu", _D), ("ask_mem", _D), ("ask_disk", _D),
+        ("desired", _I), ("limit", _I), ("n_candidates", _I), ("C", _I),
+        ("spread_fit", _I), ("is_f64", _I), ("device", _I),
+    ]
+
+
+class PlanPicksArgs(ctypes.Structure):
+    """Mirror of `PlanPicksArgs` in csrc/plan_picks.cu."""
+
+    _fields_ = [
+        ("cpu_total", _P), ("mem_total", _P), ("disk_total", _P),
+        ("cpu_used", _P), ("mem_used", _P), ("disk_used", _P),
+        ("feasible", _P), ("collisions", _P), ("penalty", _P),
+        ("affinity", _P), ("perm", _P),
+        ("f_scratch", _P), ("i_scratch", _P), ("b_scratch", _P),
+        ("out", _P),
+        ("ask_cpu", _D), ("ask_mem", _D), ("ask_disk", _D),
+        ("desired", _I), ("limit", _I), ("n_cand", _I), ("C", _I),
+        ("n_picks", _I), ("distinct_hosts", _I), ("spread_fit", _I),
+        ("is_f64", _I), ("device", _I),
+    ]
+
+
+def _launch(name: str, fn_name: str, args: ctypes.Structure,
+            device: torch.device) -> None:
+    lib = library(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.POINTER(type(args)), _P]
+    fn.restype = _I
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = fn(ctypes.byref(args), _P(stream))
+    if code != 0:
+        msg = lib.nk_error_string(code).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} ({code})")
+
+
+def launch_score_select(cols, s_scratch, f_scratch, out_i, out_best, *,
+                        ask: Tuple[float, float, float], desired: int,
+                        limit: int, n_candidates: int,
+                        spread_fit: bool) -> None:
+    """K1 on the current stream.  `cols` maps ScoreInputs column names
+    to contiguous CUDA tensors (the wrapper has checked them)."""
+    dev = cols["cpu_total"].device
+    args = ScoreSelectArgs(
+        cols["cpu_total"].data_ptr(), cols["mem_total"].data_ptr(),
+        cols["disk_total"].data_ptr(), cols["cpu_used"].data_ptr(),
+        cols["mem_used"].data_ptr(), cols["disk_used"].data_ptr(),
+        cols["feasible"].data_ptr(), cols["collisions"].data_ptr(),
+        cols["penalty"].data_ptr(), cols["affinity_score"].data_ptr(),
+        cols["spread_boost"].data_ptr(), cols["perm"].data_ptr(),
+        s_scratch.data_ptr(), f_scratch.data_ptr(), out_i.data_ptr(),
+        out_best.data_ptr(),
+        ask[0], ask[1], ask[2],
+        desired, limit, n_candidates, cols["cpu_total"].shape[0],
+        int(spread_fit), int(cols["cpu_total"].dtype == torch.float64),
+        dev.index,
+    )
+    _launch("score_select", "nk_score_select", args, dev)
+
+
+def launch_plan_picks(cols, f_scratch, i_scratch, b_scratch, out, *,
+                      ask: Tuple[float, float, float], desired: int,
+                      limit: int, n_candidates: int, n_picks: int,
+                      distinct_hosts: bool, spread_fit: bool) -> None:
+    """K2 on the current stream.  `cols` maps column names (totals and
+    BatchInputs fields) to contiguous CUDA tensors."""
+    dev = cols["cpu_total"].device
+    args = PlanPicksArgs(
+        cols["cpu_total"].data_ptr(), cols["mem_total"].data_ptr(),
+        cols["disk_total"].data_ptr(), cols["base_cpu_used"].data_ptr(),
+        cols["base_mem_used"].data_ptr(),
+        cols["base_disk_used"].data_ptr(), cols["feasible"].data_ptr(),
+        cols["base_collisions"].data_ptr(), cols["penalty"].data_ptr(),
+        cols["affinity_score"].data_ptr(), cols["perm"].data_ptr(),
+        f_scratch.data_ptr(), i_scratch.data_ptr(), b_scratch.data_ptr(),
+        out.data_ptr(),
+        ask[0], ask[1], ask[2],
+        desired, limit, n_candidates, cols["cpu_total"].shape[0],
+        n_picks, int(distinct_hosts), int(spread_fit),
+        int(cols["cpu_total"].dtype == torch.float64), dev.index,
+    )
+    _launch("plan_picks", "nk_plan_picks", args, dev)

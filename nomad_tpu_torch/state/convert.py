@@ -1,0 +1,196 @@
+"""Carry state across from the JAX package: what weight conversion is to
+a model port.
+
+`load_cluster` takes the JAX package's API dict encodings of nodes,
+jobs and allocations (`nomad_tpu/api/codec.py` job_to_dict,
+node_to_dict, alloc_to_dict — plain dicts, so nothing of that package
+is imported) and rebuilds them in this package's `StateStore`.  Nodes
+are inserted in the given order, so the port's node arena assigns the
+same rows as the store they came from.
+
+`score_inputs_from_numpy` and `batch_inputs_from_numpy` turn numpy
+kernel inputs (the shape the JAX programs take) into the port's tensor
+NamedTuples, for the kernel-level tests.
+
+The decode half below is this package's own copy of codec.py's generic
+inverse (`dataclass_from_dict`, `alloc_from_dict`), extended to rebuild
+``Tuple[X, ...]`` fields (spread targets) as tuples of dataclasses.
+"""
+from __future__ import annotations
+
+import dataclasses
+import typing
+from typing import Any, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from ..ops.batch import BatchInputs
+from ..ops.score import ScoreInputs
+from ..structs import Allocation, Job, Node
+from .store import StateStore
+
+
+def dataclass_from_dict(cls, raw):
+    """Rebuild a dataclass from its snake_case JSON form via type hints
+    (List/Tuple/Dict/Optional/nested dataclasses).  Unknown keys are
+    ignored; `job`/`metrics` never ride the wire and decode to their
+    defaults."""
+    if raw is None or not dataclasses.is_dataclass(cls):
+        return raw
+
+    def thaw(hint, value):
+        if value is None:
+            return None
+        origin = typing.get_origin(hint)
+        if origin is typing.Union:
+            args = [
+                a
+                for a in typing.get_args(hint)
+                if a is not type(None)
+            ]
+            return thaw(args[0], value) if args else value
+        if origin in (list, List):
+            (item,) = typing.get_args(hint) or (Any,)
+            return [thaw(item, v) for v in value]
+        if origin is tuple:
+            args = typing.get_args(hint)
+            if len(args) == 2 and args[1] is Ellipsis:
+                return tuple(thaw(args[0], v) for v in value)
+            if args:
+                return tuple(thaw(a, v) for a, v in zip(args, value))
+            return tuple(value)
+        if origin in (dict, Dict):
+            args = typing.get_args(hint) or (Any, Any)
+            return {k: thaw(args[1], v) for k, v in value.items()}
+        if dataclasses.is_dataclass(hint) and isinstance(value, dict):
+            return dataclass_from_dict(hint, value)
+        if hint is float:
+            return float(value)
+        if hint is int:
+            return int(value)
+        if hint is bool:
+            return bool(value)
+        if hint is bytes and isinstance(value, str):
+            import base64
+
+            return base64.b64decode(value)
+        return value
+
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name in raw:
+            kwargs[f.name] = thaw(hints[f.name], raw[f.name])
+    return cls(**kwargs)
+
+
+def alloc_from_dict(raw: Dict) -> Allocation:
+    """Wire form -> Allocation (full decode incl. task_states and
+    allocated_resources)."""
+    return dataclass_from_dict(Allocation, raw)
+
+
+def node_from_dict(raw: Dict) -> Node:
+    return dataclass_from_dict(Node, raw)
+
+
+def job_from_dict(raw: Dict) -> Job:
+    return dataclass_from_dict(Job, raw)
+
+
+# fields the store stamps on insert; restored from the wire form so the
+# carried world keeps the source's versions and indices
+_JOB_STAMPS = ("version", "create_index", "modify_index",
+               "job_modify_index", "status")
+
+
+def load_cluster(
+    nodes: Iterable[Dict],
+    jobs: Iterable[Dict],
+    allocs: Iterable[Dict],
+    store: Optional[StateStore] = None,
+) -> StateStore:
+    """Build (or extend) a port StateStore from API dict encodings.
+
+    Nodes go in first, in the given order (so arena rows match the
+    source store's when it, too, inserted them in that order), then
+    jobs, then allocations in one batch.  A job may appear once per
+    version, oldest first; each keeps the version and indices it had at
+    the source.  Each allocation is relinked to its job version by
+    (namespace, id, ``job_version``); the wire form does not carry the
+    job itself."""
+    store = store if store is not None else StateStore()
+    for raw in nodes:
+        store.upsert_node(node_from_dict(raw))
+    for raw in jobs:
+        job = job_from_dict(raw)
+        store.upsert_job(job)
+        for name in _JOB_STAMPS:
+            if name in raw:
+                setattr(job, name, raw[name])
+    decoded: List[Allocation] = []
+    for raw in allocs:
+        alloc = alloc_from_dict(raw)
+        version = raw.get("job_version")
+        job = None
+        if version is not None:
+            job = store.job_by_version(alloc.namespace, alloc.job_id, version)
+        alloc.job = job or store.job_by_id(alloc.namespace, alloc.job_id)
+        decoded.append(alloc)
+    if decoded:
+        store.upsert_allocs(decoded)
+    return store
+
+
+def _tensor(value, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(value)).to(
+        device=device, dtype=dtype
+    )
+
+
+def score_inputs_from_numpy(arrays: Dict[str, Any], device,
+                            dtype=torch.float64) -> ScoreInputs:
+    """ScoreInputs from numpy columns keyed by field name.  Float
+    columns become `dtype`, masks bool, counts and perm int32; scalars
+    stay Python numbers."""
+    f = ("cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
+         "disk_used", "affinity_score", "spread_boost")
+    cols = {k: _tensor(arrays[k], dtype, device) for k in f}
+    cols["feasible"] = _tensor(arrays["feasible"], torch.bool, device)
+    cols["penalty"] = _tensor(arrays["penalty"], torch.bool, device)
+    cols["collisions"] = _tensor(arrays["collisions"], torch.int32, device)
+    cols["perm"] = _tensor(arrays["perm"], torch.int32, device)
+    return ScoreInputs(
+        **cols,
+        ask_cpu=float(arrays["ask_cpu"]),
+        ask_mem=float(arrays["ask_mem"]),
+        ask_disk=float(arrays["ask_disk"]),
+        desired_count=int(arrays["desired_count"]),
+        limit=int(arrays["limit"]),
+        n_candidates=int(arrays["n_candidates"]),
+    )
+
+
+def batch_inputs_from_numpy(arrays: Dict[str, Any], device,
+                            dtype=torch.float64) -> BatchInputs:
+    """BatchInputs from numpy columns keyed by field name (same type
+    rules as score_inputs_from_numpy)."""
+    f = ("base_cpu_used", "base_mem_used", "base_disk_used",
+         "affinity_score")
+    cols = {k: _tensor(arrays[k], dtype, device) for k in f}
+    cols["feasible"] = _tensor(arrays["feasible"], torch.bool, device)
+    cols["penalty"] = _tensor(arrays["penalty"], torch.bool, device)
+    cols["base_collisions"] = _tensor(
+        arrays["base_collisions"], torch.int32, device
+    )
+    cols["perm"] = _tensor(arrays["perm"], torch.int32, device)
+    return BatchInputs(
+        **cols,
+        ask_cpu=float(arrays["ask_cpu"]),
+        ask_mem=float(arrays["ask_mem"]),
+        ask_disk=float(arrays["ask_disk"]),
+        desired_count=int(arrays["desired_count"]),
+        limit=int(arrays["limit"]),
+        distinct_hosts=bool(arrays["distinct_hosts"]),
+    )

@@ -1,0 +1,67 @@
+"""The port stands alone: a small schedule through it, in a fresh
+interpreter, loads neither `jax` nor anything of `nomad_tpu`; and no
+module of the port imports either."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "nomad_tpu_torch"
+
+SCRIPT = r"""
+import sys
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.sched import new_scheduler
+from nomad_tpu_torch.sched.testing import Harness
+from nomad_tpu_torch.structs import compute_node_class
+
+h = Harness()
+for i in range(12):
+    n = mock.node(id=f"nj-{i:02d}")
+    n.computed_class = compute_node_class(n)
+    h.store.upsert_node(n)
+job = mock.job(id="nj")
+job.task_groups[0].count = 4
+h.store.upsert_job(job)
+ev = mock.evaluation(job_id=job.id)
+new_scheduler("service", h.snapshot(), h, device="cpu", seed=1).process(ev)
+placed = sum(len(v) for v in h.plans[-1].node_allocation.values())
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(placed, bad)
+"""
+
+
+def test_port_schedule_loads_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "4 []"
+
+
+def test_port_sources_import_no_jax():
+    offenders = []
+    for path in PORT.rglob("*.py"):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                root = name.split(".")[0]
+                if root in ("jax", "jaxlib", "nomad_tpu"):
+                    offenders.append(f"{path.relative_to(REPO)}: {name}")
+    assert not offenders, offenders
