@@ -16,14 +16,33 @@ Phases (any failure exits non-zero):
    CPU's on 10^6 seeded inputs.
 3. Kernel K2 (the look-ahead pick scan, csrc/plan_picks.cu) against its
    twin, the same rule, for P in {1, 16, 128}.
-4. The main path: a 10,000-node / 100,000-alloc cluster (the bench's
-   seeded recipe) and a stream of 89 service jobs through the port's
-   Harness + ServiceScheduler on the card.  The same stream, in fresh
-   stores, goes through the port on the CPU (the twins) and through the
-   port's host oracle; the three placement streams must be identical,
-   and both kernels must have been launched by the card run.
+4. The per-eval path: a 10,000-node / 100,000-alloc cluster (the
+   bench's seeded recipe) and a stream of 89 service jobs through the
+   port's Harness + ServiceScheduler on the card.  The same stream, in
+   fresh stores, goes through the port on the CPU (the twins), and its
+   first 32 evals through the port's host oracle; the placement streams
+   must be identical, and K1 and K2 must have been launched by the card
+   run.
 5. Times each kernel and its twin on the card with CUDA events at the
-   main path's shapes (>= 1,000 launches after warm-up).
+   main path's shapes (>= 1,000 launches after warm-up); for K4 also
+   the nearest single PyTorch call (`index_copy_`).
+6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
+   its twin over every chained scenario of `ops/cases.py`, at a
+   16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
+   (8, 64)}, f64 and f32: rows, pulls and every carry-out column
+   bit-equal on the card and the CPU; a chain cut into chunks equals
+   the single launch.
+7. Kernel K4 (the usage-mirror patch, csrc/patch_rows.cu) against its
+   twin at W in {8, 1024, 16384} with padding idx == C, bit-equal.
+8. The main path: the port's batched `Server()` (BatchWorker, K3 and K4
+   on the card) on the same 10,000-node / 100,000-alloc cluster after
+   `warm_shapes()`, fed 416 jobs (384 count-10 service jobs, 16 with a
+   percent spread on the datacenter and 16 with an even spread on the
+   rack, after job 48).  The same stream goes through the port's
+   sequential `Server(batch_pipeline=False)` on the card, and its first
+   48 jobs through a sequential Server running the host oracle.  The
+   placements must be identical, the batched worker must have prescored
+   evals with no errors, and K3 and K4 must have been launched.
 
 Prints the kernels line, then the card's nvidia-smi line, then the
 result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -45,8 +64,14 @@ N_ALLOCS = 100_000
 C_CHECK = 16_384
 N_CAND_CHECK = 10_000
 TIMING_LAUNCHES = 1_000
+ORACLE_EVALS = 32  # phase 4's host-oracle pass covers this prefix
+SERVER_JOBS = 416  # phase 8's stream
+SERVER_ORACLE_JOBS = 48  # its prefix through the host oracle
+CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
+PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_FLOPS = 67e12  # H100 SXM outside the tensor cores (f64 is slower)
+F64_FLOPS = 34e12  # H100 SXM f64 outside the tensor cores, data sheet
+FLOPS_PER_CANDIDATE = 120  # ~40 flops of score plus two pows (~40 each)
 
 
 def log(msg: str) -> None:
@@ -294,11 +319,11 @@ def job_stream():
 
 
 def run_stream(mode: str, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
-               on_ready=None):
-    """Build a fresh world and run the job stream through the port.
-    mode: "cuda" (the kernels), "cpu" (the twins) or "oracle" (the host
-    iterator chain).  Returns (placement stream, per-eval seconds,
-    placements)."""
+               on_ready=None, limit=None):
+    """Build a fresh world and run the job stream (its first `limit`
+    evals, when given) through the port.  mode: "cuda" (the kernels),
+    "cpu" (the twins) or "oracle" (the host iterator chain).  Returns
+    (placement stream, per-eval seconds, placements)."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.sched.generic_sched import ServiceScheduler
     from nomad_tpu_torch.sched.testing import Harness
@@ -311,7 +336,7 @@ def run_stream(mode: str, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
     if on_ready is not None:
         on_ready()
     stream, seconds, placed = [], [], 0
-    for kind, make, seed in job_stream():
+    for kind, make, seed in job_stream()[:limit]:
         job = make()
         h.store.upsert_job(job)
         ev = mock.evaluation(job_id=job.id, id=f"eval-{job.id}")
@@ -354,11 +379,12 @@ def check_main_path(cuda, card: str) -> dict:
     check(launches["score_select"] > 0, "K1 was not launched on the main path")
     check(launches["plan_picks"] > 0, "K2 was not launched on the main path")
     cpu_stream, _, _ = run_stream("cpu")
-    oracle_stream, _, _ = run_stream("oracle")
+    oracle_stream, _, _ = run_stream("oracle", limit=ORACLE_EVALS)
     for name, other in (("cpu twins", cpu_stream), ("host oracle", oracle_stream)):
         for a, b in zip(cuda_stream, other):
             check(a == b, f"placement stream diverged from the {name} at {a[0]}: {a} vs {b}")
-        check(len(cuda_stream) == len(other), f"stream length differs from the {name}")
+    check(len(cuda_stream) == len(cpu_stream), "stream length differs from the cpu twins")
+    check(len(oracle_stream) == ORACLE_EVALS, "the host oracle's prefix is short")
     blocked = sum(s[3] for s in cuda_stream)
     check(blocked >= 1, "the unplaceable job created no blocked eval")
     by_kind = {}
@@ -376,11 +402,348 @@ def check_main_path(cuda, card: str) -> dict:
         f"main path on {card}: {len(cuda_stream)} evals, {placed} placements, "
         f"{rate:.1f} placements/s, eval latency p50 {p50 * 1e3:.2f} ms "
         f"p99 {p99 * 1e3:.2f} ms (host clock, each eval ends in a device "
-        f"sync); identical to the CPU twins and the host oracle",
+        f"sync); identical to the CPU twins and, on its first "
+        f"{ORACLE_EVALS} evals, the host oracle",
         flush=True,
     )
     return {"launches": launches, "placements_per_s": rate,
             "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "placed": placed}
+
+
+# ---------------------------------------------------------------------------
+# phase 6/7: the chained planner and the mirror patch against their twins
+# ---------------------------------------------------------------------------
+
+
+def _same_chain(a, b, tag: str) -> float:
+    rows_a, pulls_a, (used_a, ports_a, devs_a) = a
+    rows_b, pulls_b, (used_b, ports_b, devs_b) = b
+    check(bool((rows_a.cpu() == rows_b.cpu()).all()), f"{tag}: rows differ")
+    check(bool((pulls_a.cpu() == pulls_b.cpu()).all()), f"{tag}: pulls differ")
+    err = 0.0
+    for x, y in zip(used_a, used_b):
+        check(bool((_bits(x) == _bits(y)).all()), f"{tag}: usage carry differs")
+        err = max(err, _max_abs(x, y))
+    for x, y, what in ((ports_a, ports_b, "ports"), (devs_a, devs_b, "devices")):
+        check((x is None) == (y is None), f"{tag}: {what} carry missing")
+        if x is not None:
+            check(bool((x.cpu() == y.cpu()).all()), f"{tag}: {what} carry differs")
+    return err
+
+
+def _slice_evals(x, e0: int, e1: int):
+    """Evals [e0, e1) of a tensor or NamedTuple input of the chain."""
+    if hasattr(x, "_fields"):
+        return type(x)(*[None if f is None else f[e0:e1] for f in x])
+    return x[e0:e1]
+
+
+def check_k3(cuda) -> dict:
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import CHAIN_SCENARIOS, chain_case
+    from nomad_tpu_torch.state.convert import chain_case_to_torch
+
+    n_cases = 0
+    max_err = 0.0
+    failed_picks = 0
+    for dtype in (torch.float64, torch.float32):
+        for si, scenario in enumerate(sorted(CHAIN_SCENARIOS)):
+            for E, P in CHAIN_SHAPES:
+                cols, kw = chain_case(8000 + 10 * si + E, C_CHECK,
+                                      N_CAND_CHECK, scenario, E, P)
+                args, kwargs = chain_case_to_torch(cols, kw, cuda, dtype)
+                kern = tbatch.chained_plan_picks_cols(
+                    *args, return_carry=True, **kwargs)
+                torch.cuda.synchronize()
+                twin_card = tbatch.chained_picks_twin(
+                    tbatch.prepare_chain(*args, **kwargs))
+                cargs, ckwargs = chain_case_to_torch(cols, kw, "cpu", dtype)
+                twin_cpu = tbatch.chained_plan_picks_cols(
+                    *cargs, return_carry=True, **ckwargs)
+                tag = f"K3 {dtype} {scenario} E={E} P={P}"
+                max_err = max(max_err, _same_chain(kern, twin_card, tag + " (card twin)"))
+                max_err = max(max_err, _same_chain(kern, twin_cpu, tag + " (CPU twin)"))
+                failed_picks += int((kern[0] == -1).sum())
+                n_cases += 1
+    # a chain cut into chunks of two evals, each chained on the last
+    # one's carry-out, equals the single launch
+    n_cut = 0
+    for scenario in ("plain", "evict_spread", "everything"):
+        E, P = 8, 16
+        cols, kw = chain_case(8500 + len(scenario), C_CHECK, N_CAND_CHECK,
+                              scenario, E, P)
+        args, kwargs = chain_case_to_torch(cols, kw, cuda)
+        whole = tbatch.chained_plan_picks_cols(*args, return_carry=True,
+                                               **kwargs)
+        rows, pulls = [], []
+        carry = (args[3:6], kwargs.get("port_used0"), kwargs.get("dev_free0"))
+        for e0 in range(0, E, 2):
+            part_kw = {}
+            for name, value in kwargs.items():
+                if name in ("port_used0", "dev_free0"):
+                    continue
+                part_kw[name] = _slice_evals(value, e0, e0 + 2)
+            if carry[1] is not None:
+                part_kw["port_used0"] = carry[1]
+            if carry[2] is not None:
+                part_kw["dev_free0"] = carry[2]
+            part = tbatch.chained_plan_picks_cols(
+                *args[:3], *carry[0],
+                _slice_evals(args[6], e0, e0 + 2),
+                args[7][e0:e0 + 2], P, return_carry=True, **part_kw)
+            rows.append(part[0])
+            pulls.append(part[1])
+            carry = part[2]
+        torch.cuda.synchronize()
+        _same_chain((torch.cat(rows), torch.cat(pulls), carry), whole,
+                    f"K3 chunked {scenario}")
+        n_cut += 1
+    print(f"K3: {n_cases} cases exact on card and CPU (f64 and f32; rows, "
+          f"pulls and the carry-out), {failed_picks} failed picks among "
+          f"them; {n_cut} chains cut into chunks equal the single launch; "
+          f"max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases}
+
+
+def check_k4(cuda) -> dict:
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+
+    n_cases = 0
+    max_err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for width in PATCH_WIDTHS:
+            rng = np.random.default_rng(width)
+            col = torch.from_numpy(rng.uniform(0.0, 1e4, C_CHECK)).to(dtype)
+            n = max(1, width - width // 4)
+            idx = np.full(width, C_CHECK, np.int32)  # padding: dropped
+            idx[:n] = np.sort(rng.choice(C_CHECK, n, replace=False))
+            idx = torch.from_numpy(idx)
+            vals = torch.from_numpy(rng.uniform(0.0, 1e4, width)).to(dtype)
+            on_card = tbatch.patch_rows(col.to(cuda), idx.to(cuda),
+                                        vals.to(cuda))
+            torch.cuda.synchronize()
+            twin = tbatch.patch_rows_twin(col.clone(), idx, vals)
+            tag = f"K4 {dtype} W={width}"
+            check(bool((_bits(on_card) == _bits(twin)).all()), f"{tag}: kernel != twin")
+            max_err = max(max_err, _max_abs(on_card, twin))
+            n_cases += 1
+    print(f"K4: {n_cases} cases exact (f64 and f32, padding dropped), "
+          f"max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the batched pipeline through the port's Server
+# ---------------------------------------------------------------------------
+
+
+def server_stream():
+    """Phase 8's 416 jobs in submission order: bench.py's count-10
+    service job (`bench_job`), placed over all three datacenters of the
+    world, with 32 spread jobs after job 48 (every 11th job from there,
+    alternating a percent spread on the datacenter and an even spread
+    on the rack).  Spread jobs walk every node, so they stay out of the
+    host oracle's prefix."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Spread, SpreadTarget
+
+    spread_at = {SERVER_ORACLE_JOBS + 11 * k: k for k in range(32)}
+    jobs = []
+    for i in range(SERVER_JOBS):
+        job = mock.job(id=f"e2e-{i:03d}", datacenters=DCS)
+        job.task_groups[0].count = 10
+        k = spread_at.get(i)
+        if k is not None and k % 2 == 0:
+            job.spreads = [Spread(
+                attribute="${node.datacenter}", weight=50,
+                targets=(SpreadTarget("dc1", 50), SpreadTarget("dc2", 30),
+                         SpreadTarget("dc3", 20)),
+            )]
+        elif k is not None:
+            job.spreads = [Spread(attribute="${attr.rack}", weight=50)]
+        jobs.append(job)
+    return jobs
+
+
+def drive_server(server, jobs, label: str):
+    """Register the jobs, wait for the pipeline to drain, and return
+    (placements by job, eval latencies in ms (ack minus submit, as
+    bench.py measures them), wall seconds, placements)."""
+    acks, submits = {}, {}
+    orig_ack = server.broker.ack
+
+    def timed_ack(eval_id, token):
+        orig_ack(eval_id, token)
+        acks[eval_id] = time.time()
+
+    server.broker.ack = timed_ack
+    try:
+        t0 = time.time()
+        for job in jobs:
+            ev = server.register_job(job)
+            submits[ev.id] = time.time()
+        ok = server.drain_to_idle(timeout=600.0)
+        dt = time.time() - t0
+    finally:
+        server.broker.ack = orig_ack
+    check(ok, f"{label}: the server did not drain")
+    placements = {
+        job.id: sorted(
+            (a.name, a.node_id)
+            for a in server.store.allocs_by_job("default", job.id)
+            if not a.terminal_status()
+        )
+        for job in jobs
+    }
+    lat = sorted((acks[e] - submits[e]) * 1e3 for e in acks if e in submits)
+    placed = sum(len(v) for v in placements.values())
+    log(f"  [{label}] {len(jobs)} jobs, {placed} placements in {dt:.1f}s")
+    return placements, lat, dt, placed
+
+
+def new_server(batch_pipeline: bool, device=None):
+    from nomad_tpu_torch.server import Server
+
+    # huge heartbeat TTL: the simulated nodes never heartbeat
+    server = Server(num_schedulers=1, seed=1, batch_pipeline=batch_pipeline,
+                    heartbeat_ttl=1e9, device=device)
+    t0 = time.perf_counter()
+    build_world(server.store)
+    log(f"  world built in {time.perf_counter() - t0:.1f}s")
+    server.start()
+    return server
+
+
+def check_server(cuda, card: str) -> dict:
+    from nomad_tpu_torch.ops import batch as tbatch
+
+    jobs = server_stream()
+    server = new_server(batch_pipeline=True)
+    try:
+        worker = server.workers[0]
+        check(worker.device.type == "cuda", "the batched Server is not on the card")
+        t0 = time.perf_counter()
+        worker.warm_shapes()
+        log(f"  warm_shapes {time.perf_counter() - t0:.1f}s")
+        tbatch.chained_picks_cuda.launches = 0
+        tbatch.patch_rows_cuda.launches = 0
+        batched, lat, dt, placed = drive_server(server, server_stream(), "batched")
+        launches = {
+            "chained_picks": tbatch.chained_picks_cuda.launches,
+            "patch_rows": tbatch.patch_rows_cuda.launches,
+        }
+        stats = {k: getattr(worker, k) for k in (
+            "prescored", "fallbacks", "errors", "cold_shape_fallbacks",
+            "preempt_passthroughs", "replay_speculative",
+            "replay_conflicts", "replay_serial_fallbacks",
+            "admission_admitted")}
+        timings = dict(worker.timings)
+    finally:
+        server.stop()
+    print(f"main path (batched Server, cuda): launches {launches}; {stats}; "
+          f"timings (s) {json.dumps({k: round(v, 4) for k, v in timings.items()})}",
+          flush=True)
+    check(stats["errors"] == 0, f"the batched worker counted {stats['errors']} errors")
+    # the stream is deterministic and every eval of it is one K3 models:
+    # each must be prescored, and no replay may leave the prescored rows
+    check(stats["prescored"] == len(jobs),
+          f"the batched worker prescored {stats['prescored']} of {len(jobs)} evals")
+    check(stats["fallbacks"] == 0,
+          f"the batched worker fell back to the exact path {stats['fallbacks']} times")
+    check(stats["cold_shape_fallbacks"] == 0, "a chunk waited on a cold shape")
+    check(launches["chained_picks"] > 0, "K3 was not launched on the main path")
+    check(launches["patch_rows"] > 0, "K4 was not launched on the main path")
+
+    seq = new_server(batch_pipeline=False)
+    try:
+        cfg = seq.store.get_scheduler_config()
+        cfg.tpu_scheduler_enabled = True  # the per-eval device stack
+        seq.store.set_scheduler_config(cfg)
+        sequential, seq_lat, seq_dt, _ = drive_server(seq, server_stream(),
+                                                      "sequential")
+        seq_errors = seq.workers[0].errors
+    finally:
+        seq.stop()
+    check(seq_errors == 0, f"the sequential worker counted {seq_errors} errors")
+    oracle_server = new_server(batch_pipeline=False)
+    try:
+        oracle_server.workers[0].host_fallback = True
+        oracle, _, _, _ = drive_server(
+            oracle_server, server_stream()[:SERVER_ORACLE_JOBS], "oracle")
+    finally:
+        oracle_server.stop()
+    for job in jobs:
+        check(batched[job.id] == sequential[job.id],
+              f"batched and sequential Servers diverge at {job.id}")
+    for job in jobs[:SERVER_ORACLE_JOBS]:
+        check(batched[job.id] == oracle[job.id],
+              f"batched Server and host oracle diverge at {job.id}")
+    spread_ids = [j.id for j in jobs if j.spreads]
+    check(len(spread_ids) == 32, "the stream has no 32 spread jobs")
+    check(all(len(batched[j]) == 10 for j in spread_ids),
+          "a spread job was not fully placed")
+
+    def pct(v, q):
+        return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+    busy = profile_batched()
+    rate = placed / dt
+    print(
+        f"main path (batched Server) on {card}: {len(jobs)} evals, {placed} "
+        f"placements in {dt:.2f}s = {rate:.1f} placements/s, eval latency "
+        f"(ack - submit) p50 {pct(lat, 0.5):.2f} ms p99 {pct(lat, 0.99):.2f} ms; "
+        f"sequential Server on the card: {placed / seq_dt:.1f} placements/s, "
+        f"p50 {pct(seq_lat, 0.5):.2f} ms p99 {pct(seq_lat, 0.99):.2f} ms; "
+        f"identical placements, and on the first {SERVER_ORACLE_JOBS} jobs "
+        f"identical to the host oracle",
+        flush=True,
+    )
+    return {"launches": launches, "placements_per_s": rate,
+            "p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99),
+            "seq_placements_per_s": placed / seq_dt, "stats": stats,
+            "timings": timings, "wall_s": dt, "busy": busy}
+
+
+def profile_batched() -> dict:
+    """The device's busy share on the batched main path: the same
+    stream through a fresh batched Server under torch.profiler.  The
+    profiler slows the host side, so the share is taken against the
+    profiled run's own wall time; device time is the sum of every
+    kernel's and copy's self time on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    server = new_server(batch_pipeline=True)
+    try:
+        server.workers[0].warm_shapes()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            drive_server(server, server_stream(), "profiled")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    by_name = {}
+    for e in prof.key_averages():
+        dev_us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+        if dev_us:
+            by_name[e.key] = (dev_us / 1e3, e.count)
+    device_ms = sum(ms for ms, _n in by_name.values())
+    check(device_ms > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"profiled batched run: wall {wall:.3f} s, device busy "
+          f"{device_ms:.3f} ms = {device_ms / 1e3 / wall:.4f} of it; by "
+          "name (ms, count): " + "; ".join(
+              f"{k[:60]} {v[0]:.3f} x{v[1]}" for k, v in top), flush=True)
+    return {"wall_s": wall, "device_ms": device_ms,
+            "share": device_ms / 1e3 / wall}
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +781,8 @@ def time_kernels(cuda) -> dict:
         score_inputs_from_numpy,
     )
 
-    saved = (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches)
+    saved = (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
+             tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches)
     k1 = score_inputs_from_numpy(
         score_case(7000, C_CHECK, N_CAND_CHECK, "mixed", 14), cuda
     )
@@ -426,6 +790,10 @@ def time_kernels(cuda) -> dict:
     t = {k: torch.from_numpy(v).to(cuda) for k, v in cols.items()}
     k2 = (t["cpu_total"], t["mem_total"], t["disk_total"],
           batch_inputs_from_numpy(inp, cuda), N_CAND_CHECK, 16, False)
+    # the operations count the candidates the walks reach (their
+    # pulls in this run), not every candidate: the walks stop early
+    k1_pulls = int(tscore.score_select_cuda(k1).out_i[1])
+    k2_pulls = int(tbatch.plan_picks_cuda(*k2)[1].sum())
     out = {
         "score_select": {
             "ms": cuda_time_ms(lambda: tscore.score_select_cuda(k1)),
@@ -433,8 +801,8 @@ def time_kernels(cuda) -> dict:
             # every input column read once (all C walk positions) and
             # 16 bytes written
             "bytes": C_CHECK * (8 * 8 + 2 * 1 + 2 * 4) + 16,
-            # ~40 flops a node plus two pows (~40 each), f64
-            "flops": C_CHECK * 120,
+            "pulls": k1_pulls,
+            "flops": k1_pulls * FLOPS_PER_CANDIDATE,
         },
         "plan_picks": {
             "ms": cuda_time_ms(lambda: tbatch.plan_picks_cuda(*k2)),
@@ -444,16 +812,88 @@ def time_kernels(cuda) -> dict:
             # the candidate rows of every column read once (the tail is
             # never walked) and the [2, P] result written
             "bytes": N_CAND_CHECK * (7 * 8 + 2 * 1 + 2 * 4) + 2 * 16 * 4,
-            "flops": 16 * N_CAND_CHECK * 120,
+            "pulls": k2_pulls,
+            "flops": k2_pulls * FLOPS_PER_CANDIDATE,
         },
     }
-    tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches = saved
+    out.update(time_chain_kernels(cuda))
+    (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
+     tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches) = saved
     for v in out.values():
+        v.setdefault("library_ms", None)
         t_bytes = v["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = v["flops"] / F32_FLOPS * 1e3
+        t_ops = v["flops"] / F64_FLOPS * 1e3  # every timed launch is f64
         v["bound_ms"] = max(t_bytes, t_ops)
         v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print("timing shapes (bytes, walk reach in pulls, operations, bound ms): "
+          + "; ".join(f"{k} {v['bytes']} B, {v.get('pulls', 0)} pulls, "
+                      f"{v['flops']} ops, {v['bound_ms']:.9f} ({v['bound_by']})"
+                      for k, v in out.items()), flush=True)
     return out
+
+
+def time_chain_kernels(cuda) -> dict:
+    """K3 at the batched main path's launch shape: one chunk of the
+    widest bucket (E = 8) with P = 16 picks over the 16,384-row arena
+    and 10,000 candidates; K4 at W = 128 staged rows (the pow2 bucket
+    of one such chunk's 80 placements) into a 16,384-row column, beside
+    `index_copy_` of the valid prefix (the nearest single PyTorch
+    call)."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import chain_case
+    from nomad_tpu_torch.state.convert import chain_case_to_torch
+
+    E, P = 8, 16
+    cols, kw = chain_case(9000, C_CHECK, N_CAND_CHECK, "plain", E, P)
+    args, kwargs = chain_case_to_torch(cols, kw, cuda)
+    prepared = tbatch.prepare_chain(*args, **kwargs)
+    W = 128
+    rng = np.random.default_rng(9001)
+    n = 80
+    idx = np.full(W, C_CHECK, np.int32)
+    idx[:n] = np.sort(rng.choice(C_CHECK, n, replace=False))
+    col = torch.from_numpy(rng.uniform(0.0, 1e4, C_CHECK)).to(cuda)
+    idx_t = torch.from_numpy(idx).to(cuda)
+    idx_valid = idx_t[:n].long()
+    vals = torch.from_numpy(rng.uniform(0.0, 1e4, W)).to(cuda)
+    vals_valid = vals[:n].contiguous()
+    f8 = 8
+    k3_pulls = int(tbatch.chained_picks_cuda(prepared)[1].sum())
+    return {
+        "chained_picks": {
+            "ms": cuda_time_ms(lambda: tbatch.chained_picks_cuda(prepared)),
+            # the twin takes ~100x longer a launch: 100 launches
+            "plain_ms": cuda_time_ms(
+                lambda: tbatch.chained_picks_twin(prepared), n=100, warmup=2
+            ),
+            # inputs read once: totals and usage (6 columns), the
+            # feasibility bytes and walk order of every eval, the
+            # per-pick asks/counts/limits, the collision and affinity
+            # bases; outputs written once: usage carry-out and rows/pulls
+            "bytes": (6 * C_CHECK * f8 + E * C_CHECK * (1 + 4)
+                      + E * P * (3 * f8 + 3 * 4) + E * C_CHECK * (4 + f8)
+                      + 3 * C_CHECK * f8 + 2 * E * P * 4),
+            # the candidates the E x P walks reach in this run
+            "pulls": k3_pulls,
+            "flops": k3_pulls * FLOPS_PER_CANDIDATE,
+            "library_ms": None,
+        },
+        "patch_rows": {
+            "ms": cuda_time_ms(lambda: tbatch.patch_rows_cuda(col, idx_t, vals)),
+            "plain_ms": cuda_time_ms(
+                lambda: tbatch.patch_rows_twin(col, idx_t, vals)
+            ),
+            "library_ms": cuda_time_ms(
+                lambda: col.index_copy_(0, idx_valid, vals_valid)
+            ),
+            # idx and vals read once, the valid rows written once
+            "bytes": W * (4 + f8) + n * f8,
+            "flops": 0,
+        },
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -498,6 +938,9 @@ def main() -> int:
     for name, fn in (("k1", lambda: check_k1(cuda)),
                      ("k2", lambda: check_k2(cuda)),
                      ("main", lambda: check_main_path(cuda, card)),
+                     ("k3", lambda: check_k3(cuda)),
+                     ("k4", lambda: check_k4(cuda)),
+                     ("server", lambda: check_server(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
         try:
@@ -510,13 +953,18 @@ def main() -> int:
         print(f"chip_smoke failed: {failures}", flush=True)
         return 1
 
-    launches = results["main"]["launches"]
+    launches = dict(results["main"]["launches"])
+    launches.update(results["server"]["launches"])
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
          "nomad_tpu/ops/score.py:268", "k1"),
         ("plan_picks", "nomad_tpu_torch/csrc/plan_picks.cu",
          "nomad_tpu/ops/batch.py:766", "k2"),
+        ("chained_picks", "nomad_tpu_torch/csrc/chained_picks.cu",
+         "nomad_tpu/ops/batch.py:905", "k3"),
+        ("patch_rows", "nomad_tpu_torch/csrc/patch_rows.cu",
+         "nomad_tpu/ops/batch.py:1091", "k4"),
     ):
         tm = results["timing"][name]
         kernels.append({
@@ -525,7 +973,7 @@ def main() -> int:
             "max_abs_err": results[check_key]["max_abs_err"],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None,
+            "library_ms": tm["library_ms"],
         })
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
-// Shared device code of kernels K1 (score_select.cu) and K2
-// (plan_picks.cu): the per-node score and the shuffled limited walk.
+// Shared device code of kernels K1 (score_select.cu), K2
+// (plan_picks.cu) and K3 (chained_picks.cu): the per-node score and the
+// shuffled limited walk.
 //
 // Replaces the arithmetic that the JAX programs share:
 //   nomad_tpu/ops/score.py  _pow10 (:69), _score_vectors (:110),
@@ -58,16 +59,20 @@ __device__ __forceinline__ float fma_rn(float a, float b, float c) {
 }
 
 // The per-node score: BestFit-v3 binpack (or worst-fit under
-// spread_fit), job anti-affinity, reschedule penalty, node affinity
-// and (when kSpread) the spread boost, as a (sum, count) mean.  The
-// additions of zero that the JAX program makes for absent terms are
-// kept, so the operation sequence is the same.
-template <typename T, bool kSpread>
+// spread_fit), job anti-affinity, reschedule penalty, node affinity,
+// (when kDevAff) the device-affinity match fraction of an ask whose
+// affinities carry weight (`dev_on`; appended even when 0), and (when
+// kSpread) the spread boost, as a (sum, count) mean.  The additions of
+// zero that the JAX program makes for absent terms are kept, so the
+// operation sequence is the same.
+template <typename T, bool kSpread, bool kDevAff = false>
 __device__ __forceinline__ T score_node(T cpu_total, T mem_total,
                                         T cpu_after, T mem_after,
                                         int coll, bool penalty, T aff,
                                         T spread, T desired,
-                                        bool spread_fit) {
+                                        bool spread_fit,
+                                        T dev_aff = T(0),
+                                        bool dev_on = false) {
   const T one = T(1);
   const T zero = T(0);
   const T safe_cpu = cpu_total > zero ? cpu_total : one;
@@ -96,6 +101,10 @@ __device__ __forceinline__ T score_node(T cpu_total, T mem_total,
   score_sum = score_sum + (has_aff ? aff : zero);
   count = count + (has_aff ? one : zero);
 
+  if (kDevAff) {
+    score_sum = score_sum + (dev_on ? dev_aff : zero);
+    count = count + (dev_on ? one : zero);
+  }
   if (kSpread) {
     const bool has_spread = spread != zero;
     score_sum = score_sum + (has_spread ? spread : zero);

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -32,6 +33,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "score_select": "score_select.cu",
     "plan_picks": "plan_picks.cu",
+    "chained_picks": "chained_picks.cu",
+    "patch_rows": "patch_rows.cu",
 }
 HEADERS = ("walk.cuh",)
 
@@ -52,6 +55,9 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, Dict] = {}
+# one build or load at a time in this process: a batch worker's thread
+# and a warm-up on another thread may both reach their first launch
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -121,11 +127,14 @@ def build_all(names=None) -> Dict[str, Dict]:
 def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(BUILD_LOG[name]["path"])
-        lib.nk_error_string.argtypes = [ctypes.c_int]
-        lib.nk_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(BUILD_LOG[name]["path"])
+                lib.nk_error_string.argtypes = [ctypes.c_int]
+                lib.nk_error_string.restype = ctypes.c_char_p
+                _LIBS[name] = lib
     return lib
 
 
@@ -226,3 +235,144 @@ def launch_plan_picks(cols, f_scratch, i_scratch, b_scratch, out, *,
         int(cols["cpu_total"].dtype == torch.float64), dev.index,
     )
     _launch("plan_picks", "nk_plan_picks", args, dev)
+
+
+
+class ChainedPicksArgs(ctypes.Structure):
+    """Mirror of `ChainedPicksArgs` in csrc/chained_picks.cu."""
+
+    _fields_ = [
+        (name, _P) for name in (
+            "cpu_total", "mem_total", "disk_total", "cpu_in", "mem_in",
+            "disk_in", "cpu_out", "mem_out", "disk_out", "feasible",
+            "perm", "ask_cpu", "ask_mem", "ask_disk", "desired", "limit",
+            "distinct_hosts", "tg_idx", "n_cand", "wanted", "coll0",
+            "affinity", "sp_codes", "sp_desired", "sp_used0", "sp_prop0",
+            "sp_clr0", "sp_weight", "sp_active", "sp_even", "sp_group",
+            "evict_rows", "evict_cpu", "evict_mem", "evict_disk",
+            "evict_coll", "penalty_rows", "pre_rows", "pre_cpu", "pre_mem",
+            "pre_disk", "port_ask", "ports_in", "ports_out", "dev_ask",
+            "devs_in", "devs_out", "dev_aff", "dev_aff_on", "occ0",
+            "dh_tg", "f_scratch", "i_scratch", "b_scratch", "s_scratch",
+            "out_rows", "out_pulls",
+        )
+    ] + [
+        (name, _I) for name in (
+            "E", "P", "G", "C", "S", "V1", "K", "R", "Q", "D",
+            "spread_fit", "is_f64", "device",
+        )
+    ]
+
+
+class PatchRowsArgs(ctypes.Structure):
+    """Mirror of `PatchRowsArgs` in csrc/patch_rows.cu."""
+
+    _fields_ = [
+        ("col", _P), ("idx", _P), ("vals", _P),
+        ("C", _I), ("W", _I), ("is_f64", _I), ("device", _I),
+    ]
+
+
+def _ptr(t) -> int:
+    """Device address of an optional tensor (0 for an absent one)."""
+    return 0 if t is None else t.data_ptr()
+
+
+def _chain_dims(p) -> Dict[str, int]:
+    sp, dl, pre = p["spread"], p["deltas"], p["pre"]
+    return dict(
+        E=p["E"], P=p["P"], G=p["T"], C=p["C"],
+        S=0 if sp is None else sp.codes.shape[1],
+        V1=0 if sp is None else sp.desired.shape[2],
+        K=0 if dl is None else dl.penalty_rows.shape[2],
+        R=0 if pre is None else pre.rows.shape[1],
+        Q=0 if p["port_ask"] is None else p["port_ask"].shape[2],
+        D=0 if p["dev_ask"] is None else p["dev_ask"].shape[2],
+    )
+
+
+def chained_scratch(p, dtype, device) -> Tuple[torch.Tensor, ...]:
+    """K3's scratch: permuted-space float columns (totals, usage, walk
+    scores, per-group affinities), int columns (inverse walk order,
+    occupancy, per-group collisions, spread codes, device counts) and
+    one failed flag per group, byte columns (penalty and walk flags,
+    per-group feasibility, ports) and the spread carries, each column
+    C long."""
+    d = _chain_dims(p)
+    C = d["C"]
+    return (
+        torch.empty((7 + 2 * d["G"]) * C, dtype=dtype, device=device),
+        torch.empty((2 + d["G"] + d["S"] + d["D"]) * C + d["G"],
+                    dtype=torch.int32, device=device),
+        torch.empty((2 + d["G"] + d["Q"]) * C, dtype=torch.uint8,
+                    device=device),
+        torch.empty(3 * d["S"] * d["V1"] + 4 * d["S"] + 1, dtype=dtype,
+                    device=device),
+    )
+
+
+def launch_chained_picks(p, used_out, ports_out, devs_out, rows, pulls,
+                         scratch) -> None:
+    """K3 on the current stream over `ops.batch.prepare_chain` inputs
+    (contiguous CUDA tensors, checked by the wrapper)."""
+    cols = p["cols"]
+    dev = cols[0].device
+    b, sp, dl, pre = p["batch"], p["spread"], p["deltas"], p["pre"]
+    d = _chain_dims(p)
+    ptrs = dict(
+        cpu_total=cols[0], mem_total=cols[1], disk_total=cols[2],
+        cpu_in=cols[3], mem_in=cols[4], disk_in=cols[5],
+        cpu_out=used_out[0], mem_out=used_out[1], disk_out=used_out[2],
+        feasible=b.feasible, perm=b.perm, ask_cpu=b.ask_cpu,
+        ask_mem=b.ask_mem, ask_disk=b.ask_disk, desired=b.desired_count,
+        limit=b.limit, distinct_hosts=b.distinct_hosts, tg_idx=b.tg_idx,
+        n_cand=p["n_cand"], wanted=p["wanted"], coll0=p["coll0"],
+        affinity=p["affinity"], port_ask=p["port_ask"],
+        ports_in=p["port_used0"], ports_out=ports_out,
+        dev_ask=p["dev_ask"], devs_in=p["dev_free0"], devs_out=devs_out,
+        dev_aff=p["dev_aff"], dev_aff_on=p["dev_aff_on"], occ0=p["occ0"],
+        dh_tg=p["dh_tg"], f_scratch=scratch[0], i_scratch=scratch[1],
+        b_scratch=scratch[2], s_scratch=scratch[3], out_rows=rows,
+        out_pulls=pulls,
+    )
+    if sp is not None:
+        ptrs.update(
+            sp_codes=sp.codes, sp_desired=sp.desired, sp_used0=sp.used0,
+            sp_prop0=sp.proposed0, sp_clr0=sp.cleared0,
+            sp_weight=sp.weight, sp_active=sp.active, sp_even=sp.even,
+            sp_group=sp.group,
+        )
+    if dl is not None:
+        ptrs.update(
+            evict_rows=dl.evict_rows, evict_cpu=dl.evict_cpu,
+            evict_mem=dl.evict_mem, evict_disk=dl.evict_disk,
+            evict_coll=dl.evict_coll, penalty_rows=dl.penalty_rows,
+        )
+    if pre is not None:
+        ptrs.update(pre_rows=pre.rows, pre_cpu=pre.cpu, pre_mem=pre.mem,
+                    pre_disk=pre.disk)
+    args = ChainedPicksArgs()
+    for name, _t in ChainedPicksArgs._fields_:
+        if name in ptrs:
+            t = ptrs[name]
+            if t is not None and (t.device != dev or not t.is_contiguous()):
+                raise ValueError(f"{name} must be contiguous on {dev}")
+            setattr(args, name, _ptr(t))
+    for name, value in d.items():
+        setattr(args, name, value)
+    args.spread_fit = int(p["spread_fit"])
+    args.is_f64 = int(cols[0].dtype == torch.float64)
+    args.device = dev.index
+    _launch("chained_picks", "nk_chained_picks", args, dev)
+
+
+def launch_patch_rows(col, idx, vals) -> None:
+    """K4 on the current stream: col[idx] = vals, out-of-range idx
+    dropped."""
+    dev = col.device
+    args = PatchRowsArgs(
+        col.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+        col.shape[0], idx.shape[0], int(col.dtype == torch.float64),
+        dev.index,
+    )
+    _launch("patch_rows", "nk_patch_rows", args, dev)

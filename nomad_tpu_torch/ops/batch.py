@@ -1,25 +1,41 @@
-"""The look-ahead scan: P sequential picks of one task group.
+"""The look-ahead scan and the chained planner: the pick programs of
+`nomad_tpu/ops/batch.py`.
 
-Port of the single-group half of `nomad_tpu/ops/batch.py`.  The JAX
-program `plan_picks_full` (there `:766`, built from `_run_picks` `:347`,
-`_walk` `:281` and `_rotated_prefix` `:268`) becomes kernel K2,
-`csrc/plan_picks.cu`.  `plan_picks_full` passes `_run_picks` no spread
-stanzas, step deltas, ports or devices, so only the single-group step
-(T=1) is ported; the chained E x P variant (`chained_plan_picks_cols`)
-reuses this step in the next slice.
+Two JAX programs of that module become hand-written CUDA kernels here:
+
+* `plan_picks_full` (there `:766`) -> kernel K2, `csrc/plan_picks.cu`:
+  P sequential picks of one task group, behind the per-eval device
+  stack's count > 1 selects;
+* `chained_plan_picks_cols` (there `:905`, built from `_run_picks`
+  `:347`, `_walk` `:281`, `_rotated_prefix` `:268` and
+  `spread_contribution` `:155`) -> kernel K3, `csrc/chained_picks.cu`:
+  E evals x P picks in one launch, serially equivalent, with the usage,
+  static-port and device-instance carries threaded from eval to eval;
+* `patch_rows` (there `:1091`) -> kernel K4, `csrc/patch_rows.cu`: the
+  scatter that keeps the batch worker's device usage mirror current.
 
 Each pick scores every node against the usage and collision columns
 carried from the earlier picks, runs the rotated limited walk, and
-scatters the winner's deltas: the placement loop of one task group
-(generic_sched.go:468 computePlacements) in one launch.  The twin keeps
-every per-pick column in PERMUTED space, as the JAX program does, so
-the walk's rotation by the carried offset is closed-form prefix
-arithmetic.
+scatters the winner's deltas: the placement loop of one eval
+(generic_sched.go:468 computePlacements).  The twins keep every
+per-pick column in PERMUTED space, as the JAX program does, so the
+walk's rotation by the carried offset is closed-form prefix
+arithmetic.  The node-space carry handed to the next eval is rebuilt
+the way the JAX program rebuilds it (pre-deltas, then every pick's ask
+in pick order, then every applied eviction in pick order): in floating
+point that order is part of the result.
+
+The JAX module's donated variants (`chained_plan_picks_cols_donated`,
+`patch_rows_donated`) have no counterpart: K3 writes its carry-out into
+fresh tensors from PyTorch's caching allocator, whose blocks are reused
+only in stream order, and K4 patches the mirror in place on the
+worker's stream, behind every launch that reads it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .score import (
@@ -130,51 +146,301 @@ def _walk(s_p, f_p, offset, limit, n_candidates):
     return win, any_emitted, pulls
 
 
-def run_picks(cpu_total, mem_total, disk_total, inp: BatchInputs,
-              n_candidates, n_picks: int, spread_fit: bool):
-    """Plain twin of the single-group `_run_picks` as `plan_picks_full`
-    calls it.  Returns (rows i32[P], pulls i32[P])."""
+class SpreadInputs(NamedTuple):
+    """Spread state for the in-kernel carry (reference spread.go:163).
+    S stanzas x (V+1) value slots per eval; slot V is the penalty slot
+    (missing attribute, or a value with no target) scoring a flat -1.
+    The per-pick used count is propertySet.GetCombinedUseMap:
+    max(0, existing + proposed - cleared'), with `proposed` growing by
+    the eval's placements and `cleared` by its applied evictions (see
+    the JAX module for the long form)."""
+
+    codes: torch.Tensor  # i32[S, C] value slot per node (V = penalty)
+    desired: torch.Tensor  # f[S, V+1] desired count per slot
+    used0: torch.Tensor  # f[S, V+1] existing (live) use at snapshot
+    proposed0: torch.Tensor  # f[S, V+1] plan placements staged pre-pick
+    cleared0: torch.Tensor  # f[S, V+1] pre-staged plan stops per slot
+    weight: torch.Tensor  # f[S] weight / sum(|weights|)
+    active: torch.Tensor  # bool[S] (padding rows are inert)
+    even: Optional[torch.Tensor] = None  # bool[S] even-spread stanzas
+    group: Optional[torch.Tensor] = None  # i32[S] owning group slot
+
+
+class TGInputs(NamedTuple):
+    """Per-pick task-group routing: pick k uses group slot tg_idx[k]'s
+    feasibility, affinity and collision rows and its own ask, count and
+    limit, while the walk offset and usage columns stay one carry."""
+
+    tg_idx: torch.Tensor  # i32[P] group slot per pick
+    feasible: torch.Tensor  # bool[T, C]
+    affinity: torch.Tensor  # f[T, C]
+    coll0: torch.Tensor  # i32[T, C] anti-affinity base per group
+    ask_cpu: torch.Tensor  # f[P]
+    ask_mem: torch.Tensor  # f[P]
+    ask_disk: torch.Tensor  # f[P]
+    desired_count: torch.Tensor  # i32[P]
+    limit: torch.Tensor  # i32[P]
+
+
+class PortInputs(NamedTuple):
+    """Static host-port occupancy: a port-collided node is skipped like
+    an infeasible one (rank.go network path `continue`); occupancy
+    chains across evals."""
+
+    ask: torch.Tensor  # bool[T, Q] port slots each group's ask needs
+    used0: torch.Tensor  # bool[Q, C] occupied at snapshot
+
+
+class DeviceInputs(NamedTuple):
+    """Device-instance accounting: a pick is feasible only where every
+    asked signature has enough free instances; free counts chain across
+    evals."""
+
+    ask: torch.Tensor  # i32[T, D] instances needed per signature
+    free0: torch.Tensor  # i32[D, C] free instances at snapshot
+
+
+class StepDeltas(NamedTuple):
+    """Per-pick plan mutations (leading axis E when chained): a
+    destructive update's eviction applied just before pick k, and the
+    reschedule penalty rows of pick k only."""
+
+    evict_rows: torch.Tensor  # i32[P] node row stopped before pick k (-1 none)
+    evict_cpu: torch.Tensor  # f[P] signed usage delta (negative)
+    evict_mem: torch.Tensor  # f[P]
+    evict_disk: torch.Tensor  # f[P]
+    evict_coll: torch.Tensor  # i32[P] anti-affinity collision delta
+    penalty_rows: torch.Tensor  # i32[P, K] penalized node rows (-1 pad)
+
+
+class PreDeltas(NamedTuple):
+    """Per-eval usage deltas applied to the chained columns before the
+    eval's first pick (lost/stopped allocs, in-place updates).  Rows
+    are padded with row 0 / delta 0."""
+
+    rows: torch.Tensor  # i32[R]
+    cpu: torch.Tensor  # f[R] signed deltas
+    mem: torch.Tensor  # f[R]
+    disk: torch.Tensor  # f[R]
+
+
+class ChainInputs(NamedTuple):
+    """Per-eval inputs of the chained launch (leading axis E).  The
+    shared node columns are not repeated per eval: the usage chains
+    through the carry and the totals are passed beside."""
+
+    feasible: torch.Tensor  # bool[E, T, C]
+    perm: torch.Tensor  # i32[E, C]
+    ask_cpu: torch.Tensor  # f[E, P]
+    ask_mem: torch.Tensor  # f[E, P]
+    ask_disk: torch.Tensor  # f[E, P]
+    desired_count: torch.Tensor  # i32[E, P]
+    limit: torch.Tensor  # i32[E, P]
+    distinct_hosts: torch.Tensor  # bool[E]
+    tg_idx: torch.Tensor  # i32[E, P]
+
+
+def ordered_index_add(col: torch.Tensor, idx: torch.Tensor,
+                      vals: torch.Tensor) -> torch.Tensor:
+    """`col.at[idx].add(vals)` as XLA's scatter computes it: the
+    updates are applied one after another in index order, so a row
+    that appears twice gets (col + v0) + v1.  Returns a new tensor.
+    Rounds of distinct rows keep it vectorised."""
+    out = col.clone()
+    idx = idx.long().reshape(-1)
+    vals = vals.to(col.dtype).reshape(-1)
+    if idx.numel() == 0:
+        return out
+    order = torch.argsort(idx, stable=True)
+    sidx = idx[order]
+    svals = vals[order]
+    n = sidx.numel()
+    pos = torch.arange(n, device=idx.device)
+    start = torch.ones(n, dtype=torch.bool, device=idx.device)
+    start[1:] = sidx[1:] != sidx[:-1]
+    run_start = torch.cummax(torch.where(start, pos, 0), 0).values
+    rank = pos - run_start
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        rows = sidx[sel]
+        out[rows] = out[rows] + svals[sel]
+    return out
+
+
+def spread_contribution(codes_p, desired_node, penalty_node, safe_desired,
+                        existing, prop, clr, weight, active, even):
+    """Per-node spread boost of one pick: the twin of the JAX
+    module's `spread_contribution` (GetCombinedUseMap with the
+    PopulateProposed cleared-decrement quirk, percent and even modes).
+    `codes_p` is [S, n] in the caller's layout; the carries are
+    [S, V+1].  The S terms are added in stanza order starting from
+    zero, as the compiled reduction adds them."""
+    dtype = existing.dtype
+    clr_adj = clr - ((prop > 0) & (clr > 1)).to(dtype)
+    combined = torch.clamp_min(existing + prop - clr_adj, 0.0)
+    used_node = torch.gather(combined, 1, codes_p.long())
+    frac = (desired_node - (used_node + 1.0)) / safe_desired
+    pct_contrib = frac * weight[:, None]
+    neg_one = torch.full((), -1.0, dtype=dtype, device=existing.device)
+    pct_full = torch.where(penalty_node, neg_one, pct_contrib)
+    if even is not None:
+        V1 = combined.shape[-1]
+        value_slot = torch.arange(V1, device=existing.device) < (V1 - 1)
+        present = ((existing + prop) > 0) & value_slot
+        has_map = present.any(dim=-1)
+        big = torch.full((), float("inf"), dtype=dtype,
+                         device=existing.device)
+        min_b = torch.where(present, combined, big).amin(dim=-1)[:, None]
+        max_b = torch.where(present, combined, -big).amax(dim=-1)[:, None]
+        safe_min = torch.where(min_b > 0, min_b, torch.ones_like(min_b))
+        delta_boost = torch.where(
+            min_b == 0.0, neg_one, (min_b - used_node) / safe_min
+        )
+        even_val = torch.where(
+            used_node != min_b,
+            delta_boost,
+            torch.where(
+                min_b == max_b,
+                neg_one,
+                torch.where(
+                    min_b == 0.0, -neg_one, (max_b - min_b) / safe_min
+                ),
+            ),
+        )
+        even_full = torch.where(
+            has_map[:, None],
+            torch.where(penalty_node, neg_one, even_val),
+            torch.zeros((), dtype=dtype, device=existing.device),
+        )
+        contrib = torch.where(even[:, None], even_full, pct_full)
+    else:
+        contrib = pct_full
+    contrib = torch.where(
+        active[:, None], contrib,
+        torch.zeros((), dtype=dtype, device=existing.device),
+    )
+    total = torch.zeros_like(contrib[0])
+    for s in range(contrib.shape[0]):
+        total = total + contrib[s]
+    return total
+
+
+def _run_picks(cpu_total, mem_total, disk_total, used0, perm, tg: TGInputs,
+               distinct_hosts, n_candidates, n_picks: int, spread_fit: bool,
+               wanted=None, spread: Optional[SpreadInputs] = None,
+               deltas: Optional[StepDeltas] = None, port_ask=None,
+               port_used=None, dev_ask=None, dev_free=None, dev_aff=None,
+               dev_aff_on=None, occ_extra=None, dh_tg=None):
+    """Plain twin of the JAX `_run_picks`: P picks of one eval with
+    per-pick group routing, spread, step deltas, static ports, device
+    instances, device affinity, distinct_hosts at job (`distinct_hosts`
+    plus `occ_extra`) and group (`dh_tg`) level.  `used0` holds the
+    node-space usage columns at the eval's start.
+
+    Returns (rows i32[P], pulls i32[P], (cpu, mem, disk) node-space
+    usage after the eval, ports bool[Q, C] or None, devs i32[D, C] or
+    None)."""
     dtype = cpu_total.dtype
     dev = cpu_total.device
     i32 = torch.int32
-    perm = inp.perm.long()
+    C = cpu_total.shape[0]
+    permi = perm.long()
     n_cand = _scalar(n_candidates, i32, dev)
-    ask_cpu = _scalar(inp.ask_cpu, dtype, dev)
-    ask_mem = _scalar(inp.ask_mem, dtype, dev)
-    ask_disk = _scalar(inp.ask_disk, dtype, dev)
-    desired = _scalar(inp.desired_count, i32, dev).to(dtype)
-    limit = _scalar(inp.limit, i32, dev)
-    distinct_hosts = _scalar(inp.distinct_hosts, torch.bool, dev)
+    wanted = n_picks if wanted is None else _host_int(wanted)
+    distinct_hosts = bool(_host_int(distinct_hosts))
     one = torch.ones((), dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
+    zero_i = torch.zeros((), dtype=i32, device=dev)
+    no_node = torch.full((), NO_NODE, dtype=i32, device=dev)
+    tg_idx = [int(t) for t in tg.tg_idx.tolist()]
+    T = tg.feasible.shape[0]
 
-    cpu_total_p = cpu_total[perm]
-    mem_total_p = mem_total[perm]
-    disk_total_p = disk_total[perm]
-    feas_p = inp.feasible[perm]
-    penalty_p = inp.penalty[perm]
-    aff_p = inp.affinity_score[perm]
+    cpu_total_p = cpu_total[permi]
+    mem_total_p = mem_total[permi]
+    disk_total_p = disk_total[permi]
+    feas_tp = tg.feasible[:, permi]
+    aff_tp = tg.affinity[:, permi]
+    ports_on = port_ask is not None
+    devs_on = dev_ask is not None
+    dev_aff_p = dev_aff[:, permi] if dev_aff is not None else None
+    occ_extra_p = occ_extra[permi] if occ_extra is not None else None
     safe_cpu = torch.where(cpu_total_p > 0, cpu_total_p, one)
     safe_mem = torch.where(mem_total_p > 0, mem_total_p, one)
+    if spread is not None:
+        V1 = spread.desired.shape[1]
+        codes_sp = spread.codes[:, permi]
+        desired_node = torch.gather(spread.desired.to(dtype), 1,
+                                    codes_sp.long())
+        penalty_node = codes_sp == (V1 - 1)
+        safe_desired = torch.where(desired_node != 0, desired_node, one)
+        spread_existing = spread.used0.to(dtype)
+        spread_prop = spread.proposed0.to(dtype)
+        spread_clr = spread.cleared0.to(dtype)
 
-    cpu_used = inp.base_cpu_used[perm]
-    mem_used = inp.base_mem_used[perm]
-    disk_used = inp.base_disk_used[perm]
-    collisions = inp.base_collisions[perm]
+    cpu_used = used0[0][permi]
+    mem_used = used0[1][permi]
+    disk_used = used0[2][permi]
+    collisions = tg.coll0[:, permi].clone()
+    ports_c = port_used[:, permi] if ports_on else None
+    devs_c = dev_free[:, permi] if devs_on else None
     offset = torch.zeros((), dtype=i32, device=dev)
-    dead = torch.zeros((), dtype=torch.bool, device=dev)
-    rows, pulls_out = [], []
-    for _k in range(n_picks):
-        active = ~dead
-        cpu_after = cpu_used + ask_cpu
-        mem_after = mem_used + ask_mem
-        disk_after = disk_used + ask_disk
+    dead = [False] * T
+    rows, pulls_out, eapps = [], [], []
+    for k in range(n_picks):
+        t = tg_idx[k]
+        active = (k < wanted) and not dead[t]
+        penalty_vec = torch.zeros(C, dtype=torch.bool, device=dev)
+        app = False
+        if deltas is not None:
+            erow = int(deltas.evict_rows[k])
+            app = active and erow >= 0
+            if app:
+                # argmax(perm == erow): the evicted row's position
+                epos = int(torch.nonzero(perm == erow)[0, 0])
+                cpu_used[epos] = cpu_used[epos] + deltas.evict_cpu[k].to(dtype)
+                mem_used[epos] = mem_used[epos] + deltas.evict_mem[k].to(dtype)
+                disk_used[epos] = (
+                    disk_used[epos] + deltas.evict_disk[k].to(dtype)
+                )
+                collisions[t, epos] = collisions[t, epos] + deltas.evict_coll[k]
+            prow = deltas.penalty_rows[k]
+            penalty_vec = (perm[:, None] == prow[None, :]).any(dim=1)
+            if spread is not None and app:
+                # the evicted alloc's value slot gains one cleared use,
+                # in the picking group's slots only
+                slot = spread.codes[:, erow].long()
+                hit = torch.nn.functional.one_hot(slot, V1).to(dtype)
+                if spread.group is not None:
+                    hit = hit * (spread.group == t).to(dtype)[:, None]
+                spread_clr = spread_clr + hit
+        ask_cpu_k = tg.ask_cpu[k].to(dtype)
+        ask_mem_k = tg.ask_mem[k].to(dtype)
+        ask_disk_k = tg.ask_disk[k].to(dtype)
+        coll_t = collisions[t]
+        cpu_after = cpu_used + ask_cpu_k
+        mem_after = mem_used + ask_mem_k
+        disk_after = disk_used + ask_disk_k
         fit = (
             (cpu_after <= cpu_total_p)
             & (mem_after <= mem_total_p)
             & (disk_after <= disk_total_p)
         )
-        feasible = feas_p & fit & ~(distinct_hosts & (collisions > 0))
+        occupancy = collisions.sum(dim=0, dtype=i32)
+        if occ_extra_p is not None:
+            occupancy = occupancy + occ_extra_p
+        feasible = feas_tp[t] & fit
+        if distinct_hosts:
+            feasible = feasible & ~(occupancy > 0)
+        if dh_tg is not None and bool(dh_tg[t]):
+            feasible = feasible & ~(coll_t > 0)
+        if ports_on:
+            collide = (ports_c & port_ask[t][:, None]).any(dim=0)
+            feasible = feasible & ~collide
+        if devs_on:
+            ask_t_dev = dev_ask[t]
+            feasible = feasible & (
+                (ask_t_dev[:, None] == 0) | (devs_c >= ask_t_dev[:, None])
+            ).all(dim=0)
 
         free_cpu = 1.0 - cpu_after / safe_cpu
         free_mem = 1.0 - mem_after / safe_mem
@@ -184,41 +450,139 @@ def run_picks(cpu_total, mem_total, disk_total, inp: BatchInputs,
         else:
             fitness = torch.clamp(20.0 - base, 0.0, 18.0)
         count = torch.ones_like(fitness)
-
-        has_coll = collisions > 0
-        anti = torch.where(
-            has_coll, -(collisions.to(dtype) + 1.0) / desired, zero
-        )
+        has_coll = coll_t > 0
+        desired = tg.desired_count[k].to(dtype)
+        anti = torch.where(has_coll, -(coll_t.to(dtype) + 1.0) / desired, zero)
         # binpack plus anti-affinity, fused as XLA fuses it (score.py)
         score_sum = fma(fitness, INV_18, anti)
         count = count + has_coll.to(dtype)
-        score_sum = score_sum - penalty_p.to(dtype)
-        count = count + penalty_p.to(dtype)
-        has_aff = aff_p != 0.0
-        score_sum = score_sum + torch.where(has_aff, aff_p, zero)
+        score_sum = score_sum - penalty_vec.to(dtype)
+        count = count + penalty_vec.to(dtype)
+        aff_k = aff_tp[t]
+        has_aff = aff_k != 0.0
+        score_sum = score_sum + torch.where(has_aff, aff_k, zero)
         count = count + has_aff.to(dtype)
+        if dev_aff_p is not None:
+            d_on = bool(dev_aff_on[t])
+            score_sum = score_sum + (dev_aff_p[t] if d_on else zero)
+            count = count + (one if d_on else zero)
+        if spread is not None:
+            slot_active = spread.active
+            if spread.group is not None:
+                slot_active = slot_active & (spread.group == t)
+            spread_total = spread_contribution(
+                codes_sp, desired_node, penalty_node, safe_desired,
+                spread_existing, spread_prop, spread_clr,
+                spread.weight.to(dtype), slot_active, spread.even,
+            )
+            score_sum = score_sum + spread_total
+            count = count + (spread_total != 0.0).to(dtype)
         final = score_sum / count
 
+        limit = _scalar(tg.limit[k], i32, dev)
         win, any_emitted, step_pulls = _walk(
             final, feasible, offset, limit, n_cand
         )
-        ok = active & any_emitted
-        dead = dead | (active & ~any_emitted)
-        row = torch.where(
-            ok, inp.perm[win], torch.full((), NO_NODE, dtype=i32, device=dev)
-        )
-        pulls = torch.where(active, step_pulls, torch.zeros((), dtype=i32, device=dev))
-        safe_win = torch.where(ok, win, torch.zeros_like(win))
-        cpu_used = cpu_used.index_add(0, safe_win[None], torch.where(ok, ask_cpu, zero)[None])
-        mem_used = mem_used.index_add(0, safe_win[None], torch.where(ok, ask_mem, zero)[None])
-        disk_used = disk_used.index_add(0, safe_win[None], torch.where(ok, ask_disk, zero)[None])
-        collisions = collisions.index_add(
-            0, safe_win[None], ok.to(i32)[None]
-        )
-        offset = torch.remainder(offset + pulls, n_cand)
-        rows.append(row)
+        ok = active and bool(any_emitted)
+        if active and not ok:
+            dead[t] = True
+        eapps.append(app)
+        if ok:
+            w = int(win)
+            rows.append(perm[w].to(i32))
+            cpu_used[w] = cpu_used[w] + ask_cpu_k
+            mem_used[w] = mem_used[w] + ask_mem_k
+            disk_used[w] = disk_used[w] + ask_disk_k
+            collisions[t, w] = collisions[t, w] + 1
+            if ports_on:
+                ports_c[:, w] = ports_c[:, w] | port_ask[t]
+            if devs_on:
+                devs_c[:, w] = devs_c[:, w] - dev_ask[t]
+            if spread is not None:
+                hit = torch.nn.functional.one_hot(
+                    codes_sp[:, w].long(), V1
+                ).to(dtype)
+                if spread.group is not None:
+                    hit = hit * (spread.group == t).to(dtype)[:, None]
+                spread_prop = spread_prop + hit
+        else:
+            rows.append(no_node)
+        pulls = step_pulls.to(i32) if active else zero_i
         pulls_out.append(pulls)
-    return torch.stack(rows).to(i32), torch.stack(pulls_out).to(i32)
+        offset = torch.remainder(offset + pulls, n_cand)
+    rows = torch.stack(rows).to(i32)
+    pulls = torch.stack(pulls_out).to(i32)
+
+    # the node-space carry, rebuilt as the JAX program rebuilds it:
+    # every pick's ask in pick order (0 at row 0 for a failed pick),
+    # then every applied eviction in pick order
+    ok_rows = rows != NO_NODE
+    safe_rows = torch.where(ok_rows, rows, zero_i)
+    used = []
+    for col, ask in zip(used0, (tg.ask_cpu, tg.ask_mem, tg.ask_disk)):
+        used.append(ordered_index_add(
+            col, safe_rows, torch.where(ok_rows, ask.to(dtype), zero)
+        ))
+    if deltas is not None:
+        eapp = torch.tensor(eapps, dtype=torch.bool, device=dev)
+        safe_er = torch.where(eapp, deltas.evict_rows.to(i32), zero_i)
+        for i, dvals in enumerate(
+            (deltas.evict_cpu, deltas.evict_mem, deltas.evict_disk)
+        ):
+            used[i] = ordered_index_add(
+                used[i], safe_er, torch.where(eapp, dvals.to(dtype), zero)
+            )
+    ports_out = devs_out = None
+    tg_rows = tg.tg_idx.long()
+    if ports_on:
+        ports_out = port_used.clone()
+        for k in torch.nonzero(ok_rows).flatten().tolist():
+            r = int(rows[k])
+            ports_out[:, r] = ports_out[:, r] | port_ask[tg_rows[k]]
+    if devs_on:
+        devs_out = dev_free.clone()
+        for k in torch.nonzero(ok_rows).flatten().tolist():
+            r = int(rows[k])
+            devs_out[:, r] = devs_out[:, r] - dev_ask[tg_rows[k]]
+    return rows, pulls, tuple(used), ports_out, devs_out
+
+
+def run_picks(cpu_total, mem_total, disk_total, inp: BatchInputs,
+              n_candidates, n_picks: int, spread_fit: bool):
+    """Plain twin of `_run_picks` as `plan_picks_full` calls it: one
+    group (T=1), no spread, deltas, ports or devices; the static
+    penalty column enters as the pick's penalty rows would.  Returns
+    (rows i32[P], pulls i32[P])."""
+    dtype = cpu_total.dtype
+    dev = cpu_total.device
+    i32 = torch.int32
+    tg = TGInputs(
+        tg_idx=torch.zeros(n_picks, dtype=i32, device=dev),
+        feasible=inp.feasible[None],
+        affinity=inp.affinity_score[None],
+        coll0=inp.base_collisions[None],
+        ask_cpu=_scalar(inp.ask_cpu, dtype, dev).expand(n_picks),
+        ask_mem=_scalar(inp.ask_mem, dtype, dev).expand(n_picks),
+        ask_disk=_scalar(inp.ask_disk, dtype, dev).expand(n_picks),
+        desired_count=_scalar(inp.desired_count, i32, dev).expand(n_picks),
+        limit=_scalar(inp.limit, i32, dev).expand(n_picks),
+    )
+    penalty_rows = torch.nonzero(inp.penalty).flatten().to(i32)
+    deltas = StepDeltas(
+        evict_rows=torch.full((n_picks,), -1, dtype=i32, device=dev),
+        evict_cpu=torch.zeros(n_picks, dtype=dtype, device=dev),
+        evict_mem=torch.zeros(n_picks, dtype=dtype, device=dev),
+        evict_disk=torch.zeros(n_picks, dtype=dtype, device=dev),
+        evict_coll=torch.zeros(n_picks, dtype=i32, device=dev),
+        penalty_rows=penalty_rows[None].expand(n_picks, -1),
+    )
+    rows, pulls, _used, _p, _d = _run_picks(
+        cpu_total, mem_total, disk_total,
+        (inp.base_cpu_used, inp.base_mem_used, inp.base_disk_used),
+        inp.perm, tg, inp.distinct_hosts, n_candidates, n_picks,
+        spread_fit, deltas=deltas,
+    )
+    return rows, pulls
 
 
 def _check_batch(cpu_total, mem_total, disk_total, inp: BatchInputs):
@@ -326,3 +690,298 @@ def plan_picks_full(cpu_total, mem_total, disk_total, inp: BatchInputs,
         cpu_total, mem_total, disk_total, inp, n_candidates, n_picks,
         spread_fit,
     )
+
+
+# ---------------------------------------------------------------------------
+# the chained planner (K3) and the mirror patch (K4)
+# ---------------------------------------------------------------------------
+
+_FLOAT, _INT, _BOOL = "f", "i", "b"
+_CHAIN_KINDS = {
+    "feasible": _BOOL, "perm": _INT, "ask_cpu": _FLOAT, "ask_mem": _FLOAT,
+    "ask_disk": _FLOAT, "desired_count": _INT, "limit": _INT,
+    "distinct_hosts": _BOOL, "tg_idx": _INT,
+}
+_SPREAD_KINDS = {
+    "codes": _INT, "desired": _FLOAT, "used0": _FLOAT, "proposed0": _FLOAT,
+    "cleared0": _FLOAT, "weight": _FLOAT, "active": _BOOL, "even": _BOOL,
+    "group": _INT,
+}
+_DELTA_KINDS = {
+    "evict_rows": _INT, "evict_cpu": _FLOAT, "evict_mem": _FLOAT,
+    "evict_disk": _FLOAT, "evict_coll": _INT, "penalty_rows": _INT,
+}
+_PRE_KINDS = {"rows": _INT, "cpu": _FLOAT, "mem": _FLOAT, "disk": _FLOAT}
+_OPTIONAL_KINDS = {
+    "coll0": _INT, "affinity": _FLOAT, "port_ask": _BOOL,
+    "port_used0": _BOOL, "dev_ask": _INT, "dev_free0": _INT,
+    "dev_aff": _FLOAT, "dev_aff_on": _BOOL, "occ0": _INT, "dh_tg": _BOOL,
+}
+
+
+def _as_tensor(x, kind: str, dtype, dev) -> torch.Tensor:
+    """numpy array, number or tensor -> contiguous tensor of the kind's
+    type on `dev`.  Host data bound for the card goes through pinned
+    memory from PyTorch's caching host allocator, which hands a block
+    out again only after the copy that reads it has completed."""
+    want = {_FLOAT: dtype, _INT: torch.int32, _BOOL: torch.bool}[kind]
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=want).contiguous()
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(want)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _tuple_as(x, cls, kinds, dtype, dev):
+    if x is None:
+        return None
+    return cls(*[
+        None if getattr(x, f) is None
+        else _as_tensor(getattr(x, f), kinds[f], dtype, dev)
+        for f in cls._fields
+    ])
+
+
+def prepare_chain(cpu_total, mem_total, disk_total, used0_cpu, used0_mem,
+                  used0_disk, batch, n_candidates, n_picks: int,
+                  spread_fit: bool = False, wanted=None, spread=None,
+                  deltas=None, pre=None, **optional) -> dict:
+    """Every input of `chained_plan_picks_cols` as a tensor on
+    cpu_total's device and checked for shape: the one layout both the
+    twin and K3 read."""
+    dev = cpu_total.device
+    dtype = cpu_total.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"columns must be f32 or f64, got {dtype}")
+    C = cpu_total.shape[0]
+    b = _tuple_as(batch, ChainInputs, _CHAIN_KINDS, dtype, dev)
+    E, T, _c = b.feasible.shape
+    P = int(n_picks)
+    if isinstance(n_candidates, torch.Tensor):
+        n_candidates = n_candidates.cpu().numpy()
+    nc_host = np.array(
+        np.broadcast_to(np.asarray(n_candidates, np.int32), (E,))
+    )
+    if E and (nc_host.min() < 1 or nc_host.max() > C):
+        raise ValueError(f"n_candidates outside [1, {C}]")
+    limit = batch.limit
+    if E and int(limit.min()) < 1:
+        raise ValueError("limit must be >= 1")
+    nc = _as_tensor(nc_host, _INT, dtype, dev)
+    if wanted is None:
+        wanted = np.full(E, P, np.int32)
+    p = dict(
+        cols=tuple(
+            _as_tensor(c, _FLOAT, dtype, dev)
+            for c in (cpu_total, mem_total, disk_total,
+                      used0_cpu, used0_mem, used0_disk)
+        ),
+        batch=b, n_cand=nc, wanted=_as_tensor(wanted, _INT, dtype, dev),
+        spread=_tuple_as(spread, SpreadInputs, _SPREAD_KINDS, dtype, dev),
+        deltas=_tuple_as(deltas, StepDeltas, _DELTA_KINDS, dtype, dev),
+        pre=_tuple_as(pre, PreDeltas, _PRE_KINDS, dtype, dev),
+        E=E, T=T, P=P, C=C, spread_fit=bool(spread_fit),
+    )
+    for name, kind in _OPTIONAL_KINDS.items():
+        x = optional.pop(name, None)
+        p[name] = None if x is None else _as_tensor(x, kind, dtype, dev)
+    if optional:
+        raise TypeError(f"unknown inputs {sorted(optional)}")
+    if (p["port_ask"] is None) != (p["port_used0"] is None):
+        raise ValueError("port_ask and port_used0 go together")
+    if (p["dev_ask"] is None) != (p["dev_free0"] is None):
+        raise ValueError("dev_ask and dev_free0 go together")
+    if (p["dev_aff"] is None) != (p["dev_aff_on"] is None):
+        raise ValueError("dev_aff and dev_aff_on go together")
+    shapes = {
+        "perm": (b.perm, (E, C)), "tg_idx": (b.tg_idx, (E, P)),
+        "ask_cpu": (b.ask_cpu, (E, P)), "limit": (b.limit, (E, P)),
+        "distinct_hosts": (b.distinct_hosts, (E,)),
+        "coll0": (p["coll0"], (E, T, C)), "affinity": (p["affinity"], (E, T, C)),
+        "dev_aff": (p["dev_aff"], (E, T, C)), "occ0": (p["occ0"], (E, C)),
+        "dh_tg": (p["dh_tg"], (E, T)), "dev_aff_on": (p["dev_aff_on"], (E, T)),
+    }
+    for c in p["cols"]:
+        shapes.setdefault("columns", (c, (C,)))
+        if tuple(c.shape) != (C,):
+            raise ValueError(f"node columns must have shape [{C}]")
+    if p["deltas"] is not None:
+        shapes["evict_rows"] = (p["deltas"].evict_rows, (E, P))
+    for name, (t, shape) in shapes.items():
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name} must have shape {shape}, got {tuple(t.shape)}"
+            )
+    return p
+
+
+def _eval_slice(x, e: int):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x[e]
+    return type(x)(*[None if f is None else f[e] for f in x])
+
+
+def chained_picks_twin(p: dict):
+    """Plain twin of `chained_plan_picks_cols` over prepared inputs:
+    the eval loop of the JAX scan, each eval's pre-deltas applied to
+    the node-space carry before its picks.  Returns (rows i32[E, P],
+    pulls i32[E, P], ((cpu, mem, disk), ports, devs))."""
+    cols = p["cols"]
+    b = p["batch"]
+    E, T, C, P = p["E"], p["T"], p["C"], p["P"]
+    dev = cols[0].device
+    dtype = cols[0].dtype
+    zeros_ti = torch.zeros((T, C), dtype=torch.int32, device=dev)
+    zeros_tf = torch.zeros((T, C), dtype=dtype, device=dev)
+    used = cols[3:6]
+    ports, devs = p["port_used0"], p["dev_free0"]
+    rows_out, pulls_out = [], []
+    for e in range(E):
+        pre = _eval_slice(p["pre"], e)
+        if pre is not None:
+            used = tuple(
+                ordered_index_add(u, pre.rows, d)
+                for u, d in zip(used, (pre.cpu, pre.mem, pre.disk))
+            )
+        tg = TGInputs(
+            tg_idx=b.tg_idx[e], feasible=b.feasible[e],
+            affinity=(p["affinity"][e] if p["affinity"] is not None
+                      else zeros_tf),
+            coll0=p["coll0"][e] if p["coll0"] is not None else zeros_ti,
+            ask_cpu=b.ask_cpu[e], ask_mem=b.ask_mem[e],
+            ask_disk=b.ask_disk[e], desired_count=b.desired_count[e],
+            limit=b.limit[e],
+        )
+        rows, pulls, used, ports_n, devs_n = _run_picks(
+            cols[0], cols[1], cols[2], used, b.perm[e], tg,
+            b.distinct_hosts[e], p["n_cand"][e], P, p["spread_fit"],
+            wanted=p["wanted"][e], spread=_eval_slice(p["spread"], e),
+            deltas=_eval_slice(p["deltas"], e),
+            port_ask=_eval_slice(p["port_ask"], e), port_used=ports,
+            dev_ask=_eval_slice(p["dev_ask"], e), dev_free=devs,
+            dev_aff=_eval_slice(p["dev_aff"], e),
+            dev_aff_on=_eval_slice(p["dev_aff_on"], e),
+            occ_extra=_eval_slice(p["occ0"], e),
+            dh_tg=_eval_slice(p["dh_tg"], e),
+        )
+        if ports is not None:
+            ports = ports_n
+        if devs is not None:
+            devs = devs_n
+        rows_out.append(rows)
+        pulls_out.append(pulls)
+    return (torch.stack(rows_out), torch.stack(pulls_out),
+            (used, ports, devs))
+
+
+def chained_picks_cuda(p: dict):
+    """Launch K3 on the current stream over prepared CUDA inputs.
+    Returns the same triple as the twin; the carry-out lives in fresh
+    tensors.  Nothing is synchronised."""
+    from . import _cuda
+
+    dev = p["cols"][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"chained_picks_cuda needs CUDA tensors, got {dev}")
+    E, P, C = p["E"], p["P"], p["C"]
+    dtype = p["cols"][0].dtype
+    used_out = tuple(torch.empty_like(c) for c in p["cols"][3:6])
+    ports_out = (torch.empty_like(p["port_used0"])
+                 if p["port_used0"] is not None else None)
+    devs_out = (torch.empty_like(p["dev_free0"])
+                if p["dev_free0"] is not None else None)
+    rows = torch.empty((E, P), dtype=torch.int32, device=dev)
+    pulls = torch.empty((E, P), dtype=torch.int32, device=dev)
+    scratch = _cuda.chained_scratch(p, dtype, dev)
+    _cuda.launch_chained_picks(p, used_out, ports_out, devs_out, rows,
+                               pulls, scratch)
+    chained_picks_cuda.launches += 1
+    return rows, pulls, (used_out, ports_out, devs_out)
+
+
+chained_picks_cuda.launches = 0
+
+
+def chained_plan_picks_cols(cpu_total, mem_total, disk_total, used0_cpu,
+                            used0_mem, used0_disk, batch: ChainInputs,
+                            n_candidates, n_picks: int,
+                            spread_fit: bool = False, wanted=None,
+                            coll0=None, affinity=None, spread=None,
+                            deltas=None, pre=None, port_ask=None,
+                            port_used0=None, dev_ask=None, dev_free0=None,
+                            dev_aff=None, dev_aff_on=None, occ0=None,
+                            dh_tg=None, return_carry: bool = False):
+    """E evals x P picks, serially equivalent: eval k scores against
+    the usage, port and device state left by evals 0..k-1, as the JAX
+    program of the same name.  Inputs may be numpy arrays or tensors;
+    they are moved to cpu_total's device.  K3 for a CUDA cpu_total, the
+    twin for a CPU one.  Returns (rows i32[E, P], pulls i32[E, P]) and,
+    with return_carry, the carry ((cpu, mem, disk), ports or None,
+    devs or None): a chain cut at an eval boundary whose carry-out
+    feeds the next launch equals the single launch."""
+    p = prepare_chain(
+        cpu_total, mem_total, disk_total, used0_cpu, used0_mem, used0_disk,
+        batch, n_candidates, n_picks, spread_fit=spread_fit, wanted=wanted,
+        spread=spread, deltas=deltas, pre=pre, coll0=coll0,
+        affinity=affinity, port_ask=port_ask, port_used0=port_used0,
+        dev_ask=dev_ask, dev_free0=dev_free0, dev_aff=dev_aff,
+        dev_aff_on=dev_aff_on, occ0=occ0, dh_tg=dh_tg,
+    )
+    if p["cols"][0].device.type == "cpu":
+        rows, pulls, carry = chained_picks_twin(p)
+    else:
+        rows, pulls, carry = chained_picks_cuda(p)
+    if return_carry:
+        return rows, pulls, carry
+    return rows, pulls
+
+
+def _check_patch(col, idx, vals):
+    if col.dim() != 1 or idx.dim() != 1 or vals.shape != idx.shape:
+        raise ValueError("patch_rows needs col[C], idx[W], vals[W]")
+    if idx.dtype != torch.int32:
+        raise TypeError("idx must be int32")
+    if vals.dtype != col.dtype:
+        raise TypeError(f"vals must be {col.dtype}")
+    if idx.device != col.device or vals.device != col.device:
+        raise ValueError("col, idx and vals must share a device")
+
+
+def patch_rows_twin(col, idx, vals):
+    """`col[idx] = vals` in place, indices outside [0, C) dropped
+    (padding uses idx == C).  Returns col."""
+    _check_patch(col, idx, vals)
+    keep = (idx >= 0) & (idx < col.shape[0])
+    col[idx[keep].long()] = vals[keep]
+    return col
+
+
+def patch_rows_cuda(col, idx, vals):
+    """K4 on the current stream: the same scatter, one thread per
+    staged index.  Returns col."""
+    from . import _cuda
+
+    _check_patch(col, idx, vals)
+    if col.device.type != "cuda":
+        raise ValueError(f"patch_rows_cuda needs CUDA tensors, got {col.device}")
+    if not col.is_contiguous():
+        raise ValueError("patch_rows_cuda patches a contiguous column")
+    _cuda.launch_patch_rows(col, idx.contiguous(), vals.contiguous())
+    patch_rows_cuda.launches += 1
+    return col
+
+
+patch_rows_cuda.launches = 0
+
+
+def patch_rows(col, idx, vals):
+    """Scatter-patch dirty rows into a persistent usage column in
+    place: ``col[idx] = vals`` with indices outside [0, C) dropped.
+    The delta-sync primitive of the batch worker's device mirror.  K4
+    for a CUDA column, the twin for a CPU one."""
+    if col.device.type == "cpu":
+        return patch_rows_twin(col, idx, vals)
+    return patch_rows_cuda(col, idx, vals)

@@ -179,3 +179,234 @@ def batch_case(seed: int, C: int, n_cand: int, scenario: str,
         desired_count=n_picks, limit=limit, distinct_hosts=distinct_hosts,
     )
     return cols, inp
+
+
+# ---------------------------------------------------------------------------
+# chained scenarios (kernel K3): each option of the chained planner on its
+# own and in combination
+# ---------------------------------------------------------------------------
+
+CHAIN_OPTIONS = (
+    "groups",      # T = 2: per-pick group routing, per-group asks/limits
+    "spread_pct",  # percent-target spread stanzas
+    "spread_even",  # even spread stanzas
+    "evict",       # step evictions, penalty rows and pre-deltas
+    "ports",       # static ports, most candidates already taken
+    "devices",     # device asks, device affinity
+    "occ_dh",      # occ0 (pickless groups) and group-level distinct_hosts
+    "wanted",      # wanted < P
+    "tight",       # little room: picks fail part way through an eval
+    "few_cand",    # n_candidates well below C, varying per eval
+    "job_dh",      # job-level distinct_hosts
+)
+CHAIN_SCENARIOS: Dict[str, Tuple[str, ...]] = {
+    "plain": (),
+    **{opt: (opt,) for opt in CHAIN_OPTIONS},
+    "spread_mixed_groups": ("groups", "spread_pct", "spread_even"),
+    "evict_spread": ("evict", "spread_pct", "wanted"),
+    "ports_devices_groups": ("groups", "ports", "devices", "occ_dh"),
+    "everything": CHAIN_OPTIONS,
+    # T = 128 group slots (a job of 65-128 task groups), the picks
+    # spread over them in group order; little room, so groups fail
+    "wide_groups": ("wide_groups", "tight"),
+}
+MAX_PENALTY_NODES = 8
+
+
+def chain_case(seed: int, C: int, n_cand: int, scenario: str, E: int,
+               P: int) -> Tuple[Dict, Dict]:
+    """One K3 input: (node columns {cpu_total, mem_total, disk_total,
+    used0_cpu, used0_mem, used0_disk}, keyword inputs of
+    chained_plan_picks_cols as numpy, NamedTuple fields as dicts).
+    Usage and asks carry fractional parts, so the order in which the
+    carry adds them shows in the last bits."""
+    rng = np.random.default_rng(seed)
+    opts = set(CHAIN_SCENARIOS[scenario])
+    T = 128 if "wide_groups" in opts else 2 if "groups" in opts else 1
+    cpu_total, mem_total, disk_total, cpu_used, mem_used, disk_used = (
+        _capacity(rng, C)
+    )
+    cpu_used = cpu_used + rng.uniform(0.0, 1.0, C)
+    mem_used = mem_used + rng.uniform(0.0, 1.0, C)
+    n_cands = np.full(E, n_cand, np.int32)
+    if "few_cand" in opts:
+        n_cands = rng.integers(max(2, n_cand // 8), n_cand + 1, E).astype(
+            np.int32
+        )
+    perm = np.stack([rng.permutation(C) for _ in range(E)]).astype(np.int32)
+    roomy = None
+    if "tight" in opts:
+        # no room for any ask but on a few candidates of each eval,
+        # which take one to four picks each
+        cpu_used = cpu_total - 0.4 * ASK[0]
+        roomy = np.unique(np.concatenate([
+            rng.choice(perm[e, : n_cands[e]], size=max(1, P // 4))
+            for e in range(E)
+        ]))
+        cpu_used[roomy] = (
+            cpu_total[roomy] - rng.uniform(1.0, 4.0, len(roomy)) * ASK[0]
+        )
+    feasible = np.zeros((E, T, C), dtype=bool)
+    for e in range(E):
+        cand = perm[e, : n_cands[e]]
+        for t in range(T):
+            feasible[e, t, cand] = rng.random(n_cands[e]) < 0.85
+    ask = np.empty((3, E, P))
+    ask_t = rng.uniform(0.5, 1.5, (3, E, T)) * np.asarray(ASK)[:, None, None]
+    ask_t = np.round(ask_t, 1) + 0.05
+    if T == 2:
+        tg_idx = (np.arange(P)[None, :] >= rng.integers(1, P, E)[:, None])
+        tg_idx = tg_idx.astype(np.int32)
+    elif T > 2:
+        tg_idx = np.sort(rng.integers(0, T, (E, P)), axis=1).astype(np.int32)
+    else:
+        tg_idx = np.zeros((E, P), np.int32)
+    for i in range(3):
+        ask[i] = np.take_along_axis(ask_t[i], tg_idx, axis=1)
+    desired_t = rng.integers(1, 2 * P, (E, T))
+    limit_t = np.where(
+        rng.random((E, T)) < 0.5, INT32_MAX, rng.integers(2, 20, (E, T))
+    )
+    batch = dict(
+        feasible=feasible, perm=perm, ask_cpu=ask[0], ask_mem=ask[1],
+        ask_disk=ask[2],
+        desired_count=np.take_along_axis(desired_t, tg_idx, 1).astype(np.int32),
+        limit=np.take_along_axis(limit_t, tg_idx, 1).astype(np.int32),
+        distinct_hosts=(
+            rng.random(E) < 0.5 if "job_dh" in opts else np.zeros(E, bool)
+        ),
+        tg_idx=tg_idx,
+    )
+    wanted = np.full(E, P, np.int32)
+    if "wanted" in opts:
+        wanted = rng.integers(0, P + 1, E).astype(np.int32)
+    coll0 = np.zeros((E, T, C), np.int32)
+    affinity = np.zeros((E, T, C))
+    for e in range(E):
+        cand = perm[e, : n_cands[e]]
+        for t in range(T):
+            coll0[e, t, cand] = rng.integers(0, 3, len(cand)) * (
+                rng.random(len(cand)) < 0.1
+            )
+            affinity[e, t, cand] = np.where(
+                rng.random(len(cand)) < 0.2,
+                rng.uniform(-0.5, 1.0, len(cand)), 0.0,
+            )
+    kw = dict(
+        batch=batch, n_candidates=n_cands, n_picks=P, wanted=wanted,
+        coll0=coll0, affinity=affinity,
+    )
+    # ties: copy a few nodes' capacity and usage onto others
+    _tie_groups(rng, perm[0, : n_cands[0]],
+                [cpu_total, mem_total, disk_total, cpu_used, mem_used,
+                 disk_used])
+    if "spread_pct" in opts or "spread_even" in opts:
+        S, V1 = 4, 8
+        modes = []
+        if "spread_pct" in opts:
+            modes += [False, False]
+        if "spread_even" in opts:
+            modes += [True, True]
+        codes = np.zeros((E, S, C), np.int32)
+        desired = np.zeros((E, S, V1))
+        used0 = np.zeros((E, S, V1))
+        prop0 = np.zeros((E, S, V1))
+        clr0 = np.zeros((E, S, V1))
+        weight = np.zeros((E, S))
+        active = np.zeros((E, S), bool)
+        even = np.zeros((E, S), bool)
+        group = np.zeros((E, S), np.int32)
+        for e in range(E):
+            for s, ev_mode in enumerate(modes[:S]):
+                nv = rng.integers(2, V1)
+                # a few nodes lack the attribute: the penalty slot
+                c = rng.integers(0, nv, C)
+                c[rng.random(C) < 0.05] = V1 - 1
+                codes[e, s] = c
+                if not ev_mode:
+                    desired[e, s, :nv] = rng.integers(0, 3 * P, nv)
+                    weight[e, s] = rng.choice([0.25, 1.0 / 3.0, 0.5, 0.7])
+                used0[e, s, :nv] = rng.integers(0, 4, nv) * (
+                    rng.random(nv) < 0.7
+                )
+                prop0[e, s, :nv] = rng.integers(0, 2, nv) * (
+                    rng.random(nv) < 0.3
+                )
+                clr0[e, s, :nv] = rng.integers(0, 3, nv) * (
+                    rng.random(nv) < 0.3
+                )
+                active[e, s] = True
+                even[e, s] = ev_mode
+                group[e, s] = s % T
+        kw["spread"] = dict(
+            codes=codes, desired=desired, used0=used0, proposed0=prop0,
+            cleared0=clr0, weight=weight, active=active,
+            even=even if even.any() else None,
+            group=group if T > 1 else None,
+        )
+    if "evict" in opts:
+        K = MAX_PENALTY_NODES
+        evict_rows = np.full((E, P), -1, np.int32)
+        hit = rng.random((E, P)) < 0.3
+        evict_rows[hit] = rng.integers(0, C, hit.sum())
+        # some evictions land on a candidate the eval will pick again
+        evict_rows[:, 0] = perm[:, 0]
+        evict = -rng.uniform(0.5, 1.0, (3, E, P)) * np.asarray(ASK)[:, None, None]
+        evict = np.where(evict_rows[None] >= 0, np.round(evict, 2), 0.0)
+        evict_coll = np.where(
+            evict_rows >= 0, -(rng.random((E, P)) < 0.5).astype(np.int32), 0
+        ).astype(np.int32)
+        penalty_rows = np.full((E, P, K), -1, np.int32)
+        for e in range(E):
+            for k in range(P):
+                n_pen = rng.integers(0, 4)
+                penalty_rows[e, k, :n_pen] = perm[e, rng.integers(
+                    0, n_cands[e], n_pen)]
+        kw["deltas"] = dict(
+            evict_rows=evict_rows, evict_cpu=evict[0], evict_mem=evict[1],
+            evict_disk=evict[2], evict_coll=evict_coll,
+            penalty_rows=penalty_rows,
+        )
+        R = 16
+        pre_rows = np.zeros((E, R), np.int32)
+        pre = np.zeros((3, E, R))
+        for e in range(E):
+            n_pre = rng.integers(1, R)
+            pre_rows[e, :n_pre] = np.sort(
+                rng.choice(C, n_pre, replace=False)
+            )
+            pre[:, e, :n_pre] = np.round(
+                rng.uniform(-1.0, 0.3, (3, n_pre))
+                * np.asarray(ASK)[:, None], 3
+            )
+        kw["pre"] = dict(rows=pre_rows, cpu=pre[0], mem=pre[1], disk=pre[2])
+    if "ports" in opts:
+        Q = 4
+        port_ask = rng.random((E, T, Q)) < 0.5
+        port_ask[:, :, 0] = True
+        port_used0 = rng.random((Q, C)) < 0.5
+        # port 0 is taken almost everywhere: the picks exhaust it
+        port_used0[0] = rng.random(C) < 0.98
+        if roomy is not None:
+            port_used0[0, roomy] = False
+        kw["port_ask"] = port_ask
+        kw["port_used0"] = port_used0
+    if "devices" in opts:
+        D = 2
+        kw["dev_ask"] = rng.integers(0, 3, (E, T, D)).astype(np.int32)
+        kw["dev_free0"] = rng.integers(0, 5, (D, C)).astype(np.int32)
+        if roomy is not None:
+            kw["dev_free0"][:, roomy] = 4
+        kw["dev_aff"] = np.where(
+            rng.random((E, T, C)) < 0.5, rng.uniform(0.0, 1.0, (E, T, C)),
+            0.0,
+        )
+        kw["dev_aff_on"] = rng.random((E, T)) < 0.7
+    if "occ_dh" in opts:
+        kw["occ0"] = (rng.random((E, C)) < 0.1).astype(np.int32)
+        kw["dh_tg"] = rng.random((E, T)) < 0.5
+    cols = dict(
+        cpu_total=cpu_total, mem_total=mem_total, disk_total=disk_total,
+        used0_cpu=cpu_used, used0_mem=mem_used, used0_disk=disk_used,
+    )
+    return cols, kw

@@ -1,0 +1,640 @@
+"""The control plane in one process (reference nomad/server.go +
+nomad/leader.go), trimmed to what the scheduling pipeline needs.
+
+Wires the state store, eval broker, blocked-evals tracker, plan queue,
+the serialized plan applier, N scheduling workers and the node
+heartbeat monitor, and exposes the write-path operations that feed the
+pipeline: job register/deregister -> eval, node register/heartbeat/
+status -> node evals, alloc stop and client-reported failure ->
+reschedule eval.
+
+Port of `nomad_tpu/server/server.py`.  `batch_pipeline=True` (the
+default) builds `BatchWorker`s, which prescore evals through kernel K3
+on the server's device; `batch_pipeline=False` builds sequential
+`Worker`s, which run the per-eval device stack (`CudaGenericStack`)
+when the scheduler config enables it.  `device=None` means the CUDA
+card and raises `NoDeviceError` without one; `device="cpu"` runs the
+plain-PyTorch twins.  Not ported yet (ROADMAP.md): ACLs, overload
+control, fan-out, federation, SLOs, the service catalog, deployment
+watcher, drainer, periodic dispatcher, volume watcher, keyring, the
+other client RPCs, connect sidecar injection, multiregion
+interpolation and `plan_job`.
+"""
+from __future__ import annotations
+
+import itertools
+import logging
+import os
+import threading
+import time
+from dataclasses import replace as _replace
+from typing import Dict, List, Optional
+
+from ..device import resolve_device
+from ..state.store import StateStore
+from ..structs import (
+    ALLOC_CLIENT_STATUS_FAILED,
+    ALLOC_DESIRED_STOP,
+    Allocation,
+    EVAL_STATUS_PENDING,
+    EVAL_TRIGGER_ALLOC_STOP,
+    EVAL_TRIGGER_JOB_DEREGISTER,
+    EVAL_TRIGGER_JOB_REGISTER,
+    EVAL_TRIGGER_NODE_UPDATE,
+    Evaluation,
+    Job,
+    JOB_TYPE_CORE,
+    JOB_TYPE_SERVICE,
+    Node,
+    NodeEvent,
+    NODE_STATUS_DOWN,
+    NODE_STATUS_READY,
+)
+from ..telemetry import Metrics
+from .blocked_evals import BlockedEvals
+from .eval_broker import BROKER_COUNTERS, EvalBroker
+from .plan_apply import PlanApplier
+from .plan_queue import PlanQueue
+from .worker import Worker
+
+LOG = logging.getLogger("nomad_tpu_torch.server")
+
+DEFAULT_HEARTBEAT_TTL = 30.0
+
+# leadership failover telemetry, zero-registered at construction
+LEADERSHIP_COUNTERS = (
+    "leadership.establishes",
+    "leadership.revokes",
+    "leadership.unacked_on_revoke",
+    "leadership.chain_aborts",
+    "leadership.plan_rejected",
+    "leadership.stale_wave_fenced",
+)
+LEADERSHIP_GAUGES = ("leadership.generation", "leadership.is_leader")
+
+
+class Server:
+    def __init__(
+        self,
+        num_schedulers: int = 1,
+        heartbeat_ttl: float = DEFAULT_HEARTBEAT_TTL,
+        seed: Optional[int] = None,
+        nack_timeout: float = 60.0,
+        # the batched pipeline is the default scheduling path; it
+        # falls back per eval to the exact sequential scheduler for
+        # shapes the kernel doesn't model, with prescore-rate +
+        # fallback counters in the metrics
+        batch_pipeline: bool = True,
+        store: Optional[StateStore] = None,
+        device=None,
+    ) -> None:
+        # resolved first: a server meant for the card fails here, at
+        # construction, when there is none
+        self.device = resolve_device(device)
+        self.store = store if store is not None else StateStore()
+        self.metrics = Metrics()
+        self.broker = EvalBroker(nack_timeout=nack_timeout)
+        # lost-eval accounting: the broker is constructed without a
+        # telemetry handle, so wire ours in and zero-register its
+        # family
+        self.broker.metrics = self.metrics
+        self.metrics.preregister(counters=BROKER_COUNTERS)
+        self.blocked = BlockedEvals(self.broker)
+        self.plan_queue = PlanQueue()
+        self.applier = PlanApplier(
+            self.store, self.plan_queue, self.blocked, self.metrics,
+            # in-flight plans of a deposed leadership respond
+            # NotLeaderError (the worker converts it to
+            # nack-for-redelivery) instead of committing
+            leader_check=lambda: self._leader_established,
+        )
+        self.metrics.preregister(
+            counters=LEADERSHIP_COUNTERS, gauges=LEADERSHIP_GAUGES
+        )
+        if batch_pipeline:
+            from .batch_worker import ADMISSION_COUNTERS, BatchWorker
+
+            self.workers: List[Worker] = [
+                BatchWorker(self, seed=seed)
+                for _ in range(num_schedulers)
+            ]
+            # continuous micro-batching: zero-register the admission.*
+            # counter family
+            self.metrics.preregister(counters=ADMISSION_COUNTERS)
+            self.metrics.set_gauge(
+                "batch_worker.parallel_replay_enabled",
+                1.0 if any(
+                    getattr(w, "parallel_replay", False)
+                    for w in self.workers
+                ) else 0.0,
+            )
+            self.metrics.set_gauge(
+                "batch_worker.admit_enabled",
+                1.0 if any(
+                    getattr(w, "admit_enabled", False)
+                    for w in self.workers
+                ) else 0.0,
+            )
+        else:
+            self.workers = [
+                Worker(self, seed=seed) for _ in range(num_schedulers)
+            ]
+        self.metrics.set_gauge(
+            "server.batch_pipeline", 1.0 if batch_pipeline else 0.0
+        )
+        self.heartbeat_ttl = heartbeat_ttl
+        # node id -> monotonic expiry deadline.  ONE sweeper thread
+        # serves every TTL (a thread per node at 10k nodes would be
+        # 10k live threads)
+        self._heartbeat_deadlines: Dict[str, float] = {}
+        # mass node-death gather: node id -> monotonic instant its TTL
+        # expiry was detected.  A sweep that detects a correlated wave
+        # (>= _wave_min expiries) holds the down transition briefly so
+        # a rack death whose heartbeat phases straddle sweep
+        # boundaries still commits as ONE batched transition.  A
+        # heartbeat arriving mid-gather pulls its node back out.
+        self._down_wave: Dict[str, float] = {}
+        self._wave_counter = itertools.count(1)
+        try:
+            self._wave_min = max(
+                1,
+                int(os.environ.get("NOMAD_TPU_OVERLOAD_WAVE_MIN", "8")),
+            )
+        except ValueError:
+            self._wave_min = 8
+        raw_gather = os.environ.get(
+            "NOMAD_TPU_OVERLOAD_WAVE_GATHER_S", "auto"
+        )
+        try:
+            self._wave_gather_s = max(0.0, float(raw_gather))
+        except ValueError:
+            self._wave_gather_s = min(
+                10.0, max(2.5, heartbeat_ttl / 3.0)
+            )
+        self._heartbeat_sweeper: Optional[threading.Thread] = None
+        self._sweeper_lock = threading.Lock()
+        self._running = False
+        self._leader_established = False
+        # leadership generation: bumped on every establish.  The
+        # batched hot path captures it at wave/chain start and fences
+        # commits on it — a wave speculated under a deposed
+        # leadership can never commit.
+        self._leadership_gen = 0
+        self._leader_lock = threading.Lock()
+
+    # -- lifecycle (reference leader.go:222 establishLeadership) -------
+
+    def start(self) -> None:
+        """Single-process mode: this server is always the leader."""
+        self._running = True
+        self.establish_leadership()
+
+    def stop(self) -> None:
+        self._running = False
+        self.revoke_leadership()
+        self._heartbeat_deadlines.clear()
+
+    def establish_leadership(self, gen: Optional[int] = None) -> None:
+        """Enable the leader-only services (reference leader.go:222):
+        eval broker, blocked evals, plan queue/applier, scheduling
+        workers, heartbeat timers; then restore evals from state."""
+        with self._leader_lock:
+            if self._leader_established:
+                return
+            self._leadership_gen = (
+                gen if gen is not None else self._leadership_gen + 1
+            )
+            # flipped BEFORE any service starts: the applier's
+            # leader_check and the workers' leadership fences read it
+            self._leader_established = True
+            self.metrics.incr("leadership.establishes")
+            self.metrics.set_gauge(
+                "leadership.generation", float(self._leadership_gen)
+            )
+            self.metrics.set_gauge("leadership.is_leader", 1.0)
+            self.broker.set_enabled(True)
+            self.blocked.set_enabled(True)
+            self.plan_queue.set_enabled(True)
+            self.applier.start()
+            for worker in self.workers:
+                worker.start()
+            # re-arm heartbeat TTLs for every known node (reference
+            # heartbeat.go initializeHeartbeatTimers on leadership)
+            for node in self.store.iter_nodes():
+                if node.status != NODE_STATUS_DOWN:
+                    self._reset_heartbeat(node.id)
+            self._ensure_sweeper()
+            self.restore_evals()
+
+    def revoke_leadership(self) -> None:
+        """Disable leader-only services (reference leader.go
+        revokeLeadership).  ``_leader_established`` flips FIRST, so
+        every in-flight wave/chain commit hits the leadership fence
+        before any queue is torn down; the broker flush then unacks
+        every outstanding token for the next leader."""
+        with self._leader_lock:
+            if not self._leader_established:
+                return
+            self._leader_established = False
+            self.metrics.incr("leadership.revokes")
+            self.metrics.set_gauge("leadership.is_leader", 0.0)
+            for worker in self.workers:
+                worker.stop()
+            self.applier.stop()
+            self._heartbeat_deadlines.clear()
+            self._down_wave.clear()
+            self.plan_queue.set_enabled(False)
+            self.blocked.set_enabled(False)
+            outstanding = self.broker.unacked_count()
+            if outstanding:
+                self.metrics.incr(
+                    "leadership.unacked_on_revoke", float(outstanding)
+                )
+            self.broker.set_enabled(False)
+
+    def restore_evals(self) -> None:
+        """Re-enqueue non-terminal evals from state after (re)start
+        (reference leader.go:352 restoreEvals)."""
+        for ev in list(self.store.evals.values()):
+            if ev.should_enqueue():
+                self.broker.enqueue(ev)
+            elif ev.should_block():
+                self.blocked.block(ev)
+
+    # -- eval routing (reference fsm.go:715) ----------------------------
+
+    def on_eval_update(self, ev: Evaluation) -> None:
+        if ev.should_enqueue():
+            self.broker.enqueue(ev)
+        elif ev.should_block():
+            self.blocked.block(ev)
+
+    # -- job API (reference nomad/job_endpoint.go Register:349) ---------
+
+    def register_job(self, job: Job) -> Optional[Evaluation]:
+        self._validate_job(job)
+        self.store.upsert_job(job)
+        if job.is_periodic() or job.is_parameterized():
+            # launched by the periodic dispatcher / dispatch call,
+            # neither of which is ported yet
+            return None
+        ev = Evaluation(
+            namespace=job.namespace,
+            priority=job.priority,
+            type=job.type,
+            triggered_by=EVAL_TRIGGER_JOB_REGISTER,
+            job_id=job.id,
+            job_modify_index=job.modify_index,
+            status=EVAL_STATUS_PENDING,
+        )
+        self.store.upsert_evals([ev])
+        self.on_eval_update(ev)
+        return ev
+
+    def deregister_job(
+        self, namespace: str, job_id: str, purge: bool = False
+    ) -> Optional[Evaluation]:
+        job = self.store.job_by_id(namespace, job_id)
+        if job is None:
+            return None
+        if purge:
+            self.store.delete_job(namespace, job_id)
+        else:
+            job.stop = True
+            self.store.upsert_job(job)
+        self.blocked.untrack(namespace, job_id)
+        ev = Evaluation(
+            namespace=namespace,
+            priority=job.priority,
+            type=job.type,
+            triggered_by=EVAL_TRIGGER_JOB_DEREGISTER,
+            job_id=job_id,
+            status=EVAL_STATUS_PENDING,
+        )
+        self.store.upsert_evals([ev])
+        self.on_eval_update(ev)
+        return ev
+
+    def stop_alloc(self, alloc_id: str) -> Optional[Evaluation]:
+        """User-initiated alloc stop: desired=stop + reschedule eval
+        (reference alloc_endpoint.go Alloc.Stop)."""
+        alloc = self.store.alloc_by_id(alloc_id)
+        if alloc is None:
+            raise KeyError(alloc_id)
+        stopped = _replace(alloc)
+        stopped.desired_status = ALLOC_DESIRED_STOP
+        self.store.upsert_allocs([stopped])
+        ev = Evaluation(
+            namespace=alloc.namespace,
+            priority=alloc.job.priority if alloc.job else 50,
+            type=alloc.job.type if alloc.job else "service",
+            triggered_by=EVAL_TRIGGER_ALLOC_STOP,
+            job_id=alloc.job_id,
+            status=EVAL_STATUS_PENDING,
+        )
+        self.store.upsert_evals([ev])
+        self.on_eval_update(ev)
+        return ev
+
+    def _validate_job(self, job: Job) -> None:
+        if not job.id:
+            raise ValueError("missing job ID")
+        if not job.task_groups:
+            raise ValueError("job requires at least one task group")
+        names = set()
+        for tg in job.task_groups:
+            if tg.name in names:
+                raise ValueError(f"duplicate task group {tg.name!r}")
+            names.add(tg.name)
+            if tg.count < 0:
+                raise ValueError("task group count must be >= 0")
+            if not tg.tasks and job.type != JOB_TYPE_CORE:
+                raise ValueError(
+                    f"task group {tg.name!r} requires at least one task"
+                )
+        if job.type not in ("service", "batch"):
+            # the port registers the service and batch schedulers only
+            raise ValueError(f"invalid job type {job.type!r}")
+        if (
+            job.namespace != "default"
+            and self.store.namespace_by_name(job.namespace) is None
+        ):
+            raise ValueError(
+                f"namespace {job.namespace!r} does not exist"
+            )
+
+    # -- node API (reference nomad/node_endpoint.go) --------------------
+
+    def register_node(self, node: Node) -> None:
+        first_seen = self.store.node_by_id(node.id) is None
+        if node.status == "initializing":
+            node.status = NODE_STATUS_READY
+        self.store.upsert_node(node)
+        self._emit_node_event(
+            node.id,
+            "Node registered" if first_seen else "Node re-registered",
+        )
+        self._reset_heartbeat(node.id)
+        self.blocked.unblock(
+            node.computed_class, self.store.latest_index()
+        )
+        self._create_node_evals(node.id)
+
+    def heartbeat(self, node_id: str) -> None:
+        """(reference nomad/heartbeat.go resetHeartbeatTimer)"""
+        node = self.store.node_by_id(node_id)
+        if node is None:
+            raise KeyError(node_id)
+        if node.status == NODE_STATUS_DOWN:
+            self.update_node_status(node_id, NODE_STATUS_READY)
+        self._reset_heartbeat(node_id)
+
+    def _reset_heartbeat(self, node_id: str) -> None:
+        # TTL deadlines are a leader-only service
+        if not (self._running and self._leader_established):
+            self._heartbeat_deadlines.pop(node_id, None)
+            self._down_wave.pop(node_id, None)
+            return
+        self._heartbeat_deadlines[node_id] = (
+            time.monotonic() + self.heartbeat_ttl
+        )
+        # a node heartbeating while its expiry sits in a gathering
+        # down-wave was never dead: pull it back out
+        self._down_wave.pop(node_id, None)
+        self._ensure_sweeper()
+
+    def _ensure_sweeper(self) -> None:
+        """(Re)spawn the heartbeat sweeper if it is missing or died."""
+        if not (self._running and self._leader_established):
+            return
+        with self._sweeper_lock:
+            if self._heartbeat_sweeper is None or not (
+                self._heartbeat_sweeper.is_alive()
+            ):
+                self._heartbeat_sweeper = threading.Thread(
+                    target=self._sweep_heartbeats,
+                    name="heartbeat-sweeper",
+                    daemon=True,
+                )
+                self._heartbeat_sweeper.start()
+
+    def _sweep_heartbeats(self) -> None:
+        while self._running:
+            interval = max(
+                0.02, min(0.5, self.heartbeat_ttl / 5.0)
+            )
+            time.sleep(interval)
+            if not self._leader_established:
+                self._down_wave.clear()
+                continue
+            try:
+                self._sweep_once(interval)
+            except Exception:  # noqa: BLE001 — TTL enforcement must
+                # survive any single sweep's failure
+                LOG.exception("heartbeat sweep failed")
+
+    def _sweep_once(self, interval: float) -> None:
+        """One sweep: collect every TTL expiry, fold it into the
+        pending down-wave, and commit the wave as ONE batched
+        transition when it has settled (or after one extra sweep when
+        it is below the mass-death gather threshold)."""
+        now = time.monotonic()
+        expired = [
+            node_id
+            for node_id, deadline in list(
+                self._heartbeat_deadlines.items()
+            )
+            if deadline <= now
+        ]
+        for node_id in expired:
+            current = self._heartbeat_deadlines.get(node_id)
+            if current is None or current > now:
+                continue  # heartbeated (refreshed) since the scan
+            self._heartbeat_deadlines.pop(node_id, None)
+            self._down_wave[node_id] = now
+        if not self._down_wave:
+            return
+        stamps = list(self._down_wave.values())
+        wave_started = min(stamps)
+        last_new = max(stamps)
+        if len(self._down_wave) >= self._wave_min:
+            settle_s = max(interval, min(2.0, self._wave_gather_s))
+        else:
+            settle_s = interval
+        if (
+            now - last_new < settle_s
+            and now - wave_started < self._wave_gather_s
+        ):
+            return
+        wave = list(self._down_wave.keys())
+        self._down_wave.clear()
+        self._heartbeats_expired(wave)
+
+    def _heartbeats_expired(self, node_ids: List[str]) -> None:
+        """Missed TTLs: the whole wave goes down in ONE batched state
+        transition, and its replan evals are enqueued as one family
+        (reference heartbeat.go:135 invalidateHeartbeat, batched)."""
+        node_ids = [
+            node_id
+            for node_id in node_ids
+            # a member whose deadline was re-armed between the wave
+            # snapshot and this commit heartbeated through the race
+            # window — it was never dead
+            if node_id not in self._heartbeat_deadlines
+            and (node := self.store.node_by_id(node_id)) is not None
+            and node.status != NODE_STATUS_DOWN
+        ]
+        if not node_ids:
+            return
+        self.store.update_node_statuses(
+            node_ids,
+            NODE_STATUS_DOWN,
+            message="Node heartbeat missed",
+        )
+        wave_n = next(self._wave_counter)
+        self._create_node_evals_batch(
+            node_ids, family_hint=f"node-down:w{wave_n}"
+        )
+
+    def _emit_node_event(
+        self, node_id: str, message: str, subsystem: str = "Cluster"
+    ) -> None:
+        """(reference node_endpoint.go emitting NodeEvents)"""
+        try:
+            self.store.upsert_node_events(
+                node_id,
+                [NodeEvent(message=message, subsystem=subsystem)],
+            )
+        except KeyError:
+            pass
+
+    def update_node_status(self, node_id: str, status: str) -> None:
+        prev = self.store.node_by_id(node_id)
+        prev_status = prev.status if prev is not None else ""
+        self.store.update_node_status(node_id, status)
+        if status != prev_status:
+            self._emit_node_event(
+                node_id,
+                (
+                    "Node heartbeat missed"
+                    if status == NODE_STATUS_DOWN
+                    else f"Node status changed to {status}"
+                ),
+            )
+        node = self.store.node_by_id(node_id)
+        if status == NODE_STATUS_READY:
+            self._reset_heartbeat(node_id)
+            self.blocked.unblock(
+                node.computed_class, self.store.latest_index()
+            )
+        self._create_node_evals(node_id)
+
+    def _create_node_evals(self, node_id: str) -> List[Evaluation]:
+        """One eval per job with allocs on the node (reference
+        node_endpoint.go:1316 createNodeEvals; system jobs are not
+        registered in the port)."""
+        return self._create_node_evals_batch([node_id])
+
+    def _create_node_evals_batch(
+        self, node_ids: List[str], family_hint: str = ""
+    ) -> List[Evaluation]:
+        """The wave form of ``_create_node_evals``: ONE eval per
+        affected (namespace, job) across the whole node wave,
+        persisted in one upsert and stamped with the wave's
+        ``family_hint``."""
+        evals = []
+        seen_jobs = set()
+        for node_id in node_ids:
+            for alloc in self.store.allocs_by_node(node_id):
+                key = (alloc.namespace, alloc.job_id)
+                if key in seen_jobs:
+                    continue
+                seen_jobs.add(key)
+                job = self.store.job_by_id(*key)
+                evals.append(
+                    Evaluation(
+                        namespace=alloc.namespace,
+                        priority=job.priority if job else 50,
+                        type=(
+                            job.type if job is not None
+                            else JOB_TYPE_SERVICE
+                        ),
+                        triggered_by=EVAL_TRIGGER_NODE_UPDATE,
+                        job_id=alloc.job_id,
+                        node_id=node_id,
+                        family_hint=family_hint,
+                        status=EVAL_STATUS_PENDING,
+                    )
+                )
+        if evals:
+            self.store.upsert_evals(evals)
+            if family_hint:
+                # the whole wave lands in ONE broker lock acquisition
+                self.broker.enqueue_all(
+                    [ev for ev in evals if ev.should_enqueue()]
+                )
+                for ev in evals:
+                    if not ev.should_enqueue():
+                        self.on_eval_update(ev)
+            else:
+                for ev in evals:
+                    self.on_eval_update(ev)
+        return evals
+
+    # -- client-side alloc updates (reference node_endpoint.go:1065) ----
+
+    def update_allocs_from_client(self, updates: List[Allocation]) -> None:
+        """Client pushes alloc status changes; terminal transitions free
+        capacity and may trigger reschedule evals."""
+        self.store.upsert_allocs(updates)
+        evals = []
+        seen = set()
+        for alloc in updates:
+            if not alloc.terminal_status():
+                continue
+            node = self.store.node_by_id(alloc.node_id)
+            if node is not None:
+                self.blocked.unblock(
+                    node.computed_class, self.store.latest_index()
+                )
+            key = (alloc.namespace, alloc.job_id)
+            if key in seen:
+                continue
+            job = self.store.job_by_id(*key)
+            if job is None or job.stopped():
+                continue
+            if alloc.client_status == ALLOC_CLIENT_STATUS_FAILED:
+                seen.add(key)
+                evals.append(
+                    Evaluation(
+                        namespace=alloc.namespace,
+                        priority=job.priority,
+                        type=job.type,
+                        triggered_by="alloc-failure",
+                        job_id=alloc.job_id,
+                        status=EVAL_STATUS_PENDING,
+                    )
+                )
+        if evals:
+            self.store.upsert_evals(evals)
+            for ev in evals:
+                self.on_eval_update(ev)
+
+    # -- helpers ---------------------------------------------------------
+
+    def drain_to_idle(self, timeout: float = 10.0) -> bool:
+        """Wait until no evals are in flight (test/bench helper).
+        Raises the fault of a worker that stopped on one."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for worker in self.workers:
+                if worker.fault is not None:
+                    raise worker.fault
+            if (
+                self.broker.ready_count() == 0
+                and self.broker.stats["total_unacked"] == 0
+                and self.plan_queue.stats["depth"] == 0
+            ):
+                return True
+            time.sleep(0.01)
+        return False

@@ -8,9 +8,13 @@ is imported) and rebuilds them in this package's `StateStore`.  Nodes
 are inserted in the given order, so the port's node arena assigns the
 same rows as the store they came from.
 
-`score_inputs_from_numpy` and `batch_inputs_from_numpy` turn numpy
-kernel inputs (the shape the JAX programs take) into the port's tensor
-NamedTuples, for the kernel-level tests.
+`score_inputs_from_numpy`, `batch_inputs_from_numpy` and the chained
+planner's `chain_inputs_from_numpy` (with `spread_inputs_from_numpy`,
+`step_deltas_from_numpy`, `pre_deltas_from_numpy`,
+`port_inputs_from_numpy`, `device_inputs_from_numpy` and
+`chain_case_to_torch`) turn numpy kernel inputs (the shape the JAX
+programs take) into the port's tensor NamedTuples, for the
+kernel-level tests.
 
 The decode half below is this package's own copy of codec.py's generic
 inverse (`dataclass_from_dict`, `alloc_from_dict`), extended to rebuild
@@ -25,7 +29,15 @@ from typing import Any, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from ..ops.batch import BatchInputs
+from ..ops.batch import (
+    BatchInputs,
+    ChainInputs,
+    DeviceInputs,
+    PortInputs,
+    PreDeltas,
+    SpreadInputs,
+    StepDeltas,
+)
 from ..ops.score import ScoreInputs
 from ..structs import Allocation, Job, Node
 from .store import StateStore
@@ -194,3 +206,104 @@ def batch_inputs_from_numpy(arrays: Dict[str, Any], device,
         limit=int(arrays["limit"]),
         distinct_hosts=bool(arrays["distinct_hosts"]),
     )
+
+
+def _fields_from_numpy(cls, arrays: Dict[str, Any], floats, device,
+                       dtype) -> Any:
+    """A NamedTuple of tensors: fields named in `floats` become `dtype`,
+    bool arrays stay bool, integer arrays become int32; absent or None
+    fields stay None."""
+    out = {}
+    for name in cls._fields:
+        value = arrays.get(name)
+        if value is None:
+            out[name] = None
+            continue
+        value = np.asarray(value)
+        if name in floats:
+            want = dtype
+        elif value.dtype == np.bool_:
+            want = torch.bool
+        else:
+            want = torch.int32
+        out[name] = _tensor(value, want, device)
+    return cls(**out)
+
+
+def chain_inputs_from_numpy(arrays: Dict[str, Any], device,
+                            dtype=torch.float64) -> ChainInputs:
+    return _fields_from_numpy(
+        ChainInputs, arrays, ("ask_cpu", "ask_mem", "ask_disk"), device,
+        dtype,
+    )
+
+
+def spread_inputs_from_numpy(arrays: Dict[str, Any], device,
+                             dtype=torch.float64) -> SpreadInputs:
+    return _fields_from_numpy(
+        SpreadInputs, arrays,
+        ("desired", "used0", "proposed0", "cleared0", "weight"), device,
+        dtype,
+    )
+
+
+def step_deltas_from_numpy(arrays: Dict[str, Any], device,
+                           dtype=torch.float64) -> StepDeltas:
+    return _fields_from_numpy(
+        StepDeltas, arrays, ("evict_cpu", "evict_mem", "evict_disk"),
+        device, dtype,
+    )
+
+
+def pre_deltas_from_numpy(arrays: Dict[str, Any], device,
+                          dtype=torch.float64) -> PreDeltas:
+    return _fields_from_numpy(
+        PreDeltas, arrays, ("cpu", "mem", "disk"), device, dtype
+    )
+
+
+def port_inputs_from_numpy(arrays: Dict[str, Any], device) -> PortInputs:
+    return _fields_from_numpy(PortInputs, arrays, (), device, None)
+
+
+def device_inputs_from_numpy(arrays: Dict[str, Any],
+                             device) -> DeviceInputs:
+    return _fields_from_numpy(DeviceInputs, arrays, (), device, None)
+
+
+def chain_case_to_torch(cols: Dict[str, Any], kw: Dict[str, Any], device,
+                        dtype=torch.float64):
+    """(positional args, keyword args) of `chained_plan_picks_cols` for
+    a case of `ops/cases.py chain_case`, as tensors on `device`."""
+    args = tuple(
+        _tensor(cols[k], dtype, device)
+        for k in ("cpu_total", "mem_total", "disk_total", "used0_cpu",
+                  "used0_mem", "used0_disk")
+    ) + (
+        chain_inputs_from_numpy(kw["batch"], device, dtype),
+        _tensor(kw["n_candidates"], torch.int32, device),
+        int(kw["n_picks"]),
+    )
+    out = {"wanted": _tensor(kw["wanted"], torch.int32, device)}
+    convert = {
+        "spread": spread_inputs_from_numpy,
+        "deltas": step_deltas_from_numpy,
+        "pre": pre_deltas_from_numpy,
+    }
+    for name, fn in convert.items():
+        if kw.get(name) is not None:
+            out[name] = fn(kw[name], device, dtype)
+    for name in ("coll0", "affinity", "port_ask", "port_used0", "dev_ask",
+                 "dev_free0", "dev_aff", "dev_aff_on", "occ0", "dh_tg"):
+        value = kw.get(name)
+        if value is None:
+            continue
+        value = np.asarray(value)
+        if value.dtype == np.bool_:
+            want = torch.bool
+        elif value.dtype.kind == "f":
+            want = dtype
+        else:
+            want = torch.int32
+        out[name] = _tensor(value, want, device)
+    return args, out

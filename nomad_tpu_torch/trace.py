@@ -1,16 +1,38 @@
 """No-op stand-in for the JAX package's eval flight recorder
 (`nomad_tpu/trace.py`).
 
-The state store marks each plan commit with ``TRACE.event(eval_id,
-"store.commit", ...)``.  The port has no recorder yet, so the event is
+The state store, the broker, the plan applier and the workers mark
+points and spans of an eval's life (``TRACE.event``, ``TRACE.span``,
+``TRACE.add_span``, ``TRACE.annotate``, ``TRACE.begin``,
+``TRACE.finish``).  The port has no recorder yet, so every call is
 accepted and dropped; the real tracer is queued in ROADMAP.md.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 
 class _NullTracer:
+    enabled = False
+
     def event(self, eval_id, name, **attrs) -> None:
         return None
+
+    def add_span(self, eval_id, name, t0, dt, **attrs) -> None:
+        return None
+
+    def annotate(self, eval_id, **attrs) -> None:
+        return None
+
+    def begin(self, eval_id, **attrs) -> None:
+        return None
+
+    def finish(self, eval_id, outcome) -> None:
+        return None
+
+    @contextmanager
+    def span(self, eval_id, name, **attrs):
+        yield
 
 
 TRACE = _NullTracer()

@@ -1,6 +1,7 @@
-"""Kernels K1 (csrc/score_select.cu) and K2 (csrc/plan_picks.cu) against
-their plain twins, on the card and on the CPU, at the main path's width
-(a 16,384-row arena with 10,000 candidates).  Exact equality of every
+"""Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
+(csrc/chained_picks.cu) and K4 (csrc/patch_rows.cu) against their plain
+twins, on the card and on the CPU, at the main path's width (a
+16,384-row arena with 10,000 candidates).  Exact equality of every
 output, in f64 and in f32.
 
 These tests need a CUDA device; without one they skip.  Run them on the
@@ -14,13 +15,16 @@ from nomad_tpu_torch.ops import batch as tbatch
 from nomad_tpu_torch.ops import score as tscore
 from nomad_tpu_torch.ops.cases import (
     BATCH_SCENARIOS,
+    CHAIN_SCENARIOS,
     INT32_MAX,
     SCORE_SCENARIOS,
     batch_case,
+    chain_case,
     score_case,
 )
 from nomad_tpu_torch.state.convert import (
     batch_inputs_from_numpy,
+    chain_case_to_torch,
     score_inputs_from_numpy,
 )
 
@@ -98,6 +102,59 @@ def test_plan_picks_kernel_matches_twin(cuda, scenario, n_picks, limit,
     twin_cpu = torch.stack(run("cpu", tbatch.run_picks))
     assert torch.equal(kernel, twin_card)
     assert torch.equal(kernel, twin_cpu)
+
+
+def _same_chain(a, b):
+    rows_a, pulls_a, (used_a, ports_a, devs_a) = a
+    rows_b, pulls_b, (used_b, ports_b, devs_b) = b
+    assert torch.equal(rows_a.cpu(), rows_b.cpu())
+    assert torch.equal(pulls_a.cpu(), pulls_b.cpu())
+    for x, y in zip(used_a, used_b):
+        assert (_bits(x) == _bits(y)).all()
+    for x, y in ((ports_a, ports_b), (devs_a, devs_b)):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,P", [(2, 16), (8, 64)])
+@pytest.mark.parametrize("scenario", sorted(CHAIN_SCENARIOS))
+def test_chained_picks_kernel_matches_twin(cuda, scenario, E, P, dtype):
+    cols, kw = chain_case(
+        5000 + sorted(CHAIN_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, E, P,
+    )
+    args, kwargs = chain_case_to_torch(cols, kw, cuda, dtype)
+    before = tbatch.chained_picks_cuda.launches
+    kernel = tbatch.chained_plan_picks_cols(*args, return_carry=True,
+                                            **kwargs)
+    torch.cuda.synchronize()
+    assert tbatch.chained_picks_cuda.launches == before + 1
+    twin_card = tbatch.chained_picks_twin(tbatch.prepare_chain(*args, **kwargs))
+    args_cpu, kwargs_cpu = chain_case_to_torch(cols, kw, "cpu", dtype)
+    twin_cpu = tbatch.chained_plan_picks_cols(*args_cpu, return_carry=True,
+                                              **kwargs_cpu)
+    _same_chain(kernel, twin_card)
+    _same_chain(kernel, twin_cpu)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("width", [8, 1024, 16384])
+def test_patch_rows_kernel_matches_twin(cuda, width, dtype):
+    rng = np.random.default_rng(width)
+    col = torch.from_numpy(rng.uniform(0.0, 1e4, C)).to(dtype)
+    n = max(1, width - width // 4)
+    idx = np.full(width, C, np.int32)  # padding: dropped
+    idx[:n] = np.sort(rng.choice(C, n, replace=False))
+    vals = torch.from_numpy(rng.uniform(0.0, 1e4, width)).to(dtype)
+    idx = torch.from_numpy(idx)
+    before = tbatch.patch_rows_cuda.launches
+    on_card = tbatch.patch_rows(col.to(cuda), idx.to(cuda), vals.to(cuda))
+    torch.cuda.synchronize()
+    assert tbatch.patch_rows_cuda.launches == before + 1
+    twin = tbatch.patch_rows_twin(col.clone(), idx, vals)
+    assert (_bits(on_card) == _bits(twin)).all()
 
 
 def test_launch_rejects_cpu_and_mixed_devices(cuda):

@@ -37,17 +37,56 @@ print(placed, bad)
 """
 
 
-def test_port_schedule_loads_no_jax():
+SERVER_SCRIPT = r"""
+import sys
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.server import Server
+
+server = Server(batch_pipeline=True, device="cpu", seed=1,
+                heartbeat_ttl=1e9)
+server.start()
+for i in range(12):
+    server.register_node(mock.node(id=f"nj-{i:02d}"))
+for k in range(3):
+    job = mock.job(id=f"nj-{k}")
+    job.task_groups[0].count = 4
+    server.register_job(job)
+assert server.drain_to_idle(60)
+placed = sum(
+    1 for a in server.store.allocs.values() if not a.terminal_status()
+)
+prescored = server.workers[0].prescored
+server.stop()
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(placed, prescored > 0, bad)
+"""
+
+
+def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
     )
     out = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=str(REPO), env=env,
+        [sys.executable, "-c", script], cwd=str(REPO), env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "4 []"
+    return out.stdout.strip().splitlines()[-1]
+
+
+def test_port_schedule_loads_no_jax():
+    assert _run_fresh(SCRIPT) == "4 []"
+
+
+def test_port_batched_server_loads_no_jax():
+    """The batched pipeline (BatchWorker, K3's twin, the plan applier)
+    drains in a fresh interpreter without JAX or the JAX package."""
+    assert _run_fresh(SERVER_SCRIPT) == "12 True []"
 
 
 def test_port_sources_import_no_jax():
