@@ -43,6 +43,20 @@ Phases (any failure exits non-zero):
    48 jobs through a sequential Server running the host oracle.  The
    placements must be identical, the batched worker must have prescored
    evals with no errors, and K3 and K4 must have been launched.
+k5. Kernel K5 (the global storm solve, csrc/storm_solve.cu) against its
+   twin on the card and on the CPU for every storm scenario of
+   `ops/cases.py`, f64 and f32, at a 16,384-row arena with A in {8,
+   1024} rows: all six outputs bit-equal; at least one full-width case
+   runs 3 or more auction rounds.
+storm. The storm path: the port's batched `Server()` with
+   NOMAD_TPU_STORM=1 on the same 10,000-node / 100,000-alloc cluster,
+   fed 1,024 count-1 batch children of one dispatch parent registered
+   before start (one restore wave).  The same stream through the port's
+   Server on the CPU (the twins) must give the same placements and the
+   same storm counters; every child is placed, 1,024 evals enter the
+   storm path, no errors, and K5 was launched.  Then the same stream
+   with NOMAD_TPU_STORM=0 on the card, for the record: placements/s of
+   each mode and the score-sum delta.
 
 Prints the kernels line, then the card's nvidia-smi line, then the
 result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -67,6 +81,8 @@ TIMING_LAUNCHES = 1_000
 ORACLE_EVALS = 32  # phase 4's host-oracle pass covers this prefix
 SERVER_JOBS = 416  # phase 8's stream
 SERVER_ORACLE_JOBS = 48  # its prefix through the host oracle
+STORM_JOBS = 1024  # the storm phase's dispatch children
+STORM_ROWS = (8, 1024)  # phase k5's A
 CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
 PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -747,6 +763,279 @@ def profile_batched() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase k5 / storm: the global storm solver
+# ---------------------------------------------------------------------------
+
+
+def check_k5(cuda) -> dict:
+    import torch
+
+    from nomad_tpu_torch.ops import solve as tsolve
+    from nomad_tpu_torch.ops.cases import STORM_SCENARIOS, storm_case
+    from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
+
+    n_cases = 0
+    max_err = 0.0
+    rounds = {}
+    for dtype in (torch.float64, torch.float32):
+        for si, scenario in enumerate(STORM_SCENARIOS):
+            for A in STORM_ROWS:
+                cols, inp, max_rounds = storm_case(
+                    9500 + 10 * si + A, A, A, C_CHECK, scenario)
+                card = (storm_inputs(inp, cuda, dtype),
+                        storm_columns(cols, cuda, dtype))
+                kern = tsolve.storm_assignment_cuda(*card, False, max_rounds)
+                torch.cuda.synchronize()
+                twin_card = tsolve.storm_assignment_twin(*card, False,
+                                                         max_rounds)
+                twin_cpu = tsolve.storm_assignment_twin(
+                    storm_inputs(inp, "cpu", dtype),
+                    storm_columns(cols, "cpu", dtype), False, max_rounds)
+                tag = f"K5 {dtype} {scenario} A={A}"
+                for name, k, tc, tp in zip(tsolve.StormOut._fields, kern,
+                                           twin_card, twin_cpu):
+                    check(bool((_bits(k) == _bits(tc)).all()),
+                          f"{tag}: {name} differs from the twin on the card")
+                    check(bool((_bits(k) == _bits(tp)).all()),
+                          f"{tag}: {name} differs from the twin on the CPU")
+                    max_err = max(max_err, _max_abs(k, tp))
+                rounds[f"{scenario}/A={A}/{str(dtype)[6:]}"] = int(kern.rounds)
+                n_cases += 1
+    full = [r for k, r in rounds.items() if f"A={STORM_ROWS[-1]}/" in k]
+    check(max(full) >= 3, "no full-width K5 case ran 3 or more rounds")
+    print(f"K5: {n_cases} cases exact on card and CPU (f64 and f32; all six "
+          f"outputs), max_abs_err={max_err}; auction rounds per case: "
+          f"{json.dumps(rounds)}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases, "rounds": rounds}
+
+
+def storm_jobs():
+    """The storm phase's stream: STORM_JOBS count-1 batch children of one
+    dispatch parent, sized as bench.py's bench_storm sizes them (2000
+    MHz, 4096 MB: about a quarter of a node each)."""
+    from nomad_tpu_torch import mock
+
+    jobs = []
+    for i in range(STORM_JOBS):
+        job = mock.job(id=f"stormfam/dispatch-{i:04d}", datacenters=DCS)
+        job.type = "batch"
+        job.task_groups[0].count = 1
+        job.task_groups[0].tasks[0].resources.cpu = 2000
+        job.task_groups[0].tasks[0].resources.memory_mb = 4096
+        jobs.append(job)
+    return jobs
+
+
+def run_storm(device, storm_on: bool, label: str, on_start=None) -> dict:
+    """The storm stream through a fresh batched Server: the jobs are
+    registered before start, so the whole family lands in the broker as
+    one restore wave (the shape a drain or dispatch burst leaves), then
+    the server drains it.  Returns placements, counters and rates."""
+    import os
+
+    from nomad_tpu_torch.server import Server
+
+    knobs = {"NOMAD_TPU_STORM": "1" if storm_on else "0",
+             "NOMAD_TPU_STORM_MIN": "8",
+             "NOMAD_TPU_STORM_MAX": str(STORM_JOBS)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        server = Server(num_schedulers=1, seed=1, batch_pipeline=True,
+                        heartbeat_ttl=1e9, device=device)
+        t0 = time.perf_counter()
+        build_world(server.store)
+        log(f"  [{label}] world built in {time.perf_counter() - t0:.1f}s")
+        jobs = storm_jobs()
+        for job in jobs:
+            server.register_job(job)
+        if on_start is not None:
+            on_start()
+        t0 = time.time()
+        server.start()
+        try:
+            ok = server.drain_to_idle(timeout=600.0)
+            dt = time.time() - t0
+            worker = server.workers[0]
+            placements, score_sum = {}, 0.0
+            for job in jobs:
+                live = [a for a in server.store.allocs_by_job("default", job.id)
+                        if not a.terminal_status()]
+                placements[job.id] = sorted((a.name, a.node_id) for a in live)
+                for a in live:
+                    # bench_storm's quality sum: the winner's normalized
+                    # score, else its binpack component
+                    for sm in (a.metrics.score_meta if a.metrics else ()):
+                        if sm.node_id == a.node_id:
+                            score_sum += sm.scores.get(
+                                "normalized-score",
+                                sm.scores.get("binpack", sm.norm_score))
+                            break
+            lost = [e.id for job in jobs
+                    for e in server.store.evals_by_job("default", job.id)
+                    if not e.terminal_status()]
+            lost += [e.id for e in server.broker.failed()]
+            counters = {k: getattr(worker, f"storm_{k}") for k in (
+                "solves", "evals", "rows", "fallbacks", "divergent")}
+            counters["rounds"] = server.metrics.get_gauge("storm.rounds")
+            out = {
+                "ok": ok, "seconds": dt, "placements": placements,
+                "placed": sum(len(v) for v in placements.values()),
+                "score_sum": score_sum, "lost": lost, "counters": counters,
+                "errors": worker.errors, "prescored": worker.prescored,
+                "timings": dict(worker.timings),
+            }
+        finally:
+            server.stop()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"  [{label}] {out['placed']} placements in {out['seconds']:.1f}s, "
+        f"storm {out['counters']}, errors {out['errors']}")
+    return out
+
+
+def check_storm(cuda, card: str) -> dict:
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops import solve as tsolve
+
+    def reset_counts():
+        tsolve.storm_assignment_cuda.launches = 0
+        tbatch.chained_picks_cuda.launches = 0
+        tbatch.patch_rows_cuda.launches = 0
+
+    # keep the card run's storm problem (the staged inputs and the
+    # mirror columns K5 read) to time K5 on it afterwards
+    from nomad_tpu_torch.server.batch_worker import BatchWorker
+
+    solved = []
+    orig_solve = BatchWorker._storm_solve
+
+    def keep_problem(self, problem, snap):
+        out = orig_solve(self, problem, snap)
+        # no commit ran since the solve: the mirror is what K5 read
+        cols = tuple(c.clone() for c in self._device_columns(snap.node_table))
+        solved.append((problem, cols))
+        return out
+
+    BatchWorker._storm_solve = keep_problem
+    try:
+        on = run_storm(None, True, "storm on, cuda", on_start=reset_counts)
+    finally:
+        BatchWorker._storm_solve = orig_solve
+    launches = {
+        "storm_solve": tsolve.storm_assignment_cuda.launches,
+        "chained_picks": tbatch.chained_picks_cuda.launches,
+        "patch_rows": tbatch.patch_rows_cuda.launches,
+    }
+    cpu = run_storm("cpu", True, "storm on, cpu")
+    off = run_storm(None, False, "storm off, cuda")
+    for name, r in (("card", on), ("CPU", cpu), ("storm-off", off)):
+        check(r["ok"], f"the {name} storm run did not drain")
+        check(r["errors"] == 0, f"the {name} run counted {r['errors']} errors")
+        check(not r["lost"], f"the {name} run lost evals: {r['lost'][:5]}")
+    check(launches["storm_solve"] > 0, "K5 was not launched on the storm path")
+    check(on["counters"]["solves"] >= 1, "no storm solve ran on the card")
+    check(on["counters"]["evals"] == STORM_JOBS,
+          f"{on['counters']['evals']} of {STORM_JOBS} evals entered the storm")
+    check(on["counters"] == cpu["counters"],
+          f"storm counters differ: card {on['counters']} CPU {cpu['counters']}")
+    for job_id, placed in on["placements"].items():
+        check(placed == cpu["placements"][job_id],
+              f"card and CPU storm runs diverge at {job_id}")
+    check(on["placed"] == STORM_JOBS, f"{on['placed']} of {STORM_JOBS} placed")
+    rate_on = on["placed"] / on["seconds"]
+    rate_off = off["placed"] / off["seconds"]
+    # K5 alone on the path's own problem (the first solve of the run)
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops.solve import StormInputs
+
+    problem, cols = solved[0]
+    inp = StormInputs(*(None if x is None else
+                        torch.from_numpy(np.asarray(x)).to(cuda)
+                        for x in problem.inputs))
+    path_args = (inp, cols, problem.spread_fit, problem.max_rounds)
+    path = k5_work(inp, tsolve.storm_assignment_cuda(*path_args))
+    path["ms"] = cuda_time_ms(
+        lambda: tsolve.storm_assignment_cuda(*path_args), n=5, warmup=1)
+    path["bound_ms"] = max(path["bytes"] / HBM_BYTES_PER_S,
+                           path["flops"] / F64_FLOPS) * 1e3
+    tsolve.storm_assignment_cuda.launches = launches["storm_solve"]
+    print(
+        f"storm path on {card}: {STORM_JOBS} dispatch children, K5 launches "
+        f"{launches['storm_solve']} (K3 {launches['chained_picks']}, K4 "
+        f"{launches['patch_rows']}), counters {json.dumps(on['counters'])}; "
+        f"identical to the CPU twins in placements and counters; storm on "
+        f"{rate_on:.1f} placements/s ({on['seconds']:.2f} s), K5 alone on "
+        f"this run's problem (A={problem.inputs.ask.shape[0]}, "
+        f"E={problem.inputs.feasible.shape[0]}, {path['rounds']} rounds) "
+        f"{path['ms']:.4f} ms (bound {path['bound_ms']:.6f} ms), storm off "
+        f"{rate_off:.1f} placements/s ({off['seconds']:.2f} s); score sum on "
+        f"{on['score_sum']:.4f} off {off['score_sum']:.4f} delta "
+        f"{on['score_sum'] - off['score_sum']:.4f}; timings on (s) "
+        f"{json.dumps({k: round(v, 4) for k, v in on['timings'].items()})}; "
+        f"timings off (s) "
+        f"{json.dumps({k: round(v, 4) for k, v in off['timings'].items()})}",
+        flush=True,
+    )
+    return {"launches": launches, "rate_on": rate_on, "rate_off": rate_off,
+            "counters": on["counters"], "timings_on": on["timings"],
+            "timings_off": off["timings"], "k5_on_path": path,
+            "score_delta": on["score_sum"] - off["score_sum"]}
+
+
+def k5_work(inp, out) -> dict:
+    """The least work of one K5 solve: each input read once and each
+    output written once (bytes), and the operations of the score matrix
+    (FLOPS_PER_CANDIDATE a pair, as the walks' candidates are counted)
+    plus, for each auction round the solve took, the bid scan of the
+    rows still unassigned at its start (~12 operations a node) and
+    their rank scan (~6 a bidder pair)."""
+    E, C = inp.feasible.shape
+    A = inp.ask.shape[0]
+    f = inp.ask.element_size()
+    rounds = int(out.rounds)
+    acc = out.accept_round.cpu()
+    real = int(inp.real.sum())
+    unassigned = [real - int(((acc >= 0) & (acc < r)).sum())
+                  for r in range(rounds)]
+    return {
+        "bytes": (9 * C * f + E * C * (1 + f + 4 + 4) + 2 * E * 4
+                  + A * (4 + C + 3 * f + 4 + 1) + A * (4 * 4 + f) + 4),
+        "flops": (A * C * FLOPS_PER_CANDIDATE
+                  + sum(u * (12 * C + 6 * A) for u in unassigned)),
+        "rounds": rounds,
+    }
+
+
+def time_storm_kernel(cuda) -> dict:
+    """K5 at the storm path's full width (A = E = 1,024 rows and evals,
+    the 16,384-row arena, f64) on the `dogpile` case."""
+    from nomad_tpu_torch.ops import solve as tsolve
+    from nomad_tpu_torch.ops.cases import storm_case
+    from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
+
+    A = E = STORM_ROWS[-1]
+    cols, inp, max_rounds = storm_case(9900, E, A, C_CHECK, "dogpile")
+    args = (storm_inputs(inp, cuda), storm_columns(cols, cuda), False,
+            max_rounds)
+    out = {
+        "ms": cuda_time_ms(lambda: tsolve.storm_assignment_cuda(*args),
+                           n=50, warmup=3),
+        "plain_ms": cuda_time_ms(lambda: tsolve.storm_assignment_twin(*args),
+                                 n=5, warmup=1),
+        "library_ms": None,
+    }
+    out.update(k5_work(args[0], tsolve.storm_assignment_cuda(*args)))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -797,7 +1086,8 @@ def time_kernels(cuda) -> dict:
     out = {
         "score_select": {
             "ms": cuda_time_ms(lambda: tscore.score_select_cuda(k1)),
-            "plain_ms": cuda_time_ms(lambda: tscore.score_and_select_twin(k1)),
+            "plain_ms": cuda_time_ms(lambda: tscore.score_and_select_twin(k1),
+                                     n=200, warmup=3),
             # every input column read once (all C walk positions) and
             # 16 bytes written
             "bytes": C_CHECK * (8 * 8 + 2 * 1 + 2 * 4) + 16,
@@ -807,7 +1097,7 @@ def time_kernels(cuda) -> dict:
         "plan_picks": {
             "ms": cuda_time_ms(lambda: tbatch.plan_picks_cuda(*k2)),
             "plain_ms": cuda_time_ms(
-                lambda: tbatch.run_picks(*k2), n=TIMING_LAUNCHES, warmup=3
+                lambda: tbatch.run_picks(*k2), n=100, warmup=3
             ),
             # the candidate rows of every column read once (the tail is
             # never walked) and the [2, P] result written
@@ -817,6 +1107,11 @@ def time_kernels(cuda) -> dict:
         },
     }
     out.update(time_chain_kernels(cuda))
+    from nomad_tpu_torch.ops import solve as tsolve
+
+    saved_k5 = tsolve.storm_assignment_cuda.launches
+    out["storm_solve"] = time_storm_kernel(cuda)
+    tsolve.storm_assignment_cuda.launches = saved_k5
     (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
      tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches) = saved
     for v in out.values():
@@ -825,8 +1120,10 @@ def time_kernels(cuda) -> dict:
         t_ops = v["flops"] / F64_FLOPS * 1e3  # every timed launch is f64
         v["bound_ms"] = max(t_bytes, t_ops)
         v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print("timing shapes (bytes, walk reach in pulls, operations, bound ms): "
+    print("timing shapes (bytes, walk reach in pulls, auction rounds, operations, "
+          "bound ms): "
           + "; ".join(f"{k} {v['bytes']} B, {v.get('pulls', 0)} pulls, "
+                      f"{v.get('rounds', 0)} rounds, "
                       f"{v['flops']} ops, {v['bound_ms']:.9f} ({v['bound_by']})"
                       for k, v in out.items()), flush=True)
     return out
@@ -941,6 +1238,8 @@ def main() -> int:
                      ("k3", lambda: check_k3(cuda)),
                      ("k4", lambda: check_k4(cuda)),
                      ("server", lambda: check_server(cuda, card)),
+                     ("k5", lambda: check_k5(cuda)),
+                     ("storm", lambda: check_storm(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
         try:
@@ -955,6 +1254,7 @@ def main() -> int:
 
     launches = dict(results["main"]["launches"])
     launches.update(results["server"]["launches"])
+    launches["storm_solve"] = results["storm"]["launches"]["storm_solve"]
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -965,6 +1265,8 @@ def main() -> int:
          "nomad_tpu/ops/batch.py:905", "k3"),
         ("patch_rows", "nomad_tpu_torch/csrc/patch_rows.cu",
          "nomad_tpu/ops/batch.py:1091", "k4"),
+        ("storm_solve", "nomad_tpu_torch/csrc/storm_solve.cu",
+         "nomad_tpu/ops/solve.py:113", "k5"),
     ):
         tm = results["timing"][name]
         kernels.append({

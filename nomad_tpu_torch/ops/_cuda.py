@@ -35,6 +35,7 @@ SOURCES = {
     "plan_picks": "plan_picks.cu",
     "chained_picks": "chained_picks.cu",
     "patch_rows": "patch_rows.cu",
+    "storm_solve": "storm_solve.cu",
 }
 HEADERS = ("walk.cuh",)
 
@@ -376,3 +377,82 @@ def launch_patch_rows(col, idx, vals) -> None:
         dev.index,
     )
     _launch("patch_rows", "nk_patch_rows", args, dev)
+
+
+class StormArgs(ctypes.Structure):
+    """Mirror of `StormArgs` in csrc/storm_solve.cu."""
+
+    _fields_ = [
+        (name, _P) for name in (
+            "cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
+            "disk_used", "feasible", "affinity", "collisions", "perm",
+            "limit", "n_cand", "eval_of", "penalty", "ask", "desired",
+            "real", "pre_cpu", "pre_mem", "pre_disk", "scores", "feas",
+            "s_walk", "f_walk", "free_cap", "price", "bid_v", "bid_c",
+            "has_bid", "accepted", "progress", "pulls0", "out_assigned",
+            "out_pulls", "out_round", "out_score", "out_greedy",
+            "out_rounds",
+        )
+    ] + [
+        (name, _I) for name in (
+            "E", "A", "C", "max_rounds", "spread_fit", "is_f64", "device",
+        )
+    ]
+
+
+def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int):
+    """K5 on the current stream over a checked `ops.solve.StormInputs`
+    and the six node columns (contiguous CUDA tensors).  Allocates the
+    outputs and the scratch (two [A, C] score copies and two [A, C]
+    byte masks) and returns (assigned, pulls, accept_round, score,
+    greedy, rounds) as device tensors."""
+    dev = cols[0].device
+    dtype = cols[0].dtype
+    E, C = inp.feasible.shape
+    A = inp.ask.shape[0]
+    i32 = torch.int32
+    out = dict(
+        out_assigned=torch.empty(A, dtype=i32, device=dev),
+        out_pulls=torch.empty(A, dtype=i32, device=dev),
+        out_round=torch.empty(A, dtype=i32, device=dev),
+        out_score=torch.empty(A, dtype=dtype, device=dev),
+        out_greedy=torch.empty(A, dtype=i32, device=dev),
+        out_rounds=torch.empty(1, dtype=i32, device=dev),
+    )
+    scratch = dict(
+        scores=torch.empty((A, C), dtype=dtype, device=dev),
+        feas=torch.empty((A, C), dtype=torch.uint8, device=dev),
+        s_walk=torch.empty((A, C), dtype=dtype, device=dev),
+        f_walk=torch.empty((A, C), dtype=torch.uint8, device=dev),
+        free_cap=torch.empty((C, 3), dtype=dtype, device=dev),
+        price=torch.empty(C, dtype=dtype, device=dev),
+        bid_v=torch.empty(A, dtype=dtype, device=dev),
+        bid_c=torch.empty(A, dtype=i32, device=dev),
+        has_bid=torch.empty(A, dtype=i32, device=dev),
+        accepted=torch.empty(A, dtype=i32, device=dev),
+        progress=torch.empty(max(1, max_rounds), dtype=i32, device=dev),
+        pulls0=torch.empty(A, dtype=i32, device=dev),
+    )
+    ptrs = dict(
+        cpu_total=cols[0], mem_total=cols[1], disk_total=cols[2],
+        cpu_used=cols[3], mem_used=cols[4], disk_used=cols[5],
+        **{name: getattr(inp, name) for name in (
+            "feasible", "affinity", "collisions", "perm", "limit",
+            "n_cand", "eval_of", "penalty", "ask", "desired", "real",
+            "pre_cpu", "pre_mem", "pre_disk",
+        )},
+        **scratch, **out,
+    )
+    args = StormArgs()
+    for name, t in ptrs.items():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        setattr(args, name, t.data_ptr())
+    args.E, args.A, args.C = E, A, C
+    args.max_rounds = max_rounds
+    args.spread_fit = int(spread_fit)
+    args.is_f64 = int(dtype == torch.float64)
+    args.device = dev.index
+    _launch("storm_solve", "nk_storm_solve", args, dev)
+    return (out["out_assigned"], out["out_pulls"], out["out_round"],
+            out["out_score"], out["out_greedy"], out["out_rounds"][0])

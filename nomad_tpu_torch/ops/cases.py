@@ -410,3 +410,146 @@ def chain_case(seed: int, C: int, n_cand: int, scenario: str, E: int,
         used0_cpu=cpu_used, used0_mem=mem_used, used0_disk=disk_used,
     )
     return cols, kw
+
+
+# storm solver (K5) scenarios; each case carries its own round budget
+STORM_SCENARIOS = (
+    "uncontended",  # room for every row: the warm start is the answer
+    "dogpile",  # one shared walk order over a few tight nodes
+    "infeasible_rows",  # evals with no feasible node, rows too big
+    "padding_rows",  # a padded tail of rows that are never assigned
+    "one_row",  # A = 1: the degenerate storm is the serial walk
+    "round_budget1",  # the dogpile cut after one round
+    "round_budget2",  # ... and after two: rows end unsolved
+    "ties",  # identical nodes, so the jitter picks among them
+    "penalty_affinity_collisions",  # every per-row score term
+    "pre_deltas",  # fractional usage and staged pre-placement deltas
+)
+_STORM_ASKS = ((500.0, 256.0, 300.0), (1000.0, 1024.0, 300.0),
+               (2000.0, 4096.0, 500.0))
+
+
+def storm_case(seed: int, E: int, A: int, C: int, scenario: str):
+    """One K5 input as numpy, f64: (node columns {cpu_total, mem_total,
+    disk_total, cpu_used, mem_used, disk_used}, StormInputs fields,
+    max_rounds).  Rows are spread over the evals in order, each eval's
+    rows sharing its ask, count, walk order and visit limit, as the
+    batch worker stages a storm.  Asks are whole MHz and MB, as
+    Nomad's are, except in `pre_deltas`, whose fractional asks make
+    the order of the per-node debit's additions visible."""
+    rng = np.random.default_rng(seed)
+    if scenario == "one_row":
+        E = A = 1
+    E = max(1, min(E, A))
+    contended = scenario in ("dogpile", "round_budget1", "round_budget2",
+                             "ties")
+    cpu_total = rng.choice([4000.0, 8000.0, 16000.0], C)
+    mem_total = rng.choice([8192.0, 16384.0, 32768.0], C)
+    disk_total = rng.choice([50000.0, 100000.0], C)
+    cpu_used = np.floor(rng.uniform(0.0, 0.6, C) * cpu_total / 100.0) * 100.0
+    mem_used = np.floor(rng.uniform(0.0, 0.6, C) * mem_total / 64.0) * 64.0
+    disk_used = np.floor(rng.uniform(0.0, 0.3, C) * disk_total)
+    pre = np.zeros((3, C))
+    if scenario == "uncontended":
+        cpu_used = np.floor(cpu_used / 4.0 / 100.0) * 100.0
+        mem_used = np.floor(mem_used / 4.0 / 64.0) * 64.0
+    if scenario == "ties":
+        cpu_total[:] = 4000.0
+        mem_total[:] = 8192.0
+        disk_total[:] = 50000.0
+        cpu_used[:] = 0.0
+        mem_used[:] = 0.0
+        disk_used[:] = 0.0
+    if scenario == "pre_deltas":
+        cpu_used += rng.uniform(0.0, 1.0, C)
+        mem_used += rng.uniform(0.0, 1.0, C)
+        disk_used += rng.uniform(0.0, 1.0, C)
+        hit = rng.random(C) < 0.2
+        pre[:, hit] = rng.uniform(-300.0, 300.0, (3, int(hit.sum())))
+
+    n_cand = np.full(E, C, np.int32)
+    if scenario not in ("dogpile", "round_budget1", "round_budget2"):
+        n_cand = rng.integers(max(1, C // 2), C + 1, E).astype(np.int32)
+    if contended and scenario != "ties":
+        perm = np.tile(rng.permutation(C).astype(np.int32), (E, 1))
+    else:
+        perm = np.stack([rng.permutation(C) for _ in range(E)]).astype(
+            np.int32
+        )
+    feasible = np.zeros((E, C), dtype=bool)
+    for e in range(E):
+        cand = perm[e, : n_cand[e]]
+        feasible[e, cand] = rng.random(n_cand[e]) < 0.9
+    limit = np.where(
+        rng.random(E) < 0.3, INT32_MAX, rng.choice([2, 3, 14], E)
+    ).astype(np.int32)
+    ask_e = np.asarray(_STORM_ASKS)[rng.integers(0, 3, E)]
+    if scenario == "uncontended":
+        ask_e[:] = _STORM_ASKS[0]
+    desired_e = rng.integers(1, 12, E).astype(np.int32)
+    if contended:
+        # identical nodes, each with room for a few asks: every row's
+        # walk picks the same node first, then the jitter spreads the
+        # rows over the rest, round after round
+        n_tight = max(2, A // 2)
+        tight = (perm[0, : min(C, n_tight)] if scenario != "ties"
+                 else rng.choice(C, min(C, n_tight), replace=False))
+        feasible[:, :] = False
+        feasible[:, tight] = True
+        ask_e[:] = (1000.0, 1024.0, 300.0)
+        cpu_total[tight] = 4000.0
+        mem_total[tight] = 8192.0
+        disk_total[tight] = 50000.0
+        cpu_used[tight] = 4000.0 - 1000.0 * (2 if scenario == "ties" else 3)
+        mem_used[tight] = 0.0
+        disk_used[tight] = 0.0
+        if scenario == "ties":
+            cpu_used[:] = cpu_used[tight[0]]
+            mem_used[:] = 0.0
+            disk_used[:] = 0.0
+        limit[:] = 2
+    affinity = np.zeros((E, C))
+    collisions = np.zeros((E, C), np.int32)
+    if scenario == "penalty_affinity_collisions":
+        affinity = np.where(rng.random((E, C)) < 0.3,
+                            rng.uniform(-1.0, 1.0, (E, C)), 0.0)
+        collisions = (rng.integers(0, 4, (E, C))
+                      * (rng.random((E, C)) < 0.3)).astype(np.int32)
+    if scenario == "infeasible_rows":
+        feasible[rng.random(E) < 0.3] = False
+        big = rng.random(E) < 0.2
+        ask_e[big, 0] = 1e6
+
+    if scenario == "pre_deltas":
+        # fractional asks: the debit's order of additions could show
+        ask_e = ask_e * rng.uniform(0.5, 1.0, (E, 1)) + rng.uniform(
+            0.0, 1.0, (E, 3)
+        )
+    eval_of = (np.arange(A) * E // A).astype(np.int32)
+    ask = ask_e[eval_of].astype(np.float64)
+    desired = desired_e[eval_of]
+    penalty = np.zeros((A, C), dtype=bool)
+    if scenario == "penalty_affinity_collisions":
+        penalty = rng.random((A, C)) < 0.05
+    real = np.ones(A, dtype=bool)
+    if scenario == "padding_rows":
+        n_real = max(1, (3 * A) // 4)
+        real[n_real:] = False
+        eval_of[n_real:] = 0
+        ask[n_real:] = 0.0
+        desired[n_real:] = 1
+    max_rounds = A
+    if scenario == "round_budget1":
+        max_rounds = 1
+    elif scenario == "round_budget2":
+        max_rounds = 2
+    cols = dict(cpu_total=cpu_total, mem_total=mem_total,
+                disk_total=disk_total, cpu_used=cpu_used,
+                mem_used=mem_used, disk_used=disk_used)
+    inputs = dict(
+        feasible=feasible, affinity=affinity, collisions=collisions,
+        perm=perm, limit=limit, n_cand=n_cand, eval_of=eval_of,
+        penalty=penalty, ask=ask, desired=desired.astype(np.int32),
+        real=real, pre_cpu=pre[0], pre_mem=pre[1], pre_disk=pre[2],
+    )
+    return cols, inputs, max_rounds

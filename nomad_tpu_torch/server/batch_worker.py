@@ -60,9 +60,16 @@ synchronously.  A failure of the prescore pipeline itself (assembly,
 the mirror patch, a launch, a fetch) raises DeviceFault: the worker
 nacks its leases and stops, and Server.drain_to_idle re-raises it.  It
 never demotes a chain to the host oracle, which stays for the evals
-the kernel does not model.  Not ported in this slice: the node-sharded mesh path
-(NOMAD_TPU_MESH), pods, the global storm solver (NOMAD_TPU_STORM) and
-the device supervisor; asking for mesh or storm raises.
+the kernel does not model.
+
+The global storm solver (NOMAD_TPU_STORM=1) coalesces a backlog of one
+job family into a single (alloc rows x nodes) assignment solve, kernel
+K5 (`ops.solve.storm_assignment`), on the same stream and against the
+same K4-patched mirror; its members replay through the same prescored
+machinery.  A failure of the storm's staging, solve or fetch raises
+DeviceFault as well.  Not ported: the node-sharded mesh path
+(NOMAD_TPU_MESH, which raises), pods, the policy-weighted storm solve
+(NotImplementedError) and the device supervisor.
 """
 from __future__ import annotations
 
@@ -137,6 +144,25 @@ ADMISSION_COUNTERS = (
     "admission.deferred",
     "admission.chains",
 )
+# global storm solver (NOMAD_TPU_STORM=1) metrics, zero-registered at
+# Server construction: every `storm.*` name the worker emits must
+# appear here, so dashboards can tell "storm mode never engaged" from
+# "storm not exported".  Counters: solver launches, evals entering the
+# storm path, alloc rows the solver assigned, members that fell back
+# to the sequential path, and rows whose global assignment diverged
+# from the greedy serial walk.  Gauges: the last solve's auction
+# rounds-to-converge and the family backlog the detector drained.
+STORM_COUNTERS = (
+    "storm.solves",
+    "storm.evals",
+    "storm.rows",
+    "storm.fallbacks",
+    "storm.divergent",
+)
+STORM_GAUGES = (
+    "storm.rounds",
+    "storm.backlog",
+)
 # optimistic parallel replay: below this many prescored evals in a run
 # the speculative-wave dispatch overhead beats the win
 REPLAY_MIN_WAVE = 2
@@ -151,10 +177,10 @@ class _Deviation(Exception):
 
 
 class DeviceFault(RuntimeError):
-    """The prescore pipeline failed (assembly, mirror patch, kernel
-    build or launch, fetch).  Fatal to the worker: its device state
-    is suspect, and running the chain on the host oracle instead
-    would hide the fault."""
+    """The prescore pipeline or a storm solve failed (assembly or
+    staging, mirror patch, kernel build or launch, fetch).  Fatal to
+    the worker: its device state is suspect, and running the chain on
+    the host oracle instead would hide the fault."""
 
 
 class _SpecAbort(Exception):
@@ -351,6 +377,20 @@ class _AdmissionQueue:
     def defer(self, ev: Evaluation, token: str) -> None:
         self.deferred.append((ev, token))
         self.closed = True
+
+
+class _DoneFuture:
+    """Pre-resolved future for storm-wave members that skip
+    speculation (solver fallbacks, or parallel replay off)."""
+
+    def __init__(self, value=None) -> None:
+        self._value = value
+
+    def done(self) -> bool:
+        return True
+
+    def result(self):
+        return self._value
 
 
 class _SpecPlanner:
@@ -635,15 +675,12 @@ class BatchWorker(Worker):
     def __init__(self, server, **kwargs) -> None:
         import os as _os
 
-        # the node-sharded mesh path and the global storm solver are
-        # not ported yet: asking for them must fail, not be ignored
-        for flag in ("NOMAD_TPU_MESH", "NOMAD_TPU_STORM"):
-            if _os.environ.get(flag) == "1":
-                raise NotImplementedError(
-                    f"{flag}=1: the PyTorch port has no "
-                    f"{'mesh' if flag.endswith('MESH') else 'storm'} "
-                    "path yet"
-                )
+        # the node-sharded mesh path is not ported yet: asking for it
+        # must fail, not be ignored
+        if _os.environ.get("NOMAD_TPU_MESH") == "1":
+            raise NotImplementedError(
+                "NOMAD_TPU_MESH=1: the PyTorch port has no mesh path yet"
+            )
         super().__init__(server, **kwargs)
         # every K3 launch, K4 patch and D2H copy of this worker runs
         # on this one stream, so chunk N+1 reads chunk N's carry and a
@@ -736,7 +773,8 @@ class BatchWorker(Worker):
         # per-chunk launch cost (dispatch + the blocking fetch wait),
         # keyed by chunk WIDTH bucket (CHUNK_BUCKETS) — the adaptive
         # gulp cap and the per-flush chunk-width policy both read it
-        self._launch_ewma: Dict[int, float] = {}  # chunk width -> ms
+        # ("storm" keys the storm solver's own bucket)
+        self._launch_ewma: Dict[object, float] = {}  # chunk width -> ms
         # first measured warm launch, used as the default estimate for
         # buckets with no samples yet
         self._launch_ewma_seed: Optional[float] = None
@@ -756,6 +794,47 @@ class BatchWorker(Worker):
         self.admit_enabled = (
             _os.environ.get("NOMAD_TPU_ADMIT", "1") != "0"
         )
+        # global storm solver (NOMAD_TPU_STORM=1): when the broker
+        # holds a backlog of >= storm_min pending evals of ONE job
+        # family, the family prefix is drained atomically and solved
+        # as a single (pending-allocs x nodes) assignment on the
+        # device (kernel K5) instead of walking the per-eval chunk
+        # chain.  Serial equivalence is explicitly relaxed behind this
+        # flag (the win is storm throughput + global placement
+        # quality); every member still commits through the
+        # _commit_wave conflict fences in broker FIFO order, with
+        # unsolvable or conflicted members taking the sequential path
+        # — zero evals lost.
+        self.storm_enabled = (
+            _os.environ.get("NOMAD_TPU_STORM") == "1"
+        )
+        try:
+            self.storm_min = max(
+                1, int(_os.environ.get("NOMAD_TPU_STORM_MIN", "16"))
+            )
+        except ValueError:
+            self.storm_min = 16
+        try:
+            self.storm_max = int(
+                _os.environ.get("NOMAD_TPU_STORM_MAX", "256")
+            )
+        except ValueError:
+            self.storm_max = 256
+        self.storm_max = max(self.storm_min, min(self.storm_max, 1024))
+        try:
+            # 0 = auto: the solve's padded row bucket (the auction
+            # assigns at least one row per round, so the bucket is
+            # the convergence bound)
+            self.storm_rounds = int(
+                _os.environ.get("NOMAD_TPU_STORM_ROUNDS", "0")
+            )
+        except ValueError:
+            self.storm_rounds = 0
+        self.storm_solves = 0
+        self.storm_evals = 0
+        self.storm_rows = 0
+        self.storm_fallbacks = 0
+        self.storm_divergent = 0
         self.admission_admitted = 0
         self.admission_deferred = 0
         self.admission_chains = 0
@@ -819,6 +898,9 @@ class BatchWorker(Worker):
             "admit": 0.0,
             "launch": 0.0,
             "fetch": 0.0,
+            "storm_stage": 0.0,
+            "storm_solve": 0.0,
+            "storm_decompose": 0.0,
             "replay": 0.0,
             "sequential": 0.0,
         }
@@ -913,6 +995,17 @@ class BatchWorker(Worker):
         if metrics is not None:
             metrics.incr(f"admission.{kind}")
 
+    def _count_storm(self, kind: str, n: int = 1) -> None:
+        """Global-storm-solver counters, exported under the `storm.`
+        namespace on /v1/metrics (solves | evals | rows | fallbacks |
+        divergent; the family is zero-registered at Server
+        construction from STORM_COUNTERS)."""
+        attr = f"storm_{kind}"
+        setattr(self, attr, getattr(self, attr) + n)
+        metrics = getattr(self.server, "metrics", None)
+        if metrics is not None:
+            metrics.incr(f"storm.{kind}", float(n))
+
     def _record_decision(self, site: str, action: str, **kw) -> None:
         """Ledger hook: every adaptive decision of this worker goes
         through here, with the leadership generation it ran under.
@@ -948,8 +1041,10 @@ class BatchWorker(Worker):
             "batch_worker.replay_ewma_ms", self._replay_ewma_ms
         )
         for bucket, ms in self._launch_ewma.items():
+            # the storm solver's dedicated bucket -> .storm
+            suffix = "storm" if bucket == "storm" else f"e{bucket}"
             metrics.set_gauge(
-                f"batch_worker.launch_ewma_ms.e{bucket}", ms
+                f"batch_worker.launch_ewma_ms.{suffix}", ms
             )
 
     def _replay_pool_instance(self):
@@ -1005,21 +1100,26 @@ class BatchWorker(Worker):
         default = seed if seed is not None else 50.0
         return self._launch_ewma.get(width, default)
 
-    def _note_launch_cost(self, width: int, ms: float) -> None:
+    def _note_launch_cost(self, width: int, ms: float,
+                          storm: bool = False) -> None:
         """Feed one chunk's measured device-path cost into the
         adaptive sizing loop (and seed the default estimate from the
         first warm measurement).  A sample an order of magnitude past
         the latency budget is a one-off stall (the first launch's
         kernel build), not a launch cost — averaging it in would
         collapse the cap/width policy to the smallest bucket for
-        hundreds of flushes, so it is dropped."""
+        hundreds of flushes, so it is dropped.  A storm solve feeds
+        only its own bucket (exported as ``launch_ewma_ms.storm``): a
+        whole-backlog assignment solve is not a chunk launch, and its
+        wall time must not plan chunk flushes."""
         ceiling = 20.0 * max(self.latency_budget_ms, 50.0)
         if ms > ceiling:
             return
-        if self._launch_ewma_seed is None:
+        if not storm and self._launch_ewma_seed is None:
             self._launch_ewma_seed = ms
-        prev = self._launch_ewma.get(width)
-        self._launch_ewma[width] = (
+        key = "storm" if storm else width
+        prev = self._launch_ewma.get(key)
+        self._launch_ewma[key] = (
             ms if prev is None else 0.8 * prev + 0.2 * ms
         )
 
@@ -1205,6 +1305,49 @@ class BatchWorker(Worker):
                 if ev is None:
                     continue
                 self._note_dequeue(ev)
+                # storm detection at the gulp boundary: a backlog of
+                # pending evals sharing this eval's job family above
+                # the trigger threshold is drained atomically and
+                # solved as ONE global assignment instead of feeding
+                # the per-eval chunk chain
+                if self.storm_enabled:
+                    storm = self._maybe_drain_storm(ev, token)
+                    if storm is not None:
+                        try:
+                            leftover = self._process_storm(storm)
+                        except NotLeaderError:
+                            # leadership revoked mid-storm: nothing
+                            # committed past the fence — nack every
+                            # member lease for redelivery
+                            self._count_leadership("chain_aborts")
+                            self._abandon_leases(storm)
+                            leftover = []
+                        except (DeviceFault, NotImplementedError) as exc:
+                            # the solve failed on the device, or the
+                            # storm needs a solve the port lacks: stop
+                            # here, leases nacked, and leave the fault
+                            # for drain_to_idle to raise
+                            self._count("errors")
+                            LOG.error("storm solve failed; worker stops",
+                                      exc_info=True)
+                            self.fault = exc
+                            self._abandon_leases(storm)
+                            self._stop.set()
+                            return
+                        except Exception:  # noqa: BLE001
+                            self._count("errors")
+                            LOG.exception("storm processing crashed")
+                            # the members were coalesced into a storm
+                            # that never committed, and will reappear
+                            # via lease redelivery
+                            for s_ev, _tok in storm:
+                                TRACE.event(
+                                    s_ev.id, "storm.fallback",
+                                    reason="storm_crash",
+                                )
+                            self._abandon_leases(storm)
+                            leftover = []
+                        continue
                 batch = [(ev, token)]
                 cap = self._adaptive_cap()
                 # ONE fill deadline for the whole gulp: the old
@@ -1911,6 +2054,17 @@ class BatchWorker(Worker):
         # None = unknown writes until a clean prescored replay records
         # its committed plan's touches (the wave commit loop reads it)
         self._last_replay_touches = None
+        if rows is None:
+            # storm wave member the solver could not cover: the full
+            # sequential path owns it.  True (not the chain's
+            # "suspect" False): storm rows are computed from the
+            # baseline + the solver's capacity model, not a
+            # sequential carry, so a fallback commit does not
+            # invalidate later members' rows — their own conflict
+            # fences see this commit's writes as unexpected touches
+            # and serialize exactly the members it actually affected.
+            self._process_sequential(ev, token)
+            return True
         t0 = _time.monotonic()
         try:
             clean = self._process_prescored(
@@ -1950,6 +2104,314 @@ class BatchWorker(Worker):
             )
             self._nack_quietly(ev, token)
             return False
+
+    # -- global storm solver (NOMAD_TPU_STORM=1) ------------------------
+
+    def _maybe_drain_storm(self, ev, token):
+        """Detect a storm at the gulp boundary: when the broker's
+        ready prefix continues ``ev``'s job family for at least
+        ``storm_min`` members total, drain that prefix atomically
+        (never leapfrogging unrelated evals) and return the FIFO
+        member list.  None = no storm; nothing was dequeued."""
+        import time as _time
+
+        from .eval_broker import job_family
+
+        family = job_family(ev)
+        if not family[1]:
+            return None
+        try:
+            drained = self.server.broker.drain_family(
+                self.schedulers,
+                family,
+                max_n=self.storm_max - 1,
+                min_n=max(0, self.storm_min - 1),
+            )
+        except Exception:  # noqa: BLE001 — detection is best-effort
+            LOG.warning("storm drain failed", exc_info=True)
+            return None
+        if len(drained) + 1 < self.storm_min:
+            return None
+        for d_ev, _tok in drained:
+            self._note_dequeue(d_ev)
+        members = [(ev, token)] + drained
+        # settle beats: a storm ARRIVES as a wave (drain loop, restore
+        # scan, dispatch burst), so keep absorbing the family prefix
+        # while it is still growing — one empty BATCH_WAIT_S beat ends
+        # the hunt.  Unrelated evals still fence the walk
+        # (drain_family never leapfrogs), so FIFO fairness holds.
+        waited = False
+        while len(members) < self.storm_max:
+            try:
+                more = self.server.broker.drain_family(
+                    self.schedulers,
+                    family,
+                    max_n=self.storm_max - len(members),
+                )
+            except Exception:  # noqa: BLE001 — growth is optional;
+                # the members already leased MUST still be processed
+                LOG.warning(
+                    "storm settle drain failed", exc_info=True
+                )
+                break
+            if more:
+                for d_ev, _tok in more:
+                    self._note_dequeue(d_ev)
+                members.extend(more)
+                waited = False
+                continue
+            if waited:
+                break
+            _time.sleep(BATCH_WAIT_S)
+            waited = True
+        metrics = getattr(self.server, "metrics", None)
+        if metrics is not None:
+            metrics.set_gauge("storm.backlog", float(len(members)))
+        for pos, (s_ev, _tok) in enumerate(members):
+            TRACE.event(
+                s_ev.id, "batch_worker.storm_gulp",
+                size=len(members), pos=pos,
+                family=f"{family[0]}/{family[1]}",
+            )
+        return members
+
+    def _process_storm(
+        self, members: List[Tuple[Evaluation, str]]
+    ) -> List[Tuple[Evaluation, str]]:
+        """Coalesce one family storm into a single global
+        (pending-allocs x candidate-nodes) assignment solve (kernel
+        K5), then decompose the converged assignment into per-eval
+        prescored plans that commit in broker FIFO order through the
+        existing ``_commit_wave`` conflict fences.  A member the
+        solver does not cover — ineligible shape, row budget,
+        unassignable row, or a commit-time conflict cascade — takes
+        the sequential path or re-enters the batch path, as in the JAX
+        package, so zero evals are lost.  A failure of the staging,
+        the solve or its fetch raises DeviceFault (the JAX package
+        instead demotes the whole storm to the sequential path).
+        Returns leftover evals under the ``_process_batch``
+        contract."""
+        import time as _time
+
+        from ..sched.storm import StormMember, build_storm_problem, decompose
+
+        self._count_storm("evals", len(members))
+        snap = self.store.snapshot()
+        wave_readiness = self.store.readiness_generation()
+        wave_base = self.store.node_touch_counts()
+        # leadership fence: the generation this storm solves under —
+        # checked after the solve and again before every member commit
+        wave_gen = self._leader_gen()
+
+        # simulation pre-pass, FIFO order (the same host mirror of
+        # computeJobAllocs the chunk chain runs)
+        t0 = _time.monotonic()
+        storm_members: List[StormMember] = []
+        for ev, token in members:
+            job = self.store.job_by_id(ev.namespace, ev.job_id)
+            member = StormMember(
+                ev=ev, token=token, job=job, leader_gen=wave_gen
+            )
+            if not self._batchable(ev, job):
+                member.reason = "unbatchable"
+            else:
+                try:
+                    with TRACE.span(ev.id, "batch_worker.simulate"):
+                        member.sim = self._simulate(snap, ev, job)
+                except Exception:  # noqa: BLE001
+                    self._count("errors")
+                    LOG.warning(
+                        "storm simulate failed for eval %s", ev.id,
+                        exc_info=True,
+                    )
+                if member.sim is None:
+                    member.reason = "simulate"
+            storm_members.append(member)
+        self._observe(
+            "simulate", _time.monotonic() - t0, exemplar=members[0][0].id
+        )
+
+        # stage + solve: one device call for the whole backlog
+        t1 = _time.monotonic()
+        try:
+            problem = build_storm_problem(self, snap, storm_members)
+        except NotImplementedError:
+            raise
+        except Exception as exc:  # noqa: BLE001
+            raise DeviceFault(
+                f"storm staging failed for {len(members)} evals"
+            ) from exc
+        self._observe(
+            "storm_stage", _time.monotonic() - t1,
+            exemplar=members[0][0].id,
+        )
+        out = None
+        if problem is not None and problem.n_rows > 0:
+            t1 = _time.monotonic()
+            try:
+                out = self._storm_solve(problem, snap)
+            except Exception as exc:  # noqa: BLE001
+                raise DeviceFault(
+                    f"storm solve failed for {problem.n_rows} rows"
+                ) from exc
+            dt = _time.monotonic() - t1
+            solver_members = [
+                m for m in storm_members if m.reason is None
+            ]
+            self._observe(
+                "storm_solve", dt, exemplar=members[0][0].id
+            )
+            for pos, m in enumerate(solver_members):
+                TRACE.add_span(
+                    m.ev.id, "batch_worker.storm_solve", t1, dt,
+                    chain_pos=pos, members=len(solver_members),
+                    rows=problem.n_rows,
+                )
+            # solver wall time feeds its OWN EWMA bucket
+            # (launch_ewma_ms.storm) — never the chunk-width buckets
+            # the adaptive gulp policy plans flushes from
+            self._note_launch_cost(0, dt * 1000.0, storm=True)
+        # chaos seam: deterministic revoke-mid-solve races (a no-op in
+        # the port)
+        _chaos.fire("storm_solved")
+        # leadership fence: a revoke mid-solve discards the solve
+        # result BEFORE decompose; run()'s NotLeaderError handler
+        # nacks every member lease for redelivery
+        self._check_leadership(wave_gen)
+        if problem is not None:
+            t2 = _time.monotonic()
+            solved_rows = decompose(problem, out)
+            dt2 = _time.monotonic() - t2
+            self._observe(
+                "storm_decompose", dt2, exemplar=members[0][0].id
+            )
+            if out is not None:
+                rounds = int(out[5])
+                self._count_storm("solves")
+                self._count_storm("rows", solved_rows)
+                divergent = sum(
+                    m.divergent_rows
+                    for m in storm_members
+                    if m.rows is not None
+                )
+                if divergent:
+                    self._count_storm("divergent", divergent)
+                metrics = getattr(self.server, "metrics", None)
+                if metrics is not None:
+                    metrics.set_gauge("storm.rounds", float(rounds))
+                for m in storm_members:
+                    if m.rows is not None:
+                        TRACE.add_span(
+                            m.ev.id,
+                            "batch_worker.storm_decompose",
+                            t2, dt2, rows=len(m.rows),
+                            round=m.solver_round,
+                            divergent=m.divergent_rows,
+                        )
+
+        # in-order commit through the existing conflict fences:
+        # solved members speculate on the replay pool (or replay
+        # their solver rows serially when parallel replay is off);
+        # fallback members ride the same wave with rows=None so FIFO
+        # order with their solved siblings is preserved
+        spec_pool = (
+            self._replay_pool_instance()
+            if self.parallel_replay
+            else None
+        )
+        wave = deque()
+        for m in storm_members:
+            if m.rows is not None:
+                fut = (
+                    spec_pool.submit(
+                        self._speculate_one, snap, wave_readiness,
+                        m.ev, m.job, m.sim, m.rows, m.pulls,
+                    )
+                    if spec_pool is not None
+                    else _DoneFuture(None)
+                )
+                wave.append((
+                    m.ev, m.token, m.job, m.sim, m.rows, m.pulls,
+                    fut,
+                ))
+            else:
+                self._count_storm("fallbacks")
+                TRACE.event(
+                    m.ev.id, "storm.fallback",
+                    reason=m.reason or "solver",
+                )
+                wave.append((
+                    m.ev, m.token, m.job, m.sim, None, None,
+                    _DoneFuture(None),
+                ))
+        wave_state = {"job_ledger": set(), "expect": {}}
+        self._commit_wave(
+            wave, 0, wave_base, wave_readiness,
+            state=wave_state, drain_all=True, leader_gen=wave_gen,
+        )
+        leftover: List[Tuple[Evaluation, str]] = []
+        if wave:
+            # a mid-wave rescore abandoned the remaining members'
+            # speculations; their leases are still held — re-feed
+            # them through the normal batch path (chunk chain or
+            # sequential), never dropping one.  Solver-placed members
+            # in the remainder are DEMOTED (rows cleared) so the
+            # trace audit never tags their eventual chunk-chain
+            # placements as solver output, and the fallback counter
+            # counts each member once.
+            remaining = [
+                (r_ev, r_token)
+                for (r_ev, r_token, *_rest) in wave
+            ]
+            remaining_ids = {r_ev.id for r_ev, _rt in remaining}
+            demoted = 0
+            for m in storm_members:
+                if m.ev.id in remaining_ids and m.rows is not None:
+                    m.rows = None
+                    m.pulls = None
+                    demoted += 1
+                    TRACE.event(
+                        m.ev.id, "storm.fallback",
+                        reason="rescore",
+                    )
+            if demoted:
+                self._count_storm("fallbacks", demoted)
+            leftover = self._process_batch(remaining)
+        for m in storm_members:
+            if m.rows is not None:
+                TRACE.annotate(
+                    m.ev.id, outcome_detail="storm",
+                    storm_round=m.solver_round,
+                )
+        self._export_adaptive_gauges()
+        return leftover
+
+    def _storm_solve(self, problem, snap):
+        """One storm assignment solve against the device-resident
+        usage mirror, returning the six outputs as numpy.  ``snap`` is
+        the SAME snapshot the problem was staged against — the solve's
+        arena row indices are only meaningful against that table.  On
+        the card the staged inputs go up through pinned memory, K5
+        runs and the outputs come back, all on the worker's one
+        stream behind every K4 patch of the mirror; on the CPU the
+        twin runs."""
+        from ..ops.solve import StormInputs, storm_assignment
+
+        max_rounds = problem.max_rounds
+        if self.storm_rounds > 0:
+            max_rounds = min(max_rounds, self.storm_rounds)
+        cols = self._device_columns(snap.node_table)
+        with self._on_stream():
+            inp = StormInputs(*(
+                None if leaf is None else self._upload(np.asarray(leaf))
+                for leaf in problem.inputs
+            ))
+            out = storm_assignment(
+                inp, cols, spread_fit=problem.spread_fit,
+                max_rounds=max_rounds,
+            )
+            # .cpu() waits on the worker's stream: the solve's fetch
+            return tuple(x.cpu().numpy() for x in out)
 
     # -- optimistic parallel replay ------------------------------------
 

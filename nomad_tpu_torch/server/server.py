@@ -112,7 +112,12 @@ class Server:
             counters=LEADERSHIP_COUNTERS, gauges=LEADERSHIP_GAUGES
         )
         if batch_pipeline:
-            from .batch_worker import ADMISSION_COUNTERS, BatchWorker
+            from .batch_worker import (
+                ADMISSION_COUNTERS,
+                STORM_COUNTERS,
+                STORM_GAUGES,
+                BatchWorker,
+            )
 
             self.workers: List[Worker] = [
                 BatchWorker(self, seed=seed)
@@ -121,6 +126,20 @@ class Server:
             # continuous micro-batching: zero-register the admission.*
             # counter family
             self.metrics.preregister(counters=ADMISSION_COUNTERS)
+            # global storm solver: zero-register the storm.* family
+            # (absence-of-series must mean "no storm ever coalesced" —
+            # NOMAD_TPU_STORM off or backlog under the trigger — not
+            # "not exported") and expose the mode flag
+            self.metrics.preregister(
+                counters=STORM_COUNTERS, gauges=STORM_GAUGES
+            )
+            self.metrics.set_gauge(
+                "batch_worker.storm_enabled",
+                1.0 if any(
+                    getattr(w, "storm_enabled", False)
+                    for w in self.workers
+                ) else 0.0,
+            )
             self.metrics.set_gauge(
                 "batch_worker.parallel_replay_enabled",
                 1.0 if any(

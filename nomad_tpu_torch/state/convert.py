@@ -39,6 +39,7 @@ from ..ops.batch import (
     StepDeltas,
 )
 from ..ops.score import ScoreInputs
+from ..ops.solve import StormInputs
 from ..structs import Allocation, Job, Node
 from .store import StateStore
 
@@ -307,3 +308,28 @@ def chain_case_to_torch(cols: Dict[str, Any], kw: Dict[str, Any], device,
             want = torch.int32
         out[name] = _tensor(value, want, device)
     return args, out
+
+
+def storm_inputs(np_inputs, device, dtype=torch.float64) -> StormInputs:
+    """The port's `StormInputs` from numpy ones: a dict keyed by field
+    name or the JAX package's `StormInputs` (its host staging; any
+    NamedTuple with those fields).  Float fields become `dtype`, masks
+    bool, indices and counts int32; absent policy fields stay None."""
+    if hasattr(np_inputs, "_asdict"):
+        np_inputs = np_inputs._asdict()
+    return _fields_from_numpy(
+        StormInputs, np_inputs,
+        ("affinity", "ask", "pre_cpu", "pre_mem", "pre_disk",
+         "policy_tput_term", "policy_has_tput", "policy_mig_term"),
+        device, dtype,
+    )
+
+
+def storm_columns(cols: Dict[str, Any], device, dtype=torch.float64):
+    """The six node columns of a storm solve (cpu/mem/disk totals, then
+    used) as `dtype` tensors on `device`."""
+    return tuple(
+        _tensor(cols[k], dtype, device)
+        for k in ("cpu_total", "mem_total", "disk_total", "cpu_used",
+                  "mem_used", "disk_used")
+    )

@@ -1,8 +1,9 @@
 """Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
-(csrc/chained_picks.cu) and K4 (csrc/patch_rows.cu) against their plain
-twins, on the card and on the CPU, at the main path's width (a
-16,384-row arena with 10,000 candidates).  Exact equality of every
-output, in f64 and in f32.
+(csrc/chained_picks.cu), K4 (csrc/patch_rows.cu) and K5
+(csrc/storm_solve.cu) against their plain twins, on the card and on the
+CPU, at the main path's width (a 16,384-row arena with 10,000
+candidates; K5 with 8 and 1,024 rows).  Exact equality of every output,
+in f64 and in f32.
 
 These tests need a CUDA device; without one they skip.  Run them on the
 card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -13,19 +14,24 @@ import torch
 
 from nomad_tpu_torch.ops import batch as tbatch
 from nomad_tpu_torch.ops import score as tscore
+from nomad_tpu_torch.ops import solve as tsolve
 from nomad_tpu_torch.ops.cases import (
     BATCH_SCENARIOS,
     CHAIN_SCENARIOS,
     INT32_MAX,
     SCORE_SCENARIOS,
+    STORM_SCENARIOS,
     batch_case,
     chain_case,
     score_case,
+    storm_case,
 )
 from nomad_tpu_torch.state.convert import (
     batch_inputs_from_numpy,
     chain_case_to_torch,
     score_inputs_from_numpy,
+    storm_columns,
+    storm_inputs,
 )
 
 pytestmark = pytest.mark.gpu
@@ -157,8 +163,39 @@ def test_patch_rows_kernel_matches_twin(cuda, width, dtype):
     assert (_bits(on_card) == _bits(twin)).all()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("A", [8, 1024])
+@pytest.mark.parametrize("scenario", STORM_SCENARIOS)
+def test_storm_solve_kernel_matches_twin(cuda, scenario, A, dtype):
+    cols, inp, max_rounds = storm_case(
+        4000 + STORM_SCENARIOS.index(scenario), A, A, C, scenario
+    )
+    card = (storm_inputs(inp, cuda, dtype), storm_columns(cols, cuda, dtype))
+    before = tsolve.storm_assignment_cuda.launches
+    kern = tsolve.storm_assignment(*card, False, max_rounds)
+    torch.cuda.synchronize()
+    assert tsolve.storm_assignment_cuda.launches == before + 1
+    twin_card = tsolve.storm_assignment_twin(*card, False, max_rounds)
+    twin_cpu = tsolve.storm_assignment_twin(
+        storm_inputs(inp, "cpu", dtype), storm_columns(cols, "cpu", dtype),
+        False, max_rounds,
+    )
+    for k, tc, tp in zip(kern, twin_card, twin_cpu):
+        if k.dtype.is_floating_point:
+            assert (_bits(k) == _bits(tc)).all()
+            assert (_bits(k) == _bits(tp)).all()
+        else:
+            assert torch.equal(k.cpu(), tc.cpu())
+            assert torch.equal(k.cpu(), tp)
+
+
 def test_launch_rejects_cpu_and_mixed_devices(cuda):
     case = score_case(1, 256, 200, "div0", 2)
     inp = score_inputs_from_numpy(case, cuda)
     with pytest.raises(ValueError):
         tscore.score_and_select(inp._replace(perm=inp.perm.cpu()))
+    cols, inp, max_rounds = storm_case(2, 4, 8, 256, "dogpile")
+    sinp = storm_inputs(inp, cuda)
+    with pytest.raises(ValueError):
+        tsolve.storm_assignment(sinp._replace(perm=sinp.perm.cpu()),
+                                storm_columns(cols, cuda), False, max_rounds)

@@ -1,6 +1,7 @@
-"""The port stands alone: a small schedule through it, in a fresh
-interpreter, loads neither `jax` nor anything of `nomad_tpu`; and no
-module of the port imports either."""
+"""The port stands alone: a small schedule, a batched Server drain and
+a storm solve through it, in a fresh interpreter, load neither `jax`
+nor anything of `nomad_tpu`; and no module of the port imports
+either."""
 import ast
 import os
 import subprocess
@@ -66,6 +67,37 @@ print(placed, prescored > 0, bad)
 """
 
 
+STORM_SCRIPT = r"""
+import os, sys
+os.environ["NOMAD_TPU_STORM"] = "1"
+os.environ["NOMAD_TPU_STORM_MIN"] = "4"
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.server import Server
+
+server = Server(batch_pipeline=True, device="cpu", seed=1,
+                heartbeat_ttl=1e9)
+for i in range(12):
+    server.register_node(mock.node(id=f"nj-{i:02d}"))
+for k in range(6):
+    job = mock.job(id=f"nj/dispatch-{k}")
+    job.task_groups[0].count = 1
+    server.register_job(job)
+server.start()
+assert server.drain_to_idle(60)
+placed = sum(
+    1 for a in server.store.allocs.values() if not a.terminal_status()
+)
+solves = server.workers[0].storm_solves
+server.stop()
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(placed, solves, bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -89,9 +121,22 @@ def test_port_batched_server_loads_no_jax():
     assert _run_fresh(SERVER_SCRIPT) == "12 True []"
 
 
+def test_port_storm_solve_loads_no_jax():
+    """A family storm (build_storm_problem, K5's twin, decompose, the
+    prescored replay) drains in a fresh interpreter without JAX or the
+    JAX package."""
+    assert _run_fresh(STORM_SCRIPT) == "6 1 []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
-    for path in PORT.rglob("*.py"):
+    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scanned = {p.relative_to(REPO).as_posix() for p in sources}
+    # the storm slice's modules are in the scan
+    assert {"nomad_tpu_torch/ops/solve.py",
+            "nomad_tpu_torch/sched/storm.py",
+            "nomad_tpu_torch/server/batch_worker.py"} <= scanned
+    for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             names = []

@@ -299,7 +299,7 @@ def test_server_without_a_card_raises(monkeypatch):
         TorchServer(batch_pipeline=False)
 
 
-@pytest.mark.parametrize("flag", ["NOMAD_TPU_MESH", "NOMAD_TPU_STORM"])
+@pytest.mark.parametrize("flag", ["NOMAD_TPU_MESH"])
 def test_unported_paths_raise(monkeypatch, flag):
     monkeypatch.setenv(flag, "1")
     with pytest.raises(NotImplementedError):
