@@ -21,8 +21,9 @@ Phases (any failure exits non-zero):
    port's Harness + ServiceScheduler on the card.  The same stream, in
    fresh stores, goes through the port on the CPU (the twins), and its
    first 32 evals through the port's host oracle; the placement streams
-   must be identical, and K1 and K2 must have been launched by the card
-   run.
+   and the AllocMetrics of the explain capture must be identical, and K1
+   and K2 must have been launched by the card run.  The card run is
+   repeated with the capture off (NOMAD_TPU_EXPLAIN=0) for its cost.
 5. Times each kernel and its twin on the card with CUDA events at the
    main path's shapes (>= 1,000 launches after warm-up); for K4 also
    the nearest single PyTorch call (`index_copy_`).
@@ -39,7 +40,8 @@ Phases (any failure exits non-zero):
    `warm_shapes()`, fed 416 jobs (384 count-10 service jobs, 16 with a
    percent spread on the datacenter and 16 with an even spread on the
    rack, after job 48).  The same stream goes through the port's
-   sequential `Server(batch_pipeline=False)` on the card, and its first
+   sequential `Server(batch_pipeline=False)` on the card (with the
+   explain capture off, as earlier versions ran it), and its first
    48 jobs through a sequential Server running the host oracle.  The
    placements must be identical, the batched worker must have prescored
    evals with no errors, and K3 and K4 must have been launched.
@@ -57,6 +59,20 @@ storm. The storm path: the port's batched `Server()` with
    storm path, no errors, and K5 was launched.  Then the same stream
    with NOMAD_TPU_STORM=0 on the card, for the record: placements/s of
    each mode and the score-sum delta.
+k6. Kernel K6 (the walk alone over a host-built score vector,
+   csrc/walk_only.cu) against its twin on the card and on the CPU for
+   every walk scenario of `ops/cases.py`, C in {8, 1024, 16384}, limits
+   1, 2, 14 and unlimited, f64 and f32: row, best, feasible count and
+   pulls bit-equal.
+preempt. Preemption-mode selects: the same 10,000-node / 100,000-alloc
+   cluster (priority-50 filler allocs) with service preemption on, and
+   20 count-1 priority-80 jobs that only a preemption can place, through
+   the port's sequential `Server(batch_pipeline=False)` (the per-eval
+   device stack) on the card, on the CPU twins and on the host oracle.
+   Placements and preemption sets must be equal across the three,
+   AllocMetrics and explain records equal to the CPU twins', the metric
+   counts equal to the oracle's; no errors, at least 16 preempt selects,
+   and K6 launched.
 
 Prints the kernels line, then the card's nvidia-smi line, then the
 result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -85,6 +101,8 @@ STORM_JOBS = 1024  # the storm phase's dispatch children
 STORM_ROWS = (8, 1024)  # phase k5's A
 CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
 PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
+WALK_WIDTHS = (8, 1024, 16_384)  # phase k6's C
+PREEMPT_JOBS = 20  # the preempt phase's priority-80 jobs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F64_FLOPS = 34e12  # H100 SXM f64 outside the tensor cores, data sheet
 FLOPS_PER_CANDIDATE = 120  # ~40 flops of score plus two pows (~40 each)
@@ -223,7 +241,7 @@ def check_k2(cuda) -> dict:
 def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS):
     """bench.py's seeded cluster (nodes with deterministic ids, 8/16/32
     cores and 16/32/64 GiB, then filler allocs of 100-500 MHz and
-    128-512 MiB on random nodes), plus a datacenter (dc1-dc3) and a
+    128-512 MiB on random nodes, here with fixed ids too), plus a datacenter (dc1-dc3) and a
     rack attribute drawn from a second seeded stream, so that spread and
     affinity stanzas have values to act on."""
     from nomad_tpu_torch import mock
@@ -240,7 +258,8 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS):
     topo = random.Random(11)
     nodes = []
     for i in range(n_nodes):
-        n = mock.node(id=f"bench-node-{i:05d}")
+        # a fixed name too: an explain record names the node
+        n = mock.node(id=f"bench-node-{i:05d}", name=f"bench-node-{i:05d}")
         n.node_resources.cpu = rng.choice([8000, 16000, 32000])
         n.node_resources.memory_mb = rng.choice([16384, 32768, 65536])
         n.datacenter = topo.choice(["dc1", "dc2", "dc3"])
@@ -261,6 +280,10 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS):
         node = nodes[rng.randrange(n_nodes)]
         allocs.append(
             Allocation(
+                # fixed ids: a node's allocs are kept in a set of ids, so
+                # random ids would order them differently in each run,
+                # and a preemption choosing among equal allocs with them
+                id=f"filler-{i:06d}",
                 namespace="default",
                 job_id="filler",
                 job=filler_job,
@@ -334,12 +357,45 @@ def job_stream():
     return [(kind, make, 100 + k) for k, (kind, make) in enumerate(stream)]
 
 
+def metric_fields(m) -> dict:
+    """Every AllocMetric field but the wall-clock allocation time."""
+    import dataclasses
+
+    d = dataclasses.asdict(m)
+    d.pop("allocation_time_s")
+    return d
+
+
+def metric_summary(m) -> tuple:
+    """The serial chain's view of an AllocMetric, which the device
+    stack's capture must reproduce against the host oracle: the counts,
+    the filter and exhaustion histograms, and every node's score
+    decomposition (order aside).  In preemption mode the device stack's
+    exact evict evaluations also record the nodes they evaluated outside
+    the walk (as the JAX package's do), so there `score_meta` is left
+    out: `preempt_summary`."""
+    return preempt_summary(m) + (sorted(
+        (s.node_id, tuple(sorted(s.scores.items())), s.norm_score)
+        for s in m.score_meta),)
+
+
+def preempt_summary(m) -> tuple:
+    return (m.nodes_evaluated, m.nodes_filtered, m.nodes_exhausted,
+            dict(m.constraint_filtered), dict(m.class_filtered),
+            dict(m.dimension_exhausted), dict(m.nodes_available))
+
+
 def run_stream(mode: str, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
                on_ready=None, limit=None):
     """Build a fresh world and run the job stream (its first `limit`
     evals, when given) through the port.  mode: "cuda" (the kernels),
     "cpu" (the twins) or "oracle" (the host iterator chain).  Returns
-    (placement stream, per-eval seconds, placements)."""
+    (placement stream, per-eval seconds, placements, metrics), where
+    metrics[i] holds eval i's AllocMetrics, one per placed alloc (by
+    name) and one per failed task group, each as the digests of its
+    `metric_fields` and `metric_summary` views: an unlimited walk
+    captures a score entry for every node, and holding some 10^6 of
+    them across the later runs would slow those runs' host work."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.sched.generic_sched import ServiceScheduler
     from nomad_tpu_torch.sched.testing import Harness
@@ -351,7 +407,7 @@ def run_stream(mode: str, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
     kwargs = {"use_device": False} if mode == "oracle" else {"device": mode}
     if on_ready is not None:
         on_ready()
-    stream, seconds, placed = [], [], 0
+    stream, seconds, placed, metrics, evaluated = [], [], 0, [], 0
     for kind, make, seed in job_stream()[:limit]:
         job = make()
         h.store.upsert_job(job)
@@ -359,22 +415,48 @@ def run_stream(mode: str, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
         n_plans = len(h.plans)
         n_blocked = len(h.create_evals)
         t = time.perf_counter()
-        h.process(ServiceScheduler, ev, seed=seed, **kwargs)
+        sched = h.process(ServiceScheduler, ev, seed=seed, **kwargs)
         if mode == "cuda":
             import torch
 
             torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
-        allocs = sorted(
-            (a.name, a.node_id)
-            for p in h.plans[n_plans:]
-            for v in p.node_allocation.values()
-            for a in v
-        )
+        evaluated += sum(m.nodes_evaluated for m in sched.failed_tg_allocs.values())
+        new = [a for p in h.plans[n_plans:]
+               for v in p.node_allocation.values() for a in v]
+        allocs = sorted((a.name, a.node_id) for a in new)
+        evaluated += sum(a.metrics.nodes_evaluated for a in new)
         placed += len(allocs)
         stream.append((job.id, kind, allocs, len(h.create_evals) - n_blocked))
-    log(f"  [{mode}] {len(stream)} evals in {sum(seconds):.1f}s")
-    return stream, seconds, placed
+        metrics.append((
+            {a.name: metric_digests(a.metrics) for a in new},
+            {tg: metric_digests(m)
+             for tg, m in sched.failed_tg_allocs.items()},
+        ))
+    log(f"  [{mode}] {len(stream)} evals in {sum(seconds):.1f}s, "
+        f"{evaluated} evaluated nodes in the AllocMetrics")
+    return stream, seconds, placed, metrics, evaluated
+
+
+def metric_digests(m) -> tuple:
+    """(digest of `metric_fields`, digest of `metric_summary`)."""
+    import hashlib
+
+    return tuple(hashlib.sha256(repr(view(m)).encode()).hexdigest()
+                 for view in (metric_fields, metric_summary))
+
+
+def same_metrics(a, b, view: int) -> bool:
+    """Two runs' per-eval AllocMetric digests equal under view 0
+    (`metric_fields`) or 1 (`metric_summary`)."""
+    if len(a) != len(b):
+        return False
+    for (pa, fa), (pb, fb) in zip(a, b):
+        for x, y in ((pa, pb), (fa, fb)):
+            if {k: d[view] for k, d in x.items()} != {
+                    k: d[view] for k, d in y.items()}:
+                return False
+    return True
 
 
 def check_main_path(cuda, card: str) -> dict:
@@ -385,8 +467,11 @@ def check_main_path(cuda, card: str) -> dict:
         tscore.score_select_cuda.launches = 0
         tbatch.plan_picks_cuda.launches = 0
 
+    from nomad_tpu_torch.explain import EXPLAIN
+
     # counts are zeroed after the world is built, just before the stream
-    cuda_stream, seconds, placed = run_stream("cuda", on_ready=reset_counts)
+    cuda_stream, seconds, placed, cuda_metrics, evaluated = run_stream(
+        "cuda", on_ready=reset_counts)
     launches = {
         "score_select": tscore.score_select_cuda.launches,
         "plan_picks": tbatch.plan_picks_cuda.launches,
@@ -394,13 +479,27 @@ def check_main_path(cuda, card: str) -> dict:
     print(f"main path (cuda): launches {launches}", flush=True)
     check(launches["score_select"] > 0, "K1 was not launched on the main path")
     check(launches["plan_picks"] > 0, "K2 was not launched on the main path")
-    cpu_stream, _, _ = run_stream("cpu")
-    oracle_stream, _, _ = run_stream("oracle", limit=ORACLE_EVALS)
+    # the same stream with the explain capture off (NOMAD_TPU_EXPLAIN=0):
+    # the capture is host work, so its cost shows in placements/s
+    EXPLAIN.set_enabled(False)
+    try:
+        off_stream, off_seconds, _, _, _ = run_stream("cuda")
+    finally:
+        EXPLAIN.set_enabled(True)
+    check(off_stream == cuda_stream, "placements changed with the explain capture off")
+    check(evaluated > 0, "the capture recorded no evaluated node")
+    cpu_stream, _, _, cpu_metrics, _ = run_stream("cpu")
+    oracle_stream, _, _, oracle_metrics, _ = run_stream(
+        "oracle", limit=ORACLE_EVALS)
     for name, other in (("cpu twins", cpu_stream), ("host oracle", oracle_stream)):
         for a, b in zip(cuda_stream, other):
             check(a == b, f"placement stream diverged from the {name} at {a[0]}: {a} vs {b}")
     check(len(cuda_stream) == len(cpu_stream), "stream length differs from the cpu twins")
     check(len(oracle_stream) == ORACLE_EVALS, "the host oracle's prefix is short")
+    check(same_metrics(cuda_metrics, cpu_metrics, 0),
+          "AllocMetrics differ between the card and the CPU twins")
+    check(same_metrics(cuda_metrics[:ORACLE_EVALS], oracle_metrics, 1),
+          "AllocMetrics differ between the card and the host oracle")
     blocked = sum(s[3] for s in cuda_stream)
     check(blocked >= 1, "the unplaceable job created no blocked eval")
     by_kind = {}
@@ -414,15 +513,19 @@ def check_main_path(cuda, card: str) -> dict:
     p50 = statistics.median(srt)
     p99 = srt[min(len(srt) - 1, int(round(0.99 * (len(srt) - 1))))]
     rate = placed / total_s
+    rate_off = placed / sum(off_seconds)
     print(
         f"main path on {card}: {len(cuda_stream)} evals, {placed} placements, "
-        f"{rate:.1f} placements/s, eval latency p50 {p50 * 1e3:.2f} ms "
-        f"p99 {p99 * 1e3:.2f} ms (host clock, each eval ends in a device "
-        f"sync); identical to the CPU twins and, on its first "
-        f"{ORACLE_EVALS} evals, the host oracle",
+        f"{rate:.1f} placements/s with the explain capture on, {rate_off:.1f} "
+        f"with it off (NOMAD_TPU_EXPLAIN=0), eval latency p50 {p50 * 1e3:.2f} "
+        f"ms p99 {p99 * 1e3:.2f} ms (host clock, each eval ends in a device "
+        f"sync); placements and AllocMetrics identical to the CPU twins and, "
+        f"on its first {ORACLE_EVALS} evals, the host oracle ({evaluated} "
+        f"evaluated nodes captured on the card)",
         flush=True,
     )
     return {"launches": launches, "placements_per_s": rate,
+            "placements_per_s_capture_off": rate_off,
             "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "placed": placed}
 
 
@@ -675,7 +778,14 @@ def check_server(cuda, card: str) -> dict:
     check(launches["chained_picks"] > 0, "K3 was not launched on the main path")
     check(launches["patch_rows"] > 0, "K4 was not launched on the main path")
 
+    from nomad_tpu_torch.explain import EXPLAIN
+
+    # the sequential comparison runs with the explain capture off, as the
+    # port ran it before it had one, so its placements/s stays comparable
+    # across versions; the capture's cost is measured in phase 4, and it
+    # never changes a placement (phase 4 checks that)
     seq = new_server(batch_pipeline=False)
+    EXPLAIN.set_enabled(False)
     try:
         cfg = seq.store.get_scheduler_config()
         cfg.tpu_scheduler_enabled = True  # the per-eval device stack
@@ -684,6 +794,7 @@ def check_server(cuda, card: str) -> dict:
                                                       "sequential")
         seq_errors = seq.workers[0].errors
     finally:
+        EXPLAIN.set_enabled(True)
         seq.stop()
     check(seq_errors == 0, f"the sequential worker counted {seq_errors} errors")
     oracle_server = new_server(batch_pipeline=False)
@@ -713,7 +824,8 @@ def check_server(cuda, card: str) -> dict:
         f"main path (batched Server) on {card}: {len(jobs)} evals, {placed} "
         f"placements in {dt:.2f}s = {rate:.1f} placements/s, eval latency "
         f"(ack - submit) p50 {pct(lat, 0.5):.2f} ms p99 {pct(lat, 0.99):.2f} ms; "
-        f"sequential Server on the card: {placed / seq_dt:.1f} placements/s, "
+        f"sequential Server on the card (explain capture off): "
+        f"{placed / seq_dt:.1f} placements/s, "
         f"p50 {pct(seq_lat, 0.5):.2f} ms p99 {pct(seq_lat, 0.99):.2f} ms; "
         f"identical placements, and on the first {SERVER_ORACLE_JOBS} jobs "
         f"identical to the host oracle",
@@ -1036,6 +1148,223 @@ def time_storm_kernel(cuda) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase k6 / preempt: preemption-mode selects
+# ---------------------------------------------------------------------------
+
+
+def check_k6(cuda) -> dict:
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops.cases import INT32_MAX, WALK_SCENARIOS, walk_case
+
+    n_cases = 0
+    max_err = 0.0
+    for dtype, np_dtype in ((torch.float64, np.float64),
+                            (torch.float32, np.float32)):
+        for si, scenario in enumerate(sorted(WALK_SCENARIOS)):
+            for width in WALK_WIDTHS:
+                for limit in (1, 2, 14, INT32_MAX):
+                    case = walk_case(9700 + 10 * si + width % 7, width,
+                                     scenario, limit, np_dtype)
+
+                    def tensors(dev):
+                        return (torch.from_numpy(case["feasible"]).to(dev),
+                                torch.from_numpy(case["scores"]).to(dev),
+                                torch.from_numpy(case["perm"]).to(dev))
+
+                    card = tensors(cuda)
+                    buf = tscore.walk_only_cuda(*card, limit,
+                                                case["n_candidates"])
+                    torch.cuda.synchronize()
+                    kern = tscore.unpack_walk(buf.cpu(), dtype)
+                    tag = f"K6 {dtype} {scenario} C={width} limit={limit}"
+                    for where, dev_args in (("card", card),
+                                            ("CPU", tensors("cpu"))):
+                        twin = tscore.limited_walk_argmax(
+                            *dev_args, limit, case["n_candidates"])
+                        want = (int(twin[0]), float(twin[1]), int(twin[2]),
+                                int(twin[3]))
+                        check(kern[0::2] == want[0::2] and kern[3] == want[3],
+                              f"{tag}: kernel != twin on {where}: {kern} vs {want}")
+                        b_k = np.asarray(kern[1], np_dtype)
+                        b_t = twin[1].cpu().numpy()
+                        check(b_k.tobytes() == b_t.tobytes(),
+                              f"{tag}: best differs from the twin on {where}")
+                        if np.isfinite(b_k) and np.isfinite(b_t):
+                            max_err = max(max_err, float(abs(b_k - b_t)))
+                    n_cases += 1
+    print(f"K6: {n_cases} cases exact on card and CPU (f64 and f32; row, best, "
+          f"feasible count and pulls), max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases}
+
+
+def preempt_jobs():
+    """The preempt phase's stream: PREEMPT_JOBS count-1 service jobs at
+    priority 80, each asking 31,500 MHz and 64,000 MB.  Only a 32,000
+    MHz / 65,536 MB node (about one in nine) can hold one, and almost
+    none has that much free beside the priority-50 filler allocs, so
+    each eval's first select fails and the scheduler retries it in
+    preemption mode."""
+    from nomad_tpu_torch import mock
+
+    jobs = []
+    for i in range(PREEMPT_JOBS):
+        job = mock.job(id=f"urgent-{i:03d}", datacenters=DCS)
+        job.priority = 80
+        job.task_groups[0].count = 1
+        job.task_groups[0].tasks[0].resources.cpu = 31_500
+        job.task_groups[0].tasks[0].resources.memory_mb = 64_000
+        jobs.append(job)
+    return jobs
+
+
+def run_preempt(mode: str, n_nodes: int = N_NODES,
+                n_allocs: int = N_ALLOCS, on_ready=None) -> dict:
+    """The preempt stream through a fresh sequential Server (the per-eval
+    device stack, service preemption on).  mode: "cuda" (the kernels),
+    "cpu" (the twins) or "oracle" (the host iterator chain).  Returns
+    placements, evictions, AllocMetrics and explain records by job, the
+    worker's errors, and the preempt selects' count, exact evict
+    evaluations and host seconds."""
+    import copy
+
+    from nomad_tpu_torch.explain import EXPLAIN
+    from nomad_tpu_torch.sched.cuda_stack import CudaGenericStack
+    from nomad_tpu_torch.server import Server
+
+    server = Server(num_schedulers=1, seed=1, batch_pipeline=False,
+                    heartbeat_ttl=1e9,
+                    device=None if mode == "cuda" else "cpu")
+    t0 = time.perf_counter()
+    build_world(server.store, n_nodes, n_allocs)
+    log(f"  [preempt {mode}] world built in {time.perf_counter() - t0:.1f}s")
+    cfg = server.store.get_scheduler_config()
+    cfg.tpu_scheduler_enabled = True  # the per-eval device stack
+    cfg.preemption_config.service_scheduler_enabled = True
+    server.store.set_scheduler_config(cfg)
+    if mode == "oracle":
+        server.workers[0].host_fallback = True
+    stats = {"selects": 0, "evict_evals": 0, "select_seconds": 0.0}
+    orig_select = CudaGenericStack._preempt_select
+    orig_verify = CudaGenericStack._verify_winner
+
+    def timed_select(stack, tg, options):
+        t = time.perf_counter()
+        try:
+            return orig_select(stack, tg, options)
+        finally:
+            stats["selects"] += 1
+            stats["select_seconds"] += time.perf_counter() - t
+
+    def counted_verify(stack, node_id, tg, evict=False):
+        stats["evict_evals"] += int(evict)
+        return orig_verify(stack, node_id, tg, evict)
+
+    CudaGenericStack._preempt_select = timed_select
+    CudaGenericStack._verify_winner = counted_verify
+    try:
+        if on_ready is not None:
+            on_ready()
+        server.start()
+        jobs = preempt_jobs()
+        t0 = time.perf_counter()
+        evals = {}
+        for job in jobs:
+            evals[job.id] = server.register_job(job).id
+            check(server.drain_to_idle(timeout=300.0),
+                  f"preempt {mode}: the server did not drain")
+        dt = time.perf_counter() - t0
+        out = {"placements": {}, "metrics": {}, "records": {},
+               "seconds": dt, "errors": server.workers[0].errors}
+        for job in jobs:
+            live = [a for a in server.store.allocs_by_job("default", job.id)
+                    if not a.terminal_status()]
+            out["placements"][job.id] = sorted((a.name, a.node_id) for a in live)
+            out["metrics"][job.id] = {a.name: a.metrics for a in live}
+            rec = copy.deepcopy(EXPLAIN.get(evals[job.id]))
+            if rec is not None:
+                for key in ("EvalID", "TraceID", "RecordedAt"):
+                    rec.pop(key)
+                for tg in rec["TaskGroups"].values():
+                    if tg["Metric"] is not None:
+                        tg["Metric"].pop("AllocationTime")
+            out["records"][job.id] = rec
+        out["evicted"] = sorted(
+            (a.name, a.node_id) for a in server.store.allocs.values()
+            if a.desired_status == "evict")
+    finally:
+        CudaGenericStack._preempt_select = orig_select
+        CudaGenericStack._verify_winner = orig_verify
+        server.stop()
+    out.update(stats)
+    log(f"  [preempt {mode}] {sum(map(len, out['placements'].values()))} "
+        f"placed, {len(out['evicted'])} evicted in {dt:.1f}s; "
+        f"{stats['selects']} preempt selects, {stats['evict_evals']} evict "
+        f"evaluations")
+    return out
+
+
+def check_preempt(cuda, card: str) -> dict:
+    from nomad_tpu_torch.ops import score as tscore
+
+    def reset_counts():
+        tscore.walk_only_cuda.launches = 0
+
+    on_card = run_preempt("cuda", on_ready=reset_counts)
+    k6_launches = tscore.walk_only_cuda.launches
+    cpu = run_preempt("cpu")
+    oracle = run_preempt("oracle")
+    for name, r in (("card", on_card), ("CPU", cpu), ("oracle", oracle)):
+        check(r["errors"] == 0, f"the {name} preempt run counted {r['errors']} errors")
+    check(k6_launches > 0, "K6 was not launched on the preempt path")
+    check(on_card["selects"] >= 16,
+          f"only {on_card['selects']} selects took the preempt branch")
+    check(on_card["placements"] == cpu["placements"],
+          "preempt placements differ between the card and the CPU twins")
+    check(on_card["placements"] == oracle["placements"],
+          "preempt placements differ between the card and the host oracle")
+    check(on_card["evicted"] == cpu["evicted"] == oracle["evicted"],
+          "preemption sets differ between card, CPU twins and host oracle")
+    check(len(on_card["evicted"]) > 0, "nothing was preempted")
+    check(on_card["records"] == cpu["records"],
+          "explain records differ between the card and the CPU twins")
+    check(all(r is not None for r in on_card["records"].values()),
+          "an eval of the preempt stream has no explain record")
+    for job_id, by_name in on_card["metrics"].items():
+        check({k: metric_fields(m) for k, m in by_name.items()}
+              == {k: metric_fields(m) for k, m in cpu["metrics"][job_id].items()},
+              f"AllocMetrics differ between the card and the CPU twins at {job_id}")
+        check({k: preempt_summary(m) for k, m in by_name.items()}
+              == {k: preempt_summary(m)
+                  for k, m in oracle["metrics"][job_id].items()},
+              f"AllocMetrics differ between the card and the host oracle at {job_id}")
+    placed = sum(map(len, on_card["placements"].values()))
+    ms = on_card["select_seconds"] / max(1, on_card["selects"]) * 1e3
+    print(
+        f"preempt path on {card}: {PREEMPT_JOBS} priority-80 jobs, {placed} "
+        f"placed, {len(on_card['evicted'])} allocs preempted; "
+        f"{on_card['selects']} preempt selects, "
+        f"{on_card['evict_evals'] / max(1, on_card['selects']):.1f} exact evict "
+        f"evaluations a select, K6 launches {k6_launches}, "
+        f"{ms:.2f} ms a preempt select (host clock; CPU twins "
+        f"{cpu['select_seconds'] / max(1, cpu['selects']) * 1e3:.2f} ms); stream "
+        f"{on_card['seconds']:.2f} s on the card, {cpu['seconds']:.2f} s on "
+        f"the CPU twins, {oracle['seconds']:.2f} s on the host oracle; "
+        f"placements, preemption sets, AllocMetrics and explain records "
+        f"equal to the CPU twins, placements, preemption sets and metric "
+        f"counts equal to the host oracle",
+        flush=True,
+    )
+    return {"launches": {"walk_only": k6_launches},
+            "selects": on_card["selects"],
+            "evict_evals": on_card["evict_evals"], "ms_per_select": ms,
+            "stream_s": on_card["seconds"], "placed": placed,
+            "evicted": len(on_card["evicted"])}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1071,7 +1400,8 @@ def time_kernels(cuda) -> dict:
     )
 
     saved = (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
-             tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches)
+             tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches,
+             tscore.walk_only_cuda.launches)
     k1 = score_inputs_from_numpy(
         score_case(7000, C_CHECK, N_CAND_CHECK, "mixed", 14), cuda
     )
@@ -1112,8 +1442,10 @@ def time_kernels(cuda) -> dict:
     saved_k5 = tsolve.storm_assignment_cuda.launches
     out["storm_solve"] = time_storm_kernel(cuda)
     tsolve.storm_assignment_cuda.launches = saved_k5
+    out["walk_only"] = time_walk_kernel(cuda)
     (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
-     tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches) = saved
+     tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches,
+     tscore.walk_only_cuda.launches) = saved
     for v in out.values():
         v.setdefault("library_ms", None)
         t_bytes = v["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1127,6 +1459,33 @@ def time_kernels(cuda) -> dict:
                       f"{v['flops']} ops, {v['bound_ms']:.9f} ({v['bound_by']})"
                       for k, v in out.items()), flush=True)
     return out
+
+
+def time_walk_kernel(cuda) -> dict:
+    """K6 at the preempt path's shape: the 16,384-row arena with 13,107
+    candidates, f64, a spliced score vector (`walk_case` "spliced") and
+    the service visit limit ceil(log2 10,000) = 14; beside it the twin
+    on the card.  The bound counts each input byte once (feasible,
+    scores and perm of every position) plus the 32-byte result, and two
+    f64 comparisons a position."""
+    import torch
+
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops.cases import walk_case
+
+    case = walk_case(9800, C_CHECK, "spliced", 14)
+    args = (torch.from_numpy(case["feasible"]).to(cuda),
+            torch.from_numpy(case["scores"]).to(cuda),
+            torch.from_numpy(case["perm"]).to(cuda), 14,
+            case["n_candidates"])
+    return {
+        "ms": cuda_time_ms(lambda: tscore.walk_only_cuda(*args)),
+        "plain_ms": cuda_time_ms(lambda: tscore.limited_walk_argmax(*args),
+                                 n=200, warmup=3),
+        "bytes": C_CHECK * (1 + 8 + 4) + 32,
+        "flops": 2 * C_CHECK,
+        "library_ms": None,
+    }
 
 
 def time_chain_kernels(cuda) -> dict:
@@ -1240,6 +1599,8 @@ def main() -> int:
                      ("server", lambda: check_server(cuda, card)),
                      ("k5", lambda: check_k5(cuda)),
                      ("storm", lambda: check_storm(cuda, card)),
+                     ("k6", lambda: check_k6(cuda)),
+                     ("preempt", lambda: check_preempt(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
         try:
@@ -1255,6 +1616,7 @@ def main() -> int:
     launches = dict(results["main"]["launches"])
     launches.update(results["server"]["launches"])
     launches["storm_solve"] = results["storm"]["launches"]["storm_solve"]
+    launches["walk_only"] = results["preempt"]["launches"]["walk_only"]
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -1267,6 +1629,8 @@ def main() -> int:
          "nomad_tpu/ops/batch.py:1091", "k4"),
         ("storm_solve", "nomad_tpu_torch/csrc/storm_solve.cu",
          "nomad_tpu/ops/solve.py:113", "k5"),
+        ("walk_only", "nomad_tpu_torch/csrc/walk_only.cu",
+         "nomad_tpu/sched/tpu_stack.py:95", "k6"),
     ):
         tm = results["timing"][name]
         kernels.append({

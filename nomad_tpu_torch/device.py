@@ -21,6 +21,13 @@ class NoDeviceError(RuntimeError):
     process has none."""
 
 
+class DeviceFault(RuntimeError):
+    """The device path failed (staging, a kernel's build or launch, the
+    fetch of its result).  Fatal to the worker that met it: its device
+    state is suspect, and carrying on with the host oracle instead would
+    hide the fault."""
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` -> ``cuda`` (current card); ``"cpu"`` -> CPU; any other
     spelling must name a CUDA device that exists."""

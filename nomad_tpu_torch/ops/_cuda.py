@@ -36,6 +36,7 @@ SOURCES = {
     "chained_picks": "chained_picks.cu",
     "patch_rows": "patch_rows.cu",
     "storm_solve": "storm_solve.cu",
+    "walk_only": "walk_only.cu",
 }
 HEADERS = ("walk.cuh",)
 
@@ -456,3 +457,29 @@ def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int):
     _launch("storm_solve", "nk_storm_solve", args, dev)
     return (out["out_assigned"], out["out_pulls"], out["out_round"],
             out["out_score"], out["out_greedy"], out["out_rounds"][0])
+
+
+class WalkOnlyArgs(ctypes.Structure):
+    """Mirror of `WalkOnlyArgs` in csrc/walk_only.cu."""
+
+    _fields_ = [
+        ("feasible", _P), ("scores", _P), ("perm", _P),
+        ("s_scratch", _P), ("f_scratch", _P), ("out", _P),
+        ("limit", _I), ("n_candidates", _I), ("C", _I),
+        ("is_f64", _I), ("device", _I),
+    ]
+
+
+def launch_walk_only(feasible, scores, perm, s_scratch, f_scratch, out, *,
+                     limit: int, n_candidates: int) -> None:
+    """K6 on the current stream over contiguous CUDA tensors (checked by
+    the wrapper): the walk of `scores`/`feasible` in `perm` order into
+    the int64[4] `out`."""
+    dev = scores.device
+    args = WalkOnlyArgs(
+        feasible.data_ptr(), scores.data_ptr(), perm.data_ptr(),
+        s_scratch.data_ptr(), f_scratch.data_ptr(), out.data_ptr(),
+        limit, n_candidates, scores.shape[0],
+        int(scores.dtype == torch.float64), dev.index,
+    )
+    _launch("walk_only", "nk_walk_only", args, dev)

@@ -1,5 +1,6 @@
-"""Seeded edge-case inputs for kernels K1 (one select) and K2 (the pick
-scan), as numpy dicts keyed by the JAX programs' field names.
+"""Seeded edge-case inputs for the kernels — K1 (one select), K2 (the
+pick scan), K3 (the chained planner), K5 (the storm solve) and K6 (the
+walk alone) — as numpy dicts keyed by the JAX programs' field names.
 
 Both the CPU tests (port twin against the JAX programs) and
 `chip_smoke.py` (kernel against twin on the card) draw from here, so
@@ -553,3 +554,59 @@ def storm_case(seed: int, E: int, A: int, C: int, scenario: str):
         real=real, pre_cpu=pre[0], pre_mem=pre[1], pre_disk=pre[2],
     )
     return cols, inputs, max_rounds
+
+
+# K6 (the walk over a host-built score vector).  (n_bad, n_good): bad
+# nodes score <= 0 and are diverted up to three at a time; "spliced"
+# mixes in rows scored as the preemption path splices them (the mean
+# of a binpack term and the logistic preemption term, often <= 0);
+# "all_neg_inf" has no feasible node and every score -inf.
+WALK_SCENARIOS: Dict[str, Tuple[int, int]] = {
+    "div0": (0, 40),
+    "div1": (1, 40),
+    "div2": (2, 40),
+    "div4": (4, 40),
+    "div2_nogood": (2, 0),
+    "spliced": (-1, -1),
+    "all_neg_inf": (0, 0),
+}
+
+
+def walk_case(seed: int, C: int, scenario: str, limit: int,
+              dtype=np.float64) -> Dict:
+    """One K6 input: `feasible` bool[C], `scores` [C] in `dtype` (-inf
+    where infeasible, as the preemption path stages them), the walk
+    order `perm` (candidates first), `limit` and `n_candidates`."""
+    rng = np.random.default_rng(seed)
+    n_cand = max(1, (4 * C) // 5)
+    perm = rng.permutation(C).astype(np.int32)
+    cand = perm[:n_cand]
+    feasible = np.zeros(C, dtype=bool)
+    scores = np.full(C, -np.inf)
+    if scenario == "spliced":
+        feasible[cand] = rng.random(n_cand) < 0.6
+        scores[cand] = rng.uniform(0.05, 1.0, n_cand)
+        spliced = cand[rng.random(n_cand) < 0.15]
+        binpack = rng.uniform(0.0, 1.0, len(spliced))
+        netp = rng.choice([20.0, 40.0, 60.0], len(spliced))
+        pre = 1.0 / (1.0 + np.exp(0.0048 * (netp - 2048.0))) - 1.0
+        feasible[spliced] = True
+        scores[spliced] = (binpack + pre) / 2.0
+        # ties: the earliest emitted must win
+        good = cand[feasible[cand] & (scores[cand] > 0)]
+        if len(good) >= 4:
+            src, *dst = rng.choice(good, size=4, replace=False)
+            scores[dst] = scores[src]
+    elif scenario != "all_neg_inf":
+        n_bad, n_good = WALK_SCENARIOS[scenario]
+        n_good = min(n_good, n_cand - n_bad)
+        picked = rng.choice(cand, size=n_bad + n_good, replace=False)
+        bad, good = picked[:n_bad], picked[n_bad:]
+        feasible[picked] = True
+        scores[bad] = rng.uniform(-1.0, 0.0, n_bad)
+        scores[good] = rng.uniform(0.05, 1.0, n_good)
+    scores[~feasible] = -np.inf
+    return dict(
+        feasible=feasible, scores=scores.astype(dtype), perm=perm,
+        limit=limit, n_candidates=n_cand,
+    )

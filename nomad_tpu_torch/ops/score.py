@@ -11,7 +11,12 @@ K1, `csrc/score_select.cu`.  This module keeps:
   `score_and_select_twin` and `score_all`, which repeat the JAX
   arithmetic op for op so that they are bit-exact against it under x64;
 * the public wrappers `score_and_select` and `score_and_select_packed`,
-  which launch K1 for CUDA tensors and run the twin for CPU tensors.
+  which launch K1 for CUDA tensors and run the twin for CPU tensors;
+* `walk_only`, the walk alone over a host-built score vector (the
+  preemption-mode select's walk, the JAX package's
+  `nomad_tpu/sched/tpu_stack.py:95 _walk_only`): kernel K6,
+  `csrc/walk_only.cu`, for CUDA tensors, and its twin
+  `limited_walk_argmax` for CPU tensors.
 
 Semantics (see the JAX module for the long form): each term of the
 score appends to a (sum, count) pair under the reference's append
@@ -382,6 +387,81 @@ def score_and_select_packed(inp: ScoreInputs, spread_fit: bool = False):
         row, _best, _n, pulls = score_and_select_twin(inp, spread_fit)
         return torch.stack([row.to(torch.int32), pulls.to(torch.int32)])
     return score_select_cuda(inp, spread_fit).out_i[:2]
+
+
+def _check_walk(feasible, scores, perm) -> torch.device:
+    dev = scores.device
+    if scores.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"scores must be f32 or f64, got {scores.dtype}")
+    if feasible.dtype != torch.bool:
+        raise TypeError(f"feasible must be bool, got {feasible.dtype}")
+    if perm.dtype != torch.int32:
+        raise TypeError(f"perm must be int32, got {perm.dtype}")
+    C = scores.shape[0] if scores.dim() == 1 else -1
+    for name, t in (("feasible", feasible), ("perm", perm)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, scores on {dev}")
+        if t.dim() != 1 or t.shape[0] != C:
+            raise ValueError(
+                f"{name} must have shape [{C}], got {tuple(t.shape)}"
+            )
+    return dev
+
+
+def walk_only_cuda(feasible, scores, perm, limit, n_candidates):
+    """Launch K6 on the tensors' CUDA device (current stream): the
+    limited walk over a host-built score vector.  Returns the int64[4]
+    result buffer ([row, feasible_count, pulls, bits of best]) on the
+    card; nothing is synchronised."""
+    from . import _cuda
+
+    dev = _check_walk(feasible, scores, perm)
+    if dev.type != "cuda":
+        raise ValueError(f"walk_only_cuda needs CUDA tensors, got {dev}")
+    C = scores.shape[0]
+    limit = _host_int(limit)
+    n_cand = _host_int(n_candidates)
+    if limit < 1:
+        raise ValueError(f"limit must be >= 1, got {limit}")
+    if not 0 <= n_cand <= C:
+        raise ValueError(f"n_candidates {n_cand} outside [0, {C}]")
+    s_scratch = torch.empty(C, dtype=scores.dtype, device=dev)
+    f_scratch = torch.empty(C, dtype=torch.uint8, device=dev)
+    out = torch.empty(4, dtype=torch.int64, device=dev)
+    _cuda.launch_walk_only(
+        feasible.contiguous(), scores.contiguous(), perm.contiguous(),
+        s_scratch, f_scratch, out, limit=limit, n_candidates=n_cand,
+    )
+    walk_only_cuda.launches += 1
+    return out
+
+
+walk_only_cuda.launches = 0
+
+
+def unpack_walk(buf: torch.Tensor, dtype: torch.dtype):
+    """K6's int64[4] result (on the host) as (chosen_row, best,
+    feasible_count, pulls) Python numbers."""
+    raw = buf.numpy()
+    if dtype == torch.float64:
+        best = float(raw[3:4].view(np.float64)[0])
+    else:
+        best = float(raw[3:4].astype(np.uint32).view(np.float32)[0])
+    return int(raw[0]), best, int(raw[1]), int(raw[2])
+
+
+def walk_only(feasible, scores, perm, limit, n_candidates):
+    """(chosen_row, best, feasible_count, pulls) as Python numbers: K6
+    for CUDA tensors, fetched with one device->host copy; the twin
+    `limited_walk_argmax` for CPU tensors."""
+    dev = _check_walk(feasible, scores, perm)
+    if dev.type == "cpu":
+        row, best, n, pulls = limited_walk_argmax(
+            feasible, scores, perm, limit, n_candidates
+        )
+        return int(row), float(best), int(n), int(pulls)
+    buf = walk_only_cuda(feasible, scores, perm, limit, n_candidates)
+    return unpack_walk(buf.cpu(), scores.dtype)
 
 
 def make_perm(rng, rows, capacity: int) -> np.ndarray:

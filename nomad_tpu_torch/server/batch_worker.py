@@ -67,7 +67,10 @@ job family into a single (alloc rows x nodes) assignment solve, kernel
 K5 (`ops.solve.storm_assignment`), on the same stream and against the
 same K4-patched mirror; its members replay through the same prescored
 machinery.  A failure of the storm's staging, solve or fetch raises
-DeviceFault as well.  Not ported: the node-sharded mesh path
+DeviceFault as well, and so does a failure of the per-eval device stack
+(K1, K2, K6) under an eval that takes the sequential path.  Every
+replay records its placement explanation in the port's explain ring
+(a speculative replay's only when it commits).  Not ported: the node-sharded mesh path
 (NOMAD_TPU_MESH, which raises), pods, the policy-weighted storm solve
 (NotImplementedError) and the device supervisor.
 """
@@ -112,6 +115,8 @@ from ..structs import (
     TaskGroup,
 )
 from ..decisions import DECISIONS
+from ..device import DeviceFault
+from ..explain import EXPLAIN
 from ..raft import NotLeaderError
 from ..raft import chaos as _chaos
 from ..trace import TRACE
@@ -174,13 +179,6 @@ DEQ_TS_MAX = 1024
 
 class _Deviation(Exception):
     """The eval's control flow left the prescored fast path."""
-
-
-class DeviceFault(RuntimeError):
-    """The prescore pipeline or a storm solve failed (assembly or
-    staging, mirror patch, kernel build or launch, fetch).  Fatal to
-    the worker: its device state is suspect, and running the chain on
-    the host oracle instead would hide the fault."""
 
 
 class _SpecAbort(Exception):
@@ -464,6 +462,10 @@ class _Speculation:
     job_fence: tuple = ()
     config_index: int = -1
     check_deployment: bool = False
+    # placement explanation built on the pool thread, published only
+    # if this speculation commits (a discarded speculation's replay
+    # never happened as far as the explain ring is concerned)
+    explain: Optional[Dict] = None
 
 
 class PrescoredStack:
@@ -2082,6 +2084,7 @@ class BatchWorker(Worker):
             )
             self._count("prescored")
             self._sample_eval_latency(ev)
+            EXPLAIN.annotate(ev.id, LeaderGen=self._leader_gen())
             # a failed prescored pick means the chained state past
             # this eval is suspect — re-prescore
             return clean
@@ -2377,12 +2380,28 @@ class BatchWorker(Worker):
             if demoted:
                 self._count_storm("fallbacks", demoted)
             leftover = self._process_batch(remaining)
+        # explain-ring audit trail: every committed member whose
+        # placements came from the solver carries the solver round,
+        # aggregate assignment score and greedy-walk divergence, so an
+        # explanation shows why the global solve differed from the
+        # serial walk
         for m in storm_members:
-            if m.rows is not None:
-                TRACE.annotate(
-                    m.ev.id, outcome_detail="storm",
-                    storm_round=m.solver_round,
-                )
+            if m.rows is None:
+                continue
+            EXPLAIN.annotate(
+                m.ev.id,
+                Storm={
+                    "Round": m.solver_round,
+                    "AssignmentScore": round(m.assignment_score, 6),
+                    "DivergentRows": m.divergent_rows,
+                    "Rows": len(m.rows),
+                    "LeaderGen": m.leader_gen,
+                },
+            )
+            TRACE.annotate(
+                m.ev.id, outcome_detail="storm",
+                storm_round=m.solver_round,
+            )
         self._export_adaptive_gauges()
         return leftover
 
@@ -2507,6 +2526,7 @@ class BatchWorker(Worker):
         )
         scheduler.process(spec_ev)
         return _Speculation(
+            explain=EXPLAIN.build_record(spec_ev, scheduler),
             ops=planner.ops,
             strict_nodes=strict_nodes,
             # relaxed read set: the plan-touched nodes — their
@@ -2827,6 +2847,13 @@ class BatchWorker(Worker):
         job_ledger.add(key)
         self.evals_processed += 1
         TRACE.annotate(ev.id, outcome="speculative")
+        EXPLAIN.publish(
+            spec.explain, getattr(self.server, "metrics", None)
+        )
+        if leader_gen is not None:
+            # the published explanation names the leadership
+            # generation whose wave committed it
+            EXPLAIN.annotate(ev.id, LeaderGen=leader_gen)
         self.server.broker.ack(ev.id, token)
         self._count("prescored")
         self._count_replay("speculative")
@@ -2842,6 +2869,10 @@ class BatchWorker(Worker):
         t0 = _time.monotonic()
         try:
             self.process_eval(ev, token)
+        except DeviceFault:
+            # the per-eval device stack failed: fatal to the worker
+            # (run() nacks the gulp's leases and stops)
+            raise
         except Exception:  # noqa: BLE001
             # nacked for redelivery, and counted: a failure here must
             # not loop as silent redeliveries
@@ -2855,6 +2886,9 @@ class BatchWorker(Worker):
         self._observe("sequential", dt, exemplar=ev.id)
         TRACE.add_span(ev.id, "batch_worker.sequential", t0, dt)
         self._sample_eval_latency(ev)
+        # failover forensics: every explain record names the
+        # leadership generation whose pipeline produced it
+        EXPLAIN.annotate(ev.id, LeaderGen=self._leader_gen())
 
     def _nack_quietly(self, ev, token) -> None:
         self._deq_ts.pop(ev.id, None)
@@ -4360,6 +4394,9 @@ class BatchWorker(Worker):
         )
         self.evals_processed += 1
         TRACE.annotate(ev.id, outcome="prescored")
+        EXPLAIN.record_eval(
+            ev, scheduler, getattr(self.server, "metrics", None)
+        )
         self.server.broker.ack(ev.id, token)
         if made and made[0].entered_passthrough:
             self._count("preempt_passthroughs")

@@ -93,6 +93,13 @@ class Server:
         self.device = resolve_device(device)
         self.store = store if store is not None else StateStore()
         self.metrics = Metrics()
+        # placement explainability: zero-register the placement.*
+        # counter/gauge families so dashboards see the whole reason
+        # vocabulary from process start (absence-of-series must mean
+        # absence-of-filtering, not "no eval explained yet")
+        from ..explain import preregister as _preregister_placement
+
+        _preregister_placement(self.metrics)
         self.broker = EvalBroker(nack_timeout=nack_timeout)
         # lost-eval accounting: the broker is constructed without a
         # telemetry handle, so wire ours in and zero-register its

@@ -14,6 +14,8 @@ from __future__ import annotations
 import threading
 from typing import List, Optional, Tuple
 
+from ..device import DeviceFault
+from ..explain import EXPLAIN
 from ..raft import NotLeaderError
 from ..sched import new_scheduler
 from ..state.store import StateSnapshot, StateStore
@@ -126,6 +128,18 @@ class Worker:
                 continue
             try:
                 self.process_eval(ev, token)
+            except DeviceFault as exc:
+                # the per-eval device stack failed (a kernel's build,
+                # launch or fetch): stop here, the eval nacked, and
+                # leave the fault for drain_to_idle to raise
+                self.errors += 1
+                self.fault = exc
+                self._stop.set()
+                try:
+                    self.server.broker.nack(ev.id, token)
+                except ValueError:
+                    pass
+                return
             except Exception:  # noqa: BLE001
                 self.errors += 1
                 try:
@@ -189,6 +203,9 @@ class Worker:
                 (_time.monotonic() - start) * 1000.0,
             )
             metrics.incr("worker.evals_processed")
+        # placement explainability: retain this eval's per-TG score
+        # decomposition + filter attribution
+        EXPLAIN.record_eval(ev, scheduler, metrics)
         self.evals_processed += 1
         self.server.broker.ack(ev.id, token)
 

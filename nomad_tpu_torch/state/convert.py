@@ -4,9 +4,11 @@ a model port.
 `load_cluster` takes the JAX package's API dict encodings of nodes,
 jobs and allocations (`nomad_tpu/api/codec.py` job_to_dict,
 node_to_dict, alloc_to_dict — plain dicts, so nothing of that package
-is imported) and rebuilds them in this package's `StateStore`.  Nodes
-are inserted in the given order, so the port's node arena assigns the
-same rows as the store they came from.
+is imported), and optionally the field dict of its scheduler
+configuration (`dataclasses.asdict` of a `SchedulerConfiguration`,
+preemption config included), and rebuilds them in this package's
+`StateStore`.  Nodes are inserted in the given order, so the port's
+node arena assigns the same rows as the store they came from.
 
 `score_inputs_from_numpy`, `batch_inputs_from_numpy` and the chained
 planner's `chain_inputs_from_numpy` (with `spread_inputs_from_numpy`,
@@ -40,7 +42,7 @@ from ..ops.batch import (
 )
 from ..ops.score import ScoreInputs
 from ..ops.solve import StormInputs
-from ..structs import Allocation, Job, Node
+from ..structs import Allocation, Job, Node, SchedulerConfiguration
 from .store import StateStore
 
 
@@ -112,6 +114,12 @@ def job_from_dict(raw: Dict) -> Job:
     return dataclass_from_dict(Job, raw)
 
 
+def scheduler_config_from_dict(raw: Dict) -> SchedulerConfiguration:
+    """The whole scheduler configuration (algorithm, preemption per
+    scheduler type, the device-stack switch) from its field dict."""
+    return dataclass_from_dict(SchedulerConfiguration, raw)
+
+
 # fields the store stamps on insert; restored from the wire form so the
 # carried world keeps the source's versions and indices
 _JOB_STAMPS = ("version", "create_index", "modify_index",
@@ -123,17 +131,23 @@ def load_cluster(
     jobs: Iterable[Dict],
     allocs: Iterable[Dict],
     store: Optional[StateStore] = None,
+    scheduler_config: Optional[Dict] = None,
 ) -> StateStore:
     """Build (or extend) a port StateStore from API dict encodings.
 
-    Nodes go in first, in the given order (so arena rows match the
-    source store's when it, too, inserted them in that order), then
-    jobs, then allocations in one batch.  A job may appear once per
-    version, oldest first; each keeps the version and indices it had at
-    the source.  Each allocation is relinked to its job version by
+    The scheduler configuration, when given, is set first.  Nodes go in
+    next, in the given order (so arena rows match the source store's
+    when it, too, inserted them in that order), then jobs, then
+    allocations in one batch.  A job may appear once per version,
+    oldest first; each keeps the version and indices it had at the
+    source.  Each allocation is relinked to its job version by
     (namespace, id, ``job_version``); the wire form does not carry the
     job itself."""
     store = store if store is not None else StateStore()
+    if scheduler_config is not None:
+        store.set_scheduler_config(
+            scheduler_config_from_dict(scheduler_config)
+        )
     for raw in nodes:
         store.upsert_node(node_from_dict(raw))
     for raw in jobs:

@@ -4,8 +4,10 @@
 The state store, the broker, the plan applier and the workers mark
 points and spans of an eval's life (``TRACE.event``, ``TRACE.span``,
 ``TRACE.add_span``, ``TRACE.annotate``, ``TRACE.begin``,
-``TRACE.finish``).  The port has no recorder yet, so every call is
-accepted and dropped; the real tracer is queued in ROADMAP.md.
+``TRACE.finish``) and the explain ring links to an eval's trace
+(``TRACE.trace_id_of``).  The port has no recorder yet, so every call
+is accepted and dropped (a trace id is ""); the real tracer is queued
+in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ class _NullTracer:
 
     def finish(self, eval_id, outcome) -> None:
         return None
+
+    def trace_id_of(self, eval_id) -> str:
+        """No trace is kept, so no explanation links to one."""
+        return ""
 
     @contextmanager
     def span(self, eval_id, name, **attrs):

@@ -5,6 +5,7 @@ import dataclasses
 import random
 
 import numpy as np
+import pytest
 
 from nomad_tpu import mock as jmock
 from nomad_tpu.api.codec import alloc_to_dict, job_to_dict, node_to_dict
@@ -148,3 +149,33 @@ def test_load_cluster_keeps_versions_and_links_allocs():
     allocs = store.allocs_by_job("default", "conv-job")
     assert len(allocs) == len(h.store.allocs_by_job("default", "conv-job"))
     assert all(a.job is not None and a.job.version == 0 for a in allocs)
+
+
+@pytest.mark.parametrize("algorithm,service,batch,system,device", [
+    ("binpack", False, False, True, False),
+    ("spread", True, False, False, True),
+    ("binpack", True, True, True, True),
+])
+def test_scheduler_config_round_trips(algorithm, service, batch, system,
+                                      device):
+    """The whole SchedulerConfiguration of a JAX store, preemption per
+    scheduler type included, arrives in the port's store field for
+    field."""
+    from nomad_tpu.structs import PreemptionConfig, SchedulerConfiguration
+
+    h = Harness()
+    h.store.set_scheduler_config(SchedulerConfiguration(
+        scheduler_algorithm=algorithm,
+        preemption_config=PreemptionConfig(
+            system_scheduler_enabled=system,
+            batch_scheduler_enabled=batch,
+            service_scheduler_enabled=service,
+        ),
+        tpu_scheduler_enabled=device,
+    ))
+    want = dataclasses.asdict(h.store.snapshot().scheduler_config())
+    store = load_cluster([], [], [], scheduler_config=want)
+    got = store.get_scheduler_config()
+    assert dataclasses.asdict(got) == want
+    assert got.preemption_config.service_scheduler_enabled is service
+    assert got.effective_scheduler_algorithm() == algorithm

@@ -1,9 +1,10 @@
 """Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
-(csrc/chained_picks.cu), K4 (csrc/patch_rows.cu) and K5
-(csrc/storm_solve.cu) against their plain twins, on the card and on the
-CPU, at the main path's width (a 16,384-row arena with 10,000
-candidates; K5 with 8 and 1,024 rows).  Exact equality of every output,
-in f64 and in f32.
+(csrc/chained_picks.cu), K4 (csrc/patch_rows.cu), K5
+(csrc/storm_solve.cu) and K6 (csrc/walk_only.cu) against their plain
+twins, on the card and on the CPU, at the main path's width (a
+16,384-row arena with 10,000 candidates; K5 with 8 and 1,024 rows; K6
+at C in {8, 1024, 16384}).  Exact equality of every output, in f64 and
+in f32.
 
 These tests need a CUDA device; without one they skip.  Run them on the
 card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -21,10 +22,12 @@ from nomad_tpu_torch.ops.cases import (
     INT32_MAX,
     SCORE_SCENARIOS,
     STORM_SCENARIOS,
+    WALK_SCENARIOS,
     batch_case,
     chain_case,
     score_case,
     storm_case,
+    walk_case,
 )
 from nomad_tpu_torch.state.convert import (
     batch_inputs_from_numpy,
@@ -189,6 +192,40 @@ def test_storm_solve_kernel_matches_twin(cuda, scenario, A, dtype):
             assert torch.equal(k.cpu(), tp)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("limit", [1, 2, 14, INT32_MAX])
+@pytest.mark.parametrize("width", [8, 1024, 16384])
+@pytest.mark.parametrize("scenario", sorted(WALK_SCENARIOS))
+def test_walk_only_kernel_matches_twin(cuda, scenario, width, limit, dtype):
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    case = walk_case(4100 + width + limit % 97, width, scenario, limit,
+                     np_dtype)
+
+    def tensors(dev):
+        return (torch.from_numpy(case["feasible"]).to(dev),
+                torch.from_numpy(case["scores"]).to(dev),
+                torch.from_numpy(case["perm"]).to(dev))
+
+    card = tensors(cuda)
+    before = tscore.walk_only_cuda.launches
+    buf = tscore.walk_only_cuda(*card, limit, case["n_candidates"])
+    torch.cuda.synchronize()
+    assert tscore.walk_only_cuda.launches == before + 1
+    row, best, count, pulls = tscore.unpack_walk(buf.cpu(), dtype)
+    for twin in (
+        tscore.limited_walk_argmax(*card, limit, case["n_candidates"]),
+        tscore.limited_walk_argmax(*tensors("cpu"), limit,
+                                   case["n_candidates"]),
+    ):
+        assert (row, count, pulls) == (int(twin[0]), int(twin[2]),
+                                       int(twin[3]))
+        got = torch.tensor([best], dtype=dtype)
+        assert (_bits(got) == _bits(twin[1].cpu().reshape(1))).all()
+    # the stack's wrapper: one launch, the same numbers
+    assert tscore.walk_only(*card, limit, case["n_candidates"])[::2] == (
+        row, count)
+
+
 def test_launch_rejects_cpu_and_mixed_devices(cuda):
     case = score_case(1, 256, 200, "div0", 2)
     inp = score_inputs_from_numpy(case, cuda)
@@ -199,3 +236,9 @@ def test_launch_rejects_cpu_and_mixed_devices(cuda):
     with pytest.raises(ValueError):
         tsolve.storm_assignment(sinp._replace(perm=sinp.perm.cpu()),
                                 storm_columns(cols, cuda), False, max_rounds)
+    case = walk_case(3, 256, "div1", 2)
+    feasible = torch.from_numpy(case["feasible"]).to(cuda)
+    scores = torch.from_numpy(case["scores"]).to(cuda)
+    with pytest.raises(ValueError):
+        tscore.walk_only(feasible, scores, torch.from_numpy(case["perm"]),
+                         2, case["n_candidates"])

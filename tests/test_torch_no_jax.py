@@ -1,6 +1,7 @@
-"""The port stands alone: a small schedule, a batched Server drain and
-a storm solve through it, in a fresh interpreter, load neither `jax`
-nor anything of `nomad_tpu`; and no module of the port imports
+"""The port stands alone: a small schedule, a batched Server drain, a
+storm solve and a preemption-mode select (K6's twin, the explain
+capture and ring) through it, in a fresh interpreter, load neither
+`jax` nor anything of `nomad_tpu`; and no module of the port imports
 either."""
 import ast
 import os
@@ -98,6 +99,50 @@ print(placed, solves, bad)
 """
 
 
+PREEMPT_SCRIPT = r"""
+import sys
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.explain import EXPLAIN
+from nomad_tpu_torch.server import Server
+
+server = Server(batch_pipeline=False, device="cpu", seed=1,
+                heartbeat_ttl=1e9)
+cfg = server.store.get_scheduler_config()
+cfg.tpu_scheduler_enabled = True
+cfg.preemption_config.service_scheduler_enabled = True
+server.store.set_scheduler_config(cfg)
+server.start()
+for i in range(4):
+    node = mock.node(id=f"nj-{i:02d}")
+    node.node_resources.cpu = 2000
+    server.register_node(node)
+low = mock.job(id="nj-low")
+low.priority = 20
+low.task_groups[0].count = 4
+low.task_groups[0].tasks[0].resources.cpu = 1500
+server.register_job(low)
+assert server.drain_to_idle(60)
+high = mock.job(id="nj-high")
+high.priority = 80
+high.task_groups[0].count = 1
+high.task_groups[0].tasks[0].resources.cpu = 1200
+ev = server.register_job(high)
+assert server.drain_to_idle(60)
+evicted = sum(
+    1 for a in server.store.allocs.values() if a.desired_status == "evict"
+)
+explained = EXPLAIN.get(ev.id) is not None
+errors = server.workers[0].errors
+server.stop()
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(evicted, explained, errors, bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -128,14 +173,25 @@ def test_port_storm_solve_loads_no_jax():
     assert _run_fresh(STORM_SCRIPT) == "6 1 []"
 
 
+def test_port_preemption_loads_no_jax():
+    """A preemption-mode select (the evict evaluation, K6's twin) and
+    the explain ring run in a fresh interpreter without JAX or the JAX
+    package."""
+    assert _run_fresh(PREEMPT_SCRIPT) == "1 True 0 []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     scanned = {p.relative_to(REPO).as_posix() for p in sources}
-    # the storm slice's modules are in the scan
+    # the storm and preemption slices' modules are in the scan
     assert {"nomad_tpu_torch/ops/solve.py",
             "nomad_tpu_torch/sched/storm.py",
-            "nomad_tpu_torch/server/batch_worker.py"} <= scanned
+            "nomad_tpu_torch/server/batch_worker.py",
+            "nomad_tpu_torch/explain.py",
+            "nomad_tpu_torch/ops/_cuda.py",
+            "nomad_tpu_torch/sched/cuda_stack.py",
+            "chip_smoke.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

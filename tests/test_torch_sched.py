@@ -8,6 +8,7 @@ store (node ids given explicitly) and carried across with the port's
 `load_cluster`.  Placements (sorted alloc name, node id) and stop sets
 must be identical.
 """
+import dataclasses
 import random
 
 import pytest
@@ -60,12 +61,7 @@ def carry(jh):
         [node_to_dict(n) for n in s.nodes.values()],
         jobs,
         [alloc_to_dict(a) for a in s.allocs.values()],
-    )
-    cfg = s.snapshot().scheduler_config()
-    store.set_scheduler_config(
-        tstructs.SchedulerConfiguration(
-            scheduler_algorithm=cfg.scheduler_algorithm
-        )
+        scheduler_config=dataclasses.asdict(s.snapshot().scheduler_config()),
     )
     return THarness(store=store)
 
