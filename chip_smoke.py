@@ -25,8 +25,9 @@ Phases (any failure exits non-zero):
    and K2 must have been launched by the card run.  The card run is
    repeated with the capture off (NOMAD_TPU_EXPLAIN=0) for its cost.
 5. Times each kernel and its twin on the card with CUDA events at the
-   main path's shapes (>= 1,000 launches after warm-up); for K4 also
-   the nearest single PyTorch call (`index_copy_`).
+   main path's shapes (>= 1,000 launches after warm-up; K5 50, K7 200);
+   for K4 also the nearest single PyTorch call (`index_copy_`).  This
+   phase runs last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
@@ -73,6 +74,25 @@ preempt. Preemption-mode selects: the same 10,000-node / 100,000-alloc
    AllocMetrics and explain records equal to the CPU twins', the metric
    counts equal to the oracle's; no errors, at least 16 preempt selects,
    and K6 launched.
+k7. Kernel K7 (E independent evals x P picks over one shared snapshot,
+   csrc/batch_picks.cu) against its twin on the card and on the CPU for
+   every `batch_shared` scenario of `ops/cases.py`, at a 16,384-row
+   arena with 1, 10,000 and 16,384 candidates, (E, P) in {(1, 1), (64,
+   10), (256, 16), (8, 64)}, f64 and f32: the [E, P] rows bit-equal.
+bridge. The Go bridge path: the port's batched `Server()` on the card
+   over the same 10,000-node / 100,000-alloc cluster, with its
+   `BridgeService` on localhost.  32 `ScoreBatch` calls of 64 seeded
+   evals (count 1-10, cpu 100-2,000 MHz, memory 128-2,048 MB, disk 300
+   MB), one of 256 evals and one of count 64 through the Python client
+   (`wire.call`), and one through the C++ shim (`make -C native`,
+   `NativeWire.call_json`): every answer equal to a port Server's on the
+   CPU over the same world, the native answer to the Python one; p50/p99
+   on the client clock.  Then four client threads of 16 calls each while
+   the same Server drains the first 96 jobs of phase 8's stream: no
+   error response, no worker error, placements equal to the same jobs
+   drained on the CPU Server without the bridge; K7 launched once a
+   call.  Last, the quiet calls again with the service's steps timed in
+   place, for where a call's time goes.
 
 Prints the kernels line, then the card's nvidia-smi line, then the
 result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -103,6 +123,13 @@ CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
 PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
 WALK_WIDTHS = (8, 1024, 16_384)  # phase k6's C
 PREEMPT_JOBS = 20  # the preempt phase's priority-80 jobs
+K7_SHAPES = ((1, 1), (64, 10), (256, 16), (8, 64))  # phase k7's (E, P)
+K7_CANDS = (1, N_CAND_CHECK, C_CHECK)  # phase k7's n_cand
+BRIDGE_CALLS = 32  # the bridge phase's quiet calls of BRIDGE_E evals
+BRIDGE_E = 64
+BRIDGE_THREADS = 4  # its concurrent clients, each making
+BRIDGE_THREAD_CALLS = 16  # calls while the Server drains
+BRIDGE_DRAIN_JOBS = 96  # the first jobs of phase 8's stream
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F64_FLOPS = 34e12  # H100 SXM f64 outside the tensor cores, data sheet
 FLOPS_PER_CANDIDATE = 120  # ~40 flops of score plus two pows (~40 each)
@@ -1365,6 +1392,262 @@ def check_preempt(cuda, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase k7 / bridge: the Go bridge path
+# ---------------------------------------------------------------------------
+
+
+def check_k7(cuda) -> dict:
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import BATCH_SHARED_SCENARIOS, batch_shared_case
+    from nomad_tpu_torch.state.convert import batch_shared_inputs_from_numpy
+
+    n_cases = 0
+    max_err = 0.0
+    placed = 0
+    for dtype in (torch.float64, torch.float32):
+        for si, scenario in enumerate(BATCH_SHARED_SCENARIOS):
+            for n_cand in K7_CANDS:
+                for E, P in K7_SHAPES:
+                    case = batch_shared_case(9100 + 10 * si + E + P, C_CHECK,
+                                             n_cand, scenario, E, P)
+                    card = batch_shared_inputs_from_numpy(case, cuda, dtype)
+                    kern = tbatch.batch_plan_picks_shared_cuda(**card).cpu()
+                    twin_card = tbatch.batch_plan_picks_shared_twin(**card).cpu()
+                    twin_cpu = tbatch.batch_plan_picks_shared_twin(
+                        **batch_shared_inputs_from_numpy(case, "cpu", dtype))
+                    tag = (f"K7 {dtype} {scenario} n_cand={n_cand} E={E} "
+                           f"P={P}")
+                    check(tuple(kern.shape) == (E, P), f"{tag}: shape {tuple(kern.shape)}")
+                    check(torch.equal(kern, twin_card), f"{tag}: kernel != twin on card")
+                    check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
+                    max_err = max(max_err, _max_abs(kern, twin_card))
+                    placed += int((kern >= 0).sum())
+                    n_cases += 1
+    check(placed > 0, "K7 placed nothing in any case")
+    print(f"K7: {n_cases} cases exact on card and CPU (f64 and f32; E x P rows "
+          f"bit-equal, {placed} placed picks), max_abs_err={max_err}",
+          flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases}
+
+
+def bridge_body(seed: int, n_evals: int, count=None) -> dict:
+    """A ScoreBatch body of `n_evals` seeded evals: count 1-10 (or
+    `count`), cpu 100-2,000 MHz, memory 128-2,048 MB, disk 300 MB."""
+    rng = random.Random(seed)
+    return {"evals": [
+        {"eval_id": f"bridge-{seed}-{k}", "job_id": f"bridge-job-{seed}-{k}",
+         "seed": rng.randrange(2**31),
+         "count": count if count is not None else rng.randint(1, 10),
+         "cpu": rng.randint(100, 2000), "memory_mb": rng.randint(128, 2048),
+         "disk_mb": 300}
+        for k in range(n_evals)
+    ]}
+
+
+def build_native():
+    """`make -C native` in this checkout, then the ctypes binding."""
+    import subprocess
+
+    from nomad_tpu_torch.wire import NativeWire
+
+    proc = subprocess.run(["make", "-C", str(HERE / "native")],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"make -C native failed ({proc.returncode}): {proc.stdout}{proc.stderr}")
+    return NativeWire()
+
+
+def _score(sock, body) -> tuple:
+    from nomad_tpu_torch import wire
+
+    t0 = time.perf_counter()
+    resp = wire.call(sock, "TPUScheduler.ScoreBatch", body)
+    return resp, (time.perf_counter() - t0) * 1e3
+
+
+def profile_score_batch(svc, bodies) -> dict:
+    """Where a quiet ScoreBatch call's host-clock time goes: the same
+    calls again with the service's three steps timed in place (the
+    seeded permutations; the staging of the columns, perms and asks
+    onto the card, synchronised; K7's launch, synchronised), the rest
+    being the codec, the socket, the table copy, the perm fill and the
+    answer's assembly.  Mean ms a call."""
+    import socket
+
+    import torch
+
+    from nomad_tpu_torch.server import bridge_service as bs
+
+    spent = {"permutations": 0.0, "staging": 0.0, "k7": 0.0}
+    orig = (bs.shuffle_permutation, bs.batch_shared_inputs_from_numpy,
+            bs.batch_plan_picks_shared)
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.current_stream().synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    bs.shuffle_permutation = timed("permutations", orig[0])
+    bs.batch_shared_inputs_from_numpy = timed("staging", orig[1])
+    bs.batch_plan_picks_shared = timed("k7", orig[2])
+    sock = socket.create_connection(("127.0.0.1", svc.port))
+    try:
+        total = 0.0
+        for body in bodies:
+            _resp, ms = _score(sock, body)
+            total += ms / 1e3
+    finally:
+        sock.close()
+        (bs.shuffle_permutation, bs.batch_shared_inputs_from_numpy,
+         bs.batch_plan_picks_shared) = orig
+    out = {k: v / len(bodies) * 1e3 for k, v in spent.items()}
+    out["call"] = total / len(bodies) * 1e3
+    out["rest"] = out["call"] - sum(spent.values()) / len(bodies) * 1e3
+    return out
+
+
+def check_bridge(cuda, card: str) -> dict:
+    """The Go bridge path: the port's batched Server on the card with its
+    BridgeService on localhost, against a CPU Server's over the same
+    world; then the same service under four client threads while the
+    Server drains part of phase 8's stream."""
+    import socket
+    import threading
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.server.bridge_service import BridgeService
+
+    native = build_native()
+    card_server = new_server(batch_pipeline=True)
+    cpu_server = new_server(batch_pipeline=True, device="cpu")
+    services = [BridgeService(card_server), BridgeService(cpu_server)]
+    for svc in services:
+        svc.start()
+    card_svc, cpu_svc = services
+    try:
+        check(card_server.device.type == "cuda", "the bridge's Server is not on the card")
+        bodies = [bridge_body(9300 + i, BRIDGE_E) for i in range(BRIDGE_CALLS)]
+        bodies += [bridge_body(9400, 256), bridge_body(9401, BRIDGE_E, count=64)]
+        tbatch.batch_plan_picks_shared_cuda.launches = 0
+        # 1. quiet server, one connection, the Python client
+        sock = socket.create_connection(("127.0.0.1", card_svc.port))
+        try:
+            answers, lat = [], []
+            for body in bodies:
+                resp, ms = _score(sock, body)
+                check("error" not in resp, f"bridge error response: {resp}")
+                answers.append(resp)
+                lat.append(ms)
+        finally:
+            sock.close()
+        fd = native.connect("127.0.0.1", card_svc.port)
+        try:
+            t0 = time.perf_counter()
+            native_resp = native.call_json(fd, "TPUScheduler.ScoreBatch", bodies[0])
+            native_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            native.close(fd)
+        check(native_resp == answers[0],
+              "the native client's answer differs from the Python client's")
+        quiet_launches = tbatch.batch_plan_picks_shared_cuda.launches
+        sock = socket.create_connection(("127.0.0.1", cpu_svc.port))
+        try:
+            t0 = time.perf_counter()
+            for body, resp in zip(bodies, answers):
+                want, _ = _score(sock, body)
+                check(resp == want, "the card's ScoreBatch answer differs "
+                      "from the CPU Server's")
+            cpu_s = time.perf_counter() - t0
+        finally:
+            sock.close()
+        table = card_server.store.node_table
+        shape = (f"{int(table.eligible.sum()):,} eligible of a "
+                 f"{table.capacity:,}-row arena")
+        placed = sum(len(r["nodes"]) for a in answers for r in a["results"])
+        asked = sum(e["count"] for b in bodies for e in b["evals"])
+
+        # 2. four client threads while the Server drains 96 jobs
+        card_server.workers[0].warm_shapes()
+        errors, busy_lat = [], []
+
+        def client(t: int) -> None:
+            s = socket.create_connection(("127.0.0.1", card_svc.port))
+            try:
+                for i in range(BRIDGE_THREAD_CALLS):
+                    resp, ms = _score(s, bridge_body(9500 + 100 * t + i, BRIDGE_E))
+                    busy_lat.append(ms)
+                    if "error" in resp:
+                        errors.append(resp["error"])
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(f"{type(exc).__name__}: {exc}")
+            finally:
+                s.close()
+
+        jobs = server_stream()[:BRIDGE_DRAIN_JOBS]
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(BRIDGE_THREADS)]
+        for th in threads:
+            th.start()
+        with_bridge, _, drain_s, _ = drive_server(card_server, jobs, "bridge+drain")
+        for th in threads:
+            th.join(timeout=300.0)
+        check(not any(th.is_alive() for th in threads),
+              "a bridge client thread did not finish")
+        launches = tbatch.batch_plan_picks_shared_cuda.launches
+        worker_errors = card_server.workers[0].errors
+        stages = profile_score_batch(card_svc, bodies[:BRIDGE_CALLS])
+        without, _, _, _ = drive_server(cpu_server, server_stream()[:BRIDGE_DRAIN_JOBS],
+                                        "drain, no bridge")
+        cpu_errors = cpu_server.workers[0].errors
+    finally:
+        for svc in services:
+            svc.stop()
+        card_server.stop()
+        cpu_server.stop()
+    check(not errors, f"bridge errors under load: {errors[:3]}")
+    check(worker_errors == 0 and cpu_errors == 0,
+          f"the batched workers counted {worker_errors} and {cpu_errors} errors")
+    check(with_bridge == without,
+          "the Server's placements changed with the bridge answering beside it")
+    n_calls = len(bodies) + 1 + BRIDGE_THREADS * BRIDGE_THREAD_CALLS
+    check(quiet_launches == len(bodies) + 1,
+          f"K7 launched {quiet_launches} times for {len(bodies) + 1} quiet calls")
+    check(launches == n_calls, f"K7 launched {launches} times for {n_calls} calls")
+
+    def pct(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+    q64 = lat[:BRIDGE_CALLS]
+    print(
+        f"bridge on {card}: {BRIDGE_CALLS} ScoreBatch calls of {BRIDGE_E} evals "
+        f"({shape}): p50 {pct(q64, 0.5):.3f} ms "
+        f"p99 {pct(q64, 0.99):.3f} ms on the client clock; E=256 "
+        f"{lat[BRIDGE_CALLS]:.3f} ms, count 64 {lat[BRIDGE_CALLS + 1]:.3f} ms; "
+        f"native client {native_ms:.3f} ms; {placed} nodes placed of {asked} "
+        f"asked; every answer equal to the CPU Server's ({cpu_s:.2f} s for the "
+        f"{len(bodies)} calls there) and the native client's to the Python "
+        f"client's; under load ({BRIDGE_THREADS} threads x {BRIDGE_THREAD_CALLS} "
+        f"calls while the Server drained {len(jobs)} jobs in {drain_s:.2f} s): "
+        f"p50 {pct(busy_lat, 0.5):.3f} ms p99 {pct(busy_lat, 0.99):.3f} ms, no "
+        f"error, placements equal to the drain without the bridge; K7 launches "
+        f"{launches} for {n_calls} calls; a quiet {BRIDGE_E}-eval call, steps "
+        f"timed in place (mean ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),
+        flush=True,
+    )
+    return {"launches": {"batch_picks": launches}, "stages": stages,
+            "p50_ms": pct(q64, 0.5), "p99_ms": pct(q64, 0.99),
+            "busy_p50_ms": pct(busy_lat, 0.5), "busy_p99_ms": pct(busy_lat, 0.99)}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1443,6 +1726,7 @@ def time_kernels(cuda) -> dict:
     out["storm_solve"] = time_storm_kernel(cuda)
     tsolve.storm_assignment_cuda.launches = saved_k5
     out["walk_only"] = time_walk_kernel(cuda)
+    out["batch_picks"] = time_batch_kernel(cuda)
     (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
      tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches,
      tscore.walk_only_cuda.launches) = saved
@@ -1486,6 +1770,60 @@ def time_walk_kernel(cuda) -> dict:
         "flops": 2 * C_CHECK,
         "library_ms": None,
     }
+
+
+def time_batch_kernel(cuda) -> dict:
+    """K7 at the bridge phase's call shape: E = 64 evals of the `bridge`
+    case (counts 1-10, so P = 10), 10,000 candidates of the 16,384-row
+    arena, f64; beside it the twin on the card.  The bound counts the
+    candidate rows of the six columns and the feasibility byte, the
+    first n_cand entries of each perm, the per-eval asks, counts and
+    limits once, and the [E, P] rows written; the operations count the
+    candidates the walks reach in this run (their pulls, read from K2,
+    which runs K7's pick body one eval at a time)."""
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import batch_shared_case
+    from nomad_tpu_torch.state.convert import (
+        batch_inputs_from_numpy,
+        batch_shared_inputs_from_numpy,
+    )
+
+    import numpy as np
+
+    E, P, n = BRIDGE_E, 10, N_CAND_CHECK
+    case = batch_shared_case(9200, C_CHECK, n, "bridge", E, P)
+    kw = batch_shared_inputs_from_numpy(case, cuda)
+    saved = tbatch.batch_plan_picks_shared_cuda.launches
+    pulls = 0
+    for k in range(E):
+        inp = batch_inputs_from_numpy(dict(
+            feasible=case["feasible"], base_cpu_used=case["base_cpu_used"],
+            base_mem_used=case["base_mem_used"],
+            base_disk_used=case["base_disk_used"],
+            base_collisions=np.zeros(C_CHECK, np.int32),
+            penalty=np.zeros(C_CHECK, bool),
+            affinity_score=np.zeros(C_CHECK), perm=case["perms"][k],
+            ask_cpu=case["ask_cpu"][k], ask_mem=case["ask_mem"][k],
+            ask_disk=case["ask_disk"][k],
+            desired_count=case["desired_count"][k], limit=case["limit"][k],
+            distinct_hosts=False,
+        ), cuda)
+        pulls += int(tbatch.plan_picks_cuda(
+            kw["cpu_total"], kw["mem_total"], kw["disk_total"], inp, n, P
+        )[1].sum())
+    out = {
+        "ms": cuda_time_ms(lambda: tbatch.batch_plan_picks_shared_cuda(**kw),
+                           n=200, warmup=5),
+        "plain_ms": cuda_time_ms(
+            lambda: tbatch.batch_plan_picks_shared_twin(**kw), n=20, warmup=2
+        ),
+        "bytes": n * (6 * 8 + 1) + E * n * 4 + E * (3 * 8 + 2 * 4) + E * P * 4,
+        "pulls": pulls,
+        "flops": pulls * FLOPS_PER_CANDIDATE,
+        "library_ms": None,
+    }
+    tbatch.batch_plan_picks_shared_cuda.launches = saved
+    return out
 
 
 def time_chain_kernels(cuda) -> dict:
@@ -1601,6 +1939,8 @@ def main() -> int:
                      ("storm", lambda: check_storm(cuda, card)),
                      ("k6", lambda: check_k6(cuda)),
                      ("preempt", lambda: check_preempt(cuda, card)),
+                     ("k7", lambda: check_k7(cuda)),
+                     ("bridge", lambda: check_bridge(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
         try:
@@ -1617,6 +1957,7 @@ def main() -> int:
     launches.update(results["server"]["launches"])
     launches["storm_solve"] = results["storm"]["launches"]["storm_solve"]
     launches["walk_only"] = results["preempt"]["launches"]["walk_only"]
+    launches["batch_picks"] = results["bridge"]["launches"]["batch_picks"]
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -1631,6 +1972,8 @@ def main() -> int:
          "nomad_tpu/ops/solve.py:113", "k5"),
         ("walk_only", "nomad_tpu_torch/csrc/walk_only.cu",
          "nomad_tpu/sched/tpu_stack.py:95", "k6"),
+        ("batch_picks", "nomad_tpu_torch/csrc/batch_picks.cu",
+         "nomad_tpu/ops/batch.py:1331", "k7"),
     ):
         tm = results["timing"][name]
         kernels.append({

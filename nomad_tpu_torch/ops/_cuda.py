@@ -37,8 +37,9 @@ SOURCES = {
     "patch_rows": "patch_rows.cu",
     "storm_solve": "storm_solve.cu",
     "walk_only": "walk_only.cu",
+    "batch_picks": "batch_picks.cu",
 }
-HEADERS = ("walk.cuh",)
+HEADERS = ("walk.cuh", "picks.cuh")
 
 # exact IEEE arithmetic: no FMA contraction, no fast math, no
 # flush-to-zero, correctly rounded division
@@ -483,3 +484,51 @@ def launch_walk_only(feasible, scores, perm, s_scratch, f_scratch, out, *,
         int(scores.dtype == torch.float64), dev.index,
     )
     _launch("walk_only", "nk_walk_only", args, dev)
+
+
+class BatchPicksArgs(ctypes.Structure):
+    """Mirror of `BatchPicksArgs` in csrc/batch_picks.cu."""
+
+    _fields_ = [
+        (name, _P) for name in (
+            "cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
+            "disk_used", "feasible", "perms", "ask_cpu", "ask_mem",
+            "ask_disk", "desired", "limit", "f_scratch", "i_scratch",
+            "b_scratch", "out",
+        )
+    ] + [
+        (name, _I) for name in (
+            "E", "n_cand", "C", "n_picks", "spread_fit", "is_f64", "device",
+        )
+    ]
+
+
+def launch_batch_picks(named, f_scratch, i_scratch, b_scratch, out, *,
+                       n_candidates: int, n_picks: int,
+                       spread_fit: bool) -> None:
+    """K7 on the current stream.  `named` maps the argument names of
+    `ops.batch.batch_plan_picks_shared` to contiguous CUDA tensors (the
+    wrapper has checked them); one block per row of `perms`."""
+    dev = named["cpu_total"].device
+    ptrs = dict(
+        cpu_total=named["cpu_total"], mem_total=named["mem_total"],
+        disk_total=named["disk_total"], cpu_used=named["base_cpu_used"],
+        mem_used=named["base_mem_used"], disk_used=named["base_disk_used"],
+        feasible=named["feasible"], perms=named["perms"],
+        ask_cpu=named["ask_cpu"], ask_mem=named["ask_mem"],
+        ask_disk=named["ask_disk"], desired=named["desired_count"],
+        limit=named["limit"], f_scratch=f_scratch, i_scratch=i_scratch,
+        b_scratch=b_scratch, out=out,
+    )
+    args = BatchPicksArgs()
+    for name, t in ptrs.items():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        setattr(args, name, t.data_ptr())
+    args.E, args.C = named["perms"].shape
+    args.n_cand = n_candidates
+    args.n_picks = n_picks
+    args.spread_fit = int(spread_fit)
+    args.is_f64 = int(named["cpu_total"].dtype == torch.float64)
+    args.device = dev.index
+    _launch("batch_picks", "nk_batch_picks", args, dev)

@@ -12,7 +12,10 @@ Two JAX programs of that module become hand-written CUDA kernels here:
   E evals x P picks in one launch, serially equivalent, with the usage,
   static-port and device-instance carries threaded from eval to eval;
 * `patch_rows` (there `:1091`) -> kernel K4, `csrc/patch_rows.cu`: the
-  scatter that keeps the batch worker's device usage mirror current.
+  scatter that keeps the batch worker's device usage mirror current;
+* `batch_plan_picks_shared` (there `:1331`, a vmap of `plan_picks`
+  `:735`) -> kernel K7, `csrc/batch_picks.cu`: E independent evals x P
+  picks over one shared snapshot, behind the bridge's ScoreBatch.
 
 Each pick scores every node against the usage and collision columns
 carried from the earlier picks, runs the rotated limited walk, and
@@ -92,30 +95,35 @@ def _rotated_prefix(cs, c_off, total, in_wrap, is_tail):
     return torch.where(is_tail, total, pre)
 
 
-def _walk(s_p, f_p, offset, limit, n_candidates):
+def _walk_rows(s_p, f_p, offset, limit, n_candidates):
     """The rotating limited walk in permuted space (see ops/score.py for
-    the semantics).  `offset`, `limit` and `n_candidates` are 0-d int32
-    tensors.  Returns (win_pos, any_emitted, pulls), win_pos indexing
-    the permuted arrays.  Like the JAX program it assumes no feasible
-    entry in the tail (every caller ANDs the mask with the candidate
-    set)."""
-    n = s_p.shape[0]
+    the semantics), for E independent walks at once: s_p and f_p are
+    [E, n], offset and limit i32[E], n_candidates an int or 0-d int32
+    tensor shared by the rows.  Each row's walk order is its permuted
+    order rotated left by its offset within the candidate region; the
+    tail past n_candidates walks last, in place.  Integer prefix
+    arithmetic and exact comparisons only.  Returns (win_pos,
+    any_emitted, pulls), each [E], win_pos indexing the permuted
+    arrays.  Like the JAX program it assumes no feasible entry in the
+    tail (every caller ANDs the mask with the candidate set)."""
+    n = s_p.shape[1]
     dev = s_p.device
     i32 = torch.int32
-    pos = torch.arange(n, dtype=i32, device=dev)
+    pos = torch.arange(n, dtype=i32, device=dev)[None, :]
+    off = offset[:, None]
     is_tail = pos >= n_candidates
-    in_wrap = pos < offset
+    in_wrap = pos < off
     # walk position of each permuted index (tail walks last, in place)
     wp = torch.where(
-        is_tail, pos, torch.remainder(pos - offset + n_candidates, n_candidates)
+        is_tail, pos, torch.remainder(pos - off + n_candidates, n_candidates)
     )
     zero = torch.zeros((), dtype=i32, device=dev)
-    off_idx = torch.clamp(offset - 1, min=0).long()
+    off_idx = torch.clamp(off - 1, min=0).long()
 
     def rot(b):
-        cs = torch.cumsum(b.to(i32), 0, dtype=i32)
-        total = cs[-1]
-        c_off = torch.where(offset > 0, cs[off_idx], zero)
+        cs = torch.cumsum(b.to(i32), 1, dtype=i32)
+        total = cs[:, -1:]
+        c_off = torch.where(off > 0, torch.gather(cs, 1, off_idx), zero)
         return _rotated_prefix(cs, c_off, total, in_wrap, is_tail), total
 
     bad = f_p & (s_p <= SKIP_THRESHOLD)
@@ -129,21 +137,32 @@ def _walk(s_p, f_p, offset, limit, n_candidates):
         (n_div == 2) & (nd_count > 0), 1 - div_rank, div_rank
     )
     emit_order = torch.where(nd, nd_incl - 1, nd_count + div_order)
-    emitted = f_p & (emit_order < limit)
+    lim = limit[:, None]
+    emitted = f_p & (emit_order < lim)
 
     neg_inf = torch.full((), -float("inf"), dtype=s_p.dtype, device=dev)
     masked = torch.where(emitted, s_p, neg_inf)
-    best = torch.max(masked)
+    best = masked.amax(dim=1, keepdim=True)
     candidates = emitted & (masked == best)
     big = torch.full((), INT32_MAX, dtype=i32, device=dev)
-    order_key = torch.where(candidates, emit_order, big)
-    win = torch.argmin(order_key)
-    any_emitted = torch.any(emitted)
+    win = torch.argmin(torch.where(candidates, emit_order, big), dim=1)
+    any_emitted = emitted.any(dim=1)
 
-    limit_reached = nd_count >= limit
-    lth_wp = torch.min(torch.where(nd & (nd_incl == limit), wp, big))
+    limit_reached = nd_count[:, 0] >= limit
+    lth_wp = torch.where(nd & (nd_incl == lim), wp, big).amin(dim=1)
     pulls = torch.where(limit_reached, lth_wp + 1, n_candidates)
     return win, any_emitted, pulls
+
+
+def _walk(s_p, f_p, offset, limit, n_candidates):
+    """One walk of `_walk_rows`: s_p and f_p are [n]; offset, limit and
+    n_candidates 0-d int32 tensors.  Returns 0-d (win_pos, any_emitted,
+    pulls)."""
+    win, any_emitted, pulls = _walk_rows(
+        s_p[None], f_p[None], offset.reshape(1), limit.reshape(1),
+        n_candidates,
+    )
+    return win[0], any_emitted[0], pulls[0]
 
 
 class SpreadInputs(NamedTuple):
@@ -690,6 +709,219 @@ def plan_picks_full(cpu_total, mem_total, disk_total, inp: BatchInputs,
         cpu_total, mem_total, disk_total, inp, n_candidates, n_picks,
         spread_fit,
     )
+
+
+# ---------------------------------------------------------------------------
+# E independent evals over one shared snapshot (K7)
+# ---------------------------------------------------------------------------
+
+
+def plan_picks(cpu_total, mem_total, disk_total, inp: BatchInputs,
+               n_candidates, n_picks: int, spread_fit: bool = False):
+    """P sequential placements of one eval, rows only (i32[P], NO_NODE
+    where placement failed): the twin of the JAX `plan_picks`, which is
+    `run_picks` with every pick wanted."""
+    return run_picks(cpu_total, mem_total, disk_total, inp, n_candidates,
+                     n_picks, spread_fit)[0]
+
+
+# the tensor arguments of batch_plan_picks_shared, in order: node
+# columns [C], feasible [C], perms [E, C], per-eval values [E]
+_SHARED_COLUMNS = ("cpu_total", "mem_total", "disk_total", "base_cpu_used",
+                   "base_mem_used", "base_disk_used")
+_SHARED_PER_EVAL = ("ask_cpu", "ask_mem", "ask_disk", "desired_count",
+                    "limit")
+_SHARED_ARGS = _SHARED_COLUMNS + ("feasible", "perms") + _SHARED_PER_EVAL
+
+
+def _check_shared(named, n_candidates, n_picks: int):
+    """Device, type and shape checks of a shared-snapshot batch, its
+    tensors keyed by `_SHARED_ARGS`; returns (device, E, C, n_cand)."""
+    dev = named["cpu_total"].device
+    dtype = named["cpu_total"].dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"columns must be f32 or f64, got {dtype}")
+    C = named["cpu_total"].shape[0]
+    perms = named["perms"]
+    E = perms.shape[0] if perms.dim() == 2 else -1
+    want = {name: (C,) for name in _SHARED_COLUMNS}
+    want.update(feasible=(C,), perms=(E, C))
+    want.update({name: (E,) for name in _SHARED_PER_EVAL})
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, cpu_total on {dev}")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(
+                f"{name} must have shape {want[name]}, got {tuple(t.shape)}"
+            )
+    for name in (*_SHARED_COLUMNS, "ask_cpu", "ask_mem", "ask_disk"):
+        if named[name].dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}")
+    if named["feasible"].dtype != torch.bool:
+        raise TypeError("feasible must be bool")
+    for name in ("perms", "desired_count", "limit"):
+        if named[name].dtype != torch.int32:
+            raise TypeError(f"{name} must be int32")
+    n_cand = _host_int(n_candidates)
+    if not 1 <= n_cand <= C:
+        raise ValueError(f"n_candidates {n_cand} outside [1, {C}]")
+    if n_picks < 1:
+        raise ValueError(f"n_picks must be >= 1, got {n_picks}")
+    return dev, E, C, n_cand
+
+
+def batch_plan_picks_shared_twin(cpu_total, mem_total, disk_total, feasible,
+                                 base_cpu_used, base_mem_used,
+                                 base_disk_used, perms, ask_cpu, ask_mem,
+                                 ask_disk, desired_count, limit,
+                                 n_candidates, n_picks: int,
+                                 spread_fit: bool = False):
+    """Plain twin of the JAX `batch_plan_picks_shared`: E independent
+    `plan_picks` over the shared columns, eval k with its own walk order
+    perms[k], asks, count and limit; no collisions, penalty or affinity,
+    distinct_hosts off.  Every eval runs all P picks (an eval whose
+    count is below P included).  Returns i32[E, P].
+
+    The evals run side by side as the rows of [E, n_cand] tensors: each
+    pick is `run_picks`' step on every eval at once, over the candidate
+    region only (the walk's tail is never feasible and never rotates).
+    The zero penalty and affinity terms are left out:
+    they add +-0, which changes at most the sign of a zero score, and
+    no comparison sees that sign."""
+    dev, E, _C, n = _check_shared(
+        dict(zip(_SHARED_ARGS, (cpu_total, mem_total, disk_total,
+                                base_cpu_used, base_mem_used, base_disk_used,
+                                feasible, perms, ask_cpu, ask_mem, ask_disk,
+                                desired_count, limit))),
+        n_candidates, n_picks,
+    )
+    dtype = cpu_total.dtype
+    i32 = torch.int32
+    rows = torch.full((E, n_picks), NO_NODE, dtype=i32, device=dev)
+    if E == 0:
+        return rows
+    perm = perms[:, :n].long()
+    cpu_total_p = cpu_total[perm]
+    mem_total_p = mem_total[perm]
+    disk_total_p = disk_total[perm]
+    feas_p = feasible[perm]
+    one = torch.ones((), dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    safe_cpu = torch.where(cpu_total_p > 0, cpu_total_p, one)
+    safe_mem = torch.where(mem_total_p > 0, mem_total_p, one)
+    cpu_used = base_cpu_used[perm]
+    mem_used = base_mem_used[perm]
+    disk_used = base_disk_used[perm]
+    coll = torch.zeros((E, n), dtype=i32, device=dev)
+    asks = [a[:, None] for a in (ask_cpu, ask_mem, ask_disk)]
+    desired = desired_count.to(dtype)[:, None]
+    offset = torch.zeros(E, dtype=i32, device=dev)
+    dead = torch.zeros(E, dtype=torch.bool, device=dev)
+    for k in range(n_picks):
+        cpu_after = cpu_used + asks[0]
+        mem_after = mem_used + asks[1]
+        disk_after = disk_used + asks[2]
+        fit = (
+            (cpu_after <= cpu_total_p)
+            & (mem_after <= mem_total_p)
+            & (disk_after <= disk_total_p)
+        )
+        feas = feas_p & fit
+        free_cpu = 1.0 - cpu_after / safe_cpu
+        free_mem = 1.0 - mem_after / safe_mem
+        base = _pow10(free_cpu, dtype) + _pow10(free_mem, dtype)
+        if spread_fit:
+            fitness = torch.clamp(base - 2.0, 0.0, 18.0)
+        else:
+            fitness = torch.clamp(20.0 - base, 0.0, 18.0)
+        has_coll = coll > 0
+        anti = torch.where(has_coll, -(coll.to(dtype) + 1.0) / desired, zero)
+        # binpack plus anti-affinity, fused as XLA fuses it (score.py)
+        final = fma(fitness, INV_18, anti) / (1.0 + has_coll.to(dtype))
+        win, any_emitted, step_pulls = _walk_rows(final, feas, offset,
+                                                  limit, n)
+        active = ~dead
+        ok = active & any_emitted
+        dead = dead | (active & ~any_emitted)
+        e_ok = torch.nonzero(ok).flatten()
+        w = win[e_ok]
+        rows[e_ok, k] = perm[e_ok, w].to(i32)
+        cpu_used[e_ok, w] = cpu_used[e_ok, w] + ask_cpu[e_ok]
+        mem_used[e_ok, w] = mem_used[e_ok, w] + ask_mem[e_ok]
+        disk_used[e_ok, w] = disk_used[e_ok, w] + ask_disk[e_ok]
+        coll[e_ok, w] = coll[e_ok, w] + 1
+        offset = torch.remainder(
+            offset + torch.where(active, step_pulls.to(i32), 0), n
+        )
+        if bool(dead.all()):
+            break  # every later pick is inert: rows stay NO_NODE
+    return rows
+
+
+def batch_plan_picks_shared_cuda(cpu_total, mem_total, disk_total, feasible,
+                                 base_cpu_used, base_mem_used,
+                                 base_disk_used, perms, ask_cpu, ask_mem,
+                                 ask_disk, desired_count, limit,
+                                 n_candidates, n_picks: int,
+                                 spread_fit: bool = False):
+    """Launch K7 on the tensors' CUDA device (current stream): one block
+    per eval.  Returns the i32[E, P] rows on the device; nothing is
+    synchronised."""
+    from . import _cuda
+
+    named = dict(zip(_SHARED_ARGS, (cpu_total, mem_total, disk_total,
+                                    base_cpu_used, base_mem_used,
+                                    base_disk_used, feasible, perms, ask_cpu,
+                                    ask_mem, ask_disk, desired_count, limit)))
+    dev, E, _C, n_cand = _check_shared(named, n_candidates, n_picks)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"batch_plan_picks_shared_cuda needs CUDA tensors, got {dev}"
+        )
+    if E < 1:
+        raise ValueError("batch_plan_picks_shared_cuda needs E >= 1")
+    if int(limit.min()) < 1:
+        raise ValueError("limit must be >= 1")
+    named = {n: t.contiguous() for n, t in named.items()}
+    dtype = cpu_total.dtype
+    # K2's scratch for every eval: 8 floats, one int and two bytes per
+    # candidate (~45 MB at E = 64, 10,000 candidates in f64: out of L2)
+    f_scratch = torch.empty((E, 8, n_cand), dtype=dtype, device=dev)
+    i_scratch = torch.empty((E, n_cand), dtype=torch.int32, device=dev)
+    b_scratch = torch.empty((E, 2, n_cand), dtype=torch.uint8, device=dev)
+    out = torch.empty((E, n_picks), dtype=torch.int32, device=dev)
+    _cuda.launch_batch_picks(named, f_scratch, i_scratch, b_scratch, out,
+                             n_candidates=n_cand, n_picks=n_picks,
+                             spread_fit=spread_fit)
+    batch_plan_picks_shared_cuda.launches += 1
+    return out
+
+
+batch_plan_picks_shared_cuda.launches = 0
+
+
+def batch_plan_picks_shared(cpu_total, mem_total, disk_total, feasible,
+                            base_cpu_used, base_mem_used, base_disk_used,
+                            perms, ask_cpu, ask_mem, ask_disk, desired_count,
+                            limit, n_candidates, n_picks: int,
+                            spread_fit: bool = False):
+    """Batched planner for evals that all score against one snapshot
+    (fresh jobs, no penalties or affinities): the node columns are
+    shared, only the E x C walk orders and the per-eval scalars vary.
+    Returns i32[E, P] rows (NO_NODE where a pick failed).  K7 for CUDA
+    tensors, the twin for CPU tensors; no evals, no launch."""
+    args = (cpu_total, mem_total, disk_total, feasible, base_cpu_used,
+            base_mem_used, base_disk_used, perms, ask_cpu, ask_mem,
+            ask_disk, desired_count, limit, n_candidates, n_picks,
+            spread_fit)
+    if cpu_total.device.type == "cpu":
+        return batch_plan_picks_shared_twin(*args)
+    if perms.shape[0] == 0:
+        return torch.empty((0, n_picks), dtype=torch.int32,
+                           device=cpu_total.device)
+    return batch_plan_picks_shared_cuda(*args)
 
 
 # ---------------------------------------------------------------------------

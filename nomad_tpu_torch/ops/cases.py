@@ -1,6 +1,7 @@
 """Seeded edge-case inputs for the kernels — K1 (one select), K2 (the
-pick scan), K3 (the chained planner), K5 (the storm solve) and K6 (the
-walk alone) — as numpy dicts keyed by the JAX programs' field names.
+pick scan), K3 (the chained planner), K5 (the storm solve), K6 (the
+walk alone) and K7 (E independent pick scans over one snapshot) — as
+numpy dicts keyed by the JAX programs' field names.
 
 Both the CPU tests (port twin against the JAX programs) and
 `chip_smoke.py` (kernel against twin on the card) draw from here, so
@@ -609,4 +610,89 @@ def walk_case(seed: int, C: int, scenario: str, limit: int,
     return dict(
         feasible=feasible, scores=scores.astype(dtype), perm=perm,
         limit=limit, n_candidates=n_cand,
+    )
+
+
+# ---------------------------------------------------------------------------
+# shared-snapshot batches (kernel K7): E independent evals x P picks, as
+# the bridge's ScoreBatch stages them
+# ---------------------------------------------------------------------------
+
+# mixed: fractional usage and asks, counts 1..P, a limit per eval, a few
+#   zero-capacity nodes;
+# bridge: whole MHz/MB usage and the bridge's ask ranges, one limit;
+# tight: room for a few asks only, so evals fail part way and go inert;
+# fit_nowhere: asks larger than every node, every row NO_NODE;
+# ties: groups of identical nodes, the earliest emitted must win
+BATCH_SHARED_SCENARIOS = ("mixed", "bridge", "tight", "fit_nowhere", "ties")
+
+
+def service_limit(n_cand: int) -> int:
+    """The bridge's visit limit, max(2, ceil(log2 n_cand))."""
+    return max(2, int(np.ceil(np.log2(max(n_cand, 1)))))
+
+
+def batch_shared_case(seed: int, C: int, n_cand: int, scenario: str,
+                      E: int, P: int) -> Dict:
+    """One K7 input: the keyword arguments of `batch_plan_picks_shared`
+    as numpy (f64 columns and asks, bool feasible, int32 perms, counts
+    and limits, int n_candidates and n_picks).  As the bridge stages
+    them, the feasible rows are an ascending subset of the arena (holes
+    between them), each eval's perm walks them in its own shuffled
+    order and then lists every other row ascending, so no feasible
+    entry lies in the walk's tail; the evals' counts are 1..P with at
+    least one at P."""
+    rng = np.random.default_rng(seed)
+    (cpu_total, mem_total, disk_total,
+     cpu_used, mem_used, disk_used) = _capacity(rng, C)
+    base = np.sort(rng.choice(C, size=n_cand, replace=False)).astype(np.int32)
+    rest = np.setdiff1d(np.arange(C, dtype=np.int32), base)
+    perms = np.empty((E, C), dtype=np.int32)
+    for k in range(E):
+        perms[k, :n_cand] = base[rng.permutation(n_cand)]
+        perms[k, n_cand:] = rest
+    feasible = np.zeros(C, dtype=bool)
+    feasible[base] = True
+    counts = rng.integers(1, P + 1, E).astype(np.int32)
+    counts[rng.integers(E)] = P
+    limit = np.full(E, service_limit(n_cand), np.int32)
+    if scenario == "bridge":
+        asks = np.stack([
+            rng.integers(100, 2001, E), rng.integers(128, 2049, E),
+            np.full(E, 300),
+        ], axis=1).astype(np.float64)
+    else:
+        asks = np.stack([
+            rng.uniform(100.0, 2000.0, E), rng.uniform(128.0, 2048.0, E),
+            rng.uniform(100.0, 400.0, E),
+        ], axis=1)
+        # fractional usage: the order and rounding of every operation
+        # shows in the last bits
+        cpu_used = cpu_used + rng.uniform(0.0, 1.0, C)
+        mem_used = mem_used + rng.uniform(0.0, 1.0, C)
+        disk_used = disk_used + rng.uniform(0.0, 1.0, C)
+        limit = rng.choice(
+            np.array([2, service_limit(n_cand), INT32_MAX], np.int32), E
+        )
+    if scenario == "mixed":
+        zero = rng.choice(C, size=max(1, C // 64), replace=False)
+        cpu_total[zero] = 0.0
+    elif scenario == "tight":
+        # room for one ask on n_cand / 32 nodes and none elsewhere
+        asks[:, 0] = rng.uniform(1300.0, 2000.0, E)
+        roomy = rng.choice(base, size=max(1, n_cand // 32), replace=False)
+        cpu_used[base] = np.maximum(cpu_total[base] - 50.0, 0.0)
+        cpu_used[roomy] = np.maximum(cpu_total[roomy] - 2590.0, 0.0)
+    elif scenario == "fit_nowhere":
+        asks[:, 0] = cpu_total.max() + rng.uniform(1.0, 100.0, E)
+    elif scenario == "ties":
+        _tie_groups(rng, base, [cpu_total, mem_total, disk_total, cpu_used,
+                                mem_used, disk_used], n_groups=8)
+    return dict(
+        cpu_total=cpu_total, mem_total=mem_total, disk_total=disk_total,
+        feasible=feasible, base_cpu_used=cpu_used, base_mem_used=mem_used,
+        base_disk_used=disk_used, perms=perms, ask_cpu=asks[:, 0].copy(),
+        ask_mem=asks[:, 1].copy(), ask_disk=asks[:, 2].copy(),
+        desired_count=counts, limit=limit, n_candidates=n_cand,
+        n_picks=P,
     )

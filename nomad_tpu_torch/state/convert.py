@@ -14,7 +14,8 @@ node arena assigns the same rows as the store they came from.
 planner's `chain_inputs_from_numpy` (with `spread_inputs_from_numpy`,
 `step_deltas_from_numpy`, `pre_deltas_from_numpy`,
 `port_inputs_from_numpy`, `device_inputs_from_numpy` and
-`chain_case_to_torch`) turn numpy kernel inputs (the shape the JAX
+`chain_case_to_torch`) and the shared-snapshot batch's
+`batch_shared_inputs_from_numpy` turn numpy kernel inputs (the shape the JAX
 programs take) into the port's tensor NamedTuples, for the
 kernel-level tests.
 
@@ -322,6 +323,27 @@ def chain_case_to_torch(cols: Dict[str, Any], kw: Dict[str, Any], device,
             want = torch.int32
         out[name] = _tensor(value, want, device)
     return args, out
+
+
+def batch_shared_inputs_from_numpy(arrays: Dict[str, Any], device,
+                                   dtype=torch.float64) -> Dict[str, Any]:
+    """The keyword arguments of `ops.batch.batch_plan_picks_shared` from
+    the numpy ones of the JAX program (an `ops/cases.py
+    batch_shared_case`, or what the bridge stages): node columns and
+    asks become `dtype`, `feasible` bool, perms, counts and limits
+    int32, all on `device`; `n_candidates` and `n_picks` stay ints."""
+    out = {
+        k: _tensor(arrays[k], dtype, device)
+        for k in ("cpu_total", "mem_total", "disk_total", "base_cpu_used",
+                  "base_mem_used", "base_disk_used", "ask_cpu", "ask_mem",
+                  "ask_disk")
+    }
+    out["feasible"] = _tensor(arrays["feasible"], torch.bool, device)
+    for k in ("perms", "desired_count", "limit"):
+        out[k] = _tensor(arrays[k], torch.int32, device)
+    out["n_candidates"] = int(arrays["n_candidates"])
+    out["n_picks"] = int(arrays["n_picks"])
+    return out
 
 
 def storm_inputs(np_inputs, device, dtype=torch.float64) -> StormInputs:

@@ -1,10 +1,11 @@
 """Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
 (csrc/chained_picks.cu), K4 (csrc/patch_rows.cu), K5
-(csrc/storm_solve.cu) and K6 (csrc/walk_only.cu) against their plain
-twins, on the card and on the CPU, at the main path's width (a
-16,384-row arena with 10,000 candidates; K5 with 8 and 1,024 rows; K6
-at C in {8, 1024, 16384}).  Exact equality of every output, in f64 and
-in f32.
+(csrc/storm_solve.cu), K6 (csrc/walk_only.cu) and K7
+(csrc/batch_picks.cu) against their plain twins, on the card and on the
+CPU, at the main path's width (a 16,384-row arena with 10,000
+candidates; K5 with 8 and 1,024 rows; K6 at C in {8, 1024, 16384}; K7
+with 1, 10,000 and 16,384 candidates and (E, P) up to (256, 16) and
+(8, 64)).  Exact equality of every output, in f64 and in f32.
 
 These tests need a CUDA device; without one they skip.  Run them on the
 card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -18,12 +19,14 @@ from nomad_tpu_torch.ops import score as tscore
 from nomad_tpu_torch.ops import solve as tsolve
 from nomad_tpu_torch.ops.cases import (
     BATCH_SCENARIOS,
+    BATCH_SHARED_SCENARIOS,
     CHAIN_SCENARIOS,
     INT32_MAX,
     SCORE_SCENARIOS,
     STORM_SCENARIOS,
     WALK_SCENARIOS,
     batch_case,
+    batch_shared_case,
     chain_case,
     score_case,
     storm_case,
@@ -31,6 +34,7 @@ from nomad_tpu_torch.ops.cases import (
 )
 from nomad_tpu_torch.state.convert import (
     batch_inputs_from_numpy,
+    batch_shared_inputs_from_numpy,
     chain_case_to_torch,
     score_inputs_from_numpy,
     storm_columns,
@@ -226,6 +230,28 @@ def test_walk_only_kernel_matches_twin(cuda, scenario, width, limit, dtype):
         row, count)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,P", [(1, 1), (64, 10), (256, 16), (8, 64)])
+@pytest.mark.parametrize("n_cand", [1, N_CAND, C])
+@pytest.mark.parametrize("scenario", BATCH_SHARED_SCENARIOS)
+def test_batch_picks_kernel_matches_twin(cuda, scenario, n_cand, E, P,
+                                         dtype):
+    case = batch_shared_case(
+        8000 + 10 * BATCH_SHARED_SCENARIOS.index(scenario) + E + P, C,
+        n_cand, scenario, E, P,
+    )
+    on_card = batch_shared_inputs_from_numpy(case, cuda, dtype)
+    before = tbatch.batch_plan_picks_shared_cuda.launches
+    kernel = tbatch.batch_plan_picks_shared(**on_card).cpu()
+    assert tbatch.batch_plan_picks_shared_cuda.launches == before + 1
+    assert kernel.dtype == torch.int32 and tuple(kernel.shape) == (E, P)
+    twin_card = tbatch.batch_plan_picks_shared_twin(**on_card).cpu()
+    twin_cpu = tbatch.batch_plan_picks_shared_twin(
+        **batch_shared_inputs_from_numpy(case, "cpu", dtype))
+    assert torch.equal(kernel, twin_card)
+    assert torch.equal(kernel, twin_cpu)
+
+
 def test_launch_rejects_cpu_and_mixed_devices(cuda):
     case = score_case(1, 256, 200, "div0", 2)
     inp = score_inputs_from_numpy(case, cuda)
@@ -242,3 +268,7 @@ def test_launch_rejects_cpu_and_mixed_devices(cuda):
     with pytest.raises(ValueError):
         tscore.walk_only(feasible, scores, torch.from_numpy(case["perm"]),
                          2, case["n_candidates"])
+    kw = batch_shared_inputs_from_numpy(
+        batch_shared_case(4, 256, 200, "mixed", 2, 4), cuda)
+    with pytest.raises(ValueError):
+        tbatch.batch_plan_picks_shared(**dict(kw, perms=kw["perms"].cpu()))

@@ -1,8 +1,8 @@
 """The port stands alone: a small schedule, a batched Server drain, a
-storm solve and a preemption-mode select (K6's twin, the explain
-capture and ring) through it, in a fresh interpreter, load neither
-`jax` nor anything of `nomad_tpu`; and no module of the port imports
-either."""
+storm solve, a preemption-mode select (K6's twin, the explain capture
+and ring) and a bridge ScoreBatch over the wire (K7's twin) through it,
+in a fresh interpreter, load neither `jax` nor anything of `nomad_tpu`;
+and no module of the port imports either."""
 import ast
 import os
 import subprocess
@@ -143,6 +143,36 @@ print(evicted, explained, errors, bad)
 """
 
 
+BRIDGE_SCRIPT = r"""
+import socket, sys
+from nomad_tpu_torch import mock, wire
+from nomad_tpu_torch.server import Server
+from nomad_tpu_torch.server.bridge_service import BridgeService
+
+server = Server(device="cpu", num_schedulers=0, heartbeat_ttl=1e9)
+server.start()
+for i in range(12):
+    server.register_node(mock.node(id=f"nj-{i:02d}"))
+service = BridgeService(server, port=0)
+service.start()
+sock = socket.create_connection(("127.0.0.1", service.port))
+resp = wire.call(sock, "TPUScheduler.ScoreBatch", {"evals": [
+    {"eval_id": "e1", "seed": 7, "count": 3, "cpu": 500, "memory_mb": 256},
+    {"eval_id": "e2", "seed": 8, "count": 2, "cpu": 200, "memory_mb": 128},
+]})
+sock.close()
+service.stop()
+server.stop()
+placed = [len(r["nodes"]) for r in resp["results"]]
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(placed, bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -180,17 +210,26 @@ def test_port_preemption_loads_no_jax():
     assert _run_fresh(PREEMPT_SCRIPT) == "1 True 0 []"
 
 
+def test_port_bridge_loads_no_jax():
+    """The port's BridgeService answers a ScoreBatch over the framed wire
+    protocol (the port's codec, K7's twin) in a fresh interpreter
+    without JAX or the JAX package."""
+    assert _run_fresh(BRIDGE_SCRIPT) == "[3, 2] []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     scanned = {p.relative_to(REPO).as_posix() for p in sources}
-    # the storm and preemption slices' modules are in the scan
+    # the storm, preemption and bridge slices' modules are in the scan
     assert {"nomad_tpu_torch/ops/solve.py",
             "nomad_tpu_torch/sched/storm.py",
             "nomad_tpu_torch/server/batch_worker.py",
             "nomad_tpu_torch/explain.py",
             "nomad_tpu_torch/ops/_cuda.py",
             "nomad_tpu_torch/sched/cuda_stack.py",
+            "nomad_tpu_torch/wire.py",
+            "nomad_tpu_torch/server/bridge_service.py",
             "chip_smoke.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
