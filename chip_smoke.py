@@ -32,8 +32,8 @@ Phases (any failure exits non-zero):
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
    (8, 64)}, f64 and f32: rows, pulls and every carry-out column
-   bit-equal on the card and the CPU; a chain cut into chunks equals
-   the single launch.
+   bit-equal to the twin on the card (f64 and f32) and on the CPU
+   (f64); a chain cut into chunks equals the single launch.
 7. Kernel K4 (the usage-mirror patch, csrc/patch_rows.cu) against its
    twin at W in {8, 1024, 16384} with padding idx == C, bit-equal.
 8. The main path: the port's batched `Server()` (BatchWorker, K3 and K4
@@ -78,7 +78,8 @@ k7. Kernel K7 (E independent evals x P picks over one shared snapshot,
    csrc/batch_picks.cu) against its twin on the card and on the CPU for
    every `batch_shared` scenario of `ops/cases.py`, at a 16,384-row
    arena with 1, 10,000 and 16,384 candidates, (E, P) in {(1, 1), (64,
-   10), (256, 16), (8, 64)}, f64 and f32: the [E, P] rows bit-equal.
+   10), (256, 16), (8, 64)}, f64 and f32: the [E, P] rows bit-equal
+   (the CPU twin in f64, as in phase 6).
 bridge. The Go bridge path: the port's batched `Server()` on the card
    over the same 10,000-node / 100,000-alloc cluster, with its
    `BridgeService` on localhost.  32 `ScoreBatch` calls of 64 seeded
@@ -93,6 +94,26 @@ bridge. The Go bridge path: the port's batched `Server()` on the card
    drained on the CPU Server without the bridge; K7 launched once a
    call.  Last, the quiet calls again with the service's steps timed in
    place, for where a call's time goes.
+k8. Kernel K8 (the device supervisor's canary, csrc/canary.cu: a + 1 and
+   its sum) against its twin on the card and on the CPU, n in {1, 8,
+   1024}, f64 and f32: out and the sum bit-equal; ones(8) gives exactly
+   16.0.
+device. The device supervisor on the same 10,000-node / 100,000-alloc
+   cluster: (1) the batched `Server()` on the card with a 0.5 s probe
+   interval drains the first 96 jobs of phase 8's stream: HEALTHY
+   throughout, at least 4 canaries (K8 launches) and no watchdog trip,
+   placements equal to a port Server's on the CPU; probe latency
+   p50/p99; (2) phase 8's 416 jobs with NOMAD_TPU_SUPERVISOR=0 and with
+   the supervisor on: placements/s of each, placements equal; (3)
+   NOMAD_TPU_FAULT=flaky:3: HEALTHY -> DEGRADED -> LOST -> RECOVERING
+   -> HEALTHY with K8 answering once the injected failures end; the 96
+   jobs registered while LOST stay in the broker and are placed on the
+   card after the flip, equal to the CPU Server's; (4)
+   NOMAD_TPU_FAULT=wedge_launch at a 0.5 s budget: drain_to_idle
+   raises DeviceTimeout naming `launch` within 10 s, the state is LOST,
+   no eval is lost or duplicated, stop() returns within 5 s; (5)
+   `python -m nomad_tpu_torch.device.preflight` in a subprocess prints
+   HEALTHY and exits 0.
 
 Prints the kernels line, then the card's nvidia-smi line, then the
 result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -100,9 +121,12 @@ outside a checkout of the repository, it prints no result and exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import random
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -130,6 +154,8 @@ BRIDGE_E = 64
 BRIDGE_THREADS = 4  # its concurrent clients, each making
 BRIDGE_THREAD_CALLS = 16  # calls while the Server drains
 BRIDGE_DRAIN_JOBS = 96  # the first jobs of phase 8's stream
+K8_SIZES = (1, 8, 1024)  # phase k8's n
+DEVICE_JOBS = 96  # the device phase's jobs: the first of phase 8's stream
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F64_FLOPS = 34e12  # H100 SXM f64 outside the tensor cores, data sheet
 FLOPS_PER_CANDIDATE = 120  # ~40 flops of score plus two pows (~40 each)
@@ -605,12 +631,17 @@ def check_k3(cuda) -> dict:
                 torch.cuda.synchronize()
                 twin_card = tbatch.chained_picks_twin(
                     tbatch.prepare_chain(*args, **kwargs))
-                cargs, ckwargs = chain_case_to_torch(cols, kw, "cpu", dtype)
-                twin_cpu = tbatch.chained_plan_picks_cols(
-                    *cargs, return_carry=True, **ckwargs)
                 tag = f"K3 {dtype} {scenario} E={E} P={P}"
                 max_err = max(max_err, _same_chain(kern, twin_card, tag + " (card twin)"))
-                max_err = max(max_err, _same_chain(kern, twin_cpu, tag + " (CPU twin)"))
+                if dtype == torch.float64:
+                    # the CPU twin in the main path's mode only: the
+                    # card twin holds f32, and this keeps the phase
+                    # inside the script's time limit
+                    cargs, ckwargs = chain_case_to_torch(cols, kw, "cpu", dtype)
+                    twin_cpu = tbatch.chained_plan_picks_cols(
+                        *cargs, return_carry=True, **ckwargs)
+                    max_err = max(max_err, _same_chain(kern, twin_cpu,
+                                                       tag + " (CPU twin)"))
                 failed_picks += int((kern[0] == -1).sum())
                 n_cases += 1
     # a chain cut into chunks of two evals, each chained on the last
@@ -646,7 +677,8 @@ def check_k3(cuda) -> dict:
         _same_chain((torch.cat(rows), torch.cat(pulls), carry), whole,
                     f"K3 chunked {scenario}")
         n_cut += 1
-    print(f"K3: {n_cases} cases exact on card and CPU (f64 and f32; rows, "
+    print(f"K3: {n_cases} cases exact against the twin on the card (f64 and "
+          f"f32) and on the CPU (f64; rows, "
           f"pulls and the carry-out), {failed_picks} failed picks among "
           f"them; {n_cut} chains cut into chunks equal the single launch; "
           f"max_abs_err={max_err}", flush=True)
@@ -787,7 +819,10 @@ def check_server(cuda, card: str) -> dict:
             "prescored", "fallbacks", "errors", "cold_shape_fallbacks",
             "preempt_passthroughs", "replay_speculative",
             "replay_conflicts", "replay_serial_fallbacks",
-            "admission_admitted")}
+            "admission_admitted", "trips")}
+        sup = server.device_supervisor.status()
+        stats["supervisor"] = {k: sup[k] for k in (
+            "enabled", "state", "watchdog_trips", "canary_ok", "budgets")}
         timings = dict(worker.timings)
     finally:
         server.stop()
@@ -795,6 +830,10 @@ def check_server(cuda, card: str) -> dict:
           f"timings (s) {json.dumps({k: round(v, 4) for k, v in timings.items()})}",
           flush=True)
     check(stats["errors"] == 0, f"the batched worker counted {stats['errors']} errors")
+    # the supervisor is live on the card and its guards never tripped
+    check(stats["supervisor"]["enabled"] and stats["supervisor"]["state"] == "HEALTHY"
+          and stats["supervisor"]["watchdog_trips"] == 0 and stats["trips"] == 0,
+          f"phase 8's supervisor: {stats['supervisor']}")
     # the stream is deterministic and every eval of it is one K3 models:
     # each must be prescored, and no replay may leave the prescored rows
     check(stats["prescored"] == len(jobs),
@@ -1415,18 +1454,20 @@ def check_k7(cuda) -> dict:
                     card = batch_shared_inputs_from_numpy(case, cuda, dtype)
                     kern = tbatch.batch_plan_picks_shared_cuda(**card).cpu()
                     twin_card = tbatch.batch_plan_picks_shared_twin(**card).cpu()
-                    twin_cpu = tbatch.batch_plan_picks_shared_twin(
-                        **batch_shared_inputs_from_numpy(case, "cpu", dtype))
                     tag = (f"K7 {dtype} {scenario} n_cand={n_cand} E={E} "
                            f"P={P}")
                     check(tuple(kern.shape) == (E, P), f"{tag}: shape {tuple(kern.shape)}")
                     check(torch.equal(kern, twin_card), f"{tag}: kernel != twin on card")
-                    check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
+                    if dtype == torch.float64:  # as in phase 6
+                        twin_cpu = tbatch.batch_plan_picks_shared_twin(
+                            **batch_shared_inputs_from_numpy(case, "cpu", dtype))
+                        check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
                     max_err = max(max_err, _max_abs(kern, twin_card))
                     placed += int((kern >= 0).sum())
                     n_cases += 1
     check(placed > 0, "K7 placed nothing in any case")
-    print(f"K7: {n_cases} cases exact on card and CPU (f64 and f32; E x P rows "
+    print(f"K7: {n_cases} cases exact against the twin on the card (f64 and "
+          f"f32) and on the CPU (f64; E x P rows "
           f"bit-equal, {placed} placed picks), max_abs_err={max_err}",
           flush=True)
     return {"max_abs_err": max_err, "cases": n_cases}
@@ -1648,6 +1689,334 @@ def check_bridge(cuda, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases k8 and device: the canary kernel and the device supervisor
+# ---------------------------------------------------------------------------
+
+
+def check_k8(cuda) -> dict:
+    """K8 against its twin on the card and on the CPU, n in K8_SIZES,
+    f64 and f32, bit for bit; ones(8) answers exactly 16.0."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import canary as tcanary
+
+    saved = tcanary.canary_cuda.launches
+    cases = 0
+    max_err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for n in K8_SIZES:
+            a = torch.from_numpy(np.random.default_rng(8800 + n).normal(size=n))
+            a = a.to(dtype)
+            out, total = tcanary.canary_cuda(a.to(cuda))
+            torch.cuda.synchronize()
+            for where, (t_out, t_total) in (
+                    ("card", tcanary.canary_plain(a.to(cuda))),
+                    ("cpu", tcanary.canary_plain(a))):
+                check(np.array_equal(_bits(out), _bits(t_out)),
+                      f"K8 out differs from the twin on the {where} (n={n}, {dtype})")
+                check(np.array_equal(_bits(total.reshape(1)),
+                                     _bits(t_total.reshape(1))),
+                      f"K8 sum differs from the twin on the {where} (n={n}, {dtype})")
+                max_err = max(max_err, _max_abs(out, t_out),
+                              _max_abs(total, t_total))
+            cases += 1
+        _out, total = tcanary.canary_cuda(torch.ones(8, dtype=dtype, device=cuda))
+        check(float(total) == 16.0, f"K8 on ones(8) gave {float(total)}, not 16.0")
+    tcanary.canary_cuda.launches = saved
+    print(f"K8: {cases} cases bit-equal to the twin on the card and the CPU "
+          f"(f64 and f32, n in {list(K8_SIZES)}; out and the sum in the "
+          f"kernel's order); ones(8) -> 16.0; max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err}
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables for one step, restoring them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def wait_for(cond, timeout: float, step: float = 0.02) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(step)
+    return cond()
+
+
+def _supervised_server():
+    """A batched Server on the card, warmed, with its supervisor live."""
+    server = new_server(batch_pipeline=True)
+    sup = server.device_supervisor
+    check(server.device.type == "cuda", "the device phase's Server is not on the card")
+    check(sup.expected, "the supervisor of a Server on the card is not live")
+    server.workers[0].warm_shapes()
+    return server, sup
+
+
+def _no_eval_lost(server, jobs, label: str) -> None:
+    ids = {job.id for job in jobs}
+    evs = [e for e in server.store.evals.values() if e.job_id in ids]
+    check({e.job_id for e in evs} == ids, f"{label}: an eval is missing")
+    for ev in evs:
+        check(ev.status == "complete" or (
+            ev.status == "pending" and server.broker.outstanding(ev.id) is None),
+            f"{label}: eval of {ev.job_id} is {ev.status} and leased")
+    check(server.broker.stats["delivery_failures"] == 0,
+          f"{label}: the broker failed an eval at its delivery limit")
+    for job in jobs:
+        names = [a.name for a in server.store.allocs_by_job("default", job.id)
+                 if not a.terminal_status()]
+        check(len(names) == len(set(names)), f"{label}: {job.id} placed twice")
+
+
+def check_device(cuda, card: str) -> dict:
+    """The device supervisor on the card: steady state, the guard's cost,
+    a flaky round trip, a wedged launch and the preflight."""
+    from nomad_tpu_torch.device import DeviceSupervisor, DeviceTimeout
+    from nomad_tpu_torch.device.supervisor import (
+        DEGRADED, HEALTHY, LOST, RECOVERING)
+    from nomad_tpu_torch.ops import canary as tcanary
+
+    jobs = server_stream()[:DEVICE_JOBS]
+    out = {}
+    # (1) steady state: the probe thread launches K8 every 0.5 s
+    with env_set(NOMAD_TPU_PROBE_INTERVAL_S="0.5"):
+        tcanary.canary_cuda.launches = 0
+        server, sup = _supervised_server()
+        try:
+            steady, _, steady_s, _ = drive_server(server, jobs, "steady, supervised")
+            check(wait_for(lambda: sup.canary_ok >= 4, 10.0),
+                  f"{sup.canary_ok} canaries passed, not 4")
+            status = sup.status()
+        finally:
+            server.stop()
+        launches = tcanary.canary_cuda.launches
+    check(status["state"] == HEALTHY and not status["history"],
+          f"the supervisor left HEALTHY: {status['history']}")
+    check(status["watchdog_trips"] == 0 and status["canary_fail"] == 0,
+          f"steady state tripped {status['watchdog_trips']} watchdogs, failed "
+          f"{status['canary_fail']} canaries")
+    check(launches >= status["canary_ok"] >= 4,
+          f"K8 launched {launches} times for {status['canary_ok']} canaries")
+    cpu_server = new_server(batch_pipeline=True, device="cpu")
+    try:
+        on_cpu, _, _, _ = drive_server(cpu_server, jobs, "steady, cpu")
+    finally:
+        cpu_server.stop()
+    check(steady == on_cpu, "the supervised card Server and the CPU Server diverge")
+    # the same probe on an idle process: a throwaway supervisor, 32
+    # probes back to back (its launches are not the path's)
+    idle_sup = DeviceSupervisor(expected=True, device=cuda, probe_interval_s=3600.0)
+    idle_sup.prepare()
+    saved = tcanary.canary_cuda.launches
+    check(all(idle_sup.probe_once() for _ in range(32)), "an idle probe failed")
+    tcanary.canary_cuda.launches = saved
+    idle = idle_sup.status()["probe_latency_ms"]
+    probe = status["probe_latency_ms"]
+    out["launches"] = {"canary": launches}
+    out["probe_p50_ms"], out["probe_p99_ms"] = probe["p50"], probe["p99"]
+    print(f"device (1) steady state on {card}: {len(jobs)} jobs in {steady_s:.2f} s, "
+          f"HEALTHY throughout, {status['canary_ok']} canaries, K8 launches "
+          f"{launches}, probe latency (a thread handoff, the upload, K8, the "
+          f"fetch on the canary's stream; host clock) p50 {probe['p50']:.3f} ms "
+          f"p99 {probe['p99']:.3f} ms over {probe['count']} (beside the drain, "
+          f"then idle); {idle['count']} probes of an idle process: p50 "
+          f"{idle['p50']:.3f} ms p99 {idle['p99']:.3f} ms; budgets "
+          f"{json.dumps(status['budgets'])}; placements equal to the CPU "
+          f"Server's", flush=True)
+
+    # (2) the guard's cost: phase 8's stream without and with it, in
+    # turns (off, on, on, off); each guarded stage call counted, the
+    # time a call spends in the guard beyond its stage's own summed
+    # (the handoff to the stage's thread and back), and one guarded
+    # no-op stage timed alone
+    rates = {"off": [], "on": []}
+    placed_by = {}
+    guarded = 0
+    waits = []
+    for label in ("off", "on", "on", "off"):
+        with env_set(NOMAD_TPU_SUPERVISOR="1" if label == "on" else "0"):
+            server = new_server(batch_pipeline=True)
+            try:
+                server.workers[0].warm_shapes()
+                sup = server.device_supervisor
+                live = sup.expected
+                calls = [0]
+                wait = [0.0]
+                guard = sup.guard
+
+                def counted(stage, fn, eval_id=None):
+                    calls[0] += 1
+                    own = [0.0]
+
+                    def timed():
+                        t = time.perf_counter()
+                        try:
+                            return fn()
+                        finally:
+                            own[0] = time.perf_counter() - t
+
+                    t = time.perf_counter()
+                    try:
+                        return guard(stage, timed, eval_id=eval_id)
+                    finally:
+                        wait[0] += time.perf_counter() - t - own[0]
+
+                sup.guard = counted
+                placements, _, dt, placed = drive_server(
+                    server, server_stream(), f"supervisor {label}")
+                trips = sup.watchdog_trips
+                if label == "on":
+                    guarded = calls[0]
+                    waits.append(wait[0])
+                    t0 = time.perf_counter()
+                    for _ in range(1000):
+                        guard("fetch", lambda: None)
+                    guard_us = (time.perf_counter() - t0) * 1e3
+            finally:
+                server.stop()
+        check(live == (label == "on"), f"supervisor {label}: live={live}")
+        check(trips == 0, f"supervisor {label}: {trips} watchdog trips")
+        check(placed_by.setdefault(label, placements) == placements
+              and placements == placed_by["off"],
+              "the supervisor changed phase 8's placements")
+        rates[label].append(placed / dt)
+    out["rate_off"] = statistics.mean(rates["off"])
+    out["rate_on"] = statistics.mean(rates["on"])
+    out["guard_us"] = guard_us
+    out["guard_wait_s"] = waits
+    print(f"device (2) the guard's cost on {card}: {SERVER_JOBS} jobs in turns "
+          f"off, on, on, off: "
+          + ", ".join(f"{r:.1f}" for r in (rates["off"][0], *rates["on"],
+                                            rates["off"][1]))
+          + f" placements/s (mean off {out['rate_off']:.1f}, on "
+          f"{out['rate_on']:.1f}); {guarded} guarded stage calls in a run, "
+          f"time in the guard beyond the stages' own (the handoffs) "
+          + ", ".join(f"{w:.4f}" for w in waits)
+          + f" s a run; one guarded no-op stage alone {guard_us:.1f} us "
+          f"(host clock, 1000 calls); placements equal", flush=True)
+
+    # (3) flaky:3: LOST and back, jobs held in the broker meanwhile
+    with env_set(NOMAD_TPU_FAULT="flaky:3", NOMAD_TPU_PROBE_INTERVAL_S="1.0",
+                 NOMAD_TPU_LOST_PROBES="2", NOMAD_TPU_RECOVER_CANARIES="3"):
+        tcanary.canary_cuda.launches = 0
+        server, sup = _supervised_server()
+        try:
+            worker = server.workers[0]
+            check(wait_for(lambda: sup.state() == LOST, 15.0),
+                  f"flaky:3 never reached LOST ({sup.state()})")
+            t_lost = time.monotonic()
+            for job in jobs:
+                server.register_job(job)
+            held = sup.holding()
+            time.sleep(0.2)
+            ready = server.broker.ready_count()
+            placed_while_lost = sum(
+                len(server.store.allocs_by_job("default", j.id)) for j in jobs)
+            check(held and sup.holding(),
+                  "the supervisor left LOST/RECOVERING while the jobs were registered")
+            check(ready == len(jobs) and placed_while_lost == 0,
+                  f"held jobs left the broker: {ready} ready, {placed_while_lost} placed")
+            check(wait_for(lambda: sup.state() == HEALTHY, 20.0),
+                  f"flaky:3 never recovered ({sup.state()})")
+            resume_s = time.monotonic() - t_lost
+            prescored0 = worker.prescored
+            ok = server.drain_to_idle(600.0)
+            history = [h["to"] for h in sup.status()["history"]]
+            stats = dict(prescored=worker.prescored - prescored0, errors=worker.errors,
+                         delivery_failures=server.broker.stats["delivery_failures"])
+            k8_after = tcanary.canary_cuda.launches
+            flaky = {job.id: sorted(
+                (a.name, a.node_id)
+                for a in server.store.allocs_by_job("default", job.id)
+                if not a.terminal_status()) for job in jobs}
+        finally:
+            server.stop()
+    check(ok, "the flaky Server did not drain after the flip")
+    check(history == [DEGRADED, LOST, RECOVERING, HEALTHY],
+          f"flaky:3 walked {history}")
+    check(stats["prescored"] > 0 and stats["errors"] == 0
+          and stats["delivery_failures"] == 0, f"flaky:3 after the flip: {stats}")
+    check(k8_after >= 3, f"K8 launched {k8_after} times in the recovery, not 3")
+    diff = [j for j in on_cpu if flaky.get(j) != on_cpu[j]]
+    check(not diff, f"the held jobs' placements differ from the CPU Server's at "
+          f"{diff[:3]}: {[flaky.get(j) for j in diff[:1]]} vs "
+          f"{[on_cpu[j] for j in diff[:1]]}")
+    out["resume_s"] = resume_s
+    print(f"device (3) flaky:3 on {card}: {' -> '.join(['HEALTHY'] + history)}; "
+          f"{len(jobs)} jobs registered while LOST stayed in the broker, placed "
+          f"on the card after the flip ({stats['prescored']} prescored, "
+          f"{resume_s:.2f} s from LOST to HEALTHY, K8 launches {k8_after}), equal "
+          f"to the CPU Server's; delivery failures 0", flush=True)
+
+    # (4) wedge_launch at a 0.5 s budget
+    with env_set(NOMAD_TPU_FAULT="wedge_launch", NOMAD_TPU_WATCHDOG_MIN_S="0.5",
+                 NOMAD_TPU_WATCHDOG_MAX_S="0.5", NOMAD_TPU_INIT_GRACE_S="0.5",
+                 NOMAD_TPU_PROBE_INTERVAL_S="60"):
+        server, sup = _supervised_server()
+        stopped = False
+        try:
+            t0 = time.monotonic()
+            wall0 = time.time()
+            for job in jobs:
+                server.register_job(job)
+            raised = None
+            try:
+                server.drain_to_idle(10.0)
+            except Exception as exc:  # noqa: BLE001 — judged below
+                raised = exc
+            detect_s = time.monotonic() - t0
+            state = sup.state()
+            lost_at = next((h["at"] for h in sup.status()["history"]
+                            if h["to"] == LOST), None)
+            check(isinstance(raised, DeviceTimeout),
+                  f"wedge_launch: drain_to_idle raised {raised!r}, not DeviceTimeout")
+            check(raised.stage == "launch", f"the wedge tripped {raised.stage}, not launch")
+            check(detect_s < 10.0, f"the wedge took {detect_s:.2f} s to raise")
+            check(state == LOST, f"after the wedge the state is {state}")
+            _no_eval_lost(server, jobs, "wedge_launch")
+            t1 = time.monotonic()
+            server.stop()
+            stopped = True
+            stop_s = time.monotonic() - t1
+        finally:
+            if not stopped:
+                server.stop()
+    check(stop_s < 5.0, f"stop() took {stop_s:.2f} s after the wedge")
+    out["detect_s"] = detect_s
+    print(f"device (4) wedge_launch on {card}: DeviceTimeout naming launch "
+          f"{detect_s:.3f} s after the first register (LOST at "
+          f"{lost_at - wall0:.3f} s), state LOST, every eval complete or back "
+          f"in the broker, stop() in {stop_s:.3f} s", flush=True)
+
+    # (5) the preflight in a process of its own
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    proc = subprocess.run(
+        [sys.executable, "-m", "nomad_tpu_torch.device.preflight",
+         "--budget-s", "60"],
+        cwd=str(HERE), env=env, capture_output=True, text=True, timeout=180)
+    line = next((l for l in proc.stdout.splitlines()
+                 if l.startswith("DEVICE_PREFLIGHT ")), None)
+    check(line is not None, f"the preflight printed no state line: {proc.stderr[-500:]}")
+    verdict = json.loads(line.split(" ", 1)[1])
+    check(proc.returncode == 0 and verdict["state"] == HEALTHY,
+          f"the preflight said {verdict} (exit {proc.returncode})")
+    print(f"device (5) preflight: {line} (exit 0)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1727,6 +2096,7 @@ def time_kernels(cuda) -> dict:
     tsolve.storm_assignment_cuda.launches = saved_k5
     out["walk_only"] = time_walk_kernel(cuda)
     out["batch_picks"] = time_batch_kernel(cuda)
+    out["canary"] = time_canary_kernel(cuda)
     (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
      tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches,
      tscore.walk_only_cuda.launches) = saved
@@ -1770,6 +2140,28 @@ def time_walk_kernel(cuda) -> dict:
         "flops": 2 * C_CHECK,
         "library_ms": None,
     }
+
+
+def time_canary_kernel(cuda) -> dict:
+    """K8 at the canary's shape: ones(8) in f64 on the card; beside it
+    the twin on the card and the one PyTorch call that computes the same
+    sum (`torch.add(a, 1).sum()`).  The bound counts the 8 values read
+    and the 8 values and the sum written (136 bytes) and 15 additions."""
+    import torch
+
+    from nomad_tpu_torch.ops import canary as tcanary
+
+    saved = tcanary.canary_cuda.launches
+    a = torch.ones(8, dtype=torch.float64, device=cuda)
+    out = {
+        "ms": cuda_time_ms(lambda: tcanary.canary_cuda(a)),
+        "plain_ms": cuda_time_ms(lambda: tcanary.canary_plain(a)),
+        "library_ms": cuda_time_ms(lambda: torch.add(a, 1).sum()),
+        "bytes": 8 * 8 + 8 * 8 + 8,
+        "flops": 8 + 7,
+    }
+    tcanary.canary_cuda.launches = saved
+    return out
 
 
 def time_batch_kernel(cuda) -> dict:
@@ -1941,6 +2333,8 @@ def main() -> int:
                      ("preempt", lambda: check_preempt(cuda, card)),
                      ("k7", lambda: check_k7(cuda)),
                      ("bridge", lambda: check_bridge(cuda, card)),
+                     ("k8", lambda: check_k8(cuda)),
+                     ("device", lambda: check_device(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
         try:
@@ -1958,6 +2352,7 @@ def main() -> int:
     launches["storm_solve"] = results["storm"]["launches"]["storm_solve"]
     launches["walk_only"] = results["preempt"]["launches"]["walk_only"]
     launches["batch_picks"] = results["bridge"]["launches"]["batch_picks"]
+    launches["canary"] = results["device"]["launches"]["canary"]
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -1974,6 +2369,8 @@ def main() -> int:
          "nomad_tpu/sched/tpu_stack.py:95", "k6"),
         ("batch_picks", "nomad_tpu_torch/csrc/batch_picks.cu",
          "nomad_tpu/ops/batch.py:1331", "k7"),
+        ("canary", "nomad_tpu_torch/csrc/canary.cu",
+         "nomad_tpu/device/supervisor.py:494", "k8"),
     ):
         tm = results["timing"][name]
         kernels.append({

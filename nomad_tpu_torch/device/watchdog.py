@@ -1,0 +1,164 @@
+"""Sacrificial-thread bounded calls + per-stage watchdog budgets.  Port
+of `nomad_tpu/device/watchdog.py`.
+
+A wedged device call does not raise — it *blocks*, indefinitely,
+inside a C call no Python-level timeout can interrupt (a
+``cudaEventSynchronize`` on a kernel that never finishes, a driver call
+behind a hung context).  The only robust in-process containment is to
+run the possibly-wedging call on a disposable thread and, when the
+deadline passes, *abandon* the thread: the caller gets a
+``DeviceTimeout`` and the sacrificial thread stays parked inside the
+wedged call until process exit (it is a daemon).
+
+Budgets come from an EWMA of the stage's own observed latency — a
+launch that exceeds its historical cost by ``factor`` is wedged, not
+slow — clamped to an operator-configurable [min, max] band so the first
+launch (no history) and pathological EWMAs stay bounded.
+
+The port's departure: ``DeviceTimeout`` is a ``DeviceFault``, so every
+``except DeviceFault`` path of the workers meets a trip.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Optional
+
+from .core import DeviceFault
+
+_UNSET = object()
+
+
+class DeviceTimeout(DeviceFault):
+    """A guarded device call exceeded its watchdog budget."""
+
+    def __init__(self, stage: str, budget_s: float) -> None:
+        super().__init__(
+            f"device stage {stage!r} exceeded its {budget_s:.2f}s "
+            "watchdog budget (wedged device?)"
+        )
+        self.stage = stage
+        self.budget_s = budget_s
+
+
+class _Runner:
+    """One reusable sacrificial worker thread.  A healthy guarded call
+    costs an Event handoff, not a thread spawn — the disposable-thread
+    property is only needed when a deadline actually trips, at which
+    point the runner is marked dead (its thread may be parked inside a
+    wedged call forever) and the caller mints a replacement."""
+
+    __slots__ = ("_submit", "_box", "dead", "_thread")
+
+    def __init__(self, name: str) -> None:
+        self._submit = threading.Event()
+        self._box: Optional[dict] = None
+        self.dead = False
+        self._thread = threading.Thread(
+            target=self._loop, name=name, daemon=True
+        )
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            self._submit.wait()
+            self._submit.clear()
+            box = self._box
+            if box is None:
+                continue
+            try:
+                box["result"] = box["fn"]()
+            except BaseException as exc:  # noqa: BLE001 — re-raised
+                box["error"] = exc
+            finally:
+                box["done"].set()
+
+    def call(self, fn: Callable, timeout_s: float, stage: str):
+        box: dict = {"fn": fn, "done": threading.Event()}
+        self._box = box
+        self._submit.set()
+        if not box["done"].wait(timeout_s):
+            # wedged mid-call: abandon this runner (never joined — the
+            # thread may be stuck inside a blocked device call forever)
+            self.dead = True
+            raise DeviceTimeout(stage, timeout_s)
+        err = box.get("error", _UNSET)
+        if err is not _UNSET:
+            raise err
+        return box.get("result")
+
+
+_TLS = threading.local()
+
+
+def bounded_call(
+    fn: Callable, timeout_s: float, name: str = "device-bounded",
+    stage: str = "call",
+):
+    """Run ``fn()`` on a sacrificial daemon thread, waiting at most
+    ``timeout_s``.  On timeout the thread is abandoned (never joined)
+    and ``DeviceTimeout`` is raised; otherwise the callable's result or
+    exception propagates.
+
+    The worker is per-calling-thread and REUSED across calls, so the
+    hot pipeline path pays an Event handoff instead of a thread spawn;
+    only a tripped deadline burns the thread (a new one is minted on
+    the next call).  PyTorch's current stream is per thread: a callable
+    that launches work enters its stream itself."""
+    runner: Optional[_Runner] = getattr(_TLS, "runner", None)
+    if runner is None or runner.dead:
+        runner = _Runner(name)
+        _TLS.runner = runner
+    return runner.call(fn, timeout_s, stage)
+
+
+class BudgetTracker:
+    """Per-stage EWMA latency -> watchdog deadline.
+
+    ``budget(stage)`` returns ``clamp(factor * ewma, min_s, max_s)``;
+    with no history yet the floor applies (a cold first launch must not
+    trip on its own kernel build)."""
+
+    def __init__(
+        self,
+        factor: float = 20.0,
+        min_s: float = 5.0,
+        max_s: float = 120.0,
+        alpha: float = 0.2,
+    ) -> None:
+        self.factor = factor
+        self.min_s = min_s
+        self.max_s = max(max_s, min_s)
+        self.alpha = alpha
+        self._ewma: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def note(self, stage: str, dt_s: float) -> None:
+        with self._lock:
+            prev = self._ewma.get(stage)
+            self._ewma[stage] = (
+                dt_s
+                if prev is None
+                else (1.0 - self.alpha) * prev + self.alpha * dt_s
+            )
+
+    def ewma(self, stage: str) -> Optional[float]:
+        with self._lock:
+            return self._ewma.get(stage)
+
+    def budget(self, stage: str) -> float:
+        with self._lock:
+            ewma = self._ewma.get(stage)
+        if ewma is None:
+            return self.min_s
+        return min(self.max_s, max(self.min_s, self.factor * ewma))
+
+    def snapshot(self) -> Dict[str, dict]:
+        with self._lock:
+            stages = dict(self._ewma)
+        return {
+            stage: {
+                "ewma_s": round(ewma, 6),
+                "budget_s": round(self.budget(stage), 6),
+            }
+            for stage, ewma in stages.items()
+        }

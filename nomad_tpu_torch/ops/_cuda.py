@@ -38,6 +38,7 @@ SOURCES = {
     "storm_solve": "storm_solve.cu",
     "walk_only": "walk_only.cu",
     "batch_picks": "batch_picks.cu",
+    "canary": "canary.cu",
 }
 HEADERS = ("walk.cuh", "picks.cuh")
 
@@ -532,3 +533,26 @@ def launch_batch_picks(named, f_scratch, i_scratch, b_scratch, out, *,
     args.is_f64 = int(named["cpu_total"].dtype == torch.float64)
     args.device = dev.index
     _launch("batch_picks", "nk_batch_picks", args, dev)
+
+
+class CanaryArgs(ctypes.Structure):
+    """Mirror of `CanaryArgs` in csrc/canary.cu."""
+
+    _fields_ = [
+        ("a", _P), ("out", _P), ("sum", _P),
+        ("n", _I), ("threads", _I), ("is_f64", _I), ("device", _I),
+    ]
+
+
+def launch_canary(a, out, total, *, threads: int) -> None:
+    """K8 on the current stream: out = a + 1 and total = its sum, one
+    block of `threads` (contiguous CUDA tensors of one dtype)."""
+    dev = a.device
+    for name, t in (("a", a), ("out", out), ("sum", total)):
+        if t.device != dev or not t.is_contiguous() or t.dtype != a.dtype:
+            raise ValueError(f"{name} must be contiguous {a.dtype} on {dev}")
+    args = CanaryArgs(
+        a.data_ptr(), out.data_ptr(), total.data_ptr(), a.shape[0], threads,
+        int(a.dtype == torch.float64), dev.index,
+    )
+    _launch("canary", "nk_canary", args, dev)

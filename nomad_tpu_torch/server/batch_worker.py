@@ -70,9 +70,17 @@ machinery.  A failure of the storm's staging, solve or fetch raises
 DeviceFault as well, and so does a failure of the per-eval device stack
 (K1, K2, K6) under an eval that takes the sequential path.  Every
 replay records its placement explanation in the port's explain ring
-(a speculative replay's only when it commits).  Not ported: the node-sharded mesh path
-(NOMAD_TPU_MESH, which raises), pods, the policy-weighted storm solve
-(NotImplementedError) and the device supervisor.
+(a speculative replay's only when it commits).
+
+The assemble, launch, fetch and storm_solve stages run under the
+server's device supervisor (`device/supervisor.py`): a stage that
+outlives its watchdog budget raises DeviceTimeout, the worker nacks
+its leases once and HOLDS (it does not stop) while the supervisor is
+LOST or RECOVERING; the supervisor's transition listener flushes the
+usage mirror and the host-assembly caches, so the held evals are
+placed on the card against a fresh mirror once the canary passes
+again.  Not ported: the node-sharded mesh path (NOMAD_TPU_MESH, which
+raises), pods and the policy-weighted storm solve (NotImplementedError).
 """
 from __future__ import annotations
 
@@ -115,7 +123,7 @@ from ..structs import (
     TaskGroup,
 )
 from ..decisions import DECISIONS
-from ..device import DeviceFault
+from ..device import DeviceFault, DeviceLost, DeviceTimeout
 from ..explain import EXPLAIN
 from ..raft import NotLeaderError
 from ..raft import chaos as _chaos
@@ -693,6 +701,19 @@ class BatchWorker(Worker):
             if self.device.type == "cuda"
             else None
         )
+        # the server's device supervisor: the assemble/launch/fetch/
+        # storm_solve stages run under its watchdog guards, and its
+        # epoch keys the usage mirror.  On LOST (and on the restore)
+        # the transition listener flushes the mirror and the
+        # host-assembly caches, so no launch reads pre-incident state
+        self.supervisor = getattr(server, "device_supervisor", None)
+        self._backend_epoch = (
+            self.supervisor.backend_epoch
+            if self.supervisor is not None
+            else 0
+        )
+        # watchdog trips this worker met (each nacked its leases once)
+        self.trips = 0
         # fallback evals are the shapes batching didn't cover: the
         # exact host stack beats per-pick device round trips there
         self.host_fallback = True
@@ -913,6 +934,10 @@ class BatchWorker(Worker):
         from ..tsan import maybe_instrument
 
         maybe_instrument(self, "Worker")
+        # after the caches exist: a transition firing mid-construction
+        # must see a fully-initialized worker
+        if self.supervisor is not None:
+            self.supervisor.subscribe(self._on_device_transition)
 
 
     def _observe(
@@ -1080,6 +1105,72 @@ class BatchWorker(Worker):
         super().stop()
         if self._replay_pool is not None:
             self._replay_pool.shutdown()
+
+    # -- device supervisor integration ---------------------------------
+
+    def _guard_device(
+        self, stage: str, fn, what: str, exemplar: Optional[str] = None
+    ):
+        """Run a pipeline stage under the supervisor's watchdog (a
+        passthrough without one, or while it expects no card).  A
+        DeviceFault (the supervisor's, or the stage's own) propagates;
+        any other failure of the stage becomes a DeviceFault naming
+        ``what``: the prescore pipeline never demotes to the host
+        oracle."""
+        sup = self.supervisor
+        try:
+            if sup is None:
+                return fn()
+            return sup.guard(stage, fn, eval_id=exemplar)
+        except DeviceFault:
+            raise
+        except Exception as exc:  # noqa: BLE001
+            raise DeviceFault(what) from exc
+
+    def _on_device_transition(
+        self, old: str, new: str, reason: str
+    ) -> None:
+        """LOST (or the restore flip): flush every cache that holds, or
+        is keyed by, device state, so no launch after the incident
+        reads pre-incident buffers.  The epoch also keys the usage
+        mirror, so a racing in-flight sync re-syncs rather than reusing
+        a pre-flip entry."""
+        epoch = self.supervisor.backend_epoch
+        if epoch == self._backend_epoch:
+            return
+        self._backend_epoch = epoch
+        # the device usage mirror.  Deliberately NOT under
+        # _usage_cache_lock: an abandoned sacrificial assemble thread
+        # may be parked inside _device_columns_locked HOLDING it (a
+        # wedged upload never returned), and this listener may run on
+        # the very thread the watchdog just protected.  The bare
+        # assignment is atomic, and a late holder can at worst publish
+        # a dict keyed by the OLD epoch, which the next lookup misses
+        # and fully resyncs
+        self._usage_cache = None
+        # ... and REPLACE the lock itself, so post-incident syncs never
+        # queue behind that abandoned holder
+        self._usage_cache_lock = threading.Lock()
+        # host-assembly caches hold no device state; flushing them keeps
+        # the post-incident world observably cold (one rebuild each)
+        self._cand_cache = _LRUCache(64)
+        self._mask_cache = _LRUCache(256)
+        self._port_col_cache = _LRUCache(256)
+        self._dev_codes_cache = _LRUCache(256)
+        self._dev_aff_cache = _LRUCache(64)
+        metrics = getattr(self.server, "metrics", None)
+        if metrics is not None:
+            metrics.set_gauge("batch_worker.backend_epoch", float(epoch))
+
+    def _met_supervisor_fault(self, exc: DeviceFault) -> None:
+        """A guarded stage raised the supervisor's fault: a watchdog
+        trip, or LOST reached mid-chain.  The caller has nacked the
+        leases; the worker holds from here until the card recovers,
+        and a trip waits for drain_to_idle to raise it."""
+        if isinstance(exc, DeviceTimeout):
+            self._count("trips")
+            self.tripped = exc
+        LOG.warning("device supervisor fault; worker holds: %s", exc)
 
     # ------------------------------------------------------------------
 
@@ -1291,20 +1382,28 @@ class BatchWorker(Worker):
             batch = leftover
             leftover = []
             if not batch:
-                if self._paused.is_set():
+                if self._paused.is_set() or self._held():
                     # honor Worker.set_pause (leaders park half their
-                    # workers; benches stage backlogs behind it) —
-                    # the base run() checked it, this override never
-                    # did, making pause a silent no-op for the whole
-                    # batch pipeline.  Checked only between gulps: a
-                    # leftover batch still holds broker leases and
-                    # must finish first.
+                    # workers; benches stage backlogs behind it) and
+                    # the device supervisor's hold (LOST, RECOVERING).
+                    # Checked only between gulps: a leftover batch
+                    # still holds broker leases and must finish first
+                    # (a held one meets guard's fault and is nacked).
                     self._stop.wait(0.05)
                     continue
                 ev, token = self.server.broker.dequeue(
                     self.schedulers, timeout=0.1
                 )
                 if ev is None:
+                    continue
+                if self._held():
+                    # the hold began while this dequeue waited: hand
+                    # the eval back untouched (head of the queue, no
+                    # delivery counted)
+                    try:
+                        self.server.broker.release(ev.id, token)
+                    except ValueError:
+                        pass
                     continue
                 self._note_dequeue(ev)
                 # storm detection at the gulp boundary: a backlog of
@@ -1323,6 +1422,11 @@ class BatchWorker(Worker):
                             # member lease for redelivery
                             self._count_leadership("chain_aborts")
                             self._abandon_leases(storm)
+                            leftover = []
+                        except (DeviceTimeout, DeviceLost) as exc:
+                            # the supervisor's fault: nack once, hold
+                            self._abandon_leases(storm)
+                            self._met_supervisor_fault(exc)
                             leftover = []
                         except (DeviceFault, NotImplementedError) as exc:
                             # the solve failed on the device, or the
@@ -1388,6 +1492,13 @@ class BatchWorker(Worker):
                 # redelivery under the next leadership
                 self._count_leadership("chain_aborts")
                 self._abandon_leases(batch)
+                leftover = []
+            except (DeviceTimeout, DeviceLost) as exc:
+                # the supervisor's fault (a watchdog trip, or LOST
+                # reached mid-chain): nothing of the chain past the
+                # fault committed — nack every lease once, then hold
+                self._abandon_leases(batch)
+                self._met_supervisor_fault(exc)
                 leftover = []
             except DeviceFault as exc:
                 # the device path failed: stop here, leases nacked,
@@ -1625,12 +1736,14 @@ class BatchWorker(Worker):
             # adaptive micro-batch width for this flush, from the
             # measured launch EWMAs + live backlog
             chunk_w = self._chunk_width(len(sims))
-            try:
-                asm = self._assemble(snap, run[idx:j], sims, chunk=chunk_w)
-            except Exception as exc:  # noqa: BLE001
-                raise DeviceFault(
-                    f"prescore assembly failed for {len(sims)} evals"
-                ) from exc
+            asm = self._guard_device(
+                "assemble",
+                lambda: self._assemble(
+                    snap, run[idx:j], sims, chunk=chunk_w
+                ),
+                f"prescore assembly failed for {len(sims)} evals",
+                exemplar=run[idx][0].id,
+            )
             asm_dt = _time.monotonic() - t0
             self._observe(
                 "assemble", asm_dt, exemplar=run[idx][0].id
@@ -1726,12 +1839,12 @@ class BatchWorker(Worker):
                 while ci < len(chunks) and len(pending) < self.pipeline_depth:
                     casm, c0, c1, base = chunks[ci]
                     t0 = _time.monotonic()
-                    try:
-                        handle = self._launch_chunk(
-                            casm, c0, c1, carry
-                        )
-                    except Exception as exc:  # noqa: BLE001
-                        raise DeviceFault("prescore launch failed") from exc
+                    handle = self._guard_device(
+                        "launch",
+                        lambda: self._launch_chunk(casm, c0, c1, carry),
+                        "prescore launch failed",
+                        exemplar=run[idx][0].id,
+                    )
                     dt = _time.monotonic() - t0
                     self._observe_chunk(
                         "launch", run, base, c0,
@@ -1762,10 +1875,10 @@ class BatchWorker(Worker):
                     pending.popleft()
                 )
                 t0 = _time.monotonic()
-                try:
-                    rows_arr, pulls_arr = self._fetch(handle)
-                except Exception as exc:  # noqa: BLE001
-                    raise DeviceFault("prescore fetch failed") from exc
+                rows_arr, pulls_arr = self._guard_device(
+                    "fetch", lambda: self._fetch(handle),
+                    "prescore fetch failed", exemplar=run[idx][0].id,
+                )
                 dt = _time.monotonic() - t0
                 self._observe_chunk(
                     "fetch", run, base, c0,
@@ -1982,20 +2095,19 @@ class BatchWorker(Worker):
             adm_sims.append(sim)
         if not admitted:
             return [], j
-        try:
-            # same snapshot, same chunk width, SAME device-column
-            # mirror as the chain head: the chain's carry already
-            # holds every earlier member's deltas, and a mid-chain
-            # re-sync would patch rows the admitted arena's snapshot
-            # never saw
-            asm2 = self._assemble(
+        # same snapshot, same chunk width, SAME device-column mirror
+        # as the chain head: the chain's carry already holds every
+        # earlier member's deltas, and a mid-chain re-sync would patch
+        # rows the admitted arena's snapshot never saw
+        asm2 = self._guard_device(
+            "assemble",
+            lambda: self._assemble(
                 snap, admitted, adm_sims, chunk=chunk_w,
                 shared_cols=asm0.dev_cols,
-            )
-        except Exception as exc:  # noqa: BLE001
-            raise DeviceFault(
-                f"admission assembly failed for {len(admitted)} evals"
-            ) from exc
+            ),
+            f"admission assembly failed for {len(admitted)} evals",
+            exemplar=admitted[0][0].id,
+        )
         if asm2.port_ask is not None or asm2.dev_ask is not None:
             # unreachable port/dev arenas are gated per-sim above;
             # defensive — defer the whole admitted group, INSERTED
@@ -2251,12 +2363,12 @@ class BatchWorker(Worker):
         out = None
         if problem is not None and problem.n_rows > 0:
             t1 = _time.monotonic()
-            try:
-                out = self._storm_solve(problem, snap)
-            except Exception as exc:  # noqa: BLE001
-                raise DeviceFault(
-                    f"storm solve failed for {problem.n_rows} rows"
-                ) from exc
+            out = self._guard_device(
+                "storm_solve",
+                lambda: self._storm_solve(problem, snap),
+                f"storm solve failed for {problem.n_rows} rows",
+                exemplar=members[0][0].id,
+            )
             dt = _time.monotonic() - t1
             solver_members = [
                 m for m in storm_members if m.reason is None
@@ -3669,7 +3781,12 @@ class BatchWorker(Worker):
         # table.epoch: a snapshot restore swaps in a FRESH NodeTable
         # whose restarted generations could collide with the cached
         # key and leave pre-restore usage on device permanently
-        key = (table.epoch, table.topo_generation, table.capacity)
+        # _backend_epoch: a supervisor incident flushes the mirror, and
+        # a sync still in flight from before it must not republish
+        key = (
+            self._backend_epoch, table.epoch, table.topo_generation,
+            table.capacity,
+        )
         cache = self._usage_cache
         hit = False
         bytes_up = 0

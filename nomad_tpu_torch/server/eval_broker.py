@@ -70,11 +70,12 @@ class _ReadyQueue:
     def __init__(self) -> None:
         self.heap: List[Tuple[int, int, Evaluation]] = []
         self._counter = itertools.count()
+        # negative keys for evals handed back to the head (release)
+        self._front = itertools.count(1)
 
-    def push(self, ev: Evaluation) -> None:
-        heapq.heappush(
-            self.heap, (-ev.priority, next(self._counter), ev)
-        )
+    def push(self, ev: Evaluation, front: bool = False) -> None:
+        order = -next(self._front) if front else next(self._counter)
+        heapq.heappush(self.heap, (-ev.priority, order, ev))
 
     def pop(self) -> Optional[Evaluation]:
         if not self.heap:
@@ -264,7 +265,9 @@ class EvalBroker:
                 self._enqueue_locked(ev, ev.type)
             self._lock.notify_all()
 
-    def _enqueue_locked(self, ev: Evaluation, queue: str) -> None:
+    def _enqueue_locked(
+        self, ev: Evaluation, queue: str, front: bool = False
+    ) -> None:
         self.events.append((time.monotonic(), "enq", ev.id[:6], queue))
         if not self._enabled:
             return
@@ -292,7 +295,7 @@ class EvalBroker:
                 self.stats["total_blocked"] += 1
                 return
             self._job_evals[job_key] = ev.id
-        self._ready.setdefault(queue, _ReadyQueue()).push(ev)
+        self._ready.setdefault(queue, _ReadyQueue()).push(ev, front)
         if queue != FAILED_QUEUE:
             self._ready_ts[ev.id] = time.monotonic()
         self.stats["total_ready"] += 1
@@ -608,6 +611,33 @@ class EvalBroker:
                 self._enqueue_locked(ev, FAILED_QUEUE)
             else:
                 self._enqueue_locked(ev, ev.type)
+            self._lock.notify_all()
+
+    def release(self, eval_id: str, token: str) -> None:
+        """Hand a lease back untouched, as if it had never been
+        dequeued: the eval returns to the HEAD of its queue (within its
+        priority) and no delivery is counted.  For a worker that finds,
+        after its dequeue returned, that the device supervisor holds
+        the pipeline — a nack would move the eval behind every later
+        one and burn one of its deliveries."""
+        with self._lock:
+            entry = self._unack.get(eval_id)
+            if entry is None or entry[1] != token:
+                raise ValueError(f"token mismatch for eval {eval_id}")
+            ev = entry[0]
+            del self._unack[eval_id]
+            self.stats["total_unacked"] -= 1
+            if self._remote_leases.pop(eval_id, None) is not None:
+                self.stats["total_remote_unacked"] = len(
+                    self._remote_leases
+                )
+            self.events.append(
+                (time.monotonic(), "release", eval_id[:6], "")
+            )
+            job_key = (ev.namespace, ev.job_id)
+            if self._job_evals.get(job_key) == eval_id:
+                del self._job_evals[job_key]
+            self._enqueue_locked(ev, ev.type, front=True)
             self._lock.notify_all()
 
     # ------------------------------------------------------------------

@@ -14,7 +14,12 @@ on the server's device; `batch_pipeline=False` builds sequential
 `Worker`s, which run the per-eval device stack (`CudaGenericStack`)
 when the scheduler config enables it.  `device=None` means the CUDA
 card and raises `NoDeviceError` without one; `device="cpu"` runs the
-plain-PyTorch twins.  Not ported yet (ROADMAP.md): ACLs, overload
+plain-PyTorch twins.  The device supervisor (`device/supervisor.py`)
+is built before the workers and runs while the server leads: live for
+a server on the card (or with NOMAD_TPU_SUPERVISOR=1 or an armed
+NOMAD_TPU_FAULT), idle for a CPU server otherwise.  While it holds the
+pipeline (LOST, RECOVERING) every worker holds and `drain_to_idle`
+raises its fault.  Not ported yet (ROADMAP.md): ACLs, overload
 control, fan-out, federation, SLOs, the service catalog, deployment
 watcher, drainer, periodic dispatcher, volume watcher, keyring, the
 other client RPCs, connect sidecar injection, multiregion
@@ -87,6 +92,7 @@ class Server:
         batch_pipeline: bool = True,
         store: Optional[StateStore] = None,
         device=None,
+        device_config=None,
     ) -> None:
         # resolved first: a server meant for the card fails here, at
         # construction, when there is none
@@ -100,6 +106,16 @@ class Server:
         from ..explain import preregister as _preregister_placement
 
         _preregister_placement(self.metrics)
+        # the device supervisor owns the card's liveness (canary
+        # probes, stage watchdogs, the hold on LOST) for every worker.
+        # Built BEFORE the workers so they can subscribe to its
+        # transitions; idle (no thread) for a CPU server unless forced
+        # with NOMAD_TPU_SUPERVISOR=1 or an armed NOMAD_TPU_FAULT
+        from ..device import DeviceSupervisor
+
+        self.device_supervisor = DeviceSupervisor(
+            metrics=self.metrics, config=device_config, device=self.device
+        )
         self.broker = EvalBroker(nack_timeout=nack_timeout)
         # lost-eval accounting: the broker is constructed without a
         # telemetry handle, so wire ours in and zero-register its
@@ -242,6 +258,11 @@ class Server:
             self.blocked.set_enabled(True)
             self.plan_queue.set_enabled(True)
             self.applier.start()
+            # device supervision runs while this server schedules (a
+            # no-op when it expects no card: no probe thread starts).
+            # On the card this loads K8 first, so no parked canary
+            # thread ever holds the kernels' build lock
+            self.device_supervisor.start()
             for worker in self.workers:
                 worker.start()
             # re-arm heartbeat TTLs for every known node (reference
@@ -264,6 +285,9 @@ class Server:
             self._leader_established = False
             self.metrics.incr("leadership.revokes")
             self.metrics.set_gauge("leadership.is_leader", 0.0)
+            # first: releases every sacrificial thread parked on an
+            # injected wedge
+            self.device_supervisor.stop()
             for worker in self.workers:
                 worker.stop()
             self.applier.stop()
@@ -650,12 +674,21 @@ class Server:
 
     def drain_to_idle(self, timeout: float = 10.0) -> bool:
         """Wait until no evals are in flight (test/bench helper).
-        Raises the fault of a worker that stopped on one."""
+        Raises the fault of a worker that stopped on one, a watchdog
+        trip a worker met (once), and the device supervisor's fault
+        while it holds the pipeline (LOST, RECOVERING): held evals stay
+        in the broker, and waiting on them would only time out."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             for worker in self.workers:
                 if worker.fault is not None:
                     raise worker.fault
+                tripped = worker.tripped
+                if tripped is not None:
+                    worker.tripped = None
+                    raise tripped
+            if self.device_supervisor.holding():
+                raise self.device_supervisor.fault()
             if (
                 self.broker.ready_count() == 0
                 and self.broker.stats["total_unacked"] == 0

@@ -50,9 +50,14 @@ class Worker:
         # redelivery): a device fault must show here, not loop as
         # silent redeliveries
         self.errors = 0
-        # the exception that stopped this worker (the batch worker's
-        # DeviceFault); Server.drain_to_idle raises it
+        # the exception that stopped this worker (a DeviceFault, or
+        # the NotImplementedError of a path the port lacks);
+        # Server.drain_to_idle raises it
         self.fault: Optional[BaseException] = None
+        # the watchdog trip this worker met and drain_to_idle has not
+        # raised yet (the batch worker's guarded stages; the worker
+        # holds afterwards instead of stopping)
+        self.tripped: Optional[DeviceFault] = None
         self._stop = threading.Event()
         self._paused = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -116,9 +121,16 @@ class Worker:
         else:
             self._paused.clear()
 
+    def _held(self) -> bool:
+        """True while the server's device supervisor holds every worker
+        (the card is LOST or RECOVERING).  Separate from set_pause:
+        leadership's un-pause must not release a held worker."""
+        sup = getattr(self.server, "device_supervisor", None)
+        return sup is not None and sup.holding()
+
     def run(self) -> None:
         while not self._stop.is_set() and self._current_generation():
-            if self._paused.is_set():
+            if self._paused.is_set() or self._held():
                 self._stop.wait(0.05)
                 continue
             ev, token = self.server.broker.dequeue(
@@ -126,12 +138,24 @@ class Worker:
             )
             if ev is None:
                 continue
+            if self._held():
+                # the hold began while this dequeue waited: hand the
+                # eval back untouched (its place at the head, no
+                # delivery counted) rather than run it on a card the
+                # supervisor has lost
+                try:
+                    self.server.broker.release(ev.id, token)
+                except ValueError:
+                    pass
+                continue
             try:
                 self.process_eval(ev, token)
-            except DeviceFault as exc:
+            except (DeviceFault, NotImplementedError) as exc:
                 # the per-eval device stack failed (a kernel's build,
-                # launch or fetch): stop here, the eval nacked, and
-                # leave the fault for drain_to_idle to raise
+                # launch or fetch), or the eval needs a path the port
+                # lacks (a policy-weighted select): stop here, the eval
+                # nacked once, and leave the fault for drain_to_idle to
+                # raise — redelivering it would only fail it again
                 self.errors += 1
                 self.fault = exc
                 self._stop.set()

@@ -1,11 +1,12 @@
 """Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
 (csrc/chained_picks.cu), K4 (csrc/patch_rows.cu), K5
-(csrc/storm_solve.cu), K6 (csrc/walk_only.cu) and K7
-(csrc/batch_picks.cu) against their plain twins, on the card and on the
-CPU, at the main path's width (a 16,384-row arena with 10,000
+(csrc/storm_solve.cu), K6 (csrc/walk_only.cu), K7 (csrc/batch_picks.cu)
+and K8 (csrc/canary.cu) against their plain twins, on the card and on
+the CPU, at the main path's width (a 16,384-row arena with 10,000
 candidates; K5 with 8 and 1,024 rows; K6 at C in {8, 1024, 16384}; K7
 with 1, 10,000 and 16,384 candidates and (E, P) up to (256, 16) and
-(8, 64)).  Exact equality of every output, in f64 and in f32.
+(8, 64); K8 at n in {1, 8, 1024, 1500}).  Exact equality of every
+output, in f64 and in f32.
 
 These tests need a CUDA device; without one they skip.  Run them on the
 card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from nomad_tpu_torch.ops import batch as tbatch
+from nomad_tpu_torch.ops import canary as tcanary
 from nomad_tpu_torch.ops import score as tscore
 from nomad_tpu_torch.ops import solve as tsolve
 from nomad_tpu_torch.ops.cases import (
@@ -252,6 +254,30 @@ def test_batch_picks_kernel_matches_twin(cuda, scenario, n_cand, E, P,
     assert torch.equal(kernel, twin_cpu)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 8, 1024, 1500])
+def test_canary_kernel_matches_twin(cuda, n, dtype):
+    a = torch.from_numpy(np.random.default_rng(8800 + n).normal(size=n))
+    a = a.to(dtype)
+    before = tcanary.canary_cuda.launches
+    out, total = tcanary.canary(a.to(cuda))
+    torch.cuda.synchronize()
+    assert tcanary.canary_cuda.launches == before + 1
+    for twin_out, twin_total in (tcanary.canary_plain(a.to(cuda)),
+                                 tcanary.canary_plain(a)):
+        assert np.array_equal(_bits(out), _bits(twin_out))
+        assert np.array_equal(_bits(total.reshape(1)),
+                              _bits(twin_total.reshape(1)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_canary_kernel_answers_sixteen(cuda, dtype):
+    out, total = tcanary.canary_cuda(torch.ones(8, dtype=dtype,
+                                                device=cuda))
+    assert float(total) == 16.0 and total.dtype == dtype
+    assert torch.equal(out.cpu(), torch.full((8,), 2.0, dtype=dtype))
+
+
 def test_launch_rejects_cpu_and_mixed_devices(cuda):
     case = score_case(1, 256, 200, "div0", 2)
     inp = score_inputs_from_numpy(case, cuda)
@@ -272,3 +298,5 @@ def test_launch_rejects_cpu_and_mixed_devices(cuda):
         batch_shared_case(4, 256, 200, "mixed", 2, 4), cuda)
     with pytest.raises(ValueError):
         tbatch.batch_plan_picks_shared(**dict(kw, perms=kw["perms"].cpu()))
+    with pytest.raises(ValueError):
+        tcanary.canary_cuda(torch.ones(8, dtype=torch.int32, device=cuda))

@@ -1,8 +1,9 @@
 """The port stands alone: a small schedule, a batched Server drain, a
 storm solve, a preemption-mode select (K6's twin, the explain capture
-and ring) and a bridge ScoreBatch over the wire (K7's twin) through it,
-in a fresh interpreter, load neither `jax` nor anything of `nomad_tpu`;
-and no module of the port imports either."""
+and ring), a bridge ScoreBatch over the wire (K7's twin) and a device
+supervisor's flaky round trip (K8's twin, the hold, the preflight)
+through it, in a fresh interpreter, load neither `jax` nor anything of
+`nomad_tpu`; and no module of the port imports either."""
 import ast
 import os
 import subprocess
@@ -173,6 +174,43 @@ print(placed, bad)
 """
 
 
+DEVICE_SCRIPT = r"""
+import os, sys
+os.environ["NOMAD_TPU_FAULT"] = "flaky:3"
+os.environ["NOMAD_TPU_PROBE_INTERVAL_S"] = "3600"
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.device import preflight
+from nomad_tpu_torch.server import Server
+
+server = Server(batch_pipeline=True, device="cpu", seed=1,
+                heartbeat_ttl=1e9)
+server.start()
+sup = server.device_supervisor
+for i in range(12):
+    server.register_node(mock.node(id=f"nj-{i:02d}"))
+for _ in range(3):
+    sup.probe_once()
+lost = sup.state()
+job = mock.job(id="nj-held")
+job.task_groups[0].count = 4
+server.register_job(job)
+while sup.holding():
+    sup.probe_once()
+assert server.drain_to_idle(60)
+placed = sum(
+    1 for a in server.store.allocs.values() if not a.terminal_status()
+)
+server.stop()
+verdict = preflight.run_preflight(total_s=30, device="cpu")["state"]
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(lost, sup.state(), placed, verdict, bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -217,6 +255,14 @@ def test_port_bridge_loads_no_jax():
     assert _run_fresh(BRIDGE_SCRIPT) == "[3, 2] []"
 
 
+def test_port_device_supervisor_loads_no_jax():
+    """The device supervisor walks HEALTHY -> LOST -> HEALTHY under an
+    injected flaky canary (K8's twin), holds and then places a job, and
+    the preflight answers, in a fresh interpreter without JAX or the
+    JAX package."""
+    assert _run_fresh(DEVICE_SCRIPT) == "LOST HEALTHY 4 HEALTHY []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -230,6 +276,14 @@ def test_port_sources_import_no_jax():
             "nomad_tpu_torch/sched/cuda_stack.py",
             "nomad_tpu_torch/wire.py",
             "nomad_tpu_torch/server/bridge_service.py",
+            "nomad_tpu_torch/device/__init__.py",
+            "nomad_tpu_torch/device/core.py",
+            "nomad_tpu_torch/device/config.py",
+            "nomad_tpu_torch/device/faults.py",
+            "nomad_tpu_torch/device/preflight.py",
+            "nomad_tpu_torch/device/supervisor.py",
+            "nomad_tpu_torch/device/watchdog.py",
+            "nomad_tpu_torch/ops/canary.py",
             "chip_smoke.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -348,3 +348,52 @@ def test_device_fault_stops_the_worker(monkeypatch, stage):
         assert not worker._thread.is_alive()
     finally:
         port.stop()
+
+
+def policy_job(pkg):
+    job = pkg.mock.job(id="policy-job")
+    job.task_groups[0].count = 10
+    job.policy = pkg.structs.PolicySpec(throughput={"a": 1, "b": 2})
+    return job
+
+
+def test_policy_job_stops_the_sequential_worker():
+    """A policy-weighted job needs a select the CUDA stack does not have
+    yet: the sequential worker stops on its NotImplementedError (the
+    eval nacked once, not redelivered to the delivery limit) and
+    drain_to_idle raises it.  The batched Server sends the job to its
+    host stack and places what the JAX batched Server places."""
+    seq = TorchServer(num_schedulers=1, seed=13, batch_pipeline=False,
+                      heartbeat_ttl=1e9, device="cpu")
+    cfg = seq.store.get_scheduler_config()
+    cfg.tpu_scheduler_enabled = True  # the per-eval device stack
+    seq.store.set_scheduler_config(cfg)
+    seq.start()
+    try:
+        for node in make_nodes(TORCH, 8, 12):
+            seq.register_node(node)
+        ev = seq.register_job(policy_job(TORCH))
+        with pytest.raises(NotImplementedError):
+            seq.drain_to_idle(30)
+        worker = seq.workers[0]
+        assert isinstance(worker.fault, NotImplementedError)
+        assert worker.errors == 1
+        assert seq.broker.stats["delivery_failures"] == 0
+        assert seq.broker.failed() == []
+        assert seq.store.evals[ev.id].status == "pending"
+        assert placements(seq, "policy-job") == []
+        worker._thread.join(5)
+        assert not worker._thread.is_alive()
+    finally:
+        seq.stop()
+
+    stages = [register(lambda p: [policy_job(p)])]
+    want = run_stream(JaxServer(num_schedulers=1, seed=13,
+                                batch_pipeline=True, heartbeat_ttl=1e9),
+                      JAX, make_nodes(JAX, 8, 12), stages)
+    port = TorchServer(num_schedulers=1, seed=13, batch_pipeline=True,
+                       heartbeat_ttl=1e9, device="cpu")
+    got = run_stream(port, TORCH, make_nodes(TORCH, 8, 12), stages)
+    assert got == want
+    assert len(got["policy-job"]) == 10
+    assert port.workers[0].errors == 0
