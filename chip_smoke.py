@@ -10,8 +10,10 @@ Phases (any failure exits non-zero):
    from source (one nvcc per file, in parallel).
 2. Kernel K1 (one select, csrc/score_select.cu) against its plain twin,
    at a 16,384-row arena with 10,000 candidates, over the edge cases of
-   `nomad_tpu_torch/ops/cases.py`, in f64 and f32: every output and
-   every node's score must be bit-equal on the card and on the CPU.
+   `nomad_tpu_torch/ops/cases.py` and its policy cases (throughput,
+   migration, both, inert; limit 14 and unlimited), in f64 and f32:
+   every output and every node's score must be bit-equal on the card
+   and on the CPU.
    Also counts how often the card's f32-rounded 10^x differs from the
    CPU's on 10^6 seeded inputs.
 3. Kernel K2 (the look-ahead pick scan, csrc/plan_picks.cu) against its
@@ -25,9 +27,10 @@ Phases (any failure exits non-zero):
    and K2 must have been launched by the card run.  The card run is
    repeated with the capture off (NOMAD_TPU_EXPLAIN=0) for its cost.
 5. Times each kernel and its twin on the card with CUDA events at the
-   main path's shapes (>= 1,000 launches after warm-up; K5 50, K7 200);
-   for K4 also the nearest single PyTorch call (`index_copy_`).  This
-   phase runs last.
+   main path's shapes (>= 1,000 launches after warm-up; K5 50, K7 200),
+   K1 also with policy terms and an unlimited walk and K5 also on the
+   weighted dogpile; for K4 also the nearest single PyTorch call
+   (`index_copy_`).  This phase runs last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
@@ -48,9 +51,11 @@ Phases (any failure exits non-zero):
    evals with no errors, and K3 and K4 must have been launched.
 k5. Kernel K5 (the global storm solve, csrc/storm_solve.cu) against its
    twin on the card and on the CPU for every storm scenario of
-   `ops/cases.py`, f64 and f32, at a 16,384-row arena with A in {8,
-   1024} rows: all six outputs bit-equal; at least one full-width case
-   runs 3 or more auction rounds.
+   `ops/cases.py` and its weighted ones (policy rows: weighted, mixed,
+   and the dogpile at A = E = 1,024), f64 and f32, at a 16,384-row
+   arena with A in {8, 1024} rows: all six outputs bit-equal; at least
+   one full-width case, and the full-width weighted dogpile, run 3 or
+   more auction rounds.
 storm. The storm path: the port's batched `Server()` with
    NOMAD_TPU_STORM=1 on the same 10,000-node / 100,000-alloc cluster,
    fed 1,024 count-1 batch children of one dispatch parent registered
@@ -67,13 +72,26 @@ k6. Kernel K6 (the walk alone over a host-built score vector,
    pulls bit-equal.
 preempt. Preemption-mode selects: the same 10,000-node / 100,000-alloc
    cluster (priority-50 filler allocs) with service preemption on, and
-   20 count-1 priority-80 jobs that only a preemption can place, through
+   16 count-1 priority-80 jobs that only a preemption can place, through
    the port's sequential `Server(batch_pipeline=False)` (the per-eval
    device stack) on the card, on the CPU twins and on the host oracle.
    Placements and preemption sets must be equal across the three,
    AllocMetrics and explain records equal to the CPU twins', the metric
-   counts equal to the oracle's; no errors, at least 16 preempt selects,
-   and K6 launched.
+   counts equal to the oracle's; no errors, preempt selects for at least
+   three quarters of the jobs, and K6 launched.
+policy. Policy-weighted scoring on the same cluster with a node class
+   per node (three classes from a third seeded stream): 8 count-4
+   service jobs with a throughput table (two also with an affinity and
+   a spread, three with a migration coefficient, each of those followed
+   by a destructive update) through the port's sequential
+   `Server(batch_pipeline=False)` on the card (K1 with policy terms,
+   every candidate walked and captured), on the CPU twins and, for its
+   first 4 steps, on the host oracle: placements and AllocMetrics
+   (every NodeScoreMeta, `policy.*` included) equal, migration
+   replacements on their incumbent nodes, K1 launched, no errors.  Then
+   the storm phase's 1,024 children with a PolicySpec (a weighted
+   storm, one solve) on the card and on the CPU twins: placements and
+   counters equal, every child staged with policy rows, K5 launched.
 k7. Kernel K7 (E independent evals x P picks over one shared snapshot,
    csrc/batch_picks.cu) against its twin on the card and on the CPU for
    every `batch_shared` scenario of `ops/cases.py`, at a 16,384-row
@@ -122,13 +140,16 @@ outside a checkout of the repository, it prints no result and exits 2.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import os
 import random
 import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -146,7 +167,8 @@ STORM_ROWS = (8, 1024)  # phase k5's A
 CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
 PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
 WALK_WIDTHS = (8, 1024, 16_384)  # phase k6's C
-PREEMPT_JOBS = 20  # the preempt phase's priority-80 jobs
+PREEMPT_JOBS = 16  # the preempt phase's priority-80 jobs
+POLICY_ORACLE_STEPS = 4  # the policy phase's host-oracle prefix
 K7_SHAPES = ((1, 1), (64, 10), (256, 16), (8, 64))  # phase k7's (E, P)
 K7_CANDS = (1, N_CAND_CHECK, C_CHECK)  # phase k7's n_cand
 BRIDGE_CALLS = 32  # the bridge phase's quiet calls of BRIDGE_E evals
@@ -159,6 +181,47 @@ DEVICE_JOBS = 96  # the device phase's jobs: the first of phase 8's stream
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F64_FLOPS = 34e12  # H100 SXM f64 outside the tensor cores, data sheet
 FLOPS_PER_CANDIDATE = 120  # ~40 flops of score plus two pows (~40 each)
+
+
+class GcPauses:
+    """Times the cyclic garbage collector's pauses through `gc.callbacks`:
+    every collection stops every thread of the process, a guarded device
+    stage's watchdog included.  Counts and times are kept per phase
+    (`reset` between phases); the harness's own collections in
+    `build_world` are set apart as `explicit`."""
+
+    def __init__(self) -> None:
+        self.explicit = False
+        self.world_collect_s = 0.0
+        self._t0 = None
+        self.reset()
+
+    def reset(self) -> None:
+        self.counts = [0, 0, 0]
+        self.total_s = 0.0
+        self.max_s = 0.0
+        self.max_gen = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        t0, self._t0 = self._t0, None
+        if t0 is None or self.explicit:
+            return
+        dt = time.perf_counter() - t0
+        gen = info["generation"]
+        self.counts[gen] += 1
+        self.total_s += dt
+        if dt > self.max_s:
+            self.max_s, self.max_gen = dt, gen
+
+    def summary(self) -> dict:
+        return {"collections": list(self.counts), "total_s": self.total_s,
+                "max_s": self.max_s, "max_gen": self.max_gen}
+
+
+GC_PAUSES = GcPauses()
 
 
 def log(msg: str) -> None:
@@ -234,12 +297,46 @@ def check_k1(cuda) -> dict:
                           f"{tag}: per-node scores differ from the CPU twin")
                     max_err = max(max_err, _max_abs(out.scores_walk, scores_cpu))
                     n_cases += 1
+    # the policy branch: throughput, migration, both and inert selects
+    from nomad_tpu_torch.ops.cases import (
+        POLICY_SCORE_SCENARIOS,
+        policy_score_case,
+    )
+
+    n_policy = 0
+    for dtype in (torch.float64, torch.float32):
+        for si, scenario in enumerate(sorted(POLICY_SCORE_SCENARIOS)):
+            for limit in (14, INT32_MAX):
+                case = policy_score_case(
+                    5100 + si, C_CHECK, N_CAND_CHECK, scenario, limit)
+                card = score_inputs_from_numpy(case, cuda, dtype=dtype)
+                cpu = score_inputs_from_numpy(case, "cpu", dtype=dtype)
+                out = tscore.score_select_cuda(card)
+                torch.cuda.synchronize()
+                kern = (out.out_i[0], out.best[0], out.out_i[2], out.out_i[1])
+                twin_card = tscore.score_and_select_twin(card)
+                twin_cpu = tscore.score_and_select_twin(cpu)
+                _, scores_cpu = tscore.score_vectors(cpu)
+                scores_cpu = scores_cpu[cpu.perm.long()]
+                tag = f"K1 policy {dtype} {scenario} limit={limit}"
+                for k, tc, tp in zip(kern, twin_card, twin_cpu):
+                    check(bool((_bits(k) == _bits(tc)).all()),
+                          f"{tag}: kernel != twin on card")
+                    check(bool((_bits(k) == _bits(tp)).all()),
+                          f"{tag}: kernel != twin on CPU")
+                    max_err = max(max_err, _max_abs(k, tc))
+                check(bool((_bits(out.scores_walk) == _bits(scores_cpu)).all()),
+                      f"{tag}: per-node scores differ from the CPU twin")
+                max_err = max(max_err, _max_abs(out.scores_walk, scores_cpu))
+                n_policy += 1
+    n_cases += n_policy
     # the card's f32-rounded 10^x against the CPU's
     x = torch.from_numpy(np.random.default_rng(17).uniform(-1.0, 1.0, 1_000_000))
     p_cpu = tscore._pow10(x, torch.float64)
     p_card = tscore._pow10(x.to(cuda), torch.float64).cpu()
     pow_mismatch = int((p_cpu != p_card).sum())
-    print(f"K1: {n_cases} cases exact on card and CPU (f64 and f32), "
+    print(f"K1: {n_cases} cases ({n_policy} with policy terms) exact on "
+          f"card and CPU (f64 and f32), "
           f"max_abs_err={max_err}; torch.pow f32-rounded 10^x card vs CPU "
           f"mismatches: {pow_mismatch} of 1000000", flush=True)
     return {"max_abs_err": max_err, "cases": n_cases,
@@ -291,12 +388,48 @@ def check_k2(cuda) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS):
+def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
+                classes: bool = False):
     """bench.py's seeded cluster (nodes with deterministic ids, 8/16/32
     cores and 16/32/64 GiB, then filler allocs of 100-500 MHz and
     128-512 MiB on random nodes, here with fixed ids too), plus a datacenter (dc1-dc3) and a
     rack attribute drawn from a second seeded stream, so that spread and
-    affinity stanzas have values to act on."""
+    affinity stanzas have values to act on.  With `classes`, every node
+    also gets one of NODE_CLASSES from a third seeded stream, for the
+    throughput tables of policy-weighted jobs.
+
+    Earlier phases' Servers hold reference cycles, so their worlds stay
+    on the heap until a full collection: one runs first and frees them.
+    The build itself runs with the cyclic collector off (only for its
+    own speed); a second full collection then moves the new world into
+    the oldest generation, where a Server that has run a while keeps its
+    store, and times that collection.  The runs that follow have the
+    collector on and the heap as a user's process has it."""
+    GC_PAUSES.explicit = True
+    try:
+        t0 = time.perf_counter()
+        freed = gc.collect()
+        freed_s = time.perf_counter() - t0
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            _fill_world(store, n_nodes, n_allocs, classes)
+        finally:
+            gc.enable()
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gc.collect()
+        full_s = time.perf_counter() - t0
+    finally:
+        GC_PAUSES.explicit = False
+    GC_PAUSES.world_collect_s = max(GC_PAUSES.world_collect_s, full_s)
+    log(f"  {freed} unreachable objects of earlier phases freed in "
+        f"{freed_s:.3f} s; world of {n_nodes} nodes, {n_allocs} allocs built in "
+        f"{built_s:.2f} s; a full collection over the live heap "
+        f"({len(gc.get_objects())} tracked objects) took {full_s:.3f} s")
+
+
+def _fill_world(store, n_nodes: int, n_allocs: int, classes: bool):
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.structs import (
         AllocatedResources,
@@ -309,6 +442,7 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS):
 
     rng = random.Random(7)
     topo = random.Random(11)
+    klass = random.Random(13)
     nodes = []
     for i in range(n_nodes):
         # a fixed name too: an explain record names the node
@@ -317,11 +451,13 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS):
         n.node_resources.memory_mb = rng.choice([16384, 32768, 65536])
         n.datacenter = topo.choice(["dc1", "dc2", "dc3"])
         n.attributes["rack"] = f"r{topo.randrange(10)}"
+        if classes:
+            n.node_class = klass.choice(NODE_CLASSES)
         nodes.append(n)
     class_cache = {}
     for n in nodes:
         key = (n.node_resources.cpu, n.node_resources.memory_mb,
-               n.datacenter)
+               n.datacenter, n.node_class)
         if key not in class_cache:
             class_cache[key] = compute_node_class(n)
         n.computed_class = class_cache[key]
@@ -359,6 +495,10 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS):
 
 
 DCS = ["dc1", "dc2", "dc3"]
+# the policy phase's node classes and the throughput table of its jobs
+# (relative throughput by class, Gavel-style)
+NODE_CLASSES = ("h100", "a100", "cpu")
+POLICY_TPUT = {"h100": 4.0, "a100": 2.5, "cpu": 1.0}
 
 
 def job_stream():
@@ -949,16 +1089,28 @@ def check_k5(cuda) -> dict:
     import torch
 
     from nomad_tpu_torch.ops import solve as tsolve
-    from nomad_tpu_torch.ops.cases import STORM_SCENARIOS, storm_case
+    from nomad_tpu_torch.ops.cases import (
+        POLICY_STORM_SCENARIOS,
+        STORM_SCENARIOS,
+        policy_storm_case,
+        storm_case,
+    )
     from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
 
+    # the unweighted scenarios, then the weighted ones (policy rows)
+    scenarios = [(s, storm_case) for s in STORM_SCENARIOS] + [
+        (s, policy_storm_case) for s in sorted(POLICY_STORM_SCENARIOS)]
     n_cases = 0
     max_err = 0.0
     rounds = {}
     for dtype in (torch.float64, torch.float32):
-        for si, scenario in enumerate(STORM_SCENARIOS):
+        for si, (scenario, make) in enumerate(scenarios):
+            if make is policy_storm_case:
+                scenario_tag = f"policy_{scenario}"
+            else:
+                scenario_tag = scenario
             for A in STORM_ROWS:
-                cols, inp, max_rounds = storm_case(
+                cols, inp, max_rounds = make(
                     9500 + 10 * si + A, A, A, C_CHECK, scenario)
                 card = (storm_inputs(inp, cuda, dtype),
                         storm_columns(cols, cuda, dtype))
@@ -969,7 +1121,7 @@ def check_k5(cuda) -> dict:
                 twin_cpu = tsolve.storm_assignment_twin(
                     storm_inputs(inp, "cpu", dtype),
                     storm_columns(cols, "cpu", dtype), False, max_rounds)
-                tag = f"K5 {dtype} {scenario} A={A}"
+                tag = f"K5 {dtype} {scenario_tag} A={A}"
                 for name, k, tc, tp in zip(tsolve.StormOut._fields, kern,
                                            twin_card, twin_cpu):
                     check(bool((_bits(k) == _bits(tc)).all()),
@@ -977,21 +1129,27 @@ def check_k5(cuda) -> dict:
                     check(bool((_bits(k) == _bits(tp)).all()),
                           f"{tag}: {name} differs from the twin on the CPU")
                     max_err = max(max_err, _max_abs(k, tp))
-                rounds[f"{scenario}/A={A}/{str(dtype)[6:]}"] = int(kern.rounds)
+                rounds[f"{scenario_tag}/A={A}/{str(dtype)[6:]}"] = int(
+                    kern.rounds)
                 n_cases += 1
     full = [r for k, r in rounds.items() if f"A={STORM_ROWS[-1]}/" in k]
     check(max(full) >= 3, "no full-width K5 case ran 3 or more rounds")
-    print(f"K5: {n_cases} cases exact on card and CPU (f64 and f32; all six "
+    check(rounds[f"policy_dogpile/A={STORM_ROWS[-1]}/float64"] >= 3,
+          "the full-width weighted dogpile ran fewer than 3 rounds")
+    print(f"K5: {n_cases} cases ({2 * len(STORM_ROWS) * len(POLICY_STORM_SCENARIOS)}"
+          f" weighted) exact on card and CPU (f64 and f32; all six "
           f"outputs), max_abs_err={max_err}; auction rounds per case: "
           f"{json.dumps(rounds)}", flush=True)
     return {"max_abs_err": max_err, "cases": n_cases, "rounds": rounds}
 
 
-def storm_jobs():
+def storm_jobs(policy: bool = False):
     """The storm phase's stream: STORM_JOBS count-1 batch children of one
     dispatch parent, sized as bench.py's bench_storm sizes them (2000
-    MHz, 4096 MB: about a quarter of a node each)."""
+    MHz, 4096 MB: about a quarter of a node each).  With `policy`, the
+    parent (so every child) carries a PolicySpec with POLICY_TPUT."""
     from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import PolicySpec
 
     jobs = []
     for i in range(STORM_JOBS):
@@ -1000,15 +1158,20 @@ def storm_jobs():
         job.task_groups[0].count = 1
         job.task_groups[0].tasks[0].resources.cpu = 2000
         job.task_groups[0].tasks[0].resources.memory_mb = 4096
+        if policy:
+            job.policy = PolicySpec(throughput=dict(POLICY_TPUT))
         jobs.append(job)
     return jobs
 
 
-def run_storm(device, storm_on: bool, label: str, on_start=None) -> dict:
+def run_storm(device, storm_on: bool, label: str, on_start=None,
+              policy: bool = False) -> dict:
     """The storm stream through a fresh batched Server: the jobs are
     registered before start, so the whole family lands in the broker as
     one restore wave (the shape a drain or dispatch burst leaves), then
-    the server drains it.  Returns placements, counters and rates."""
+    the server drains it.  Returns placements, counters and rates.
+    With `policy`, the world has node classes and the family a
+    throughput table (a weighted storm)."""
     import os
 
     from nomad_tpu_torch.server import Server
@@ -1022,9 +1185,9 @@ def run_storm(device, storm_on: bool, label: str, on_start=None) -> dict:
         server = Server(num_schedulers=1, seed=1, batch_pipeline=True,
                         heartbeat_ttl=1e9, device=device)
         t0 = time.perf_counter()
-        build_world(server.store)
+        build_world(server.store, classes=policy)
         log(f"  [{label}] world built in {time.perf_counter() - t0:.1f}s")
-        jobs = storm_jobs()
+        jobs = storm_jobs(policy)
         for job in jobs:
             server.register_job(job)
         if on_start is not None:
@@ -1056,6 +1219,8 @@ def run_storm(device, storm_on: bool, label: str, on_start=None) -> dict:
             counters = {k: getattr(worker, f"storm_{k}") for k in (
                 "solves", "evals", "rows", "fallbacks", "divergent")}
             counters["rounds"] = server.metrics.get_gauge("storm.rounds")
+            counters["policy_storm_evals"] = server.metrics.get_counter(
+                "policy.storm_evals")
             out = {
                 "ok": ok, "seconds": dt, "placements": placements,
                 "placed": sum(len(v) for v in placements.values()),
@@ -1177,6 +1342,9 @@ def k5_work(inp, out) -> dict:
     E, C = inp.feasible.shape
     A = inp.ask.shape[0]
     f = inp.ask.element_size()
+    # a weighted storm also reads its two [E, C] policy rows and [E] counts
+    policy_bytes = (0 if inp.policy_tput_term is None
+                    else 2 * E * C * f + E * f)
     rounds = int(out.rounds)
     acc = out.accept_round.cpu()
     real = int(inp.real.sum())
@@ -1184,22 +1352,25 @@ def k5_work(inp, out) -> dict:
                   for r in range(rounds)]
     return {
         "bytes": (9 * C * f + E * C * (1 + f + 4 + 4) + 2 * E * 4
-                  + A * (4 + C + 3 * f + 4 + 1) + A * (4 * 4 + f) + 4),
+                  + A * (4 + C + 3 * f + 4 + 1) + A * (4 * 4 + f) + 4
+                  + policy_bytes),
         "flops": (A * C * FLOPS_PER_CANDIDATE
                   + sum(u * (12 * C + 6 * A) for u in unassigned)),
         "rounds": rounds,
     }
 
 
-def time_storm_kernel(cuda) -> dict:
+def time_storm_kernel(cuda, policy: bool = False) -> dict:
     """K5 at the storm path's full width (A = E = 1,024 rows and evals,
-    the 16,384-row arena, f64) on the `dogpile` case."""
+    the 16,384-row arena, f64) on the `dogpile` case; with `policy`, the
+    weighted dogpile (`policy_storm_case`, mixed policy rows)."""
     from nomad_tpu_torch.ops import solve as tsolve
-    from nomad_tpu_torch.ops.cases import storm_case
+    from nomad_tpu_torch.ops.cases import policy_storm_case, storm_case
     from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
 
     A = E = STORM_ROWS[-1]
-    cols, inp, max_rounds = storm_case(9900, E, A, C_CHECK, "dogpile")
+    make = policy_storm_case if policy else storm_case
+    cols, inp, max_rounds = make(9900, E, A, C_CHECK, "dogpile")
     args = (storm_inputs(inp, cuda), storm_columns(cols, cuda), False,
             max_rounds)
     out = {
@@ -1385,7 +1556,7 @@ def check_preempt(cuda, card: str) -> dict:
     for name, r in (("card", on_card), ("CPU", cpu), ("oracle", oracle)):
         check(r["errors"] == 0, f"the {name} preempt run counted {r['errors']} errors")
     check(k6_launches > 0, "K6 was not launched on the preempt path")
-    check(on_card["selects"] >= 16,
+    check(on_card["selects"] >= math.ceil(0.8 * PREEMPT_JOBS),
           f"only {on_card['selects']} selects took the preempt branch")
     check(on_card["placements"] == cpu["placements"],
           "preempt placements differ between the card and the CPU twins")
@@ -1428,6 +1599,264 @@ def check_preempt(cuda, card: str) -> dict:
             "evict_evals": on_card["evict_evals"], "ms_per_select": ms,
             "stream_s": on_card["seconds"], "placed": placed,
             "evicted": len(on_card["evicted"])}
+
+
+# ---------------------------------------------------------------------------
+# phase policy: policy-weighted selects and the weighted storm
+# ---------------------------------------------------------------------------
+
+
+def policy_stream():
+    """The policy phase's steps, in order: (job id, job factory).  Eight
+    count-4 weighted service jobs: three with POLICY_TPUT alone, two
+    with it beside a rack affinity and a datacenter spread, three with a
+    migration coefficient (two beside the table, one alone), each of the
+    last three followed by a destructive update (an env bump) whose
+    replacements pay the migration term off their incumbent nodes.  The
+    first POLICY_ORACLE_STEPS steps hold one job of each kind and one
+    update, for the host oracle's shorter pass."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import (
+        Affinity,
+        PolicySpec,
+        Spread,
+        SpreadTarget,
+    )
+
+    def make(job_id, tput=True, mig=0.0, aff=False, env="1"):
+        def build():
+            j = mock.job(id=job_id, datacenters=DCS)
+            j.task_groups[0].count = 4
+            j.task_groups[0].tasks[0].env = {"V": env}
+            j.policy = PolicySpec(
+                throughput=dict(POLICY_TPUT) if tput else {},
+                migration_coefficient=mig)
+            if aff:
+                j.affinities = [Affinity("${attr.rack}", "r3", "=", 50)]
+                j.spreads = [Spread(
+                    attribute="${node.datacenter}", weight=50,
+                    targets=(SpreadTarget("dc1", 50),
+                             SpreadTarget("dc2", 30)))]
+            return j
+        return build
+
+    def mig(job_id, tput):
+        return [(job_id, make(job_id, tput=tput, mig=0.5)),
+                (job_id, make(job_id, tput=tput, mig=0.5, env="2"))]
+
+    return ([("pol-tput-0", make("pol-tput-0")),
+             ("pol-aff-0", make("pol-aff-0", aff=True))]
+            + mig("pol-mig-0", True) + mig("pol-mig-1", False)
+            + [(f"pol-tput-{i}", make(f"pol-tput-{i}")) for i in (1, 2)]
+            + [("pol-aff-1", make("pol-aff-1", aff=True))]
+            + mig("pol-mig-2", True))
+
+
+def run_policy(mode: str, on_ready=None, limit=None) -> dict:
+    """The policy stream through a fresh sequential Server (the per-eval
+    device stack) on the world with node classes.  mode: "cuda" (the
+    kernels), "cpu" (the twins) or "oracle" (the host iterator chain).
+    Runs the first `limit` steps when given.  Returns, for every step,
+    the job's live placements with each alloc's AllocMetric digests;
+    the selects' count and host seconds; the placed count and the
+    policy components seen."""
+    from nomad_tpu_torch.sched.cuda_stack import CudaGenericStack
+    from nomad_tpu_torch.server import Server
+
+    server = Server(num_schedulers=1, seed=1, batch_pipeline=False,
+                    heartbeat_ttl=1e9,
+                    device=None if mode == "cuda" else "cpu")
+    t0 = time.perf_counter()
+    build_world(server.store, classes=True)
+    log(f"  [policy {mode}] world built in {time.perf_counter() - t0:.1f}s")
+    cfg = server.store.get_scheduler_config()
+    cfg.tpu_scheduler_enabled = True  # the per-eval device stack
+    server.store.set_scheduler_config(cfg)
+    if mode == "oracle":
+        server.workers[0].host_fallback = True
+    stats = {"selects": 0, "select_seconds": 0.0}
+    orig = CudaGenericStack._select_vectorized
+
+    def timed(stack, tg, options):
+        t = time.perf_counter()
+        try:
+            return orig(stack, tg, options)
+        finally:
+            stats["selects"] += 1
+            stats["select_seconds"] += time.perf_counter() - t
+
+    CudaGenericStack._select_vectorized = timed
+    steps, placed, components = [], 0, set()
+    try:
+        if on_ready is not None:
+            on_ready()
+        server.start()
+        t0 = time.perf_counter()
+        for job_id, make in policy_stream()[:limit]:
+            server.register_job(make())
+            check(server.drain_to_idle(timeout=600.0),
+                  f"policy {mode}: the server did not drain at {job_id}")
+            live = sorted(
+                (a for a in server.store.allocs_by_job("default", job_id)
+                 if not a.terminal_status()), key=lambda a: a.name)
+            placed += len(live)
+            for a in live:
+                for m in a.metrics.score_meta:
+                    components.update(
+                        k for k in m.scores if k.startswith("policy."))
+            steps.append((job_id, [(a.name, a.node_id,
+                                    metric_digests(a.metrics))
+                                   for a in live]))
+        seconds = time.perf_counter() - t0
+        errors = server.workers[0].errors
+        counters = {k: v for k, v in server.metrics.dump()["counters"].items()
+                    if k.startswith("policy.")}
+    finally:
+        CudaGenericStack._select_vectorized = orig
+        server.stop()
+    out = dict(stats, steps=steps, placed=placed, seconds=seconds,
+               errors=errors, components=sorted(components),
+               counters=counters)
+    log(f"  [policy {mode}] {placed} placed in {seconds:.1f}s, "
+        f"{stats['selects']} vectorized selects, errors {errors}")
+    return out
+
+
+def check_policy(cuda, card: str) -> dict:
+    """Phase policy: the weighted per-eval stream on the card, the CPU
+    twins and the host oracle; then one weighted storm on the card and
+    the CPU twins."""
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops import solve as tsolve
+
+    def reset_k1():
+        tscore.score_select_cuda.launches = 0
+
+    on_card = run_policy("cuda", on_ready=reset_k1)
+    k1_launches = tscore.score_select_cuda.launches
+    cpu = run_policy("cpu")
+    oracle = run_policy("oracle", limit=POLICY_ORACLE_STEPS)
+    for name, r in (("card", on_card), ("CPU", cpu), ("oracle", oracle)):
+        check(r["errors"] == 0, f"the {name} policy run counted {r['errors']} errors")
+    check(k1_launches > 0, "K1 was not launched on the policy path")
+    n_steps = len(policy_stream())
+    check(len(on_card["steps"]) == n_steps, "a policy step is missing")
+    check(len(oracle["steps"]) == POLICY_ORACLE_STEPS,
+          "the host oracle's policy prefix is short")
+    check(on_card["placed"] == 4 * n_steps,
+          f"{on_card['placed']} of {4 * n_steps} policy placements")
+    check(on_card["components"] == ["policy.migration", "policy.throughput"],
+          f"policy components on the card: {on_card['components']}")
+    for (job_id, got), (_j, twin), (_o, orc) in zip(
+            on_card["steps"], cpu["steps"], oracle["steps"]):
+        check([g[:2] for g in got] == [t[:2] for t in twin],
+              f"policy placements differ from the CPU twins at {job_id}")
+        check([g[:2] for g in got] == [o[:2] for o in orc],
+              f"policy placements differ from the host oracle at {job_id}")
+        check([g[2][0] for g in got] == [t[2][0] for t in twin],
+              f"AllocMetrics differ from the CPU twins at {job_id}")
+        check([g[2][1] for g in got] == [o[2][1] for o in orc],
+              f"AllocMetrics (score_meta included) differ from the host "
+              f"oracle at {job_id}")
+    # the migration replacements stay on their incumbent nodes
+    by_step = {}
+    for job_id, got in on_card["steps"]:
+        by_step.setdefault(job_id, []).append(sorted(g[1] for g in got))
+    held = {j: v[0] == v[1] for j, v in by_step.items() if len(v) == 2}
+    check(all(held.values()), f"migration replacements moved: {held}")
+
+    # one weighted storm at full width, card against the CPU twins
+    def reset_k5():
+        tsolve.storm_assignment_cuda.launches = 0
+
+    # keep the card run's weighted problem (the staged inputs and the
+    # mirror columns K5 read) to time K5 on it afterwards
+    from nomad_tpu_torch.server.batch_worker import BatchWorker
+
+    solved = []
+    orig_solve = BatchWorker._storm_solve
+
+    def keep_problem(self, problem, snap):
+        out = orig_solve(self, problem, snap)
+        cols = tuple(c.clone() for c in self._device_columns(snap.node_table))
+        solved.append((problem, cols))
+        return out
+
+    BatchWorker._storm_solve = keep_problem
+    try:
+        storm = run_storm(None, True, "weighted storm, cuda",
+                          on_start=reset_k5, policy=True)
+    finally:
+        BatchWorker._storm_solve = orig_solve
+    k5_launches = tsolve.storm_assignment_cuda.launches
+    storm_cpu = run_storm("cpu", True, "weighted storm, cpu", policy=True)
+    for name, r in (("card", storm), ("CPU", storm_cpu)):
+        check(r["ok"], f"the {name} weighted storm did not drain")
+        check(r["errors"] == 0, f"the {name} weighted storm counted "
+              f"{r['errors']} errors")
+        check(not r["lost"], f"the {name} weighted storm lost evals")
+    check(k5_launches > 0, "K5 was not launched on the weighted storm")
+    check(storm["counters"]["policy_storm_evals"] == STORM_JOBS,
+          f"{storm['counters']['policy_storm_evals']} of {STORM_JOBS} evals "
+          f"were staged with policy rows")
+    check(storm["counters"] == storm_cpu["counters"],
+          f"weighted storm counters differ: card {storm['counters']} "
+          f"CPU {storm_cpu['counters']}")
+    for job_id, placed in storm["placements"].items():
+        check(placed == storm_cpu["placements"][job_id],
+              f"card and CPU weighted storms diverge at {job_id}")
+    check(storm["placed"] == STORM_JOBS,
+          f"{storm['placed']} of {STORM_JOBS} weighted storm placements")
+    rate = on_card["placed"] / on_card["seconds"]
+    ms_select = on_card["select_seconds"] / max(1, on_card["selects"]) * 1e3
+    storm_rate = storm["placed"] / storm["seconds"]
+    # K5 alone on the weighted storm's own problem
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops.solve import StormInputs
+
+    problem, cols = solved[0]
+    inp = StormInputs(*(None if x is None else
+                        torch.from_numpy(np.asarray(x)).to(cuda)
+                        for x in problem.inputs))
+    path_args = (inp, cols, problem.spread_fit, problem.max_rounds)
+    path = k5_work(inp, tsolve.storm_assignment_cuda(*path_args))
+    path["ms"] = cuda_time_ms(
+        lambda: tsolve.storm_assignment_cuda(*path_args), n=5, warmup=1)
+    path["bound_ms"] = max(path["bytes"] / HBM_BYTES_PER_S,
+                           path["flops"] / F64_FLOPS) * 1e3
+    tsolve.storm_assignment_cuda.launches = k5_launches
+    print(
+        f"policy path on {card}: {n_steps} weighted evals ({on_card['placed']} "
+        f"placements, {on_card['selects']} K1 selects over every candidate), "
+        f"{rate:.2f} placements/s, {ms_select:.2f} ms a select (host clock, "
+        f"capture on; CPU twins "
+        f"{cpu['select_seconds'] / max(1, cpu['selects']) * 1e3:.2f} ms), "
+        f"stream {on_card['seconds']:.2f} s on the card, {cpu['seconds']:.2f} "
+        f"s on the CPU twins, {oracle['seconds']:.2f} s on the host oracle "
+        f"(its first {POLICY_ORACLE_STEPS} steps); "
+        f"K1 launches {k1_launches}; placements and AllocMetrics equal to "
+        f"the CPU twins and, on its prefix, the host oracle (score_meta with "
+        f"{on_card['components']}); migration replacements held "
+        f"{sorted(held)}; policy counters {json.dumps(on_card['counters'])}, "
+        f"worker.errors 0.  Weighted storm: {STORM_JOBS} children, K5 "
+        f"launches {k5_launches}, counters {json.dumps(storm['counters'])}, "
+        f"{storm_rate:.1f} placements/s ({storm['seconds']:.2f} s), "
+        f"placements equal to the CPU twins; worker.errors 0; K5 alone on "
+        f"this run's weighted problem (A={problem.inputs.ask.shape[0]}, "
+        f"E={problem.inputs.feasible.shape[0]}, {path['rounds']} rounds) "
+        f"{path['ms']:.4f} ms (bound {path['bound_ms']:.6f} ms); timings "
+        f"(s) {json.dumps({k: round(v, 4) for k, v in storm['timings'].items()})}",
+        flush=True,
+    )
+    return {"launches": {"score_select": k1_launches,
+                         "storm_solve": k5_launches},
+            "placements_per_s": rate, "ms_per_select": ms_select,
+            "selects": on_card["selects"], "storm_rate": storm_rate,
+            "k5_on_path": path,
+            "storm_counters": storm["counters"],
+            "counters": on_card["counters"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1802,6 +2231,13 @@ def check_device(cuda, card: str) -> dict:
         finally:
             server.stop()
         launches = tcanary.canary_cuda.launches
+    # once its threads have ended, a stopped Server is freed with its
+    # store: no guarded stage's runner keeps it alive
+    store_ref = weakref.ref(server.store)
+    del server, sup
+    check(wait_for(lambda: gc.collect() >= 0 and store_ref() is None, 10.0,
+                   step=0.5),
+          "a stopped supervised Server's store is still alive")
     check(status["state"] == HEALTHY and not status["history"],
           f"the supervisor left HEALTHY: {status['history']}")
     check(status["watchdog_trips"] == 0 and status["canary_fail"] == 0,
@@ -1928,7 +2364,10 @@ def check_device(cuda, card: str) -> dict:
                   "the supervisor left LOST/RECOVERING while the jobs were registered")
             check(ready == len(jobs) and placed_while_lost == 0,
                   f"held jobs left the broker: {ready} ready, {placed_while_lost} placed")
-            check(wait_for(lambda: sup.state() == HEALTHY, 20.0),
+            # HEALTHY is set before the restore's listeners flush; the
+            # hold clears after them, and only then may drain_to_idle run
+            check(wait_for(lambda: sup.state() == HEALTHY
+                           and not sup.holding(), 20.0),
                   f"flaky:3 never recovered ({sup.state()})")
             resume_s = time.monotonic() - t_lost
             prescored0 = worker.prescored
@@ -2039,8 +2478,10 @@ def cuda_time_ms(fn, n: int = TIMING_LAUNCHES, warmup: int = 20) -> float:
 
 def time_kernels(cuda) -> dict:
     """K1 at the count-1 select's shape (16,384-row arena, 10,000
-    candidates, limit 14 = ceil(log2 10,000)); K2 at the count-10
-    look-ahead's (the same arena, P = pow2_bucket(10) = 16)."""
+    candidates, limit 14 = ceil(log2 10,000)) and at a weighted select's
+    (both policy groups, unlimited walk); K2 at the count-10
+    look-ahead's (the same arena, P = pow2_bucket(10) = 16); K5 on the
+    dogpile unweighted and weighted."""
     import torch
 
     from nomad_tpu_torch.ops import batch as tbatch
@@ -2088,11 +2529,13 @@ def time_kernels(cuda) -> dict:
             "flops": k2_pulls * FLOPS_PER_CANDIDATE,
         },
     }
+    out["score_select_policy"] = time_policy_select(cuda)
     out.update(time_chain_kernels(cuda))
     from nomad_tpu_torch.ops import solve as tsolve
 
     saved_k5 = tsolve.storm_assignment_cuda.launches
     out["storm_solve"] = time_storm_kernel(cuda)
+    out["storm_solve_policy"] = time_storm_kernel(cuda, policy=True)
     tsolve.storm_assignment_cuda.launches = saved_k5
     out["walk_only"] = time_walk_kernel(cuda)
     out["batch_picks"] = time_batch_kernel(cuda)
@@ -2112,7 +2555,41 @@ def time_kernels(cuda) -> dict:
                       f"{v.get('rounds', 0)} rounds, "
                       f"{v['flops']} ops, {v['bound_ms']:.9f} ({v['bound_by']})"
                       for k, v in out.items()), flush=True)
+    print("policy timing (f64, CUDA events): "
+          + "; ".join(
+              f"{k} {out[k]['ms']:.6f} ms (policy off {out[base]['ms']:.6f}), "
+              f"twin {out[k]['plain_ms']:.6f} ms, bound "
+              f"{out[k]['bound_ms']:.9f} ms ({out[k]['bound_by']})"
+              + (f", {out[k]['rounds']} rounds" if "rounds" in out[k] else "")
+              for k, base in (("score_select_policy", "score_select"),
+                              ("storm_solve_policy", "storm_solve"))),
+          flush=True)
     return out
+
+
+def time_policy_select(cuda) -> dict:
+    """K1 at the policy select's shape: the 16,384-row arena with 10,000
+    candidates, f64, both policy groups (`policy_score_case` "both") and
+    the unlimited walk (limit INT32_MAX) a weighted job takes."""
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops.cases import INT32_MAX, policy_score_case
+    from nomad_tpu_torch.state.convert import score_inputs_from_numpy
+
+    k1 = score_inputs_from_numpy(
+        policy_score_case(7002, C_CHECK, N_CAND_CHECK, "both", INT32_MAX),
+        cuda)
+    pulls = int(tscore.score_select_cuda(k1).out_i[1])
+    return {
+        "ms": cuda_time_ms(lambda: tscore.score_select_cuda(k1)),
+        "plain_ms": cuda_time_ms(lambda: tscore.score_and_select_twin(k1),
+                                 n=200, warmup=3),
+        # every input column read once (all C walk positions: eight f64
+        # columns and the two policy columns, two byte masks, two int32
+        # columns) and 16 bytes written
+        "bytes": C_CHECK * (10 * 8 + 2 * 1 + 2 * 4) + 16,
+        "pulls": pulls,
+        "flops": pulls * FLOPS_PER_CANDIDATE,
+    }
 
 
 def time_walk_kernel(cuda) -> dict:
@@ -2321,6 +2798,8 @@ def main() -> int:
 
     failures = []
     results = {}
+    pauses = {}
+    gc.callbacks.append(GC_PAUSES)
     for name, fn in (("k1", lambda: check_k1(cuda)),
                      ("k2", lambda: check_k2(cuda)),
                      ("main", lambda: check_main_path(cuda, card)),
@@ -2331,18 +2810,31 @@ def main() -> int:
                      ("storm", lambda: check_storm(cuda, card)),
                      ("k6", lambda: check_k6(cuda)),
                      ("preempt", lambda: check_preempt(cuda, card)),
+                     ("policy", lambda: check_policy(cuda, card)),
                      ("k7", lambda: check_k7(cuda)),
                      ("bridge", lambda: check_bridge(cuda, card)),
                      ("k8", lambda: check_k8(cuda)),
                      ("device", lambda: check_device(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
+        GC_PAUSES.reset()
         try:
             results[name] = fn()
         except SmokeFailure as e:
             failures.append(f"{name}: {e}")
             print(f"FAILED {name}: {e}", flush=True)
-        log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
+        pauses[name] = GC_PAUSES.summary()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f}s; collector "
+            f"pauses inside it {json.dumps(pauses[name])}")
+    gc.callbacks.remove(GC_PAUSES)
+    worst = max(pauses, key=lambda k: pauses[k]["max_s"])
+    print(f"collector pauses (host clock, gc.callbacks; the harness's own "
+          f"collections between worlds left out): longest {pauses[worst]['max_s']:.3f} s "
+          f"(generation {pauses[worst]['max_gen']}, phase {worst}), "
+          f"{sum(p['total_s'] for p in pauses.values()):.2f} s in all; one "
+          f"full collection over a live world at most "
+          f"{GC_PAUSES.world_collect_s:.3f} s; by phase {json.dumps(pauses)}",
+          flush=True)
     if failures:
         print(f"chip_smoke failed: {failures}", flush=True)
         return 1
@@ -2381,6 +2873,9 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        # the policy path's own count, beside the main path's
+        if name in results["policy"]["launches"]:
+            kernels[-1]["launches_policy"] = results["policy"]["launches"][name]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

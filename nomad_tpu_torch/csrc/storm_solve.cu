@@ -3,15 +3,25 @@
 // batch worker's storm path (NOMAD_TPU_STORM=1).
 //
 // Replaces the JAX program nomad_tpu/ops/solve.py:113 storm_assignment
-// (its broadcast _score_vectors, the vmapped _limited_walk_argmax warm
-// start, and the auction lax.while_loop :233-297).  Plain twin:
-// nomad_tpu_torch/ops/solve.py storm_assignment_twin.
+// (its broadcast _score_vectors with the policy rows :98-107,161-167,
+// the vmapped _limited_walk_argmax warm start, and the auction
+// lax.while_loop :233-297).  Plain twin: nomad_tpu_torch/ops/solve.py
+// storm_assignment_twin.
+//
+// A weighted storm (a member whose job resolves a PolicySpec) passes
+// three more per-eval inputs, pre-scaled on the host: the throughput
+// rows [E, C], their counts [E] and the migration rows [E, C].  The
+// score pass gathers them by the row's eval, as the JAX program
+// gathers [eo]; policy-less evals carry all-zero rows, which add
+// nothing (and count nothing) float-exactly.  With the three pointers
+// null the score pass is the unweighted instantiation.
 //
 // Three launches on the caller's stream, no host read between them:
 //   1. score (grid over node tiles x rows): feasibility and score of
 //      every (row, node) pair into [A, C] scratch, through walk.cuh's
-//      score_node with the row's eval slice, the mirror columns plus
-//      the staged pre-placement deltas, and the row's `real` flag;
+//      score_node with the row's eval slice (policy terms included),
+//      the mirror columns plus the staged pre-placement deltas, and
+//      the row's `real` flag;
 //   2. walk (one block of 1,024 threads per row): K1's limited walk
 //      over the row's perm, limit and candidate count — the warm
 //      start (rows0, pulls0), which is also the `greedy` output;
@@ -48,7 +58,8 @@
 // row order, which equals XLA's dot for whole-valued asks.
 //
 // What bounds it on an H100: the score pass writes the [A, C] matrix
-// (128 MiB in f64 at A = 1,024, C = 16,384) and every auction round
+// (128 MiB in f64 at A = 1,024, C = 16,384; a weighted storm reads two
+// more [E, C] rows, 256 MiB at E = 1,024) and every auction round
 // re-reads the unassigned rows of it, so it is bound by bytes; the
 // walk pass is K1's latency-bound walk, one block per row, ~8 rows per
 // SM at full width.
@@ -84,6 +95,9 @@ struct StormArgs {
   const void* pre_cpu;     // T [C]
   const void* pre_mem;
   const void* pre_disk;
+  const void* policy_tput;  // T [E, C] or null (unweighted storm)
+  const void* policy_has;   // T [E] or null
+  const void* policy_mig;   // T [E, C] or null
   void* scores;    // T [A, C] scratch
   void* feas;      // uint8 [A, C] scratch
   void* s_walk;    // T [A, C] scratch (walk order)
@@ -141,6 +155,9 @@ struct Storm {
   const T* __restrict__ pre_cpu;
   const T* __restrict__ pre_mem;
   const T* __restrict__ pre_disk;
+  const T* __restrict__ policy_tput;
+  const T* __restrict__ policy_has;
+  const T* __restrict__ policy_mig;
   T* scores;
   uint8_t* feas;
   T* s_walk;
@@ -164,7 +181,7 @@ struct Storm {
 };
 
 // Pass 1: score and feasibility of every (row, node) pair.
-template <typename T>
+template <typename T, bool kPolicy>
 __global__ void __launch_bounds__(kScoreThreads)
     storm_score_kernel(const Storm<T> p) {
   const int a = blockIdx.y;
@@ -183,10 +200,18 @@ __global__ void __launch_bounds__(kScoreThreads)
   const bool fit = (cpu_after <= cpu_total) & (mem_after <= mem_total) &
                    (disk_after <= p.disk_total[c]);
   p.feas[ac] = (p.feasible[ec] != 0) & fit & (p.real[a] != 0);
-  p.scores[ac] = nk::score_node<T, false>(
+  nk::PolicyNode<T> pol;
+  if (kPolicy) {
+    pol.tput_on = true;
+    pol.tput = p.policy_tput[ec];
+    pol.has_tput = p.policy_has[e];
+    pol.mig_on = true;
+    pol.mig = p.policy_mig[ec];
+  }
+  p.scores[ac] = nk::score_node<T, false, false, kPolicy>(
       cpu_total, mem_total, cpu_after, mem_after, p.collisions[ec],
       p.penalty[ac] != 0, p.affinity[ec], T(0),
-      static_cast<T>(p.desired[a]), p.spread_fit);
+      static_cast<T>(p.desired[a]), p.spread_fit, T(0), false, pol);
 }
 
 // Pass 2: each row's warm start, K1's limited walk over its eval's
@@ -449,6 +474,9 @@ Storm<T> typed(const StormArgs& a) {
   p.pre_cpu = static_cast<const T*>(a.pre_cpu);
   p.pre_mem = static_cast<const T*>(a.pre_mem);
   p.pre_disk = static_cast<const T*>(a.pre_disk);
+  p.policy_tput = static_cast<const T*>(a.policy_tput);
+  p.policy_has = static_cast<const T*>(a.policy_has);
+  p.policy_mig = static_cast<const T*>(a.policy_mig);
   p.scores = static_cast<T*>(a.scores);
   p.feas = static_cast<uint8_t*>(a.feas);
   p.s_walk = static_cast<T*>(a.s_walk);
@@ -479,7 +507,11 @@ template <typename T>
 cudaError_t launch(const StormArgs& a, cudaStream_t s) {
   Storm<T> p = typed<T>(a);
   const dim3 score_grid((a.C + kScoreThreads - 1) / kScoreThreads, a.A);
-  storm_score_kernel<T><<<score_grid, kScoreThreads, 0, s>>>(p);
+  if (a.policy_tput != nullptr) {
+    storm_score_kernel<T, true><<<score_grid, kScoreThreads, 0, s>>>(p);
+  } else {
+    storm_score_kernel<T, false><<<score_grid, kScoreThreads, 0, s>>>(p);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   storm_walk_kernel<T><<<a.A, nk::kThreads, 0, s>>>(p);

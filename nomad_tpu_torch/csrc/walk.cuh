@@ -1,9 +1,10 @@
 // Shared device code of kernels K1 (score_select.cu), K2
-// (plan_picks.cu) and K3 (chained_picks.cu): the per-node score and the
-// shuffled limited walk.
+// (plan_picks.cu), K3 (chained_picks.cu), K5 (storm_solve.cu) and K7
+// (batch_picks.cu): the per-node score and the shuffled limited walk.
 //
 // Replaces the arithmetic that the JAX programs share:
-//   nomad_tpu/ops/score.py  _pow10 (:69), _score_vectors (:110),
+//   nomad_tpu/ops/score.py  _pow10 (:69), _score_vectors (:110) with
+//                           its policy branch (:163-180),
 //                           _limited_walk_argmax (:186)
 //   nomad_tpu/ops/batch.py  _walk (:281), _rotated_prefix (:268)
 //
@@ -58,21 +59,37 @@ __device__ __forceinline__ float fma_rn(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
 }
 
+// The policy-weighted terms of one node (ops/score.py PolicyTerms),
+// pre-scaled on the host.  A group whose flag is off is absent.
+template <typename T>
+struct PolicyNode {
+  bool tput_on = false;
+  T tput = T(0);      // coef * normalized throughput of the node
+  T has_tput = T(0);  // the count the throughput term adds
+  bool mig_on = false;
+  T mig = T(0);       // coef * (-1 off the incumbent nodes, 0 on them)
+};
+
 // The per-node score: BestFit-v3 binpack (or worst-fit under
 // spread_fit), job anti-affinity, reschedule penalty, node affinity,
 // (when kDevAff) the device-affinity match fraction of an ask whose
-// affinities carry weight (`dev_on`; appended even when 0), and (when
-// kSpread) the spread boost, as a (sum, count) mean.  The additions of
-// zero that the JAX program makes for absent terms are kept, so the
-// operation sequence is the same.
-template <typename T, bool kSpread, bool kDevAff = false>
+// affinities carry weight (`dev_on`; appended even when 0), (when
+// kSpread) the spread boost, and (when kPolicy) the policy terms, as a
+// (sum, count) mean.  The additions of zero that the JAX program makes
+// for absent terms are kept, so the operation sequence is the same.
+// The policy terms are added unconditionally, as the JAX program adds
+// them (a -0.0 term stays an exact no-op); only their counts are
+// predicated.  Call sites without kPolicy compile to the same code.
+template <typename T, bool kSpread, bool kDevAff = false,
+          bool kPolicy = false>
 __device__ __forceinline__ T score_node(T cpu_total, T mem_total,
                                         T cpu_after, T mem_after,
                                         int coll, bool penalty, T aff,
                                         T spread, T desired,
                                         bool spread_fit,
                                         T dev_aff = T(0),
-                                        bool dev_on = false) {
+                                        bool dev_on = false,
+                                        PolicyNode<T> pol = {}) {
   const T one = T(1);
   const T zero = T(0);
   const T safe_cpu = cpu_total > zero ? cpu_total : one;
@@ -109,6 +126,16 @@ __device__ __forceinline__ T score_node(T cpu_total, T mem_total,
     const bool has_spread = spread != zero;
     score_sum = score_sum + (has_spread ? spread : zero);
     count = count + (has_spread ? one : zero);
+  }
+  if (kPolicy) {
+    if (pol.tput_on) {
+      score_sum = score_sum + pol.tput;
+      count = count + pol.has_tput;
+    }
+    if (pol.mig_on) {
+      score_sum = score_sum + pol.mig;
+      count = count + (pol.mig != zero ? one : zero);
+    }
   }
   return score_sum / count;
 }

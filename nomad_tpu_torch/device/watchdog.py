@@ -40,19 +40,29 @@ class DeviceTimeout(DeviceFault):
         self.budget_s = budget_s
 
 
+# how often an idle runner checks that the thread it serves still lives
+_IDLE_CHECK_S = 1.0
+
+
 class _Runner:
     """One reusable sacrificial worker thread.  A healthy guarded call
     costs an Event handoff, not a thread spawn — the disposable-thread
     property is only needed when a deadline actually trips, at which
     point the runner is marked dead (its thread may be parked inside a
-    wedged call forever) and the caller mints a replacement."""
+    wedged call forever) and the caller mints a replacement.
 
-    __slots__ = ("_submit", "_box", "dead", "_thread")
+    The port's departure: between calls the runner holds nothing of the
+    last call (its callable's closure would keep a stopped Server and
+    its whole store alive), and it exits once the thread it serves has
+    ended, so a stopped Server leaves no parked runner behind."""
+
+    __slots__ = ("_submit", "_box", "dead", "_thread", "_owner")
 
     def __init__(self, name: str) -> None:
         self._submit = threading.Event()
         self._box: Optional[dict] = None
         self.dead = False
+        self._owner = threading.current_thread()
         self._thread = threading.Thread(
             target=self._loop, name=name, daemon=True
         )
@@ -60,9 +70,11 @@ class _Runner:
 
     def _loop(self) -> None:
         while True:
-            self._submit.wait()
+            while not self._submit.wait(_IDLE_CHECK_S):
+                if not self._owner.is_alive():
+                    return
             self._submit.clear()
-            box = self._box
+            box, self._box = self._box, None
             if box is None:
                 continue
             try:
@@ -71,6 +83,7 @@ class _Runner:
                 box["error"] = exc
             finally:
                 box["done"].set()
+                box = None
 
     def call(self, fn: Callable, timeout_s: float, stage: str):
         box: dict = {"fn": fn, "done": threading.Event()}

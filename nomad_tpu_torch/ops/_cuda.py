@@ -155,9 +155,11 @@ class ScoreSelectArgs(ctypes.Structure):
         ("cpu_used", _P), ("mem_used", _P), ("disk_used", _P),
         ("feasible", _P), ("collisions", _P), ("penalty", _P),
         ("affinity", _P), ("spread", _P), ("perm", _P),
+        ("tput_term", _P), ("mig_term", _P),
         ("s_scratch", _P), ("f_scratch", _P), ("out_i", _P),
         ("out_best", _P),
         ("ask_cpu", _D), ("ask_mem", _D), ("ask_disk", _D),
+        ("has_tput", _D),
         ("desired", _I), ("limit", _I), ("n_candidates", _I), ("C", _I),
         ("spread_fit", _I), ("is_f64", _I), ("device", _I),
     ]
@@ -194,11 +196,14 @@ def _launch(name: str, fn_name: str, args: ctypes.Structure,
 
 
 def launch_score_select(cols, s_scratch, f_scratch, out_i, out_best, *,
+                        tput_term, has_tput: float, mig_term,
                         ask: Tuple[float, float, float], desired: int,
                         limit: int, n_candidates: int,
                         spread_fit: bool) -> None:
     """K1 on the current stream.  `cols` maps ScoreInputs column names
-    to contiguous CUDA tensors (the wrapper has checked them)."""
+    to contiguous CUDA tensors (the wrapper has checked them);
+    `tput_term` and `mig_term` are the policy groups' contiguous
+    columns, or None for an absent group."""
     dev = cols["cpu_total"].device
     args = ScoreSelectArgs(
         cols["cpu_total"].data_ptr(), cols["mem_total"].data_ptr(),
@@ -207,9 +212,10 @@ def launch_score_select(cols, s_scratch, f_scratch, out_i, out_best, *,
         cols["feasible"].data_ptr(), cols["collisions"].data_ptr(),
         cols["penalty"].data_ptr(), cols["affinity_score"].data_ptr(),
         cols["spread_boost"].data_ptr(), cols["perm"].data_ptr(),
+        _ptr(tput_term), _ptr(mig_term),
         s_scratch.data_ptr(), f_scratch.data_ptr(), out_i.data_ptr(),
         out_best.data_ptr(),
-        ask[0], ask[1], ask[2],
+        ask[0], ask[1], ask[2], has_tput,
         desired, limit, n_candidates, cols["cpu_total"].shape[0],
         int(spread_fit), int(cols["cpu_total"].dtype == torch.float64),
         dev.index,
@@ -390,7 +396,8 @@ class StormArgs(ctypes.Structure):
             "cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
             "disk_used", "feasible", "affinity", "collisions", "perm",
             "limit", "n_cand", "eval_of", "penalty", "ask", "desired",
-            "real", "pre_cpu", "pre_mem", "pre_disk", "scores", "feas",
+            "real", "pre_cpu", "pre_mem", "pre_disk", "policy_tput",
+            "policy_has", "policy_mig", "scores", "feas",
             "s_walk", "f_walk", "free_cap", "price", "bid_v", "bid_c",
             "has_bid", "accepted", "progress", "pulls0", "out_assigned",
             "out_pulls", "out_round", "out_score", "out_greedy",
@@ -405,7 +412,9 @@ class StormArgs(ctypes.Structure):
 
 def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int):
     """K5 on the current stream over a checked `ops.solve.StormInputs`
-    and the six node columns (contiguous CUDA tensors).  Allocates the
+    (the three policy fields all tensors for a weighted storm, all None
+    otherwise) and the six node columns (contiguous CUDA tensors).
+    Allocates the
     outputs and the scratch (two [A, C] score copies and two [A, C]
     byte masks) and returns (assigned, pulls, accept_round, score,
     greedy, rounds) as device tensors."""
@@ -444,10 +453,14 @@ def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int):
             "n_cand", "eval_of", "penalty", "ask", "desired", "real",
             "pre_cpu", "pre_mem", "pre_disk",
         )},
+        policy_tput=inp.policy_tput_term, policy_has=inp.policy_has_tput,
+        policy_mig=inp.policy_mig_term,
         **scratch, **out,
     )
     args = StormArgs()
     for name, t in ptrs.items():
+        if t is None:
+            continue  # an absent policy field: a null pointer
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
         setattr(args, name, t.data_ptr())

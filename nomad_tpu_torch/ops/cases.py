@@ -1,7 +1,8 @@
-"""Seeded edge-case inputs for the kernels — K1 (one select), K2 (the
-pick scan), K3 (the chained planner), K5 (the storm solve), K6 (the
-walk alone) and K7 (E independent pick scans over one snapshot) — as
-numpy dicts keyed by the JAX programs' field names.
+"""Seeded edge-case inputs for the kernels — K1 (one select, with and
+without policy terms), K2 (the pick scan), K3 (the chained planner), K5
+(the storm solve, unweighted and weighted), K6 (the walk alone) and K7
+(E independent pick scans over one snapshot) — as numpy dicts keyed by
+the JAX programs' field names.
 
 Both the CPU tests (port twin against the JAX programs) and
 `chip_smoke.py` (kernel against twin on the card) draw from here, so
@@ -127,6 +128,60 @@ def score_case(seed: int, C: int, n_cand: int, scenario: str,
         ask_cpu=ASK[0], ask_mem=ASK[1], ask_disk=ASK[2],
         desired_count=desired, limit=limit, n_candidates=n_cand,
     )
+
+
+def _policy_rows(rng, n: int, C: int, tput, mig):
+    """Pre-scaled policy term rows, as `sched/policy.py` stages them
+    (coef * the normalized throughput of the node's class; coef * -1 off
+    a few incumbent nodes, 0 on them): (tput_term [n, C], has_tput [n],
+    mig_term [n, C]), rows of zeros where `tput`/`mig` [n] is False.
+    Node classes are three with a throughput table plus an unknown one
+    (0), and a quarter of the coefficients are negative, so the rows
+    hold -0.0 where a negative coefficient meets a 0."""
+    table = rng.uniform(0.5, 4.0, 3)
+    norm = np.concatenate([table / table.max(), [0.0]])
+    cls = rng.integers(0, 4, C)
+    sign = np.where(rng.random((2, n)) < 0.25, -1.0, 1.0)
+    tput_coef = sign[0] * rng.uniform(0.25, 2.0, n)
+    mig_coef = sign[1] * rng.uniform(0.1, 1.0, n)
+    tput_term = np.zeros((n, C))
+    mig_term = np.zeros((n, C))
+    for i in range(n):
+        if tput[i]:
+            tput_term[i] = tput_coef[i] * norm[cls]
+        if mig[i]:
+            vec = np.full(C, -1.0)
+            vec[rng.choice(C, size=max(1, C // 64), replace=False)] = 0.0
+            mig_term[i] = mig_coef[i] * vec
+    return tput_term, np.asarray(tput, np.float64), mig_term
+
+
+# K1 with a policy: which groups the select carries.  "inert" is a
+# policy job whose groups are both inert (armed coefficients, no live
+# allocs yet): no PolicyTerms, but the unlimited walk all the same.
+POLICY_SCORE_SCENARIOS: Dict[str, Tuple[bool, bool]] = {
+    "tput": (True, False),
+    "mig": (False, True),
+    "both": (True, True),
+    "inert": (False, False),
+}
+
+
+def policy_score_case(seed: int, C: int, n_cand: int, scenario: str,
+                      limit: int) -> Dict:
+    """One K1 input of a policy-weighted select: `score_case`'s "mixed"
+    scenario plus a "policy" entry {tput_term, has_tput, mig_term}
+    (None for an absent group; the entry itself None for "inert")."""
+    case = score_case(seed, C, n_cand, "mixed", limit)
+    rng = np.random.default_rng(seed + 1)
+    has_t, has_m = POLICY_SCORE_SCENARIOS[scenario]
+    tput, has, mig = _policy_rows(rng, 1, C, [has_t], [has_m])
+    case["policy"] = None if not (has_t or has_m) else dict(
+        tput_term=tput[0] if has_t else None,
+        has_tput=float(has[0]) if has_t else None,
+        mig_term=mig[0] if has_m else None,
+    )
+    return case
 
 
 # (distinct_hosts, tight): tight gives the group room for a few picks
@@ -554,6 +609,36 @@ def storm_case(seed: int, E: int, A: int, C: int, scenario: str):
         penalty=penalty, ask=ask, desired=desired.astype(np.int32),
         real=real, pre_cpu=pre[0], pre_mem=pre[1], pre_disk=pre[2],
     )
+    return cols, inputs, max_rounds
+
+
+# K5 with policy rows: (the base storm scenario, how evals carry
+# policy groups).  "weighted": every eval has a throughput row, half a
+# migration row; "mixed": each eval none, one or both groups at random
+# (the policy-less ones carry zero rows); "dogpile" the contended shape
+# with mixed rows.
+POLICY_STORM_SCENARIOS: Dict[str, Tuple[str, str]] = {
+    "weighted": ("penalty_affinity_collisions", "weighted"),
+    "mixed": ("uncontended", "mixed"),
+    "dogpile": ("dogpile", "mixed"),
+}
+
+
+def policy_storm_case(seed: int, E: int, A: int, C: int, scenario: str):
+    """One weighted K5 input: `storm_case` of the base scenario with the
+    three policy fields added to its StormInputs fields."""
+    base, kind = POLICY_STORM_SCENARIOS[scenario]
+    cols, inputs, max_rounds = storm_case(seed, E, A, C, base)
+    E = inputs["feasible"].shape[0]
+    rng = np.random.default_rng(seed + 1)
+    if kind == "weighted":
+        tput = np.ones(E, bool)
+        mig = rng.random(E) < 0.5
+    else:
+        tput = rng.random(E) < 0.5
+        mig = rng.random(E) < 0.5
+    t, h, m = _policy_rows(rng, E, C, tput, mig)
+    inputs.update(policy_tput_term=t, policy_has_tput=h, policy_mig_term=m)
     return cols, inputs, max_rounds
 
 

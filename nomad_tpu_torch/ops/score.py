@@ -7,6 +7,9 @@ K1, `csrc/score_select.cu`.  This module keeps:
 
 * `ScoreInputs`, the arena-shaped inputs, as a NamedTuple of tensors
   (scalars may be Python numbers or 0-d tensors);
+* `PolicyTerms`, the optional policy-weighted terms (a throughput
+  term and a migration term, pre-scaled by the host) that K1 adds
+  after the spread term;
 * the plain-PyTorch twins `score_vectors`, `limited_walk_argmax`,
   `score_and_select_twin` and `score_all`, which repeat the JAX
   arithmetic op for op so that they are bit-exact against it under x64;
@@ -104,6 +107,25 @@ def _pow10(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return raw.to(torch.float32).to(dtype)
 
 
+class PolicyTerms(NamedTuple):
+    """Policy-weighted terms of one select (Gavel-style throughput by
+    node class and migration stickiness, `sched/policy.py`), PRE-SCALED
+    by their coefficients on the host, as in the JAX package's
+    `PolicyTerms`.  Each group is optional: a None group is absent and
+    costs nothing.  Shapes broadcast like `feasible` ([C] for a select,
+    [A, C] after the storm's per-row gather); `has_tput` like
+    `desired_count` (a scalar, or [A, 1]).
+
+    `tput_term` (coef * normalized throughput) is added for every node
+    and counts `has_tput`; `mig_term` (coef * -1 off the incumbent
+    nodes, 0 on them) is added for every node and counts only where it
+    is non-zero.  Both adds are unconditional, as in the JAX program."""
+
+    tput_term: Optional[torch.Tensor] = None  # f[C]
+    has_tput: Optional[Scalar] = None  # f 0/1 flag paired with tput_term
+    mig_term: Optional[torch.Tensor] = None  # f[C]
+
+
 class ScoreInputs(NamedTuple):
     """Arena-shaped kernel inputs.  All float columns share one dtype
     (f64 on the main path, f32 allowed); `perm` is the rotated visit
@@ -128,9 +150,8 @@ class ScoreInputs(NamedTuple):
     desired_count: Scalar  # i32 scalar (tg.count)
     limit: Scalar  # i32 scalar (visit limit; INT32_MAX = unlimited)
     n_candidates: Scalar  # i32 scalar
-    # policy-weighted scoring (PolicyTerms in the JAX package) is not
-    # ported yet; any non-None value raises NotImplementedError
-    policy: Optional[object] = None
+    # policy-weighted scoring: None for a job without a resolved policy
+    policy: Optional[PolicyTerms] = None
 
 
 _COLUMNS = (
@@ -148,17 +169,9 @@ def _scalar(value: Scalar, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=dtype, device=device)
 
 
-def _no_policy(inp) -> None:
-    if inp.policy is not None:
-        raise NotImplementedError(
-            "policy-weighted scoring is not ported to the torch stack yet"
-        )
-
-
 def score_vectors(inp: ScoreInputs, spread_fit: bool = False):
     """Plain twin of `_score_vectors`.  Returns (feasible_after_fit
     bool[C], final_scores f[C])."""
-    _no_policy(inp)
     dtype = inp.cpu_total.dtype
     dev = inp.cpu_total.device
     ask_cpu = _scalar(inp.ask_cpu, dtype, dev)
@@ -210,6 +223,21 @@ def score_vectors(inp: ScoreInputs, spread_fit: bool = False):
     has_spread = inp.spread_boost != 0.0
     score_sum = score_sum + torch.where(has_spread, inp.spread_boost, zero)
     count = count + has_spread.to(dtype)
+
+    # policy terms last (the serial PolicyIterator sits after spread):
+    # each present group is one unconditional add into the sum, with
+    # only the count predicated
+    pol = inp.policy
+    if pol is not None:
+        if pol.tput_term is not None:
+            has_tput = pol.has_tput
+            if not isinstance(has_tput, torch.Tensor):
+                has_tput = _scalar(has_tput, dtype, dev)
+            score_sum = score_sum + pol.tput_term
+            count = count + has_tput
+        if pol.mig_term is not None:
+            score_sum = score_sum + pol.mig_term
+            count = count + (pol.mig_term != 0.0).to(dtype)
 
     final = score_sum / count
     return feasible, final
@@ -281,8 +309,26 @@ def score_all(inp: ScoreInputs, spread_fit: bool = False):
     return score_vectors(inp, spread_fit)
 
 
+def _check_policy(pol, C: int, dtype, dev) -> None:
+    if not isinstance(pol, PolicyTerms):
+        raise TypeError(f"policy must be PolicyTerms, got {type(pol).__name__}")
+    for name in ("tput_term", "mig_term"):
+        t = getattr(pol, name)
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"policy.{name} must be a tensor on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"policy.{name} must be {dtype}")
+        if t.dim() != 1 or t.shape[0] != C:
+            raise ValueError(
+                f"policy.{name} must have shape [{C}], got {tuple(t.shape)}"
+            )
+    if (pol.tput_term is None) != (pol.has_tput is None):
+        raise ValueError("policy.has_tput must come with policy.tput_term")
+
+
 def _check_inputs(inp: ScoreInputs) -> torch.device:
-    _no_policy(inp)
     dev = inp.cpu_total.device
     dtype = inp.cpu_total.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -307,6 +353,8 @@ def _check_inputs(inp: ScoreInputs) -> torch.device:
     for name in ("collisions", "perm"):
         if getattr(inp, name).dtype != torch.int32:
             raise TypeError(f"{name} must be int32")
+    if inp.policy is not None:
+        _check_policy(inp.policy, C, dtype, dev)
     return dev
 
 
@@ -349,8 +397,12 @@ def score_select_cuda(inp: ScoreInputs, spread_fit: bool = False) -> K1Out:
     f_scratch = torch.empty(C, dtype=torch.uint8, device=dev)
     out_i = torch.empty(3, dtype=torch.int32, device=dev)
     out_best = torch.empty(1, dtype=dtype, device=dev)
+    pol = inp.policy or PolicyTerms()
     _cuda.launch_score_select(
         cols, s_scratch, f_scratch, out_i, out_best,
+        tput_term=None if pol.tput_term is None else pol.tput_term.contiguous(),
+        has_tput=0.0 if pol.has_tput is None else _host_float(pol.has_tput),
+        mig_term=None if pol.mig_term is None else pol.mig_term.contiguous(),
         ask=(
             _host_float(inp.ask_cpu),
             _host_float(inp.ask_mem),

@@ -21,8 +21,13 @@ bidders that cannot overcommit it, debits the accepted asks and raises
 its price.  The loop ends when a round accepts nobody or the round
 budget is spent; rows left unassigned return NO_NODE.
 
-Not ported: the policy-weighted solve (a non-None `policy_*` field
-raises NotImplementedError) and the node-sharded multi-device solve
+A weighted storm (a member whose job resolves a PolicySpec) stages
+three more per-eval inputs, pre-scaled on the host: the throughput and
+migration term rows and the throughput count, which the score pass
+gathers by each row's eval; policy-less evals in a mixed storm carry
+all-zero rows, which add nothing float-exactly.
+
+Not ported: the node-sharded multi-device solve
 (`storm_assignment_sharded`, `storm_in_specs`).
 """
 from __future__ import annotations
@@ -37,6 +42,7 @@ from .score import (
     MAX_SKIP,
     NO_NODE,
     SKIP_THRESHOLD,
+    PolicyTerms,
     ScoreInputs,
     score_vectors,
 )
@@ -70,10 +76,12 @@ class StormInputs(NamedTuple):
     pre_cpu: torch.Tensor  # f[C] staged pre-placement usage deltas
     pre_mem: torch.Tensor  # f[C]
     pre_disk: torch.Tensor  # f[C]
-    # policy-weighted scoring is not ported: any non-None value raises
-    policy_tput_term: Optional[torch.Tensor] = None
-    policy_has_tput: Optional[torch.Tensor] = None
-    policy_mig_term: Optional[torch.Tensor] = None
+    # policy-weighted scoring: all three None for an unweighted storm;
+    # a weighted one stages pre-scaled per-eval rows (ops/score.py
+    # PolicyTerms), all-zero for the policy-less evals of a mixed storm
+    policy_tput_term: Optional[torch.Tensor] = None  # f[E, C] coef * tput
+    policy_has_tput: Optional[torch.Tensor] = None  # f[E] 0/1 flag
+    policy_mig_term: Optional[torch.Tensor] = None  # f[E, C] coef * mig
 
 
 class StormOut(NamedTuple):
@@ -88,18 +96,17 @@ class StormOut(NamedTuple):
     rounds: torch.Tensor  # i32 scalar: auction rounds run
 
 
-_FLOATS = ("affinity", "ask", "pre_cpu", "pre_mem", "pre_disk")
+_POLICY = ("policy_tput_term", "policy_has_tput", "policy_mig_term")
+_FLOATS = ("affinity", "ask", "pre_cpu", "pre_mem", "pre_disk") + _POLICY
 _BOOLS = ("feasible", "penalty", "real")
 
 
 def _check(inp: StormInputs, cols) -> torch.device:
     """Device, type and shape checks shared by the twin and K5."""
-    if any(getattr(inp, f) is not None for f in (
-        "policy_tput_term", "policy_has_tput", "policy_mig_term"
-    )):
-        raise NotImplementedError(
-            "policy-weighted storm solves are not ported to the torch "
-            "stack yet"
+    weighted = [getattr(inp, f) is not None for f in _POLICY]
+    if any(weighted) and not all(weighted):
+        raise ValueError(
+            "a weighted storm stages all three policy fields, or none"
         )
     if len(cols) != 6:
         raise ValueError("cols must be the six node columns")
@@ -118,6 +125,9 @@ def _check(inp: StormInputs, cols) -> torch.device:
         "penalty": (A, C), "ask": (A, 3), "desired": (A,), "real": (A,),
         "pre_cpu": (C,), "pre_mem": (C,), "pre_disk": (C,),
     }
+    if all(weighted):
+        shapes.update(policy_tput_term=(E, C), policy_has_tput=(E,),
+                      policy_mig_term=(E, C))
     for name, shape in shapes.items():
         t = getattr(inp, name)
         if not isinstance(t, torch.Tensor) or t.device != dev:
@@ -194,9 +204,10 @@ def storm_jitter(A: int, C: int, dtype, device) -> torch.Tensor:
 
 def storm_scores(inp: StormInputs, cols, spread_fit: bool):
     """The broadcast [A, C] score matrix and its feasibility (padding
-    rows masked out), through the serial chain's own `score_vectors`,
-    and the six node columns with the staged pre-placement deltas
-    added.  Returns (feas, scores, si)."""
+    rows masked out), through the serial chain's own `score_vectors`
+    with the policy rows gathered by eval, and the six node columns
+    with the staged pre-placement deltas added.  Returns (feas, scores,
+    si)."""
     cpu_t, mem_t, disk_t, cpu_u, mem_u, disk_u = cols
     dtype = cpu_t.dtype
     cpu_u = cpu_u + inp.pre_cpu
@@ -218,6 +229,15 @@ def storm_scores(inp: StormInputs, cols, spread_fit: bool):
         desired_count=inp.desired[:, None],
         limit=inp.limit[eo],
         n_candidates=inp.n_cand[eo],
+        policy=(
+            None
+            if inp.policy_tput_term is None
+            else PolicyTerms(
+                tput_term=inp.policy_tput_term[eo],
+                has_tput=inp.policy_has_tput[eo][:, None],
+                mig_term=inp.policy_mig_term[eo],
+            )
+        ),
     )
     feas, scores = score_vectors(si, spread_fit)
     return feas & inp.real[:, None], scores, si

@@ -35,13 +35,17 @@ decomposition) from the arrays each select already computed, whenever
 `explain.EXPLAIN.enabled` (the default; ``NOMAD_TPU_EXPLAIN=0`` turns it
 off).
 
+A job whose PolicySpec resolves (`sched/policy.py`) is scored with the
+policy terms: the throughput and migration vectors, pre-scaled on the
+host, ride into K1 (`ops.score.PolicyTerms`) and into the preemption
+scores, the walk surveys every candidate, and the capture records the
+`policy.throughput` and `policy.migration` components.
+
 Scores are float64: placements stay bit-identical to the host oracle.
 A failure of a kernel's build, launch or fetch raises
 `device.DeviceFault`.
 
-Not in this slice (each raises or is absent, and is queued in
-ROADMAP.md): policy-weighted scoring (a job with a resolved policy
-raises NotImplementedError) and the system stack.
+Not in the port yet (queued in ROADMAP.md): the system stack.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from ..ops.batch import BatchInputs, plan_picks_full, pow2_bucket
 from ..ops.constraints import MaskCompiler
 from ..ops.score import (
     NO_NODE,
+    PolicyTerms,
     ScoreInputs,
     score_and_select_packed,
     walk_only,
@@ -201,12 +206,6 @@ class CudaGenericStack:
     def set_job(self, job: Job) -> None:
         if self.job is not None and self.job.version == job.version:
             return
-        from .policy import resolve
-
-        if resolve(job) is not None:
-            raise NotImplementedError(
-                "policy-weighted scoring is not ported to the CUDA stack yet"
-            )
         self.job = job
         self.ctx.eligibility.set_job(job)
         self._la_rows = None
@@ -281,6 +280,36 @@ class CudaGenericStack:
             sum(len(v) for v in p.node_allocation.values()),
             sum(len(v) for v in p.node_preemptions.values()),
         )
+
+    def _policy_state(self, tg: TaskGroup, dtype=np.float64):
+        """The job's resolved policy plus arena-shaped, PRE-SCALED term
+        vectors (sched/policy.py, ops/score.py PolicyTerms): ``(resolved,
+        tput_term[C] | None, mig_term[C] | None)``, or None.  An inert
+        group stays None.  The throughput tensor is cached keyed by
+        (table epoch, job version, topo generation); the stickiness
+        vector is rebuilt per select from the job's live allocs."""
+        from .policy import (
+            migration_vector,
+            resolve,
+            sticky_node_ids,
+            tput_tensor,
+        )
+
+        pol = resolve(self.job)
+        if pol is None:
+            return None
+        tput_term = None
+        if pol.has_tput:
+            tput_term = pol.tput_coef * tput_tensor(
+                pol, self.job, self.table, dtype=dtype
+            )
+        sticky = sticky_node_ids(pol, self.job, tg.name, self.ctx.state)
+        mig_term = None
+        if sticky:
+            mig_term = pol.mig_coef * migration_vector(
+                sticky, self.table, dtype=dtype
+            )
+        return pol, tput_term, mig_term
 
     def _lookahead_serve(self, tg: TaskGroup, options):
         """Answer a select from the pre-computed pick cache when the
@@ -411,8 +440,11 @@ class CudaGenericStack:
         affinity_vec = self._affinity_vector(tg)
         spread_vec, has_spreads = self._spread_vector(tg)
         has_affinities = self._has_affinities(tg)
+        policy_state = self._policy_state(tg)
         limit = (
-            INT32_MAX if (has_affinities or has_spreads) else self.limit
+            INT32_MAX
+            if (has_affinities or has_spreads or policy_state is not None)
+            else self.limit
         )
         ask_cpu, ask_mem, ask_disk = _asks(tg)
 
@@ -436,6 +468,12 @@ class CudaGenericStack:
         spread_fit = self._spread_fit()
         fitness = self._fitness(used_cpu, used_mem, ask_cpu, ask_mem,
                                 spread_fit)
+        # policy term vectors (the serial PolicyIterator sits between
+        # spread and preemption scoring, so these append after spread
+        # and before the preemption term everywhere below)
+        tput_term = mig_term = None
+        if policy_state is not None:
+            _pol, tput_term, mig_term = policy_state
 
         def combine(row, first_terms):
             terms = list(first_terms)
@@ -449,6 +487,10 @@ class CudaGenericStack:
                 terms.append(float(affinity_vec[row]))
             if spread_vec[row] != 0.0:
                 terms.append(float(spread_vec[row]))
+            if tput_term is not None:
+                terms.append(float(tput_term[row]))
+            if mig_term is not None and mig_term[row] != 0.0:
+                terms.append(float(mig_term[row]))
             return terms
 
         def splice(row, option) -> float:
@@ -496,6 +538,13 @@ class CudaGenericStack:
             + has_aff.astype(np.float64)
             + has_spread.astype(np.float64)
         )
+        if tput_term is not None:
+            sum_v = sum_v + tput_term
+            count_v = count_v + 1.0
+        if mig_term is not None:
+            has_mig = mig_term != 0.0
+            sum_v = sum_v + np.where(has_mig, mig_term, 0.0)
+            count_v = count_v + has_mig.astype(np.float64)
         scores[feasible] = (sum_v / count_v)[feasible]
 
         # preemption evaluation for masked nodes that did NOT fit, in
@@ -580,6 +629,7 @@ class CudaGenericStack:
                 preempt_scored={
                     r: float(scores[r]) for r in preempt_options
                 },
+                policy_state=policy_state,
             )
 
         while True:
@@ -664,9 +714,13 @@ class CudaGenericStack:
         spread_vec, has_spreads = self._spread_vector(tg)
 
         has_affinities = self._has_affinities(tg)
-        # affinities and spreads survey every candidate (stack.py select)
+        policy_state = self._policy_state(tg)
+        # affinities, spreads and a resolved policy survey every
+        # candidate (stack.py select)
         limit = (
-            INT32_MAX if (has_affinities or has_spreads) else self.limit
+            INT32_MAX
+            if (has_affinities or has_spreads or policy_state is not None)
+            else self.limit
         )
 
         ask_cpu, ask_mem, ask_disk = _asks(tg)
@@ -688,6 +742,7 @@ class CudaGenericStack:
             tg.count > 1
             and n_cand > 1
             and not has_spreads
+            and policy_state is None
             and (options is None or not options.penalty_node_ids)
             and not any(
                 c.operand == CONSTRAINT_DISTINCT_PROPERTY
@@ -735,6 +790,18 @@ class CudaGenericStack:
         used_cpu = self.table.cpu_used + d_cpu
         used_mem = self.table.mem_used + d_mem
         used_disk = self.table.disk_used + d_disk
+        policy_terms = None
+        if policy_state is not None:
+            _pol, tput_term, mig_term = policy_state
+            # both groups inert (armed coefficient, no live allocs yet):
+            # no PolicyTerms at all, as policy-off (the unlimited walk
+            # above still applies)
+            if tput_term is not None or mig_term is not None:
+                policy_terms = PolicyTerms(
+                    tput_term=None if tput_term is None else self._t(tput_term),
+                    has_tput=None if tput_term is None else 1.0,
+                    mig_term=None if mig_term is None else self._t(mig_term),
+                )
         inputs = ScoreInputs(
             cpu_total=cpu_total,
             mem_total=mem_total,
@@ -754,6 +821,7 @@ class CudaGenericStack:
             desired_count=int(tg.count),
             limit=int(limit),
             n_candidates=n_cand,
+            policy=policy_terms,
         )
 
         def capture(pulls: int) -> None:
@@ -777,6 +845,7 @@ class CudaGenericStack:
                 dp_mask=dp_mask,
                 dp_psets=dp_psets,
                 skip_rows=self._extra_excluded_rows,
+                policy_state=policy_state,
             )
 
         while True:
@@ -953,7 +1022,7 @@ class CudaGenericStack:
         feasible_mask, used, asks, collisions, penalty,
         affinity_vec, spread_vec, has_affinities, has_spreads,
         spread_fit, checks, csi_mask, dh_rows, dp_mask, dp_psets,
-        skip_rows=frozenset(), preempt_scored=None,
+        skip_rows=frozenset(), preempt_scored=None, policy_state=None,
     ) -> None:
         """Rebuild the serial iterator chain's AllocMetric from the
         arrays this select already computed: the walk's `pulls` bounds
@@ -969,7 +1038,8 @@ class CudaGenericStack:
         verification chain already recorded (poisoned winners, evict
         re-evaluations); ``preempt_scored`` maps rows whose score was
         spliced in by the preemption evaluation to their final
-        normalized score."""
+        normalized score; ``policy_state`` is the select's
+        `_policy_state` (the `policy.*` components)."""
         metrics = self.ctx.metrics
         metrics.nodes_evaluated += int(pulls)
         if pulls <= 0:
@@ -987,6 +1057,9 @@ class CudaGenericStack:
         preempt_scored = preempt_scored or {}
         state = self.ctx.state
         desired = float(tg.count)
+        pol = tput_term = mig_term = None
+        if policy_state is not None:
+            pol, tput_term, mig_term = policy_state
         # direct NodeScoreMeta writes through a node-id index, starting
         # from the entries the exact verify chain already recorded (the
         # winner): an unlimited walk scores every candidate
@@ -1014,7 +1087,9 @@ class CudaGenericStack:
                 self._record_soft_terms(meta.scores, r, collisions,
                                         penalty, affinity_vec,
                                         spread_vec, has_affinities,
-                                        has_spreads, desired, terms=None)
+                                        has_spreads, desired, terms=None,
+                                        pol=pol, tput_term=tput_term,
+                                        mig_term=mig_term)
                 meta.scores["normalized-score"] = preempt_scored[r]
                 meta.norm_score = preempt_scored[r]
                 continue
@@ -1025,7 +1100,9 @@ class CudaGenericStack:
                 self._record_soft_terms(meta.scores, r, collisions,
                                         penalty, affinity_vec,
                                         spread_vec, has_affinities,
-                                        has_spreads, desired, terms=terms)
+                                        has_spreads, desired, terms=terms,
+                                        pol=pol, tput_term=tput_term,
+                                        mig_term=mig_term)
                 norm = sum(terms) / float(len(terms))
                 meta.scores["normalized-score"] = norm
                 meta.norm_score = norm
@@ -1049,11 +1126,13 @@ class CudaGenericStack:
     def _record_soft_terms(
         self, scores, r, collisions, penalty, affinity_vec,
         spread_vec, has_affinities, has_spreads, desired, terms,
+        pol=None, tput_term=None, mig_term=None,
     ) -> None:
         """Record the rank chain's soft score components into one node's
         scores dict under the serial iterators' append/record conditions
         (rank.py: anti-affinity and reschedule-penalty record 0 when
-        inert; affinity/spread record only non-zero).  Appends the
+        inert; affinity/spread record only non-zero; the policy terms as
+        PolicyIterator records them).  Appends the
         appended terms to ``terms`` when given (the normalization mean
         divides by the append count, not the record count)."""
         coll = int(collisions[r])
@@ -1082,6 +1161,23 @@ class CudaGenericStack:
             if terms is not None:
                 terms.append(sp)
             scores["allocation-spread"] = sp
+        # policy components as rank.py PolicyIterator records them:
+        # throughput records (and appends) for every node when the table
+        # is present; migration appends only non-zero and records 0 when
+        # the coefficient is armed but this node is not sticky
+        if pol is not None:
+            if tput_term is not None:
+                tv = float(tput_term[r])
+                if terms is not None:
+                    terms.append(tv)
+                scores["policy.throughput"] = tv
+            mv = 0.0 if mig_term is None else float(mig_term[r])
+            if mv != 0.0:
+                if terms is not None:
+                    terms.append(mv)
+                scores["policy.migration"] = mv
+            elif pol.mig_coef != 0.0:
+                scores["policy.migration"] = 0
 
     def _explain_job_status(self, klass: str) -> int:
         """The wrapper's job-level class status, answered from the

@@ -16,10 +16,10 @@ sequential path inside the same in-order commit.
 
 Eligibility is narrow (one task group; no ports, devices, distinct
 constraints, spreads or staged evictions): the solver's capacity model
-covers cpu, memory and disk only.  Not ported: the policy-weighted
-solve (a solvable member whose job resolves a policy raises
-NotImplementedError, rather than being solved unweighted) and the
-mesh staging (`stage_for_mesh`).
+covers cpu, memory and disk only.  A member whose job resolves a
+PolicySpec stages pre-scaled policy term rows into the same solve (a
+weighted storm); policy-less members of a mixed storm carry all-zero
+rows.  Not ported: the mesh staging (`stage_for_mesh`).
 """
 from __future__ import annotations
 
@@ -120,7 +120,13 @@ def build_storm_problem(
     from ..ops.batch import pow2_bucket
     from ..ops.solve import StormInputs, pad_axis
     from ..raft import chaos as _chaos
-    from .policy import resolve
+    from ..trace import TRACE
+    from .policy import (
+        migration_vector,
+        resolve,
+        sticky_node_ids,
+        tput_tensor,
+    )
 
     # chaos seam: deterministic revoke-while-staging races (a no-op
     # in the port, which has no hook registry)
@@ -136,6 +142,15 @@ def build_storm_problem(
     perm_e: List[np.ndarray] = []
     limit_e: List[int] = []
     ncand_e: List[int] = []
+    # policy-weighted rows (sched/policy.py): PRE-SCALED term rows
+    # (ops/score.py PolicyTerms) staged per eval so a mixed storm fuses
+    # weighted and unweighted members into ONE solve; policy-less evals
+    # carry all-zero rows, which add float-exactly nothing
+    pol_tput_e: List[np.ndarray] = []
+    pol_has_e: List[float] = []
+    pol_mig_e: List[np.ndarray] = []
+    any_policy = False
+    metrics = getattr(getattr(worker, "server", None), "metrics", None)
     eval_of: List[int] = []
     ask_rows: List[Tuple[float, float, float]] = []
     desired_rows: List[int] = []
@@ -154,13 +169,6 @@ def build_storm_problem(
         if member.reason is not None:
             continue
         ev, job, sim = member.ev, member.job, member.sim
-        if resolve(job) is not None:
-            # the JAX package solves such a storm with policy-weighted
-            # scores; solving it unweighted would place differently
-            raise NotImplementedError(
-                f"eval {ev.id}: policy-weighted storm solves are not "
-                "ported to the torch stack yet"
-            )
         tg = sim.tgs[0] if sim.tgs else job.task_groups[0]
         # the chunk assembler's own walk-order staging, so a solved
         # member replays through the identical PrescoredStack contract
@@ -174,9 +182,42 @@ def build_storm_problem(
             or list(tg.affinities)
             or any(t.affinities for t in tg.tasks)
         )
+        pol = resolve(job)
+        if pol is not None:
+            # the per-eval select's own assembly: the cached throughput
+            # tensor and the live-alloc stickiness vector, pre-scaled by
+            # the coefficients here so the kernel adds the rows as-is
+            with TRACE.span(ev.id, "batch_worker.policy_assemble"):
+                tput_term = (
+                    pol.tput_coef
+                    * tput_tensor(
+                        pol, job, table, dtype=dtype, metrics=metrics
+                    )
+                    if pol.has_tput
+                    else np.zeros(C, dtype=dtype)
+                )
+                sticky = sticky_node_ids(pol, job, tg.name, snap)
+                mig_term = (
+                    pol.mig_coef
+                    * migration_vector(sticky, table, dtype=dtype)
+                    if sticky
+                    else np.zeros(C, dtype=dtype)
+                )
+            any_policy = True
+            if metrics is not None:
+                metrics.incr("policy.storm_evals")
+            pol_tput_e.append(tput_term)
+            pol_has_e.append(1.0 if pol.has_tput else 0.0)
+            pol_mig_e.append(mig_term)
+        else:
+            pol_tput_e.append(np.zeros(C, dtype=dtype))
+            pol_has_e.append(0.0)
+            pol_mig_e.append(np.zeros(C, dtype=dtype))
         limit = (
             _INT32_MAX
-            if has_aff
+            # a resolved policy joins affinity in the unlimited-walk
+            # rule (stack.py select)
+            if has_aff or pol is not None
             else compute_visit_limit(n_cand, ev.type == "batch")
         )
         e_i = n_evals
@@ -261,6 +302,17 @@ def build_storm_problem(
         pre_cpu=pre_cpu,
         pre_mem=pre_mem,
         pre_disk=pre_disk,
+        # None (not zeros) when no member carries a policy: the
+        # unweighted solve stays the policy-off kernel
+        policy_tput_term=pad_axis(np.stack(pol_tput_e), E, 0)
+        if any_policy
+        else None,
+        policy_has_tput=pad_axis(np.asarray(pol_has_e, dtype=dtype), E, 0)
+        if any_policy
+        else None,
+        policy_mig_term=pad_axis(np.stack(pol_mig_e), E, 0)
+        if any_policy
+        else None,
     )
     spread_fit = (
         snap.scheduler_config().effective_scheduler_algorithm()

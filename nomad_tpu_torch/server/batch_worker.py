@@ -79,8 +79,11 @@ its leases once and HOLDS (it does not stop) while the supervisor is
 LOST or RECOVERING; the supervisor's transition listener flushes the
 usage mirror and the host-assembly caches, so the held evals are
 placed on the card against a fresh mirror once the canary passes
-again.  Not ported: the node-sharded mesh path (NOMAD_TPU_MESH, which
-raises), pods and the policy-weighted storm solve (NotImplementedError).
+again.  A policy-weighted eval (its job resolves a PolicySpec) ends
+the chunk prefix and takes the per-eval path, whose stack fuses the
+policy terms into K1; storms stay eligible, with policy rows staged
+into the K5 solve.  Not ported: the node-sharded mesh path
+(NOMAD_TPU_MESH, which raises) and pods.
 """
 from __future__ import annotations
 
@@ -1428,11 +1431,10 @@ class BatchWorker(Worker):
                             self._abandon_leases(storm)
                             self._met_supervisor_fault(exc)
                             leftover = []
-                        except (DeviceFault, NotImplementedError) as exc:
-                            # the solve failed on the device, or the
-                            # storm needs a solve the port lacks: stop
-                            # here, leases nacked, and leave the fault
-                            # for drain_to_idle to raise
+                        except DeviceFault as exc:
+                            # the solve failed on the device: stop here,
+                            # leases nacked, and leave the fault for
+                            # drain_to_idle to raise
                             self._count("errors")
                             LOG.error("storm solve failed; worker stops",
                                       exc_info=True)
@@ -1591,7 +1593,10 @@ class BatchWorker(Worker):
                 if job is not None and _policy_resolve(job) is not None:
                     # the chunk chain's carry does not model policy
                     # terms; a weighted eval ends the prefix and runs
-                    # the sequential path
+                    # the single-eval vectorized select (the sequential
+                    # path -> cuda_stack fuses PolicyTerms into K1).
+                    # Storms stay eligible: build_storm_problem stages
+                    # policy rows into the solve itself
                     if j == idx:
                         self._count_policy("evals")
                     break
@@ -2350,8 +2355,6 @@ class BatchWorker(Worker):
         t1 = _time.monotonic()
         try:
             problem = build_storm_problem(self, snap, storm_members)
-        except NotImplementedError:
-            raise
         except Exception as exc:  # noqa: BLE001
             raise DeviceFault(
                 f"storm staging failed for {len(members)} evals"

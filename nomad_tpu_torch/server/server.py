@@ -134,6 +134,15 @@ class Server:
         self.metrics.preregister(
             counters=LEADERSHIP_COUNTERS, gauges=LEADERSHIP_GAUGES
         )
+        # policy-weighted scoring: zero-register the policy.* family
+        # (absence-of-series must mean "no policy-weighted select ever
+        # ran", not "not exported").  Outside the batch_pipeline gate:
+        # weighted assembly runs in both pipeline modes
+        from ..sched.policy import POLICY_COUNTERS, POLICY_GAUGES
+
+        self.metrics.preregister(
+            counters=POLICY_COUNTERS, gauges=POLICY_GAUGES
+        )
         if batch_pipeline:
             from .batch_worker import (
                 ADMISSION_COUNTERS,

@@ -50,8 +50,7 @@ class Worker:
         # redelivery): a device fault must show here, not loop as
         # silent redeliveries
         self.errors = 0
-        # the exception that stopped this worker (a DeviceFault, or
-        # the NotImplementedError of a path the port lacks);
+        # the DeviceFault that stopped this worker;
         # Server.drain_to_idle raises it
         self.fault: Optional[BaseException] = None
         # the watchdog trip this worker met and drain_to_idle has not
@@ -150,10 +149,9 @@ class Worker:
                 continue
             try:
                 self.process_eval(ev, token)
-            except (DeviceFault, NotImplementedError) as exc:
+            except DeviceFault as exc:
                 # the per-eval device stack failed (a kernel's build,
-                # launch or fetch), or the eval needs a path the port
-                # lacks (a policy-weighted select): stop here, the eval
+                # launch or fetch): stop here, the eval
                 # nacked once, and leave the fault for drain_to_idle to
                 # raise — redelivering it would only fail it again
                 self.errors += 1

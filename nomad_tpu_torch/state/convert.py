@@ -41,7 +41,7 @@ from ..ops.batch import (
     SpreadInputs,
     StepDeltas,
 )
-from ..ops.score import ScoreInputs
+from ..ops.score import PolicyTerms, ScoreInputs
 from ..ops.solve import StormInputs
 from ..structs import Allocation, Job, Node, SchedulerConfiguration
 from .store import StateStore
@@ -181,7 +181,9 @@ def score_inputs_from_numpy(arrays: Dict[str, Any], device,
                             dtype=torch.float64) -> ScoreInputs:
     """ScoreInputs from numpy columns keyed by field name.  Float
     columns become `dtype`, masks bool, counts and perm int32; scalars
-    stay Python numbers."""
+    stay Python numbers.  An optional "policy" entry (a dict of
+    tput_term, has_tput and mig_term, each may be None) becomes
+    `PolicyTerms`."""
     f = ("cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
          "disk_used", "affinity_score", "spread_boost")
     cols = {k: _tensor(arrays[k], dtype, device) for k in f}
@@ -189,6 +191,16 @@ def score_inputs_from_numpy(arrays: Dict[str, Any], device,
     cols["penalty"] = _tensor(arrays["penalty"], torch.bool, device)
     cols["collisions"] = _tensor(arrays["collisions"], torch.int32, device)
     cols["perm"] = _tensor(arrays["perm"], torch.int32, device)
+    policy = arrays.get("policy")
+    if policy is not None:
+        has = policy.get("has_tput")
+        policy = PolicyTerms(
+            tput_term=None if policy.get("tput_term") is None
+            else _tensor(policy["tput_term"], dtype, device),
+            has_tput=None if has is None else float(has),
+            mig_term=None if policy.get("mig_term") is None
+            else _tensor(policy["mig_term"], dtype, device),
+        )
     return ScoreInputs(
         **cols,
         ask_cpu=float(arrays["ask_cpu"]),
@@ -197,6 +209,7 @@ def score_inputs_from_numpy(arrays: Dict[str, Any], device,
         desired_count=int(arrays["desired_count"]),
         limit=int(arrays["limit"]),
         n_candidates=int(arrays["n_candidates"]),
+        policy=policy,
     )
 
 

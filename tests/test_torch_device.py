@@ -13,10 +13,12 @@ the flip back to HEALTHY they are placed, equal to an unfaulted run.
 `NOMAD_TPU_SUPERVISOR=1` or an armed `NOMAD_TPU_FAULT` makes the
 supervisor live on a `device="cpu"` Server, whose canary runs K8's twin.
 """
+import gc
 import json
 import threading
 import time
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -166,6 +168,64 @@ def test_bounded_call_reuses_runner_until_a_trip_burns_it(mod):
     assert runner1.dead
     assert mod.bounded_call(lambda: 3, 5.0) == 3
     assert mod._TLS.runner is not runner1
+
+
+def test_runner_holds_nothing_of_a_finished_call():
+    """The port's departure: a runner parked between calls keeps no
+    reference to the last call's callable or result (the JAX runner
+    keeps both, and with them whatever the callable's closure holds)."""
+
+    class Payload:
+        pass
+
+    held = Payload()
+    ref = weakref.ref(held)
+    assert twatchdog.bounded_call(lambda: held, 5.0) is held
+    del held
+    gc.collect()
+    assert ref() is None
+
+
+def test_runner_exits_when_its_thread_ends(monkeypatch):
+    monkeypatch.setattr(twatchdog, "_IDLE_CHECK_S", 0.02)
+    name = "device-runner-exit-probe"
+    got = []
+    owner = threading.Thread(
+        target=lambda: got.append(twatchdog.bounded_call(lambda: 7, 5.0,
+                                                         name=name)))
+    owner.start()
+    owner.join()
+    assert got == [7]
+    assert wait_until(lambda: not any(
+        t.name == name for t in threading.enumerate()), 5.0)
+
+
+@pytest.mark.parametrize("batch_pipeline", [True, False],
+                         ids=["batched", "sequential"])
+def test_stopped_supervised_server_is_freed(monkeypatch, batch_pipeline):
+    """A stopped Server whose supervisor guarded its stages leaves no
+    thread behind and is freed with its store, not kept alive by the
+    runner of its last guarded call."""
+    monkeypatch.setattr(twatchdog, "_IDLE_CHECK_S", 0.02)
+    before = set(threading.enumerate())
+    server, sup = faulted_server(monkeypatch, None,
+                                 batch_pipeline=batch_pipeline, env=NO_TRIP)
+    try:
+        for node in make_nodes(TORCH, 8):
+            server.register_node(node)
+        for job in make_jobs(TORCH, 4, "freed"):
+            server.register_job(job)
+        assert server.drain_to_idle(60)
+        assert sum(len(placements(server, f"freed-{i}")) for i in range(4))
+    finally:
+        server.stop()
+    refs = (weakref.ref(server), weakref.ref(server.store))
+    del server, sup
+    assert wait_until(
+        lambda: set(threading.enumerate()) <= before, 10.0), [
+        t.name for t in set(threading.enumerate()) - before]
+    gc.collect()
+    assert [r() for r in refs] == [None, None]
 
 
 def test_budget_tracker_matches_jax():

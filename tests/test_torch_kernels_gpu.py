@@ -5,8 +5,10 @@ and K8 (csrc/canary.cu) against their plain twins, on the card and on
 the CPU, at the main path's width (a 16,384-row arena with 10,000
 candidates; K5 with 8 and 1,024 rows; K6 at C in {8, 1024, 16384}; K7
 with 1, 10,000 and 16,384 candidates and (E, P) up to (256, 16) and
-(8, 64); K8 at n in {1, 8, 1024, 1500}).  Exact equality of every
-output, in f64 and in f32.
+(8, 64); K8 at n in {1, 8, 1024, 1500}).  K1 and K5 also on their
+policy cases (throughput, migration, both and inert selects; weighted,
+mixed and dogpile storms).  Exact equality of every output, in f64 and
+in f32.
 
 These tests need a CUDA device; without one they skip.  Run them on the
 card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -24,12 +26,16 @@ from nomad_tpu_torch.ops.cases import (
     BATCH_SHARED_SCENARIOS,
     CHAIN_SCENARIOS,
     INT32_MAX,
+    POLICY_SCORE_SCENARIOS,
+    POLICY_STORM_SCENARIOS,
     SCORE_SCENARIOS,
     STORM_SCENARIOS,
     WALK_SCENARIOS,
     batch_case,
     batch_shared_case,
     chain_case,
+    policy_score_case,
+    policy_storm_case,
     score_case,
     storm_case,
     walk_case,
@@ -89,6 +95,30 @@ def test_score_select_kernel_matches_twin(cuda, scenario, limit, spread_fit,
     walk_scores = tscore.score_select_cuda(on_card, spread_fit).scores_walk
     _, cpu_scores = tscore.score_vectors(on_cpu, spread_fit)
     assert (_bits(walk_scores) == _bits(cpu_scores[on_cpu.perm.long()])).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("limit", [14, INT32_MAX])
+@pytest.mark.parametrize("scenario", sorted(POLICY_SCORE_SCENARIOS))
+def test_score_select_policy_kernel_matches_twin(cuda, scenario, limit,
+                                                 dtype):
+    case = policy_score_case(
+        3500 + sorted(POLICY_SCORE_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, limit,
+    )
+    on_card = score_inputs_from_numpy(case, cuda, dtype=dtype)
+    on_cpu = score_inputs_from_numpy(case, "cpu", dtype=dtype)
+    out = tscore.score_select_cuda(on_card)
+    torch.cuda.synchronize()
+    kernel = (out.out_i[0], out.best[0], out.out_i[2], out.out_i[1])
+    twin_card = tscore.score_and_select_twin(on_card)
+    twin_cpu = tscore.score_and_select_twin(on_cpu)
+    for k, tc, tp in zip(kernel, twin_card, twin_cpu):
+        assert (_bits(k) == _bits(tc)).all()
+        assert (_bits(k) == _bits(tp)).all()
+    _, cpu_scores = tscore.score_vectors(on_cpu)
+    assert (_bits(out.scores_walk)
+            == _bits(cpu_scores[on_cpu.perm.long()])).all()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -196,6 +226,27 @@ def test_storm_solve_kernel_matches_twin(cuda, scenario, A, dtype):
         else:
             assert torch.equal(k.cpu(), tc.cpu())
             assert torch.equal(k.cpu(), tp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("A", [8, 1024])
+@pytest.mark.parametrize("scenario", sorted(POLICY_STORM_SCENARIOS))
+def test_storm_solve_policy_kernel_matches_twin(cuda, scenario, A, dtype):
+    cols, inp, max_rounds = policy_storm_case(
+        4050 + sorted(POLICY_STORM_SCENARIOS).index(scenario), A, A, C,
+        scenario,
+    )
+    card = (storm_inputs(inp, cuda, dtype), storm_columns(cols, cuda, dtype))
+    kern = tsolve.storm_assignment_cuda(*card, False, max_rounds)
+    torch.cuda.synchronize()
+    twin_card = tsolve.storm_assignment_twin(*card, False, max_rounds)
+    twin_cpu = tsolve.storm_assignment_twin(
+        storm_inputs(inp, "cpu", dtype), storm_columns(cols, "cpu", dtype),
+        False, max_rounds,
+    )
+    for k, tc, tp in zip(kern, twin_card, twin_cpu):
+        assert (_bits(k) == _bits(tc)).all()
+        assert (_bits(k) == _bits(tp)).all()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,7 +1,8 @@
 """The port stands alone: a small schedule, a batched Server drain, a
 storm solve, a preemption-mode select (K6's twin, the explain capture
-and ring), a bridge ScoreBatch over the wire (K7's twin) and a device
-supervisor's flaky round trip (K8's twin, the hold, the preflight)
+and ring), a bridge ScoreBatch over the wire (K7's twin), a device
+supervisor's flaky round trip (K8's twin, the hold, the preflight) and
+a weighted select and weighted storm (K1's and K5's policy branches)
 through it, in a fresh interpreter, load neither `jax` nor anything of
 `nomad_tpu`; and no module of the port imports either."""
 import ast
@@ -211,6 +212,50 @@ print(lost, sup.state(), placed, verdict, bad)
 """
 
 
+POLICY_SCRIPT = r"""
+import os, sys
+os.environ["NOMAD_TPU_STORM"] = "1"
+os.environ["NOMAD_TPU_STORM_MIN"] = "4"
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.server import Server
+from nomad_tpu_torch.structs import PolicySpec, compute_node_class
+
+counts = []
+for batch_pipeline in (False, True):
+    server = Server(batch_pipeline=batch_pipeline, device="cpu", seed=1,
+                    heartbeat_ttl=1e9)
+    cfg = server.store.get_scheduler_config()
+    cfg.tpu_scheduler_enabled = True
+    server.store.set_scheduler_config(cfg)
+    for i in range(12):
+        node = mock.node(id=f"nj-{i:02d}")
+        node.node_class = "fast" if i % 3 == 0 else "slow"
+        node.computed_class = compute_node_class(node)
+        server.register_node(node)
+    for k in range(6 if batch_pipeline else 1):
+        job = mock.job(id=f"nj/dispatch-{k}")
+        job.type = "batch" if batch_pipeline else "service"
+        job.task_groups[0].count = 1 if batch_pipeline else 3
+        job.policy = PolicySpec(throughput={"fast": 2.0, "slow": 1.0})
+        server.register_job(job)
+    server.start()
+    assert server.drain_to_idle(60)
+    fast = {f"nj-{i:02d}" for i in range(0, 12, 3)}
+    live = [a for a in server.store.allocs.values() if not a.terminal_status()]
+    counts.append((len(live), all(a.node_id in fast for a in live),
+                   server.workers[0].errors))
+    if batch_pipeline:
+        counts.append(server.workers[0].storm_solves)
+    server.stop()
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(counts, bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -263,6 +308,14 @@ def test_port_device_supervisor_loads_no_jax():
     assert _run_fresh(DEVICE_SCRIPT) == "LOST HEALTHY 4 HEALTHY []"
 
 
+def test_port_policy_weighted_loads_no_jax():
+    """A weighted select through the sequential Server's CUDA stack (K1's
+    twin with policy terms) and a weighted storm through the batched
+    Server (K5's twin with policy rows) place on the fast class in a
+    fresh interpreter without JAX or the JAX package."""
+    assert _run_fresh(POLICY_SCRIPT) == "[(3, True, 0), (6, True, 0), 1] []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -284,6 +337,7 @@ def test_port_sources_import_no_jax():
             "nomad_tpu_torch/device/supervisor.py",
             "nomad_tpu_torch/device/watchdog.py",
             "nomad_tpu_torch/ops/canary.py",
+            "nomad_tpu_torch/sched/policy.py",
             "chip_smoke.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -124,7 +124,8 @@ def test_wrapper_rejects_bad_inputs():
         tscore.score_and_select(inp._replace(perm=inp.perm.long()))
     with pytest.raises(ValueError):
         tscore.score_and_select(inp._replace(feasible=inp.feasible[:10]))
-    with pytest.raises(NotImplementedError):
+    # a policy must be PolicyTerms (its parity: tests/test_torch_policy.py)
+    with pytest.raises(TypeError):
         tscore.score_and_select(inp._replace(policy=object()))
     # a CPU tensor never reaches the kernel launcher
     with pytest.raises(ValueError):

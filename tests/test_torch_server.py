@@ -358,36 +358,32 @@ def policy_job(pkg):
 
 
 def test_policy_job_stops_the_sequential_worker():
-    """A policy-weighted job needs a select the CUDA stack does not have
-    yet: the sequential worker stops on its NotImplementedError (the
-    eval nacked once, not redelivered to the delivery limit) and
-    drain_to_idle raises it.  The batched Server sends the job to its
-    host stack and places what the JAX batched Server places."""
-    seq = TorchServer(num_schedulers=1, seed=13, batch_pipeline=False,
-                      heartbeat_ttl=1e9, device="cpu")
-    cfg = seq.store.get_scheduler_config()
-    cfg.tpu_scheduler_enabled = True  # the per-eval device stack
-    seq.store.set_scheduler_config(cfg)
-    seq.start()
-    try:
-        for node in make_nodes(TORCH, 8, 12):
-            seq.register_node(node)
-        ev = seq.register_job(policy_job(TORCH))
-        with pytest.raises(NotImplementedError):
-            seq.drain_to_idle(30)
-        worker = seq.workers[0]
-        assert isinstance(worker.fault, NotImplementedError)
-        assert worker.errors == 1
-        assert seq.broker.stats["delivery_failures"] == 0
-        assert seq.broker.failed() == []
-        assert seq.store.evals[ev.id].status == "pending"
-        assert placements(seq, "policy-job") == []
-        worker._thread.join(5)
-        assert not worker._thread.is_alive()
-    finally:
-        seq.stop()
+    """A policy-weighted job through the sequential Server with the
+    per-eval device stack on: the port's CUDA stack (the twins here)
+    places it as the JAX sequential Server's device stack does, with no
+    worker error.  The batched Server sends the job to its host stack
+    and places what the JAX batched Server places."""
+    def sequential(server, pkg):
+        cfg = server.store.get_scheduler_config()
+        cfg.tpu_scheduler_enabled = True  # the per-eval device stack
+        server.store.set_scheduler_config(cfg)
+        return server
 
     stages = [register(lambda p: [policy_job(p)])]
+    want = run_stream(
+        sequential(JaxServer(num_schedulers=1, seed=13,
+                             batch_pipeline=False, heartbeat_ttl=1e9), JAX),
+        JAX, make_nodes(JAX, 8, 12), stages)
+    seq = sequential(TorchServer(num_schedulers=1, seed=13,
+                                 batch_pipeline=False, heartbeat_ttl=1e9,
+                                 device="cpu"), TORCH)
+    got = run_stream(seq, TORCH, make_nodes(TORCH, 8, 12), stages)
+    assert got == want
+    assert len(got["policy-job"]) == 10
+    worker = seq.workers[0]
+    assert worker.fault is None and worker.errors == 0
+    assert seq.broker.stats["delivery_failures"] == 0
+
     want = run_stream(JaxServer(num_schedulers=1, seed=13,
                                 batch_pipeline=True, heartbeat_ttl=1e9),
                       JAX, make_nodes(JAX, 8, 12), stages)

@@ -9,7 +9,7 @@
   twin -> decompose -> prescored replay) against the JAX storm
   `Server`: equal placements and equal storm counters.
 - A failing solve stops the worker with DeviceFault; a weighted storm
-  raises NotImplementedError.
+  (policy rows staged into the solve) places as the JAX storm Server.
 """
 import copy
 import random
@@ -198,12 +198,32 @@ def test_storm_scores_are_the_serial_scores():
 
 
 def test_policy_terms_raise():
+    """A half-staged policy (one of the three fields) is refused; all
+    three give the JAX program's weighted solve, and all-zero rows the
+    unweighted one."""
     cols, inp, mr = storm_case(5, E, A, C, "uncontended")
     sinp = storm_inputs(inp, "cpu")._replace(
         policy_tput_term=torch.zeros((E, C), dtype=torch.float64)
     )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tsolve.storm_assignment(sinp, storm_columns(cols, "cpu"), False, mr)
+    rng = np.random.default_rng(5)
+    weighted = dict(
+        inp,
+        policy_tput_term=np.where(rng.random((E, C)) < 0.5, 0.75, 0.25),
+        policy_has_tput=np.asarray([1.0, 0.0, 1.0, 1.0]),
+        policy_mig_term=np.where(rng.random((E, C)) < 0.9, -0.5, 0.0),
+    )
+    weighted["policy_tput_term"][1] = 0.0
+    want = run_jax(cols, weighted, mr, False, torch.float64)
+    assert_bits_equal(run_twin(cols, weighted, mr, False, torch.float64),
+                      want, torch.float64)
+    zeros = dict(inp, policy_tput_term=np.zeros((E, C)),
+                 policy_has_tput=np.zeros(E),
+                 policy_mig_term=np.zeros((E, C)))
+    assert_bits_equal(run_twin(cols, zeros, mr, False, torch.float64),
+                      run_jax(cols, inp, mr, False, torch.float64),
+                      torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -637,31 +657,56 @@ def test_storm_fault_stops_the_worker(monkeypatch):
 
 
 def test_weighted_storm_raises(monkeypatch):
-    """A family whose job resolves a policy would be a weighted solve in
-    the JAX package; the port refuses it rather than solve it
-    unweighted."""
+    """A family one of whose jobs resolves a policy is a weighted solve
+    (policy rows staged for that member, zero rows for the rest): the
+    port's storm Server places it as the JAX storm Server does, the
+    staged problems and the solves' outputs equal."""
+    from nomad_tpu.server.batch_worker import BatchWorker as JaxWorker
+    from nomad_tpu_torch.server.batch_worker import BatchWorker as TorchWorker
+
     monkeypatch.setenv("NOMAD_TPU_STORM", "1")
     monkeypatch.setenv("NOMAD_TPU_STORM_MIN", "4")
-    server = TorchServer(num_schedulers=1, seed=11, batch_pipeline=True,
-                         heartbeat_ttl=1e9, device="cpu", nack_timeout=600)
-    jobs = family_jobs(TORCH, 6, fam="polfam")
-    jobs[2].policy = tstructs.PolicySpec(
-        throughput={"gpu-a": 2.0, "gpu-b": 1.0},
-        throughput_coefficient=0.5,
-    )
-    try:
-        for node in make_nodes(TORCH, 24):
-            server.register_node(node)
-        for job in jobs:
-            server.register_job(job)
-        server.start()
-        with pytest.raises(NotImplementedError):
-            server.drain_to_idle(60)
-        worker = server.workers[0]
-        worker._thread.join(5)
-        assert not worker._thread.is_alive()
-        assert isinstance(worker.fault, NotImplementedError)
-        assert not any(a for a in server.store.allocs.values())
-        assert server.broker.stats["total_unacked"] == 0
-    finally:
-        server.stop()
+    jax_solves, solves = [], []
+    keep_solves(monkeypatch, JaxWorker, jax_solves)
+    keep_solves(monkeypatch, TorchWorker, solves)
+
+    def run(pkg, **kw):
+        server = pkg.Server(num_schedulers=1, seed=11, batch_pipeline=True,
+                            heartbeat_ttl=1e9, **kw)
+        jobs = family_jobs(pkg, 6, fam="polfam")
+        jobs[2].policy = pkg.structs.PolicySpec(
+            throughput={"gpu-a": 2.0, "gpu-b": 1.0},
+            throughput_coefficient=0.5,
+        )
+        try:
+            for i, node in enumerate(make_nodes(pkg, 24)):
+                node.node_class = "gpu-a" if i % 2 else "gpu-b"
+                node.computed_class = pkg.structs.compute_node_class(node)
+                server.register_node(node)
+            for job in jobs:
+                server.register_job(job)
+            server.start()
+            assert server.drain_to_idle(60)
+            worker = server.workers[0]
+            placements = sorted(
+                (a.name, a.node_id) for a in server.store.allocs.values()
+                if not a.terminal_status()
+            )
+            counts = {k: getattr(worker, f"storm_{k}") for k in STORM_COUNTS}
+            return (placements, counts, worker.errors,
+                    server.metrics.get_counter("policy.storm_evals"))
+        finally:
+            server.stop()
+
+    want = run(JAX)
+    got = run(TORCH, device="cpu")
+    assert got == want
+    assert len(got[0]) == 6 and got[2] == 0
+    assert got[1]["solves"] == 1 and got[1]["evals"] == 6
+    assert got[3] == 1
+    (problem, _cols, out), (j_problem, _jc, j_out) = solves[0], jax_solves[0]
+    for name in tsolve.StormInputs._fields:
+        a, b = getattr(problem.inputs, name), getattr(j_problem.inputs, name)
+        assert a is not None, name
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
+    assert_bits_equal(list(out), list(j_out), torch.float64)
