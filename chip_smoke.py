@@ -27,10 +27,13 @@ Phases (any failure exits non-zero):
    and K2 must have been launched by the card run.  The card run is
    repeated with the capture off (NOMAD_TPU_EXPLAIN=0) for its cost.
 5. Times each kernel and its twin on the card with CUDA events at the
-   main path's shapes (>= 1,000 launches after warm-up; K5 50, K7 200),
-   K1 also with policy terms and an unlimited walk and K5 also on the
-   weighted dogpile; for K4 also the nearest single PyTorch call
-   (`index_copy_`).  This phase runs last.
+   main path's shapes (>= 1,000 launches after warm-up; K5 50, K7 200,
+   K9 and K10 50), K1 also with policy terms and an unlimited walk and K5
+   also on the weighted dogpile; K9, K9 shared and K10 at the bench's
+   kernel-only shape (a 2,048-row arena, 2,000 candidates, E = 64,
+   P = 10), K9 and K10 also at the 16,384-row arena, K11 at K1's shape
+   with and without policy terms; for K4 also the nearest single
+   PyTorch call (`index_copy_`).  This phase runs last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
@@ -72,7 +75,7 @@ k6. Kernel K6 (the walk alone over a host-built score vector,
    pulls bit-equal.
 preempt. Preemption-mode selects: the same 10,000-node / 100,000-alloc
    cluster (priority-50 filler allocs) with service preemption on, and
-   16 count-1 priority-80 jobs that only a preemption can place, through
+   10 count-1 priority-80 jobs that only a preemption can place, through
    the port's sequential `Server(batch_pipeline=False)` (the per-eval
    device stack) on the card, on the CPU twins and on the host oracle.
    Placements and preemption sets must be equal across the three,
@@ -132,9 +135,31 @@ device. The device supervisor on the same 10,000-node / 100,000-alloc
    no eval is lost or duplicated, stop() returns within 5 s; (5)
    `python -m nomad_tpu_torch.device.preflight` in a subprocess prints
    HEALTHY and exits 0.
+k9. Kernel K9 (the chained planner over per-eval BatchInputs,
+   csrc/chained_batch.cu) against its twin on the card and on the CPU,
+   at a 16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
+   (8, 64), (64, 10)}, f64 and f32, over `batched_case` scenarios with
+   and without spread, step deltas, pre-deltas and `wanted`; and its
+   shared mode (one [C] feasibility column) over `batch_shared_case`:
+   the [E, P] rows bit-equal (the CPU twin in f64, as in phase 6).
+k10. Kernel K10 (E independent evals over their own BatchInputs,
+   csrc/batch_plan.cu) the same way, with and without spread,
+   n_candidates one scalar or one per eval.
+k11. Kernel K11 (every node's score and feasibility, no walk,
+   csrc/score_all.cu) against its twin over every score and
+   policy-score scenario of `ops/cases.py`, both fits, f64 and f32:
+   every node's (feasible, final) bit-equal on the card and the CPU.
+bench. `python -m nomad_tpu_torch.bench` in a subprocess at its
+   defaults (10,000 nodes / 100,000 allocs; the e2e headline with its
+   paced and swept latency phases, then the kernel-only rates of K10
+   and K9): exit 0, one JSON line (printed here), parity 48 of 48, all
+   384 jobs fully placed, both kernel rates above 0, and K9, K10, K3
+   and K4 launched (the counts the bench prints on stderr).
 
-Prints the kernels line, then the card's nvidia-smi line, then the
-result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
+Each phase frees its Servers before the next world is built, so a
+world build sees one world on the heap.  Prints the kernels line (12
+programs: K1-K8, K9 and its shared mode, K10, K11), then the card's
+nvidia-smi line, then the result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -167,7 +192,7 @@ STORM_ROWS = (8, 1024)  # phase k5's A
 CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
 PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
 WALK_WIDTHS = (8, 1024, 16_384)  # phase k6's C
-PREEMPT_JOBS = 16  # the preempt phase's priority-80 jobs
+PREEMPT_JOBS = 10  # the preempt phase's priority-80 jobs
 POLICY_ORACLE_STEPS = 4  # the policy phase's host-oracle prefix
 K7_SHAPES = ((1, 1), (64, 10), (256, 16), (8, 64))  # phase k7's (E, P)
 K7_CANDS = (1, N_CAND_CHECK, C_CHECK)  # phase k7's n_cand
@@ -966,6 +991,9 @@ def check_server(cuda, card: str) -> dict:
         timings = dict(worker.timings)
     finally:
         server.stop()
+    # a stopped Server keeps its world until nothing refers to it: drop
+    # each one before the next world is built (build_world collects)
+    del server, worker
     print(f"main path (batched Server, cuda): launches {launches}; {stats}; "
           f"timings (s) {json.dumps({k: round(v, 4) for k, v in timings.items()})}",
           flush=True)
@@ -1002,6 +1030,7 @@ def check_server(cuda, card: str) -> dict:
     finally:
         EXPLAIN.set_enabled(True)
         seq.stop()
+    del seq, cfg
     check(seq_errors == 0, f"the sequential worker counted {seq_errors} errors")
     oracle_server = new_server(batch_pipeline=False)
     try:
@@ -1010,6 +1039,7 @@ def check_server(cuda, card: str) -> dict:
             oracle_server, server_stream()[:SERVER_ORACLE_JOBS], "oracle")
     finally:
         oracle_server.stop()
+    del oracle_server
     for job in jobs:
         check(batched[job.id] == sequential[job.id],
               f"batched and sequential Servers diverge at {job.id}")
@@ -2159,6 +2189,221 @@ def check_k8(cuda) -> dict:
     return {"max_abs_err": max_err}
 
 
+# ---------------------------------------------------------------------------
+# phases k9-k11: the benchmark's pick programs and the score pass
+# ---------------------------------------------------------------------------
+
+# without any option, and with all of them (spread, step deltas,
+# pre-deltas, wanted, little room, per-eval candidate counts,
+# distinct_hosts); the twins on the card and CPU take most of the time
+K9_SCENARIOS = ("plain", "everything")
+# (scenario, n_candidates as one scalar or one per eval)
+K10_CASES = (("plain", "scalar"), ("everything", "per_eval"))
+BATCHED_SHAPES = ((2, 16), (8, 64), (64, 10))  # phases k9/k10's (E, P)
+
+
+def check_k9(cuda) -> dict:
+    """K9 against its twin: per-eval BatchInputs (with and without
+    spread, step deltas, pre-deltas and `wanted`) and the shared mode,
+    bit-equal rows on the card (f64, f32) and on the CPU (f64)."""
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import (
+        BATCHED_SCENARIOS,
+        batch_shared_case,
+        batched_case,
+    )
+    from nomad_tpu_torch.state.convert import (
+        batch_shared_inputs_from_numpy,
+        batched_case_to_torch,
+    )
+
+    n_cases = placed = shared_cases = 0
+    for dtype in (torch.float64, torch.float32):
+        for scenario in K9_SCENARIOS:
+            for E, P in BATCHED_SHAPES:
+                cols, kw = batched_case(
+                    9300 + 10 * sorted(BATCHED_SCENARIOS).index(scenario) + E,
+                    C_CHECK, N_CAND_CHECK, scenario, E, P)
+                args, kwargs = batched_case_to_torch(cols, kw, cuda, dtype)
+                kern = tbatch.chained_plan_picks_cuda(*args, **kwargs).cpu()
+                tag = f"K9 {dtype} {scenario} E={E} P={P}"
+                check(tuple(kern.shape) == (E, P), f"{tag}: shape")
+                check(torch.equal(kern, tbatch.chained_plan_picks_twin(
+                    *args, **kwargs).cpu()), f"{tag}: kernel != twin on card")
+                if dtype == torch.float64:  # as in phase 6
+                    cargs, ckw = batched_case_to_torch(cols, kw, "cpu", dtype)
+                    check(torch.equal(kern, tbatch.chained_plan_picks(
+                        *cargs, **ckw)), f"{tag}: kernel != twin on CPU")
+                placed += int((kern >= 0).sum())
+                n_cases += 1
+        for scenario in ("mixed",):
+            for E, P in ((8, 16), (64, 10)):
+                case = batch_shared_case(9350 + E + len(scenario), C_CHECK,
+                                         N_CAND_CHECK, scenario, E, P)
+                card = batch_shared_inputs_from_numpy(case, cuda, dtype)
+                kern = tbatch.chained_plan_picks_shared_cuda(**card).cpu()
+                tag = f"K9 shared {dtype} {scenario} E={E} P={P}"
+                check(torch.equal(kern, tbatch.chained_plan_picks_shared_twin(
+                    **card).cpu()), f"{tag}: kernel != twin on card")
+                if dtype == torch.float64:
+                    check(torch.equal(kern, tbatch.chained_plan_picks_shared(
+                        **batch_shared_inputs_from_numpy(case, "cpu", dtype))),
+                        f"{tag}: kernel != twin on CPU")
+                placed += int((kern >= 0).sum())
+                n_cases += 1
+                shared_cases += 1
+    check(placed > 0, "K9 placed nothing in any case")
+    print(f"K9: {n_cases} cases exact against the twin on the card (f64 and "
+          f"f32) and on the CPU (f64; E x P rows bit-equal, per-eval "
+          f"{K9_SCENARIOS} and the shared mode, {placed} placed picks)",
+          flush=True)
+    return {"max_abs_err": 0.0, "cases": n_cases, "shared_cases": shared_cases}
+
+
+def check_k10(cuda) -> dict:
+    """K10 against its twin: per-eval BatchInputs with and without
+    spread, n_candidates one scalar or one per eval; bit-equal rows on
+    the card (f64, f32) and on the CPU (f64)."""
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import BATCHED_SCENARIOS, batched_case
+    from nomad_tpu_torch.state.convert import batched_case_to_torch
+
+    n_cases = placed = 0
+    for dtype in (torch.float64, torch.float32):
+        for scenario, nc_mode in K10_CASES:
+            for E, P in BATCHED_SHAPES:
+                cols, kw = batched_case(
+                    9400 + 10 * sorted(BATCHED_SCENARIOS).index(scenario) + E,
+                    C_CHECK, N_CAND_CHECK, scenario, E, P)
+                if nc_mode == "scalar":
+                    kw["n_candidates"] = int(kw["n_candidates"].min())
+
+                def inputs(dev):
+                    args, kwargs = batched_case_to_torch(cols, kw, dev, dtype)
+                    return args, kwargs.get("spread")
+
+                args, spread = inputs(cuda)
+                kern = tbatch.batch_plan_picks_cuda(*args, spread=spread).cpu()
+                tag = f"K10 {dtype} {scenario} ({nc_mode}) E={E} P={P}"
+                check(tuple(kern.shape) == (E, P), f"{tag}: shape")
+                check(torch.equal(kern, tbatch.batch_plan_picks_twin(
+                    *args, spread=spread).cpu()), f"{tag}: kernel != twin on card")
+                if dtype == torch.float64:
+                    cargs, cspread = inputs("cpu")
+                    check(torch.equal(kern, tbatch.batch_plan_picks(
+                        *cargs, spread=cspread)), f"{tag}: kernel != twin on CPU")
+                placed += int((kern >= 0).sum())
+                n_cases += 1
+    check(placed > 0, "K10 placed nothing in any case")
+    print(f"K10: {n_cases} cases exact against the twin on the card (f64 and "
+          f"f32) and on the CPU (f64; E x P rows bit-equal, {K10_CASES}, "
+          f"{placed} placed picks)", flush=True)
+    return {"max_abs_err": 0.0, "cases": n_cases}
+
+
+def check_k11(cuda) -> dict:
+    """K11 against its twin over every score and policy-score scenario
+    (limit 14, both fits, f64 and f32): every node's feasibility and
+    final score bit-equal on the card and on the CPU."""
+    import torch
+
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops.cases import (
+        POLICY_SCORE_SCENARIOS,
+        SCORE_SCENARIOS,
+        policy_score_case,
+        score_case,
+    )
+    from nomad_tpu_torch.state.convert import score_inputs_from_numpy
+
+    cases = ([(score_case, s) for s in sorted(SCORE_SCENARIOS)]
+             + [(policy_score_case, s) for s in sorted(POLICY_SCORE_SCENARIOS)])
+    n_cases = 0
+    max_err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for i, (make, scenario) in enumerate(cases):
+            case = make(9500 + i, C_CHECK, N_CAND_CHECK, scenario, 14)
+            card = score_inputs_from_numpy(case, cuda, dtype=dtype)
+            cpu = score_inputs_from_numpy(case, "cpu", dtype=dtype)
+            for spread_fit in (False, True):
+                feas, final = tscore.score_all_cuda(card, spread_fit)
+                tag = f"K11 {dtype} {make.__name__} {scenario} fit={spread_fit}"
+                for where, twin in (
+                        ("card", tscore.score_all_twin(card, spread_fit)),
+                        ("CPU", tscore.score_all(cpu, spread_fit))):
+                    check(torch.equal(feas.cpu(), twin[0].cpu()),
+                          f"{tag}: feasibility != twin on {where}")
+                    check(bool((_bits(final) == _bits(twin[1])).all()),
+                          f"{tag}: scores != twin on {where}")
+                    max_err = max(max_err, _max_abs(final, twin[1]))
+                n_cases += 1
+    print(f"K11: {n_cases} cases exact against the twin on the card and on "
+          f"the CPU (f64 and f32; every node's feasibility and score "
+          f"bit-equal, {C_CHECK} rows), max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases}
+
+
+# ---------------------------------------------------------------------------
+# phase bench: the port's benchmark entry point at its defaults
+# ---------------------------------------------------------------------------
+
+BENCH_TIMEOUT_S = 420
+
+
+def check_bench(cuda, card: str) -> dict:
+    """`python -m nomad_tpu_torch.bench` in a subprocess at its defaults
+    (10,000 nodes / 100,000 allocs, 48 oracle jobs, 384 batched, 128
+    paced, 3 x 64 swept; the kernel-only phase on 2,000 nodes, E = 64):
+    exit 0, one JSON line, parity 48 of 48, all 384 jobs fully placed,
+    both kernel rates above 0, and K9 and K10 launched (the launch
+    counts the bench prints on stderr)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "nomad_tpu_torch.bench"], cwd=str(HERE),
+            env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"the bench ran past {BENCH_TIMEOUT_S} s: "
+                           f"{(exc.stderr or '')[-2000:]}")
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-40:]:
+        log(f"  [bench] {line}")
+    check(proc.returncode == 0,
+          f"the bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"the bench printed {len(lines)} lines, not one")
+    line = json.loads(lines[0])
+    launches = [json.loads(x.split(" ", 1)[1]) for x in proc.stderr.splitlines()
+                if x.startswith("BENCH_LAUNCHES ")]
+    check(len(launches) == 1, "the bench printed no launch counts")
+    launches = launches[0]
+    print(f"bench line: {lines[0]}", flush=True)
+    check(line["parity_identical_evals"] == 48,
+          f"the bench's parity is {line['parity_identical_evals']} of 48")
+    check(line["vs_baseline"] > 0, "the bench zeroed vs_baseline")
+    check(line["e2e_jobs_fully_placed"] == 384,
+          f"{line['e2e_jobs_fully_placed']} of the 384 jobs fully placed")
+    check(line["kernel_batch_placements_per_sec"] > 0
+          and line["kernel_chained_placements_per_sec"] > 0,
+          "a kernel-only rate is 0")
+    for name in ("chained_plan_picks", "batch_plan_picks", "chained_picks",
+                 "patch_rows"):
+        check(launches.get(name, 0) > 0, f"the bench launched no {name}")
+    print(f"bench on {card}: {line['value']} placements/s (oracle "
+          f"{line['oracle_e2e_placements_per_sec']}, vs_baseline "
+          f"{line['vs_baseline']}), p50 {line['p50_eval_latency_ms']} ms p99 "
+          f"{line['p99_eval_latency_ms']} ms, kernel-only batch "
+          f"{line['kernel_batch_placements_per_sec']} / chained "
+          f"{line['kernel_chained_placements_per_sec']} placements/s; "
+          f"launches {launches}; subprocess {wall:.1f} s", flush=True)
+    return {"line": line, "launches": launches, "wall_s": wall}
+
+
 @contextlib.contextmanager
 def env_set(**values):
     """Set environment variables for one step, restoring them after."""
@@ -2250,6 +2495,7 @@ def check_device(cuda, card: str) -> dict:
         on_cpu, _, _, _ = drive_server(cpu_server, jobs, "steady, cpu")
     finally:
         cpu_server.stop()
+    del cpu_server
     check(steady == on_cpu, "the supervised card Server and the CPU Server diverge")
     # the same probe on an idle process: a throwaway supervisor, 32
     # probes back to back (its launches are not the path's)
@@ -2272,16 +2518,15 @@ def check_device(cuda, card: str) -> dict:
           f"{json.dumps(status['budgets'])}; placements equal to the CPU "
           f"Server's", flush=True)
 
-    # (2) the guard's cost: phase 8's stream without and with it, in
-    # turns (off, on, on, off); each guarded stage call counted, the
-    # time a call spends in the guard beyond its stage's own summed
-    # (the handoff to the stage's thread and back), and one guarded
-    # no-op stage timed alone
-    rates = {"off": [], "on": []}
+    # (2) the guard's cost: phase 8's stream once without it and once
+    # with it; each guarded stage call counted, the time a call spends
+    # in the guard beyond its stage's own summed (the handoff to the
+    # stage's thread and back), and one guarded no-op stage timed alone
+    rates = {}
     placed_by = {}
     guarded = 0
     waits = []
-    for label in ("off", "on", "on", "off"):
+    for label in ("off", "on"):
         with env_set(NOMAD_TPU_SUPERVISOR="1" if label == "on" else "0"):
             server = new_server(batch_pipeline=True)
             try:
@@ -2322,22 +2567,20 @@ def check_device(cuda, card: str) -> dict:
                     guard_us = (time.perf_counter() - t0) * 1e3
             finally:
                 server.stop()
+            del server, sup, guard, counted
         check(live == (label == "on"), f"supervisor {label}: live={live}")
         check(trips == 0, f"supervisor {label}: {trips} watchdog trips")
         check(placed_by.setdefault(label, placements) == placements
               and placements == placed_by["off"],
               "the supervisor changed phase 8's placements")
-        rates[label].append(placed / dt)
-    out["rate_off"] = statistics.mean(rates["off"])
-    out["rate_on"] = statistics.mean(rates["on"])
+        rates[label] = placed / dt
+    out["rate_off"] = rates["off"]
+    out["rate_on"] = rates["on"]
     out["guard_us"] = guard_us
     out["guard_wait_s"] = waits
-    print(f"device (2) the guard's cost on {card}: {SERVER_JOBS} jobs in turns "
-          f"off, on, on, off: "
-          + ", ".join(f"{r:.1f}" for r in (rates["off"][0], *rates["on"],
-                                            rates["off"][1]))
-          + f" placements/s (mean off {out['rate_off']:.1f}, on "
-          f"{out['rate_on']:.1f}); {guarded} guarded stage calls in a run, "
+    print(f"device (2) the guard's cost on {card}: {SERVER_JOBS} jobs off "
+          f"{out['rate_off']:.1f}, on {out['rate_on']:.1f} placements/s; "
+          f"{guarded} guarded stage calls in a run, "
           f"time in the guard beyond the stages' own (the handoffs) "
           + ", ".join(f"{w:.4f}" for w in waits)
           + f" s a run; one guarded no-op stage alone {guard_us:.1f} us "
@@ -2382,6 +2625,7 @@ def check_device(cuda, card: str) -> dict:
                 if not a.terminal_status()) for job in jobs}
         finally:
             server.stop()
+        del server, sup, worker
     check(ok, "the flaky Server did not drain after the flip")
     check(history == [DEGRADED, LOST, RECOVERING, HEALTHY],
           f"flaky:3 walked {history}")
@@ -2476,6 +2720,20 @@ def cuda_time_ms(fn, n: int = TIMING_LAUNCHES, warmup: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def cuda_time_once(fn):
+    """One call of `fn` timed with CUDA events: (its result, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def time_kernels(cuda) -> dict:
     """K1 at the count-1 select's shape (16,384-row arena, 10,000
     candidates, limit 14 = ceil(log2 10,000)) and at a weighted select's
@@ -2520,7 +2778,7 @@ def time_kernels(cuda) -> dict:
         "plan_picks": {
             "ms": cuda_time_ms(lambda: tbatch.plan_picks_cuda(*k2)),
             "plain_ms": cuda_time_ms(
-                lambda: tbatch.run_picks(*k2), n=100, warmup=3
+                lambda: tbatch.run_picks(*k2), n=20, warmup=2
             ),
             # the candidate rows of every column read once (the tail is
             # never walked) and the [2, P] result written
@@ -2543,18 +2801,26 @@ def time_kernels(cuda) -> dict:
     (tscore.score_select_cuda.launches, tbatch.plan_picks_cuda.launches,
      tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches,
      tscore.walk_only_cuda.launches) = saved
+    out.update(time_batched_kernels(cuda))
     for v in out.values():
         v.setdefault("library_ms", None)
-        t_bytes = v["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = v["flops"] / F64_FLOPS * 1e3  # every timed launch is f64
-        v["bound_ms"] = max(t_bytes, t_ops)
-        v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        _bound(v)
     print("timing shapes (bytes, walk reach in pulls, auction rounds, operations, "
           "bound ms): "
           + "; ".join(f"{k} {v['bytes']} B, {v.get('pulls', 0)} pulls, "
                       f"{v.get('rounds', 0)} rounds, "
                       f"{v['flops']} ops, {v['bound_ms']:.9f} ({v['bound_by']})"
                       for k, v in out.items()), flush=True)
+    rows = []
+    for k in ("chained_plan_picks", "chained_plan_picks_shared",
+              "batch_plan_picks", "score_all", "score_all_policy"):
+        for v in (out[k], out[k].get("arena16k")):
+            if v is not None:
+                rows.append(
+                    f"{k} ({v.get('shape', 'select')}) {v['ms']:.6f} ms, twin "
+                    f"{v['plain_ms']:.6f} ms, bound {v['bound_ms']:.9f} ms "
+                    f"({v['bound_by']}; {v['bytes']} B, {v['pulls']} pulls)")
+    print("K9-K11 timing (f64, CUDA events): " + "; ".join(rows), flush=True)
     print("policy timing (f64, CUDA events): "
           + "; ".join(
               f"{k} {out[k]['ms']:.6f} ms (policy off {out[base]['ms']:.6f}), "
@@ -2695,6 +2961,218 @@ def time_batch_kernel(cuda) -> dict:
     return out
 
 
+def _batched_on_cpu(args) -> tuple:
+    """`chained_plan_picks` arguments with every tensor moved to the
+    CPU (the twin's f64 run there)."""
+    import torch
+
+    return tuple(
+        a.cpu() if isinstance(a, torch.Tensor)
+        else type(a)(*[f.cpu() for f in a]) if isinstance(a, tuple) else a
+        for a in args)
+
+
+def _candidate_bytes(q, per_node: int, per_row: int) -> int:
+    """Bytes of a K9/K10 launch's candidate region: `per_node` bytes at
+    each arena row that some eval's first n_cand walk positions hold
+    (the node columns), `per_row` bytes at each eval's own n_cand
+    positions (its per-eval columns and perm), and each eval's scalars
+    (three asks, count, limit, distinct_hosts) and its P rows written.
+    The tail past n_cand carries no set entries and is not read."""
+    import torch
+
+    n = q["n_cand"].tolist()
+    perm = q["batch"].perm
+    union = torch.unique(torch.cat(
+        [perm[e, :n[e]] for e in range(q["E"])])).numel()
+    return (union * per_node + sum(n) * per_row
+            + q["E"] * (3 * 8 + 2 * 4 + 1 + q["P"] * 4))
+
+
+def _time_k9_k10(args, label: str) -> dict:
+    """K9 and K10 over one set of `chained_plan_picks` arguments (f64):
+    first each kernel's rows held bit-equal to its twin on the card and
+    on the CPU (and K9's pulls to its twin's), then both timed beside
+    their twins on the card.  The bound's bytes count the candidate
+    region (`_candidate_bytes`); its operations the walk positions the
+    picks reach in this run, the pulls each kernel writes.  Kernels and
+    twins are timed over the prepared inputs, without the wrappers'
+    checks; a twin's time is that of its one call on the card."""
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+
+    q = tbatch.prepare_batched(*args)
+    cpu_args = _batched_on_cpu(args)
+    k9_rows, k9_pulls = (t.cpu() for t in tbatch.launch_chained_plan(q))
+    # each twin's one timed call on the card is also its check there
+    k9_twin, k9_plain_ms = cuda_time_once(
+        lambda: tbatch.chained_picks_twin(tbatch.batched_as_chain(q)))
+    twin_rows, twin_pulls = k9_twin[:2]
+    check(torch.equal(k9_rows, twin_rows.cpu()),
+          f"K9 at the {label} shape: kernel != twin on card")
+    check(torch.equal(k9_pulls, twin_pulls.cpu()),
+          f"K9 at the {label} shape: pulls != twin's on card")
+    check(torch.equal(k9_rows, tbatch.chained_plan_picks(*cpu_args)),
+          f"K9 at the {label} shape: kernel != twin on CPU")
+    k10_rows, k10_pulls = (t.cpu() for t in tbatch.launch_batch_plan(q))
+    k10_twin, k10_plain_ms = cuda_time_once(
+        lambda: tbatch.batch_plan_rows_twin(q))
+    check(torch.equal(k10_rows, k10_twin.cpu()),
+          f"K10 at the {label} shape: kernel != twin on card")
+    check(torch.equal(k10_rows, tbatch.batch_plan_picks(*cpu_args)),
+          f"K10 at the {label} shape: kernel != twin on CPU")
+    print(f"K9/K10 at the {label} shape: rows bit-equal to the twins on "
+          f"the card and the CPU ({int((k9_rows >= 0).sum())} / "
+          f"{int((k10_rows >= 0).sum())} placed picks)", flush=True)
+    # per candidate position: feasibility and penalty bytes, perm and
+    # collisions int32, affinity f64
+    per_row = 1 + 1 + 4 + 4 + 8
+    k9_reach = int(k9_pulls.sum())
+    k10_reach = int(k10_pulls.sum())
+    return {
+        "chained_plan_picks": {
+            "ms": cuda_time_ms(lambda: tbatch.launch_chained_plan(q),
+                               n=50, warmup=3),
+            "plain_ms": k9_plain_ms,
+            # totals and eval 0's base usage (the chain reads no other row)
+            "bytes": _candidate_bytes(q, 6 * 8, per_row),
+            "pulls": k9_reach,
+            "flops": k9_reach * FLOPS_PER_CANDIDATE,
+            "shape": label,
+        },
+        "batch_plan_picks": {
+            "ms": cuda_time_ms(lambda: tbatch.launch_batch_plan(q),
+                               n=50, warmup=3),
+            "plain_ms": k10_plain_ms,
+            # totals, and every eval's own base usage
+            "bytes": _candidate_bytes(q, 3 * 8, per_row + 3 * 8),
+            "pulls": k10_reach,
+            "flops": k10_reach * FLOPS_PER_CANDIDATE,
+            "shape": label,
+        },
+        "rows": k9_rows,
+    }
+
+
+def time_batched_kernels(cuda) -> dict:
+    """K9, K9 shared and K10 at the benchmark's kernel-only shape (its
+    2,000-node world: a 2,048-row arena, 2,000 candidates, E = 64 evals
+    of P = 10 picks, the bench's own inputs and walk orders), K9 and K10
+    also at the 16,384-row arena (a `batched_case` "plain" of 10,000
+    candidates, E = 64, P = 10); K11 at K1's select shape (16,384 rows,
+    `score_case` "mixed") and with both policy groups.  K9 and K10 are
+    held bit-equal to their twins on the card and the CPU at both shapes
+    first, K9 shared at the bench's.  Each is timed beside its twin on
+    the card; no single PyTorch call computes any of them."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch import bench as tbench
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops.cases import batched_case, policy_score_case, score_case
+    from nomad_tpu_torch.state.convert import (
+        batched_case_to_torch,
+        score_inputs_from_numpy,
+    )
+
+    saved = (tbatch.chained_plan_picks_cuda.launches,
+             tbatch.chained_plan_picks_shared_cuda.launches,
+             tbatch.batch_plan_picks_cuda.launches,
+             tscore.score_all_cuda.launches)
+    f8 = 8
+    E = 64
+    world = tbench.kernel_world(2000)
+    inp = tbench.kernel_inputs(world, E)
+    cols = [torch.from_numpy(np.ascontiguousarray(c)).to(cuda)
+            for c in inp["cols"]]
+    perms = tbench.kernel_perms(world, list(range(E)))
+    batch = tbatch.prepare_batched(
+        *cols, tbatch.BatchInputs(perm=perms, **inp["shared"]),
+        inp["n_cand"], tbench.TG_COUNT)["batch"]
+    bench_args = (*cols, batch, inp["n_cand"], tbench.TG_COUNT)
+    out = _time_k9_k10(bench_args, "bench")
+    k9_rows = out.pop("rows")
+    b = batch
+    shared = dict(
+        cpu_total=cols[0], mem_total=cols[1], disk_total=cols[2],
+        feasible=b.feasible[0].contiguous(),
+        base_cpu_used=b.base_cpu_used[0].contiguous(),
+        base_mem_used=b.base_mem_used[0].contiguous(),
+        base_disk_used=b.base_disk_used[0].contiguous(), perms=b.perm,
+        ask_cpu=b.ask_cpu, ask_mem=b.ask_mem, ask_disk=b.ask_disk,
+        desired_count=b.desired_count, limit=b.limit,
+        n_candidates=inp["n_cand"], n_picks=tbench.TG_COUNT,
+    )
+    # every eval wants its count, P = 10: the same walks as K9's
+    rows = tbatch.chained_plan_picks_shared_cuda(**shared).cpu()
+    twin, shared_plain_ms = cuda_time_once(
+        lambda: tbatch.chained_plan_picks_shared_twin(**shared))
+    check(torch.equal(rows, twin.cpu()),
+          "K9 shared at the bench shape: kernel != twin on card")
+    check(torch.equal(rows, tbatch.chained_plan_picks_shared(
+        **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in shared.items()})),
+          "K9 shared at the bench shape: kernel != twin on CPU")
+    check(torch.equal(rows, k9_rows),
+          "K9 shared at the bench shape: rows != K9's per-eval rows")
+    out["chained_plan_picks_shared"] = {
+        "ms": cuda_time_ms(
+            lambda: tbatch.chained_plan_picks_shared_cuda(**shared),
+            n=50, warmup=3),
+        "plain_ms": shared_plain_ms,
+        # at the candidate rows: totals, usage and the feasibility byte
+        # once; each eval's n_cand perm entries, scalars and rows
+        "bytes": _candidate_bytes(
+            tbatch.prepare_batched(*bench_args), 6 * f8 + 1, 4),
+        "pulls": out["chained_plan_picks"]["pulls"],
+        "flops": out["chained_plan_picks"]["flops"],
+        "shape": "bench",
+    }
+    cols16, kw16 = batched_case(9600, C_CHECK, N_CAND_CHECK, "plain", E, 10)
+    args16, _kw = batched_case_to_torch(cols16, kw16, cuda)
+    timed16 = _time_k9_k10(args16, "arena16k")
+    timed16.pop("rows")
+    for name, entry in timed16.items():
+        out[name]["arena16k"] = entry
+    for key, case in (
+            ("score_all", score_case(7000, C_CHECK, N_CAND_CHECK, "mixed", 14)),
+            ("score_all_policy", policy_score_case(
+                7002, C_CHECK, N_CAND_CHECK, "both", 14))):
+        k11 = score_inputs_from_numpy(case, cuda)
+        n_cols = 10 if key == "score_all_policy" else 8
+        out[key] = {
+            "ms": cuda_time_ms(lambda: tscore.score_all_cuda(k11)),
+            "plain_ms": cuda_time_ms(lambda: tscore.score_all_twin(k11),
+                                     n=200, warmup=3),
+            # every column read once (f64 columns, feasibility and
+            # penalty bytes, collisions int32; perm is not read) and a
+            # byte and a score written a node
+            "bytes": C_CHECK * (n_cols * f8 + 2 + 4) + C_CHECK * (1 + f8),
+            "pulls": C_CHECK,
+            "flops": C_CHECK * FLOPS_PER_CANDIDATE,
+        }
+    (tbatch.chained_plan_picks_cuda.launches,
+     tbatch.chained_plan_picks_shared_cuda.launches,
+     tbatch.batch_plan_picks_cuda.launches,
+     tscore.score_all_cuda.launches) = saved
+    for v in list(out.values()):
+        v["library_ms"] = None
+        if "arena16k" in v:
+            _bound(v["arena16k"])
+    return out
+
+
+def _bound(v: dict) -> None:
+    """The least time of an entry: bytes over the card's memory rate or
+    operations over its f64 rate, whichever is larger."""
+    t_bytes = v["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = v["flops"] / F64_FLOPS * 1e3  # every timed launch is f64
+    v["bound_ms"] = max(t_bytes, t_ops)
+    v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
 def time_chain_kernels(cuda) -> dict:
     """K3 at the batched main path's launch shape: one chunk of the
     widest bucket (E = 8) with P = 16 picks over the 16,384-row arena
@@ -2727,10 +3205,11 @@ def time_chain_kernels(cuda) -> dict:
     k3_pulls = int(tbatch.chained_picks_cuda(prepared)[1].sum())
     return {
         "chained_picks": {
-            "ms": cuda_time_ms(lambda: tbatch.chained_picks_cuda(prepared)),
-            # the twin takes ~100x longer a launch: 100 launches
+            # ~8 ms a launch, the twin ~50x that: 100 and 10 launches
+            "ms": cuda_time_ms(lambda: tbatch.chained_picks_cuda(prepared),
+                               n=100, warmup=5),
             "plain_ms": cuda_time_ms(
-                lambda: tbatch.chained_picks_twin(prepared), n=100, warmup=2
+                lambda: tbatch.chained_picks_twin(prepared), n=10, warmup=1
             ),
             # inputs read once: totals and usage (6 columns), the
             # feasibility bytes and walk order of every eval, the
@@ -2760,6 +3239,11 @@ def time_chain_kernels(cuda) -> dict:
 
 
 # ---------------------------------------------------------------------------
+
+
+# the phases that drive a path through the entry points a user calls
+PATH_PHASES = ("main", "server", "storm", "preempt", "policy", "bridge",
+               "device", "bench")
 
 
 def main() -> int:
@@ -2796,6 +3280,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
 
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops import score as tscore
+
+    # the two programs no path of either package calls: their counts are
+    # set to 0 before every phase and read after it
+    uncalled = {"chained_plan_picks_shared": tbatch.chained_plan_picks_shared_cuda,
+                "score_all": tscore.score_all_cuda}
+    uncalled_by_phase = {}
     failures = []
     results = {}
     pauses = {}
@@ -2814,15 +3306,22 @@ def main() -> int:
                      ("k7", lambda: check_k7(cuda)),
                      ("bridge", lambda: check_bridge(cuda, card)),
                      ("k8", lambda: check_k8(cuda)),
+                     ("k9", lambda: check_k9(cuda)),
+                     ("k10", lambda: check_k10(cuda)),
+                     ("k11", lambda: check_k11(cuda)),
                      ("device", lambda: check_device(cuda, card)),
+                     ("bench", lambda: check_bench(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
         GC_PAUSES.reset()
+        for wrapper in uncalled.values():
+            wrapper.launches = 0
         try:
             results[name] = fn()
         except SmokeFailure as e:
             failures.append(f"{name}: {e}")
             print(f"FAILED {name}: {e}", flush=True)
+        uncalled_by_phase[name] = {k: w.launches for k, w in uncalled.items()}
         pauses[name] = GC_PAUSES.summary()
         log(f"phase {name}: {time.perf_counter() - t0:.1f}s; collector "
             f"pauses inside it {json.dumps(pauses[name])}")
@@ -2835,6 +3334,17 @@ def main() -> int:
           f"full collection over a live world at most "
           f"{GC_PAUSES.world_collect_s:.3f} s; by phase {json.dumps(pauses)}",
           flush=True)
+    # each check of the two launched its kernel once, and no path did
+    checked = {"chained_plan_picks_shared": uncalled_by_phase["k9"][
+                   "chained_plan_picks_shared"],
+               "score_all": uncalled_by_phase["k11"]["score_all"]}
+    if not failures:
+        for name, want in (("chained_plan_picks_shared",
+                            results["k9"]["shared_cases"]),
+                           ("score_all", results["k11"]["cases"])):
+            if checked[name] != want:
+                failures.append(f"{name}: {checked[name]} launches in its "
+                                f"check phase for {want} cases")
     if failures:
         print(f"chip_smoke failed: {failures}", flush=True)
         return 1
@@ -2845,6 +3355,14 @@ def main() -> int:
     launches["walk_only"] = results["preempt"]["launches"]["walk_only"]
     launches["batch_picks"] = results["bridge"]["launches"]["batch_picks"]
     launches["canary"] = results["device"]["launches"]["canary"]
+    # the bench's path (its own process, counts from 0): K9 and K10
+    for name in ("chained_plan_picks", "batch_plan_picks"):
+        launches[name] = results["bench"]["launches"][name]
+    # no caller in either package: their counts read over every path's
+    # phase (the bench's from its own process)
+    for name in uncalled:
+        launches[name] = results["bench"]["launches"][name] + sum(
+            uncalled_by_phase[p][name] for p in PATH_PHASES)
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -2863,6 +3381,14 @@ def main() -> int:
          "nomad_tpu/ops/batch.py:1331", "k7"),
         ("canary", "nomad_tpu_torch/csrc/canary.cu",
          "nomad_tpu/device/supervisor.py:494", "k8"),
+        ("chained_plan_picks", "nomad_tpu_torch/csrc/chained_batch.cu",
+         "nomad_tpu/ops/batch.py:801", "k9"),
+        ("chained_plan_picks_shared", "nomad_tpu_torch/csrc/chained_batch.cu",
+         "nomad_tpu/ops/batch.py:1262", "k9"),
+        ("batch_plan_picks", "nomad_tpu_torch/csrc/batch_plan.cu",
+         "nomad_tpu/ops/batch.py:1391", "k10"),
+        ("score_all", "nomad_tpu_torch/csrc/score_all.cu",
+         "nomad_tpu/ops/score.py:282", "k11"),
     ):
         tm = results["timing"][name]
         kernels.append({
@@ -2876,6 +3402,11 @@ def main() -> int:
         # the policy path's own count, beside the main path's
         if name in results["policy"]["launches"]:
             kernels[-1]["launches_policy"] = results["policy"]["launches"][name]
+        if name in checked:
+            kernels[-1]["launches_check"] = checked[name]
+        if "arena16k" in tm:
+            kernels[-1]["arena16k"] = {k: tm["arena16k"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

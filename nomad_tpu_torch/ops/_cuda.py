@@ -39,8 +39,11 @@ SOURCES = {
     "walk_only": "walk_only.cu",
     "batch_picks": "batch_picks.cu",
     "canary": "canary.cu",
+    "chained_batch": "chained_batch.cu",
+    "batch_plan": "batch_plan.cu",
+    "score_all": "score_all.cu",
 }
-HEADERS = ("walk.cuh", "picks.cuh")
+HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh")
 
 # exact IEEE arithmetic: no FMA contraction, no fast math, no
 # flush-to-zero, correctly rounded division
@@ -301,6 +304,13 @@ def _chain_dims(p) -> Dict[str, int]:
     )
 
 
+def _scratch_lens(C, G=1, S=0, V1=0, Q=0, D=0) -> Tuple[int, ...]:
+    """Lengths of one eval's scratch in `csrc/chained.cuh` (its
+    `*_scratch_len`): float, int32, byte and spread-carry elements."""
+    return ((7 + 2 * G) * C, (2 + G + S + D) * C + G, (2 + G + Q) * C,
+            3 * S * V1 + 4 * S + 1)
+
+
 def chained_scratch(p, dtype, device) -> Tuple[torch.Tensor, ...]:
     """K3's scratch: permuted-space float columns (totals, usage, walk
     scores, per-group affinities), int columns (inverse walk order,
@@ -309,15 +319,13 @@ def chained_scratch(p, dtype, device) -> Tuple[torch.Tensor, ...]:
     per-group feasibility, ports) and the spread carries, each column
     C long."""
     d = _chain_dims(p)
-    C = d["C"]
+    f, i, b, s = _scratch_lens(d["C"], d["G"], d["S"], d["V1"], d["Q"],
+                               d["D"])
     return (
-        torch.empty((7 + 2 * d["G"]) * C, dtype=dtype, device=device),
-        torch.empty((2 + d["G"] + d["S"] + d["D"]) * C + d["G"],
-                    dtype=torch.int32, device=device),
-        torch.empty((2 + d["G"] + d["Q"]) * C, dtype=torch.uint8,
-                    device=device),
-        torch.empty(3 * d["S"] * d["V1"] + 4 * d["S"] + 1, dtype=dtype,
-                    device=device),
+        torch.empty(f, dtype=dtype, device=device),
+        torch.empty(i, dtype=torch.int32, device=device),
+        torch.empty(b, dtype=torch.uint8, device=device),
+        torch.empty(s, dtype=dtype, device=device),
     )
 
 
@@ -569,3 +577,203 @@ def launch_canary(a, out, total, *, threads: int) -> None:
         int(a.dtype == torch.float64), dev.index,
     )
     _launch("canary", "nk_canary", args, dev)
+
+
+_SPREAD_PTRS = dict(sp_codes="codes", sp_desired="desired",
+                    sp_used0="used0", sp_prop0="proposed0",
+                    sp_clr0="cleared0", sp_weight="weight",
+                    sp_active="active", sp_even="even", sp_group="group")
+_DELTA_PTRS = dict(evict_rows="evict_rows", evict_cpu="evict_cpu",
+                   evict_mem="evict_mem", evict_disk="evict_disk",
+                   evict_coll="evict_coll", penalty_rows="penalty_rows")
+_PRE_PTRS = dict(pre_rows="rows", pre_cpu="cpu", pre_mem="mem",
+                 pre_disk="disk")
+
+
+def _option_ptrs(spread, deltas, pre) -> Dict[str, torch.Tensor]:
+    """Pointer fields of the optional per-eval tuples (absent ones stay
+    null)."""
+    out = {}
+    for tup, names in ((spread, _SPREAD_PTRS), (deltas, _DELTA_PTRS),
+                       (pre, _PRE_PTRS)):
+        if tup is not None:
+            out.update({k: getattr(tup, f) for k, f in names.items()})
+    return out
+
+
+def _fill(args: ctypes.Structure, ptrs: Dict[str, torch.Tensor],
+          dev) -> None:
+    """Set the pointer fields of `args` from contiguous tensors on `dev`
+    (None leaves a field null)."""
+    fields = {name for name, _t in type(args)._fields_}
+    for name, t in ptrs.items():
+        if name not in fields:
+            raise KeyError(f"{type(args).__name__} has no field {name}")
+        if t is None:
+            continue
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        setattr(args, name, t.data_ptr())
+
+
+def _spread_dims(spread) -> Tuple[int, int]:
+    return (0, 0) if spread is None else (spread.codes.shape[1],
+                                          spread.desired.shape[2])
+
+
+class ChainedBatchArgs(ctypes.Structure):
+    """Mirror of `ChainedBatchArgs` in csrc/chained_batch.cu."""
+
+    _fields_ = [
+        (name, _P) for name in (
+            "cpu_total", "mem_total", "disk_total", "cpu_in", "mem_in",
+            "disk_in", "cpu_out", "mem_out", "disk_out", "feasible", "perm",
+            "ask_cpu", "ask_mem", "ask_disk", "desired", "limit",
+            "distinct_hosts", "n_cand", "wanted", "collisions", "penalty",
+            "affinity", "sp_codes", "sp_desired", "sp_used0", "sp_prop0",
+            "sp_clr0", "sp_weight", "sp_active", "sp_even", "sp_group",
+            "evict_rows", "evict_cpu", "evict_mem", "evict_disk",
+            "evict_coll", "penalty_rows", "pre_rows", "pre_cpu", "pre_mem",
+            "pre_disk", "f_scratch", "i_scratch", "b_scratch", "s_scratch",
+            "out_rows", "out_pulls",
+        )
+    ] + [
+        (name, _I) for name in (
+            "E", "P", "C", "S", "V1", "K", "R", "feas_shared", "spread_fit",
+            "is_f64", "device",
+        )
+    ]
+
+
+def launch_chained_batch(named, spread, deltas, pre, *, E: int, P: int,
+                         C: int, feas_shared: bool, spread_fit: bool,
+                         dtype) -> None:
+    """K9 on the current stream.  `named` maps the pointer fields of
+    `ChainedBatchArgs` (node columns, carry-in and carry-out, the
+    per-eval columns and scalars, the outputs) to contiguous CUDA
+    tensors or None; the optional tuples come from
+    `ops.batch.prepare_batched`.  Allocates the scratch."""
+    dev = named["cpu_total"].device
+    S, V1 = _spread_dims(spread)
+    f, i, b, s = _scratch_lens(C, 1, S, V1)
+    ptrs = dict(named, **_option_ptrs(spread, deltas, pre))
+    ptrs.update(
+        f_scratch=torch.empty(f, dtype=dtype, device=dev),
+        i_scratch=torch.empty(i, dtype=torch.int32, device=dev),
+        b_scratch=torch.empty(b, dtype=torch.uint8, device=dev),
+        s_scratch=torch.empty(s, dtype=dtype, device=dev),
+    )
+    args = ChainedBatchArgs()
+    _fill(args, ptrs, dev)
+    args.E, args.P, args.C, args.S, args.V1 = E, P, C, S, V1
+    args.K = 0 if deltas is None else deltas.penalty_rows.shape[2]
+    args.R = 0 if pre is None else pre.rows.shape[1]
+    args.feas_shared = int(feas_shared)
+    args.spread_fit = int(spread_fit)
+    args.is_f64 = int(dtype == torch.float64)
+    args.device = dev.index
+    _launch("chained_batch", "nk_chained_batch", args, dev)
+
+
+class BatchPlanArgs(ctypes.Structure):
+    """Mirror of `BatchPlanArgs` in csrc/batch_plan.cu."""
+
+    _fields_ = [
+        (name, _P) for name in (
+            "cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
+            "disk_used", "feasible", "perm", "ask_cpu", "ask_mem",
+            "ask_disk", "desired", "limit", "distinct_hosts", "n_cand",
+            "wanted", "collisions", "penalty", "affinity", "sp_codes",
+            "sp_desired", "sp_used0", "sp_prop0", "sp_clr0", "sp_weight",
+            "sp_active", "sp_even", "sp_group", "f_scratch", "i_scratch",
+            "b_scratch", "s_scratch", "out_rows", "out_pulls",
+        )
+    ] + [
+        (name, _I) for name in (
+            "E", "P", "C", "S", "V1", "spread_fit", "is_f64", "device",
+        )
+    ]
+
+
+def launch_batch_plan(q, rows, pulls) -> None:
+    """K10 on the current stream over `ops.batch.prepare_batched`
+    inputs (contiguous CUDA tensors): one block per eval, each with its
+    own slice of the scratch allocated here."""
+    cols = q["cols"]
+    dev = cols[0].device
+    dtype = cols[0].dtype
+    b = q["batch"]
+    E, C = q["E"], q["C"]
+    S, V1 = _spread_dims(q["spread"])
+    f, i, bb, s = _scratch_lens(C, 1, S, V1)
+    ptrs = dict(
+        cpu_total=cols[0], mem_total=cols[1], disk_total=cols[2],
+        cpu_used=b.base_cpu_used, mem_used=b.base_mem_used,
+        disk_used=b.base_disk_used, feasible=b.feasible, perm=b.perm,
+        ask_cpu=b.ask_cpu, ask_mem=b.ask_mem, ask_disk=b.ask_disk,
+        desired=b.desired_count, limit=b.limit,
+        distinct_hosts=b.distinct_hosts, n_cand=q["n_cand"],
+        wanted=q["wanted"], collisions=b.base_collisions,
+        penalty=b.penalty, affinity=b.affinity_score,
+        f_scratch=torch.empty(E * f, dtype=dtype, device=dev),
+        i_scratch=torch.empty(E * i, dtype=torch.int32, device=dev),
+        b_scratch=torch.empty(E * bb, dtype=torch.uint8, device=dev),
+        s_scratch=torch.empty(E * s, dtype=dtype, device=dev),
+        out_rows=rows, out_pulls=pulls,
+        **_option_ptrs(q["spread"], None, None),
+    )
+    args = BatchPlanArgs()
+    _fill(args, ptrs, dev)
+    args.E, args.P, args.C, args.S, args.V1 = E, q["P"], C, S, V1
+    args.spread_fit = int(q["spread_fit"])
+    args.is_f64 = int(dtype == torch.float64)
+    args.device = dev.index
+    _launch("batch_plan", "nk_batch_plan", args, dev)
+
+
+class ScoreAllArgs(ctypes.Structure):
+    """Mirror of `ScoreAllArgs` in csrc/score_all.cu."""
+
+    _fields_ = [
+        (name, _P) for name in (
+            "cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
+            "disk_used", "feasible", "collisions", "penalty", "affinity",
+            "spread", "tput_term", "mig_term", "out_feasible", "out_final",
+        )
+    ] + [
+        ("ask_cpu", _D), ("ask_mem", _D), ("ask_disk", _D),
+        ("has_tput", _D),
+    ] + [
+        (name, _I) for name in (
+            "desired", "C", "spread_fit", "is_f64", "device",
+        )
+    ]
+
+
+def launch_score_all(cols, out_feasible, out_final, *, tput_term,
+                     has_tput: float, mig_term,
+                     ask: Tuple[float, float, float], desired: int,
+                     spread_fit: bool) -> None:
+    """K11 on the current stream.  `cols` maps ScoreInputs column names
+    to contiguous CUDA tensors (the wrapper has checked them);
+    `tput_term` and `mig_term` are the policy groups' columns, or None
+    for an absent group."""
+    dev = cols["cpu_total"].device
+    args = ScoreAllArgs()
+    _fill(args, dict(
+        cpu_total=cols["cpu_total"], mem_total=cols["mem_total"],
+        disk_total=cols["disk_total"], cpu_used=cols["cpu_used"],
+        mem_used=cols["mem_used"], disk_used=cols["disk_used"],
+        feasible=cols["feasible"], collisions=cols["collisions"],
+        penalty=cols["penalty"], affinity=cols["affinity_score"],
+        spread=cols["spread_boost"], tput_term=tput_term, mig_term=mig_term,
+        out_feasible=out_feasible, out_final=out_final,
+    ), dev)
+    args.ask_cpu, args.ask_mem, args.ask_disk = ask
+    args.has_tput = has_tput
+    args.desired = desired
+    args.C = cols["cpu_total"].shape[0]
+    args.spread_fit = int(spread_fit)
+    args.is_f64 = int(cols["cpu_total"].dtype == torch.float64)
+    args.device = dev.index
+    _launch("score_all", "nk_score_all", args, dev)

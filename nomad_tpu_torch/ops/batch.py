@@ -15,7 +15,14 @@ Two JAX programs of that module become hand-written CUDA kernels here:
   scatter that keeps the batch worker's device usage mirror current;
 * `batch_plan_picks_shared` (there `:1331`, a vmap of `plan_picks`
   `:735`) -> kernel K7, `csrc/batch_picks.cu`: E independent evals x P
-  picks over one shared snapshot, behind the bridge's ScoreBatch.
+  picks over one shared snapshot, behind the bridge's ScoreBatch;
+* `chained_plan_picks` (there `:801`) and `chained_plan_picks_shared`
+  (`:1262`) -> kernel K9, `csrc/chained_batch.cu`: the chain over
+  per-eval BatchInputs, or over shared columns (stride 0), behind the
+  benchmark's kernel-only `kernel-chained` rate;
+* `batch_plan_picks` (there `:1391`, a vmap of `plan_picks`) -> kernel
+  K10, `csrc/batch_plan.cu`: E independent evals over their own
+  BatchInputs, behind the kernel-only `kernel-batch` rate.
 
 Each pick scores every node against the usage and collision columns
 carried from the earlier picks, runs the rotated limited walk, and
@@ -349,12 +356,14 @@ def _run_picks(cpu_total, mem_total, disk_total, used0, perm, tg: TGInputs,
                wanted=None, spread: Optional[SpreadInputs] = None,
                deltas: Optional[StepDeltas] = None, port_ask=None,
                port_used=None, dev_ask=None, dev_free=None, dev_aff=None,
-               dev_aff_on=None, occ_extra=None, dh_tg=None):
+               dev_aff_on=None, occ_extra=None, dh_tg=None, penalty=None):
     """Plain twin of the JAX `_run_picks`: P picks of one eval with
     per-pick group routing, spread, step deltas, static ports, device
     instances, device affinity, distinct_hosts at job (`distinct_hosts`
-    plus `occ_extra`) and group (`dh_tg`) level.  `used0` holds the
-    node-space usage columns at the eval's start.
+    plus `occ_extra`) and group (`dh_tg`) level, and the static penalty
+    column (bool[C] node space, or None for none), which the pick's
+    penalty rows add to.  `used0` holds the node-space usage columns at
+    the eval's start.
 
     Returns (rows i32[P], pulls i32[P], (cpu, mem, disk) node-space
     usage after the eval, ports bool[Q, C] or None, devs i32[D, C] or
@@ -383,6 +392,8 @@ def _run_picks(cpu_total, mem_total, disk_total, used0, perm, tg: TGInputs,
     devs_on = dev_ask is not None
     dev_aff_p = dev_aff[:, permi] if dev_aff is not None else None
     occ_extra_p = occ_extra[permi] if occ_extra is not None else None
+    penalty_p = (penalty[permi] if penalty is not None
+                 else torch.zeros(C, dtype=torch.bool, device=dev))
     safe_cpu = torch.where(cpu_total_p > 0, cpu_total_p, one)
     safe_mem = torch.where(mem_total_p > 0, mem_total_p, one)
     if spread is not None:
@@ -408,7 +419,7 @@ def _run_picks(cpu_total, mem_total, disk_total, used0, perm, tg: TGInputs,
     for k in range(n_picks):
         t = tg_idx[k]
         active = (k < wanted) and not dead[t]
-        penalty_vec = torch.zeros(C, dtype=torch.bool, device=dev)
+        penalty_vec = penalty_p
         app = False
         if deltas is not None:
             erow = int(deltas.evict_rows[k])
@@ -423,7 +434,7 @@ def _run_picks(cpu_total, mem_total, disk_total, used0, perm, tg: TGInputs,
                 )
                 collisions[t, epos] = collisions[t, epos] + deltas.evict_coll[k]
             prow = deltas.penalty_rows[k]
-            penalty_vec = (perm[:, None] == prow[None, :]).any(dim=1)
+            penalty_vec = penalty_p | (perm[:, None] == prow[None, :]).any(dim=1)
             if spread is not None and app:
                 # the evicted alloc's value slot gains one cleared use,
                 # in the picking group's slots only
@@ -569,9 +580,8 @@ def _run_picks(cpu_total, mem_total, disk_total, used0, perm, tg: TGInputs,
 def run_picks(cpu_total, mem_total, disk_total, inp: BatchInputs,
               n_candidates, n_picks: int, spread_fit: bool):
     """Plain twin of `_run_picks` as `plan_picks_full` calls it: one
-    group (T=1), no spread, deltas, ports or devices; the static
-    penalty column enters as the pick's penalty rows would.  Returns
-    (rows i32[P], pulls i32[P])."""
+    group (T=1), the static penalty column, no spread, deltas, ports or
+    devices.  Returns (rows i32[P], pulls i32[P])."""
     dtype = cpu_total.dtype
     dev = cpu_total.device
     i32 = torch.int32
@@ -586,20 +596,11 @@ def run_picks(cpu_total, mem_total, disk_total, inp: BatchInputs,
         desired_count=_scalar(inp.desired_count, i32, dev).expand(n_picks),
         limit=_scalar(inp.limit, i32, dev).expand(n_picks),
     )
-    penalty_rows = torch.nonzero(inp.penalty).flatten().to(i32)
-    deltas = StepDeltas(
-        evict_rows=torch.full((n_picks,), -1, dtype=i32, device=dev),
-        evict_cpu=torch.zeros(n_picks, dtype=dtype, device=dev),
-        evict_mem=torch.zeros(n_picks, dtype=dtype, device=dev),
-        evict_disk=torch.zeros(n_picks, dtype=dtype, device=dev),
-        evict_coll=torch.zeros(n_picks, dtype=i32, device=dev),
-        penalty_rows=penalty_rows[None].expand(n_picks, -1),
-    )
     rows, pulls, _used, _p, _d = _run_picks(
         cpu_total, mem_total, disk_total,
         (inp.base_cpu_used, inp.base_mem_used, inp.base_disk_used),
         inp.perm, tg, inp.distinct_hosts, n_candidates, n_picks,
-        spread_fit, deltas=deltas,
+        spread_fit, penalty=inp.penalty,
     )
     return rows, pulls
 
@@ -948,6 +949,7 @@ _OPTIONAL_KINDS = {
     "coll0": _INT, "affinity": _FLOAT, "port_ask": _BOOL,
     "port_used0": _BOOL, "dev_ask": _INT, "dev_free0": _INT,
     "dev_aff": _FLOAT, "dev_aff_on": _BOOL, "occ0": _INT, "dh_tg": _BOOL,
+    "penalty": _BOOL,
 }
 
 
@@ -1032,6 +1034,7 @@ def prepare_chain(cpu_total, mem_total, disk_total, used0_cpu, used0_mem,
         "distinct_hosts": (b.distinct_hosts, (E,)),
         "coll0": (p["coll0"], (E, T, C)), "affinity": (p["affinity"], (E, T, C)),
         "dev_aff": (p["dev_aff"], (E, T, C)), "occ0": (p["occ0"], (E, C)),
+        "penalty": (p["penalty"], (E, C)),
         "dh_tg": (p["dh_tg"], (E, T)), "dev_aff_on": (p["dev_aff_on"], (E, T)),
     }
     for c in p["cols"]:
@@ -1098,6 +1101,7 @@ def chained_picks_twin(p: dict):
             dev_aff_on=_eval_slice(p["dev_aff_on"], e),
             occ_extra=_eval_slice(p["occ0"], e),
             dh_tg=_eval_slice(p["dh_tg"], e),
+            penalty=_eval_slice(p["penalty"], e),
         )
         if ports is not None:
             ports = ports_n
@@ -1118,6 +1122,8 @@ def chained_picks_cuda(p: dict):
     dev = p["cols"][0].device
     if dev.type != "cuda":
         raise ValueError(f"chained_picks_cuda needs CUDA tensors, got {dev}")
+    if p["penalty"] is not None:
+        raise ValueError("K3 takes no static penalty column (K9 does)")
     E, P, C = p["E"], p["P"], p["C"]
     dtype = p["cols"][0].dtype
     used_out = tuple(torch.empty_like(c) for c in p["cols"][3:6])
@@ -1169,6 +1175,427 @@ def chained_plan_picks_cols(cpu_total, mem_total, disk_total, used0_cpu,
     if return_carry:
         return rows, pulls, carry
     return rows, pulls
+
+
+# ---------------------------------------------------------------------------
+# per-eval BatchInputs: the chained planner (K9) and the independent one
+# (K10)
+# ---------------------------------------------------------------------------
+
+_BATCHED_KINDS = {
+    "feasible": _BOOL, "base_cpu_used": _FLOAT, "base_mem_used": _FLOAT,
+    "base_disk_used": _FLOAT, "base_collisions": _INT, "penalty": _BOOL,
+    "affinity_score": _FLOAT, "perm": _INT, "ask_cpu": _FLOAT,
+    "ask_mem": _FLOAT, "ask_disk": _FLOAT, "desired_count": _INT,
+    "limit": _INT, "distinct_hosts": _BOOL,
+}
+_BATCHED_SCALARS = ("ask_cpu", "ask_mem", "ask_disk", "desired_count",
+                    "limit", "distinct_hosts")
+
+
+def prepare_batched(cpu_total, mem_total, disk_total, batch: BatchInputs,
+                    n_candidates, n_picks: int, spread_fit: bool = False,
+                    wanted=None, spread=None, deltas=None,
+                    pre=None) -> dict:
+    """Every input of `chained_plan_picks` and `batch_plan_picks` as a
+    contiguous tensor on cpu_total's device, checked for shape: the
+    BatchInputs fields with a leading E ([E, C] columns, [E] scalars),
+    `n_candidates` (a scalar or [E]) and `wanted` (default P) as
+    int32 [E], and the optional per-eval spread, deltas and pre-deltas.
+    Inputs may be numpy arrays or tensors."""
+    dev = cpu_total.device
+    dtype = cpu_total.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"columns must be f32 or f64, got {dtype}")
+    C = cpu_total.shape[0]
+    P = int(n_picks)
+    if P < 1:
+        raise ValueError(f"n_picks must be >= 1, got {P}")
+    b = _tuple_as(batch, BatchInputs, _BATCHED_KINDS, dtype, dev)
+    E = b.perm.shape[0]
+    for name in BatchInputs._fields:
+        t = getattr(b, name)
+        want = (E,) if name in _BATCHED_SCALARS else (E, C)
+        if tuple(t.shape) != want:
+            raise ValueError(
+                f"{name} must have shape {want}, got {tuple(t.shape)}"
+            )
+    if isinstance(n_candidates, torch.Tensor):
+        n_candidates = n_candidates.cpu().numpy()
+    nc_host = np.array(
+        np.broadcast_to(np.asarray(n_candidates, np.int32), (E,))
+    )
+    if E and (nc_host.min() < 1 or nc_host.max() > C):
+        raise ValueError(f"n_candidates outside [1, {C}]")
+    # on the limits as given: host inputs need no device reduction
+    lim = batch.limit
+    if E and int(lim.min() if isinstance(lim, torch.Tensor)
+                 else np.min(lim)) < 1:
+        raise ValueError("limit must be >= 1")
+    if wanted is None:
+        wanted = np.full(E, P, np.int32)
+    q = dict(
+        cols=tuple(_as_tensor(c, _FLOAT, dtype, dev)
+                   for c in (cpu_total, mem_total, disk_total)),
+        batch=b, n_cand=_as_tensor(nc_host, _INT, dtype, dev),
+        wanted=_as_tensor(wanted, _INT, dtype, dev),
+        spread=_tuple_as(spread, SpreadInputs, _SPREAD_KINDS, dtype, dev),
+        deltas=_tuple_as(deltas, StepDeltas, _DELTA_KINDS, dtype, dev),
+        pre=_tuple_as(pre, PreDeltas, _PRE_KINDS, dtype, dev),
+        E=E, P=P, C=C, spread_fit=bool(spread_fit),
+    )
+    if tuple(q["wanted"].shape) != (E,):
+        raise ValueError(f"wanted must have shape ({E},)")
+    if q["deltas"] is not None and (
+            tuple(q["deltas"].evict_rows.shape) != (E, P)):
+        raise ValueError(f"deltas.evict_rows must have shape ({E}, {P})")
+    return q
+
+
+def batched_as_chain(q: dict) -> dict:
+    """The chained planner's inputs in `prepare_chain`'s layout: one
+    group, each eval's scalars repeated for its P picks, the chain
+    starting from eval 0's base usage (the JAX program reads only
+    base_*_used[0])."""
+    b = q["batch"]
+    E, P = q["E"], q["P"]
+    dev = b.perm.device
+
+    def per_pick(x):
+        return x[:, None].expand(E, P)
+
+    chain = ChainInputs(
+        feasible=b.feasible[:, None], perm=b.perm,
+        ask_cpu=per_pick(b.ask_cpu), ask_mem=per_pick(b.ask_mem),
+        ask_disk=per_pick(b.ask_disk),
+        desired_count=per_pick(b.desired_count), limit=per_pick(b.limit),
+        distinct_hosts=b.distinct_hosts,
+        tg_idx=torch.zeros((E, P), dtype=torch.int32, device=dev),
+    )
+    return prepare_chain(
+        *q["cols"], b.base_cpu_used[0], b.base_mem_used[0],
+        b.base_disk_used[0], chain, q["n_cand"], P,
+        spread_fit=q["spread_fit"], wanted=q["wanted"], spread=q["spread"],
+        deltas=q["deltas"], pre=q["pre"], coll0=b.base_collisions[:, None],
+        affinity=b.affinity_score[:, None], penalty=b.penalty,
+    )
+
+
+def chained_plan_rows_twin(q: dict):
+    """K9's twin over `prepare_batched` inputs: K3's twin over the
+    per-eval inputs as one group, with the static penalty column beside
+    the pick's penalty rows.  Returns rows i32[E, P]."""
+    if q["E"] == 0:
+        return torch.empty((0, q["P"]), dtype=torch.int32,
+                           device=q["cols"][0].device)
+    return chained_picks_twin(batched_as_chain(q))[0]
+
+
+def chained_plan_picks_twin(cpu_total, mem_total, disk_total,
+                            batch: BatchInputs, n_candidates, n_picks: int,
+                            spread_fit: bool = False, wanted=None,
+                            spread=None, deltas=None, pre=None):
+    """Plain twin of the JAX `chained_plan_picks`.  Returns rows
+    i32[E, P]."""
+    return chained_plan_rows_twin(prepare_batched(
+        cpu_total, mem_total, disk_total, batch, n_candidates, n_picks,
+        spread_fit, wanted, spread, deltas, pre))
+
+
+def _launch_chained_batch(q: dict, feasible, collisions, penalty, affinity,
+                          used0, distinct_hosts, wanted):
+    """K9 on the current stream over prepared inputs, with the given
+    feasibility ([E, C], or [C] shared), optional per-eval columns, the
+    chain's starting usage and the per-eval flags.  Returns (rows,
+    pulls), each i32[E, P]: a pick's pulls are the walk positions it
+    reached."""
+    from . import _cuda
+
+    dev = q["cols"][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"K9 needs CUDA tensors, got {dev}")
+    if q["E"] < 1:
+        raise ValueError("K9 needs E >= 1")
+    E, P, C = q["E"], q["P"], q["C"]
+    dtype = q["cols"][0].dtype
+    rows = torch.empty((E, P), dtype=torch.int32, device=dev)
+    pulls = torch.empty((E, P), dtype=torch.int32, device=dev)
+    used_out = tuple(torch.empty_like(u) for u in used0)
+    b = q["batch"]
+    named = dict(
+        cpu_total=q["cols"][0], mem_total=q["cols"][1],
+        disk_total=q["cols"][2], cpu_in=used0[0], mem_in=used0[1],
+        disk_in=used0[2], cpu_out=used_out[0], mem_out=used_out[1],
+        disk_out=used_out[2], feasible=feasible, perm=b.perm,
+        ask_cpu=b.ask_cpu, ask_mem=b.ask_mem, ask_disk=b.ask_disk,
+        desired=b.desired_count, limit=b.limit,
+        distinct_hosts=distinct_hosts, n_cand=q["n_cand"], wanted=wanted,
+        collisions=collisions, penalty=penalty, affinity=affinity,
+        out_rows=rows, out_pulls=pulls,
+    )
+    _cuda.launch_chained_batch(named, q["spread"], q["deltas"], q["pre"],
+                               E=E, P=P, C=C, feas_shared=feasible.dim() == 1,
+                               spread_fit=q["spread_fit"], dtype=dtype)
+    return rows, pulls
+
+
+def launch_chained_plan(q: dict):
+    """K9 over `prepare_batched` inputs on their CUDA device (current
+    stream), the chain starting from eval 0's base usage.  Returns
+    (rows, pulls), each i32[E, P]; nothing is synchronised."""
+    b = q["batch"]
+    out = _launch_chained_batch(
+        q, b.feasible, b.base_collisions, b.penalty, b.affinity_score,
+        (b.base_cpu_used[0], b.base_mem_used[0], b.base_disk_used[0]),
+        b.distinct_hosts, q["wanted"],
+    )
+    chained_plan_picks_cuda.launches += 1
+    return out
+
+
+def chained_plan_picks_cuda(cpu_total, mem_total, disk_total,
+                            batch: BatchInputs, n_candidates, n_picks: int,
+                            spread_fit: bool = False, wanted=None,
+                            spread=None, deltas=None, pre=None):
+    """Launch K9 on the tensors' CUDA device (current stream) over
+    per-eval inputs.  Returns the i32[E, P] rows on the device; nothing
+    is synchronised."""
+    return launch_chained_plan(prepare_batched(
+        cpu_total, mem_total, disk_total, batch, n_candidates, n_picks,
+        spread_fit, wanted, spread, deltas, pre))[0]
+
+
+chained_plan_picks_cuda.launches = 0
+
+
+def chained_plan_rows(q: dict):
+    """`chained_plan_picks` over `prepare_batched` inputs: K9 on a CUDA
+    device, the twin on the CPU.  Returns rows i32[E, P]."""
+    if q["cols"][0].device.type == "cpu":
+        return chained_plan_rows_twin(q)
+    return launch_chained_plan(q)[0]
+
+
+def chained_plan_picks(cpu_total, mem_total, disk_total, batch: BatchInputs,
+                       n_candidates, n_picks: int, spread_fit: bool = False,
+                       wanted=None, spread=None, deltas=None, pre=None):
+    """E evals x P picks in one launch, serially equivalent: a scan over
+    the evals carries the usage columns forward from eval 0's base
+    usage, so eval k scores against the state left by evals 0..k-1,
+    each with its own feasibility, collisions, penalty, affinity, walk
+    order and scalars, and optional per-eval spread, step deltas,
+    pre-deltas and `wanted` (picks past it are inert).  Returns rows
+    i32[E, P] (NO_NODE where a pick failed).  K9 for a CUDA cpu_total,
+    the twin for a CPU one."""
+    return chained_plan_rows(prepare_batched(
+        cpu_total, mem_total, disk_total, batch, n_candidates, n_picks,
+        spread_fit, wanted, spread, deltas, pre))
+
+
+def _shared_as_batched(cpu_total, feasible, base_cpu_used, base_mem_used,
+                       base_disk_used, perms, ask_cpu, ask_mem, ask_disk,
+                       desired_count, limit) -> BatchInputs:
+    """The shared-column chain as per-eval BatchInputs: every eval the
+    same feasibility and usage, collisions, penalty and affinity zero,
+    distinct_hosts off."""
+    E, C = perms.shape
+    dev = cpu_total.device
+
+    def rep(x):
+        return torch.as_tensor(x, device=dev)[None].expand(E, C)
+
+    return BatchInputs(
+        feasible=rep(feasible), base_cpu_used=rep(base_cpu_used),
+        base_mem_used=rep(base_mem_used), base_disk_used=rep(base_disk_used),
+        base_collisions=torch.zeros((E, C), dtype=torch.int32, device=dev),
+        penalty=torch.zeros((E, C), dtype=torch.bool, device=dev),
+        affinity_score=torch.zeros((E, C), dtype=cpu_total.dtype,
+                                   device=dev),
+        perm=perms, ask_cpu=ask_cpu, ask_mem=ask_mem, ask_disk=ask_disk,
+        desired_count=desired_count, limit=limit,
+        distinct_hosts=torch.zeros(E, dtype=torch.bool, device=dev),
+    )
+
+
+def chained_plan_picks_shared_twin(cpu_total, mem_total, disk_total,
+                                   feasible, base_cpu_used, base_mem_used,
+                                   base_disk_used, perms, ask_cpu, ask_mem,
+                                   ask_disk, desired_count, limit,
+                                   n_candidates, n_picks: int,
+                                   spread_fit: bool = False):
+    """Plain twin of the JAX `chained_plan_picks_shared`: the chain over
+    shared [C] columns with each eval's `wanted` its desired count.
+    Returns rows i32[E, P]."""
+    batch = _shared_as_batched(cpu_total, feasible, base_cpu_used,
+                               base_mem_used, base_disk_used, perms, ask_cpu,
+                               ask_mem, ask_disk, desired_count, limit)
+    return chained_plan_picks_twin(cpu_total, mem_total, disk_total, batch,
+                                   n_candidates, n_picks, spread_fit,
+                                   wanted=desired_count)
+
+
+def chained_plan_picks_shared_cuda(cpu_total, mem_total, disk_total,
+                                   feasible, base_cpu_used, base_mem_used,
+                                   base_disk_used, perms, ask_cpu, ask_mem,
+                                   ask_disk, desired_count, limit,
+                                   n_candidates, n_picks: int,
+                                   spread_fit: bool = False):
+    """Launch K9 in its shared mode (one [C] feasibility column at eval
+    stride 0, no collisions, penalty or affinity) on the tensors' CUDA
+    device.  Returns the i32[E, P] rows on the device; nothing is
+    synchronised."""
+    named = dict(zip(_SHARED_ARGS, (cpu_total, mem_total, disk_total,
+                                    base_cpu_used, base_mem_used,
+                                    base_disk_used, feasible, perms, ask_cpu,
+                                    ask_mem, ask_disk, desired_count, limit)))
+    dev, E, C, n_cand = _check_shared(named, n_candidates, n_picks)
+    if E < 1:
+        raise ValueError("chained_plan_picks_shared_cuda needs E >= 1")
+    if int(limit.min()) < 1:
+        raise ValueError("limit must be >= 1")
+    named = {n: t.contiguous() for n, t in named.items()}
+    # only the per-eval scalars and walk orders are per eval: no [E, C]
+    # copy of a shared column is made
+    batch = BatchInputs(
+        feasible=None, base_cpu_used=None, base_mem_used=None,
+        base_disk_used=None, base_collisions=None, penalty=None,
+        affinity_score=None, perm=named["perms"], ask_cpu=named["ask_cpu"],
+        ask_mem=named["ask_mem"], ask_disk=named["ask_disk"],
+        desired_count=named["desired_count"], limit=named["limit"],
+        distinct_hosts=torch.zeros(E, dtype=torch.bool, device=dev),
+    )
+    q = dict(
+        cols=(named["cpu_total"], named["mem_total"], named["disk_total"]),
+        batch=batch,
+        n_cand=torch.full((E,), n_cand, dtype=torch.int32, device=dev),
+        spread=None, deltas=None, pre=None, E=E, P=int(n_picks), C=C,
+        spread_fit=bool(spread_fit),
+    )
+    rows, _pulls = _launch_chained_batch(
+        q, named["feasible"], None, None, None,
+        (named["base_cpu_used"], named["base_mem_used"],
+         named["base_disk_used"]),
+        batch.distinct_hosts, named["desired_count"],
+    )
+    chained_plan_picks_shared_cuda.launches += 1
+    return rows
+
+
+chained_plan_picks_shared_cuda.launches = 0
+
+
+def chained_plan_picks_shared(cpu_total, mem_total, disk_total, feasible,
+                              base_cpu_used, base_mem_used, base_disk_used,
+                              perms, ask_cpu, ask_mem, ask_disk,
+                              desired_count, limit, n_candidates,
+                              n_picks: int, spread_fit: bool = False):
+    """Serially equivalent chain with shared node columns: only the
+    E x C walk orders and the per-eval scalars vary, the usage chains
+    across evals, and each eval wants `desired_count` picks (the surplus
+    ones are inert).  Returns i32[E, P] rows.  K9 (shared mode) for CUDA
+    tensors, the twin for CPU tensors."""
+    args = (cpu_total, mem_total, disk_total, feasible, base_cpu_used,
+            base_mem_used, base_disk_used, perms, ask_cpu, ask_mem,
+            ask_disk, desired_count, limit, n_candidates, n_picks,
+            spread_fit)
+    if cpu_total.device.type == "cpu":
+        return chained_plan_picks_shared_twin(*args)
+    return chained_plan_picks_shared_cuda(*args)
+
+
+def batch_plan_rows_twin(q: dict):
+    """K10's twin over `prepare_batched` inputs: E independent
+    `plan_picks`, each over its own BatchInputs (its own base usage,
+    feasibility, collisions, penalty, affinity and walk order) and its
+    own spread, every pick wanted.  Returns rows i32[E, P]."""
+    b = q["batch"]
+    E, P = q["E"], q["P"]
+    dev = q["cols"][0].device
+    rows = []
+    for e in range(E):
+        tg = TGInputs(
+            tg_idx=torch.zeros(P, dtype=torch.int32, device=dev),
+            feasible=b.feasible[e][None], affinity=b.affinity_score[e][None],
+            coll0=b.base_collisions[e][None],
+            ask_cpu=b.ask_cpu[e].expand(P), ask_mem=b.ask_mem[e].expand(P),
+            ask_disk=b.ask_disk[e].expand(P),
+            desired_count=b.desired_count[e].expand(P),
+            limit=b.limit[e].expand(P),
+        )
+        r, _pulls, _used, _ports, _devs = _run_picks(
+            *q["cols"],
+            (b.base_cpu_used[e], b.base_mem_used[e], b.base_disk_used[e]),
+            b.perm[e], tg, b.distinct_hosts[e], q["n_cand"][e], P,
+            q["spread_fit"], spread=_eval_slice(q["spread"], e),
+            penalty=b.penalty[e],
+        )
+        rows.append(r)
+    if not rows:
+        return torch.empty((0, P), dtype=torch.int32, device=dev)
+    return torch.stack(rows)
+
+
+def batch_plan_picks_twin(cpu_total, mem_total, disk_total,
+                          batch: BatchInputs, n_candidates, n_picks: int,
+                          spread_fit: bool = False, spread=None):
+    """Plain twin of the JAX `batch_plan_picks`.  Returns rows
+    i32[E, P]."""
+    return batch_plan_rows_twin(prepare_batched(
+        cpu_total, mem_total, disk_total, batch, n_candidates, n_picks,
+        spread_fit, spread=spread))
+
+
+def launch_batch_plan(q: dict):
+    """K10 over `prepare_batched` inputs on their CUDA device (current
+    stream): one block per eval.  Returns (rows, pulls), each
+    i32[E, P]: a pick's pulls are the walk positions it reached;
+    nothing is synchronised."""
+    from . import _cuda
+
+    dev = q["cols"][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"K10 needs CUDA tensors, got {dev}")
+    if q["E"] < 1:
+        raise ValueError("K10 needs E >= 1")
+    E, P = q["E"], q["P"]
+    rows = torch.empty((E, P), dtype=torch.int32, device=dev)
+    pulls = torch.empty((E, P), dtype=torch.int32, device=dev)
+    _cuda.launch_batch_plan(q, rows, pulls)
+    batch_plan_picks_cuda.launches += 1
+    return rows, pulls
+
+
+def batch_plan_picks_cuda(cpu_total, mem_total, disk_total,
+                          batch: BatchInputs, n_candidates, n_picks: int,
+                          spread_fit: bool = False, spread=None):
+    """Launch K10 on the tensors' CUDA device (current stream).  Returns
+    the i32[E, P] rows on the device; nothing is synchronised."""
+    return launch_batch_plan(prepare_batched(
+        cpu_total, mem_total, disk_total, batch, n_candidates, n_picks,
+        spread_fit, spread=spread))[0]
+
+
+batch_plan_picks_cuda.launches = 0
+
+
+def batch_plan_rows(q: dict):
+    """`batch_plan_picks` over `prepare_batched` inputs: K10 on a CUDA
+    device, the twin on the CPU.  Returns rows i32[E, P]."""
+    if q["cols"][0].device.type == "cpu":
+        return batch_plan_rows_twin(q)
+    return launch_batch_plan(q)[0]
+
+
+def batch_plan_picks(cpu_total, mem_total, disk_total, batch: BatchInputs,
+                     n_candidates, n_picks: int, spread_fit: bool = False,
+                     spread=None):
+    """E independent evals x P picks in one launch, each over its own
+    BatchInputs and optional spread; `n_candidates` is a scalar or one
+    per eval.  Returns rows i32[E, P] (NO_NODE where a pick failed).
+    K10 for a CUDA cpu_total, the twin for a CPU one."""
+    return batch_plan_rows(prepare_batched(
+        cpu_total, mem_total, disk_total, batch, n_candidates, n_picks,
+        spread_fit, spread=spread))
 
 
 def _check_patch(col, idx, vals):

@@ -1,8 +1,9 @@
 """Seeded edge-case inputs for the kernels — K1 (one select, with and
-without policy terms), K2 (the pick scan), K3 (the chained planner), K5
-(the storm solve, unweighted and weighted), K6 (the walk alone) and K7
-(E independent pick scans over one snapshot) — as numpy dicts keyed by
-the JAX programs' field names.
+without policy terms) and K11 (its scores alone), K2 (the pick scan), K3
+(the chained planner), K5 (the storm solve, unweighted and weighted), K6
+(the walk alone), K7 (E independent pick scans over one snapshot), and
+K9/K10 (the chained and independent planners over per-eval
+BatchInputs) — as numpy dicts keyed by the JAX programs' field names.
 
 Both the CPU tests (port twin against the JAX programs) and
 `chip_smoke.py` (kernel against twin on the card) draw from here, so
@@ -277,8 +278,13 @@ def chain_case(seed: int, C: int, n_cand: int, scenario: str, E: int,
     chained_plan_picks_cols as numpy, NamedTuple fields as dicts).
     Usage and asks carry fractional parts, so the order in which the
     carry adds them shows in the last bits."""
+    return _chain_case(seed, C, n_cand, set(CHAIN_SCENARIOS[scenario]), E,
+                       P)
+
+
+def _chain_case(seed: int, C: int, n_cand: int, opts, E: int,
+                P: int) -> Tuple[Dict, Dict]:
     rng = np.random.default_rng(seed)
-    opts = set(CHAIN_SCENARIOS[scenario])
     T = 128 if "wide_groups" in opts else 2 if "groups" in opts else 1
     cpu_total, mem_total, disk_total, cpu_used, mem_used, disk_used = (
         _capacity(rng, C)
@@ -465,6 +471,63 @@ def chain_case(seed: int, C: int, n_cand: int, scenario: str, E: int,
     cols = dict(
         cpu_total=cpu_total, mem_total=mem_total, disk_total=disk_total,
         used0_cpu=cpu_used, used0_mem=mem_used, used0_disk=disk_used,
+    )
+    return cols, kw
+
+
+# ---------------------------------------------------------------------------
+# per-eval BatchInputs (kernels K9 and K10): the chained and the
+# independent planner of the benchmark's kernel-only phase
+# ---------------------------------------------------------------------------
+
+# chain_case's single-group options, on their own and together
+BATCHED_SCENARIOS: Dict[str, Tuple[str, ...]] = {
+    "plain": (),
+    "spread": ("spread_pct", "spread_even"),
+    "evict_spread": ("evict", "spread_pct", "wanted"),
+    "tight": ("tight",),
+    "few_cand": ("few_cand",),
+    "job_dh": ("job_dh",),
+    "everything": ("spread_pct", "spread_even", "evict", "wanted", "tight",
+                   "few_cand", "job_dh"),
+}
+
+
+def batched_case(seed: int, C: int, n_cand: int, scenario: str, E: int,
+                 P: int) -> Tuple[Dict, Dict]:
+    """One K9/K10 input: (node columns {cpu_total, mem_total,
+    disk_total}, keyword inputs of `chained_plan_picks` as numpy:
+    `batch` (BatchInputs fields with a leading E: [E, C] columns, [E]
+    scalars), `n_candidates` [E], `n_picks`, `wanted` [E] and the
+    optional `spread`, `deltas` and `pre` dicts).  It is `chain_case`
+    with one group, plus a static penalty column per eval and a base
+    usage per eval: row 0 is the chain's start, the other rows differ
+    from it (the chained planner must not read them; the independent
+    one scores each eval against its own)."""
+    cols, kw = _chain_case(seed, C, n_cand, set(BATCHED_SCENARIOS[scenario]),
+                           E, P)
+    rng = np.random.default_rng(seed + 1)
+    b = kw.pop("batch")
+    perm = b["perm"]
+    n_cands = kw["n_candidates"]
+    penalty = np.zeros((E, C), dtype=bool)
+    base = {}
+    for name, col in (("cpu", "used0_cpu"), ("mem", "used0_mem"),
+                      ("disk", "used0_disk")):
+        used = np.repeat(cols.pop(col)[None], E, axis=0)
+        used[1:] += np.round(rng.uniform(0.0, 50.0, (E - 1, C)), 2)
+        base[f"base_{name}_used"] = used
+    for e in range(E):
+        cand = perm[e, : n_cands[e]]
+        penalty[e, cand] = rng.random(len(cand)) < 0.05
+    kw["batch"] = dict(
+        feasible=b["feasible"][:, 0], **base,
+        base_collisions=kw.pop("coll0")[:, 0], penalty=penalty,
+        affinity_score=kw.pop("affinity")[:, 0], perm=perm,
+        ask_cpu=b["ask_cpu"][:, 0].copy(), ask_mem=b["ask_mem"][:, 0].copy(),
+        ask_disk=b["ask_disk"][:, 0].copy(),
+        desired_count=b["desired_count"][:, 0].copy(),
+        limit=b["limit"][:, 0].copy(), distinct_hosts=b["distinct_hosts"],
     )
     return cols, kw
 

@@ -11,8 +11,11 @@ K1, `csrc/score_select.cu`.  This module keeps:
   term and a migration term, pre-scaled by the host) that K1 adds
   after the spread term;
 * the plain-PyTorch twins `score_vectors`, `limited_walk_argmax`,
-  `score_and_select_twin` and `score_all`, which repeat the JAX
+  `score_and_select_twin` and `score_all_twin`, which repeat the JAX
   arithmetic op for op so that they are bit-exact against it under x64;
+* `score_all`, every node's (feasible, final) with no walk (the JAX
+  program `score_all`, there `:282`): kernel K11, `csrc/score_all.cu`,
+  for CUDA tensors, its twin for CPU tensors;
 * the public wrappers `score_and_select` and `score_and_select_packed`,
   which launch K1 for CUDA tensors and run the twin for CPU tensors;
 * `walk_only`, the walk alone over a host-built score vector (the
@@ -303,10 +306,56 @@ def score_and_select_twin(inp: ScoreInputs, spread_fit: bool = False):
     )
 
 
-def score_all(inp: ScoreInputs, spread_fit: bool = False):
-    """Scores + feasibility only (the JAX package's `score_all`; not on
-    the select path, so it has no kernel)."""
+def score_all_twin(inp: ScoreInputs, spread_fit: bool = False):
+    """Plain twin of the JAX `score_all`: (feasible_after_fit bool[C],
+    final_scores f[C]) with no walk, policy terms included."""
     return score_vectors(inp, spread_fit)
+
+
+def score_all_cuda(inp: ScoreInputs, spread_fit: bool = False):
+    """Launch K11 on the tensors' CUDA device (current stream): one
+    thread per node.  Returns (feasible bool[C], final f[C]) on the
+    device; nothing is synchronised."""
+    from . import _cuda
+
+    dev = _check_inputs(inp)
+    if dev.type != "cuda":
+        raise ValueError(f"score_all_cuda needs CUDA tensors, got {dev}")
+    C = inp.cpu_total.shape[0]
+    if C < 1:
+        raise ValueError("score_all_cuda needs C >= 1")
+    cols = {n: getattr(inp, n).contiguous() for n in _COLUMNS}
+    feasible = torch.empty(C, dtype=torch.bool, device=dev)
+    final = torch.empty(C, dtype=inp.cpu_total.dtype, device=dev)
+    pol = inp.policy or PolicyTerms()
+    _cuda.launch_score_all(
+        cols, feasible, final,
+        tput_term=None if pol.tput_term is None else pol.tput_term.contiguous(),
+        has_tput=0.0 if pol.has_tput is None else _host_float(pol.has_tput),
+        mig_term=None if pol.mig_term is None else pol.mig_term.contiguous(),
+        ask=(
+            _host_float(inp.ask_cpu),
+            _host_float(inp.ask_mem),
+            _host_float(inp.ask_disk),
+        ),
+        desired=_host_int(inp.desired_count),
+        spread_fit=spread_fit,
+    )
+    score_all_cuda.launches += 1
+    return feasible, final
+
+
+score_all_cuda.launches = 0
+
+
+def score_all(inp: ScoreInputs, spread_fit: bool = False):
+    """Scores and feasibility of every node, no walk (the JAX package's
+    `score_all`, for the system stack and diagnostics): K11 for CUDA
+    tensors, the twin for CPU tensors."""
+    dev = _check_inputs(inp)
+    if dev.type == "cpu":
+        return score_all_twin(inp, spread_fit)
+    return score_all_cuda(inp, spread_fit)
 
 
 def _check_policy(pol, C: int, dtype, dev) -> None:

@@ -338,6 +338,43 @@ def chain_case_to_torch(cols: Dict[str, Any], kw: Dict[str, Any], device,
     return args, out
 
 
+def batched_inputs_from_numpy(arrays: Dict[str, Any], device,
+                              dtype=torch.float64) -> BatchInputs:
+    """BatchInputs with a leading E (the inputs of `chained_plan_picks`
+    and `batch_plan_picks`): [E, C] columns and [E] scalars as tensors,
+    floats in `dtype`, masks bool, counts, limits and perms int32."""
+    return _fields_from_numpy(
+        BatchInputs, arrays,
+        ("base_cpu_used", "base_mem_used", "base_disk_used",
+         "affinity_score", "ask_cpu", "ask_mem", "ask_disk"), device, dtype,
+    )
+
+
+def batched_case_to_torch(cols: Dict[str, Any], kw: Dict[str, Any], device,
+                          dtype=torch.float64):
+    """(positional args, keyword args) of `chained_plan_picks` for a case
+    of `ops/cases.py batched_case`, as tensors on `device` (n_candidates
+    an int32 [E] tensor)."""
+    args = tuple(
+        _tensor(cols[k], dtype, device)
+        for k in ("cpu_total", "mem_total", "disk_total")
+    ) + (
+        batched_inputs_from_numpy(kw["batch"], device, dtype),
+        _tensor(kw["n_candidates"], torch.int32, device),
+        int(kw["n_picks"]),
+    )
+    out = {"wanted": _tensor(kw["wanted"], torch.int32, device)}
+    convert = {
+        "spread": spread_inputs_from_numpy,
+        "deltas": step_deltas_from_numpy,
+        "pre": pre_deltas_from_numpy,
+    }
+    for name, fn in convert.items():
+        if kw.get(name) is not None:
+            out[name] = fn(kw[name], device, dtype)
+    return args, out
+
+
 def batch_shared_inputs_from_numpy(arrays: Dict[str, Any], device,
                                    dtype=torch.float64) -> Dict[str, Any]:
     """The keyword arguments of `ops.batch.batch_plan_picks_shared` from

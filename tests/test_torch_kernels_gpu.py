@@ -1,14 +1,16 @@
 """Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
 (csrc/chained_picks.cu), K4 (csrc/patch_rows.cu), K5
-(csrc/storm_solve.cu), K6 (csrc/walk_only.cu), K7 (csrc/batch_picks.cu)
-and K8 (csrc/canary.cu) against their plain twins, on the card and on
-the CPU, at the main path's width (a 16,384-row arena with 10,000
-candidates; K5 with 8 and 1,024 rows; K6 at C in {8, 1024, 16384}; K7
-with 1, 10,000 and 16,384 candidates and (E, P) up to (256, 16) and
-(8, 64); K8 at n in {1, 8, 1024, 1500}).  K1 and K5 also on their
-policy cases (throughput, migration, both and inert selects; weighted,
-mixed and dogpile storms).  Exact equality of every output, in f64 and
-in f32.
+(csrc/storm_solve.cu), K6 (csrc/walk_only.cu), K7 (csrc/batch_picks.cu),
+K8 (csrc/canary.cu), K9 (csrc/chained_batch.cu, per-eval and shared),
+K10 (csrc/batch_plan.cu) and K11 (csrc/score_all.cu) against their plain
+twins, on the card and on the CPU, at the main path's width (a
+16,384-row arena with 10,000 candidates; K5 with 8 and 1,024 rows; K6 at
+C in {8, 1024, 16384}; K7 with 1, 10,000 and 16,384 candidates and
+(E, P) up to (256, 16) and (8, 64); K8 at n in {1, 8, 1024, 1500}; K9
+and K10 at (E, P) in {(2, 16), (8, 64)} and the benchmark's (64, 10)).
+K1, K5 and K11 also on their policy cases (throughput, migration, both
+and inert selects; weighted, mixed and dogpile storms).  Exact equality
+of every output, in f64 and in f32.
 
 These tests need a CUDA device; without one they skip.  Run them on the
 card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
@@ -24,6 +26,7 @@ from nomad_tpu_torch.ops import solve as tsolve
 from nomad_tpu_torch.ops.cases import (
     BATCH_SCENARIOS,
     BATCH_SHARED_SCENARIOS,
+    BATCHED_SCENARIOS,
     CHAIN_SCENARIOS,
     INT32_MAX,
     POLICY_SCORE_SCENARIOS,
@@ -33,6 +36,7 @@ from nomad_tpu_torch.ops.cases import (
     WALK_SCENARIOS,
     batch_case,
     batch_shared_case,
+    batched_case,
     chain_case,
     policy_score_case,
     policy_storm_case,
@@ -43,6 +47,7 @@ from nomad_tpu_torch.ops.cases import (
 from nomad_tpu_torch.state.convert import (
     batch_inputs_from_numpy,
     batch_shared_inputs_from_numpy,
+    batched_case_to_torch,
     chain_case_to_torch,
     score_inputs_from_numpy,
     storm_columns,
@@ -305,6 +310,115 @@ def test_batch_picks_kernel_matches_twin(cuda, scenario, n_cand, E, P,
     assert torch.equal(kernel, twin_cpu)
 
 
+# every scenario at (2, 16) and (8, 64); the bench's (64, 10) with and
+# without every option
+BATCHED_CASES = [(s, E, P) for s in sorted(BATCHED_SCENARIOS)
+                 for E, P in ((2, 16), (8, 64))] + [
+    ("plain", 64, 10), ("everything", 64, 10)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scenario,E,P", BATCHED_CASES)
+def test_chained_batch_kernel_matches_twin(cuda, scenario, E, P, dtype):
+    cols, kw = batched_case(
+        5600 + sorted(BATCHED_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, E, P,
+    )
+    args, kwargs = batched_case_to_torch(cols, kw, cuda, dtype)
+    before = tbatch.chained_plan_picks_cuda.launches
+    kernel = tbatch.chained_plan_picks(*args, **kwargs).cpu()
+    assert tbatch.chained_plan_picks_cuda.launches == before + 1
+    assert kernel.dtype == torch.int32 and tuple(kernel.shape) == (E, P)
+    twin_card = tbatch.chained_plan_picks_twin(*args, **kwargs).cpu()
+    args_cpu, kwargs_cpu = batched_case_to_torch(cols, kw, "cpu", dtype)
+    twin_cpu = tbatch.chained_plan_picks(*args_cpu, **kwargs_cpu)
+    assert torch.equal(kernel, twin_card)
+    assert torch.equal(kernel, twin_cpu)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,P", [(8, 16), (64, 10)])
+@pytest.mark.parametrize("scenario", BATCH_SHARED_SCENARIOS)
+def test_chained_shared_kernel_matches_twin(cuda, scenario, E, P, dtype):
+    case = batch_shared_case(
+        5700 + 10 * BATCH_SHARED_SCENARIOS.index(scenario) + E, C, N_CAND,
+        scenario, E, P,
+    )
+    on_card = batch_shared_inputs_from_numpy(case, cuda, dtype)
+    before = tbatch.chained_plan_picks_shared_cuda.launches
+    kernel = tbatch.chained_plan_picks_shared(**on_card).cpu()
+    assert tbatch.chained_plan_picks_shared_cuda.launches == before + 1
+    twin_card = tbatch.chained_plan_picks_shared_twin(**on_card).cpu()
+    twin_cpu = tbatch.chained_plan_picks_shared(
+        **batch_shared_inputs_from_numpy(case, "cpu", dtype))
+    assert torch.equal(kernel, twin_card)
+    assert torch.equal(kernel, twin_cpu)
+
+
+# n_candidates one scalar where every eval has the same candidate
+# region, one per eval otherwise: a scalar below an eval's region would
+# put feasible entries in its walk's tail, which no caller does and no
+# kernel walks
+K10_CASES = [(s, "scalar", E, P) for s in ("plain", "spread", "tight",
+                                           "job_dh")
+             for E, P in ((2, 16), (8, 64))] + [
+    ("few_cand", "per_eval", 2, 16), ("few_cand", "per_eval", 8, 64),
+    ("everything", "per_eval", 8, 64), ("plain", "scalar", 64, 10),
+    ("everything", "per_eval", 64, 10)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scenario,n_cand_mode,E,P", K10_CASES)
+def test_batch_plan_kernel_matches_twin(cuda, scenario, E, P, n_cand_mode,
+                                        dtype):
+    cols, kw = batched_case(
+        5800 + sorted(BATCHED_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, E, P,
+    )
+    if n_cand_mode == "scalar":
+        kw["n_candidates"] = int(kw["n_candidates"].min())
+
+    def inputs(dev):
+        args, kwargs = batched_case_to_torch(cols, kw, dev, dtype)
+        return args, kwargs.get("spread")
+
+    (args, spread) = inputs(cuda)
+    before = tbatch.batch_plan_picks_cuda.launches
+    kernel = tbatch.batch_plan_picks(*args, spread=spread).cpu()
+    assert tbatch.batch_plan_picks_cuda.launches == before + 1
+    assert kernel.dtype == torch.int32 and tuple(kernel.shape) == (E, P)
+    twin_card = tbatch.batch_plan_picks_twin(*args, spread=spread).cpu()
+    args_cpu, spread_cpu = inputs("cpu")
+    twin_cpu = tbatch.batch_plan_picks(*args_cpu, spread=spread_cpu)
+    assert torch.equal(kernel, twin_card)
+    assert torch.equal(kernel, twin_cpu)
+
+
+def _score_all_cases():
+    out = [("plain", s) for s in sorted(SCORE_SCENARIOS)]
+    return out + [("policy", s) for s in sorted(POLICY_SCORE_SCENARIOS)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spread_fit", [False, True])
+@pytest.mark.parametrize("kind,scenario", _score_all_cases())
+def test_score_all_kernel_matches_twin(cuda, kind, scenario, spread_fit,
+                                       dtype):
+    make = score_case if kind == "plain" else policy_score_case
+    case = make(5900 + len(scenario), C, N_CAND, scenario, 14)
+    on_card = score_inputs_from_numpy(case, cuda, dtype=dtype)
+    before = tscore.score_all_cuda.launches
+    feas, final = tscore.score_all(on_card, spread_fit)
+    torch.cuda.synchronize()
+    assert tscore.score_all_cuda.launches == before + 1
+    for twin in (tscore.score_all_twin(on_card, spread_fit),
+                 tscore.score_all(score_inputs_from_numpy(case, "cpu",
+                                                          dtype=dtype),
+                                  spread_fit)):
+        assert torch.equal(feas.cpu(), twin[0].cpu())
+        assert (_bits(final) == _bits(twin[1])).all()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 8, 1024, 1500])
 def test_canary_kernel_matches_twin(cuda, n, dtype):
@@ -351,3 +465,20 @@ def test_launch_rejects_cpu_and_mixed_devices(cuda):
         tbatch.batch_plan_picks_shared(**dict(kw, perms=kw["perms"].cpu()))
     with pytest.raises(ValueError):
         tcanary.canary_cuda(torch.ones(8, dtype=torch.int32, device=cuda))
+
+
+def test_new_launches_reject_cpu_and_mixed_devices(cuda):
+    """K9, K10 and K11's wrappers launch only on CUDA tensors, and K11's
+    refuses a column on another device."""
+    cols, kw = batched_case(6, 256, 200, "plain", 2, 4)
+    args, kwargs = batched_case_to_torch(cols, kw, "cpu")
+    with pytest.raises(ValueError):
+        tbatch.chained_plan_picks_cuda(*args, **kwargs)
+    with pytest.raises(ValueError):
+        tbatch.batch_plan_picks_cuda(*args)
+    inp = score_inputs_from_numpy(score_case(7, 256, 200, "div0", 2), cuda)
+    with pytest.raises(ValueError):
+        tscore.score_all(inp._replace(feasible=inp.feasible.cpu()))
+    with pytest.raises(ValueError):
+        tscore.score_all_cuda(score_inputs_from_numpy(
+            score_case(7, 256, 200, "div0", 2), "cpu"))

@@ -256,6 +256,27 @@ print(counts, bad)
 """
 
 
+BENCH_SCRIPT = r"""
+import os, sys
+os.environ.update(BENCH_NODES="40", BENCH_ALLOCS="200", BENCH_E2E_JOBS="4",
+                  BENCH_E2E_ORACLE_JOBS="2", BENCH_PACED_JOBS="2",
+                  BENCH_SWEEP_JOBS="1", BENCH_KERNEL_NODES="40",
+                  BENCH_KERNEL_E="2")
+import contextlib, io, json
+from nomad_tpu_torch import bench
+out = io.StringIO()
+with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+    rc = bench.main(["--device", "cpu"])
+line = json.loads(out.getvalue())
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.") or m == "bench"
+)
+print(rc, line["parity_identical_evals"], bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -314,6 +335,14 @@ def test_port_policy_weighted_loads_no_jax():
     Server (K5's twin with policy rows) place on the fast class in a
     fresh interpreter without JAX or the JAX package."""
     assert _run_fresh(POLICY_SCRIPT) == "[(3, True, 0), (6, True, 0), 1] []"
+
+
+def test_port_bench_loads_no_jax():
+    """The port's bench (the e2e headline through the batched Server and
+    the host oracle, then the kernel-only rates through K9's and K10's
+    twins) runs in a fresh interpreter without JAX, the JAX package or
+    the JAX package's `bench.py`."""
+    assert _run_fresh(BENCH_SCRIPT) == "0 2 []"
 
 
 def test_port_sources_import_no_jax():
