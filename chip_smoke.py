@@ -32,8 +32,10 @@ Phases (any failure exits non-zero):
    also on the weighted dogpile; K9, K9 shared and K10 at the bench's
    kernel-only shape (a 2,048-row arena, 2,000 candidates, E = 64,
    P = 10), K9 and K10 also at the 16,384-row arena, K11 at K1's shape
-   with and without policy terms; for K4 also the nearest single
-   PyTorch call (`index_copy_`).  This phase runs last.
+   with and without policy terms, K12 per chunk (E = 8, P = 10) at D = 1
+   and 8 shards on the one card, K13 at W = 1,024; for K4 and K13 also
+   the nearest single PyTorch call (`index_copy_`).  This phase runs
+   last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
@@ -156,19 +158,67 @@ bench. `python -m nomad_tpu_torch.bench` in a subprocess at its
    384 jobs fully placed, both kernel rates above 0, and K9, K10, K3
    and K4 launched (the counts the bench prints on stderr).
 
-Each phase frees its Servers before the next world is built, so a
-world build sees one world on the heap.  Prints the kernels line (12
-programs: K1-K8, K9 and its shared mode, K10, K11), then the card's
-nvidia-smi line, then the result line: {"ok": true, "device": {...}}.  Without a CUDA device, or
+k12. Kernel K12 (the node-sharded chained planner, csrc/sharded_chain.cu,
+   its stages launched per shard with the mesh's exchanges between
+   them) on a VirtualMesh of D shards on the card, D in {1, 2, 4, 8}
+   (f64) and 8 (f32), over the four sharded-chain scenarios of
+   `ops/cases.py` (plain; deltas, pre-deltas, distinct_hosts and
+   affinity; spread percent; spread even) at the 16,384-row arena with
+   10,000 candidates, E = 8, P = 16: rows, pulls and the three carry
+   columns bit-equal to the twin on the card and (f64) on the CPU, rows
+   and pulls equal to K9's on the same inputs; then E = 64, P = 10 at
+   D = 1 and 8, cut into chunks of 8 evals with the carry threaded,
+   equal to one launch, to the twins and to K9; then the bench's
+   multichip chain (its own inputs: C = 1,024, E = 16 in launches of 8,
+   P = 4, the carry threaded) on a DistMesh over this process's
+   one-rank NCCL group, bit-equal to the twin on that mesh, to the CPU
+   twin at D in {1, 2, 4, 8} and (rows, pulls) to K9.
+k13. Kernel K13 (the sharded mirror patch, csrc/patch_rows_sharded.cu)
+   at W in {8, 1024, 16384} with padding idx == C, D in {1, 2, 4, 8},
+   f64 and f32: bit-equal to the twin and to K4 on the unsharded column;
+   then the multichip block's delta patch on the NCCL DistMesh, bit-equal
+   to the twin there and on the CPU and to K4.
+bench (also): the bench's multichip block, a d = 1 point through a
+   one-rank NCCL group: placements/s above 0, the closed form's bytes
+   per flush, and K12 and K13 launched by the bench's process.
+
+The references that the checks compare against run in helper
+processes (this script with --helper NAME DIR, 1-3 torch threads
+each), started before the kernels are built: the kernel checks' twins
+on the CPU (twins-a: k5; twins-b: k3, k7, k9, k10, k12) and on the
+card (card-twins: k3, k5, k9, k10, k12), and the path phases' runs on
+the CPU twins and the host oracle (host-a: phases 4 and 8, storm,
+preempt, and the bridge's and the device phase's CPU Servers; host-b:
+phase policy).  The storm runs on the CPU hold their wave's broker
+lease longer than their drain may take (CPU_STORM_NACK_S): a slow
+host's solve must not outlive the default 60 s lease and have the wave
+redelivered mid-solve.  Each phase takes their
+results as it needs them, and the device phase runs after every helper
+has finished.  The script re-runs itself with one PYTHONHASHSEED (drawn
+at random unless set) that every helper inherits, so set orders, and
+with them the order among equal candidates, are the same in every
+process.  Each world recipe (plain, with node
+classes) is built once and every later store gets a restored copy
+(`restore_tables`).  Each phase frees its Servers before
+the next world is restored, so a restore sees one world on the heap.
+The phase seconds are printed split into world builds, waits for the
+helpers' results and the rest (the card), each with the seconds since
+the script started.  Prints the kernels
+line (14 programs: K1-K8, K9 and its shared mode, K10-K13), then the
+card's nvidia-smi line, then the result line: {"ok": true, "device":
+{...}}.  Without a CUDA device, or
 outside a checkout of the repository, it prints no result and exits 2.
 """
 from __future__ import annotations
 
 import contextlib
+import enum
 import gc
+import io
 import json
 import math
 import os
+import pickle
 import random
 import statistics
 import subprocess
@@ -188,6 +238,8 @@ ORACLE_EVALS = 32  # phase 4's host-oracle pass covers this prefix
 SERVER_JOBS = 416  # phase 8's stream
 SERVER_ORACLE_JOBS = 48  # its prefix through the host oracle
 STORM_JOBS = 1024  # the storm phase's dispatch children
+STORM_DRAIN_S = 600.0  # how long a storm run may take to drain
+CPU_STORM_NACK_S = 2 * STORM_DRAIN_S  # the CPU storm runs' broker lease
 STORM_ROWS = (8, 1024)  # phase k5's A
 CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
 PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
@@ -247,6 +299,36 @@ class GcPauses:
 
 
 GC_PAUSES = GcPauses()
+
+
+class HostSplit:
+    """Host seconds of the running phase by kind: "world" (world builds),
+    "wait" (waits for a helper process's result: a twin or a reference
+    run); the rest of a phase is its card runs.  Nested spans count
+    once, in the innermost kind."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.seconds = {"world": 0.0, "wait": 0.0}
+        self._stack = []
+
+    @contextlib.contextmanager
+    def __call__(self, kind: str):
+        t0 = time.perf_counter()
+        self._stack.append(0.0)
+        try:
+            yield
+        finally:
+            inner = self._stack.pop()
+            dt = time.perf_counter() - t0
+            self.seconds[kind] += dt - inner
+            if self._stack:
+                self._stack[-1] += dt
+
+
+SPLIT = HostSplit()
 
 
 def log(msg: str) -> None:
@@ -423,13 +505,108 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
     also gets one of NODE_CLASSES from a third seeded stream, for the
     throughput tables of policy-weighted jobs.
 
+    Each recipe (size, classes or not) is built once, into a store of
+    its own, and dumped (`dump_tables`); `store`, which must be fresh,
+    then gets a restored copy (`restore_tables`): the same
+    nodes, allocs, indexes, node-table rows and generations as a build
+    into it (tests/test_torch_world.py), as new objects, for less host
+    time.
+
     Earlier phases' Servers hold reference cycles, so their worlds stay
     on the heap until a full collection: one runs first and frees them.
-    The build itself runs with the cyclic collector off (only for its
-    own speed); a second full collection then moves the new world into
-    the oldest generation, where a Server that has run a while keeps its
-    store, and times that collection.  The runs that follow have the
-    collector on and the heap as a user's process has it."""
+    The build or restore itself runs with the cyclic collector off (only
+    for its own speed); a second full collection then moves the new
+    world into the oldest generation, where a Server that has run a
+    while keeps its store, and times that collection.  The runs that
+    follow have the collector on and the heap as a user's process has
+    it."""
+    with SPLIT("world"):
+        _build_world(store, n_nodes, n_allocs, classes)
+
+
+def _set_attributes(obj, state: dict) -> None:
+    for name, value in state.items():
+        object.__setattr__(obj, name, value)
+
+
+class _TablePickler(pickle.Pickler):
+    """Pickles the port's plain objects (structs, node table) so that a
+    load sets their attributes one by one, as their constructors do,
+    instead of filling a `__dict__` that the load would have to create:
+    a restored world then holds as many collector-tracked objects as a
+    built one, and full collections over it cost the same."""
+
+    def reducer_override(self, obj):
+        cls = type(obj)
+        if (isinstance(obj, (type, enum.Enum))
+                or not cls.__module__.startswith("nomad_tpu_torch.")
+                or not hasattr(obj, "__dict__")
+                or cls.__reduce_ex__ is not object.__reduce_ex__
+                or cls.__reduce__ is not object.__reduce__
+                or getattr(cls, "__getstate__", None)
+                is not getattr(object, "__getstate__", None)
+                or hasattr(cls, "__setstate__")):
+            return NotImplemented
+        return cls.__new__, (cls,), obj.__dict__, None, None, _set_attributes
+
+
+# the store object's own machinery, which a restore keeps
+STORE_RUNTIME_ATTRS = ("_lock", "_watch_cond", "_watchers", "_alloc_watchers")
+
+
+def dump_tables(store) -> bytes:
+    """Every table, secondary index, modify-index and the node-table
+    mirror of a StateStore as one pickle, to give later stores copies of
+    the same world (`restore_tables`) without building it again."""
+    with store._lock:
+        state = {k: v for k, v in store.__dict__.items()
+                 if k not in STORE_RUNTIME_ATTRS}
+        buf = io.BytesIO()
+        _TablePickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(state)
+        return buf.getvalue()
+
+
+def restore_tables(store, blob: bytes) -> None:
+    """Replace a StateStore's data by a `dump_tables` blob's: the same
+    nodes, jobs, allocs, evals, indexes, node-table rows and
+    generations, as fresh objects.  The lock and the watchers stay; the
+    alloc watchers get the wholesale-replacement delta (None), and the
+    node table a new epoch (it is a new table)."""
+    from nomad_tpu_torch.state.node_table import NodeTable
+
+    state = pickle.loads(blob)
+    with store._lock:
+        store.__dict__.update(state)
+        store.node_table.epoch = next(NodeTable._epochs)
+        store._watch_cond.notify_all()
+        watchers = list(store._alloc_watchers)
+    for cb in watchers:
+        cb(None)
+
+
+# (n_nodes, n_allocs, classes) -> the recipe's dump_tables(store)
+WORLDS: dict = {}
+
+
+def _world_blob(n_nodes: int, n_allocs: int, classes: bool) -> bytes:
+    from nomad_tpu_torch.state.store import StateStore
+
+    key = (n_nodes, n_allocs, classes)
+    if key not in WORLDS:
+        t0 = time.perf_counter()
+        own = StateStore()
+        _fill_world(own, n_nodes, n_allocs, classes)
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        WORLDS[key] = dump_tables(own)
+        log(f"  world {key} built in {built_s:.2f} s, dumped in "
+            f"{time.perf_counter() - t0:.2f} s ({len(WORLDS[key])} bytes)")
+    return WORLDS[key]
+
+
+def _build_world(store, n_nodes: int, n_allocs: int, classes: bool):
+    if store.latest_index() != 0 or store.nodes or store.allocs:
+        raise SmokeFailure("build_world restores into a fresh store only")
     GC_PAUSES.explicit = True
     try:
         t0 = time.perf_counter()
@@ -438,7 +615,10 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
         gc.disable()
         t0 = time.perf_counter()
         try:
-            _fill_world(store, n_nodes, n_allocs, classes)
+            blob = _world_blob(n_nodes, n_allocs, classes)
+            t1 = time.perf_counter()
+            restore_tables(store, blob)
+            restored_s = time.perf_counter() - t1
         finally:
             gc.enable()
         built_s = time.perf_counter() - t0
@@ -449,8 +629,8 @@ def build_world(store, n_nodes: int = N_NODES, n_allocs: int = N_ALLOCS,
         GC_PAUSES.explicit = False
     GC_PAUSES.world_collect_s = max(GC_PAUSES.world_collect_s, full_s)
     log(f"  {freed} unreachable objects of earlier phases freed in "
-        f"{freed_s:.3f} s; world of {n_nodes} nodes, {n_allocs} allocs built in "
-        f"{built_s:.2f} s; a full collection over the live heap "
+        f"{freed_s:.3f} s; world of {n_nodes} nodes, {n_allocs} allocs ready in "
+        f"{built_s:.2f} s (restored in {restored_s:.2f} s); a full collection over the live heap "
         f"({len(gc.get_objects())} tracked objects) took {full_s:.3f} s")
 
 
@@ -706,9 +886,10 @@ def check_main_path(cuda, card: str) -> dict:
         EXPLAIN.set_enabled(True)
     check(off_stream == cuda_stream, "placements changed with the explain capture off")
     check(evaluated > 0, "the capture recorded no evaluated node")
-    cpu_stream, _, _, cpu_metrics, _ = run_stream("cpu")
-    oracle_stream, _, _, oracle_metrics, _ = run_stream(
-        "oracle", limit=ORACLE_EVALS)
+    # the CPU twins' and the host oracle's runs, from helper host-a
+    with SPLIT("wait"):
+        cpu_stream, _, _, cpu_metrics, _ = HELPERS.get("main-cpu")
+        oracle_stream, _, _, oracle_metrics, _ = HELPERS.get("main-oracle")
     for name, other in (("cpu twins", cpu_stream), ("host oracle", oracle_stream)):
         for a, b in zip(cuda_stream, other):
             check(a == b, f"placement stream diverged from the {name} at {a[0]}: {a} vs {b}")
@@ -794,17 +975,17 @@ def check_k3(cuda) -> dict:
                 kern = tbatch.chained_plan_picks_cols(
                     *args, return_carry=True, **kwargs)
                 torch.cuda.synchronize()
-                twin_card = tbatch.chained_picks_twin(
-                    tbatch.prepare_chain(*args, **kwargs))
+                with SPLIT("wait"):
+                    twin_card = HELPERS.get(
+                        f"card-k3-{str(dtype)[6:]}-{scenario}-{E}-{P}")
                 tag = f"K3 {dtype} {scenario} E={E} P={P}"
                 max_err = max(max_err, _same_chain(kern, twin_card, tag + " (card twin)"))
                 if dtype == torch.float64:
                     # the CPU twin in the main path's mode only: the
                     # card twin holds f32, and this keeps the phase
                     # inside the script's time limit
-                    cargs, ckwargs = chain_case_to_torch(cols, kw, "cpu", dtype)
-                    twin_cpu = tbatch.chained_plan_picks_cols(
-                        *cargs, return_carry=True, **ckwargs)
+                    with SPLIT("wait"):
+                        twin_cpu = HELPERS.get(f"k3-{scenario}-{E}-{P}")
                     max_err = max(max_err, _same_chain(kern, twin_cpu,
                                                        tag + " (CPU twin)"))
                 failed_picks += int((kern[0] == -1).sum())
@@ -1032,14 +1213,8 @@ def check_server(cuda, card: str) -> dict:
         seq.stop()
     del seq, cfg
     check(seq_errors == 0, f"the sequential worker counted {seq_errors} errors")
-    oracle_server = new_server(batch_pipeline=False)
-    try:
-        oracle_server.workers[0].host_fallback = True
-        oracle, _, _, _ = drive_server(
-            oracle_server, server_stream()[:SERVER_ORACLE_JOBS], "oracle")
-    finally:
-        oracle_server.stop()
-    del oracle_server
+    with SPLIT("wait"):
+        oracle = HELPERS.get("server-oracle")
     for job in jobs:
         check(batched[job.id] == sequential[job.id],
               f"batched and sequential Servers diverge at {job.id}")
@@ -1071,6 +1246,33 @@ def check_server(cuda, card: str) -> dict:
             "p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99),
             "seq_placements_per_s": placed / seq_dt, "stats": stats,
             "timings": timings, "wall_s": dt, "busy": busy}
+
+
+def server_oracle_reference() -> dict:
+    """Phase 8's reference, run in a helper: the first
+    SERVER_ORACLE_JOBS jobs of its stream through a sequential Server
+    running the host oracle.  Placements by job."""
+    server = new_server(batch_pipeline=False, device="cpu")
+    try:
+        server.workers[0].host_fallback = True
+        placements, _, _, _ = drive_server(
+            server, server_stream()[:SERVER_ORACLE_JOBS], "oracle")
+    finally:
+        server.stop()
+    return placements
+
+
+def device_cpu_reference() -> dict:
+    """The device phase's reference, run in a helper: the first
+    DEVICE_JOBS jobs of phase 8's stream through a batched Server on the
+    CPU.  Placements by job."""
+    server = new_server(batch_pipeline=True, device="cpu")
+    try:
+        placements, _, _, _ = drive_server(
+            server, server_stream()[:DEVICE_JOBS], "steady, cpu")
+    finally:
+        server.stop()
+    return placements
 
 
 def profile_batched() -> dict:
@@ -1119,26 +1321,14 @@ def check_k5(cuda) -> dict:
     import torch
 
     from nomad_tpu_torch.ops import solve as tsolve
-    from nomad_tpu_torch.ops.cases import (
-        POLICY_STORM_SCENARIOS,
-        STORM_SCENARIOS,
-        policy_storm_case,
-        storm_case,
-    )
+    from nomad_tpu_torch.ops.cases import POLICY_STORM_SCENARIOS
     from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
 
-    # the unweighted scenarios, then the weighted ones (policy rows)
-    scenarios = [(s, storm_case) for s in STORM_SCENARIOS] + [
-        (s, policy_storm_case) for s in sorted(POLICY_STORM_SCENARIOS)]
     n_cases = 0
     max_err = 0.0
     rounds = {}
     for dtype in (torch.float64, torch.float32):
-        for si, (scenario, make) in enumerate(scenarios):
-            if make is policy_storm_case:
-                scenario_tag = f"policy_{scenario}"
-            else:
-                scenario_tag = scenario
+        for si, (scenario, make, scenario_tag) in enumerate(_k5_scenarios()):
             for A in STORM_ROWS:
                 cols, inp, max_rounds = make(
                     9500 + 10 * si + A, A, A, C_CHECK, scenario)
@@ -1146,11 +1336,10 @@ def check_k5(cuda) -> dict:
                         storm_columns(cols, cuda, dtype))
                 kern = tsolve.storm_assignment_cuda(*card, False, max_rounds)
                 torch.cuda.synchronize()
-                twin_card = tsolve.storm_assignment_twin(*card, False,
-                                                         max_rounds)
-                twin_cpu = tsolve.storm_assignment_twin(
-                    storm_inputs(inp, "cpu", dtype),
-                    storm_columns(cols, "cpu", dtype), False, max_rounds)
+                with SPLIT("wait"):
+                    twin_card = HELPERS.get(
+                        f"card-k5-{str(dtype)[6:]}-{scenario_tag}-{A}")
+                    twin_cpu = HELPERS.get(f"k5-{str(dtype)[6:]}-{scenario_tag}-{A}")
                 tag = f"K5 {dtype} {scenario_tag} A={A}"
                 for name, k, tc, tp in zip(tsolve.StormOut._fields, kern,
                                            twin_card, twin_cpu):
@@ -1211,9 +1400,14 @@ def run_storm(device, storm_on: bool, label: str, on_start=None,
              "NOMAD_TPU_STORM_MAX": str(STORM_JOBS)}
     saved = {k: os.environ.get(k) for k in knobs}
     os.environ.update(knobs)
+    # the CPU twins solve the wave for tens of seconds (the card in a
+    # few), while all of its evals stay delivered: past the broker's 60 s
+    # nack timeout on a slower host, which would redeliver them mid-solve
+    # and fail their commits; the CPU run's lease outlasts its drain
+    lease = {"nack_timeout": CPU_STORM_NACK_S} if device == "cpu" else {}
     try:
         server = Server(num_schedulers=1, seed=1, batch_pipeline=True,
-                        heartbeat_ttl=1e9, device=device)
+                        heartbeat_ttl=1e9, device=device, **lease)
         t0 = time.perf_counter()
         build_world(server.store, classes=policy)
         log(f"  [{label}] world built in {time.perf_counter() - t0:.1f}s")
@@ -1225,7 +1419,7 @@ def run_storm(device, storm_on: bool, label: str, on_start=None,
         t0 = time.time()
         server.start()
         try:
-            ok = server.drain_to_idle(timeout=600.0)
+            ok = server.drain_to_idle(timeout=STORM_DRAIN_S)
             dt = time.time() - t0
             worker = server.workers[0]
             placements, score_sum = {}, 0.0
@@ -1304,8 +1498,9 @@ def check_storm(cuda, card: str) -> dict:
         "chained_picks": tbatch.chained_picks_cuda.launches,
         "patch_rows": tbatch.patch_rows_cuda.launches,
     }
-    cpu = run_storm("cpu", True, "storm on, cpu")
     off = run_storm(None, False, "storm off, cuda")
+    with SPLIT("wait"):
+        cpu = HELPERS.get("storm-cpu")
     for name, r in (("card", on), ("CPU", cpu), ("storm-off", off)):
         check(r["ok"], f"the {name} storm run did not drain")
         check(r["errors"] == 0, f"the {name} run counted {r['errors']} errors")
@@ -1581,8 +1776,9 @@ def check_preempt(cuda, card: str) -> dict:
 
     on_card = run_preempt("cuda", on_ready=reset_counts)
     k6_launches = tscore.walk_only_cuda.launches
-    cpu = run_preempt("cpu")
-    oracle = run_preempt("oracle")
+    with SPLIT("wait"):
+        cpu = HELPERS.get("preempt-cpu")
+        oracle = HELPERS.get("preempt-oracle")
     for name, r in (("card", on_card), ("CPU", cpu), ("oracle", oracle)):
         check(r["errors"] == 0, f"the {name} preempt run counted {r['errors']} errors")
     check(k6_launches > 0, "K6 was not launched on the preempt path")
@@ -1764,8 +1960,9 @@ def check_policy(cuda, card: str) -> dict:
 
     on_card = run_policy("cuda", on_ready=reset_k1)
     k1_launches = tscore.score_select_cuda.launches
-    cpu = run_policy("cpu")
-    oracle = run_policy("oracle", limit=POLICY_ORACLE_STEPS)
+    with SPLIT("wait"):
+        cpu = HELPERS.get("policy-cpu")
+        oracle = HELPERS.get("policy-oracle")
     for name, r in (("card", on_card), ("CPU", cpu), ("oracle", oracle)):
         check(r["errors"] == 0, f"the {name} policy run counted {r['errors']} errors")
     check(k1_launches > 0, "K1 was not launched on the policy path")
@@ -1819,7 +2016,8 @@ def check_policy(cuda, card: str) -> dict:
     finally:
         BatchWorker._storm_solve = orig_solve
     k5_launches = tsolve.storm_assignment_cuda.launches
-    storm_cpu = run_storm("cpu", True, "weighted storm, cpu", policy=True)
+    with SPLIT("wait"):
+        storm_cpu = HELPERS.get("policy-storm-cpu")
     for name, r in (("card", storm), ("CPU", storm_cpu)):
         check(r["ok"], f"the {name} weighted storm did not drain")
         check(r["errors"] == 0, f"the {name} weighted storm counted "
@@ -1918,8 +2116,9 @@ def check_k7(cuda) -> dict:
                     check(tuple(kern.shape) == (E, P), f"{tag}: shape {tuple(kern.shape)}")
                     check(torch.equal(kern, twin_card), f"{tag}: kernel != twin on card")
                     if dtype == torch.float64:  # as in phase 6
-                        twin_cpu = tbatch.batch_plan_picks_shared_twin(
-                            **batch_shared_inputs_from_numpy(case, "cpu", dtype))
+                        with SPLIT("wait"):
+                            twin_cpu = HELPERS.get(
+                                f"k7-{scenario}-{n_cand}-{E}-{P}")
                         check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
                     max_err = max(max_err, _max_abs(kern, twin_card))
                     placed += int((kern >= 0).sum())
@@ -1944,6 +2143,43 @@ def bridge_body(seed: int, n_evals: int, count=None) -> dict:
          "disk_mb": 300}
         for k in range(n_evals)
     ]}
+
+
+def bridge_bodies() -> list:
+    """The bridge phase's quiet calls: BRIDGE_CALLS of BRIDGE_E evals,
+    one of 256 evals and one of count 64."""
+    bodies = [bridge_body(9300 + i, BRIDGE_E) for i in range(BRIDGE_CALLS)]
+    return bodies + [bridge_body(9400, 256), bridge_body(9401, BRIDGE_E, count=64)]
+
+
+def bridge_cpu_reference() -> dict:
+    """The bridge phase's reference, run in a helper: a port Server on
+    the CPU over the same world answers the quiet calls through its
+    BridgeService, then drains the first BRIDGE_DRAIN_JOBS jobs of
+    phase 8's stream without the bridge."""
+    import socket
+
+    from nomad_tpu_torch.server.bridge_service import BridgeService
+
+    server = new_server(batch_pipeline=True, device="cpu")
+    svc = BridgeService(server)
+    svc.start()
+    try:
+        sock = socket.create_connection(("127.0.0.1", svc.port))
+        try:
+            t0 = time.perf_counter()
+            answers = [_score(sock, body)[0] for body in bridge_bodies()]
+            seconds = time.perf_counter() - t0
+        finally:
+            sock.close()
+        placements, _, _, _ = drive_server(
+            server, server_stream()[:BRIDGE_DRAIN_JOBS], "drain, no bridge")
+        errors = server.workers[0].errors
+    finally:
+        svc.stop()
+        server.stop()
+    return {"answers": answers, "seconds": seconds, "placements": placements,
+            "errors": errors}
 
 
 def build_native():
@@ -2025,15 +2261,11 @@ def check_bridge(cuda, card: str) -> dict:
 
     native = build_native()
     card_server = new_server(batch_pipeline=True)
-    cpu_server = new_server(batch_pipeline=True, device="cpu")
-    services = [BridgeService(card_server), BridgeService(cpu_server)]
-    for svc in services:
-        svc.start()
-    card_svc, cpu_svc = services
+    card_svc = BridgeService(card_server)
+    card_svc.start()
     try:
         check(card_server.device.type == "cuda", "the bridge's Server is not on the card")
-        bodies = [bridge_body(9300 + i, BRIDGE_E) for i in range(BRIDGE_CALLS)]
-        bodies += [bridge_body(9400, 256), bridge_body(9401, BRIDGE_E, count=64)]
+        bodies = bridge_bodies()
         tbatch.batch_plan_picks_shared_cuda.launches = 0
         # 1. quiet server, one connection, the Python client
         sock = socket.create_connection(("127.0.0.1", card_svc.port))
@@ -2056,16 +2288,6 @@ def check_bridge(cuda, card: str) -> dict:
         check(native_resp == answers[0],
               "the native client's answer differs from the Python client's")
         quiet_launches = tbatch.batch_plan_picks_shared_cuda.launches
-        sock = socket.create_connection(("127.0.0.1", cpu_svc.port))
-        try:
-            t0 = time.perf_counter()
-            for body, resp in zip(bodies, answers):
-                want, _ = _score(sock, body)
-                check(resp == want, "the card's ScoreBatch answer differs "
-                      "from the CPU Server's")
-            cpu_s = time.perf_counter() - t0
-        finally:
-            sock.close()
         table = card_server.store.node_table
         shape = (f"{int(table.eligible.sum()):,} eligible of a "
                  f"{table.capacity:,}-row arena")
@@ -2102,14 +2324,19 @@ def check_bridge(cuda, card: str) -> dict:
         launches = tbatch.batch_plan_picks_shared_cuda.launches
         worker_errors = card_server.workers[0].errors
         stages = profile_score_batch(card_svc, bodies[:BRIDGE_CALLS])
-        without, _, _, _ = drive_server(cpu_server, server_stream()[:BRIDGE_DRAIN_JOBS],
-                                        "drain, no bridge")
-        cpu_errors = cpu_server.workers[0].errors
     finally:
-        for svc in services:
-            svc.stop()
+        card_svc.stop()
         card_server.stop()
-        cpu_server.stop()
+    del card_server, card_svc
+    # the CPU Server's side, from helper host-a
+    with SPLIT("wait"):
+        ref = HELPERS.get("bridge-cpu")
+    check(len(ref["answers"]) == len(answers), "the CPU Server answered "
+          f"{len(ref['answers'])} of {len(answers)} calls")
+    for resp, want in zip(answers, ref["answers"]):
+        check(resp == want, "the card's ScoreBatch answer differs from the "
+              "CPU Server's")
+    cpu_s, without, cpu_errors = ref["seconds"], ref["placements"], ref["errors"]
     check(not errors, f"bridge errors under load: {errors[:3]}")
     check(worker_errors == 0 and cpu_errors == 0,
           f"the batched workers counted {worker_errors} and {cpu_errors} errors")
@@ -2209,11 +2436,6 @@ def check_k9(cuda) -> dict:
     import torch
 
     from nomad_tpu_torch.ops import batch as tbatch
-    from nomad_tpu_torch.ops.cases import (
-        BATCHED_SCENARIOS,
-        batch_shared_case,
-        batched_case,
-    )
     from nomad_tpu_torch.state.convert import (
         batch_shared_inputs_from_numpy,
         batched_case_to_torch,
@@ -2223,34 +2445,35 @@ def check_k9(cuda) -> dict:
     for dtype in (torch.float64, torch.float32):
         for scenario in K9_SCENARIOS:
             for E, P in BATCHED_SHAPES:
-                cols, kw = batched_case(
-                    9300 + 10 * sorted(BATCHED_SCENARIOS).index(scenario) + E,
-                    C_CHECK, N_CAND_CHECK, scenario, E, P)
+                cols, kw = _k9_batched_case(9300, scenario, E, P)
                 args, kwargs = batched_case_to_torch(cols, kw, cuda, dtype)
                 kern = tbatch.chained_plan_picks_cuda(*args, **kwargs).cpu()
                 tag = f"K9 {dtype} {scenario} E={E} P={P}"
                 check(tuple(kern.shape) == (E, P), f"{tag}: shape")
-                check(torch.equal(kern, tbatch.chained_plan_picks_twin(
-                    *args, **kwargs).cpu()), f"{tag}: kernel != twin on card")
+                with SPLIT("wait"):
+                    twin_card = HELPERS.get(
+                        f"card-k9-{str(dtype)[6:]}-{scenario}-{E}-{P}")
+                check(torch.equal(kern, twin_card), f"{tag}: kernel != twin on card")
                 if dtype == torch.float64:  # as in phase 6
-                    cargs, ckw = batched_case_to_torch(cols, kw, "cpu", dtype)
-                    check(torch.equal(kern, tbatch.chained_plan_picks(
-                        *cargs, **ckw)), f"{tag}: kernel != twin on CPU")
+                    with SPLIT("wait"):
+                        twin_cpu = HELPERS.get(f"k9-{scenario}-{E}-{P}")
+                    check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
                 placed += int((kern >= 0).sum())
                 n_cases += 1
         for scenario in ("mixed",):
-            for E, P in ((8, 16), (64, 10)):
-                case = batch_shared_case(9350 + E + len(scenario), C_CHECK,
-                                         N_CAND_CHECK, scenario, E, P)
+            for E, P in K9_SHARED_SHAPES:
+                case = _k9_shared_case(scenario, E, P)
                 card = batch_shared_inputs_from_numpy(case, cuda, dtype)
                 kern = tbatch.chained_plan_picks_shared_cuda(**card).cpu()
                 tag = f"K9 shared {dtype} {scenario} E={E} P={P}"
-                check(torch.equal(kern, tbatch.chained_plan_picks_shared_twin(
-                    **card).cpu()), f"{tag}: kernel != twin on card")
+                with SPLIT("wait"):
+                    twin_card = HELPERS.get(
+                        f"card-k9s-{str(dtype)[6:]}-{scenario}-{E}-{P}")
+                check(torch.equal(kern, twin_card), f"{tag}: kernel != twin on card")
                 if dtype == torch.float64:
-                    check(torch.equal(kern, tbatch.chained_plan_picks_shared(
-                        **batch_shared_inputs_from_numpy(case, "cpu", dtype))),
-                        f"{tag}: kernel != twin on CPU")
+                    with SPLIT("wait"):
+                        twin_cpu = HELPERS.get(f"k9s-{scenario}-{E}-{P}")
+                    check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
                 placed += int((kern >= 0).sum())
                 n_cases += 1
                 shared_cases += 1
@@ -2269,33 +2492,23 @@ def check_k10(cuda) -> dict:
     import torch
 
     from nomad_tpu_torch.ops import batch as tbatch
-    from nomad_tpu_torch.ops.cases import BATCHED_SCENARIOS, batched_case
-    from nomad_tpu_torch.state.convert import batched_case_to_torch
 
     n_cases = placed = 0
     for dtype in (torch.float64, torch.float32):
         for scenario, nc_mode in K10_CASES:
             for E, P in BATCHED_SHAPES:
-                cols, kw = batched_case(
-                    9400 + 10 * sorted(BATCHED_SCENARIOS).index(scenario) + E,
-                    C_CHECK, N_CAND_CHECK, scenario, E, P)
-                if nc_mode == "scalar":
-                    kw["n_candidates"] = int(kw["n_candidates"].min())
-
-                def inputs(dev):
-                    args, kwargs = batched_case_to_torch(cols, kw, dev, dtype)
-                    return args, kwargs.get("spread")
-
-                args, spread = inputs(cuda)
+                args, spread = _k10_inputs(scenario, nc_mode, E, P, cuda, dtype)
                 kern = tbatch.batch_plan_picks_cuda(*args, spread=spread).cpu()
                 tag = f"K10 {dtype} {scenario} ({nc_mode}) E={E} P={P}"
                 check(tuple(kern.shape) == (E, P), f"{tag}: shape")
-                check(torch.equal(kern, tbatch.batch_plan_picks_twin(
-                    *args, spread=spread).cpu()), f"{tag}: kernel != twin on card")
+                with SPLIT("wait"):
+                    twin_card = HELPERS.get(
+                        f"card-k10-{str(dtype)[6:]}-{scenario}-{nc_mode}-{E}-{P}")
+                check(torch.equal(kern, twin_card), f"{tag}: kernel != twin on card")
                 if dtype == torch.float64:
-                    cargs, cspread = inputs("cpu")
-                    check(torch.equal(kern, tbatch.batch_plan_picks(
-                        *cargs, spread=cspread)), f"{tag}: kernel != twin on CPU")
+                    with SPLIT("wait"):
+                        twin_cpu = HELPERS.get(f"k10-{scenario}-{nc_mode}-{E}-{P}")
+                    check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
                 placed += int((kern >= 0).sum())
                 n_cases += 1
     check(placed > 0, "K10 placed nothing in any case")
@@ -2357,10 +2570,12 @@ BENCH_TIMEOUT_S = 420
 def check_bench(cuda, card: str) -> dict:
     """`python -m nomad_tpu_torch.bench` in a subprocess at its defaults
     (10,000 nodes / 100,000 allocs, 48 oracle jobs, 384 batched, 128
-    paced, 3 x 64 swept; the kernel-only phase on 2,000 nodes, E = 64):
-    exit 0, one JSON line, parity 48 of 48, all 384 jobs fully placed,
-    both kernel rates above 0, and K9 and K10 launched (the launch
-    counts the bench prints on stderr)."""
+    paced, 3 x 64 swept; the kernel-only phase on 2,000 nodes, E = 64;
+    the multichip block): exit 0, one JSON line, parity 48 of 48, all
+    384 jobs fully placed, both kernel rates above 0, a multichip point
+    at d = 1 through the NCCL group with placements/s above 0 and the
+    closed form's bytes per flush, and K9, K10, K3, K4, K12 and K13
+    launched (the launch counts the bench prints on stderr)."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     t0 = time.perf_counter()
     try:
@@ -2392,14 +2607,33 @@ def check_bench(cuda, card: str) -> dict:
           and line["kernel_chained_placements_per_sec"] > 0,
           "a kernel-only rate is 0")
     for name in ("chained_plan_picks", "batch_plan_picks", "chained_picks",
-                 "patch_rows"):
+                 "patch_rows", "sharded_chained_plan", "patch_rows_sharded"):
         check(launches.get(name, 0) > 0, f"the bench launched no {name}")
+    mc = line.get("multichip")
+    check(mc is not None, "the bench printed no multichip block")
+    check(mc["mesh"] == "DistMesh (nccl)", f"the multichip mesh is {mc['mesh']}")
+    check([p["n_devices"] for p in mc["points"]] == [1],
+          f"multichip points {[p['n_devices'] for p in mc['points']]}, not d = 1")
+    # the sweep's closed form: three pow2-padded i32 index and f64 value
+    # buffers against six C-row f64 columns
+    for p in mc["points"]:
+        width = max(8, 1 << (p["dirty_rows"] - 1).bit_length())
+        check(p["placements_per_sec"] > 0, "a multichip point placed nothing")
+        check(p["bytes_per_flush_delta"] == 3 * width * (4 + 8)
+              and p["bytes_per_flush_full"] == 6 * mc["arena_nodes"] * 8,
+              f"multichip bytes per flush {p}")
+        check(p["chunk_launches"] == -(-mc["evals"] // p["chunk_width"]),
+              f"multichip chunk launches {p}")
+        check("per_device_flops" not in p, "a multichip point claims XLA flops")
+    check(launches["sharded_chained_plan_chunks"] >= 4 * mc["points"][0][
+        "chunk_launches"], "the multichip sweep launched too few K12 chunks")
     print(f"bench on {card}: {line['value']} placements/s (oracle "
           f"{line['oracle_e2e_placements_per_sec']}, vs_baseline "
           f"{line['vs_baseline']}), p50 {line['p50_eval_latency_ms']} ms p99 "
           f"{line['p99_eval_latency_ms']} ms, kernel-only batch "
           f"{line['kernel_batch_placements_per_sec']} / chained "
           f"{line['kernel_chained_placements_per_sec']} placements/s; "
+          f"multichip {json.dumps(mc)}; "
           f"launches {launches}; subprocess {wall:.1f} s", flush=True)
     return {"line": line, "launches": launches, "wall_s": wall}
 
@@ -2490,12 +2724,9 @@ def check_device(cuda, card: str) -> dict:
           f"{status['canary_fail']} canaries")
     check(launches >= status["canary_ok"] >= 4,
           f"K8 launched {launches} times for {status['canary_ok']} canaries")
-    cpu_server = new_server(batch_pipeline=True, device="cpu")
-    try:
-        on_cpu, _, _, _ = drive_server(cpu_server, jobs, "steady, cpu")
-    finally:
-        cpu_server.stop()
-    del cpu_server
+    # the same jobs on a CPU Server, from helper host-a
+    with SPLIT("wait"):
+        on_cpu = HELPERS.get("device-cpu")
     check(steady == on_cpu, "the supervised card Server and the CPU Server diverge")
     # the same probe on an idle process: a throwaway supervisor, 32
     # probes back to back (its launches are not the path's)
@@ -2704,6 +2935,13 @@ def check_device(cuda, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def device_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    from nomad_tpu_torch.device.core import nvidia_smi_line
+
+    return nvidia_smi_line() or "nvidia-smi unavailable"
+
+
 def cuda_time_ms(fn, n: int = TIMING_LAUNCHES, warmup: int = 20) -> float:
     import torch
 
@@ -2802,6 +3040,7 @@ def time_kernels(cuda) -> dict:
      tbatch.chained_picks_cuda.launches, tbatch.patch_rows_cuda.launches,
      tscore.walk_only_cuda.launches) = saved
     out.update(time_batched_kernels(cuda))
+    out.update(time_sharded_kernels(cuda))
     for v in out.values():
         v.setdefault("library_ms", None)
         _bound(v)
@@ -2821,6 +3060,19 @@ def time_kernels(cuda) -> dict:
                     f"{v['plain_ms']:.6f} ms, bound {v['bound_ms']:.9f} ms "
                     f"({v['bound_by']}; {v['bytes']} B, {v['pulls']} pulls)")
     print("K9-K11 timing (f64, CUDA events): " + "; ".join(rows), flush=True)
+    print(f"K12/K13 timing (f64, CUDA events; D shards of a VirtualMesh on "
+          f"one card, not multi-GPU scaling) on {device_line()}: " + "; ".join(
+              f"{k} ({v['shape']}) {v['ms']:.6f} ms, twin {v['plain_ms']:.6f} ms, "
+              f"bound {v['bound_ms']:.9f} ms ({v['bound_by']}; {v['bytes']} B)"
+              + (f", {v['launches_per_chunk']} launches a chunk"
+                 if "launches_per_chunk" in v else "")
+              + (f", index_copy_ {v['library_ms']:.6f} ms"
+                 if v.get("library_ms") else "")
+              for k, v in out.items() if k.startswith(("sharded", "patch_rows_sharded"))),
+          flush=True)
+    # the kernels line's entries: one card shard (D = 1), eight beside
+    for name in ("sharded_chained_plan", "patch_rows_sharded"):
+        out[name] = dict(out[f"{name}_d1"], d8=out[f"{name}_d8"])
     print("policy timing (f64, CUDA events): "
           + "; ".join(
               f"{k} {out[k]['ms']:.6f} ms (policy off {out[base]['ms']:.6f}), "
@@ -3242,11 +3494,952 @@ def time_chain_kernels(cuda) -> dict:
 
 
 # the phases that drive a path through the entry points a user calls
+# ---------------------------------------------------------------------------
+# phases k12/k13: the node-sharded chain and mirror patch
+# ---------------------------------------------------------------------------
+
+K12_COUNTS = (1, 2, 4, 8)  # phase k12's shard counts (a VirtualMesh on the card)
+K12_SHAPE = (8, 16)  # its per-count cases' (E, P)
+K12_FULL = (64, 10, 8)  # the full-width run's E, P and chunk width
+K12_TIMING = (8, 10)  # the timed chunk's (E, P)
+
+
+def _k12_case(scenario: str, E: int, P: int) -> dict:
+    from nomad_tpu_torch.ops.cases import (
+        SHARDED_CHAIN_SCENARIOS,
+        sharded_chain_case,
+    )
+
+    si = SHARDED_CHAIN_SCENARIOS.index(scenario)
+    return sharded_chain_case(9700 + 10 * si + E, C_CHECK, N_CAND_CHECK,
+                              scenario, E, P)
+
+
+def _k12_slice(args, e0: int, e1: int) -> tuple:
+    """Evals [e0, e1) of the runner's per-eval arguments."""
+    return tuple(_slice_evals(x, e0, e1) for x in args[6:])
+
+
+def k12_run(mesh, plan, case, dtype, chunk=None) -> tuple:
+    """(rows, pulls, (cpu, mem, disk) carry), all on the CPU, of one
+    chain of `case` through `plan` (the dispatching runner or the twin)
+    on `mesh`; with `chunk`, cut into launches of `chunk` evals with the
+    carry threaded."""
+    import torch
+
+    from nomad_tpu_torch.state.convert import sharded_case_args
+
+    args = sharded_case_args(case, mesh.device, dtype)
+    E, P = case["deltas"]["evict_rows"].shape
+    run = plan(mesh, P, with_spread=case["spread"] is not None,
+               spread_even=case["spread_even"], return_carry=True)
+    chunk = chunk or E
+    carry, rows, pulls = args[3:6], [], []
+    for e0 in range(0, E, chunk):
+        r, p, carry = run(*args[:3], *carry, *_k12_slice(args, e0, e0 + chunk))
+        rows.append(r.cpu())
+        pulls.append(p.cpu())
+    return (torch.cat(rows), torch.cat(pulls),
+            tuple(mesh.unshard(c).cpu() for c in carry))
+
+
+def k9_of(case, dev, dtype) -> tuple:
+    """K9's (rows, pulls) on the card, or its twin's on the CPU, over a
+    sharded chain case: the same inputs as per-eval BatchInputs (every
+    eval's base usage the chain's start, no static penalty column)."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.state.convert import (
+        batched_inputs_from_numpy,
+        pre_deltas_from_numpy,
+        spread_inputs_from_numpy,
+        step_deltas_from_numpy,
+    )
+
+    pe, cols = case["per_eval"], case["cols"]
+    E, C = pe["perm"].shape
+    P = case["deltas"]["evict_rows"].shape[1]
+
+    def rep(c):
+        return np.broadcast_to(c, (E, C))
+
+    batch = dict(
+        feasible=pe["feasible"], base_cpu_used=rep(cols[3]),
+        base_mem_used=rep(cols[4]), base_disk_used=rep(cols[5]),
+        base_collisions=pe["coll0"], penalty=np.zeros((E, C), bool),
+        affinity_score=pe["affinity"], perm=pe["perm"],
+        ask_cpu=pe["ask_cpu"], ask_mem=pe["ask_mem"], ask_disk=pe["ask_disk"],
+        desired_count=pe["desired_count"], limit=pe["limits"],
+        distinct_hosts=pe["distinct_hosts"])
+    spread = None
+    if case["spread"] is not None:
+        spread = spread_inputs_from_numpy(case["spread"], dev, dtype)
+        if not case["spread_even"]:
+            spread = spread._replace(even=None)
+    q = tbatch.prepare_batched(
+        *[torch.as_tensor(c).to(dtype).to(dev) for c in cols[:3]],
+        batched_inputs_from_numpy(batch, dev, dtype), pe["n_candidates"], P,
+        wanted=pe["wanted"], spread=spread,
+        deltas=step_deltas_from_numpy(case["deltas"], dev, dtype),
+        pre=pre_deltas_from_numpy(case["pre"], dev, dtype))
+    if torch.device(dev).type == "cpu":
+        rows, pulls, _carry = tbatch.chained_picks_twin(tbatch.batched_as_chain(q))
+    else:
+        rows, pulls = tbatch.launch_chained_plan(q)
+    return rows.cpu(), pulls.cpu()
+
+
+def _same_sharded(a, b, tag: str) -> float:
+    """Rows, pulls and the three carry columns bit-equal."""
+    check(bool((a[0] == b[0]).all()), f"{tag}: rows differ")
+    check(bool((a[1] == b[1]).all()), f"{tag}: pulls differ")
+    err = 0.0
+    for x, y in zip(a[2], b[2]):
+        check(bool((_bits(x) == _bits(y)).all()), f"{tag}: usage carry differs")
+        err = max(err, _max_abs(x, y))
+    return err
+
+
+def _k12_cpu_twin(scenario: str, E: int, P: int, d: int, chunk=None):
+    """The CPU twin (f64) of a phase-k12 chain, run in the twin process."""
+    import torch
+
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh, sharded_chained_plan_twin
+
+    return k12_run(VirtualMesh(d, "cpu"), sharded_chained_plan_twin,
+                   _k12_case(scenario, E, P), torch.float64, chunk)
+
+
+# this process's one-rank NCCL group and its DistMesh, as the bench's
+# multichip block builds them: made at first use, destroyed at exit
+NCCL: dict = {}
+
+
+def nccl_mesh(cuda):
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+    from nomad_tpu_torch.parallel.multichip import nccl_group
+
+    if "mesh" not in NCCL:
+        NCCL["made"] = nccl_group(cuda)
+        NCCL["mesh"] = make_mesh(1)
+    return NCCL["mesh"]
+
+
+def close_nccl() -> None:
+    if NCCL.pop("made", False):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    NCCL.clear()
+
+
+def _sweep_case() -> dict:
+    """The multichip sweep's chain inputs (`_chain_inputs` at the
+    sweep's shape) as a sharded-chain case, for `k9_of`."""
+    from nomad_tpu_torch.ops.cases import SHARDED_PER_EVAL
+    from nomad_tpu_torch.parallel import multichip as tmulti
+
+    cols, pe = tmulti._chain_inputs(tmulti.SWEEP_C, tmulti.SWEEP_E,
+                                    tmulti.SWEEP_P)
+    return dict(cols=cols, per_eval=dict(zip(SHARDED_PER_EVAL, pe[:12])),
+                deltas=pe[12]._asdict(), pre=pe[13]._asdict(), spread=None,
+                spread_even=False)
+
+
+def sweep_chain(mesh, plan) -> tuple:
+    """(rows, pulls, (cpu, mem, disk) carry), all on the CPU, of the
+    multichip sweep's chain through `plan` (the dispatching runner or
+    the twin) on `mesh`: its own inputs, launch by launch of its chunk
+    width with the carry threaded (`multichip.chunked_chain`)."""
+    from nomad_tpu_torch.parallel import multichip as tmulti
+
+    cols, per_eval = tmulti._chain_inputs(tmulti.SWEEP_C, tmulti.SWEEP_E,
+                                          tmulti.SWEEP_P)
+    rows, pulls, carry = tmulti.chunked_chain(
+        plan(mesh, tmulti.SWEEP_P, return_carry=True), cols, per_eval,
+        tmulti.SWEEP_CHUNK)
+    return (rows.cpu(), pulls.cpu(),
+            tuple(mesh.unshard(c).cpu() for c in carry))
+
+
+def _k12_sweep_cpu_twin(d: int):
+    """The CPU twin of the sweep's chain on a VirtualMesh of d shards."""
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh, sharded_chained_plan_twin
+
+    return sweep_chain(VirtualMesh(d, "cpu"), sharded_chained_plan_twin)
+
+
+def _k12_params():
+    from nomad_tpu_torch.ops.cases import SHARDED_CHAIN_SCENARIOS
+
+    for scenario in SHARDED_CHAIN_SCENARIOS:
+        for d in K12_COUNTS:
+            yield f"k12-{scenario}-{d}", (scenario, *K12_SHAPE, d)
+    E, P, chunk = K12_FULL
+    for d in (1, 8):
+        yield f"k12-full-{d}", ("everything", E, P, d, chunk)
+
+
+def check_sweep_chain(cuda) -> tuple:
+    """The bench's multichip block on the card: the sweep's own inputs,
+    chunking and carry through a DistMesh over a one-rank NCCL group
+    (its exchanges NCCL all-gathers), K12 bit-equal to the twin on that
+    mesh, to the CPU twin on a VirtualMesh of 1, 2, 4 and 8 shards, and
+    (rows, pulls) to K9.  Returns (max_abs_err, placed picks)."""
+    import torch
+
+    from nomad_tpu_torch.parallel import multichip as tmulti
+    from nomad_tpu_torch.parallel.mesh import (
+        sharded_chained_plan,
+        sharded_chained_plan_twin,
+    )
+
+    mesh = nccl_mesh(cuda)
+    tag = (f"K12 multichip sweep C={tmulti.SWEEP_C} E={tmulti.SWEEP_E} "
+           f"P={tmulti.SWEEP_P} in chunks of {tmulti.SWEEP_CHUNK} on the NCCL "
+           f"DistMesh")
+    kern = sweep_chain(mesh, sharded_chained_plan)
+    twin = sweep_chain(mesh, sharded_chained_plan_twin)
+    err = _same_sharded(kern, twin, tag + " (card twin)")
+    for d in K12_COUNTS:
+        with SPLIT("wait"):
+            cpu = HELPERS.get(f"k12-sweep-{d}")
+        err = max(err, _same_sharded(
+            kern, cpu, f"{tag} (CPU twin, VirtualMesh D={d})"))
+    k9 = k9_of(_sweep_case(), cuda, torch.float64)
+    check(torch.equal(kern[0], k9[0]) and torch.equal(kern[1], k9[1]),
+          f"{tag}: rows or pulls differ from K9's")
+    placed = int((kern[0] >= 0).sum())
+    check(placed > 0, f"{tag}: nothing placed")
+    return err, placed
+
+
+def check_k12(cuda) -> dict:
+    """K12 against its twin on a VirtualMesh of D shards on the card, D
+    in {1, 2, 4, 8} (f64) and 8 (f32), over the four sharded-chain
+    scenarios at the 16,384-row arena with 10,000 candidates, E = 8,
+    P = 16: rows, pulls and the three carry columns bit-equal to the
+    card twin and (f64) to the CPU twin, rows and pulls equal to K9's on
+    the same inputs.  Then the full-width run, E = 64, P = 10, at D = 1
+    and 8: cut into chunks of 8 evals with the carry threaded, equal to
+    one launch, to the twins and to K9.  Then the bench's multichip
+    block as it runs on the card: the sweep's chain (C = 1,024, E = 16
+    in launches of 8, P = 4, its carry threaded) on the DistMesh over a
+    one-rank NCCL group, bit-equal to the card twin on that mesh, to
+    the CPU twin on a VirtualMesh of 1, 2, 4 and 8 shards, and (rows,
+    pulls) to K9."""
+    import torch
+
+    from nomad_tpu_torch.ops.cases import SHARDED_CHAIN_SCENARIOS
+    from nomad_tpu_torch.parallel import multichip as tmulti
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        sharded_chained_plan,
+        sharded_chained_plan_cuda,
+    )
+
+    n_cases = placed = 0
+    max_err = 0.0
+    chains = 0
+    chunks0 = sharded_chained_plan_cuda.chunks
+    for scenario in SHARDED_CHAIN_SCENARIOS:
+        case = _k12_case(scenario, *K12_SHAPE)
+        for dtype, counts in ((torch.float64, K12_COUNTS), (torch.float32, (8,))):
+            k9 = k9_of(case, cuda, dtype)
+            for d in counts:
+                tag = f"K12 {dtype} {scenario} D={d}"
+                kern = k12_run(VirtualMesh(d, cuda), sharded_chained_plan, case, dtype)
+                chains += 1
+                with SPLIT("wait"):
+                    twin = HELPERS.get(f"card-k12-{str(dtype)[6:]}-{scenario}-{d}")
+                max_err = max(max_err, _same_sharded(kern, twin, tag + " (card twin)"))
+                if dtype == torch.float64:
+                    with SPLIT("wait"):
+                        cpu = HELPERS.get(f"k12-{scenario}-{d}")
+                    max_err = max(max_err, _same_sharded(kern, cpu, tag + " (CPU twin)"))
+                check(torch.equal(kern[0], k9[0]) and torch.equal(kern[1], k9[1]),
+                      f"{tag}: rows or pulls differ from K9's")
+                placed += int((kern[0] >= 0).sum())
+                n_cases += 1
+    E, P, chunk = K12_FULL
+    case = _k12_case("everything", E, P)
+    k9 = k9_of(case, cuda, torch.float64)
+    for d in (1, 8):
+        tag = f"K12 full width E={E} P={P} D={d}"
+        one = k12_run(VirtualMesh(d, cuda), sharded_chained_plan, case,
+                      torch.float64)
+        cut = k12_run(VirtualMesh(d, cuda), sharded_chained_plan, case,
+                      torch.float64, chunk)
+        chains += 1 + E // chunk
+        _same_sharded(cut, one, tag + " (chunks of 8 against one launch)")
+        with SPLIT("wait"):
+            twin = HELPERS.get(f"card-k12-full-{d}")
+            cpu = HELPERS.get(f"k12-full-{d}")
+        max_err = max(max_err, _same_sharded(cut, twin, tag + " (card twin)"))
+        max_err = max(max_err, _same_sharded(cut, cpu, tag + " (CPU twin)"))
+        check(torch.equal(cut[0], k9[0]) and torch.equal(cut[1], k9[1]),
+              f"{tag}: rows or pulls differ from K9's")
+        placed += int((cut[0] >= 0).sum())
+        n_cases += 1
+    err, sweep_placed = check_sweep_chain(cuda)
+    chains += -(-tmulti.SWEEP_E // tmulti.SWEEP_CHUNK)
+    max_err = max(max_err, err)
+    placed += sweep_placed
+    n_cases += 1
+    launched = sharded_chained_plan_cuda.chunks - chunks0
+    check(launched == chains, f"K12 launched {launched} chains for {chains}")
+    check(placed > 0, "K12 placed nothing in any case")
+    print(f"K12: {n_cases} cases exact against the twin on the card (f64 at D "
+          f"in {K12_COUNTS}, f32 at D = 8) and on the CPU (f64; rows, pulls "
+          f"and the three carry columns), rows and pulls equal to K9's; the "
+          f"full-width chain (E = {E}, P = {P}) in chunks of {chunk} equal "
+          f"to one launch at D = 1 and 8; the multichip sweep's chain on "
+          f"the one-rank NCCL DistMesh equal to the card twin there, to the "
+          f"CPU twin at D in {K12_COUNTS} and to K9 ({sweep_placed} placed); "
+          f"{placed} placed picks; max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases, "chains": chains}
+
+
+def check_k13(cuda) -> dict:
+    """K13 against its twin at W in {8, 1024, 16384} with padding
+    idx == C, D in {1, 2, 4, 8}, f64 and f32: every shard bit-equal to
+    the twin's, and the whole column to K4's on the unsharded column.
+    Then the multichip block's delta patch (the sweep's column, 24
+    dirty rows in a W = 32 staging) on the DistMesh over a one-rank
+    NCCL group: bit-equal to the twin there, on the CPU, and to K4."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    n_cases = 0
+    max_err = 0.0
+    launches0 = tbatch.patch_rows_sharded_cuda.launches
+    for dtype in (torch.float64, torch.float32):
+        for width in PATCH_WIDTHS:
+            rng = np.random.default_rng(width + 13)
+            col = torch.from_numpy(rng.uniform(0.0, 1e4, C_CHECK)).to(dtype)
+            n = max(1, width - width // 4)
+            idx = np.full(width, C_CHECK, np.int32)  # padding: dropped
+            idx[:n] = np.sort(rng.choice(C_CHECK, n, replace=False))
+            idx = torch.from_numpy(idx)
+            vals = torch.from_numpy(rng.uniform(0.0, 1e4, width)).to(dtype)
+            whole = tbatch.patch_rows(col.clone().to(cuda), idx.to(cuda),
+                                      vals.to(cuda)).cpu()
+            for d in K12_COUNTS:
+                mesh = VirtualMesh(d, cuda)
+                sh = tbatch.patch_rows_sharded(mesh, mesh.shard(col),
+                                               idx.to(cuda), vals.to(cuda))
+                got = mesh.unshard(sh).cpu()
+                cmesh = VirtualMesh(d, "cpu")
+                twin = cmesh.unshard(tbatch.patch_rows_sharded_twin(
+                    cmesh, cmesh.shard(col), idx, vals))
+                tag = f"K13 {dtype} W={width} D={d}"
+                check(bool((_bits(got) == _bits(twin)).all()), f"{tag}: kernel != twin")
+                check(bool((_bits(got) == _bits(whole)).all()),
+                      f"{tag}: kernel != K4 on the unsharded column")
+                max_err = max(max_err, _max_abs(got, twin))
+                n_cases += 1
+    # the multichip block's delta patch on the NCCL DistMesh: the
+    # sweep's column and staging
+    from nomad_tpu_torch.parallel import multichip as tmulti
+
+    mesh = nccl_mesh(cuda)
+    col = tmulti._chain_inputs(tmulti.SWEEP_C, tmulti.SWEEP_E,
+                               tmulti.SWEEP_P)[0][3]
+    idx, vals = tmulti.delta_patch_inputs(tmulti.SWEEP_C, tmulti.SWEEP_DIRTY,
+                                          cuda)
+    got = mesh.unshard(tbatch.patch_rows_sharded(
+        mesh, mesh.shard(col), idx, vals)).cpu()
+    twin = mesh.unshard(tbatch.patch_rows_sharded_twin(
+        mesh, mesh.shard(col), idx, vals)).cpu()
+    cmesh = VirtualMesh(1, "cpu")
+    cpu = cmesh.unshard(tbatch.patch_rows_sharded_twin(
+        cmesh, cmesh.shard(col), idx.cpu(), vals.cpu()))
+    whole = tbatch.patch_rows(torch.from_numpy(col).to(cuda), idx, vals).cpu()
+    tag = f"K13 multichip patch W={idx.shape[0]} on the NCCL DistMesh"
+    check(bool((_bits(got) == _bits(twin)).all()), f"{tag}: kernel != card twin")
+    check(bool((_bits(got) == _bits(cpu)).all()), f"{tag}: kernel != CPU twin")
+    check(bool((_bits(got) == _bits(whole)).all()),
+          f"{tag}: kernel != K4 on the unsharded column")
+    max_err = max(max_err, _max_abs(got, twin))
+    n_cases += 1
+    launched = tbatch.patch_rows_sharded_cuda.launches - launches0
+    want = 2 * len(PATCH_WIDTHS) * sum(K12_COUNTS) + 1
+    check(launched == want, f"K13 launched {launched} times for {want} shards")
+    print(f"K13: {n_cases} cases exact (f64 and f32, D in {K12_COUNTS}, "
+          f"padding dropped) against the twin and K4 on the unsharded "
+          f"column, and the multichip block's patch on the one-rank NCCL "
+          f"DistMesh against the card and CPU twins and K4, "
+          f"max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases}
+
+
+def time_sharded_kernels(cuda) -> dict:
+    """K12 per chunk (E = 8, P = 10, the "plain" chain at the 16,384-row
+    arena with 10,000 candidates) at D = 1 and D = 8 shards of a
+    VirtualMesh on the card, timed over a prepared chain (the runner's
+    staging outside the timing; the usage carry reset before each run);
+    K13 at W = 1,024 at D = 1 (beside `index_copy_` into the shard, the
+    nearest single PyTorch call) and D = 8.  The D-shard times are one
+    card holding D shards, not multi-GPU scaling."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        prepare_sharded_chain,
+        sharded_chain_twin,
+        sharded_chained_plan_cuda,
+        stage_launches,
+    )
+    from nomad_tpu_torch.state.convert import sharded_case_args
+
+    saved = (sharded_chained_plan_cuda.launches, sharded_chained_plan_cuda.chunks,
+             tbatch.patch_rows_sharded_cuda.launches)
+    E, P = K12_TIMING
+    case = _k12_case("plain", E, P)
+    out = {}
+    for d in (1, 8):
+        mesh = VirtualMesh(d, cuda)
+        c = prepare_sharded_chain(mesh, P, sharded_case_args(case, cuda))
+        start = [tuple(t.clone() for t in sh.use) for sh in c.shards]
+
+        def reset():
+            for sh, cols in zip(c.shards, start):
+                for t, t0 in zip(sh.use, cols):
+                    t.copy_(t0)
+
+        def kernel():
+            reset()
+            sharded_chained_plan_cuda(c)
+
+        def twin():
+            reset()
+            sharded_chain_twin(c)
+
+        # every shard's columns and the gathered [C] vectors of the
+        # candidate region per pick: score reads 7 f64 columns, the
+        # collision i32 and the feasibility byte, writes the f64 score and
+        # the feasibility byte; the walk reads the permutation (i32) and
+        # the gathered score and feasibility at it
+        per_row = 7 * 8 + 4 + 1 + 8 + 1 + 4 + 8 + 1
+        out[f"sharded_chained_plan_d{d}"] = {
+            "ms": cuda_time_ms(kernel, n=10, warmup=2),
+            "plain_ms": cuda_time_ms(twin, n=2, warmup=1),
+            "bytes": E * P * N_CAND_CHECK * per_row,
+            "flops": E * P * N_CAND_CHECK * FLOPS_PER_CANDIDATE,
+            "launches_per_chunk": stage_launches(mesh, E, P),
+            "shape": f"E={E} P={P} D={d}",
+        }
+    width = 1024
+    rng = np.random.default_rng(7013)
+    col = torch.from_numpy(rng.uniform(0.0, 1e4, C_CHECK)).to(cuda)
+    idx = np.full(width, C_CHECK, np.int32)
+    n = width - width // 4
+    idx[:n] = np.sort(rng.choice(C_CHECK, n, replace=False))
+    idx_t = torch.from_numpy(idx).to(cuda)
+    vals = torch.from_numpy(rng.uniform(0.0, 1e4, width)).to(cuda)
+    idx_valid = idx_t[:n].long()
+    vals_valid = vals[:n]
+    for d in (1, 8):
+        mesh = VirtualMesh(d, cuda)
+        sh = mesh.shard(col)
+        cmesh = mesh
+        entry = {
+            "ms": cuda_time_ms(lambda: tbatch.patch_rows_sharded_cuda(
+                mesh, sh, idx_t, vals), n=200),
+            "plain_ms": cuda_time_ms(lambda: tbatch.patch_rows_sharded_twin(
+                cmesh, sh, idx_t, vals), n=50, warmup=3),
+            # every shard reads the W indices; the staged rows are read
+            # and stored once
+            "bytes": d * width * 4 + n * (8 + 8),
+            "flops": 0,
+            "shape": f"W={width} D={d}",
+            "library_ms": None,
+        }
+        if d == 1:
+            entry["library_ms"] = cuda_time_ms(
+                lambda: sh.shards[0].index_copy_(0, idx_valid, vals_valid), n=200)
+        out[f"patch_rows_sharded_d{d}"] = entry
+    (sharded_chained_plan_cuda.launches, sharded_chained_plan_cuda.chunks,
+     tbatch.patch_rows_sharded_cuda.launches) = saved
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the helper processes: the twins and reference runs the checks compare
+# against, computed beside the card phases
+# ---------------------------------------------------------------------------
+
+HELPER_WAIT_S = 900.0  # how long a phase waits for one helper result
+HELPER_DIR = HERE / "build" / "chip_smoke_helpers"
+# every helper process, in the order they start, and its torch threads
+HELPER_THREADS = {"card-twins": 1, "twins-a": 2, "twins-b": 2, "host-a": 3,
+                  "host-b": 3}
+
+
+def _to_cpu(x):
+    """A twin's result (tensors in tuples and NamedTuples) on the CPU."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_cpu(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def _card():
+    from nomad_tpu_torch.device import resolve_device
+
+    return resolve_device(None)
+
+
+def _k3_cpu(si: int, scenario: str, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import chain_case
+    from nomad_tpu_torch.state.convert import chain_case_to_torch
+
+    cols, kw = chain_case(8000 + 10 * si + E, C_CHECK, N_CAND_CHECK, scenario,
+                          E, P)
+    cargs, ckwargs = chain_case_to_torch(cols, kw, "cpu", torch.float64)
+    return tbatch.chained_plan_picks_cols(*cargs, return_carry=True, **ckwargs)
+
+
+def _k5_scenarios():
+    from nomad_tpu_torch.ops.cases import (
+        POLICY_STORM_SCENARIOS,
+        STORM_SCENARIOS,
+        policy_storm_case,
+        storm_case,
+    )
+
+    # the unweighted scenarios, then the weighted ones (policy rows)
+    return [(s, storm_case, s) for s in STORM_SCENARIOS] + [
+        (s, policy_storm_case, f"policy_{s}")
+        for s in sorted(POLICY_STORM_SCENARIOS)]
+
+
+def _k5_cpu(dtype_name: str, si: int, A: int):
+    import torch
+
+    from nomad_tpu_torch.ops import solve as tsolve
+    from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
+
+    dtype = getattr(torch, dtype_name)
+    scenario, make, _tag = _k5_scenarios()[si]
+    cols, inp, max_rounds = make(9500 + 10 * si + A, A, A, C_CHECK, scenario)
+    return tsolve.storm_assignment_twin(storm_inputs(inp, "cpu", dtype),
+                                        storm_columns(cols, "cpu", dtype),
+                                        False, max_rounds)
+
+
+def _k7_cpu(si: int, scenario: str, n_cand: int, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import batch_shared_case
+    from nomad_tpu_torch.state.convert import batch_shared_inputs_from_numpy
+
+    case = batch_shared_case(9100 + 10 * si + E + P, C_CHECK, n_cand, scenario,
+                             E, P)
+    return tbatch.batch_plan_picks_shared_twin(
+        **batch_shared_inputs_from_numpy(case, "cpu", torch.float64))
+
+
+def _k9_batched_case(base: int, scenario: str, E: int, P: int):
+    from nomad_tpu_torch.ops.cases import BATCHED_SCENARIOS, batched_case
+
+    return batched_case(base + 10 * sorted(BATCHED_SCENARIOS).index(scenario) + E,
+                        C_CHECK, N_CAND_CHECK, scenario, E, P)
+
+
+def _k9_cpu(scenario: str, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.state.convert import batched_case_to_torch
+
+    cols, kw = _k9_batched_case(9300, scenario, E, P)
+    cargs, ckw = batched_case_to_torch(cols, kw, "cpu", torch.float64)
+    return tbatch.chained_plan_picks(*cargs, **ckw)
+
+
+def _k9_shared_case(scenario: str, E: int, P: int):
+    from nomad_tpu_torch.ops.cases import batch_shared_case
+
+    return batch_shared_case(9350 + E + len(scenario), C_CHECK, N_CAND_CHECK,
+                             scenario, E, P)
+
+
+def _k9_shared_cpu(scenario: str, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.state.convert import batch_shared_inputs_from_numpy
+
+    return tbatch.chained_plan_picks_shared(**batch_shared_inputs_from_numpy(
+        _k9_shared_case(scenario, E, P), "cpu", torch.float64))
+
+
+def _k10_inputs(scenario: str, nc_mode: str, E: int, P: int, dev, dtype):
+    from nomad_tpu_torch.state.convert import batched_case_to_torch
+
+    cols, kw = _k9_batched_case(9400, scenario, E, P)
+    if nc_mode == "scalar":
+        kw["n_candidates"] = int(kw["n_candidates"].min())
+    args, kwargs = batched_case_to_torch(cols, kw, dev, dtype)
+    return args, kwargs.get("spread")
+
+
+def _k10_cpu(scenario: str, nc_mode: str, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+
+    args, spread = _k10_inputs(scenario, nc_mode, E, P, "cpu", torch.float64)
+    return tbatch.batch_plan_picks(*args, spread=spread)
+
+
+K9_SHARED_SHAPES = ((8, 16), (64, 10))  # phase k9's shared-mode (E, P)
+
+
+def twin_jobs():
+    """Every CPU twin (f64, and both dtypes for K5) that the phases k3,
+    k5, k7, k9, k10 and k12 hold their kernels against, in the order
+    the phases ask for them: (key, function, arguments)."""
+    from nomad_tpu_torch.ops.cases import BATCH_SHARED_SCENARIOS, CHAIN_SCENARIOS
+
+    for si, scenario in enumerate(sorted(CHAIN_SCENARIOS)):
+        for E, P in CHAIN_SHAPES:
+            yield f"k3-{scenario}-{E}-{P}", _k3_cpu, (si, scenario, E, P)
+    for dtype_name in ("float64", "float32"):
+        for si, (_s, _make, tag) in enumerate(_k5_scenarios()):
+            for A in STORM_ROWS:
+                yield f"k5-{dtype_name}-{tag}-{A}", _k5_cpu, (dtype_name, si, A)
+    for si, scenario in enumerate(BATCH_SHARED_SCENARIOS):
+        for n_cand in K7_CANDS:
+            for E, P in K7_SHAPES:
+                yield (f"k7-{scenario}-{n_cand}-{E}-{P}", _k7_cpu,
+                       (si, scenario, n_cand, E, P))
+    for scenario in K9_SCENARIOS:
+        for E, P in BATCHED_SHAPES:
+            yield f"k9-{scenario}-{E}-{P}", _k9_cpu, (scenario, E, P)
+    for E, P in K9_SHARED_SHAPES:
+        yield f"k9s-mixed-{E}-{P}", _k9_shared_cpu, ("mixed", E, P)
+    for scenario, nc_mode in K10_CASES:
+        for E, P in BATCHED_SHAPES:
+            yield (f"k10-{scenario}-{nc_mode}-{E}-{P}", _k10_cpu,
+                   (scenario, nc_mode, E, P))
+    for key, args in _k12_params():
+        yield key, _k12_cpu_twin, args
+    for d in K12_COUNTS:
+        yield f"k12-sweep-{d}", _k12_sweep_cpu_twin, (d,)
+
+
+def _k3_card(dtype_name: str, si: int, scenario: str, E: int, P: int):
+    """Phase k3's twin on the card (the same inputs as its kernel run)."""
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import chain_case
+    from nomad_tpu_torch.state.convert import chain_case_to_torch
+
+    cols, kw = chain_case(8000 + 10 * si + E, C_CHECK, N_CAND_CHECK, scenario,
+                          E, P)
+    args, kwargs = chain_case_to_torch(cols, kw, _card(),
+                                       getattr(torch, dtype_name))
+    return _to_cpu(tbatch.chained_picks_twin(tbatch.prepare_chain(*args, **kwargs)))
+
+
+def _k5_card(dtype_name: str, si: int, A: int):
+    import torch
+
+    from nomad_tpu_torch.ops import solve as tsolve
+    from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
+
+    dtype = getattr(torch, dtype_name)
+    scenario, make, _tag = _k5_scenarios()[si]
+    cols, inp, max_rounds = make(9500 + 10 * si + A, A, A, C_CHECK, scenario)
+    card = _card()
+    return _to_cpu(tsolve.storm_assignment_twin(
+        storm_inputs(inp, card, dtype), storm_columns(cols, card, dtype), False,
+        max_rounds))
+
+
+def _k9_card(dtype_name: str, scenario: str, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.state.convert import batched_case_to_torch
+
+    cols, kw = _k9_batched_case(9300, scenario, E, P)
+    args, kwargs = batched_case_to_torch(cols, kw, _card(),
+                                         getattr(torch, dtype_name))
+    return tbatch.chained_plan_picks_twin(*args, **kwargs).cpu()
+
+
+def _k9_shared_card(dtype_name: str, scenario: str, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.state.convert import batch_shared_inputs_from_numpy
+
+    return tbatch.chained_plan_picks_shared_twin(**batch_shared_inputs_from_numpy(
+        _k9_shared_case(scenario, E, P), _card(),
+        getattr(torch, dtype_name))).cpu()
+
+
+def _k10_card(dtype_name: str, scenario: str, nc_mode: str, E: int, P: int):
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+
+    args, spread = _k10_inputs(scenario, nc_mode, E, P, _card(),
+                               getattr(torch, dtype_name))
+    return tbatch.batch_plan_picks_twin(*args, spread=spread).cpu()
+
+
+def _k12_card(dtype_name: str, scenario: str, E: int, P: int, d: int,
+              chunk=None):
+    """Phase k12's twin on a VirtualMesh of d shards on the card."""
+    import torch
+
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh, sharded_chained_plan_twin
+
+    return k12_run(VirtualMesh(d, _card()), sharded_chained_plan_twin,
+                   _k12_case(scenario, E, P), getattr(torch, dtype_name), chunk)
+
+
+def card_twin_jobs():
+    """Every twin on the card that the phases k3, k5, k9, k10 and k12
+    hold their kernels against (f64 and f32), in the order they ask for
+    them: (key, function, arguments)."""
+    from nomad_tpu_torch.ops.cases import CHAIN_SCENARIOS, SHARDED_CHAIN_SCENARIOS
+
+    both = ("float64", "float32")
+    for dt in both:
+        for si, scenario in enumerate(sorted(CHAIN_SCENARIOS)):
+            for E, P in CHAIN_SHAPES:
+                yield (f"card-k3-{dt}-{scenario}-{E}-{P}", _k3_card,
+                       (dt, si, scenario, E, P))
+    for dt in both:
+        for si, (_s, _make, tag) in enumerate(_k5_scenarios()):
+            for A in STORM_ROWS:
+                yield f"card-k5-{dt}-{tag}-{A}", _k5_card, (dt, si, A)
+    for dt in both:
+        for scenario in K9_SCENARIOS:
+            for E, P in BATCHED_SHAPES:
+                yield (f"card-k9-{dt}-{scenario}-{E}-{P}", _k9_card,
+                       (dt, scenario, E, P))
+        for E, P in K9_SHARED_SHAPES:
+            yield (f"card-k9s-{dt}-mixed-{E}-{P}", _k9_shared_card,
+                   (dt, "mixed", E, P))
+    for dt in both:
+        for scenario, nc_mode in K10_CASES:
+            for E, P in BATCHED_SHAPES:
+                yield (f"card-k10-{dt}-{scenario}-{nc_mode}-{E}-{P}", _k10_card,
+                       (dt, scenario, nc_mode, E, P))
+    for scenario in SHARDED_CHAIN_SCENARIOS:
+        for dt, counts in (("float64", K12_COUNTS), ("float32", (8,))):
+            for d in counts:
+                yield (f"card-k12-{dt}-{scenario}-{d}", _k12_card,
+                       (dt, scenario, *K12_SHAPE, d))
+    E, P, chunk = K12_FULL
+    for d in (1, 8):
+        yield (f"card-k12-full-{d}", _k12_card,
+               ("float64", "everything", E, P, d, chunk))
+
+
+def host_jobs(name: str):
+    """The path phases' reference runs, in the order they ask for them:
+    host-a the CPU twins' and the host oracle's runs of phases 4 and 8,
+    the storm, preempt, bridge and device phases; host-b the policy
+    phase's."""
+    if name == "host-a":
+        yield "main-cpu", run_stream, ("cpu",)
+        yield ("main-oracle", run_stream,
+               ("oracle", N_NODES, N_ALLOCS, None, ORACLE_EVALS))
+        yield "server-oracle", server_oracle_reference, ()
+        yield "storm-cpu", run_storm, ("cpu", True, "storm on, cpu")
+        yield "preempt-cpu", run_preempt, ("cpu",)
+        yield "preempt-oracle", run_preempt, ("oracle",)
+        yield "bridge-cpu", bridge_cpu_reference, ()
+        yield "device-cpu", device_cpu_reference, ()
+    else:
+        yield "policy-cpu", run_policy, ("cpu",)
+        yield "policy-oracle", run_policy, ("oracle", None, POLICY_ORACLE_STEPS)
+        yield ("policy-storm-cpu", run_storm,
+               ("cpu", True, "weighted storm, cpu", None, True))
+
+
+def helper_jobs(name: str) -> list:
+    """The jobs of helper `name`: (key, function, arguments)."""
+    if name == "card-twins":
+        return list(card_twin_jobs())
+    if name in ("twins-a", "twins-b"):
+        k5 = name == "twins-a"
+        return [j for j in twin_jobs() if j[0].startswith("k5-") == k5]
+    if name in ("host-a", "host-b"):
+        return list(host_jobs(name))
+    raise ValueError(f"no helper {name}")
+
+
+def helper_main(name: str, out_dir: str) -> int:
+    """A helper process: every job of `helper_jobs(name)` in order, each
+    result saved as <key>.pt (written under a temporary name, then
+    renamed), then DONE with its seconds.  Its references are twins and
+    host runs: a kernel build or launch here is a failure."""
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    from nomad_tpu_torch.ops import _cuda
+
+    def no_kernels(*_args, **_kwargs):
+        raise SmokeFailure(f"helper {name} reached a kernel")
+
+    _cuda.build_all = _cuda.library = no_kernels
+    torch.set_num_threads(HELPER_THREADS[name])
+    out = Path(out_dir)
+    t_all = time.perf_counter()
+    for key, fn, args in helper_jobs(name):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        tmp = out / f"{key}.pt.tmp"
+        torch.save(result, tmp)
+        os.replace(tmp, out / f"{key}.pt")
+        log(f"{name} {key}: {time.perf_counter() - t0:.2f} s")
+    (out / "DONE").write_text(f"{time.perf_counter() - t_all:.1f}\n")
+    return 0
+
+
+class Helper:
+    """One helper process, started at the top of the script with its
+    torch threads capped, while the card phases run; a phase takes each
+    result from it when it needs it (`get`)."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.dir = HELPER_DIR / name
+        self.proc = None
+        self.log_file = None
+
+    def start(self) -> None:
+        import shutil
+
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        threads = str(HELPER_THREADS[self.name])
+        env = dict(os.environ, OMP_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+        self.log_file = open(self.dir / "log.txt", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--helper", self.name,
+             str(self.dir)], cwd=str(HERE), env=env,
+            stdout=self.log_file, stderr=subprocess.STDOUT)
+
+    def _tail(self) -> str:
+        try:
+            return (self.dir / "log.txt").read_text()[-2000:]
+        except OSError:
+            return ""
+
+    def get(self, key: str):
+        import torch
+
+        path = self.dir / f"{key}.pt"
+        deadline = time.monotonic() + HELPER_WAIT_S
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                raise SmokeFailure(
+                    f"helper {self.name} exited {self.proc.returncode} before "
+                    f"{key}: {self._tail()}")
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"no result {key} from helper {self.name} "
+                                   f"within {HELPER_WAIT_S} s")
+            time.sleep(0.05)
+        return torch.load(path, weights_only=False)
+
+    def wait(self, timeout: float) -> None:
+        """Until the process has ended; a failure if it failed or is
+        still running after `timeout` seconds."""
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"helper {self.name} still running after "
+                               f"{timeout} s") from None
+        if rc != 0:
+            raise SmokeFailure(f"helper {self.name} exited {rc}: {self._tail()}")
+
+    def finished_s(self):
+        """The process's own seconds once it is done, else None."""
+        done = self.dir / "DONE"
+        return float(done.read_text()) if done.exists() else None
+
+    def stop(self) -> None:
+        if self.proc is not None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self.proc.wait(30)
+        if self.log_file is not None:
+            self.log_file.close()
+
+
+class Helpers:
+    """Every helper process, and which of them computes each result."""
+
+    def __init__(self) -> None:
+        self.procs = {}
+        self.owner = {}
+
+    def start(self) -> None:
+        for name in HELPER_THREADS:
+            helper = self.procs[name] = Helper(name)
+            helper.start()
+            for key, _fn, _args in helper_jobs(name):
+                self.owner[key] = helper
+
+    def get(self, key: str):
+        if key not in self.owner:
+            raise SmokeFailure(f"no helper computes {key}")
+        return self.owner[key].get(key)
+
+    def wait_all(self, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        for helper in self.procs.values():
+            helper.wait(max(0.0, deadline - time.monotonic()))
+
+    def seconds(self) -> dict:
+        return {name: h.finished_s() for name, h in self.procs.items()}
+
+    def stop(self) -> None:
+        for helper in self.procs.values():
+            helper.stop()
+
+
+HELPERS = Helpers()
+
+
 PATH_PHASES = ("main", "server", "storm", "preempt", "policy", "bridge",
                "device", "bench")
 
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--helper":
+        return helper_main(sys.argv[2], sys.argv[3])
+    if not os.environ.get("PYTHONHASHSEED", "").isdigit():
+        # one hash seed for this process and every helper it starts
+        os.environ["PYTHONHASHSEED"] = str(random.randrange(1, 2**32))
+        os.execv(sys.executable, [sys.executable, str(Path(__file__).resolve()),
+                                  *sys.argv[1:]])
     if not (HERE / "nomad_tpu_torch" / "csrc").is_dir():
         log("chip_smoke.py must run from a checkout of the repository "
             "(nomad_tpu_torch/ not found beside it)")
@@ -3261,15 +4454,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(HERE))
     from nomad_tpu_torch.device import device_report, resolve_device
-    from nomad_tpu_torch.ops import _cuda
 
     t_start = time.perf_counter()
     cuda = resolve_device(None)
     rep = device_report(cuda)
     smi = rep["nvidia_smi"] or "nvidia-smi unavailable"
     card = f"{rep['name']} ({smi})"
-    print(f"device: {rep['name']}, count {rep['count']}, nvidia-smi: {smi}",
-          flush=True)
+    print(f"device: {rep['name']}, count {rep['count']}, nvidia-smi: {smi}; "
+          f"PYTHONHASHSEED {os.environ['PYTHONHASHSEED']}", flush=True)
+    # the twins and reference runs of the checks run beside the card phases
+    HELPERS.start()
+    try:
+        return _build_and_run(cuda, card, smi, t_start)
+    finally:
+        close_nccl()
+        HELPERS.stop()
+
+
+def _build_and_run(cuda, card, smi, t_start) -> int:
+    from nomad_tpu_torch.ops import _cuda
+
     t0 = time.perf_counter()
     built = _cuda.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f}s (parallel nvcc): "
@@ -3282,15 +4486,22 @@ def main() -> int:
 
     from nomad_tpu_torch.ops import batch as tbatch
     from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.parallel.mesh import sharded_chained_plan_cuda
 
-    # the two programs no path of either package calls: their counts are
-    # set to 0 before every phase and read after it
+    import torch
+
+    # the two programs no path of either package calls, and K12 and K13,
+    # whose path is the bench's multichip block: their counts are set to
+    # 0 before every phase and read after it
     uncalled = {"chained_plan_picks_shared": tbatch.chained_plan_picks_shared_cuda,
-                "score_all": tscore.score_all_cuda}
+                "score_all": tscore.score_all_cuda,
+                "sharded_chained_plan": sharded_chained_plan_cuda,
+                "patch_rows_sharded": tbatch.patch_rows_sharded_cuda}
     uncalled_by_phase = {}
     failures = []
     results = {}
     pauses = {}
+    split = {}
     gc.callbacks.append(GC_PAUSES)
     for name, fn in (("k1", lambda: check_k1(cuda)),
                      ("k2", lambda: check_k2(cuda)),
@@ -3309,23 +4520,38 @@ def main() -> int:
                      ("k9", lambda: check_k9(cuda)),
                      ("k10", lambda: check_k10(cuda)),
                      ("k11", lambda: check_k11(cuda)),
+                     ("k12", lambda: check_k12(cuda)),
+                     ("k13", lambda: check_k13(cuda)),
                      ("device", lambda: check_device(cuda, card)),
                      ("bench", lambda: check_bench(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
         GC_PAUSES.reset()
+        SPLIT.reset()
         for wrapper in uncalled.values():
             wrapper.launches = 0
         try:
+            if name == "device":
+                # the supervisor's watchdogs run with no helper beside them
+                with SPLIT("wait"):
+                    HELPERS.wait_all(HELPER_WAIT_S)
             results[name] = fn()
         except SmokeFailure as e:
             failures.append(f"{name}: {e}")
             print(f"FAILED {name}: {e}", flush=True)
         uncalled_by_phase[name] = {k: w.launches for k, w in uncalled.items()}
         pauses[name] = GC_PAUSES.summary()
-        log(f"phase {name}: {time.perf_counter() - t0:.1f}s; collector "
+        total = time.perf_counter() - t0
+        split[name] = dict(SPLIT.seconds, total=total, card=total - sum(
+            SPLIT.seconds.values()))
+        log(f"phase {name}: {total:.1f}s, ending {time.perf_counter() - t_start:.1f}s "
+            f"after the start; host seconds by kind "
+            f"{json.dumps(split[name])}; collector "
             f"pauses inside it {json.dumps(pauses[name])}")
     gc.callbacks.remove(GC_PAUSES)
+    print(f"phase seconds (host clock; world builds, waits for the helper "
+          f"processes, the rest on the card): "
+          f"{json.dumps(split)}", flush=True)
     worst = max(pauses, key=lambda k: pauses[k]["max_s"])
     print(f"collector pauses (host clock, gc.callbacks; the harness's own "
           f"collections between worlds left out): longest {pauses[worst]['max_s']:.3f} s "
@@ -3334,10 +4560,18 @@ def main() -> int:
           f"full collection over a live world at most "
           f"{GC_PAUSES.world_collect_s:.3f} s; by phase {json.dumps(pauses)}",
           flush=True)
-    # each check of the two launched its kernel once, and no path did
+    print(f"the helper processes (torch threads {json.dumps(HELPER_THREADS)}) "
+          f"took {json.dumps(HELPERS.seconds())} s of their own beside the "
+          f"card phases", flush=True)
+    # each check of the two launched its kernel once, and no path did;
+    # K12 and K13 as their checks' reads
     checked = {"chained_plan_picks_shared": uncalled_by_phase["k9"][
                    "chained_plan_picks_shared"],
-               "score_all": uncalled_by_phase["k11"]["score_all"]}
+               "score_all": uncalled_by_phase["k11"]["score_all"],
+               "sharded_chained_plan": uncalled_by_phase["k12"][
+                   "sharded_chained_plan"],
+               "patch_rows_sharded": uncalled_by_phase["k13"][
+                   "patch_rows_sharded"]}
     if not failures:
         for name, want in (("chained_plan_picks_shared",
                             results["k9"]["shared_cases"]),
@@ -3358,8 +4592,9 @@ def main() -> int:
     # the bench's path (its own process, counts from 0): K9 and K10
     for name in ("chained_plan_picks", "batch_plan_picks"):
         launches[name] = results["bench"]["launches"][name]
-    # no caller in either package: their counts read over every path's
-    # phase (the bench's from its own process)
+    # no caller in either package, or (K12, K13) the bench's multichip
+    # block alone: their counts read over every path's phase (the
+    # bench's from its own process)
     for name in uncalled:
         launches[name] = results["bench"]["launches"][name] + sum(
             uncalled_by_phase[p][name] for p in PATH_PHASES)
@@ -3389,6 +4624,10 @@ def main() -> int:
          "nomad_tpu/ops/batch.py:1391", "k10"),
         ("score_all", "nomad_tpu_torch/csrc/score_all.cu",
          "nomad_tpu/ops/score.py:282", "k11"),
+        ("sharded_chained_plan", "nomad_tpu_torch/csrc/sharded_chain.cu",
+         "nomad_tpu/parallel/mesh.py:484", "k12"),
+        ("patch_rows_sharded", "nomad_tpu_torch/csrc/patch_rows_sharded.cu",
+         "nomad_tpu/ops/batch.py:1130", "k13"),
     ):
         tm = results["timing"][name]
         kernels.append({
@@ -3407,6 +4646,16 @@ def main() -> int:
         if "arena16k" in tm:
             kernels[-1]["arena16k"] = {k: tm["arena16k"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")}
+        if "d8" in tm:
+            # eight shards of a VirtualMesh on the one card
+            kernels[-1]["d8"] = {k: tm["d8"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
+        if name == "sharded_chained_plan":
+            kernels[-1]["chunks"] = results["bench"]["launches"][
+                "sharded_chained_plan_chunks"]
+            kernels[-1]["launches_per_chunk"] = {
+                "d1": tm["launches_per_chunk"],
+                "d8": tm["d8"]["launches_per_chunk"]}
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -30,6 +30,18 @@ The kernel-only numbers time the chained planner (kernel K9,
 not change between launches on the card before the timed loop and only
 the per-eval walk orders made and copied in it.
 
+The ``multichip`` block (`BENCH_MULTICHIP`, on by default) is the
+JAX bench's `bench_multichip`: `parallel/multichip.py multichip_sweep`
+drives the node-sharded chained planner (kernel K12) chunk by chunk with
+its sharded usage carry, and one sharded mirror patch (kernel K13), at
+each shard count: on the card through a `DistMesh` over an NCCL group
+(one rank: the card count), on the CPU on a `VirtualMesh` of 1, 2, 4
+and 8 shards.  Its ``per_device_flops`` and
+``flops_scaling_first_to_last`` (XLA's cost analysis) have no source in
+the port, and its ``multihost`` row waits for `dist_smoke.py`, which
+drives the batch worker's mesh path: both are left out.  A failed sweep
+fails the bench.
+
 The main path computes in f64.  Nothing here catches a device failure:
 a failed build, launch or a `DeviceFault` ends the run non-zero.
 
@@ -83,6 +95,7 @@ class Knobs:
     sweep_jobs: int = 64  # jobs per offered-load point (3 points)
     kernel_nodes: int = 2_000
     kernel_e: int = 64
+    multichip: bool = True  # BENCH_MULTICHIP
 
     @classmethod
     def from_env(cls, env=os.environ) -> "Knobs":
@@ -96,6 +109,7 @@ class Knobs:
             sweep_jobs=int(env.get("BENCH_SWEEP_JOBS", 64)),
             kernel_nodes=int(env.get("BENCH_KERNEL_NODES", min(nodes, 2000))),
             kernel_e=int(env.get("BENCH_KERNEL_E", 64)),
+            multichip=env.get("BENCH_MULTICHIP", "1") == "1",
         )
 
 
@@ -507,6 +521,23 @@ def bench_kernel_only(knobs: Knobs, device) -> Dict[str, float]:
     return results
 
 
+def bench_multichip(device) -> Dict:
+    """The ``multichip`` block: the sharded chained pipeline over shard
+    counts (`parallel/multichip.py`).  Nothing is caught: a failed
+    sweep ends the bench non-zero."""
+    from .parallel.multichip import multichip_sweep
+
+    t0 = time.time()
+    block = multichip_sweep(device=device)
+    for p in block["points"]:
+        log(f"multichip d={p['n_devices']} ({block['mesh']}): "
+            f"{p['placements_per_sec']} placements/s, "
+            f"{p['bytes_per_flush_delta']}B delta vs "
+            f"{p['bytes_per_flush_full']}B full per flush")
+    log(f"multichip sweep in {time.time() - t0:.1f}s")
+    return block
+
+
 def _preflight(device) -> None:
     """Bounded device check before the world is built: the device
     supervisor's canary (kernel K8), retried until the card answers or
@@ -526,10 +557,12 @@ def _preflight(device) -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Launches in this process of the bench path's kernels, K3 and K4
-    (the batched Server), K9 and K10 (the kernel-only phase), and of the
-    two programs no path calls, K9's shared mode and K11."""
+    (the batched Server), K9 and K10 (the kernel-only phase), K12 (its
+    stage launches and its chunks) and K13 (the multichip block), and of
+    the two programs no path calls, K9's shared mode and K11."""
     from .ops import batch as tbatch
     from .ops import score as tscore
+    from .parallel.mesh import sharded_chained_plan_cuda
 
     return {
         "chained_picks": tbatch.chained_picks_cuda.launches,
@@ -539,6 +572,9 @@ def launch_counts() -> Dict[str, int]:
         "chained_plan_picks_shared":
             tbatch.chained_plan_picks_shared_cuda.launches,
         "score_all": tscore.score_all_cuda.launches,
+        "sharded_chained_plan": sharded_chained_plan_cuda.launches,
+        "sharded_chained_plan_chunks": sharded_chained_plan_cuda.chunks,
+        "patch_rows_sharded": tbatch.patch_rows_sharded_cuda.launches,
     }
 
 
@@ -552,12 +588,13 @@ def run(knobs: Knobs, device) -> Dict:
     _preflight(device)
     e2e = bench_e2e(knobs, device)
     kernel = bench_kernel_only(knobs, device)
+    multichip = bench_multichip(device) if knobs.multichip else None
     parity_ok = e2e["same"] == e2e["n_check"]
     if not parity_ok:
         log(f"PARITY FAILURE: {e2e['same']}/{e2e['n_check']} — zeroing "
             f"vs_baseline")
     oracle_rate, rate = e2e["oracle_rate"], e2e["rate"]
-    return {
+    out = {
         "metric": METRIC,
         "value": round(rate, 1),
         "unit": "placements/s",
@@ -585,6 +622,11 @@ def run(knobs: Knobs, device) -> Dict:
         "device": {"name": report["name"], "nvidia_smi": report["nvidia_smi"],
                    "count": report["count"]},
     }
+    if multichip is not None:
+        # the sharded hot path: placements/s and host->device bytes per
+        # flush (delta vs full) against the shard count
+        out["multichip"] = multichip
+    return out
 
 
 def main(argv=None) -> int:

@@ -42,6 +42,8 @@ SOURCES = {
     "chained_batch": "chained_batch.cu",
     "batch_plan": "batch_plan.cu",
     "score_all": "score_all.cu",
+    "sharded_chain": "sharded_chain.cu",
+    "patch_rows_sharded": "patch_rows_sharded.cu",
 }
 HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh")
 
@@ -777,3 +779,146 @@ def launch_score_all(cols, out_feasible, out_final, *, tput_term,
     args.is_f64 = int(cols["cpu_total"].dtype == torch.float64)
     args.device = dev.index
     _launch("score_all", "nk_score_all", args, dev)
+
+
+_SC_PTRS = (
+    "tot_cpu", "tot_mem", "tot_disk", "use_cpu", "use_mem", "use_disk",
+    "coll", "feas_in", "aff_in", "coll0_in", "codes_in", "perm", "ask_cpu",
+    "ask_mem", "ask_disk", "desired", "limit", "wanted", "n_cand", "dh",
+    "evict_rows", "evict_cpu", "evict_mem", "evict_disk", "evict_coll",
+    "pen_rows", "pre_rows", "pre_cpu", "pre_mem", "pre_disk", "sp_desired",
+    "sp_used0", "sp_prop0", "sp_clr0", "sp_weight", "sp_active", "sp_even",
+    "off", "dead", "prop", "clr", "ev_oh", "oh", "rows_out", "pulls_out",
+    "final_g", "feas_g", "g_bad", "g_nd", "g_fin", "final_l", "feas_l",
+    "s_p", "f_p", "rec_bad", "rec_nd", "rec_fin", "oh_l", "ev_oh_l",
+)
+_SC_INTS = ("E", "P", "C", "Cl", "D", "shard", "K", "R", "S", "V1", "e", "k",
+            "stage", "spread_fit", "is_f64", "device")
+
+
+class ShardedChainArgs(ctypes.Structure):
+    """Mirror of `ShardedChainArgs` in csrc/sharded_chain.cu."""
+
+    _fields_ = [(name, _P) for name in _SC_PTRS] + [
+        (name, _I) for name in _SC_INTS]
+
+
+class ShardedChainStages:
+    """K12's stages for one chain (`parallel/mesh.py _drive`): one args
+    block per local shard and one for the process, filled once; a
+    launch sets the stage, eval and pick and calls the library on the
+    current stream.  `launched` counts the kernel launches."""
+
+    BEGIN, PROLOGUE, SCORE, WALK_BAD, WALK_ND, WALK_FIN, COMMIT, ADVANCE = range(8)
+
+    def __init__(self, c) -> None:
+        lib = library("sharded_chain")
+        self._fn = lib.nk_sharded_chain
+        self._fn.argtypes = [ctypes.POINTER(ShardedChainArgs), _P]
+        self._fn.restype = _I
+        self._err = lib.nk_error_string
+        dev = c.final_g.device
+        code = lib.nk_set_device(dev.index)
+        if code != 0:
+            raise RuntimeError(f"nk_set_device: {self._err(code).decode()}")
+        self._stream = _P(torch.cuda.current_stream(dev).cuda_stream)
+        self.launched = 0
+        sp = c.spread
+        common = dict(
+            perm=c.perm, ask_cpu=c.ask[0], ask_mem=c.ask[1], ask_disk=c.ask[2],
+            desired=c.desired, limit=c.limit, wanted=c.wanted,
+            n_cand=c.n_cand, dh=c.dh, evict_rows=c.ev_rows,
+            evict_cpu=c.ev_vals[0], evict_mem=c.ev_vals[1],
+            evict_disk=c.ev_vals[2], evict_coll=c.ev_coll,
+            pen_rows=c.pen_rows, pre_rows=c.pre_rows, pre_cpu=c.pre_vals[0],
+            pre_mem=c.pre_vals[1], pre_disk=c.pre_vals[2],
+            sp_desired=c.sp_desired if sp else None,
+            sp_used0=c.sp_used0 if sp else None,
+            sp_prop0=c.sp_prop0 if sp else None,
+            sp_clr0=c.sp_clr0 if sp else None,
+            sp_weight=c.sp_weight if sp else None,
+            sp_active=c.sp_active if sp else None,
+            sp_even=c.sp_even if sp else None,
+            off=c.off, dead=c.dead, prop=c.prop, clr=c.clr, ev_oh=c.ev_oh,
+            oh=c.oh, rows_out=c.rows, pulls_out=c.pulls, final_g=c.final_g,
+            feas_g=c.feas_g, g_bad=c.g_bad, g_nd=c.g_nd, g_fin=c.g_fin,
+        )
+        dims = dict(E=c.E, P=c.P, C=c.C, Cl=c.size, D=c.D, K=c.K, R=c.R,
+                    S=c.S, V1=c.V1, spread_fit=int(c.spread_fit),
+                    is_f64=int(c.dtype == torch.float64), device=dev.index)
+
+        def block(sh):
+            args = ShardedChainArgs()
+            ptrs = dict(common)
+            if sh is not None:
+                ptrs.update(
+                    tot_cpu=sh.tot[0], tot_mem=sh.tot[1], tot_disk=sh.tot[2],
+                    use_cpu=sh.use[0], use_mem=sh.use[1], use_disk=sh.use[2],
+                    coll=sh.coll, feas_in=sh.feas, aff_in=sh.aff,
+                    coll0_in=sh.coll0, codes_in=sh.codes, final_l=sh.final_l,
+                    feas_l=sh.feas_l, s_p=sh.s_p, f_p=sh.f_p,
+                    rec_bad=sh.rec_bad, rec_nd=sh.rec_nd, rec_fin=sh.rec_fin,
+                    oh_l=sh.oh_l, ev_oh_l=sh.ev_oh_l)
+            _fill(args, ptrs, dev)
+            for name, v in dims.items():
+                setattr(args, name, v)
+            args.shard = -1 if sh is None else sh.s
+            return args
+
+        self._proc = block(None)
+        self._args = {id(sh): block(sh) for sh in c.shards}
+
+    def _go(self, args, stage: int, e: int, k: int = 0) -> None:
+        args.stage = stage
+        args.e = e
+        args.k = k
+        code = self._fn(ctypes.byref(args), self._stream)
+        if code != 0:
+            raise RuntimeError(
+                f"nk_sharded_chain stage {stage} launch failed: "
+                f"{self._err(code).decode()} ({code})")
+        self.launched += 1
+
+    def begin(self, c, e):
+        self._go(self._proc, self.BEGIN, e)
+
+    def prologue(self, c, sh, e):
+        self._go(self._args[id(sh)], self.PROLOGUE, e)
+
+    def score(self, c, sh, e, k):
+        self._go(self._args[id(sh)], self.SCORE, e, k)
+
+    def walk_bad(self, c, sh, e):
+        self._go(self._args[id(sh)], self.WALK_BAD, e)
+
+    def walk_nd(self, c, sh, e):
+        self._go(self._args[id(sh)], self.WALK_ND, e)
+
+    def walk_fin(self, c, sh, e):
+        self._go(self._args[id(sh)], self.WALK_FIN, e)
+
+    def commit(self, c, sh, e, k):
+        self._go(self._args[id(sh)], self.COMMIT, e, k)
+
+    def advance(self, c, e, k):
+        self._go(self._proc, self.ADVANCE, e, k)
+
+
+class PatchRowsShardedArgs(ctypes.Structure):
+    """Mirror of `PatchRowsShardedArgs` in csrc/patch_rows_sharded.cu."""
+
+    _fields_ = [
+        ("col", _P), ("idx", _P), ("vals", _P),
+        ("lo", _I), ("size", _I), ("W", _I), ("is_f64", _I), ("device", _I),
+    ]
+
+
+def launch_patch_rows_sharded(col, idx, vals, lo: int) -> None:
+    """K13 on the current stream for one shard: col[idx - lo] = vals
+    where 0 <= idx - lo < size."""
+    dev = col.device
+    args = PatchRowsShardedArgs(
+        col.data_ptr(), idx.data_ptr(), vals.data_ptr(), lo, col.shape[0],
+        idx.shape[0], int(col.dtype == torch.float64), dev.index,
+    )
+    _launch("patch_rows_sharded", "nk_patch_rows_sharded", args, dev)

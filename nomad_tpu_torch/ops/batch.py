@@ -1644,3 +1644,63 @@ def patch_rows(col, idx, vals):
     if col.device.type == "cpu":
         return patch_rows_twin(col, idx, vals)
     return patch_rows_cuda(col, idx, vals)
+
+
+def _check_patch_sharded(mesh, col, idx, vals):
+    shards = col.shards
+    if len(shards) != len(mesh.local_shards):
+        raise ValueError("a Sharded column of another mesh")
+    for t in shards:
+        _check_patch(t, idx, vals)
+
+
+def patch_rows_sharded_twin(mesh, col, idx, vals):
+    """`patch_rows` on a node-sharded column (`parallel.mesh.Sharded`):
+    every shard receives the replicated (idx, vals) staging and stores
+    only the rows in its own range [lo, lo + size); padding (idx == C)
+    is dropped on every shard.  In place; returns col."""
+    _check_patch_sharded(mesh, col, idx, vals)
+    for s, t in zip(mesh.local_shards, col.shards):
+        size = t.shape[0]
+        local = idx.long() - s * size
+        keep = (local >= 0) & (local < size)
+        t[local[keep]] = vals[keep]
+    return col
+
+
+def patch_rows_sharded_cuda(mesh, col, idx, vals):
+    """K13 on the current stream: the same scatter, one launch per local
+    shard (K4's one thread per staged index, with the shard's lo and
+    size).  `launches` counts kernel launches.  A failed build or launch
+    raises `DeviceFault`.  Returns col."""
+    from ..device.core import DeviceFault
+    from . import _cuda
+
+    _check_patch_sharded(mesh, col, idx, vals)
+    if mesh.device.type != "cuda":
+        raise ValueError(f"patch_rows_sharded_cuda needs a mesh on the card, "
+                         f"got {mesh.device}")
+    idx = idx.contiguous()
+    vals = vals.contiguous()
+    for s, t in zip(mesh.local_shards, col.shards):
+        if not t.is_contiguous():
+            raise ValueError("patch_rows_sharded_cuda patches contiguous shards")
+        try:
+            _cuda.launch_patch_rows_sharded(t, idx, vals, s * t.shape[0])
+        except RuntimeError as exc:  # a build, bind or launch failure
+            raise DeviceFault(f"K13 patch_rows_sharded failed: {exc}") from exc
+        patch_rows_sharded_cuda.launches += 1
+    return col
+
+
+patch_rows_sharded_cuda.launches = 0
+
+
+def patch_rows_sharded(mesh, col, idx, vals):
+    """The delta-sync primitive of a node-sharded usage mirror: each
+    shard of `col` (a `Sharded` column of `mesh`) stores the staged rows
+    in its range, in place.  K13 on a mesh on the card, the twin on the
+    CPU."""
+    if mesh.device.type == "cpu":
+        return patch_rows_sharded_twin(mesh, col, idx, vals)
+    return patch_rows_sharded_cuda(mesh, col, idx, vals)

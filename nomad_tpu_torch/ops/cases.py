@@ -844,3 +844,118 @@ def batch_shared_case(seed: int, C: int, n_cand: int, scenario: str,
         desired_count=counts, limit=limit, n_candidates=n_cand,
         n_picks=P,
     )
+
+
+# -- K12: the node-sharded chained planner ----------------------------------
+
+SHARDED_CHAIN_SCENARIOS = ("plain", "everything", "spread_percent",
+                           "spread_even")
+
+
+def sharded_chain_case(seed: int, C: int, n_cand: int, scenario: str,
+                       E: int, P: int) -> dict:
+    """Inputs of the sharded chained planner (JAX
+    `parallel/mesh.py sharded_chained_plan`, K12) in its per-eval scalar
+    layout, as numpy: ``cols`` (cpu_total, mem_total, disk_total,
+    used_cpu, used_mem, used_disk), ``per_eval`` (feasible [E, C], perm,
+    ask_cpu, ask_mem, ask_disk, desired_count, limits, wanted,
+    n_candidates, distinct_hosts, coll0, affinity), ``deltas`` (the
+    StepDeltas fields), ``pre`` (PreDeltas), ``spread`` (SpreadInputs
+    fields, or None) and ``spread_even``.
+
+    "plain" has no deltas; "everything" adds evictions, penalty rows,
+    pre-deltas, distinct_hosts, collisions, affinity and evals whose
+    `wanted` stops early (one wants nothing); "spread_percent" and
+    "spread_even" add two spread stanzas (the second even-mode in the
+    latter) with evictions that clear value slots."""
+    if scenario not in SHARDED_CHAIN_SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}")
+    rng = np.random.default_rng(seed)
+    K, R, S, V1 = 4, 2, 2, 5
+    cols = (
+        rng.choice([4000.0, 8000.0, 16000.0], C),
+        rng.choice([8192.0, 16384.0, 32768.0], C),
+        np.full(C, 100_000.0),
+        rng.integers(0, 3000, C).astype(np.float64),
+        rng.integers(0, 6000, C).astype(np.float64),
+        rng.integers(0, 500, C).astype(np.float64),
+    )
+    feasible = np.zeros((E, C), dtype=bool)
+    perms = np.zeros((E, C), np.int32)
+    for e in range(E):
+        feasible[e, :n_cand] = rng.random(n_cand) > 0.1
+        perms[e] = np.concatenate(
+            [rng.permutation(n_cand), np.arange(n_cand, C)])
+    everything = scenario == "everything"
+    spread = scenario.startswith("spread")
+    coll0 = np.zeros((E, C), np.int32)
+    affinity = np.zeros((E, C))
+    dh = np.zeros(E, bool)
+    wanted = np.full(E, P, np.int32)
+    limits = np.full(E, 2 + P // 2, np.int32)
+    if everything:
+        coll0 = (rng.random((E, C)) > 0.9).astype(np.int32)
+        affinity = np.where(rng.random((E, C)) > 0.8,
+                            rng.choice([0.35, -0.5], (E, C)), 0.0)
+        dh[1::3] = True
+        wanted = rng.integers(1, P + 1, E).astype(np.int32)
+        wanted[E // 2] = 0
+    if spread:
+        limits = np.full(E, 2**31 - 1, np.int32)  # spreads lift the limit
+    evicting = everything or spread
+    ev_rows = np.full((E, P), -1, np.int32)
+    pen_rows = np.full((E, P, K), -1, np.int32)
+    if evicting:
+        ev_rows = np.where(rng.random((E, P)) > 0.6,
+                           rng.integers(0, n_cand, (E, P)), -1).astype(np.int32)
+    if everything:
+        pen_rows = np.where(rng.random((E, P, K)) > 0.8,
+                            rng.integers(0, n_cand, (E, P, K)),
+                            -1).astype(np.int32)
+    deltas = dict(
+        evict_rows=ev_rows,
+        evict_cpu=np.full((E, P), -500.0),
+        evict_mem=np.full((E, P), -256.0),
+        evict_disk=np.full((E, P), -30.0),
+        evict_coll=np.where(ev_rows >= 0, -1, 0).astype(np.int32)
+        if everything else np.zeros((E, P), np.int32),
+        penalty_rows=pen_rows,
+    )
+    pre = dict(rows=np.zeros((E, R), np.int32), cpu=np.zeros((E, R)),
+               mem=np.zeros((E, R)), disk=np.zeros((E, R)))
+    if everything:
+        pre = dict(rows=rng.integers(0, n_cand, (E, R)).astype(np.int32),
+                   cpu=np.full((E, R), -100.0), mem=np.full((E, R), -128.0),
+                   disk=np.full((E, R), 7.0))
+    per_eval = dict(
+        feasible=feasible, perm=perms,
+        ask_cpu=rng.choice([300.0, 500.0, 1200.0], E),
+        ask_mem=rng.choice([256.0, 512.0, 2048.0], E),
+        ask_disk=np.full(E, 300.0),
+        desired_count=rng.integers(2, 8, E).astype(np.int32),
+        limits=limits, wanted=wanted,
+        n_candidates=np.full(E, n_cand, np.int32),
+        distinct_hosts=dh, coll0=coll0, affinity=affinity,
+    )
+    sp = None
+    if spread:
+        even = np.zeros((E, S), dtype=bool)
+        if scenario == "spread_even":
+            even[:, 1] = True
+        sp = dict(
+            codes=rng.integers(0, V1, (E, S, C)).astype(np.int32),
+            desired=rng.integers(1, 5, (E, S, V1)).astype(np.float64),
+            used0=rng.integers(0, 3, (E, S, V1)).astype(np.float64),
+            proposed0=rng.integers(0, 2, (E, S, V1)).astype(np.float64),
+            cleared0=rng.integers(0, 2, (E, S, V1)).astype(np.float64),
+            weight=np.full((E, S), 0.5),
+            active=np.ones((E, S), dtype=bool),
+            even=even,
+        )
+    return dict(cols=cols, per_eval=per_eval, deltas=deltas, pre=pre,
+                spread=sp, spread_even=scenario == "spread_even")
+
+
+SHARDED_PER_EVAL = ("feasible", "perm", "ask_cpu", "ask_mem", "ask_disk",
+                    "desired_count", "limits", "wanted", "n_candidates",
+                    "distinct_hosts", "coll0", "affinity")

@@ -419,3 +419,57 @@ def storm_columns(cols: Dict[str, Any], device, dtype=torch.float64):
         for k in ("cpu_total", "mem_total", "disk_total", "cpu_used",
                   "mem_used", "disk_used")
     )
+
+
+def _fields_of(x) -> Dict[str, Any]:
+    """A NamedTuple's (or dict's) fields by name: the JAX package's
+    StepDeltas / PreDeltas / SpreadInputs are read this way, so nothing
+    of it is imported."""
+    if isinstance(x, dict):
+        return x
+    return {f: getattr(x, f) for f in x._fields}
+
+
+# the float members of the sharded runner's per-eval tuple
+_SHARDED_FLOATS = (2, 3, 4, 11)
+
+
+def sharded_chain_args(cols, per_eval, spread=None, device="cpu",
+                       dtype=torch.float64) -> tuple:
+    """The positional arguments of the port's `sharded_chained_plan`
+    runner from the JAX runner's host inputs (the tuples of
+    `parallel/multichip.py _chain_inputs`, the tests' arrays): `cols` is
+    (cpu_total, mem_total, disk_total, used0_cpu, used0_mem, used0_disk)
+    and `per_eval` (feasible [E, C], perm, ask_cpu, ask_mem, ask_disk,
+    desired_count, limits, wanted, n_candidates, distinct_hosts, coll0,
+    affinity, StepDeltas, PreDeltas), the two NamedTuples (or dicts) read
+    by field name; `spread` a SpreadInputs or its dict.  Tensors on
+    `device`, floats in `dtype`, masks bool, the rest int32."""
+    out = [_tensor(np.asarray(c), dtype, device) for c in cols]
+    for i, x in enumerate(per_eval[:12]):
+        x = np.asarray(x)
+        if i in _SHARDED_FLOATS:
+            want = dtype
+        elif x.dtype == np.bool_:
+            want = torch.bool
+        else:
+            want = torch.int32
+        out.append(_tensor(x, want, device))
+    out.append(step_deltas_from_numpy(_fields_of(per_eval[12]), device, dtype))
+    out.append(pre_deltas_from_numpy(_fields_of(per_eval[13]), device, dtype))
+    if spread is not None:
+        fields = dict(_fields_of(spread))
+        fields.pop("group", None)
+        out.append(spread_inputs_from_numpy(fields, device, dtype))
+    return tuple(out)
+
+
+def sharded_case_args(case: Dict[str, Any], device="cpu",
+                      dtype=torch.float64) -> tuple:
+    """`sharded_chain_args` of an `ops/cases.py sharded_chain_case`."""
+    from ..ops.cases import SHARDED_PER_EVAL
+
+    per_eval = tuple(case["per_eval"][k] for k in SHARDED_PER_EVAL) + (
+        case["deltas"], case["pre"])
+    return sharded_chain_args(case["cols"], per_eval, case["spread"],
+                              device, dtype)

@@ -146,7 +146,7 @@ KEYS = {
     "parity_identical_evals", "e2e_stage_times_s", "e2e_prescore_share",
     "e2e_replay_share", "replay_conflict_rate", "replay_counters",
     "kernel_batch_placements_per_sec", "kernel_chained_placements_per_sec",
-    "e2e_jobs_fully_placed", "device",
+    "e2e_jobs_fully_placed", "device", "multichip",
 }
 
 

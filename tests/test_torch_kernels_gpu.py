@@ -2,7 +2,10 @@
 (csrc/chained_picks.cu), K4 (csrc/patch_rows.cu), K5
 (csrc/storm_solve.cu), K6 (csrc/walk_only.cu), K7 (csrc/batch_picks.cu),
 K8 (csrc/canary.cu), K9 (csrc/chained_batch.cu, per-eval and shared),
-K10 (csrc/batch_plan.cu) and K11 (csrc/score_all.cu) against their plain
+K10 (csrc/batch_plan.cu), K11 (csrc/score_all.cu), K12
+(csrc/sharded_chain.cu, the node-sharded chained planner on a
+VirtualMesh of 1, 2, 4 and 8 shards) and K13 (csrc/patch_rows_sharded.cu)
+against their plain
 twins, on the card and on the CPU, at the main path's width (a
 16,384-row arena with 10,000 candidates; K5 with 8 and 1,024 rows; K6 at
 C in {8, 1024, 16384}; K7 with 1, 10,000 and 16,384 candidates and
@@ -482,3 +485,73 @@ def test_new_launches_reject_cpu_and_mixed_devices(cuda):
     with pytest.raises(ValueError):
         tscore.score_all_cuda(score_inputs_from_numpy(
             score_case(7, 256, 200, "div0", 2), "cpu"))
+
+
+# -- K12 and K13: the node-sharded chain and mirror patch --------------------
+
+SHARDED_C, SHARDED_N_CAND = 1024, 1000
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("scenario", ["plain", "everything", "spread_percent",
+                                      "spread_even"])
+def test_sharded_chain_kernel_matches_twin(cuda, scenario, d, dtype):
+    from nomad_tpu_torch.ops.cases import sharded_chain_case
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        sharded_chained_plan,
+        sharded_chained_plan_cuda,
+        sharded_chained_plan_twin,
+    )
+    from nomad_tpu_torch.state.convert import sharded_case_args
+
+    E, P = 6, 8
+    case = sharded_chain_case(600 + d, SHARDED_C, SHARDED_N_CAND, scenario,
+                              E, P)
+    kw = dict(with_spread=case["spread"] is not None,
+              spread_even=case["spread_even"], return_carry=True)
+    outs = []
+    for mesh, plan in ((VirtualMesh(d, cuda), sharded_chained_plan),
+                       (VirtualMesh(d, cuda), sharded_chained_plan_twin),
+                       (VirtualMesh(d, "cpu"), sharded_chained_plan_twin)):
+        before = sharded_chained_plan_cuda.launches
+        args = sharded_case_args(case, mesh.device, dtype)
+        rows, pulls, carry = plan(mesh, P, **kw)(*args)
+        outs.append((rows.cpu(), pulls.cpu(),
+                     [mesh.unshard(c).cpu() for c in carry],
+                     sharded_chained_plan_cuda.launches - before))
+    kern, twin, twin_cpu = outs
+    assert kern[3] > 0 and twin[3] == 0
+    for other in (twin, twin_cpu):
+        assert torch.equal(kern[0], other[0])
+        assert torch.equal(kern[1], other[1])
+        for a, b in zip(kern[2], other[2]):
+            assert np.array_equal(_bits(a), _bits(b))
+    assert bool((kern[0] >= 0).any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("width", [8, 1024, 16384])
+def test_patch_rows_sharded_kernel_matches_twin(cuda, width, d, dtype):
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    rng = np.random.default_rng(width + d)
+    col = torch.from_numpy(rng.uniform(0.0, 1e4, C)).to(dtype)
+    n = max(1, width - width // 4)
+    idx = np.full(width, C, np.int32)  # padding: dropped
+    idx[:n] = np.sort(rng.choice(C, n, replace=False))
+    idx = torch.from_numpy(idx)
+    vals = torch.from_numpy(rng.uniform(0.0, 1e4, width)).to(dtype)
+    mesh = VirtualMesh(d, cuda)
+    before = tbatch.patch_rows_sharded_cuda.launches
+    sh = tbatch.patch_rows_sharded(mesh, mesh.shard(col), idx.to(cuda),
+                                   vals.to(cuda))
+    assert tbatch.patch_rows_sharded_cuda.launches - before == d
+    cmesh = VirtualMesh(d, "cpu")
+    twin = tbatch.patch_rows_sharded_twin(cmesh, cmesh.shard(col), idx, vals)
+    got = mesh.unshard(sh)
+    assert np.array_equal(_bits(got), _bits(cmesh.unshard(twin)))
+    whole = tbatch.patch_rows(col.clone().to(cuda), idx.to(cuda), vals.to(cuda))
+    assert np.array_equal(_bits(got), _bits(whole))

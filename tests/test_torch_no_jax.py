@@ -277,6 +277,40 @@ print(rc, line["parity_identical_evals"], bad)
 """
 
 
+MESH_SCRIPT = r"""
+import os, sys, tempfile
+import torch
+import torch.distributed as dist
+from nomad_tpu_torch.ops.batch import patch_rows_sharded
+from nomad_tpu_torch.ops.cases import sharded_chain_case
+from nomad_tpu_torch.parallel import DistMesh, VirtualMesh, sharded_chained_plan
+from nomad_tpu_torch.parallel.multichip import multichip_sweep
+from nomad_tpu_torch.state.convert import sharded_case_args
+
+case = sharded_chain_case(5, 64, 60, "spread_even", 2, 3)
+args = sharded_case_args(case)
+run = sharded_chained_plan(VirtualMesh(4, "cpu"), 3, with_spread=True,
+                           spread_even=True, return_carry=True)
+rows, _pulls, carry = run(*args)
+init = os.path.join(tempfile.mkdtemp(), "init")
+dist.init_process_group("gloo", init_method="file://" + init, world_size=1,
+                        rank=0)
+mesh = DistMesh()
+drows = sharded_chained_plan(mesh, 3, with_spread=True, spread_even=True)(*args)[0]
+patch_rows_sharded(mesh, mesh.shard(torch.zeros(64, dtype=torch.float64)),
+                   torch.tensor([3, 64], dtype=torch.int32),
+                   torch.ones(2, dtype=torch.float64))
+dist.destroy_process_group()
+block = multichip_sweep(device="cpu", C=64, E=4, P=2, chunk=2, rounds=1)
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(bool(torch.equal(rows, drows)), len(block["points"]), bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -345,6 +379,13 @@ def test_port_bench_loads_no_jax():
     assert _run_fresh(BENCH_SCRIPT) == "0 2 []"
 
 
+def test_port_mesh_loads_no_jax():
+    """The node mesh, K12's and K13's twins on a VirtualMesh and on a
+    one-rank gloo group, and the multichip sweep run in a fresh
+    interpreter without JAX or the JAX package."""
+    assert _run_fresh(MESH_SCRIPT) == "True 4 []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -367,6 +408,9 @@ def test_port_sources_import_no_jax():
             "nomad_tpu_torch/device/watchdog.py",
             "nomad_tpu_torch/ops/canary.py",
             "nomad_tpu_torch/sched/policy.py",
+            "nomad_tpu_torch/parallel/__init__.py",
+            "nomad_tpu_torch/parallel/mesh.py",
+            "nomad_tpu_torch/parallel/multichip.py",
             "chip_smoke.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

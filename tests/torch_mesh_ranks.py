@@ -1,0 +1,77 @@
+"""The rank side of `test_torch_mesh.py`'s gloo checks: one process of a
+`torch.distributed` gloo world runs the port's sharded chained planner
+(the twin) on `make_mesh()`, a `DistMesh`, and saves what it got.
+Imports only torch, numpy and the port, so the rank also shows that the
+port's mesh path loads neither `jax` nor `nomad_tpu`."""
+import sys
+
+C, N_CAND, E, P = 128, 120, 6, 5
+
+
+def chain_results(mesh, scenario: str, seed: int = 41):
+    """Rows, pulls and the whole usage carry of one case, cut into two
+    chunks with the carry threaded."""
+    import torch
+
+    from nomad_tpu_torch.ops.cases import sharded_chain_case
+    from nomad_tpu_torch.parallel.mesh import sharded_chained_plan
+    from nomad_tpu_torch.state.convert import sharded_case_args
+
+    case = sharded_chain_case(seed, C, N_CAND, scenario, E, P)
+    args = sharded_case_args(case)
+    run = sharded_chained_plan(mesh, P, with_spread=case["spread"] is not None,
+                               spread_even=case["spread_even"],
+                               return_carry=True)
+    rows, pulls, carry = [], [], args[3:6]
+    half = E // 2
+    for lo, hi in ((0, half), (half, E)):
+        part = [a[lo:hi] if isinstance(a, torch.Tensor) else
+                type(a)(*[None if f is None else f[lo:hi] for f in a])
+                for a in args[6:]]
+        r, p, carry = run(*args[:3], *carry, *part)
+        rows.append(r)
+        pulls.append(p)
+    return (torch.cat(rows), torch.cat(pulls),
+            tuple(mesh.unshard(x) for x in carry))
+
+
+def collectives(mesh, shard: int):
+    """Each collective of the mesh on per-shard records."""
+    import torch
+
+    x = torch.tensor([shard * 3 - 4, 10 - shard], dtype=torch.int32)
+    f = torch.tensor([0.25 * shard, -1.5 * shard], dtype=torch.float64)
+    v = torch.arange(4, dtype=torch.float64) + 4 * shard
+    return {
+        "gather": mesh.gather([x]), "pmax": mesh.pmax([f]),
+        "pmin": mesh.pmin([x]), "psum": mesh.psum([f]),
+        "all_gather": mesh.all_gather([v]),
+    }
+
+
+def rank_main(rank: int, world: int, init_file: str, out: str,
+              scenarios) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh()
+        res = {s: chain_results(mesh, s) for s in scenarios}
+        res["collectives"] = collectives(mesh, rank)
+        try:  # more shards than ranks: no rank holds two
+            make_mesh(world + 1)
+            res["too_many_shards"] = "built"
+        except ValueError as exc:
+            res["too_many_shards"] = str(exc)
+        res["loaded"] = sorted(
+            m for m in sys.modules
+            if m in ("jax", "jaxlib", "nomad_tpu")
+            or m.startswith(("jax.", "nomad_tpu.")))
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
