@@ -33,9 +33,9 @@ Phases (any failure exits non-zero):
    kernel-only shape (a 2,048-row arena, 2,000 candidates, E = 64,
    P = 10), K9 and K10 also at the 16,384-row arena, K11 at K1's shape
    with and without policy terms, K12 per chunk (E = 8, P = 10) at D = 1
-   and 8 shards on the one card, K13 at W = 1,024; for K4 and K13 also
-   the nearest single PyTorch call (`index_copy_`).  This phase runs
-   last.
+   and 8 shards on the one card, K13 at W = 1,024, K14 on the storm
+   phase's own problem at D = 1 and 8; for K4 and K13 also the nearest
+   single PyTorch call (`index_copy_`).  This phase runs last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
@@ -181,12 +181,29 @@ k13. Kernel K13 (the sharded mirror patch, csrc/patch_rows_sharded.cu)
 bench (also): the bench's multichip block, a d = 1 point through a
    one-rank NCCL group: placements/s above 0, the closed form's bytes
    per flush, and K12 and K13 launched by the bench's process.
+k14. Kernel K14 (the node-sharded storm solve, csrc/storm_sharded.cu,
+   its stages launched per shard with the mesh's exchanges between
+   them) on a VirtualMesh of D shards on the card, D in {1, 2, 4, 8},
+   on phase k5's inputs (the dogpile at A = 8 and 1,024; f64 at every D,
+   f32 and the weighted dogpile at D = 8): all six outputs bit-equal to
+   its twin on the card and on the CPU, and equal to K5 on the same
+   inputs; the full-width dogpile once on the one-rank NCCL DistMesh,
+   equal to D = 1; its launches equal to the cases' stage counts.
+mesh. The mesh path: the port's batched `Server(mesh=VirtualMesh(8,
+   card))` (K12 chunks over the sharded usage mirror, K13 delta flushes)
+   on the same 10,000-node / 100,000-alloc cluster drains the first 128
+   jobs of phase 8's stream (two gulps, so the second flush patches the
+   sharded mirror; eight spread jobs): placements equal to phase 8's card
+   run.  Then the storm phase's 1,024 children through a
+   meshed Server (K14): placements, storm rows, rounds and counters
+   equal to the storm phase's K5 run.  K12, K13 and K14 launched, no
+   errors.
 
 The references that the checks compare against run in helper
 processes (this script with --helper NAME DIR, 1-3 torch threads
 each), started before the kernels are built: the kernel checks' twins
-on the CPU (twins-a: k5; twins-b: k3, k7, k9, k10, k12) and on the
-card (card-twins: k3, k5, k9, k10, k12), and the path phases' runs on
+on the CPU (twins-a: k5, k14; twins-b: k3, k7, k9, k10, k12) and on the
+card (card-twins: k3, k5, k9, k10, k12, k14), and the path phases' runs on
 the CPU twins and the host oracle (host-a: phases 4 and 8, storm,
 preempt, and the bridge's and the device phase's CPU Servers; host-b:
 phase policy).  The storm runs on the CPU hold their wave's broker
@@ -204,7 +221,7 @@ the next world is restored, so a restore sees one world on the heap.
 The phase seconds are printed split into world builds, waits for the
 helpers' results and the rest (the card), each with the seconds since
 the script started.  Prints the kernels
-line (14 programs: K1-K8, K9 and its shared mode, K10-K13), then the
+line (15 programs: K1-K8, K9 and its shared mode, K10-K14), then the
 card's nvidia-smi line, then the result line: {"ok": true, "device":
 {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it prints no result and exits 2.
@@ -1245,7 +1262,8 @@ def check_server(cuda, card: str) -> dict:
     return {"launches": launches, "placements_per_s": rate,
             "p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99),
             "seq_placements_per_s": placed / seq_dt, "stats": stats,
-            "timings": timings, "wall_s": dt, "busy": busy}
+            "timings": timings, "wall_s": dt, "busy": busy,
+            "placements": batched}
 
 
 def server_oracle_reference() -> dict:
@@ -1384,13 +1402,14 @@ def storm_jobs(policy: bool = False):
 
 
 def run_storm(device, storm_on: bool, label: str, on_start=None,
-              policy: bool = False) -> dict:
+              policy: bool = False, mesh=None) -> dict:
     """The storm stream through a fresh batched Server: the jobs are
     registered before start, so the whole family lands in the broker as
     one restore wave (the shape a drain or dispatch burst leaves), then
     the server drains it.  Returns placements, counters and rates.
     With `policy`, the world has node classes and the family a
-    throughput table (a weighted storm)."""
+    throughput table (a weighted storm); with `mesh`, the batched
+    Server runs on that node mesh (the storm through K14)."""
     import os
 
     from nomad_tpu_torch.server import Server
@@ -1407,7 +1426,7 @@ def run_storm(device, storm_on: bool, label: str, on_start=None,
     lease = {"nack_timeout": CPU_STORM_NACK_S} if device == "cpu" else {}
     try:
         server = Server(num_schedulers=1, seed=1, batch_pipeline=True,
-                        heartbeat_ttl=1e9, device=device, **lease)
+                        heartbeat_ttl=1e9, device=device, mesh=mesh, **lease)
         t0 = time.perf_counter()
         build_world(server.store, classes=policy)
         log(f"  [{label}] world built in {time.perf_counter() - t0:.1f}s")
@@ -1450,7 +1469,7 @@ def run_storm(device, storm_on: bool, label: str, on_start=None,
                 "placed": sum(len(v) for v in placements.values()),
                 "score_sum": score_sum, "lost": lost, "counters": counters,
                 "errors": worker.errors, "prescored": worker.prescored,
-                "timings": dict(worker.timings),
+                "timings": dict(worker.timings), "mesh_storms": worker.mesh_storms,
             }
         finally:
             server.stop()
@@ -1551,10 +1570,18 @@ def check_storm(cuda, card: str) -> dict:
         f"{json.dumps({k: round(v, 4) for k, v in off['timings'].items()})}",
         flush=True,
     )
+    # the path's problem, for K14's timing on it
+    STORM_PATH["problem"] = path_args
     return {"launches": launches, "rate_on": rate_on, "rate_off": rate_off,
             "counters": on["counters"], "timings_on": on["timings"],
             "timings_off": off["timings"], "k5_on_path": path,
-            "score_delta": on["score_sum"] - off["score_sum"]}
+            "score_delta": on["score_sum"] - off["score_sum"],
+            "placements": on["placements"]}
+
+
+# the storm path's problem (StormInputs and the mirror columns K5 read,
+# on the card), kept by the storm phase for K14's timing
+STORM_PATH: dict = {}
 
 
 def k5_work(inp, out) -> dict:
@@ -3041,6 +3068,7 @@ def time_kernels(cuda) -> dict:
      tscore.walk_only_cuda.launches) = saved
     out.update(time_batched_kernels(cuda))
     out.update(time_sharded_kernels(cuda))
+    out.update(time_storm_sharded(cuda))
     for v in out.values():
         v.setdefault("library_ms", None)
         _bound(v)
@@ -3070,8 +3098,17 @@ def time_kernels(cuda) -> dict:
                  if v.get("library_ms") else "")
               for k, v in out.items() if k.startswith(("sharded", "patch_rows_sharded"))),
           flush=True)
+    print(f"K14 timing (f64, CUDA events, the storm path's problem; D shards "
+          f"of a VirtualMesh on one card) on {device_line()}: " + "; ".join(
+              f"{k} ({v['shape']}, {v['rounds']} rounds, "
+              f"{v['launches_per_solve']} launches) {v['ms']:.6f} ms, twin "
+              f"{v['plain_ms']:.6f} ms, bound {v['bound_ms']:.9f} ms "
+              f"({v['bound_by']}; {v['bytes']} B, {v['flops']} ops)"
+              for k, v in out.items() if k.startswith("storm_assignment_sharded")),
+          flush=True)
     # the kernels line's entries: one card shard (D = 1), eight beside
-    for name in ("sharded_chained_plan", "patch_rows_sharded"):
+    for name in ("sharded_chained_plan", "patch_rows_sharded",
+                 "storm_assignment_sharded"):
         out[name] = dict(out[f"{name}_d1"], d8=out[f"{name}_d8"])
     print("policy timing (f64, CUDA events): "
           + "; ".join(
@@ -3623,7 +3660,7 @@ def nccl_mesh(cuda):
 
     if "mesh" not in NCCL:
         NCCL["made"] = nccl_group(cuda)
-        NCCL["mesh"] = make_mesh(1)
+        NCCL["mesh"] = make_mesh(1, eval_axis=1)
     return NCCL["mesh"]
 
 
@@ -3972,6 +4009,264 @@ def time_sharded_kernels(cuda) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase k14 / mesh: the node-sharded storm solve and the meshed Server
+# ---------------------------------------------------------------------------
+
+K14_COUNTS = (1, 2, 4, 8)  # phase k14's shard counts (a VirtualMesh on the card)
+MESH_SHARDS = 8  # the mesh phase's VirtualMesh on the card
+MESH_JOBS = 128  # its prefix of phase 8's stream: two gulps, eight spread jobs
+
+
+def _k5_index(tag: str) -> int:
+    return [t for _s, _make, t in _k5_scenarios()].index(tag)
+
+
+def _k14_params():
+    """Phase k14's cases on phase k5's inputs: (key, (dtype name, k5
+    scenario index, A, D)): the dogpile at A = 8 and 1,024 in f64 at every
+    D, at D = 8 also in f32 and the weighted dogpile."""
+    dog, pdog = _k5_index("dogpile"), _k5_index("policy_dogpile")
+    for d in K14_COUNTS:
+        for A in STORM_ROWS:
+            yield f"k14-float64-dogpile-{A}-{d}", ("float64", dog, A, d)
+    yield (f"k14-float32-dogpile-{STORM_ROWS[-1]}-8",
+           ("float32", dog, STORM_ROWS[-1], 8))
+    yield (f"k14-float64-policy_dogpile-{STORM_ROWS[-1]}-8",
+           ("float64", pdog, STORM_ROWS[-1], 8))
+
+
+def _k14_inputs(dtype_name: str, si: int, A: int, dev):
+    """Phase k5's case `si` at A rows on `dev`: (StormInputs, columns,
+    max_rounds, weighted)."""
+    import torch
+
+    from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
+
+    dtype = getattr(torch, dtype_name)
+    scenario, make, _tag = _k5_scenarios()[si]
+    cols, inp, max_rounds = make(9500 + 10 * si + A, A, A, C_CHECK, scenario)
+    return (storm_inputs(inp, dev, dtype), storm_columns(cols, dev, dtype),
+            max_rounds, "policy_tput_term" in inp)
+
+
+def k14_run(mesh, plan, dtype_name: str, si: int, A: int):
+    """The six outputs (on the CPU) of one phase-k14 case through `plan`
+    (the dispatching solve or the twin) on `mesh`."""
+    inp, cols, max_rounds, weighted = _k14_inputs(dtype_name, si, A,
+                                                  mesh.device)
+    return _to_cpu(plan(mesh, False, max_rounds, weighted)(inp, cols))
+
+
+def _k14_cpu(dtype_name: str, si: int, A: int, d: int):
+    from nomad_tpu_torch.ops.solve import storm_assignment_sharded_twin
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    return k14_run(VirtualMesh(d, "cpu"), storm_assignment_sharded_twin,
+                   dtype_name, si, A)
+
+
+def _k14_card(dtype_name: str, si: int, A: int, d: int):
+    from nomad_tpu_torch.ops.solve import storm_assignment_sharded_twin
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    return k14_run(VirtualMesh(d, _card()), storm_assignment_sharded_twin,
+                   dtype_name, si, A)
+
+
+def _same_storm(kern, other, tag: str, sign_of_zero: bool = True) -> float:
+    """All six outputs bit-equal; without `sign_of_zero` the score only
+    equal in value (the sharded read adds +0.0 from the other shards)."""
+    from nomad_tpu_torch.ops import solve as tsolve
+
+    for name, k, o in zip(tsolve.StormOut._fields, kern, other):
+        if name == "score" and not sign_of_zero:
+            check(bool((k == o.cpu()).all()), f"{tag}: {name} differs")
+        else:
+            check(bool((_bits(k) == _bits(o)).all()), f"{tag}: {name} differs")
+    return _max_abs(kern[3], other[3])
+
+
+def check_k14(cuda) -> dict:
+    """K14 on a VirtualMesh of D shards on the card, D in {1, 2, 4, 8},
+    on phase k5's inputs (the dogpile at A = 8 and 1,024 rows over the
+    16,384-row arena; f64 at every D, f32 and the weighted dogpile at
+    D = 8): all six outputs bit-equal to its twin on the card and on the
+    CPU, and equal to K5 on the same inputs (bits but for a zero score's
+    sign at D > 1).  Then the full-width dogpile once on the DistMesh over
+    the one-rank NCCL group, bit-equal to D = 1.  Returns the launches
+    these runs must have made (their stage counts)."""
+    from nomad_tpu_torch.ops import solve as tsolve
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    n_cases = expected = 0
+    max_err = 0.0
+    rounds = {}
+    d1 = {}
+    for key, (dt, si, A, d) in _k14_params():
+        mesh = VirtualMesh(d, cuda)
+        kern = k14_run(mesh, tsolve.storm_assignment_sharded, dt, si, A)
+        expected += tsolve.storm_stage_launches(mesh, int(kern.rounds))
+        inp, cols, max_rounds, _w = _k14_inputs(dt, si, A, cuda)
+        k5 = _to_cpu(tsolve.storm_assignment_cuda(inp, cols, False, max_rounds))
+        with SPLIT("wait"):
+            twin = HELPERS.get(f"card-{key}")
+            cpu = HELPERS.get(key)
+        tag = f"K14 {key}"
+        max_err = max(max_err, _same_storm(kern, twin, tag + " (card twin)"),
+                      _same_storm(kern, cpu, tag + " (CPU twin)"),
+                      _same_storm(kern, k5, tag + " (K5)", sign_of_zero=d == 1))
+        rounds[key] = int(kern.rounds)
+        if d == 1:
+            d1[(dt, si, A)] = kern
+        n_cases += 1
+    dt, si, A = "float64", _k5_index("dogpile"), STORM_ROWS[-1]
+    nccl = nccl_mesh(cuda)
+    kern = k14_run(nccl, tsolve.storm_assignment_sharded, dt, si, A)
+    expected += tsolve.storm_stage_launches(nccl, int(kern.rounds))
+    max_err = max(max_err, _same_storm(
+        kern, d1[(dt, si, A)], f"K14 dogpile A={A} on the NCCL DistMesh"))
+    n_cases += 1
+    full = [r for k, r in rounds.items() if f"-{STORM_ROWS[-1]}-" in k]
+    check(min(full) >= 3, "a full-width K14 case ran fewer than 3 rounds")
+    print(f"K14: {n_cases} cases exact against the twin on the card and the "
+          f"CPU (all six outputs) and equal to K5, at D in {K14_COUNTS} (f64; "
+          f"f32 and weighted at D = 8) and on the one-rank NCCL DistMesh; "
+          f"rounds {json.dumps(rounds)}; {expected} stage launches; "
+          f"max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases, "launches": expected,
+            "rounds": rounds}
+
+
+def time_storm_sharded(cuda) -> dict:
+    """K14 on the storm path's own problem (the storm phase's solve: A =
+    E = 1,024 rows and evals over the 16,384-row arena, f64) at D = 1 and
+    D = 8 shards of a VirtualMesh on the card, over a prepared solve (the
+    placement and scratch outside the timing), beside its twin on the
+    card.  The bound is K5's work plus the exchanges' bytes: the gathered
+    [A, C] scores and feasibility, and each round's pmax, pmin and two
+    psums of [A]-long records from every shard, and the epilogue's."""
+    from nomad_tpu_torch.ops import solve as tsolve
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    check("problem" in STORM_PATH, "the storm phase kept no problem to time")
+    inp, cols, spread_fit, max_rounds = STORM_PATH["problem"]
+    saved = tsolve.storm_assignment_sharded_cuda.launches
+    out = {}
+    for d in (1, 8):
+        mesh = VirtualMesh(d, cuda)
+        st = tsolve.prepare_sharded_storm(mesh, inp, cols, spread_fit,
+                                          max_rounds)
+        res = tsolve.storm_assignment_sharded_cuda(st)
+        rounds = int(res.rounds)
+        work = k5_work(inp, res)
+        A, C = st.A, st.C
+        f = 8
+        exchange = (A * C * (f + 1) + rounds * d * A * (f + 4 + 2 * f + f)
+                    + d * A * f)
+        out[f"storm_assignment_sharded_d{d}"] = {
+            "ms": cuda_time_ms(
+                lambda: tsolve.storm_assignment_sharded_cuda(st), n=3,
+                warmup=1),
+            "plain_ms": cuda_time_ms(
+                lambda: tsolve._drive_storm(st, tsolve._StormTwinStages), n=1,
+                warmup=0),
+            "bytes": work["bytes"] + exchange,
+            "flops": work["flops"],
+            "rounds": rounds,
+            "launches_per_solve": tsolve.storm_stage_launches(mesh, rounds),
+            "shape": f"A={A} E={st.E} C={C} D={d}",
+        }
+    tsolve.storm_assignment_sharded_cuda.launches = saved
+    return out
+
+
+def check_mesh(cuda, card: str, results: dict) -> dict:
+    """The mesh path: a batched Server on a VirtualMesh of MESH_SHARDS
+    shards on the card (K12 chunks over the sharded mirror, K13 delta
+    flushes) drains the first MESH_JOBS jobs of phase 8's stream, spread
+    jobs among them, and places them as phase 8's card run did; then the
+    storm's 1,024 children through a meshed Server (K14) give the storm
+    phase's K5 run's placements, rows and rounds.  The counts of K12,
+    K13 and K14 are set to 0 before and read after."""
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops import solve as tsolve
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh, sharded_chained_plan_cuda
+    from nomad_tpu_torch.server import Server
+
+    check("server" in results and "storm" in results,
+          "the mesh phase needs phase 8's and the storm phase's card runs")
+    counted = {"sharded_chained_plan": sharded_chained_plan_cuda,
+               "patch_rows_sharded": tbatch.patch_rows_sharded_cuda,
+               "storm_assignment_sharded": tsolve.storm_assignment_sharded_cuda}
+    for w in counted.values():
+        w.launches = 0
+    jobs = server_stream()[:MESH_JOBS]
+    server = Server(num_schedulers=1, seed=1, batch_pipeline=True,
+                    heartbeat_ttl=1e9, device=cuda,
+                    mesh=VirtualMesh(MESH_SHARDS, cuda))
+    try:
+        t0 = time.perf_counter()
+        build_world(server.store)
+        log(f"  world built in {time.perf_counter() - t0:.1f}s")
+        server.start()
+        worker = server.workers[0]
+        worker.warm_shapes()
+        placed_by_job, lat, dt, placed = drive_server(server, jobs, "mesh")
+        stats = {k: getattr(worker, k) for k in (
+            "prescored", "fallbacks", "errors", "mesh_used", "trips")}
+        stats["mesh_launches"] = server.metrics.get_counter("mesh.launches")
+        stats["bytes_per_flush"] = server.metrics.get_gauge("mesh.bytes_per_flush")
+        stats["mirror_hit_rate"] = server.metrics.get_gauge("mesh.mirror_hit_rate")
+        timings = dict(worker.timings)
+    finally:
+        server.stop()
+    del server, worker
+    storm = run_storm(cuda, True, "storm on the mesh",
+                      mesh=VirtualMesh(MESH_SHARDS, cuda))
+    launches = {k: w.launches for k, w in counted.items()}
+    check(stats["errors"] == 0 and storm["errors"] == 0,
+          f"the meshed workers counted errors: {stats['errors']}, "
+          f"{storm['errors']}")
+    check(stats["mesh_used"] > 0 and stats["mesh_launches"] > 0,
+          f"the meshed Server never ran on the mesh: {stats}")
+    check(stats["prescored"] == len(jobs),
+          f"the meshed worker prescored {stats['prescored']} of {len(jobs)}")
+    spread = [j.id for j in jobs if j.spreads]
+    check(len(spread) >= 2, "the mesh phase's prefix has no spread jobs")
+    want = results["server"]["placements"]
+    for job in jobs:
+        check(placed_by_job[job.id] == want[job.id],
+              f"the meshed Server and phase 8's card run diverge at {job.id}")
+    on = results["storm"]
+    check(storm["ok"] and not storm["lost"], "the meshed storm did not drain")
+    check(storm["mesh_storms"] > 0, "no storm was solved on the mesh")
+    check(storm["counters"] == on["counters"],
+          f"storm counters differ: mesh {storm['counters']} K5 {on['counters']}")
+    for job_id, p in storm["placements"].items():
+        check(p == on["placements"][job_id],
+              f"the meshed and the K5 storm runs diverge at {job_id}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the mesh path")
+    rate = placed / dt
+    storm_rate = storm["placed"] / storm["seconds"]
+    print(f"mesh path on {card}: VirtualMesh of {MESH_SHARDS} shards on the "
+          f"card; {len(jobs)} evals of phase 8's stream ({len(spread)} "
+          f"spread), {placed} placements in {dt:.2f}s = {rate:.1f} "
+          f"placements/s, identical to phase 8's card run; {json.dumps(stats)}; "
+          f"storm of {STORM_JOBS} children on the mesh {storm_rate:.1f} "
+          f"placements/s ({storm['seconds']:.2f} s), counters "
+          f"{json.dumps(storm['counters'])} identical to the K5 run; launches "
+          f"{json.dumps(launches)}; timings (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in timings.items()})}; storm "
+          f"timings (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in storm['timings'].items()})}",
+          flush=True)
+    return {"launches": launches, "stats": stats, "placements_per_s": rate,
+            "storm_placements_per_s": storm_rate, "timings": timings,
+            "storm_timings": storm["timings"]}
+
+
+# ---------------------------------------------------------------------------
 # the helper processes: the twins and reference runs the checks compare
 # against, computed beside the card phases
 # ---------------------------------------------------------------------------
@@ -4115,7 +4410,7 @@ K9_SHARED_SHAPES = ((8, 16), (64, 10))  # phase k9's shared-mode (E, P)
 
 def twin_jobs():
     """Every CPU twin (f64, and both dtypes for K5) that the phases k3,
-    k5, k7, k9, k10 and k12 hold their kernels against, in the order
+    k5, k7, k9, k10, k12 and k14 hold their kernels against, in the order
     the phases ask for them: (key, function, arguments)."""
     from nomad_tpu_torch.ops.cases import BATCH_SHARED_SCENARIOS, CHAIN_SCENARIOS
 
@@ -4144,6 +4439,8 @@ def twin_jobs():
         yield key, _k12_cpu_twin, args
     for d in K12_COUNTS:
         yield f"k12-sweep-{d}", _k12_sweep_cpu_twin, (d,)
+    for key, args in _k14_params():
+        yield key, _k14_cpu, args
 
 
 def _k3_card(dtype_name: str, si: int, scenario: str, E: int, P: int):
@@ -4221,7 +4518,7 @@ def _k12_card(dtype_name: str, scenario: str, E: int, P: int, d: int,
 
 
 def card_twin_jobs():
-    """Every twin on the card that the phases k3, k5, k9, k10 and k12
+    """Every twin on the card that the phases k3, k5, k9, k10, k12 and k14
     hold their kernels against (f64 and f32), in the order they ask for
     them: (key, function, arguments)."""
     from nomad_tpu_torch.ops.cases import CHAIN_SCENARIOS, SHARDED_CHAIN_SCENARIOS
@@ -4258,6 +4555,8 @@ def card_twin_jobs():
     for d in (1, 8):
         yield (f"card-k12-full-{d}", _k12_card,
                ("float64", "everything", E, P, d, chunk))
+    for key, args in _k14_params():
+        yield f"card-{key}", _k14_card, args
 
 
 def host_jobs(name: str):
@@ -4287,8 +4586,10 @@ def helper_jobs(name: str) -> list:
     if name == "card-twins":
         return list(card_twin_jobs())
     if name in ("twins-a", "twins-b"):
-        k5 = name == "twins-a"
-        return [j for j in twin_jobs() if j[0].startswith("k5-") == k5]
+        # twins-a: the storm solves' (K5's and K14's)
+        storm = name == "twins-a"
+        return [j for j in twin_jobs()
+                if j[0].startswith(("k5-", "k14-")) == storm]
     if name in ("host-a", "host-b"):
         return list(host_jobs(name))
     raise ValueError(f"no helper {name}")
@@ -4429,7 +4730,7 @@ HELPERS = Helpers()
 
 
 PATH_PHASES = ("main", "server", "storm", "preempt", "policy", "bridge",
-               "device", "bench")
+               "mesh", "device", "bench")
 
 
 def main() -> int:
@@ -4486,17 +4787,20 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
 
     from nomad_tpu_torch.ops import batch as tbatch
     from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops import solve as tsolve
     from nomad_tpu_torch.parallel.mesh import sharded_chained_plan_cuda
 
     import torch
 
-    # the two programs no path of either package calls, and K12 and K13,
-    # whose path is the bench's multichip block: their counts are set to
-    # 0 before every phase and read after it
+    # the two programs no path of either package calls, and K12-K14,
+    # whose path is the mesh phase's (K12 and K13 also the bench's
+    # multichip block): their counts are set to 0 before every phase and
+    # read after it
     uncalled = {"chained_plan_picks_shared": tbatch.chained_plan_picks_shared_cuda,
                 "score_all": tscore.score_all_cuda,
                 "sharded_chained_plan": sharded_chained_plan_cuda,
-                "patch_rows_sharded": tbatch.patch_rows_sharded_cuda}
+                "patch_rows_sharded": tbatch.patch_rows_sharded_cuda,
+                "storm_assignment_sharded": tsolve.storm_assignment_sharded_cuda}
     uncalled_by_phase = {}
     failures = []
     results = {}
@@ -4522,6 +4826,8 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
                      ("k11", lambda: check_k11(cuda)),
                      ("k12", lambda: check_k12(cuda)),
                      ("k13", lambda: check_k13(cuda)),
+                     ("k14", lambda: check_k14(cuda)),
+                     ("mesh", lambda: check_mesh(cuda, card, results)),
                      ("device", lambda: check_device(cuda, card)),
                      ("bench", lambda: check_bench(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
@@ -4564,21 +4870,30 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
           f"took {json.dumps(HELPERS.seconds())} s of their own beside the "
           f"card phases", flush=True)
     # each check of the two launched its kernel once, and no path did;
-    # K12 and K13 as their checks' reads
+    # K12-K14 as their checks' reads, K14's against its cases' stage counts
     checked = {"chained_plan_picks_shared": uncalled_by_phase["k9"][
                    "chained_plan_picks_shared"],
                "score_all": uncalled_by_phase["k11"]["score_all"],
                "sharded_chained_plan": uncalled_by_phase["k12"][
                    "sharded_chained_plan"],
                "patch_rows_sharded": uncalled_by_phase["k13"][
-                   "patch_rows_sharded"]}
+                   "patch_rows_sharded"],
+               "storm_assignment_sharded": uncalled_by_phase["k14"][
+                   "storm_assignment_sharded"]}
     if not failures:
         for name, want in (("chained_plan_picks_shared",
                             results["k9"]["shared_cases"]),
-                           ("score_all", results["k11"]["cases"])):
+                           ("score_all", results["k11"]["cases"]),
+                           ("storm_assignment_sharded",
+                            results["k14"]["launches"])):
             if checked[name] != want:
                 failures.append(f"{name}: {checked[name]} launches in its "
-                                f"check phase for {want} cases")
+                                f"check phase for {want} expected")
+        # the mesh path's own counts, set to 0 before it and read after
+        for name, n in results["mesh"]["launches"].items():
+            if uncalled_by_phase["mesh"][name] != n:
+                failures.append(f"{name}: the mesh phase read {n} launches, "
+                                f"the phase loop {uncalled_by_phase['mesh'][name]}")
     if failures:
         print(f"chip_smoke failed: {failures}", flush=True)
         return 1
@@ -4592,12 +4907,12 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
     # the bench's path (its own process, counts from 0): K9 and K10
     for name in ("chained_plan_picks", "batch_plan_picks"):
         launches[name] = results["bench"]["launches"][name]
-    # no caller in either package, or (K12, K13) the bench's multichip
-    # block alone: their counts read over every path's phase (the
-    # bench's from its own process)
+    # no caller in either package: their counts read over every path's
+    # phase (the bench's from its own process); K12-K14: the mesh path's
     for name in uncalled:
-        launches[name] = results["bench"]["launches"][name] + sum(
+        launches[name] = results["bench"]["launches"].get(name, 0) + sum(
             uncalled_by_phase[p][name] for p in PATH_PHASES)
+    launches.update(results["mesh"]["launches"])
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -4628,6 +4943,8 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
          "nomad_tpu/parallel/mesh.py:484", "k12"),
         ("patch_rows_sharded", "nomad_tpu_torch/csrc/patch_rows_sharded.cu",
          "nomad_tpu/ops/batch.py:1130", "k13"),
+        ("storm_assignment_sharded", "nomad_tpu_torch/csrc/storm_sharded.cu",
+         "nomad_tpu/ops/solve.py:354", "k14"),
     ):
         tm = results["timing"][name]
         kernels.append({
@@ -4650,12 +4967,19 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
             # eight shards of a VirtualMesh on the one card
             kernels[-1]["d8"] = {k: tm["d8"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")}
+        if name in ("sharded_chained_plan", "patch_rows_sharded"):
+            kernels[-1]["launches_bench"] = results["bench"]["launches"][name]
         if name == "sharded_chained_plan":
             kernels[-1]["chunks"] = results["bench"]["launches"][
                 "sharded_chained_plan_chunks"]
             kernels[-1]["launches_per_chunk"] = {
                 "d1": tm["launches_per_chunk"],
                 "d8": tm["d8"]["launches_per_chunk"]}
+        if name == "storm_assignment_sharded":
+            kernels[-1]["rounds"] = tm["rounds"]
+            kernels[-1]["launches_per_solve"] = {
+                "d1": tm["launches_per_solve"],
+                "d8": tm["d8"]["launches_per_solve"]}
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -44,6 +44,7 @@ SOURCES = {
     "score_all": "score_all.cu",
     "sharded_chain": "sharded_chain.cu",
     "patch_rows_sharded": "patch_rows_sharded.cu",
+    "storm_sharded": "storm_sharded.cu",
 }
 HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh")
 
@@ -922,3 +923,133 @@ def launch_patch_rows_sharded(col, idx, vals, lo: int) -> None:
         idx.shape[0], int(col.dtype == torch.float64), dev.index,
     )
     _launch("patch_rows_sharded", "nk_patch_rows_sharded", args, dev)
+
+
+_SS_PTRS = (
+    "cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
+    "disk_used", "pre_cpu", "pre_mem", "pre_disk", "feasible", "affinity",
+    "collisions", "penalty", "policy_tput", "policy_mig", "perm", "limit",
+    "n_cand", "eval_of", "ask", "desired", "real", "policy_has", "scores_l",
+    "feas_l", "free_l", "price_l", "rec_max", "rec_idx", "cand", "terms",
+    "m_term", "score_term", "scores_g", "feas_g", "s_walk", "f_walk", "gmax",
+    "best_c", "reads", "m_at_bid", "score_read", "rows0", "pulls0", "bid_c",
+    "bid_v", "has_bid", "accepted", "assigned", "acc_round", "progress",
+    "out_pulls", "out_score", "out_rounds",
+)
+_SS_INTS = ("E", "A", "C", "S", "D", "shard", "lo", "rnd", "max_rounds",
+            "stage", "spread_fit", "is_f64", "device")
+
+
+class StormShardedArgs(ctypes.Structure):
+    """Mirror of `StormShardedArgs` in csrc/storm_sharded.cu."""
+
+    _fields_ = [(name, _P) for name in _SS_PTRS] + [
+        (name, _I) for name in _SS_INTS]
+
+
+class StormShardedStages:
+    """K14's stages for one solve (`ops/solve.py _drive_storm`): one args
+    block per local shard and one for the process, filled once; a launch
+    sets the stage and round and calls the library on the current
+    stream.  `launched` counts the kernel launches."""
+
+    (SCORE, WALK, BID, CAND, READ, BIDS, BUDGET, ACCEPT, DEBIT, EPI_READ,
+     FINISH) = range(11)
+
+    def __init__(self, st) -> None:
+        lib = library("storm_sharded")
+        self._fn = lib.nk_storm_sharded
+        self._fn.argtypes = [ctypes.POINTER(StormShardedArgs), _P]
+        self._fn.restype = _I
+        self._err = lib.nk_error_string
+        dev = st.gmax.device
+        code = lib.nk_set_device(dev.index)
+        if code != 0:
+            raise RuntimeError(f"nk_set_device: {self._err(code).decode()}")
+        self._stream = _P(torch.cuda.current_stream(dev).cuda_stream)
+        self.launched = 0
+        common = dict(
+            perm=st.perm, limit=st.limit, n_cand=st.n_cand,
+            eval_of=st.eval_of, ask=st.ask, desired=st.desired, real=st.real,
+            policy_has=st.has_tput, scores_g=st.scores_g, feas_g=st.feas_g,
+            s_walk=st.s_walk, f_walk=st.f_walk, gmax=st.gmax,
+            best_c=st.best_c, reads=st.reads, m_at_bid=st.m_at_bid,
+            score_read=st.score_read, rows0=st.rows0, pulls0=st.pulls0,
+            bid_c=st.bid_c, bid_v=st.bid_v, has_bid=st.has_bid,
+            accepted=st.accepted, assigned=st.assigned,
+            acc_round=st.acc_round, progress=st.progress,
+            out_pulls=st.out_pulls, out_score=st.out_score,
+            out_rounds=st.out_rounds,
+        )
+        dims = dict(E=st.E, A=st.A, C=st.C, S=st.S, D=st.D,
+                    max_rounds=st.max_rounds, spread_fit=int(st.spread_fit),
+                    is_f64=int(st.dtype == torch.float64), device=dev.index)
+
+        def block(sh):
+            args = StormShardedArgs()
+            ptrs = dict(common)
+            if sh is not None:
+                ptrs.update(
+                    cpu_total=sh.tot[0], mem_total=sh.tot[1],
+                    disk_total=sh.tot[2], cpu_used=sh.used[0],
+                    mem_used=sh.used[1], disk_used=sh.used[2],
+                    pre_cpu=sh.pre[0], pre_mem=sh.pre[1], pre_disk=sh.pre[2],
+                    feasible=sh.feasible, affinity=sh.affinity,
+                    collisions=sh.collisions, penalty=sh.penalty,
+                    policy_tput=sh.tput, policy_mig=sh.mig,
+                    scores_l=sh.scores, feas_l=sh.feas, free_l=sh.free,
+                    price_l=sh.price, rec_max=sh.rec_max, rec_idx=sh.rec_idx,
+                    cand=sh.cand, terms=sh.terms, m_term=sh.m_term,
+                    score_term=sh.score_term)
+            _fill(args, ptrs, dev)
+            for name, v in dims.items():
+                setattr(args, name, v)
+            args.shard = -1 if sh is None else sh.s
+            args.lo = 0 if sh is None else sh.lo
+            return args
+
+        self._proc = block(None)
+        self._args = {id(sh): block(sh) for sh in st.shards}
+
+    def _go(self, args, stage: int, rnd: int = 0) -> None:
+        args.stage = stage
+        args.rnd = rnd
+        code = self._fn(ctypes.byref(args), self._stream)
+        if code != 0:
+            raise RuntimeError(
+                f"nk_storm_sharded stage {stage} launch failed: "
+                f"{self._err(code).decode()} ({code})")
+        self.launched += 1
+
+    def score(self, st, sh):
+        self._go(self._args[id(sh)], self.SCORE)
+
+    def walk(self, st):
+        self._go(self._proc, self.WALK)
+
+    def bid(self, st, sh, rnd):
+        self._go(self._args[id(sh)], self.BID, rnd)
+
+    def cand(self, st, sh):
+        self._go(self._args[id(sh)], self.CAND)
+
+    def read(self, st, sh, rnd):
+        self._go(self._args[id(sh)], self.READ, rnd)
+
+    def bids(self, st, rnd):
+        self._go(self._proc, self.BIDS, rnd)
+
+    def budget(self, st, sh):
+        self._go(self._args[id(sh)], self.BUDGET)
+
+    def accept(self, st, rnd):
+        self._go(self._proc, self.ACCEPT, rnd)
+
+    def debit(self, st, sh):
+        self._go(self._args[id(sh)], self.DEBIT)
+
+    def epi_read(self, st, sh):
+        self._go(self._args[id(sh)], self.EPI_READ)
+
+    def finish(self, st, rounds):
+        self._go(self._proc, self.FINISH, rounds)

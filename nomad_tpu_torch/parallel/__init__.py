@@ -4,6 +4,8 @@
 `mesh.py` holds `NodeMesh` with its two backends (`VirtualMesh`, D
 shards in one process on one device; `DistMesh`, one shard per rank of
 a `torch.distributed` group) and `sharded_chained_plan`, kernel K12.
+The node-sharded storm solve on a mesh (K14) is `ops/solve.py
+storm_assignment_sharded`.
 `multichip.py` is the sweep behind the bench's ``multichip`` block.
 """
 from .mesh import (
@@ -12,6 +14,7 @@ from .mesh import (
     Sharded,
     VirtualMesh,
     make_mesh,
+    mesh_axes,
     sharded_chained_plan,
     sharded_chained_plan_twin,
 )
@@ -22,6 +25,7 @@ __all__ = [
     "Sharded",
     "VirtualMesh",
     "make_mesh",
+    "mesh_axes",
     "sharded_chained_plan",
     "sharded_chained_plan_twin",
 ]

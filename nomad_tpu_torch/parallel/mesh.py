@@ -25,7 +25,10 @@ node axis alone:
 
 `make_mesh` is the JAX `make_mesh` (`mesh.py:234`) without its CPU
 fallback: the `DistMesh` of the process group, and a mesh that cannot
-be built raises.
+be built raises.  Its axes resolve as the JAX ones do (`mesh_axes`: two
+eval rows when D is even and at least 4); the port has no eval axis
+yet, so such a mesh raises and callers pass ``eval_axis=1``, as every
+JAX caller on a ported path does.
 
 `sharded_chained_plan` (JAX `mesh.py:484`, its walk `_sharded_walk`
 `:329`) is K12 (`csrc/sharded_chain.cu`).  One pick runs as stages
@@ -140,9 +143,11 @@ class NodeMesh:
 
     # -- placement of node-axis columns ---------------------------------
 
-    def shard(self, x, dtype: Optional[torch.dtype] = None) -> Sharded:
-        """This process's shards of the [C] column `x` (numpy, tensor or
-        `Sharded` of this mesh, which passes through unchanged)."""
+    def shard(self, x, dtype: Optional[torch.dtype] = None,
+              axis: int = 0) -> Sharded:
+        """This process's shards of `x` (numpy, tensor or `Sharded` of
+        this mesh, which passes through unchanged) along its node axis
+        `axis` ([C] columns: 0; [E, C] rows: 1), each contiguous."""
         if isinstance(x, Sharded):
             if len(x.shards) != len(self.local_shards):
                 raise ValueError("a Sharded column of another mesh")
@@ -152,8 +157,9 @@ class NodeMesh:
         if dtype is not None:
             t = t.to(dtype)
         t = t.to(self.device)
-        size = self.shard_size(t.shape[0])
-        return Sharded(tuple(t[s * size:(s + 1) * size].clone()
+        size = self.shard_size(t.shape[axis])
+        return Sharded(tuple(t.narrow(axis, s * size, size).clone(
+            memory_format=torch.contiguous_format)
                              for s in self.local_shards))
 
     def unshard(self, x: Sharded) -> torch.Tensor:
@@ -224,15 +230,41 @@ class DistMesh(NodeMesh):
         return torch.stack(parts, out=out)
 
 
-def make_mesh(n_devices: Optional[int] = None, eval_axis: int = 1, *,
-              group=None) -> DistMesh:
-    """An (evals = 1, nodes = D) mesh over the `torch.distributed`
-    group's ranks (the default group unless `group`), one shard each; D
-    must equal the group's size (None: its size).  There is no
+def mesh_axes(n_devices: int, eval_axis: Optional[int] = None) -> Tuple[int, int]:
+    """The (evals, nodes) axes the JAX `make_mesh` gives `n_devices`
+    devices: `eval_axis` rows, by default 2 when the count is even and at
+    least 4 (the node axis is the long one), else 1."""
+    n = int(n_devices)
+    if eval_axis is None:
+        eval_axis = 2 if (n % 2 == 0 and n >= 4) else 1
+    if eval_axis < 1 or n % eval_axis != 0:
+        raise ValueError(f"{n} devices do not split into {eval_axis} eval rows")
+    return int(eval_axis), n // int(eval_axis)
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              eval_axis: Optional[int] = None, *, group=None) -> DistMesh:
+    """The node mesh over the `torch.distributed` group's ranks (the
+    default group unless `group`), one shard each; D must equal the
+    group's size (None: its size).  The axes resolve as the JAX
+    `make_mesh`'s (`mesh_axes`); the port's mesh is the node axis alone,
+    so a resolved eval axis other than 1 raises NotImplementedError
+    (ROADMAP.md Queue A 2): callers pass ``eval_axis=1``.  There is no
     fallback: a missing group or one of another size raises.  D shards
     in one process are a `VirtualMesh`."""
-    if eval_axis != 1:
-        raise ValueError("the port's mesh is the node axis alone (eval_axis=1)")
+    if n_devices is None:
+        import torch.distributed as dist
+
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                "make_mesh needs an initialised torch.distributed group "
+                "(init_process_group first)")
+        n_devices = dist.get_world_size(group)
+    evals, _nodes = mesh_axes(n_devices, eval_axis)
+    if evals != 1:
+        raise NotImplementedError(
+            f"an ({evals}, {int(n_devices) // evals}) (evals, nodes) mesh: the "
+            "port has no eval axis yet (ROADMAP.md Queue A 2); pass eval_axis=1")
     return DistMesh(group, n_devices)
 
 
@@ -263,11 +295,18 @@ def prepare_sharded_chain(mesh: NodeMesh, n_picks: int, args: tuple,
                           spread_even: bool = False) -> _Chain:
     """Every input of one chain (the runner's positional `args`) on the
     mesh's device, checked for shape: shard inputs as contiguous
-    per-shard copies, replicated ones once per process; with the state,
+    per-shard tensors, replicated ones once per process; with the state,
     gather buffers, records and scratch the stages use.  K12 and the
     twin both run on it (`sharded_chained_plan_cuda`,
     `sharded_chain_twin`); the usage carry starts from ``used0_*``
-    and is left in each shard's ``use`` columns."""
+    and is left in each shard's ``use`` columns.
+
+    The six node columns come whole ([C], numpy or tensors, cut into
+    shards here) or as `Sharded` columns of this mesh: a sharded usage
+    mirror, or a previous chunk's carry.  Sharded ones are read where
+    they lie, on the mesh's device: the totals in place, the used
+    columns copied there into the chain's own carry (the caller's
+    ``used0`` stays untouched), nothing through the host."""
     (cpu_total, mem_total, disk_total, used0_cpu, used0_mem, used0_disk,
      feasible, perm, ask_cpu, ask_mem, ask_disk, desired_count, limits,
      wanted, n_candidates, distinct_hosts, coll0, affinity, deltas,
@@ -283,12 +322,14 @@ def prepare_sharded_chain(mesh: NodeMesh, n_picks: int, args: tuple,
         return np.asarray(x)
 
     if isinstance(cpu_total, Sharded):
-        raise ValueError("the totals are passed whole ([C]), not as Sharded")
-    tot0 = torch.as_tensor(host(cpu_total))
-    dtype = tot0.dtype
+        dtype = cpu_total.shards[0].dtype
+        C = int(cpu_total.shards[0].shape[0]) * mesh.n_shards
+    else:
+        tot0 = torch.as_tensor(host(cpu_total))
+        dtype = tot0.dtype
+        C = tot0.shape[0]
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"columns must be f32 or f64, got {dtype}")
-    C = tot0.shape[0]
     size = mesh.shard_size(C)
     P = int(n_picks)
     perm_h = host(perm).astype(np.int32)
@@ -354,20 +395,19 @@ def prepare_sharded_chain(mesh: NodeMesh, n_picks: int, args: tuple,
     feas_h = host(feasible).astype(np.uint8)
     coll_h = host(coll0).astype(np.int32)
     aff_h = host(affinity).astype(np.float64)
-    tots = [host(x).astype(np.float64) for x in (cpu_total, mem_total, disk_total)]
-    used = []
-    for u in (used0_cpu, used0_mem, used0_disk):
-        used.append(mesh.shard(u if isinstance(u, Sharded)
-                               else host(u).astype(np.float64), dtype))
+    tots = [_node_column(mesh, x, dtype, size, host)
+            for x in (cpu_total, mem_total, disk_total)]
+    used = [_node_column(mesh, u, dtype, size, host)
+            for u in (used0_cpu, used0_mem, used0_disk)]
     i32 = torch.int32
     c.shards = []
     for i, s in enumerate(mesh.local_shards):
         lo = s * size
         sh = _Shard(s, lo, size)
         sl = slice(lo, lo + size)
-        sh.tot = tuple(torch.as_tensor(t[sl]).to(dtype).to(dev) for t in tots)
+        sh.tot = tuple(t.shards[i] for t in tots)
         # the usage carry: fresh tensors, the caller's used0 untouched
-        sh.use = tuple(u.shards[i].to(dtype).clone() for u in used)
+        sh.use = tuple(u.shards[i].clone() for u in used)
         sh.feas = torch.as_tensor(np.ascontiguousarray(feas_h[:, sl])).to(dev)
         sh.coll0 = torch.as_tensor(np.ascontiguousarray(coll_h[:, sl])).to(dev)
         sh.aff = torch.as_tensor(np.ascontiguousarray(aff_h[:, sl])).to(dtype).to(dev)
@@ -400,6 +440,23 @@ def prepare_sharded_chain(mesh: NodeMesh, n_picks: int, args: tuple,
     c.g_nd = torch.zeros((c.D, 4), dtype=i32, device=dev)
     c.g_fin = torch.zeros((c.D, _FIN), dtype=torch.float64, device=dev)
     return c
+
+
+def _node_column(mesh: NodeMesh, x, dtype: torch.dtype, size: int,
+                 host) -> Sharded:
+    """A node column of a chain as this process's shards on the mesh's
+    device: a `Sharded` one as it lies (checked, never copied), a whole
+    one cut into shards."""
+    if isinstance(x, Sharded):
+        x = mesh.shard(x)
+        for t in x.shards:
+            if (t.device != mesh.device or t.dtype != dtype
+                    or tuple(t.shape) != (size,) or not t.is_contiguous()):
+                raise ValueError(
+                    f"a Sharded node column must hold contiguous {dtype}"
+                    f"[{size}] shards on {mesh.device}")
+        return x
+    return mesh.shard(host(x).astype(np.float64), dtype)
 
 
 def _drive(c: _Chain, stages) -> None:

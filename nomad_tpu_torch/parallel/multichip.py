@@ -194,7 +194,8 @@ def multichip_sweep(
         if dev.type == "cuda":
             if device_counts is None:
                 device_counts = [dist.get_world_size()]
-            meshes = {int(d): make_mesh(int(d)) for d in device_counts}
+            meshes = {int(d): make_mesh(int(d), eval_axis=1)
+                      for d in device_counts}
             kind = f"DistMesh ({dist.get_backend()})"
         else:
             if device_counts is None:

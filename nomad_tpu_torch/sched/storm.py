@@ -19,7 +19,8 @@ constraints, spreads or staged evictions): the solver's capacity model
 covers cpu, memory and disk only.  A member whose job resolves a
 PolicySpec stages pre-scaled policy term rows into the same solve (a
 weighted storm); policy-less members of a mixed storm carry all-zero
-rows.  Not ported: the mesh staging (`stage_for_mesh`).
+rows.  On a node mesh, ``stage_for_mesh`` places the staged inputs for
+the node-sharded solve (`ops/solve.py storm_assignment_sharded`).
 """
 from __future__ import annotations
 
@@ -326,6 +327,19 @@ def build_storm_problem(
         spread_fit=spread_fit,
         max_rounds=A,
     )
+
+
+def stage_for_mesh(inputs, mesh):
+    """Place one storm's staged ``StormInputs`` (host numpy) on the node
+    mesh for the sharded solve, as `ops/solve.py storm_in_specs` lays
+    them out: the node-indexed leaves (the [E, C] / [A, C] masks, the
+    policy rows and the ``pre_*`` columns) as `Sharded` (`NodeMesh
+    .shard`, each process only its own shards), the per-eval and per-row
+    leaves whole on the mesh's device.  The arena must tile over the
+    mesh (the caller's gate, as ``mesh_capable``)."""
+    from ..ops.solve import place_storm_inputs
+
+    return place_storm_inputs(inputs, mesh)
 
 
 def decompose(problem: StormProblem, out) -> int:

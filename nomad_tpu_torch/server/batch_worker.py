@@ -82,8 +82,19 @@ placed on the card against a fresh mirror once the canary passes
 again.  A policy-weighted eval (its job resolves a PolicySpec) ends
 the chunk prefix and takes the per-eval path, whose stack fuses the
 policy terms into K1; storms stay eligible, with policy rows staged
-into the K5 solve.  Not ported: the node-sharded mesh path
-(NOMAD_TPU_MESH, which raises) and pods.
+into the K5 solve.
+
+The node-sharded mesh path (single host): with the Server's ``mesh=``
+(a `parallel.mesh.VirtualMesh` of D shards on the worker's device, or a
+`DistMesh`), or with NOMAD_TPU_MESH=1 and the `DistMesh` of the
+initialised torch.distributed group, the worker keeps a sharded usage
+mirror on the mesh (K13 delta patches), runs every arena that tiles
+over the mesh (one task group, no ports or devices, C % D == 0) as a
+chain of K12 chunks threading a sharded carry, and solves storms with
+K14 (`ops.solve.storm_assignment_sharded`).  Other arenas take the K3
+path, as the JAX package routes them.  A mesh that cannot be built
+raises at construction: nothing runs unsharded in its place.  Not
+ported: pods (the multi-host mesh).
 """
 from __future__ import annotations
 
@@ -127,6 +138,7 @@ from ..structs import (
 )
 from ..decisions import DECISIONS
 from ..device import DeviceFault, DeviceLost, DeviceTimeout
+from ..device.supervisor import HEALTHY
 from ..explain import EXPLAIN
 from ..raft import NotLeaderError
 from ..raft import chaos as _chaos
@@ -159,6 +171,21 @@ ADMISSION_COUNTERS = (
     "admission.admitted",
     "admission.deferred",
     "admission.chains",
+)
+# sharded (mesh) hot-path metrics, zero-registered at Server
+# construction: every `mesh.*` name the worker emits must appear here,
+# so dashboards can tell "mesh never engaged" from "mesh not exported".
+# mesh.launches counts sharded chunk dispatches; the gauges carry the
+# sharded mirror's sync cost (host->device bytes of the LAST mirror
+# sync — O(dirty rows) on the warm path), the chunk width mesh flushes
+# ran at, the processes the mesh spans (1: single host) and the
+# sharded mirror's delta-hit rate
+MESH_COUNTERS = ("mesh.launches",)
+MESH_GAUGES = (
+    "mesh.bytes_per_flush",
+    "mesh.chunk_width",
+    "mesh.hosts",
+    "mesh.mirror_hit_rate",
 )
 # global storm solver (NOMAD_TPU_STORM=1) metrics, zero-registered at
 # Server construction: every `storm.*` name the worker emits must
@@ -338,6 +365,9 @@ class _Assembled:
     # eval-axis width this arena's E was aligned to (one launch =
     # one `chunk`-wide slice); chosen per flush by _plan_chunk_width
     chunk: int = PIPELINE_CHUNK
+    # the arena runs on the node mesh (K12 chunks over the sharded
+    # mirror); dev_cols is then the sharded mirror
+    use_mesh: bool = False
 
 
 class _AdmissionQueue:
@@ -685,15 +715,9 @@ class PrescoredStack:
 class BatchWorker(Worker):
     """Worker that drains and prescores evals in batches."""
 
-    def __init__(self, server, **kwargs) -> None:
+    def __init__(self, server, mesh=None, **kwargs) -> None:
         import os as _os
 
-        # the node-sharded mesh path is not ported yet: asking for it
-        # must fail, not be ignored
-        if _os.environ.get("NOMAD_TPU_MESH") == "1":
-            raise NotImplementedError(
-                "NOMAD_TPU_MESH=1: the PyTorch port has no mesh path yet"
-            )
         super().__init__(server, **kwargs)
         # every K3 launch, K4 patch and D2H copy of this worker runs
         # on this one stream, so chunk N+1 reads chunk N's carry and a
@@ -874,6 +898,9 @@ class BatchWorker(Worker):
         # admission and ack can't strand a lease — and with it every
         # later same-job eval — until the broker's nack timeout
         self._admitted_live: List[Tuple[Evaluation, str]] = []
+        # the admission queue of the chain in flight (None between
+        # chains): its parked leases are nacked if the chain aborts
+        self._admission_live: Optional[_AdmissionQueue] = None
         # host-assembly caches keyed by the node table's topology
         # generation (usage churn does NOT invalidate them): candidate
         # row layout per datacenter set, static feasibility /
@@ -911,6 +938,31 @@ class BatchWorker(Worker):
             )
         except ValueError:
             self.pipeline_depth = 2
+        # node-axis mesh: the Server's ``mesh=``, or with
+        # NOMAD_TPU_MESH=1 the DistMesh of the torch.distributed group.
+        # Asked for and not buildable, it raises here: the worker never
+        # runs unsharded in its place
+        self._mesh_given = mesh
+        self._mesh_requested = (
+            mesh is not None or _os.environ.get("NOMAD_TPU_MESH") == "1"
+        )
+        self._mesh = None
+        # sharded runners per (picks, spread_fit, spread, even)
+        self._sharded_runners: Dict[tuple, object] = {}
+        # the sharded usage mirror: the six columns as Sharded tensors
+        # on the mesh, patched per shard through K13.  Same layout as
+        # _usage_cache, keyed also by the mesh width
+        self._usage_cache_sharded: Optional[dict] = None
+        self._mesh_mirror_hits = 0
+        self._mesh_mirror_misses = 0
+        # arenas (and storms) that ran on the mesh
+        self.mesh_used = 0
+        self.mesh_storms = 0
+        # first measured warm mesh flush: the default estimate of mesh
+        # launch-cost buckets with no samples yet
+        self._mesh_ewma_seed: Optional[float] = None
+        if self._mesh_requested:
+            self._mesh = self._make_mesh()
         # stage timings (seconds, cumulative) — surfaced through
         # /v1/metrics so a production operator can see where batch time
         # goes and whether the fast path is actually being taken.  The
@@ -924,6 +976,8 @@ class BatchWorker(Worker):
             "admit": 0.0,
             "launch": 0.0,
             "fetch": 0.0,
+            "mesh_launch": 0.0,
+            "mesh_fetch": 0.0,
             "storm_stage": 0.0,
             "storm_solve": 0.0,
             "storm_decompose": 0.0,
@@ -1071,8 +1125,14 @@ class BatchWorker(Worker):
             "batch_worker.replay_ewma_ms", self._replay_ewma_ms
         )
         for bucket, ms in self._launch_ewma.items():
+            # mesh buckets are ("mesh", width) tuples -> .m<width>;
             # the storm solver's dedicated bucket -> .storm
-            suffix = "storm" if bucket == "storm" else f"e{bucket}"
+            if isinstance(bucket, tuple):
+                suffix = f"m{bucket[1]}"
+            elif bucket == "storm":
+                suffix = "storm"
+            else:
+                suffix = f"e{bucket}"
             metrics.set_gauge(
                 f"batch_worker.launch_ewma_ms.{suffix}", ms
             )
@@ -1154,6 +1214,10 @@ class BatchWorker(Worker):
         # ... and REPLACE the lock itself, so post-incident syncs never
         # queue behind that abandoned holder
         self._usage_cache_lock = threading.Lock()
+        # the sharded mirror's shards live on the mesh: same flush, so
+        # the first sync after the restore re-uploads it in full (the
+        # new epoch keys it), never as a delta
+        self._usage_cache_sharded = None
         # host-assembly caches hold no device state; flushing them keeps
         # the post-incident world observably cold (one rebuild each)
         self._cand_cache = _LRUCache(64)
@@ -1161,9 +1225,101 @@ class BatchWorker(Worker):
         self._port_col_cache = _LRUCache(256)
         self._dev_codes_cache = _LRUCache(256)
         self._dev_aff_cache = _LRUCache(64)
+        # rebind rather than clear(): this listener runs on the
+        # supervisor's thread while the worker may iterate them
+        self._sharded_runners = {}
+        self._mesh_ewma_seed = None
+        if self._mesh_requested:
+            if new == HEALTHY:
+                # the canary passed: the mesh comes back before the hold
+                # clears, so the held evals are placed on it
+                self._mesh = self._make_mesh()
+            else:
+                # LOST: no launch may reach the mesh until the restore
+                self._mesh = None
         metrics = getattr(self.server, "metrics", None)
         if metrics is not None:
             metrics.set_gauge("batch_worker.backend_epoch", float(epoch))
+
+    # -- the node mesh -------------------------------------------------
+
+    def _make_mesh(self):
+        """The mesh this worker shards over: the Server's ``mesh=``, or
+        (NOMAD_TPU_MESH=1 without one) the `DistMesh` of the initialised
+        torch.distributed group, ``make_mesh(eval_axis=1)`` over its
+        ranks, capped by NOMAD_TPU_MESH_DEVICES (a DistMesh holds one
+        shard per rank, so a cap below the group's size raises).  The
+        JAX worker runs unsharded when its mesh cannot be built; the
+        port raises instead: a missing group, a one-rank group (the JAX
+        package shards only over more than one device) or a mesh whose
+        device is not the worker's.  Over a group of several ranks every
+        rank's worker must launch the same chunks in the same order:
+        the pod protocol that keeps them in step is not ported."""
+        import os as _os
+
+        from ..parallel.mesh import make_mesh
+
+        mesh = self._mesh_given
+        if mesh is None:
+            import torch.distributed as dist
+
+            if not dist.is_available() or not dist.is_initialized():
+                raise RuntimeError(
+                    "NOMAD_TPU_MESH=1 needs the Server's mesh= or an "
+                    "initialised torch.distributed group"
+                )
+            n = dist.get_world_size()
+            try:
+                cap = int(_os.environ.get("NOMAD_TPU_MESH_DEVICES", "0"))
+            except ValueError:
+                cap = 0
+            if cap > 0:
+                n = min(n, cap)
+            if n <= 1:
+                raise ValueError(
+                    f"NOMAD_TPU_MESH=1 over {n} rank: a node mesh needs "
+                    "more than one (or the Server's mesh=)"
+                )
+            mesh = make_mesh(n, eval_axis=1)
+        if mesh.device != self.device:
+            raise ValueError(
+                f"a mesh on {mesh.device} for a worker on {self.device}"
+            )
+        metrics = getattr(self.server, "metrics", None)
+        if metrics is not None:
+            metrics.set_gauge("mesh.hosts", 1.0)
+        return mesh
+
+    def _live_mesh(self):
+        """The mesh, for a stage about to use it.  Asked for and absent
+        is the supervisor's fault while it holds (the mesh was dropped
+        on LOST), else a device fault (it could not be rebuilt); never
+        a reason to run unsharded."""
+        if self._mesh is None and self._mesh_requested:
+            sup = self.supervisor
+            if sup is not None and sup.holding():
+                raise sup.fault()
+            raise DeviceFault("the node mesh is down")
+        return self._mesh
+
+    def _sharded_runner(self, n_picks: int, spread_fit: bool,
+                        with_spread: bool = False,
+                        spread_even: bool = False):
+        key = (n_picks, spread_fit, with_spread, spread_even)
+        runner = self._sharded_runners.get(key)
+        if runner is None:
+            from ..parallel.mesh import sharded_chained_plan
+
+            # return_carry=True always: every mesh launch is a chunk of
+            # a (possibly length-1) chain, and the sharded usage carry
+            # threads chunk -> chunk on the device
+            runner = sharded_chained_plan(
+                self._mesh, n_picks, spread_fit,
+                with_spread=with_spread, spread_even=spread_even,
+                return_carry=True,
+            )
+            self._sharded_runners[key] = runner
+        return runner
 
     def _met_supervisor_fault(self, exc: DeviceFault) -> None:
         """A guarded stage raised the supervisor's fault: a watchdog
@@ -1187,16 +1343,26 @@ class BatchWorker(Worker):
         )
         return buckets or (self.batch_max,)
 
-    def _launch_cost_ms(self, width: int) -> float:
+    @staticmethod
+    def _ewma_key(width: int, mesh: bool, storm: bool = False):
+        """Launch-EWMA bucket key: mesh dispatches get their own buckets
+        (a sharded chunk costs nothing like a K3 chunk of the same
+        width), and storm solves one bucket of their own."""
+        if storm:
+            return "storm"
+        return ("mesh", width) if mesh else width
+
+    def _launch_cost_ms(self, width: int, mesh: bool = False) -> float:
         """Estimated cost of one ``width``-wide chunk launch (dispatch
         + blocking fetch): the measured EWMA for that bucket, the
         first warm launch observed for buckets with no samples yet,
-        or 50 ms before anything has been measured."""
-        seed = self._launch_ewma_seed
+        or 50 ms before anything has been measured.  Mesh launches
+        read (and seed) only mesh buckets."""
+        seed = self._mesh_ewma_seed if mesh else self._launch_ewma_seed
         default = seed if seed is not None else 50.0
-        return self._launch_ewma.get(width, default)
+        return self._launch_ewma.get(self._ewma_key(width, mesh), default)
 
-    def _note_launch_cost(self, width: int, ms: float,
+    def _note_launch_cost(self, width: int, ms: float, mesh: bool = False,
                           storm: bool = False) -> None:
         """Feed one chunk's measured device-path cost into the
         adaptive sizing loop (and seed the default estimate from the
@@ -1211,15 +1377,21 @@ class BatchWorker(Worker):
         ceiling = 20.0 * max(self.latency_budget_ms, 50.0)
         if ms > ceiling:
             return
-        if not storm and self._launch_ewma_seed is None:
+        if storm:
+            pass  # the storm bucket seeds itself
+        elif mesh:
+            if self._mesh_ewma_seed is None:
+                self._mesh_ewma_seed = ms
+        elif self._launch_ewma_seed is None:
             self._launch_ewma_seed = ms
-        key = "storm" if storm else width
+        key = self._ewma_key(width, mesh, storm)
         prev = self._launch_ewma.get(key)
         self._launch_ewma[key] = (
             ms if prev is None else 0.8 * prev + 0.2 * ms
         )
 
-    def _plan_chunk_width(self, n_evals: int, backlog: int) -> int:
+    def _plan_chunk_width(self, n_evals: int, backlog: int,
+                          mesh: bool = False) -> int:
         """Chunk width for a flush of ``n_evals`` given the backlog.
 
         Saturated (or latency budget off): the widest bucket — fewer
@@ -1238,20 +1410,21 @@ class BatchWorker(Worker):
         for w in buckets:
             if n_evals <= w:
                 return w
-        if len(buckets) > 1 and self._launch_cost_ms(widest) > (
-            self.latency_budget_ms / 2.0
-        ):
+        if len(buckets) > 1 and self._launch_cost_ms(
+            widest, mesh=mesh
+        ) > (self.latency_budget_ms / 2.0):
             return buckets[-2]
         return widest
 
-    def _chunk_width(self, n_evals: int) -> int:
+    def _chunk_width(self, n_evals: int, mesh: bool = False) -> int:
         """Per-flush chunk width (reads the live backlog), exported as
-        the ``batch_worker.chunk_width`` gauge."""
+        the ``batch_worker.chunk_width`` gauge.  ``mesh`` flushes plan
+        from the mesh launch-cost buckets."""
         try:
             backlog = self.server.broker.ready_count(self.schedulers)
         except Exception:  # noqa: BLE001 — sizing is best-effort
             backlog = self.batch_max
-        width = self._plan_chunk_width(n_evals, backlog)
+        width = self._plan_chunk_width(n_evals, backlog, mesh=mesh)
         metrics = getattr(self.server, "metrics", None)
         if metrics is not None:
             metrics.set_gauge("batch_worker.chunk_width", width)
@@ -1266,8 +1439,9 @@ class BatchWorker(Worker):
                     "backlog": backlog,
                     "budget_ms": self.latency_budget_ms,
                     "launch_cost_ms": round(
-                        self._launch_cost_ms(width), 3
+                        self._launch_cost_ms(width, mesh=mesh), 3
                     ),
+                    "mesh": mesh,
                 },
                 alternatives=[f"width={w}" for w in buckets],
             )
@@ -1533,7 +1707,9 @@ class BatchWorker(Worker):
             self._nack_quietly(ev, token)
         deferred, self._deferred = self._deferred, []
         admitted, self._admitted_live = self._admitted_live, []
-        for ev, token in deferred + admitted:
+        live, self._admission_live = self._admission_live, None
+        parked = list(live.deferred) if live is not None else []
+        for ev, token in deferred + admitted + parked:
             self._nack_quietly(ev, token)
 
     # ------------------------------------------------------------------
@@ -1739,8 +1915,11 @@ class BatchWorker(Worker):
             # ---- prescore pipeline: assemble -> launch -> fetch ----
             t0 = _time.monotonic()
             # adaptive micro-batch width for this flush, from the
-            # measured launch EWMAs + live backlog
-            chunk_w = self._chunk_width(len(sims))
+            # measured launch EWMAs + live backlog.  On a mesh worker
+            # the width plans from the mesh cost buckets
+            chunk_w = self._chunk_width(
+                len(sims), mesh=self._mesh is not None
+            )
             asm = self._guard_device(
                 "assemble",
                 lambda: self._assemble(
@@ -1790,10 +1969,18 @@ class BatchWorker(Worker):
             # Each descriptor is (arena, slice start/end, run
             # index of the arena's eval 0) — admitted chunks bring
             # their own arena, chained on the live carry.
+            # Mesh arenas (asm.use_mesh) run the same pipeline: the
+            # launch dispatches K12's chunk and the sharded usage carry
+            # threads chunk -> chunk on the device (the mesh_launch /
+            # mesh_fetch stages).
             chunks = [
                 (asm, s, s + asm.chunk, idx)
                 for s in range(0, asm.E, asm.chunk)
             ]
+            if asm.use_mesh:
+                metrics = getattr(self.server, "metrics", None)
+                if metrics is not None:
+                    metrics.set_gauge("mesh.chunk_width", asm.chunk)
             # continuous micro-batching: while this chain is in
             # flight, evals the broker receives are admitted as
             # new chunks of the SAME chain — but only when the
@@ -1813,6 +2000,9 @@ class BatchWorker(Worker):
                 and asm.dev_ask is None
             ):
                 admission = _AdmissionQueue(self)
+                # reachable from _abandon_leases while the chain runs:
+                # a fault mid-chain must nack the leases it deferred
+                self._admission_live = admission
                 chain_jobs = {
                     (r_ev.namespace, r_ev.job_id)
                     for r_ev, _t, _jb in run[idx:j]
@@ -1843,16 +2033,21 @@ class BatchWorker(Worker):
                     raise
                 while ci < len(chunks) and len(pending) < self.pipeline_depth:
                     casm, c0, c1, base = chunks[ci]
+                    # mesh chunks time, trace and guard under their own
+                    # stage names (their own cost and watchdog budget)
+                    launch_stage = (
+                        "mesh_launch" if casm.use_mesh else "launch"
+                    )
                     t0 = _time.monotonic()
                     handle = self._guard_device(
-                        "launch",
+                        launch_stage,
                         lambda: self._launch_chunk(casm, c0, c1, carry),
                         "prescore launch failed",
                         exemplar=run[idx][0].id,
                     )
                     dt = _time.monotonic() - t0
                     self._observe_chunk(
-                        "launch", run, base, c0,
+                        launch_stage, run, base, c0,
                         min(c1, casm.E_real), t0, dt, chunk=ci,
                     )
                     carry = handle[2]
@@ -1879,22 +2074,24 @@ class BatchWorker(Worker):
                 (casm, c0, c1, base), handle, launch_dt = (
                     pending.popleft()
                 )
+                fetch_stage = "mesh_fetch" if casm.use_mesh else "fetch"
                 t0 = _time.monotonic()
                 rows_arr, pulls_arr = self._guard_device(
-                    "fetch", lambda: self._fetch(handle),
+                    fetch_stage, lambda: self._fetch(handle),
                     "prescore fetch failed", exemplar=run[idx][0].id,
                 )
                 dt = _time.monotonic() - t0
                 self._observe_chunk(
-                    "fetch", run, base, c0,
+                    fetch_stage, run, base, c0,
                     min(c1, casm.E_real), t0, dt,
                 )
                 # feed the adaptive sizing loop: this chunk's
                 # blocking device-path cost (dispatch + the fetch
                 # wait replay overlap didn't hide), keyed by its
-                # width bucket
+                # width bucket — mesh dispatches into their own
                 self._note_launch_cost(
-                    c1 - c0, (launch_dt + dt) * 1000.0
+                    c1 - c0, (launch_dt + dt) * 1000.0,
+                    mesh=casm.use_mesh,
                 )
                 for e in range(c0, min(c1, casm.E_real)):
                     if rescore:
@@ -1944,6 +2141,7 @@ class BatchWorker(Worker):
                     except NotLeaderError:
                         pending.clear()
                         raise
+            self._admission_live = None
             if admission is not None and admission.deferred:
                 # gated-out arrivals: the worker holds their
                 # leases; run() processes them as the next gulp
@@ -2100,20 +2298,33 @@ class BatchWorker(Worker):
             adm_sims.append(sim)
         if not admitted:
             return [], j
-        # same snapshot, same chunk width, SAME device-column mirror
-        # as the chain head: the chain's carry already holds every
-        # earlier member's deltas, and a mid-chain re-sync would patch
-        # rows the admitted arena's snapshot never saw
-        asm2 = self._guard_device(
-            "assemble",
-            lambda: self._assemble(
-                snap, admitted, adm_sims, chunk=chunk_w,
-                shared_cols=asm0.dev_cols,
-            ),
-            f"admission assembly failed for {len(admitted)} evals",
-            exemplar=admitted[0][0].id,
-        )
-        if asm2.port_ask is not None or asm2.dev_ask is not None:
+        # same snapshot, same chunk width, same backend path (sharded
+        # or not) and SAME device-column mirror as the chain head: the
+        # chain's carry already holds every earlier member's deltas,
+        # and a mid-chain re-sync would patch rows the admitted arena's
+        # snapshot never saw
+        try:
+            asm2 = self._guard_device(
+                "assemble",
+                lambda: self._assemble(
+                    snap, admitted, adm_sims, chunk=chunk_w,
+                    shared_cols=asm0.dev_cols, mesh=asm0.use_mesh,
+                ),
+                f"admission assembly failed for {len(admitted)} evals",
+                exemplar=admitted[0][0].id,
+            )
+        except BaseException:
+            # the chain aborts here: park the group's leases ahead of
+            # the gated ones (it was dequeued first), where the abort
+            # path nacks them
+            admission.deferred[0:0] = [
+                (ev, token) for ev, token, _job in admitted
+            ]
+            raise
+        if (
+            asm2.port_ask is not None or asm2.dev_ask is not None
+            or asm2.use_mesh != asm0.use_mesh
+        ):
             # unreachable port/dev arenas are gated per-sim above;
             # defensive — defer the whole admitted group, INSERTED
             # AHEAD of any evals this round already gate-deferred:
@@ -2528,22 +2739,43 @@ class BatchWorker(Worker):
         the card the staged inputs go up through pinned memory, K5
         runs and the outputs come back, all on the worker's one
         stream behind every K4 patch of the mirror; on the CPU the
-        twin runs."""
-        from ..ops.solve import StormInputs, storm_assignment
+        twin runs.
+
+        On a mesh worker whose arena tiles over the mesh the solve runs
+        node-sharded (K14) over the same mesh and sharded usage mirror
+        as the chunk chain: the node-indexed inputs are placed by
+        `sched.storm.stage_for_mesh`, each shard scores and auctions its
+        own nodes, and the answer equals the single-device solve."""
+        from ..ops.solve import (
+            StormInputs,
+            storm_assignment,
+            storm_assignment_sharded,
+        )
+        from ..sched.storm import stage_for_mesh
 
         max_rounds = problem.max_rounds
         if self.storm_rounds > 0:
             max_rounds = min(max_rounds, self.storm_rounds)
-        cols = self._device_columns(snap.node_table)
+        table = snap.node_table
+        mesh = self._live_mesh()
+        sharded = mesh is not None and table.capacity % mesh.n_shards == 0
+        cols = self._device_columns(table, sharded=sharded)
         with self._on_stream():
             inp = StormInputs(*(
                 None if leaf is None else self._upload(np.asarray(leaf))
                 for leaf in problem.inputs
             ))
-            out = storm_assignment(
-                inp, cols, spread_fit=problem.spread_fit,
-                max_rounds=max_rounds,
-            )
+            if sharded:
+                out = storm_assignment_sharded(
+                    mesh, problem.spread_fit, max_rounds,
+                    weighted=inp.policy_tput_term is not None,
+                )(stage_for_mesh(inp, mesh), cols)
+                self._count("mesh_storms")
+            else:
+                out = storm_assignment(
+                    inp, cols, spread_fit=problem.spread_fit,
+                    max_rounds=max_rounds,
+                )
             # .cpu() waits on the worker's stream: the solve's fetch
             return tuple(x.cpu().numpy() for x in out)
 
@@ -3445,7 +3677,11 @@ class BatchWorker(Worker):
         if self.device.type == "cuda":
             from ..ops import _cuda
 
-            for name in ("chained_picks", "patch_rows"):
+            names = ["chained_picks", "patch_rows"]
+            if self._mesh is not None:
+                names += ["sharded_chain", "patch_rows_sharded",
+                          "storm_sharded"]
+            for name in names:
                 _cuda.library(name)
         table = self.store.node_table
         dev_cols = self._device_columns(table)
@@ -3763,7 +3999,7 @@ class BatchWorker(Worker):
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _device_columns(self, table) -> tuple:
+    def _device_columns(self, table, sharded: bool = False) -> tuple:
         """The six shared node columns (cpu/mem/disk totals + used) as
         tensors on the worker's device — the persistent padded arena
         the pipelined prescore launches read instead of re-shipping
@@ -3776,9 +4012,89 @@ class BatchWorker(Worker):
         bit-identical to a fresh upload.  The patch runs on the
         worker's stream behind every launch already enqueued, so no
         launch reads a row it did not expect.  Hit rate is exported as
-        the ``batch_worker.input_cache_hit_rate`` gauge."""
+        the ``batch_worker.input_cache_hit_rate`` gauge.
+
+        ``sharded=True`` returns the sharded twin: the same columns as
+        `Sharded` tensors on the node mesh, patched per shard through
+        K13 (`ops.batch.patch_rows_sharded`), so a warm mesh flush ships
+        O(dirty rows) bytes; those bytes are the ``mesh.bytes_per_flush``
+        gauge and the delta-hit rate ``mesh.mirror_hit_rate``."""
         with self._usage_cache_lock, self._on_stream():
+            if sharded:
+                return self._device_columns_sharded(table)
             return self._device_columns_locked(table)
+
+    def _device_columns_sharded(self, table) -> tuple:
+        """The sharded usage mirror (see ``_device_columns``): keyed as
+        the plain one plus the mesh width, so the first sync after a
+        supervisor incident (a new epoch) or a rebuilt mesh re-uploads
+        it in full.  Uploads go through the worker's pinned staging and
+        are cut into the mesh's shards on the device."""
+        from ..ops.batch import patch_rows_sharded
+
+        mesh = self._live_mesh()
+        key = (
+            self._backend_epoch, table.epoch, table.topo_generation,
+            table.capacity, "sharded", mesh.n_shards,
+        )
+
+        def put(col):
+            return mesh.shard(self._upload(col))
+
+        cache = self._usage_cache_sharded
+        hit = False
+        bytes_up = 0
+        host_used = (table.cpu_used, table.mem_used, table.disk_used)
+        if cache is None or cache["key"] != key:
+            # topology changed, a new epoch or a new mesh: full resync
+            gen, _rows = self.store.usage_delta_since(-1)
+            host_cols = (
+                table.cpu_total, table.mem_total, table.disk_total,
+            ) + host_used
+            cols = tuple(put(col) for col in host_cols)
+            bytes_up = sum(col.nbytes for col in host_cols)
+            cache = {"key": key, "gen": gen, "cols": cols}
+            self._usage_cache_sharded = cache
+        else:
+            gen, rows = self.store.usage_delta_since(cache["gen"])
+            cols = cache["cols"]
+            if len(rows) > max(64, table.capacity // 8):
+                # wide churn: one bulk upload beats many scatters
+                cols = cols[:3] + tuple(put(col) for col in host_used)
+                bytes_up = sum(col.nbytes for col in host_used)
+            elif rows:
+                idx = np.asarray(sorted(rows), dtype=np.int32)
+                # one replicated staging for every shard, padded to a
+                # pow2 bucket; padding indexes C (dropped on every shard)
+                width = _pow2(len(idx), floor=8)
+                idx_p = np.full(width, table.capacity, np.int32)
+                idx_p[: len(idx)] = idx
+                idx_dev = self._upload(idx_p)
+                bytes_up += idx_p.nbytes
+                for col, src in zip(cols[3:], host_used):
+                    vals = np.zeros(width, dtype=src.dtype)
+                    vals[: len(idx)] = src[idx]
+                    bytes_up += vals.nbytes
+                    patch_rows_sharded(mesh, col, idx_dev,
+                                       self._upload(vals))
+                hit = True
+            else:
+                hit = True  # nothing changed since the last sync
+            cache["cols"] = cols
+            cache["gen"] = gen
+        if hit:
+            self._mesh_mirror_hits += 1
+        else:
+            self._mesh_mirror_misses += 1
+        metrics = getattr(self.server, "metrics", None)
+        if metrics is not None:
+            metrics.set_gauge("mesh.bytes_per_flush", float(bytes_up))
+            total = self._mesh_mirror_hits + self._mesh_mirror_misses
+            metrics.set_gauge(
+                "mesh.mirror_hit_rate",
+                self._mesh_mirror_hits / total if total else 0.0,
+            )
+        return cache["cols"]
 
     def _device_columns_locked(self, table) -> tuple:
         # table.epoch: a snapshot restore swaps in a FRESH NodeTable
@@ -3860,6 +4176,7 @@ class BatchWorker(Worker):
         self, snap, prescorable, sims: List[_Sim],
         chunk: int = PIPELINE_CHUNK,
         shared_cols: Optional[tuple] = None,
+        mesh: Optional[bool] = None,
     ) -> _Assembled:
         """Stage 1 of the prescore pipeline: pure host-side numpy input
         staging for one admitted chain (no device work).  The result is
@@ -3870,7 +4187,10 @@ class BatchWorker(Worker):
         ``chunk`` aligns the eval axis (one launch = one chunk-wide
         slice).  A mid-chain admission arena passes the chain head's
         device mirror as ``shared_cols`` instead of syncing it
-        again."""
+        again, and ``mesh`` pins the head's backend path: None lets
+        the arena take the sharded path whenever its shapes qualify,
+        False forces K3, True allows the sharded path only (the caller
+        defers an arena whose ``use_mesh`` comes back False)."""
         table = snap.node_table
         C = table.capacity
         compiler = MaskCompiler(table)
@@ -4334,6 +4654,25 @@ class BatchWorker(Worker):
         )
         wanted = np.zeros(E, np.int32)
         wanted[:E_real] = [s.placements for s in sims]
+        # K12 covers the single-group scalar layout (T = 1, no port or
+        # device slot axes, no per-group vectors), and the node axis
+        # must tile over the mesh; other arenas take K3, as the JAX
+        # package routes them.  Mid-chain admission arenas qualify
+        # exactly like chain heads
+        live = self._live_mesh()
+        mesh_capable = (
+            live is not None
+            and T == 1
+            and port_ask_arr is None
+            and dev_ask_arr is None
+            and dev_aff is None
+            and occ0 is None
+            and dh_tg is None
+            and C % live.n_shards == 0
+        )
+        use_mesh = mesh_capable if mesh is None else (
+            bool(mesh) and mesh_capable
+        )
         return _Assembled(
             E_real=E_real,
             E=E,
@@ -4357,14 +4696,15 @@ class BatchWorker(Worker):
             occ0=occ0,
             dh_tg=dh_tg,
             # the persistent delta-patched device mirror every launch
-            # reads (a mid-chain admission arena reuses the chain
-            # head's)
+            # reads — the SHARDED mirror for mesh arenas (a mid-chain
+            # admission arena reuses the chain head's)
             dev_cols=(
                 shared_cols
                 if shared_cols is not None
-                else self._device_columns(table)
+                else self._device_columns(table, sharded=use_mesh)
             ),
             chunk=chunk,
+            use_mesh=use_mesh,
         )
 
     # -- launch + fetch (pipeline stages 2 and 3) ----------------------
@@ -4390,7 +4730,10 @@ class BatchWorker(Worker):
         NON-blocking: K3 and the copy of its rows and pulls into
         pinned host memory are enqueued on the worker's stream behind
         an event, which ``_fetch`` waits on.  Returns (rows, pulls,
-        carry-out, event or None)."""
+        carry-out, event or None).  Mesh arenas dispatch K12's chunk
+        (``_launch_chunk_mesh``) with the same handle layout."""
+        if asm.use_mesh:
+            return self._launch_chunk_mesh(asm, c0, c1, carry)
         sl = self._chunk_slice
         cols = asm.dev_cols
         if carry is None:
@@ -4420,17 +4763,77 @@ class BatchWorker(Worker):
                 dh_tg=sl(asm.dh_tg, c0, c1),
                 return_carry=True,
             )
-            if self.stream is None:
-                return rows, pulls, carry_out, None
-            host = torch.empty(
-                (2,) + tuple(rows.shape), dtype=torch.int32,
-                pin_memory=True,
-            )
-            host[0].copy_(rows, non_blocking=True)
-            host[1].copy_(pulls, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
+            return self._fetchable(rows, pulls, carry_out)
+
+    def _fetchable(self, rows, pulls, carry_out):
+        """A launch's handle: on the card its rows and pulls copied into
+        pinned host memory behind an event on the worker's stream (call
+        inside ``_on_stream``); on the CPU the tensors themselves."""
+        if self.stream is None:
+            return rows, pulls, carry_out, None
+        host = torch.empty(
+            (2,) + tuple(rows.shape), dtype=torch.int32,
+            pin_memory=True,
+        )
+        host[0].copy_(rows, non_blocking=True)
+        host[1].copy_(pulls, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self.stream)
         return host[0], host[1], carry_out, done
+
+    def _launch_chunk_mesh(self, asm: _Assembled, c0: int, c1: int, carry):
+        """Stage 2, sharded: one chunk-wide slice through K12
+        (`parallel.mesh.sharded_chained_plan`).  The chain start reads
+        the sharded usage mirror in place; later chunks chain on the
+        previous launch's sharded carry, which never leaves the device.
+        Single-group arenas only (``asm.use_mesh`` gates the layout):
+        the T = 1 slices are the runner's per-eval scalar layout."""
+        self._live_mesh()
+        cols = asm.dev_cols
+        used = cols[3:6] if carry is None else carry[0]
+        st = asm.stacked
+        E = c1 - c0
+        C = st.perm.shape[1]
+        spread_arg = self._chunk_slice(asm.spread, c0, c1)
+        runner = self._sharded_runner(
+            asm.P, asm.spread_fit,
+            with_spread=spread_arg is not None,
+            spread_even=(
+                spread_arg is not None and spread_arg.even is not None
+            ),
+        )
+        args = tuple(cols[:3]) + tuple(used) + (
+            st.feasible[c0:c1, 0],
+            st.perm[c0:c1],
+            st.ask_cpu[c0:c1, 0],
+            st.ask_mem[c0:c1, 0],
+            st.ask_disk[c0:c1, 0],
+            st.desired_count[c0:c1, 0],
+            st.limit[c0:c1, 0],
+            asm.wanted[c0:c1],
+            asm.n_cands[c0:c1],
+            st.distinct_hosts[c0:c1],
+            asm.coll0[c0:c1, 0]
+            if asm.coll0 is not None
+            else np.zeros((E, C), np.int32),
+            asm.affinity[c0:c1, 0]
+            if asm.affinity is not None
+            else np.zeros((E, C)),
+            self._chunk_slice(asm.deltas, c0, c1),
+            self._chunk_slice(asm.pre, c0, c1),
+        )
+        if spread_arg is not None:
+            args = args + (spread_arg,)
+        with self._on_stream():
+            rows, pulls, used_out = runner(*args)
+            handle = self._fetchable(rows, pulls, (used_out, None, None))
+        metrics = getattr(self.server, "metrics", None)
+        if metrics is not None:
+            metrics.incr("mesh.launches")
+        if c0 == 0:
+            # once per arena: "mesh used" against "mesh skipped"
+            self._count("mesh_used")
+        return handle
 
     def _fetch(self, handle) -> Tuple[np.ndarray, np.ndarray]:
         """Stage 3: wait for a chunk's rows and pulls — the only point

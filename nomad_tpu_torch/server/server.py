@@ -14,7 +14,10 @@ on the server's device; `batch_pipeline=False` builds sequential
 `Worker`s, which run the per-eval device stack (`CudaGenericStack`)
 when the scheduler config enables it.  `device=None` means the CUDA
 card and raises `NoDeviceError` without one; `device="cpu"` runs the
-plain-PyTorch twins.  The device supervisor (`device/supervisor.py`)
+plain-PyTorch twins.  `mesh=` (a `parallel.mesh.VirtualMesh` of D
+shards on the server's device, or a `DistMesh`) puts the batch workers
+on the node-sharded path (K12-K14); so does NOMAD_TPU_MESH=1, over the
+initialised torch.distributed group.  The device supervisor (`device/supervisor.py`)
 is built before the workers and runs while the server leads: live for
 a server on the card (or with NOMAD_TPU_SUPERVISOR=1 or an armed
 NOMAD_TPU_FAULT), idle for a CPU server otherwise.  While it holds the
@@ -93,6 +96,7 @@ class Server:
         store: Optional[StateStore] = None,
         device=None,
         device_config=None,
+        mesh=None,
     ) -> None:
         # resolved first: a server meant for the card fails here, at
         # construction, when there is none
@@ -143,16 +147,28 @@ class Server:
         self.metrics.preregister(
             counters=POLICY_COUNTERS, gauges=POLICY_GAUGES
         )
+        if mesh is not None and not batch_pipeline:
+            raise ValueError(
+                "mesh= shards the batch workers: it needs batch_pipeline=True"
+            )
         if batch_pipeline:
             from .batch_worker import (
                 ADMISSION_COUNTERS,
+                MESH_COUNTERS,
+                MESH_GAUGES,
                 STORM_COUNTERS,
                 STORM_GAUGES,
                 BatchWorker,
             )
 
+            # sharded hot path: zero-register the mesh.* family
+            # (absence-of-series must mean "mesh never engaged", not
+            # "not exported"); before the workers, which set mesh.hosts
+            self.metrics.preregister(
+                counters=MESH_COUNTERS, gauges=MESH_GAUGES
+            )
             self.workers: List[Worker] = [
-                BatchWorker(self, seed=seed)
+                BatchWorker(self, seed=seed, mesh=mesh)
                 for _ in range(num_schedulers)
             ]
             # continuous micro-batching: zero-register the admission.*

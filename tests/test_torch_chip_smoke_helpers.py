@@ -21,7 +21,9 @@ def test_every_result_has_one_helper():
     assert not dup
     twins = [key for key, _fn, _args in chip_smoke.twin_jobs()]
     assert sorted(_keys("twins-a") + _keys("twins-b")) == sorted(twins)
-    assert all(k.startswith("k5-") for k in _keys("twins-a"))
+    # twins-a: the storm solves' twins (K5's, K14's)
+    assert all(k.startswith(("k5-", "k14-")) for k in _keys("twins-a"))
+    assert any(k.startswith("k14-") for k in _keys("twins-a"))
 
 
 def test_card_twins_cover_both_dtypes_of_each_check():
@@ -39,6 +41,8 @@ def test_card_twins_cover_both_dtypes_of_each_check():
         chip_smoke.BATCHED_SHAPES)
     assert by_phase["k12"] == len(SHARDED_CHAIN_SCENARIOS) * (
         len(chip_smoke.K12_COUNTS) + 1) + 2
+    # K14: both row counts at every D (f64), f32 and weighted at D = 8
+    assert by_phase["k14"] == 2 * len(chip_smoke.K14_COUNTS) + 2
     # the k3 twins come first: phase k3 is the first to ask
     assert card[0].startswith("card-k3-float64-")
 

@@ -4,8 +4,9 @@
 K8 (csrc/canary.cu), K9 (csrc/chained_batch.cu, per-eval and shared),
 K10 (csrc/batch_plan.cu), K11 (csrc/score_all.cu), K12
 (csrc/sharded_chain.cu, the node-sharded chained planner on a
-VirtualMesh of 1, 2, 4 and 8 shards) and K13 (csrc/patch_rows_sharded.cu)
-against their plain
+VirtualMesh of 1, 2, 4 and 8 shards), K13 (csrc/patch_rows_sharded.cu)
+and K14 (csrc/storm_sharded.cu, the node-sharded storm solve on a
+VirtualMesh of 1 and 8 shards, also equal to K5) against their plain
 twins, on the card and on the CPU, at the main path's width (a
 16,384-row arena with 10,000 candidates; K5 with 8 and 1,024 rows; K6 at
 C in {8, 1024, 16384}; K7 with 1, 10,000 and 16,384 candidates and
@@ -555,3 +556,48 @@ def test_patch_rows_sharded_kernel_matches_twin(cuda, width, d, dtype):
     assert np.array_equal(_bits(got), _bits(cmesh.unshard(twin)))
     whole = tbatch.patch_rows(col.clone().to(cuda), idx.to(cuda), vals.to(cuda))
     assert np.array_equal(_bits(got), _bits(whole))
+
+
+# -- K14: the node-sharded storm solve ------------------------------------------
+
+K14_CASES = [("dogpile", 64, 1024), ("penalty_affinity_collisions", 64, 1024),
+             ("infeasible_rows", 64, 1024), ("padding_rows", 64, 1024),
+             ("pre_deltas", 64, 1024), ("policy_dogpile", 64, 1024),
+             ("dogpile", 1024, C)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("scenario,A,width", K14_CASES)
+def test_storm_sharded_kernel_matches_twin(cuda, scenario, A, width, d, dtype):
+    """K14 against its twin on the card and on the CPU (all six outputs,
+    bits), its launches against the stage count, and K5 on the same
+    inputs (equal values; a zero score's sign may differ at d > 1)."""
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    weighted = scenario.startswith("policy_")
+    make = policy_storm_case if weighted else storm_case
+    cols, inp, max_rounds = make(900 + A, min(A, 64), A, width,
+                                 scenario.replace("policy_", ""))
+    outs = []
+    for mesh, plan in ((VirtualMesh(d, cuda), tsolve.storm_assignment_sharded),
+                       (VirtualMesh(d, cuda), tsolve.storm_assignment_sharded_twin),
+                       (VirtualMesh(d, "cpu"), tsolve.storm_assignment_sharded_twin)):
+        before = tsolve.storm_assignment_sharded_cuda.launches
+        out = plan(mesh, False, max_rounds, weighted)(
+            storm_inputs(inp, mesh.device, dtype),
+            storm_columns(cols, mesh.device, dtype))
+        torch.cuda.synchronize()
+        outs.append(([x.cpu() for x in out],
+                     tsolve.storm_assignment_sharded_cuda.launches - before))
+    (kern, n), (twin, n_twin), (twin_cpu, _n) = outs
+    assert n == tsolve.storm_stage_launches(VirtualMesh(d, cuda), int(kern[5]))
+    assert n_twin == 0
+    for other in (twin, twin_cpu):
+        for a, b in zip(kern, other):
+            assert np.array_equal(_bits(a), _bits(b))
+    k5 = tsolve.storm_assignment_cuda(storm_inputs(inp, cuda, dtype),
+                                      storm_columns(cols, cuda, dtype), False,
+                                      max_rounds)
+    for a, b in zip(kern, k5):
+        assert torch.equal(a, b.cpu())

@@ -28,6 +28,7 @@ from nomad_tpu_torch.ops.cases import (
 from nomad_tpu_torch.parallel.mesh import (
     VirtualMesh,
     make_mesh,
+    mesh_axes,
     sharded_chained_plan,
     sharded_chained_plan_twin,
     stage_launches,
@@ -290,8 +291,8 @@ def test_mesh_that_cannot_be_built_raises(tmp_path):
         VirtualMesh(3, "cpu").shard_size(128)  # C % D != 0
     with pytest.raises(ValueError):
         VirtualMesh(0, "cpu")
-    with pytest.raises(ValueError):
-        make_mesh(2, eval_axis=2)
+    with pytest.raises(NotImplementedError, match="Queue A 2"):
+        make_mesh(2, eval_axis=2)  # the port has no eval axis yet
     case = sharded_chain_case(3, 96, 90, "plain", 2, 2)
     cols, per_eval, _sp = _jax_inputs(case)
     run = sharded_chained_plan_twin(VirtualMesh(5, "cpu"), 2)
@@ -300,6 +301,17 @@ def test_mesh_that_cannot_be_built_raises(tmp_path):
     if not torch.distributed.is_initialized():
         with pytest.raises(RuntimeError):
             make_mesh(2)  # no torch.distributed group
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_mesh_axes_are_the_jax_defaults(n):
+    """`mesh_axes` resolves the (evals, nodes) axes of the JAX
+    `make_mesh(n)` on the conftest's 8 virtual devices; an explicit
+    eval axis of 1 is the node axis alone."""
+    from nomad_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    assert mesh_axes(n) == tuple(jax_mesh(n).devices.shape)
+    assert mesh_axes(n, 1) == (1, n)
 
 
 def _spawn(world, target, args_of, timeout=SPAWN_LIMIT_S):
@@ -335,9 +347,19 @@ def test_virtual_mesh_equals_gloo_ranks(world, tmp_path):
     want = {s: torch_mesh_ranks.chain_results(mesh, s) for s in scenarios}
     coll = [torch_mesh_ranks.collectives(VirtualMesh(1, "cpu"), s)
             for s in range(world)]
+    from nomad_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    jax_axes = tuple(jax_mesh(world).devices.shape)
     for rank in range(world):
         got = torch.load(tmp_path / f"rank{rank}.pt")
         assert got["loaded"] == []
+        # make_mesh(world) resolves the JAX default axes; the port builds
+        # only an eval axis of 1 and raises for the (2, world / 2) one
+        assert tuple(got["axes"]) == jax_axes
+        if jax_axes[0] == 1:
+            assert got["default_mesh"] == "built"
+        else:
+            assert "Queue A 2" in got["default_mesh"]
         assert "shards asked of a group" in got["too_many_shards"]
         for s in scenarios:
             for a, b in zip(got[s][:2], want[s][:2]):

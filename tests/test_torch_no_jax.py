@@ -311,6 +311,56 @@ print(bool(torch.equal(rows, drows)), len(block["points"]), bad)
 """
 
 
+MESH_SERVER_SCRIPT = r"""
+import os, sys, tempfile
+import torch
+import torch.distributed as dist
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.ops.cases import storm_case
+from nomad_tpu_torch.ops.solve import storm_assignment_sharded
+from nomad_tpu_torch.parallel import DistMesh, VirtualMesh
+from nomad_tpu_torch.server import Server
+from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
+
+os.environ["NOMAD_TPU_STORM"] = "1"
+os.environ["NOMAD_TPU_STORM_MIN"] = "4"
+server = Server(batch_pipeline=True, device="cpu", seed=1,
+                heartbeat_ttl=1e9, mesh=VirtualMesh(2, "cpu"))
+for i in range(16):
+    server.register_node(mock.node(id=f"nj-{i:02d}"))
+for k in range(6):
+    job = mock.job(id=f"fam/dispatch-{k:04d}")
+    job.type = "batch"
+    job.task_groups[0].count = 1
+    server.register_job(job)
+server.start()
+assert server.drain_to_idle(60)
+job = mock.job(id="plain")
+job.task_groups[0].count = 3
+server.register_job(job)
+assert server.drain_to_idle(60)
+worker = server.workers[0]
+placed = sum(
+    1 for a in server.store.allocs.values() if not a.terminal_status()
+)
+server.stop()
+cols, inp, max_rounds = storm_case(3, 4, 16, 64, "dogpile")
+init = os.path.join(tempfile.mkdtemp(), "init")
+dist.init_process_group("gloo", init_method="file://" + init, world_size=1,
+                        rank=0)
+out = storm_assignment_sharded(DistMesh(), False, max_rounds)(
+    storm_inputs(inp, "cpu"), storm_columns(cols, "cpu"))
+dist.destroy_process_group()
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(placed, worker.mesh_used > 0, worker.mesh_storms, int(out.rounds) > 0,
+      bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -386,6 +436,14 @@ def test_port_mesh_loads_no_jax():
     assert _run_fresh(MESH_SCRIPT) == "True 4 []"
 
 
+def test_port_mesh_server_loads_no_jax():
+    """The meshed batched Server (K12's and K13's twins over the sharded
+    mirror, a storm through K14's twin) and the sharded storm solve on a
+    one-rank gloo group run in a fresh interpreter without JAX or the
+    JAX package."""
+    assert _run_fresh(MESH_SERVER_SCRIPT) == "9 True 1 True []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -411,6 +469,7 @@ def test_port_sources_import_no_jax():
             "nomad_tpu_torch/parallel/__init__.py",
             "nomad_tpu_torch/parallel/mesh.py",
             "nomad_tpu_torch/parallel/multichip.py",
+            "nomad_tpu_torch/server/server.py",
             "chip_smoke.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -299,10 +299,12 @@ def test_server_without_a_card_raises(monkeypatch):
         TorchServer(batch_pipeline=False)
 
 
-@pytest.mark.parametrize("flag", ["NOMAD_TPU_MESH"])
-def test_unported_paths_raise(monkeypatch, flag):
-    monkeypatch.setenv(flag, "1")
-    with pytest.raises(NotImplementedError):
+def test_mesh_without_a_mesh_or_group_raises(monkeypatch):
+    """NOMAD_TPU_MESH=1 with neither the Server's mesh= nor an
+    initialised torch.distributed group raises at construction: the
+    batch worker never runs unsharded (or on the CPU) in its place."""
+    monkeypatch.setenv("NOMAD_TPU_MESH", "1")
+    with pytest.raises(RuntimeError, match="mesh="):
         TorchServer(device="cpu")
 
 

@@ -1,6 +1,7 @@
 """The rank side of `test_torch_mesh.py`'s gloo checks: one process of a
 `torch.distributed` gloo world runs the port's sharded chained planner
-(the twin) on `make_mesh()`, a `DistMesh`, and saves what it got.
+(the twin) on `make_mesh(eval_axis=1)`, a `DistMesh`, and saves what it
+got, with the axes the default `make_mesh()` resolves.
 Imports only torch, numpy and the port, so the rank also shows that the
 port's mesh path loads neither `jax` nor `nomad_tpu`."""
 import sys
@@ -54,17 +55,25 @@ def rank_main(rank: int, world: int, init_file: str, out: str,
     import torch
     import torch.distributed as dist
 
-    from nomad_tpu_torch.parallel.mesh import make_mesh
+    from nomad_tpu_torch.parallel.mesh import make_mesh, mesh_axes
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
-        mesh = make_mesh()
-        res = {s: chain_results(mesh, s) for s in scenarios}
+        # the JAX default axes: (2, world / 2) from 4 ranks, which the
+        # port's node-only mesh refuses to build
+        res = {"axes": mesh_axes(world)}
+        try:
+            make_mesh()
+            res["default_mesh"] = "built"
+        except NotImplementedError as exc:
+            res["default_mesh"] = str(exc)
+        mesh = make_mesh(eval_axis=1)
+        res.update({s: chain_results(mesh, s) for s in scenarios})
         res["collectives"] = collectives(mesh, rank)
         try:  # more shards than ranks: no rank holds two
-            make_mesh(world + 1)
+            make_mesh(world + 1, eval_axis=1)
             res["too_many_shards"] = "built"
         except ValueError as exc:
             res["too_many_shards"] = str(exc)
@@ -73,5 +82,49 @@ def rank_main(rank: int, world: int, init_file: str, out: str,
             if m in ("jax", "jaxlib", "nomad_tpu")
             or m.startswith(("jax.", "nomad_tpu.")))
         torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+STORM_CASES = (("dogpile", False), ("penalty_affinity_collisions", True),
+               ("weighted", False))
+STORM_E, STORM_A, STORM_C = 8, 48, 128
+
+
+def storm_results(mesh):
+    """The six outputs of the sharded storm solve's twin on each of
+    STORM_CASES ((scenario, spread_fit); "weighted" is the weighted
+    policy case), inputs made from a seed."""
+    from nomad_tpu_torch.ops.cases import policy_storm_case, storm_case
+    from nomad_tpu_torch.ops.solve import storm_assignment_sharded
+    from nomad_tpu_torch.state.convert import storm_columns, storm_inputs
+
+    out = {}
+    for scenario, spread_fit in STORM_CASES:
+        weighted = scenario == "weighted"
+        make = policy_storm_case if weighted else storm_case
+        cols, inp, max_rounds = make(61, STORM_E, STORM_A, STORM_C, scenario)
+        run = storm_assignment_sharded(mesh, spread_fit, max_rounds, weighted)
+        out[(scenario, spread_fit)] = tuple(
+            run(storm_inputs(inp, "cpu"), storm_columns(cols, "cpu")))
+    return out
+
+
+def storm_rank_main(rank: int, world: int, init_file: str, out: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        res = storm_results(make_mesh(eval_axis=1))
+        res["loaded"] = sorted(
+            m for m in sys.modules
+            if m in ("jax", "jaxlib", "nomad_tpu")
+            or m.startswith(("jax.", "nomad_tpu.")))
+        torch.save(res, f"{out}/storm{rank}.pt")
     finally:
         dist.destroy_process_group()
