@@ -34,8 +34,10 @@ Phases (any failure exits non-zero):
    P = 10), K9 and K10 also at the 16,384-row arena, K11 at K1's shape
    with and without policy terms, K12 per chunk (E = 8, P = 10) at D = 1
    and 8 shards on the one card, K13 at W = 1,024, K14 on the storm
-   phase's own problem at D = 1 and 8; for K4 and K13 also the nearest
-   single PyTorch call (`index_copy_`).  This phase runs last.
+   phase's own problem at D = 1 and 8, the entry phase's two programs on
+   its 2 x 4 mesh (the select also at 1 x 1 and 1 x 8); for K4 and K13
+   also the nearest single PyTorch call (`index_copy_`).  This phase
+   runs last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
@@ -198,15 +200,29 @@ mesh. The mesh path: the port's batched `Server(mesh=VirtualMesh(8,
    meshed Server (K14): placements, storm rows, rounds and counters
    equal to the storm phase's K5 run.  K12, K13 and K14 launched, no
    errors.
+entry. The entry module (`nomad_tpu_torch/entry.py`) and its programs
+   on an (evals, nodes) mesh, each program checked before its path uses
+   it: `sharded_score_and_select` (K11 a node shard, the all-gather, K6)
+   on VirtualMeshes of 1 x 1, 1 x 8 and 2 x 4 on the card, every score
+   scenario of `ops/cases.py` at the 16,384-row arena (10,000
+   candidates, limit 14), f64 and f32, bit-equal to K1's select, to its
+   twin on the card and to K1's twin on the CPU, once on the one-rank
+   NCCL DistMesh; `sharded_batch_plan` (the node-axis all-gathers, K10
+   an eval row) at E = 16, P = 10 on the same meshes, f64 and f32, rows
+   equal to K10's on the whole batch and (f64) to its CPU twin.  Then
+   `dryrun_multichip(8)` on the card (a 2 x 4 VirtualMesh: the select,
+   the batched plan, a meshed batched Server placing a count-4 job and a
+   count-4 spread job on 12 nodes), equal in select, rows and placements
+   to the same call on the CPU; its K11, K6 and K10 launches counted.
 
 The references that the checks compare against run in helper
 processes (this script with --helper NAME DIR, 1-3 torch threads
 each), started before the kernels are built: the kernel checks' twins
-on the CPU (twins-a: k5, k14; twins-b: k3, k7, k9, k10, k12) and on the
-card (card-twins: k3, k5, k9, k10, k12, k14), and the path phases' runs on
-the CPU twins and the host oracle (host-a: phases 4 and 8, storm,
-preempt, and the bridge's and the device phase's CPU Servers; host-b:
-phase policy).  The storm runs on the CPU hold their wave's broker
+on the CPU (twins-a: k5, k14; twins-b: k3, k7, k9, k10, k12, entry) and
+on the card (card-twins: k3, k5, k9, k10, k12, k14), and the path
+phases' runs on the CPU twins and the host oracle (host-a: phases 4 and
+8, storm, preempt, and the bridge's and the device phase's CPU Servers;
+host-b: phase policy and the entry phase's CPU dryrun).  The storm runs on the CPU hold their wave's broker
 lease longer than their drain may take (CPU_STORM_NACK_S): a slow
 host's solve must not outlive the default 60 s lease and have the wave
 redelivered mid-solve.  Each phase takes their
@@ -221,7 +237,9 @@ the next world is restored, so a restore sees one world on the heap.
 The phase seconds are printed split into world builds, waits for the
 helpers' results and the rest (the card), each with the seconds since
 the script started.  Prints the kernels
-line (15 programs: K1-K8, K9 and its shared mode, K10-K14), then the
+line (17 programs: K1-K8, K9 and its shared mode, K10-K14, and the entry
+path's sharded_score_and_select and sharded_batch_plan with the kernels
+each launches), then the
 card's nvidia-smi line, then the result line: {"ok": true, "device":
 {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it prints no result and exits 2.
@@ -3069,6 +3087,7 @@ def time_kernels(cuda) -> dict:
     out.update(time_batched_kernels(cuda))
     out.update(time_sharded_kernels(cuda))
     out.update(time_storm_sharded(cuda))
+    out.update(time_entry_programs(cuda))
     for v in out.values():
         v.setdefault("library_ms", None)
         _bound(v)
@@ -4267,6 +4286,285 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase entry: the entry module and its programs on an (evals, nodes) mesh
+# ---------------------------------------------------------------------------
+
+ENTRY_MESHES = ((1, 1), (1, 8), (2, 4))  # the checks' (evals, nodes) meshes
+ENTRY_E, ENTRY_P = 16, 10  # the batched planner's check and timing shape
+ENTRY_DRYRUN = 8  # dryrun_multichip's device count: a 2 x 4 mesh
+
+
+def _entry_select_case(scenario: str):
+    from nomad_tpu_torch.ops.cases import SCORE_SCENARIOS, score_case
+
+    return score_case(9800 + sorted(SCORE_SCENARIOS).index(scenario), C_CHECK,
+                      N_CAND_CHECK, scenario, 14)
+
+
+def _entry_batch_args(dev, dtype):
+    """The batched planner's inputs: a `batched_case` "plain" of ENTRY_E
+    evals at the 16,384-row arena, n_candidates one scalar (the JAX
+    program's is static): (node columns, BatchInputs, n_candidates)."""
+    from nomad_tpu_torch.state.convert import batched_case_to_torch
+
+    cols, kw = _k9_batched_case(9900, "plain", ENTRY_E, ENTRY_P)
+    n_cand = int(kw["n_candidates"].min())
+    args, _kw = batched_case_to_torch(cols, kw, dev, dtype)
+    return args[:3], args[3], n_cand
+
+
+def _entry_batch_cpu():
+    """The batched planner's CPU twin (f64) on a 2 x 4 VirtualMesh."""
+    import torch
+
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh, sharded_batch_plan
+
+    cols, batch, n_cand = _entry_batch_args("cpu", torch.float64)
+    return sharded_batch_plan(VirtualMesh(4, "cpu", n_evals=2), n_cand,
+                              ENTRY_P)(*cols, batch)
+
+
+def _entry_dryrun_cpu():
+    from nomad_tpu_torch.entry import dryrun_multichip
+
+    return dryrun_multichip(ENTRY_DRYRUN, "cpu")
+
+
+def _select_key(out) -> tuple:
+    """(row, dtype, bits of best, feasible count, pulls) of a select."""
+    row, best, n, pulls = out
+    return int(row), str(best.dtype), int(_bits(best)), int(n), int(pulls)
+
+
+def check_entry(cuda, card: str) -> dict:
+    """The entry module's programs, checked before its path uses them,
+    then the path.  `sharded_score_and_select` (K11 a shard, the
+    all-gather, K6) on VirtualMeshes of (evals, nodes) in ENTRY_MESHES on
+    the card, over every score scenario at the 16,384-row arena (10,000
+    candidates, limit 14), f64 and f32: (row, best, feasible count,
+    pulls) bit-equal to K1's single select, to the program's twin on
+    the card and to K1's twin on the CPU; once on the one-rank NCCL
+    DistMesh.  `sharded_batch_plan` (the node-axis all-gathers, K10 an
+    eval row) at E = ENTRY_E, P = ENTRY_P on the same meshes, f64 and
+    f32: rows equal to K10's on the whole batch and (f64) to the
+    program's CPU twin from a helper.  Then `dryrun_multichip(8)` on the
+    card, its K11, K6, K10, K12 and K13 counts set to 0 just before and
+    read just after: its select, rows and placements (by node name)
+    equal to the same call on the CPU (a helper's), and K11 launched
+    once a node shard, K6 once, K10 once an eval row."""
+    import torch
+
+    from nomad_tpu_torch.entry import dryrun_multichip
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.ops.cases import SCORE_SCENARIOS
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        mesh_axes,
+        sharded_batch_plan,
+        sharded_chained_plan_cuda,
+        sharded_score_and_select,
+        sharded_score_and_select_twin,
+    )
+    from nomad_tpu_torch.state.convert import score_inputs_from_numpy
+
+    max_err = 0.0
+    selects = plans = placed = 0
+    for dtype in (torch.float64, torch.float32):
+        for scenario in sorted(SCORE_SCENARIOS):
+            case = _entry_select_case(scenario)
+            inp = score_inputs_from_numpy(case, cuda, dtype=dtype)
+            k1 = tscore.score_select_cuda(inp)
+            want = (k1.out_i[0], k1.best[0], k1.out_i[2], k1.out_i[1])
+            key = _select_key(want)
+            tag = f"sharded_score_and_select {dtype} {scenario}"
+            cpu = tscore.score_and_select_twin(
+                score_inputs_from_numpy(case, "cpu", dtype=dtype))
+            check(_select_key(cpu) == key, f"{tag}: K1 != its twin on CPU")
+            for evals, nodes in ENTRY_MESHES:
+                mesh = VirtualMesh(nodes, cuda, n_evals=evals)
+                got = sharded_score_and_select(mesh)(inp)
+                where = f"{tag} on {evals} x {nodes}"
+                check(_select_key(got) == key, f"{where}: != K1 on the card")
+                twin = sharded_score_and_select_twin(mesh)(inp)
+                check(_select_key(twin) == key, f"{where}: != its twin on card")
+                d = float(got[1]) - float(want[1])
+                if math.isfinite(d):
+                    max_err = max(max_err, abs(d))
+                selects += 1
+            if dtype == torch.float64 and scenario == "mixed":
+                got = sharded_score_and_select(nccl_mesh(cuda))(inp)
+                check(_select_key(got) == key,
+                      f"{tag} on the NCCL DistMesh: != K1 on the card")
+                selects += 1
+    for dtype in (torch.float64, torch.float32):
+        cols, batch, n_cand = _entry_batch_args(cuda, dtype)
+        k10 = tbatch.batch_plan_picks_cuda(*cols, batch, n_cand, ENTRY_P).cpu()
+        cpu = None
+        if dtype == torch.float64:
+            with SPLIT("wait"):
+                cpu = HELPERS.get("entry-k10")
+        for evals, nodes in ENTRY_MESHES:
+            mesh = VirtualMesh(nodes, cuda, n_evals=evals)
+            rows = sharded_batch_plan(mesh, n_cand, ENTRY_P)(*cols, batch).cpu()
+            where = f"sharded_batch_plan {dtype} on {evals} x {nodes}"
+            check(tuple(rows.shape) == (ENTRY_E, ENTRY_P), f"{where}: shape")
+            check(torch.equal(rows, k10), f"{where}: != K10 on the card")
+            if cpu is not None:
+                check(torch.equal(rows, cpu), f"{where}: != its twin on CPU")
+            placed += int((rows >= 0).sum())
+            plans += 1
+    check(placed > 0, "sharded_batch_plan placed nothing")
+    print(f"entry programs: sharded_score_and_select {selects} runs on "
+          f"(evals, nodes) {list(ENTRY_MESHES)} and the NCCL DistMesh, every "
+          f"one bit-equal to K1 and to the twins ({len(SCORE_SCENARIOS)} "
+          f"scenarios, f64 and f32, {C_CHECK} rows); sharded_batch_plan "
+          f"{plans} runs at E = {ENTRY_E}, P = {ENTRY_P}, rows equal to K10 "
+          f"and the CPU twin ({placed} placed picks)", flush=True)
+
+    counted = {"score_all": tscore.score_all_cuda,
+               "walk_only": tscore.walk_only_cuda,
+               "batch_plan_picks": tbatch.batch_plan_picks_cuda,
+               "sharded_chained_plan": sharded_chained_plan_cuda,
+               "patch_rows_sharded": tbatch.patch_rows_sharded_cuda}
+    for w in counted.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(ENTRY_DRYRUN)
+    dry_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counted.items()}
+    evals, nodes = mesh_axes(ENTRY_DRYRUN)
+    with SPLIT("wait"):
+        ref = HELPERS.get("entry-dryrun-cpu")
+    check(tuple(dry["axes"]) == tuple(ref["axes"]) == (evals, nodes),
+          f"the dryrun's mesh {dry['axes']}")
+    check(_select_key(dry["select"]) == _select_key(ref["select"]),
+          "the dryrun's select differs between the card and the CPU")
+    check(torch.equal(dry["rows"], ref["rows"]),
+          "the dryrun's rows differ between the card and the CPU")
+    check(dry["placements"] == ref["placements"],
+          f"the dryrun's placements differ: card {dry['placements']}, CPU "
+          f"{ref['placements']}")
+    check(dry["worker"]["errors"] == 0, f"the dryrun's worker: {dry['worker']}")
+    for name, want in (("score_all", nodes), ("walk_only", 1),
+                       ("batch_plan_picks", evals)):
+        check(launches[name] == want,
+              f"{name}: {launches[name]} launches on the entry path, {want} "
+              "expected")
+    check(launches["sharded_chained_plan"] > 0,
+          "K12 was not launched by the dryrun's meshed Server")
+    print(f"entry path on {card}: dryrun_multichip({ENTRY_DRYRUN}) on a "
+          f"{evals} x {nodes} VirtualMesh in {dry_s:.2f} s, select "
+          f"{_select_key(dry['select'])}, rows {dry['rows'].tolist()}, "
+          f"{len(dry['placements'])} placements, worker "
+          f"{json.dumps(dry['worker'])}: equal to the CPU run; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return {"max_abs_err": max_err, "launches": launches, "dryrun_s": dry_s,
+            "selects": selects, "plans": plans}
+
+
+def time_entry_programs(cuda) -> dict:
+    """`sharded_score_and_select` on K1's timing case (the 16,384-row
+    arena, `mixed`, limit 14, f64) and `sharded_batch_plan` on the check's
+    batch (E = ENTRY_E, P = ENTRY_P, f64), each on the 2 x 4 VirtualMesh
+    of the dryrun, timed with CUDA events beside its twin on the card;
+    the select also at 1 x 1 and 1 x 8.  Each call's K11, K6 and K10
+    launches are counted.  Bounds: the inputs read once and the outputs
+    written once (for the select every column at all C positions, as
+    K1's; for the planner the candidate region, as K10's), the
+    operations of the walk positions this run reaches; the bytes the
+    all-gathers move are beside them."""
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops import score as tscore
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        sharded_batch_plan,
+        sharded_batch_plan_twin,
+        sharded_score_and_select,
+        sharded_score_and_select_twin,
+    )
+    from nomad_tpu_torch.state.convert import score_inputs_from_numpy
+
+    wrappers = (tscore.score_all_cuda, tscore.walk_only_cuda,
+                tbatch.batch_plan_picks_cuda)
+    saved = tuple(w.launches for w in wrappers)
+
+    def launched(fn) -> dict:
+        before = [w.launches for w in wrappers]
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {n: w.launches - b for n, w, b in zip(
+            ("score_all", "walk_only", "batch_plan_picks"), wrappers, before)}
+        return out, {k: v for k, v in counts.items() if v}
+
+    f8 = 8
+    inp = score_inputs_from_numpy(_entry_select_case("mixed"), cuda)
+    shapes = {}
+    for evals, nodes in ENTRY_MESHES:
+        run = sharded_score_and_select(VirtualMesh(nodes, cuda, n_evals=evals))
+        shapes[(evals, nodes)] = run
+    mesh = VirtualMesh(4, cuda, n_evals=2)
+    run = shapes[(2, 4)]
+    out, per_call = launched(lambda: run(inp))
+    pulls = int(out[3])
+    select = {
+        "ms": cuda_time_ms(lambda: run(inp), n=200, warmup=5),
+        "plain_ms": cuda_time_ms(
+            lambda: sharded_score_and_select_twin(mesh)(inp), n=20, warmup=2),
+        # every input column read once (all C walk positions) and 16
+        # bytes written, as K1's
+        "bytes": C_CHECK * (8 * f8 + 2 * 1 + 2 * 4) + 16,
+        # the all-gathered scores and feasibility: written, then walked
+        "exchange_bytes": 2 * C_CHECK * (f8 + 1),
+        "pulls": pulls,
+        "flops": pulls * FLOPS_PER_CANDIDATE,
+        "shape": f"C = {C_CHECK:,}, mixed, limit 14, 2 x 4",
+        "launches_per_call": per_call,
+    }
+    for (evals, nodes), r in shapes.items():
+        if (evals, nodes) != (2, 4):
+            select[f"ms_{evals}x{nodes}"] = cuda_time_ms(
+                lambda: r(inp), n=200, warmup=5)
+    cols, batch, n_cand = _entry_batch_args(cuda, torch.float64)
+    plan = sharded_batch_plan(mesh, n_cand, ENTRY_P)
+    q = tbatch.prepare_batched(*cols, batch, n_cand, ENTRY_P)
+    reach = int(tbatch.launch_batch_plan(q)[1].sum())
+    rows, per_plan = launched(lambda: plan(*cols, batch))
+    _twin, twin_ms = cuda_time_once(
+        lambda: sharded_batch_plan_twin(mesh, n_cand, ENTRY_P)(*cols, batch))
+    check(torch.equal(rows.cpu(), _twin.cpu()),
+          "sharded_batch_plan at its timing shape: != its twin on card")
+    batched = {
+        "ms": cuda_time_ms(lambda: plan(*cols, batch), n=50, warmup=3),
+        "plain_ms": twin_ms,
+        # K10's: the candidate region, its per-eval columns and perm
+        "bytes": _candidate_bytes(q, 3 * f8, (1 + 1 + 4 + 4 + 8) + 3 * f8),
+        # the all-gathered [E, C] fields of each eval row: written, read
+        "exchange_bytes": 2 * C_CHECK * (
+            3 * f8 + ENTRY_E * (1 + 3 * f8 + 4 + 1 + f8 + 4)),
+        "pulls": reach,
+        "flops": reach * FLOPS_PER_CANDIDATE,
+        "shape": f"C = {C_CHECK:,}, E = {ENTRY_E}, P = {ENTRY_P}, 2 x 4",
+        "launches_per_call": per_plan,
+        "k10_ms": cuda_time_ms(lambda: tbatch.launch_batch_plan(q), n=50,
+                               warmup=3),
+    }
+    for w, n in zip(wrappers, saved):
+        w.launches = n
+    print(f"entry programs' timing (f64, CUDA events, 2 x 4 VirtualMesh on "
+          f"one card) on {device_line()}: sharded_score_and_select "
+          f"{select['ms']:.6f} ms (1 x 1 {select['ms_1x1']:.6f}, 1 x 8 "
+          f"{select['ms_1x8']:.6f}), twin {select['plain_ms']:.6f} ms, "
+          f"{json.dumps(per_call)} a call, {pulls} pulls; sharded_batch_plan "
+          f"{batched['ms']:.6f} ms (K10 alone on the whole batch "
+          f"{batched['k10_ms']:.6f}), twin {twin_ms:.6f} ms, "
+          f"{json.dumps(per_plan)} a call, {reach} pulls", flush=True)
+    return {"sharded_score_and_select": select, "sharded_batch_plan": batched}
+
+
+# ---------------------------------------------------------------------------
 # the helper processes: the twins and reference runs the checks compare
 # against, computed beside the card phases
 # ---------------------------------------------------------------------------
@@ -4410,8 +4708,8 @@ K9_SHARED_SHAPES = ((8, 16), (64, 10))  # phase k9's shared-mode (E, P)
 
 def twin_jobs():
     """Every CPU twin (f64, and both dtypes for K5) that the phases k3,
-    k5, k7, k9, k10, k12 and k14 hold their kernels against, in the order
-    the phases ask for them: (key, function, arguments)."""
+    k5, k7, k9, k10, k12, k14 and entry hold their kernels against, in
+    the order the phases ask for them: (key, function, arguments)."""
     from nomad_tpu_torch.ops.cases import BATCH_SHARED_SCENARIOS, CHAIN_SCENARIOS
 
     for si, scenario in enumerate(sorted(CHAIN_SCENARIOS)):
@@ -4441,6 +4739,7 @@ def twin_jobs():
         yield f"k12-sweep-{d}", _k12_sweep_cpu_twin, (d,)
     for key, args in _k14_params():
         yield key, _k14_cpu, args
+    yield "entry-k10", _entry_batch_cpu, ()
 
 
 def _k3_card(dtype_name: str, si: int, scenario: str, E: int, P: int):
@@ -4563,7 +4862,7 @@ def host_jobs(name: str):
     """The path phases' reference runs, in the order they ask for them:
     host-a the CPU twins' and the host oracle's runs of phases 4 and 8,
     the storm, preempt, bridge and device phases; host-b the policy
-    phase's."""
+    phase's and the entry phase's CPU dryrun."""
     if name == "host-a":
         yield "main-cpu", run_stream, ("cpu",)
         yield ("main-oracle", run_stream,
@@ -4579,6 +4878,7 @@ def host_jobs(name: str):
         yield "policy-oracle", run_policy, ("oracle", None, POLICY_ORACLE_STEPS)
         yield ("policy-storm-cpu", run_storm,
                ("cpu", True, "weighted storm, cpu", None, True))
+        yield "entry-dryrun-cpu", _entry_dryrun_cpu, ()
 
 
 def helper_jobs(name: str) -> list:
@@ -4730,7 +5030,7 @@ HELPERS = Helpers()
 
 
 PATH_PHASES = ("main", "server", "storm", "preempt", "policy", "bridge",
-               "mesh", "device", "bench")
+               "mesh", "entry", "device", "bench")
 
 
 def main() -> int:
@@ -4792,10 +5092,11 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
 
     import torch
 
-    # the two programs no path of either package calls, and K12-K14,
-    # whose path is the mesh phase's (K12 and K13 also the bench's
-    # multichip block): their counts are set to 0 before every phase and
-    # read after it
+    # K9 shared, which no path of either package calls; K11, which only
+    # the entry path calls (a stage of sharded_score_and_select); and
+    # K12-K14, whose path is the mesh phase's (K12 and K13 also the
+    # bench's multichip block): their counts are set to 0 before every
+    # phase and read after it
     uncalled = {"chained_plan_picks_shared": tbatch.chained_plan_picks_shared_cuda,
                 "score_all": tscore.score_all_cuda,
                 "sharded_chained_plan": sharded_chained_plan_cuda,
@@ -4828,6 +5129,7 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
                      ("k13", lambda: check_k13(cuda)),
                      ("k14", lambda: check_k14(cuda)),
                      ("mesh", lambda: check_mesh(cuda, card, results)),
+                     ("entry", lambda: check_entry(cuda, card)),
                      ("device", lambda: check_device(cuda, card)),
                      ("bench", lambda: check_bench(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
@@ -4845,6 +5147,7 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
         except SmokeFailure as e:
             failures.append(f"{name}: {e}")
             print(f"FAILED {name}: {e}", flush=True)
+            log(f"FAILED {name}: {e}")
         uncalled_by_phase[name] = {k: w.launches for k, w in uncalled.items()}
         pauses[name] = GC_PAUSES.summary()
         total = time.perf_counter() - t0
@@ -4869,7 +5172,7 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
     print(f"the helper processes (torch threads {json.dumps(HELPER_THREADS)}) "
           f"took {json.dumps(HELPERS.seconds())} s of their own beside the "
           f"card phases", flush=True)
-    # each check of the two launched its kernel once, and no path did;
+    # each check of K9 shared and K11 launched its kernel once a case;
     # K12-K14 as their checks' reads, K14's against its cases' stage counts
     checked = {"chained_plan_picks_shared": uncalled_by_phase["k9"][
                    "chained_plan_picks_shared"],
@@ -4895,7 +5198,9 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
                 failures.append(f"{name}: the mesh phase read {n} launches, "
                                 f"the phase loop {uncalled_by_phase['mesh'][name]}")
     if failures:
+        # on both streams: a caller may keep only the end of one of them
         print(f"chip_smoke failed: {failures}", flush=True)
+        log(f"chip_smoke failed: {failures}")
         return 1
 
     launches = dict(results["main"]["launches"])
@@ -4907,8 +5212,8 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
     # the bench's path (its own process, counts from 0): K9 and K10
     for name in ("chained_plan_picks", "batch_plan_picks"):
         launches[name] = results["bench"]["launches"][name]
-    # no caller in either package: their counts read over every path's
-    # phase (the bench's from its own process); K12-K14: the mesh path's
+    # K9 shared and K11: their counts read over every path's phase (the
+    # bench's from its own process); K12-K14: the mesh path's
     for name in uncalled:
         launches[name] = results["bench"]["launches"].get(name, 0) + sum(
             uncalled_by_phase[p][name] for p in PATH_PHASES)
@@ -4980,6 +5285,29 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
             kernels[-1]["launches_per_solve"] = {
                 "d1": tm["launches_per_solve"],
                 "d8": tm["d8"]["launches_per_solve"]}
+    # the entry path's two programs, each with the kernels it launches:
+    # their counts in the dryrun, set to 0 just before it
+    dry = results["entry"]["launches"]
+    for name, replaces, parts in (
+        ("sharded_score_and_select", "nomad_tpu/parallel/mesh.py:278",
+         (("score_all", "nomad_tpu_torch/csrc/score_all.cu"),
+          ("walk_only", "nomad_tpu_torch/csrc/walk_only.cu"))),
+        ("sharded_batch_plan", "nomad_tpu/parallel/mesh.py:793",
+         (("batch_plan_picks", "nomad_tpu_torch/csrc/batch_plan.cu"),)),
+    ):
+        tm = results["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": parts[0][1],
+            "replaces": replaces, "launches": sum(dry[k] for k, _ in parts),
+            "max_abs_err": results["entry"]["max_abs_err"],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+            "kernels": {k: {"source": src, "launches": dry[k],
+                            "launches_per_call": tm["launches_per_call"].get(k, 0)}
+                        for k, src in parts},
+            "shape": tm["shape"], "exchange_bytes": tm["exchange_bytes"],
+        })
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -15,12 +15,19 @@ launch that exceeds its historical cost by ``factor`` is wedged, not
 slow — clamped to an operator-configurable [min, max] band so the first
 launch (no history) and pathological EWMAs stay bounded.
 
-The port's departure: ``DeviceTimeout`` is a ``DeviceFault``, so every
-``except DeviceFault`` path of the workers meets a trip.
+The port's departures: ``DeviceTimeout`` is a ``DeviceFault``, so every
+``except DeviceFault`` path of the workers meets a trip; and a deadline
+does not count the time the cyclic garbage collector held the
+interpreter during the call.  A full collection over a large store
+stops the guarded stage with every other thread for seconds on a slow
+host, and that pause is the host's, not the device's: counted, it
+trips a healthy card.
 """
 from __future__ import annotations
 
+import gc
 import threading
+import time
 from typing import Callable, Dict, Optional
 
 from .core import DeviceFault
@@ -42,6 +49,35 @@ class DeviceTimeout(DeviceFault):
 
 # how often an idle runner checks that the thread it serves still lives
 _IDLE_CHECK_S = 1.0
+
+# the garbage collector's time in this process, kept by a `gc.callbacks`
+# hook installed with the first guarded call: (seconds of the finished
+# collections, the start of a running one or None), one tuple so that
+# another thread reads both at once
+_COLLECTOR = (0.0, None)
+_COLLECTOR_HOOKED = False
+
+
+def _on_collection(phase: str, _info: dict) -> None:
+    global _COLLECTOR
+    total, since = _COLLECTOR
+    if phase == "start":
+        _COLLECTOR = (total, time.monotonic())
+    elif since is not None:
+        _COLLECTOR = (total + time.monotonic() - since, None)
+
+
+def collector_seconds() -> float:
+    """Seconds spent in the garbage collector since the first call, a
+    running collection's so far included: a waiter may run between the
+    hooks at its start and at its end."""
+    global _COLLECTOR_HOOKED
+    if not _COLLECTOR_HOOKED:
+        _COLLECTOR_HOOKED = True
+        # first, so that the other hooks' time counts too
+        gc.callbacks.insert(0, _on_collection)
+    total, since = _COLLECTOR
+    return total if since is None else total + time.monotonic() - since
 
 
 class _Runner:
@@ -88,12 +124,20 @@ class _Runner:
     def call(self, fn: Callable, timeout_s: float, stage: str):
         box: dict = {"fn": fn, "done": threading.Event()}
         self._box = box
+        t0 = time.monotonic()
+        collected0 = collector_seconds()
         self._submit.set()
-        if not box["done"].wait(timeout_s):
-            # wedged mid-call: abandon this runner (never joined — the
-            # thread may be stuck inside a blocked device call forever)
-            self.dead = True
-            raise DeviceTimeout(stage, timeout_s)
+        wait_s = timeout_s
+        while not box["done"].wait(wait_s):
+            # the deadline moves by the collector's pauses since the call
+            wait_s = (timeout_s + collector_seconds() - collected0
+                      - (time.monotonic() - t0))
+            if wait_s <= 0:
+                # wedged mid-call: abandon this runner (never joined —
+                # the thread may be stuck inside a blocked device call
+                # forever)
+                self.dead = True
+                raise DeviceTimeout(stage, timeout_s)
         err = box.get("error", _UNSET)
         if err is not _UNSET:
             raise err

@@ -148,6 +148,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def load(names) -> None:
+    """Build every library of `names` that this process has not loaded
+    (one nvcc each, all started together) and load them: what a caller
+    runs before a deadline-bound stage reaches its first launch."""
+    with _LOCK:
+        missing = [n for n in names if n not in _LIBS]
+        if missing:
+            build_all(missing)
+    for name in missing:
+        library(name)
+
+
 _P = ctypes.c_void_p
 _D = ctypes.c_double
 _I = ctypes.c_int

@@ -1,34 +1,50 @@
-"""The node mesh and the node-sharded chained planner (kernel K12).
+"""The (evals, nodes) mesh and the sharded programs on it: the node-sharded
+chained planner (kernel K12), the node-sharded select (K11 a shard, then
+K6) and the (evals, nodes)-sharded batch planner (K10 an eval shard).
 
 The JAX package shards the cluster's node arena over an (evals, nodes)
 device mesh (`nomad_tpu/parallel/mesh.py`): every O(nodes) quantity of a
 pick (fit, fitness, anti-affinity, penalties, the usage scatter) is
 computed on the device's own shard, and only the per-node score and
-feasibility vectors plus O(devices) walk carries cross the mesh.  Its
-sweep and tests always build ``eval_axis=1``, so the port's mesh is the
-node axis alone:
+feasibility vectors plus O(devices) walk carries cross the mesh.  The
+eval axis is data parallelism over independent evaluations: a program
+that shards only over ``nodes`` runs replicated over it.
 
-* `NodeMesh` holds D shards of a C-row arena (C % D == 0), shard s
-  owning rows ``[s * C // D, (s + 1) * C // D)``, and the collectives
-  the sharded planner uses: the tiled `all_gather` over the node axis,
-  `psum`, `pmax`, `pmin` and the `gather` of one record per shard.
-  Every collective takes this process's shard tensors in
-  `local_shards` order and returns the replicated result.
-* `VirtualMesh(D, device)`: the D shards in one process on one device,
-  the counterpart of the JAX tests' 8-device virtual CPU mesh.  Each
-  collective is the exact in-process reduction over the D shard
-  tensors, in ascending shard order.  On the card it runs the shard
-  arithmetic (offsets, prefix carries, owner-only scatters) at any D.
-* `DistMesh(group)`: one shard per rank of a `torch.distributed` group
-  (gloo on the CPU, NCCL on the card).  NCCL puts no two ranks on one
-  device, so on one card its only size is 1.
+* `NodeMesh` holds E eval rows of D node shards; shard s of a C-row
+  arena (C % D == 0) owns rows ``[s * C // D, (s + 1) * C // D)``.  Its
+  node-axis collectives are the ones the sharded planners use: the tiled
+  `all_gather`, `psum`, `pmax`, `pmin` and the `gather` of one record per
+  shard; `gather_evals` stacks one record per eval row.  Every
+  collective takes this process's tensors in `local_shards` (or
+  `local_evals`) order and returns the replicated result.
+* `VirtualMesh(D, device, n_evals=E)`: all E x D shards in one process
+  on one device, the counterpart of the JAX tests' 8-device virtual CPU
+  mesh.  Each collective is the exact in-process reduction, in ascending
+  shard order.  A program that shards only over ``nodes`` computes the
+  same on every eval row, so it runs the node axis once.
+* `DistMesh(group, n_evals=E)`: one shard per rank of a
+  `torch.distributed` group of E x D ranks (gloo on the CPU, NCCL on the
+  card).  Rank r is eval row ``r // D`` and node shard ``r % D``, the
+  row-major ``reshape(evals, nodes)`` of the JAX mesh; the node-axis
+  collectives run over the subgroup of the rank's eval row, `gather_evals`
+  over that of its node column.  NCCL puts no two ranks on one device,
+  so on one card its only size is 1 x 1.
 
 `make_mesh` is the JAX `make_mesh` (`mesh.py:234`) without its CPU
-fallback: the `DistMesh` of the process group, and a mesh that cannot
-be built raises.  Its axes resolve as the JAX ones do (`mesh_axes`: two
-eval rows when D is even and at least 4); the port has no eval axis
-yet, so such a mesh raises and callers pass ``eval_axis=1``, as every
-JAX caller on a ported path does.
+fallback: the `DistMesh` of the process group with the axes the JAX one
+resolves (`mesh_axes`: two eval rows when the count is even and at
+least 4), and a mesh that cannot be built raises.  E x D shards in one
+process are a `VirtualMesh`.
+
+`sharded_score_and_select` (JAX `mesh.py:278`) is one select on a node
+mesh: K11 (`csrc/score_all.cu`) scores each shard's contiguous columns,
+the mesh all-gathers the [C] scores and feasibility, and K6
+(`csrc/walk_only.cu`) walks them, as the JAX program runs
+`_limited_walk_argmax` replicated.  `sharded_batch_plan` (JAX
+`mesh.py:793`) shards the eval batch over ``evals`` and every node
+column over ``nodes``: each eval row all-gathers its columns over the
+node axis and runs K10 (`csrc/batch_plan.cu`) over its own evals; the
+rows are gathered over the eval axis, so every process gets all [E, P].
 
 `sharded_chained_plan` (JAX `mesh.py:484`, its walk `_sharded_walk`
 `:329`) is K12 (`csrc/sharded_chain.cu`).  One pick runs as stages
@@ -92,10 +108,12 @@ class Sharded(NamedTuple):
 
 
 class NodeMesh:
-    """D shards of the node axis; see the module docstring."""
+    """E eval rows of D node shards; see the module docstring."""
 
     n_shards: int
     local_shards: Tuple[int, ...]
+    n_evals: int = 1
+    local_evals: Tuple[int, ...] = (0,)
     device: torch.device
 
     def shard_size(self, C: int) -> int:
@@ -116,14 +134,32 @@ class NodeMesh:
         raise NotImplementedError
 
     def all_gather(self, locals_: Sequence[torch.Tensor],
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The tiled all-gather over the node axis: the shards' [C // D]
-        slices concatenated into the [C] vector."""
+                   out: Optional[torch.Tensor] = None,
+                   axis: int = 0) -> torch.Tensor:
+        """The tiled all-gather over the node axis: the shards' slices
+        concatenated along `axis` ([C // D] into [C]; [E, C // D] into
+        [E, C] along axis 1)."""
         g = self.gather(locals_)
-        flat = g.reshape((-1,) + tuple(g.shape[2:]))
+        if axis == 0:
+            flat = g.reshape((-1,) + tuple(g.shape[2:]))
+        else:
+            flat = torch.cat(list(g.unbind(0)), dim=axis)
         if out is None:
             return flat
         return out.copy_(flat)
+
+    def gather_evals(self, locals_: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Stack one record per eval row: [E, *record], from this
+        process's records in `local_evals` order."""
+        raise NotImplementedError
+
+    def eval_rows(self, n: int) -> int:
+        """The evals each eval row holds of a batch of `n`."""
+        if n % self.n_evals != 0:
+            raise ValueError(
+                f"a batch of {n} evals does not split into {self.n_evals} "
+                "equal eval rows (E % evals != 0)")
+        return n // self.n_evals
 
     def psum(self, locals_, out=None) -> torch.Tensor:
         """Sum over the shards, added in ascending shard order."""
@@ -169,13 +205,18 @@ class NodeMesh:
 
 
 class VirtualMesh(NodeMesh):
-    """D shards in this process on one device."""
+    """E x D shards in this process on one device (the node axis held
+    once: a node-axis program computes the same on every eval row)."""
 
-    def __init__(self, n_shards: int, device: DeviceLike = None) -> None:
-        if int(n_shards) < 1:
-            raise ValueError(f"a mesh needs at least one shard, got {n_shards}")
+    def __init__(self, n_shards: int, device: DeviceLike = None,
+                 n_evals: int = 1) -> None:
+        if int(n_shards) < 1 or int(n_evals) < 1:
+            raise ValueError(f"a mesh needs at least one shard and one eval "
+                             f"row, got {n_shards} and {n_evals}")
         self.n_shards = int(n_shards)
         self.local_shards = tuple(range(self.n_shards))
+        self.n_evals = int(n_evals)
+        self.local_evals = tuple(range(self.n_evals))
         self.device = resolve_device(device)
 
     def gather(self, locals_, out=None):
@@ -183,19 +224,27 @@ class VirtualMesh(NodeMesh):
             raise ValueError("one tensor per shard is needed")
         return torch.stack(list(locals_), out=out)
 
-    def all_gather(self, locals_, out=None):
+    def all_gather(self, locals_, out=None, axis: int = 0):
         if len(locals_) != self.n_shards:
             raise ValueError("one tensor per shard is needed")
-        return torch.cat(list(locals_), out=out)
+        return torch.cat(list(locals_), dim=axis, out=out)
+
+    def gather_evals(self, locals_):
+        if len(locals_) != self.n_evals:
+            raise ValueError("one tensor per eval row is needed")
+        return torch.stack(list(locals_))
 
 
 class DistMesh(NodeMesh):
-    """One shard per rank of a `torch.distributed` group: shard s is
-    rank s's.  The group must be initialised, and it must have exactly
-    `n_shards` ranks (fewer raise: no rank holds two shards)."""
+    """One shard per rank of a `torch.distributed` group of
+    ``n_evals * n_shards`` ranks: rank r is eval row r // D and node
+    shard r % D.  The group must be initialised and of exactly that size
+    (fewer raise: no rank holds two shards).  With more than one eval
+    row, every rank creates the rows' and the columns' subgroups, in the
+    same order."""
 
     def __init__(self, group=None, n_shards: Optional[int] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, n_evals: int = 1) -> None:
         import torch.distributed as dist
 
         if not dist.is_available() or not dist.is_initialized():
@@ -203,15 +252,34 @@ class DistMesh(NodeMesh):
                 "DistMesh needs an initialised torch.distributed group "
                 "(init_process_group first)")
         world = dist.get_world_size(group)
-        n = world if n_shards is None else int(n_shards)
-        if n != world:
+        ev = int(n_evals)
+        if ev < 1 or world % ev != 0:
             raise ValueError(
-                f"{n} shards asked of a group of {world} ranks: a DistMesh "
-                "holds one shard per rank")
+                f"{ev} eval rows asked of a group of {world} ranks")
+        n = world // ev if n_shards is None else int(n_shards)
+        if n * ev != world:
+            raise ValueError(
+                f"{ev} x {n} (evals, nodes) shards asked of a group of "
+                f"{world} ranks: a DistMesh holds one shard per rank")
         self.group = group
         self.n_shards = n
+        self.n_evals = ev
         self.rank = dist.get_rank(group)
-        self.local_shards = (self.rank,)
+        self.local_shards = (self.rank % n,)
+        self.local_evals = (self.rank // n,)
+        self.node_group = group
+        self.eval_group = None
+        if ev > 1:
+            ranks = [r if group is None else dist.get_global_rank(group, r)
+                     for r in range(world)]
+            for row in range(ev):
+                g = dist.new_group(ranks[row * n:(row + 1) * n])
+                if row == self.local_evals[0]:
+                    self.node_group = g
+            for col in range(n):
+                g = dist.new_group(ranks[col::n])
+                if col == self.local_shards[0]:
+                    self.eval_group = g
         backend = dist.get_backend(group)
         if device is None:
             device = "cuda" if backend == "nccl" else "cpu"
@@ -225,9 +293,24 @@ class DistMesh(NodeMesh):
         if len(locals_) != 1:
             raise ValueError("a DistMesh rank holds one shard")
         t = locals_[0].contiguous()
+        if t.dtype == torch.bool:  # over the wire as bytes
+            g = self.gather([t.view(torch.uint8)]).view(torch.bool)
+            return g if out is None else out.copy_(g)
         parts = [torch.empty_like(t) for _ in range(self.n_shards)]
-        dist.all_gather(parts, t, group=self.group)
+        dist.all_gather(parts, t, group=self.node_group)
         return torch.stack(parts, out=out)
+
+    def gather_evals(self, locals_):
+        import torch.distributed as dist
+
+        if len(locals_) != 1:
+            raise ValueError("a DistMesh rank holds one eval row")
+        t = locals_[0].contiguous()
+        if self.n_evals == 1:
+            return t[None]
+        parts = [torch.empty_like(t) for _ in range(self.n_evals)]
+        dist.all_gather(parts, t, group=self.eval_group)
+        return torch.stack(parts)
 
 
 def mesh_axes(n_devices: int, eval_axis: Optional[int] = None) -> Tuple[int, int]:
@@ -244,14 +327,13 @@ def mesh_axes(n_devices: int, eval_axis: Optional[int] = None) -> Tuple[int, int
 
 def make_mesh(n_devices: Optional[int] = None,
               eval_axis: Optional[int] = None, *, group=None) -> DistMesh:
-    """The node mesh over the `torch.distributed` group's ranks (the
-    default group unless `group`), one shard each; D must equal the
-    group's size (None: its size).  The axes resolve as the JAX
-    `make_mesh`'s (`mesh_axes`); the port's mesh is the node axis alone,
-    so a resolved eval axis other than 1 raises NotImplementedError
-    (ROADMAP.md Queue A 2): callers pass ``eval_axis=1``.  There is no
-    fallback: a missing group or one of another size raises.  D shards
-    in one process are a `VirtualMesh`."""
+    """The (evals, nodes) mesh over the `torch.distributed` group's ranks
+    (the default group unless `group`), one shard each; `n_devices` must
+    equal the group's size (None: its size).  The axes resolve as the
+    JAX `make_mesh`'s (`mesh_axes`): by default two eval rows for an even
+    count of at least 4.  There is no fallback: a missing group or one
+    of another size raises.  E x D shards in one process are a
+    `VirtualMesh`."""
     if n_devices is None:
         import torch.distributed as dist
 
@@ -260,12 +342,159 @@ def make_mesh(n_devices: Optional[int] = None,
                 "make_mesh needs an initialised torch.distributed group "
                 "(init_process_group first)")
         n_devices = dist.get_world_size(group)
-    evals, _nodes = mesh_axes(n_devices, eval_axis)
-    if evals != 1:
-        raise NotImplementedError(
-            f"an ({evals}, {int(n_devices) // evals}) (evals, nodes) mesh: the "
-            "port has no eval axis yet (ROADMAP.md Queue A 2); pass eval_axis=1")
-    return DistMesh(group, n_devices)
+    evals, nodes = mesh_axes(n_devices, eval_axis)
+    return DistMesh(group, nodes, n_evals=evals)
+
+
+# ---------------------------------------------------------------------------
+# the node-sharded select (K11 a shard, K6) and the (evals, nodes)-sharded
+# batch planner (K10 an eval row)
+# ---------------------------------------------------------------------------
+
+
+def _on_mesh(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """numpy array, number or tensor as a `dtype` tensor on `dev`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=dev, dtype=dtype)
+
+
+def _float_dtype(x) -> torch.dtype:
+    dtype = (x.dtype if isinstance(x, torch.Tensor)
+             else torch.as_tensor(np.asarray(x)[:0]).dtype)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"node columns must be f32 or f64, got {dtype}")
+    return dtype
+
+
+def _walk_outputs(buf: torch.Tensor, dtype: torch.dtype):
+    """K6's int64[4] result ([row, feasible count, pulls, bits of best])
+    as 0-d tensors on the card, by views alone: (row i32, best, feasible
+    count i32, pulls i32)."""
+    words = buf.view(torch.int32)  # little-endian: the low word first
+    bits = words[6:7] if dtype == torch.float32 else buf[3:4]
+    return words[0], bits.view(dtype)[0], words[2], words[4]
+
+
+def _select_runner(mesh: NodeMesh, spread_fit: bool, kernel: Optional[bool]):
+    from ..ops import score as tscore
+
+    node_fields = tuple(n for n in tscore._COLUMNS if n != "perm")
+    kinds = {"feasible": torch.bool, "penalty": torch.bool,
+             "collisions": torch.int32}
+
+    def run(inp):
+        if inp.policy is not None:
+            raise ValueError(
+                "sharded_score_and_select takes no policy terms (the JAX "
+                "program's in_specs leave them out)")
+        use_kernel = (mesh.device.type == "cuda") if kernel is None else kernel
+        dev = mesh.device
+        dtype = _float_dtype(inp.cpu_total)
+        # node fields P('nodes'): this process's contiguous shards; perm
+        # and the scalars replicated
+        cols = {n: mesh.shard(_on_mesh(getattr(inp, n), kinds.get(n, dtype), dev))
+                for n in node_fields}
+        perm = _on_mesh(inp.perm, torch.int32, dev)
+        size = mesh.shard_size(perm.shape[0])
+        score = tscore.score_all_cuda if use_kernel else tscore.score_all_twin
+        feas_l, final_l = [], []
+        for i, s in enumerate(mesh.local_shards):
+            # the shard's slice of perm only fills the field: no per-node
+            # score reads it
+            local = inp._replace(perm=perm.narrow(0, s * size, size),
+                                 **{n: cols[n].shards[i] for n in node_fields})
+            f, sc = score(local, spread_fit)
+            feas_l.append(f)
+            final_l.append(sc)
+        final = mesh.all_gather(final_l)
+        feasible = mesh.all_gather(feas_l)
+        if use_kernel:
+            return _walk_outputs(tscore.walk_only_cuda(
+                feasible, final, perm, inp.limit, inp.n_candidates), dtype)
+        return tscore.limited_walk_argmax(feasible, final, perm, inp.limit,
+                                          inp.n_candidates)
+
+    return run
+
+
+def sharded_score_and_select(mesh: NodeMesh, spread_fit: bool = False):
+    """One select with the node arena sharded over the mesh's node axis,
+    as the JAX `sharded_score_and_select`: returns ``run(inp:
+    ScoreInputs) -> (row, best, feasible_count, pulls)``, 0-d tensors on
+    the mesh's device, bit-identical to `score_and_select`.  The node
+    columns (numpy or tensors, whole [C]) are cut into the mesh's shards;
+    each shard is scored by K11 on the card (its twin on the CPU), the
+    [C] scores and feasibility are all-gathered, and K6 (the twin
+    `limited_walk_argmax`) walks them.  A `ScoreInputs` with policy
+    terms raises ValueError."""
+    return _select_runner(mesh, spread_fit, None)
+
+
+def sharded_score_and_select_twin(mesh: NodeMesh, spread_fit: bool = False):
+    """`sharded_score_and_select` with the plain-torch twins on any mesh
+    (the card checks hold K11 + K6 against it)."""
+    return _select_runner(mesh, spread_fit, False)
+
+
+def _batch_runner(mesh: NodeMesh, n_candidates: int, n_picks: int,
+                  spread_fit: bool, kernel: Optional[bool]):
+    from ..ops import batch as tbatch
+
+    kinds = {"feasible": torch.bool, "penalty": torch.bool,
+             "base_collisions": torch.int32, "perm": torch.int32}
+
+    def run(cpu_total, mem_total, disk_total, batch):
+        use_kernel = (mesh.device.type == "cuda") if kernel is None else kernel
+        dev = mesh.device
+        dtype = _float_dtype(cpu_total)
+        E = int(batch.perm.shape[0])
+        rows_per = mesh.eval_rows(E)
+        # node columns P('nodes'), gathered whole over the node axis
+        cols = [mesh.all_gather(list(mesh.shard(_on_mesh(c, dtype, dev)).shards))
+                for c in (cpu_total, mem_total, disk_total)]
+        plan = tbatch.batch_plan_picks_cuda if use_kernel else tbatch.batch_plan_picks_twin
+        rows = []
+        for r in mesh.local_evals:
+            lo, hi = r * rows_per, (r + 1) * rows_per
+            fields = {}
+            for name in tbatch.BatchInputs._fields:
+                x = getattr(batch, name)[lo:hi]
+                if name in tbatch._BATCHED_SCALARS:
+                    fields[name] = x  # P('evals'): this row's evals
+                else:
+                    # P('evals', 'nodes'): the row's shards, all-gathered
+                    # over the node axis
+                    sh = mesh.shard(_on_mesh(x, kinds.get(name, dtype), dev), axis=1)
+                    fields[name] = mesh.all_gather(list(sh.shards), axis=1)
+            rows.append(plan(*cols, tbatch.BatchInputs(**fields), n_candidates,
+                             n_picks, spread_fit))
+        # out_specs P('evals'): every process gets the whole [E, P]
+        return mesh.gather_evals(rows).reshape(E, int(n_picks))
+
+    return run
+
+
+def sharded_batch_plan(mesh: NodeMesh, n_candidates: int, n_picks: int,
+                       spread_fit: bool = False):
+    """The batched planner on an (evals, nodes) mesh, as the JAX
+    `sharded_batch_plan`: returns ``run(cpu_total, mem_total, disk_total,
+    batch: BatchInputs) -> rows i32[E, P]`` on the mesh's device, equal to
+    `batch_plan_picks`.  Node columns are sharded over ``nodes``, the
+    per-eval [E, C] fields over both axes and the per-eval scalars over
+    ``evals`` (numpy or tensors, whole); each eval row all-gathers its
+    columns over the node axis and plans its own evals with K10 on the
+    card (its twin on the CPU); the rows are gathered over the eval axis.
+    An E not divisible by the eval axis, or a C by the node axis,
+    raises ValueError."""
+    return _batch_runner(mesh, n_candidates, n_picks, spread_fit, None)
+
+
+def sharded_batch_plan_twin(mesh: NodeMesh, n_candidates: int, n_picks: int,
+                            spread_fit: bool = False):
+    """`sharded_batch_plan` with K10's twin on any mesh (the card checks
+    hold K10 against it)."""
+    return _batch_runner(mesh, n_candidates, n_picks, spread_fit, False)
 
 
 # ---------------------------------------------------------------------------

@@ -1241,6 +1241,28 @@ class BatchWorker(Worker):
         if metrics is not None:
             metrics.set_gauge("batch_worker.backend_epoch", float(epoch))
 
+    def start(self) -> None:
+        self._load_kernels()
+        super().start()
+
+    def _kernel_libraries(self) -> List[str]:
+        """The kernel libraries of this worker's guarded stages: K3 and K4,
+        K5 for storms, and on a mesh K12-K14."""
+        names = ["chained_picks", "patch_rows", "storm_solve"]
+        if self._mesh_requested:
+            names += ["sharded_chain", "patch_rows_sharded", "storm_sharded"]
+        return names
+
+    def _load_kernels(self) -> None:
+        """On the card, build and load the kernels of the guarded stages
+        before any stage runs: an nvcc build takes seconds, and inside a
+        stage it would outlast the watchdog's budget and trip a healthy
+        card."""
+        if self.device.type == "cuda":
+            from ..ops import _cuda
+
+            _cuda.load(self._kernel_libraries())
+
     # -- the node mesh -------------------------------------------------
 
     def _make_mesh(self):
@@ -3674,15 +3696,7 @@ class BatchWorker(Worker):
         (width, picks, groups) bucket is all a warm-up needs.  The
         default eval-axis buckets are the live chunk-width ladder
         (``_chunk_buckets``)."""
-        if self.device.type == "cuda":
-            from ..ops import _cuda
-
-            names = ["chained_picks", "patch_rows"]
-            if self._mesh is not None:
-                names += ["sharded_chain", "patch_rows_sharded",
-                          "storm_sharded"]
-            for name in names:
-                _cuda.library(name)
+        self._load_kernels()
         table = self.store.node_table
         dev_cols = self._device_columns(table)
         if e_buckets is None:

@@ -51,7 +51,10 @@ def test_host_runs_in_the_order_the_phases_ask():
     assert _keys("host-a") == ["main-cpu", "main-oracle", "server-oracle",
                                "storm-cpu", "preempt-cpu", "preempt-oracle",
                                "bridge-cpu", "device-cpu"]
-    assert _keys("host-b") == ["policy-cpu", "policy-oracle", "policy-storm-cpu"]
+    assert _keys("host-b") == ["policy-cpu", "policy-oracle", "policy-storm-cpu",
+                               "entry-dryrun-cpu"]
+    # the entry phase's batched plan: its one CPU twin, last of twins-b's
+    assert _keys("twins-b")[-1] == "entry-k10"
 
 
 def test_helper_main_saves_each_result(tmp_path, monkeypatch):

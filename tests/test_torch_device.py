@@ -200,6 +200,53 @@ def test_runner_exits_when_its_thread_ends(monkeypatch):
         t.name == name for t in threading.enumerate()), 5.0)
 
 
+def _holding_collection(seconds: float):
+    """A gc callback that, once armed, holds the interpreter for about
+    `seconds` at the start of the next collection, as a full collection
+    over a large heap does (one C call: no other thread runs)."""
+    n = 1_000_000
+    t0 = time.perf_counter()
+    sum(range(n))
+    n = int(n * seconds / max(time.perf_counter() - t0, 1e-6))
+
+    def hold(phase, _info):
+        if phase == "start" and hold.armed:
+            hold.armed = False
+            sum(range(n))
+
+    hold.armed = False
+    return hold
+
+
+@pytest.mark.parametrize("stuck", [False, True], ids=["finishes", "stuck"])
+def test_collector_pause_does_not_count_against_the_budget(stuck):
+    """The port's departure: a collection that holds the interpreter
+    past a stage's budget does not trip a stage that finishes within
+    the budget besides it; a stage that stays stuck still trips."""
+    hold = _holding_collection(0.6)
+    gc.callbacks.append(hold)
+
+    def stage():
+        hold.armed = True
+        gc.collect()
+        time.sleep(30 if stuck else 0.05)
+        return "done"
+
+    try:
+        t0 = time.monotonic()
+        if stuck:
+            with pytest.raises(twatchdog.DeviceTimeout) as exc:
+                twatchdog.bounded_call(stage, 0.3, stage="launch")
+            assert exc.value.stage == "launch"
+            assert time.monotonic() - t0 < 5.0
+        else:
+            assert twatchdog.bounded_call(stage, 0.3, stage="launch") == "done"
+            # the collection itself outlasted the budget
+            assert time.monotonic() - t0 > 0.3
+    finally:
+        gc.callbacks.remove(hold)
+
+
 @pytest.mark.parametrize("batch_pipeline", [True, False],
                          ids=["batched", "sequential"])
 def test_stopped_supervised_server_is_freed(monkeypatch, batch_pipeline):

@@ -7,7 +7,10 @@ K10 (csrc/batch_plan.cu), K11 (csrc/score_all.cu), K12
 VirtualMesh of 1, 2, 4 and 8 shards), K13 (csrc/patch_rows_sharded.cu)
 and K14 (csrc/storm_sharded.cu, the node-sharded storm solve on a
 VirtualMesh of 1 and 8 shards, also equal to K5) against their plain
-twins, on the card and on the CPU, at the main path's width (a
+twins, and the entry module's programs on (evals, nodes) meshes of 1 x 1,
+1 x 8 and 2 x 4 (`sharded_score_and_select`, K11 + K6, equal to K1;
+`sharded_batch_plan`, K10 an eval row, equal to K10; the dryrun equal to
+its CPU run), on the card and on the CPU, at the main path's width (a
 16,384-row arena with 10,000 candidates; K5 with 8 and 1,024 rows; K6 at
 C in {8, 1024, 16384}; K7 with 1, 10,000 and 16,384 candidates and
 (E, P) up to (256, 16) and (8, 64); K8 at n in {1, 8, 1024, 1500}; K9
@@ -601,3 +604,108 @@ def test_storm_sharded_kernel_matches_twin(cuda, scenario, A, width, d, dtype):
                                       max_rounds)
     for a, b in zip(kern, k5):
         assert torch.equal(a, b.cpu())
+
+
+# -- the (evals, nodes) mesh programs: K11 + K6 and K10 -----------------------
+
+EVAL_MESHES = [(1, 1), (1, 8), (2, 4)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mesh_shape", EVAL_MESHES)
+@pytest.mark.parametrize("scenario", sorted(SCORE_SCENARIOS))
+def test_sharded_select_matches_k1(cuda, scenario, mesh_shape, dtype):
+    """`sharded_score_and_select` (K11 a node shard, the all-gather, K6)
+    bit-equal to K1 and to its twins on the card and the CPU, with one K11
+    launch a node shard and one K6 launch a select."""
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        sharded_score_and_select,
+        sharded_score_and_select_twin,
+    )
+
+    case = score_case(4100 + sorted(SCORE_SCENARIOS).index(scenario), C,
+                      N_CAND, scenario, 14)
+    on_card = score_inputs_from_numpy(case, cuda, dtype=dtype)
+    evals, nodes = mesh_shape
+    mesh = VirtualMesh(nodes, cuda, n_evals=evals)
+    k11, k6 = tscore.score_all_cuda.launches, tscore.walk_only_cuda.launches
+    got = sharded_score_and_select(mesh)(on_card)
+    torch.cuda.synchronize()
+    assert tscore.score_all_cuda.launches - k11 == nodes
+    assert tscore.walk_only_cuda.launches - k6 == 1
+    k1 = tscore.score_and_select(on_card)
+    twin = sharded_score_and_select_twin(mesh)(on_card)
+    cpu = sharded_score_and_select(VirtualMesh(nodes, "cpu", n_evals=evals))(
+        score_inputs_from_numpy(case, "cpu", dtype=dtype))
+    for other in (k1, twin, cpu):
+        for a, b in zip(got, other):
+            assert a.dtype == b.dtype and (_bits(a) == _bits(b)).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mesh_shape", EVAL_MESHES)
+def test_sharded_batch_plan_matches_k10(cuda, mesh_shape, dtype):
+    """`sharded_batch_plan` (the node-axis all-gathers, K10 an eval row)
+    equal to K10 on the whole batch and to its twin on the CPU, one K10
+    launch an eval row."""
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh, sharded_batch_plan
+
+    E, P = 16, 10
+    cols, kw = batched_case(4200, C, N_CAND, "plain", E, P)
+    n_cand = int(kw["n_candidates"].min())
+    args, _kw = batched_case_to_torch(cols, kw, cuda, dtype)
+    evals, nodes = mesh_shape
+    before = tbatch.batch_plan_picks_cuda.launches
+    got = sharded_batch_plan(VirtualMesh(nodes, cuda, n_evals=evals), n_cand,
+                             P)(*args[:4])
+    torch.cuda.synchronize()
+    assert tbatch.batch_plan_picks_cuda.launches - before == evals
+    k10 = tbatch.batch_plan_picks_cuda(*args[:4], n_cand, P)
+    assert torch.equal(got, k10)
+    cpu_args, _kw = batched_case_to_torch(cols, kw, "cpu", dtype)
+    cpu = sharded_batch_plan(VirtualMesh(nodes, "cpu", n_evals=evals), n_cand,
+                             P)(*cpu_args[:4])
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_entry_dryrun_on_the_card_equals_the_cpu(cuda):
+    """`dryrun_multichip(8)` on the card gives the CPU run's select, rows
+    and placements."""
+    from nomad_tpu_torch.entry import dryrun_multichip
+
+    card = dryrun_multichip(8)
+    cpu = dryrun_multichip(8, "cpu")
+    for a, b in zip(card["select"], cpu["select"]):
+        assert (_bits(a) == _bits(b)).all()
+    assert torch.equal(card["rows"], cpu["rows"])
+    assert card["placements"] == cpu["placements"]
+
+
+def test_entry_dryrun_on_a_cold_card(tmp_path):
+    """`python -m nomad_tpu_torch.entry` in a fresh interpreter whose
+    kernels are built from nothing (an empty build directory): the
+    meshed Server's worker builds its kernels before its first guarded
+    stage, so no watchdog trips on the nvcc time."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run with -m gpu on the card")
+    repo = Path(__file__).resolve().parent.parent
+    script = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from nomad_tpu_torch.ops import _cuda\n"
+        f"_cuda.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "from nomad_tpu_torch.entry import main\n"
+        "sys.exit(main([]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    out = subprocess.run([sys.executable, "-c", script], cwd=str(repo),
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "dryrun_multichip(8) ok" in out.stdout
+    assert len(list(tmp_path.glob("lib*.so"))) >= 9

@@ -291,8 +291,10 @@ def test_mesh_that_cannot_be_built_raises(tmp_path):
         VirtualMesh(3, "cpu").shard_size(128)  # C % D != 0
     with pytest.raises(ValueError):
         VirtualMesh(0, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
-        make_mesh(2, eval_axis=2)  # the port has no eval axis yet
+    with pytest.raises(ValueError):
+        VirtualMesh(2, "cpu", n_evals=0)
+    with pytest.raises(ValueError):
+        VirtualMesh(2, "cpu", n_evals=2).eval_rows(5)  # E % evals != 0
     case = sharded_chain_case(3, 96, 90, "plain", 2, 2)
     cols, per_eval, _sp = _jax_inputs(case)
     run = sharded_chained_plan_twin(VirtualMesh(5, "cpu"), 2)
@@ -353,13 +355,11 @@ def test_virtual_mesh_equals_gloo_ranks(world, tmp_path):
     for rank in range(world):
         got = torch.load(tmp_path / f"rank{rank}.pt")
         assert got["loaded"] == []
-        # make_mesh(world) resolves the JAX default axes; the port builds
-        # only an eval axis of 1 and raises for the (2, world / 2) one
+        # make_mesh(world) builds the JAX default axes; with an eval
+        # axis of `world`, rank r is eval row r of one node shard
         assert tuple(got["axes"]) == jax_axes
-        if jax_axes[0] == 1:
-            assert got["default_mesh"] == "built"
-        else:
-            assert "Queue A 2" in got["default_mesh"]
+        assert got["default_mesh"] == jax_axes
+        assert got["eval_mesh"] == (world, 1, (rank,), (0,))
         assert "shards asked of a group" in got["too_many_shards"]
         for s in scenarios:
             for a, b in zip(got[s][:2], want[s][:2]):

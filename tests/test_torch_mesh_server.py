@@ -16,6 +16,7 @@ allocs.  A mesh that cannot be built raises: nothing runs unsharded."""
 import copy
 import os
 import sys
+import time
 
 import pytest
 
@@ -284,6 +285,11 @@ def test_trip_mid_chain_holds_recovers_and_reuploads(monkeypatch):
             server.drain_to_idle(30)
         assert sup.state() == LOST and sup.holding()
         assert launches == [0]
+        # the hold is set before the trip's listeners flush, on the
+        # tripping thread, so drain_to_idle may raise before the flush
+        deadline = time.monotonic() + 10.0
+        while worker._mesh is not None and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert worker._mesh is None and worker._usage_cache_sharded is None
         assert all(p == [] for p in _placed(server, jobs).values())
         epoch_lost = sup.backend_epoch

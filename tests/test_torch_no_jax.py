@@ -3,6 +3,7 @@ storm solve, a preemption-mode select (K6's twin, the explain capture
 and ring), a bridge ScoreBatch over the wire (K7's twin), a device
 supervisor's flaky round trip (K8's twin, the hold, the preflight) and
 a weighted select and weighted storm (K1's and K5's policy branches)
+and the entry module's dryrun (the sharded select and batched planner)
 through it, in a fresh interpreter, load neither `jax` nor anything of
 `nomad_tpu`; and no module of the port imports either."""
 import ast
@@ -361,6 +362,24 @@ print(placed, worker.mesh_used > 0, worker.mesh_storms, int(out.rounds) > 0,
 """
 
 
+ENTRY_SCRIPT = r"""
+import sys
+from nomad_tpu_torch.entry import dryrun_multichip, entry
+
+fn, args = entry("cpu")
+row = int(fn(*args)[0])
+out = dryrun_multichip(8, "cpu")
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+    or m == "__graft_entry__"
+)
+print(row >= 0, out["axes"], tuple(out["rows"].shape), len(out["placements"]),
+      bad)
+"""
+
+
 def _run_fresh(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -444,6 +463,14 @@ def test_port_mesh_server_loads_no_jax():
     assert _run_fresh(MESH_SERVER_SCRIPT) == "9 True 1 True []"
 
 
+def test_port_entry_module_loads_no_jax():
+    """The port's entry module (`entry()`, `dryrun_multichip(8)` on a 2 x
+    4 VirtualMesh: the sharded select and batched planner, the meshed
+    Server) runs in a fresh interpreter without JAX, the JAX package or
+    `__graft_entry__`."""
+    assert _run_fresh(ENTRY_SCRIPT) == "True (2, 4) (4, 3) 8 []"
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -470,6 +497,7 @@ def test_port_sources_import_no_jax():
             "nomad_tpu_torch/parallel/mesh.py",
             "nomad_tpu_torch/parallel/multichip.py",
             "nomad_tpu_torch/server/server.py",
+            "nomad_tpu_torch/entry.py",
             "chip_smoke.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -481,6 +509,6 @@ def test_port_sources_import_no_jax():
                 names = [node.module or ""]
             for name in names:
                 root = name.split(".")[0]
-                if root in ("jax", "jaxlib", "nomad_tpu"):
+                if root in ("jax", "jaxlib", "nomad_tpu", "__graft_entry__"):
                     offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert not offenders, offenders

@@ -1,7 +1,10 @@
-"""The rank side of `test_torch_mesh.py`'s gloo checks: one process of a
-`torch.distributed` gloo world runs the port's sharded chained planner
-(the twin) on `make_mesh(eval_axis=1)`, a `DistMesh`, and saves what it
-got, with the axes the default `make_mesh()` resolves.
+"""The rank side of the gloo checks of `test_torch_mesh.py`,
+`test_torch_storm_sharded.py` and `test_torch_mesh_evals.py`: one process
+of a `torch.distributed` gloo world runs the port's sharded programs (the
+twins) on a `DistMesh` from `make_mesh` and saves what it got: the
+chained planner on `make_mesh(eval_axis=1)` with the axes the default
+`make_mesh()` resolves, the sharded storm solve, and the select and the
+batched planner on an (evals, nodes) mesh.
 Imports only torch, numpy and the port, so the rank also shows that the
 port's mesh path loads neither `jax` nor `nomad_tpu`."""
 import sys
@@ -61,14 +64,14 @@ def rank_main(rank: int, world: int, init_file: str, out: str,
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
-        # the JAX default axes: (2, world / 2) from 4 ranks, which the
-        # port's node-only mesh refuses to build
+        # the JAX default axes: (2, world / 2) from 4 ranks; and every
+        # rank as an eval row of one node shard
         res = {"axes": mesh_axes(world)}
-        try:
-            make_mesh()
-            res["default_mesh"] = "built"
-        except NotImplementedError as exc:
-            res["default_mesh"] = str(exc)
+        default = make_mesh()
+        res["default_mesh"] = (default.n_evals, default.n_shards)
+        rows = make_mesh(world, eval_axis=world)
+        res["eval_mesh"] = (rows.n_evals, rows.n_shards, rows.local_evals,
+                            rows.local_shards)
         mesh = make_mesh(eval_axis=1)
         res.update({s: chain_results(mesh, s) for s in scenarios})
         res["collectives"] = collectives(mesh, rank)
@@ -126,5 +129,50 @@ def storm_rank_main(rank: int, world: int, init_file: str, out: str) -> None:
             if m in ("jax", "jaxlib", "nomad_tpu")
             or m.startswith(("jax.", "nomad_tpu.")))
         torch.save(res, f"{out}/storm{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+EVAL_C, EVAL_E, EVAL_P = 64, 4, 3
+
+
+def eval_mesh_results(mesh) -> dict:
+    """The node-sharded select and the (evals, nodes)-sharded batched
+    planner on `mesh`, over the entry module's example inputs at C =
+    EVAL_C (three seeds of the select, one batch of EVAL_E evals)."""
+    from nomad_tpu_torch.entry import _example_batch, _example_inputs
+    from nomad_tpu_torch.parallel.mesh import (
+        sharded_batch_plan,
+        sharded_score_and_select,
+    )
+
+    n_active = EVAL_C - 8
+    select = sharded_score_and_select(mesh)
+    out = {f"select{seed}": tuple(select(_example_inputs(EVAL_C, n_active, seed)))
+           for seed in range(3)}
+    cols, batch = _example_batch(EVAL_C, n_active, EVAL_E, EVAL_P)
+    out["rows"] = sharded_batch_plan(mesh, n_active, EVAL_P)(*cols, batch)
+    return out
+
+
+def eval_rank_main(rank: int, world: int, init_file: str, out: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh()  # the JAX default axes: 2 x world / 2
+        res = eval_mesh_results(mesh)
+        res["mesh"] = (mesh.n_evals, mesh.n_shards, mesh.local_evals,
+                       mesh.local_shards)
+        res["loaded"] = sorted(
+            m for m in sys.modules
+            if m in ("jax", "jaxlib", "nomad_tpu")
+            or m.startswith(("jax.", "nomad_tpu.")))
+        torch.save(res, f"{out}/eval{rank}.pt")
     finally:
         dist.destroy_process_group()
