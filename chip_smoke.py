@@ -28,15 +28,16 @@ Phases (any failure exits non-zero):
    repeated with the capture off (NOMAD_TPU_EXPLAIN=0) for its cost.
 5. Times each kernel and its twin on the card with CUDA events at the
    main path's shapes (>= 1,000 launches after warm-up; K5 50, K7 200,
-   K9 and K10 50), K1 also with policy terms and an unlimited walk and K5
+   K9 and K10 50; K15 at the multihost flush's shape), K1 also with
+   policy terms and an unlimited walk and K5
    also on the weighted dogpile; K9, K9 shared and K10 at the bench's
    kernel-only shape (a 2,048-row arena, 2,000 candidates, E = 64,
    P = 10), K9 and K10 also at the 16,384-row arena, K11 at K1's shape
    with and without policy terms, K12 per chunk (E = 8, P = 10) at D = 1
    and 8 shards on the one card, K13 at W = 1,024, K14 on the storm
    phase's own problem at D = 1 and 8, the entry phase's two programs on
-   its 2 x 4 mesh (the select also at 1 x 1 and 1 x 8); for K4 and K13
-   also the nearest single PyTorch call (`index_copy_`).  This phase
+   its 2 x 4 mesh (the select also at 1 x 1 and 1 x 8); for K4, K13 and
+   K15 also the nearest single PyTorch call (`index_copy_`).  This phase
    runs last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
@@ -200,6 +201,15 @@ mesh. The mesh path: the port's batched `Server(mesh=VirtualMesh(8,
    meshed Server (K14): placements, storm rows, rounds and counters
    equal to the storm phase's K5 run.  K12, K13 and K14 launched, no
    errors.
+k15. Kernel K15 (the per-host flush of a sharded mirror,
+   csrc/patch_rows_hostlocal.cu: one launch stores a process's own
+   shard-local staging rows into all of its L shards) on a VirtualMesh
+   of D shards on the card seen as D / L processes, (D, L) in {(2, 1),
+   (4, 1), (4, 2), (8, 1), (8, 2), (8, 4)}, arenas of 64 and 16,384
+   rows, the JAX test's four dirty sets (spread over the arena) and
+   1,024 rows, f64 and f32: bit-equal to its twin on the card and on the
+   CPU, to K13 with the replicated staging on the same dirty set and to
+   the host oracle; one launch a process.
 entry. The entry module (`nomad_tpu_torch/entry.py`) and its programs
    on an (evals, nodes) mesh, each program checked before its path uses
    it: `sharded_score_and_select` (K11 a node shard, the all-gather, K6)
@@ -215,6 +225,23 @@ entry. The entry module (`nomad_tpu_torch/entry.py`) and its programs
    count-4 spread job on 12 nodes), equal in select, rows and placements
    to the same call on the CPU; its K11, K6 and K10 launches counted.
 
+multihost. The slice's path at full width on the one card, shared by
+   processes that exchange over gloo through the host (not multi-GPU
+   scaling): `parallel/dist_smoke.py launch` spawns 2 ranks x 2 shards
+   over the 10,000-node world (a 16,384-row arena, 4,096 rows a shard;
+   64 chain jobs, a 256-member storm family), each rank a batched Server
+   driven in lockstep (K12 chunks, the per-host flush through K15, the
+   storm through K14, K14 against K5 on one device, cross-host parity);
+   beside it a pod over the same nodes and jobs (a head Server with
+   NOMAD_TPU_POD_PORT and NOMAD_TPU_POD_CHECK=1 draining on its own
+   threads, and one `parallel/pod.py` peer).  Zero lost, every digest
+   equal, per-host delta bytes in their closed form and below the full
+   upload, placements equal to the same world's unsharded run on the CPU
+   (a helper's), and K12, K14 and K15 launched in every process (their
+   counts reported by the processes themselves).  The bench phase runs
+   its multichip block without the multihost row (BENCH_MULTIHOST=0):
+   this phase runs that world at full width.
+
 The references that the checks compare against run in helper
 processes (this script with --helper NAME DIR, 1-3 torch threads
 each), started before the kernels are built: the kernel checks' twins
@@ -222,7 +249,8 @@ on the CPU (twins-a: k5, k14; twins-b: k3, k7, k9, k10, k12, entry) and
 on the card (card-twins: k3, k5, k9, k10, k12, k14), and the path
 phases' runs on the CPU twins and the host oracle (host-a: phases 4 and
 8, storm, preempt, and the bridge's and the device phase's CPU Servers;
-host-b: phase policy and the entry phase's CPU dryrun).  The storm runs on the CPU hold their wave's broker
+host-b: phase policy, the entry phase's CPU dryrun and the multihost
+phase's unsharded CPU run).  The storm runs on the CPU hold their wave's broker
 lease longer than their drain may take (CPU_STORM_NACK_S): a slow
 host's solve must not outlive the default 60 s lease and have the wave
 redelivered mid-solve.  Each phase takes their
@@ -237,7 +265,7 @@ the next world is restored, so a restore sees one world on the heap.
 The phase seconds are printed split into world builds, waits for the
 helpers' results and the rest (the card), each with the seconds since
 the script started.  Prints the kernels
-line (17 programs: K1-K8, K9 and its shared mode, K10-K14, and the entry
+line (18 programs: K1-K8, K9 and its shared mode, K10-K15, and the entry
 path's sharded_score_and_select and sharded_batch_plan with the kernels
 each launches), then the
 card's nvidia-smi line, then the result line: {"ok": true, "device":
@@ -2622,6 +2650,9 @@ def check_bench(cuda, card: str) -> dict:
     closed form's bytes per flush, and K9, K10, K3, K4, K12 and K13
     launched (the launch counts the bench prints on stderr)."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    # the multichip block's multihost row is the multihost phase's world
+    # at a toy size: that phase runs it at full width
+    env["BENCH_MULTIHOST"] = "0"
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
@@ -2656,6 +2687,7 @@ def check_bench(cuda, card: str) -> dict:
         check(launches.get(name, 0) > 0, f"the bench launched no {name}")
     mc = line.get("multichip")
     check(mc is not None, "the bench printed no multichip block")
+    check("multihost" not in mc, "the bench ran its multihost row")
     check(mc["mesh"] == "DistMesh (nccl)", f"the multichip mesh is {mc['mesh']}")
     check([p["n_devices"] for p in mc["points"]] == [1],
           f"multichip points {[p['n_devices'] for p in mc['points']]}, not d = 1")
@@ -2944,6 +2976,11 @@ def check_device(cuda, card: str) -> dict:
             check(raised.stage == "launch", f"the wedge tripped {raised.stage}, not launch")
             check(detect_s < 10.0, f"the wedge took {detect_s:.2f} s to raise")
             check(state == LOST, f"after the wedge the state is {state}")
+            # the supervisor holds (LOST) on the watchdog's thread, so
+            # drain_to_idle may raise before the worker's thread, met by
+            # the same trip, has nacked its gulp: wait for its leases
+            # (bounded) before judging them
+            wait_for(lambda: server.broker.stats["total_unacked"] == 0, 5.0)
             _no_eval_lost(server, jobs, "wedge_launch")
             t1 = time.monotonic()
             server.stop()
@@ -3088,6 +3125,7 @@ def time_kernels(cuda) -> dict:
     out.update(time_sharded_kernels(cuda))
     out.update(time_storm_sharded(cuda))
     out.update(time_entry_programs(cuda))
+    out["patch_rows_hostlocal"] = time_hostlocal_kernel(cuda)
     for v in out.values():
         v.setdefault("library_ms", None)
         _bound(v)
@@ -3117,6 +3155,12 @@ def time_kernels(cuda) -> dict:
                  if v.get("library_ms") else "")
               for k, v in out.items() if k.startswith(("sharded", "patch_rows_sharded"))),
           flush=True)
+    k15 = out["patch_rows_hostlocal"]
+    print(f"K15 timing (f64, CUDA events, the multihost flush's shape "
+          f"{k15['shape']}) on {device_line()}: {k15['ms']:.6f} ms, twin "
+          f"{k15['plain_ms']:.6f} ms, index_copy_ {k15['library_ms']:.6f} ms, "
+          f"bound {k15['bound_ms']:.9f} ms ({k15['bound_by']}; "
+          f"{k15['bytes']} B)", flush=True)
     print(f"K14 timing (f64, CUDA events, the storm path's problem; D shards "
           f"of a VirtualMesh on one card) on {device_line()}: " + "; ".join(
               f"{k} ({v['shape']}, {v['rounds']} rounds, "
@@ -4286,6 +4330,292 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase k15 / multihost: the per-host flush and the multi-process node mesh
+# ---------------------------------------------------------------------------
+
+# phase k15's meshes: (D shards, L shards a process), each process's L
+# shards patched by one K15 launch
+K15_SHAPES = ((2, 1), (4, 1), (4, 2), (8, 1), (8, 2), (8, 4))
+K15_ARENAS = (64, C_CHECK)
+# the JAX package's four dirty sets (tests/test_dist_mesh.py), spread over
+# the arena, and 1,024 rows
+K15_SETS = ("one_shard", "several", "two_full_shards", "random20", "rows1024")
+# the multihost phase's world: BASELINE.json's 10,000 nodes (a 16,384-row
+# arena, 4,096 rows a shard), 64 chain jobs and a 256-member storm family,
+# run by MULTIHOST_PROCS processes of MULTIHOST_SHARDS shards on the card
+MULTIHOST_WORLD = {"NOMAD_TPU_SMOKE_NODES": "10000",
+                   "NOMAD_TPU_SMOKE_JOBS": "64",
+                   "NOMAD_TPU_SMOKE_FAMILY": "256"}
+MULTIHOST_PROCS, MULTIHOST_SHARDS = 2, 2
+MULTIHOST_TIMEOUT_S = 300.0
+K15_TIMING = (2, 8, 4096)  # the path's flush: L shards, w, shard rows
+
+
+def _k15_dirty(name: str, C: int, seed: int):
+    """(sorted i32 rows, new values f64[C]) of one of K15_SETS."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fixed = {"one_shard": [0], "several": [3, 8, 9, 17, 40, 63],
+             "two_full_shards": list(range(24, 48))}
+    if name in fixed:
+        rows = [r * (C // 64) for r in fixed[name]]
+    elif name == "random20":
+        rows = rng.choice(C, 20, replace=False)
+    else:
+        rows = rng.choice(C, min(1024, C), replace=False)
+    return np.asarray(sorted(int(r) for r in rows), np.int32), rng.uniform(
+        0.0, 1e4, C)
+
+
+class _RankView:
+    """A VirtualMesh seen as one process of a world of L shards a
+    process: the shards `local`, on the mesh's device."""
+
+    def __init__(self, mesh, local) -> None:
+        self.n_shards, self.device = mesh.n_shards, mesh.device
+        self.local_shards = tuple(local)
+
+
+def _k15_run(mesh, col, idx, src, per: int, patch):
+    """`patch` (K15 or its twin) of the dirty set into a fresh placement
+    of `col` on `mesh`, one call a process of `per` shards with its own
+    staging rows; the whole column back on the host."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.parallel.mesh import Sharded, mesh_put
+
+    C = col.shape[0]
+    stack, per_dev, w = tbatch.hostlocal_staging(mesh, idx, C)
+    full = mesh_put(mesh, col.numpy())
+    for r in range(mesh.n_shards // per):
+        local = list(range(r * per, r * per + per))
+        vals = np.zeros((per, w))
+        for i, d in enumerate(local):
+            vals[i, :len(per_dev[d])] = src[per_dev[d]]
+        patch(_RankView(mesh, local), Sharded(tuple(full.shards[d] for d in local)),
+              torch.from_numpy(stack[local]).to(mesh.device),
+              torch.from_numpy(vals).to(col.dtype).to(mesh.device))
+    return mesh.unshard(full).cpu()
+
+
+def check_k15(cuda) -> dict:
+    """K15 against its twin on the card and on the CPU at every
+    (D, L) of K15_SHAPES, C in {64, 16,384}, the JAX test's four dirty
+    sets and 1,024 rows, f64 and f32: each process's L shards take its
+    own staging rows in one launch, and the column put together is
+    bit-equal to the twins', to K13's with the replicated staging and to
+    the host oracle's."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    n_cases = 0
+    max_err = 0.0
+    launches0 = tbatch.patch_rows_hostlocal_cuda.launches
+    want_launches = 0
+    for dtype in (torch.float64, torch.float32):
+        for C in K15_ARENAS:
+            for si, name in enumerate(K15_SETS):
+                idx, src = _k15_dirty(name, C, 1500 + 10 * si + C)
+                col = torch.from_numpy(
+                    np.random.default_rng(C + si).uniform(0.0, 1e4, C)).to(dtype)
+                oracle = col.clone()
+                oracle[torch.from_numpy(idx).long()] = torch.from_numpy(
+                    src[idx]).to(dtype)
+                width = max(8, 1 << (len(idx) - 1).bit_length())
+                idx_p = np.full(width, C, np.int32)
+                idx_p[:len(idx)] = idx
+                vals_p = np.zeros(width)
+                vals_p[:len(idx)] = src[idx]
+                for d, per in K15_SHAPES:
+                    mesh = VirtualMesh(d, cuda)
+                    got = _k15_run(mesh, col, idx, src, per,
+                                   tbatch.patch_rows_hostlocal_cuda)
+                    want_launches += d // per
+                    card_twin = _k15_run(mesh, col, idx, src, per,
+                                         tbatch.patch_rows_hostlocal_twin)
+                    cmesh = VirtualMesh(d, "cpu")
+                    cpu_twin = _k15_run(cmesh, col, idx, src, per,
+                                        tbatch.patch_rows_hostlocal_twin)
+                    k13 = mesh.unshard(tbatch.patch_rows_sharded_cuda(
+                        mesh, mesh.shard(col), torch.from_numpy(idx_p).to(cuda),
+                        torch.from_numpy(vals_p).to(dtype).to(cuda))).cpu()
+                    tag = f"K15 {dtype} C={C} {name} D={d} L={per}"
+                    for other, what in ((card_twin, "the card twin"),
+                                        (cpu_twin, "the CPU twin"),
+                                        (k13, "K13 on the same dirty set"),
+                                        (oracle, "the host oracle")):
+                        check(bool((_bits(got) == _bits(other)).all()),
+                              f"{tag}: kernel != {what}")
+                    max_err = max(max_err, _max_abs(got, cpu_twin))
+                    n_cases += 1
+    launched = tbatch.patch_rows_hostlocal_cuda.launches - launches0
+    check(launched == want_launches,
+          f"K15 launched {launched} times for {want_launches} processes")
+    print(f"K15: {n_cases} cases exact (f64 and f32, (D, L) in {K15_SHAPES}, "
+          f"C in {K15_ARENAS}, {len(K15_SETS)} dirty sets; one launch a "
+          f"process) against the card and CPU twins, K13 with the replicated "
+          f"staging and the host oracle, max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases, "launches": launched}
+
+
+def multihost_reference() -> dict:
+    """The multihost phase's world through an unsharded Server on the CPU
+    twins, driven as the ranks drive it (a helper's job)."""
+    from nomad_tpu_torch.parallel import dist_smoke
+
+    world = {"nodes": int(MULTIHOST_WORLD["NOMAD_TPU_SMOKE_NODES"]),
+             "jobs": int(MULTIHOST_WORLD["NOMAD_TPU_SMOKE_JOBS"]),
+             "family": int(MULTIHOST_WORLD["NOMAD_TPU_SMOKE_FAMILY"])}
+    return dist_smoke.reference("cpu", world)
+
+
+def _rows(placed) -> list:
+    return [list(p) for p in placed]
+
+
+def check_multihost(cuda, card: str) -> dict:
+    """The slice's path at full width on one card shared by processes
+    exchanging over gloo: `dist_smoke.launch` (2 ranks x 2 shards, the
+    10,000-node world: chain, per-host flush, storm, K14-K5 A/B, parity)
+    and, at the same time, a pod (a head Server with
+    NOMAD_TPU_POD_CHECK=1 and one peer) over the same nodes and jobs.
+    Zero lost, cross-host parity, the storm equal to K5, the per-host
+    delta bytes in their closed form and below the full bytes, every pod
+    digest equal, placements equal to the unsharded CPU run (a helper's),
+    and K12, K14 and K15 launched in every process."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch.parallel import dist_smoke
+
+    def timed(fn, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(**kw), time.perf_counter() - t0
+        except RuntimeError as exc:
+            raise SmokeFailure(str(exc)[-4000:]) from exc
+
+    common = dict(shards_per_proc=MULTIHOST_SHARDS, timeout=MULTIHOST_TIMEOUT_S,
+                  extra_env=MULTIHOST_WORLD)
+    with ThreadPoolExecutor(2) as pool:
+        lock = pool.submit(timed, dist_smoke.launch, procs=MULTIHOST_PROCS,
+                           **common)
+        pod = pool.submit(timed, dist_smoke.launch_pod, **common)
+        row, t_lock = lock.result()
+        prow, t_pod = pod.result()
+    with SPLIT("wait"):
+        ref = HELPERS.get("multihost-cpu")
+    check(row["procs"] == MULTIHOST_PROCS
+          and row["global_devices"] == MULTIHOST_PROCS * MULTIHOST_SHARDS,
+          f"the world is {row['procs']} x {row['devices_per_host']}")
+    check(row["device"].startswith("cuda"), f"the ranks ran on {row['device']}")
+    check(row["zero_lost"] and row["cross_host_parity"],
+          "a rank lost an eval or diverged")
+    check(row["storm_kernel"]["bit_identical"], "K14 on the mesh != K5")
+    flush = row["flush"]
+    check(flush["dirty_rows"] > 0, "the flush phase had no dirty rows")
+    check(flush["bytes_per_flush_delta_per_host"]
+          == flush["bytes_per_flush_closed_form"],
+          f"per-host delta bytes off their closed form: {flush}")
+    check(flush["bytes_per_flush_delta_per_host"]
+          < flush["bytes_per_flush_full_per_host"],
+          f"the delta flush is not below the full one: {flush}")
+    check(_rows(ref["chain"]) == row["chain"]["placed"],
+          "the world's chain placements != the unsharded CPU run's")
+    check(_rows(ref["storm"]) == row["storm"]["placed"],
+          "the world's storm placements != the unsharded CPU run's")
+    check(row["loaded"] == [] and prow["loaded"] == []
+          and prow["peer"]["loaded"] == [], "a process loaded JAX")
+    check(prow["errors"] == 0 and prow["hosts"] == 2, f"the pod head: {prow}")
+    check(prow["digests_checked"] == prow["sent"]["chain"]
+          + prow["sent"].get("storm", 0) and prow["digests_checked"] > 0,
+          f"pod digests {prow['digests_checked']} for {prow['sent']}")
+    check(prow["peer"]["ops"] == prow["sent"],
+          f"the peer replayed {prow['peer']['ops']} of {prow['sent']}")
+    check(_rows(ref["chain"]) == prow["placed"],
+          "the pod's chain placements != the unsharded CPU run's")
+    check(_rows(ref["storm"]) == prow["storm_placed"],
+          "the pod's storm placements != the unsharded CPU run's")
+    procs = row["launches_ranks"] + [prow["launches"], prow["peer"]["launches"]]
+    names = ("sharded_chained_plan", "storm_assignment_sharded",
+             "patch_rows_hostlocal")
+    for name in names:
+        check(all(p[name] > 0 for p in procs),
+              f"{name} was not launched in every process: "
+              f"{[p[name] for p in procs]}")
+    launches = {name: sum(p[name] for p in procs) for name in names}
+    for k in ("chain", "storm"):
+        row[k].pop("placed")
+    print(f"multihost on {card}: {MULTIHOST_PROCS} processes x "
+          f"{MULTIHOST_SHARDS} shards on one card over gloo (not multi-GPU "
+          f"scaling), world {json.dumps(row['world'])}: {t_lock:.1f} s; "
+          f"chain {json.dumps(row['chain'])}, flush {json.dumps(flush)}, "
+          f"storm {json.dumps(row['storm'])}, K14 vs K5 "
+          f"{json.dumps(row['storm_kernel'])}; pod (head + 1 peer, beside it) "
+          f"{t_pod:.1f} s: {prow['placements']} + {len(prow['storm_placed'])} "
+          f"placements, {prow['digests_checked']} digests equal, sent "
+          f"{json.dumps(prow['sent'])}; placements equal to the unsharded CPU "
+          f"run; launches by process "
+          f"{json.dumps(procs)}", flush=True)
+    return {"launches": launches, "launches_by_process": procs,
+            "seconds": {"world": t_lock, "pod": t_pod}, "row": row,
+            "pod": {k: v for k, v in prow.items()
+                    if k not in ("placed", "storm_placed")}}
+
+
+def time_hostlocal_kernel(cuda) -> dict:
+    """K15 at the multihost path's flush shape (K15_TIMING: L = 2 local
+    shards of 4,096 rows, w = 8, three quarters of each staging row
+    dirty), the shards views of one upload as the mirror holds them;
+    beside it the twin on the card and `index_copy_` into that block
+    (one call, the same rows)."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.parallel.mesh import Sharded
+
+    saved = tbatch.patch_rows_hostlocal_cuda.launches
+    L, w, size = K15_TIMING
+    rng = np.random.default_rng(7015)
+    block = torch.from_numpy(rng.uniform(0.0, 1e4, L * size)).to(cuda)
+    col = Sharded(tuple(block.narrow(0, l * size, size) for l in range(L)))
+    n = w - w // 4
+    idx = np.full((L, w), size, np.int32)  # padding: the shard size
+    for l in range(L):
+        idx[l, :n] = np.sort(rng.choice(size, n, replace=False))
+    vals = rng.uniform(0.0, 1e4, (L, w))
+    idx_t = torch.from_numpy(idx).to(cuda)
+    vals_t = torch.from_numpy(vals).to(cuda)
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    view = _RankView(VirtualMesh(2 * L, cuda), range(L))
+    flat_idx = torch.from_numpy(np.concatenate(
+        [idx[l, :n].astype(np.int64) + l * size for l in range(L)])).to(cuda)
+    flat_vals = torch.from_numpy(np.concatenate(
+        [vals[l, :n] for l in range(L)])).to(cuda)
+    out = {
+        "ms": cuda_time_ms(lambda: tbatch.patch_rows_hostlocal_cuda(
+            view, col, idx_t, vals_t), n=200),
+        "plain_ms": cuda_time_ms(lambda: tbatch.patch_rows_hostlocal_twin(
+            view, col, idx_t, vals_t), n=50, warmup=3),
+        "library_ms": cuda_time_ms(
+            lambda: block.index_copy_(0, flat_idx, flat_vals), n=200),
+        # the [L, w] indices and values read once, the dirty rows stored
+        "bytes": L * w * (4 + 8) + L * n * 8,
+        "flops": 0,
+        "shape": f"L={L} w={w} shard={size}",
+    }
+    tbatch.patch_rows_hostlocal_cuda.launches = saved
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase entry: the entry module and its programs on an (evals, nodes) mesh
 # ---------------------------------------------------------------------------
 
@@ -4879,6 +5209,7 @@ def host_jobs(name: str):
         yield ("policy-storm-cpu", run_storm,
                ("cpu", True, "weighted storm, cpu", None, True))
         yield "entry-dryrun-cpu", _entry_dryrun_cpu, ()
+        yield "multihost-cpu", multihost_reference, ()
 
 
 def helper_jobs(name: str) -> list:
@@ -5030,7 +5361,7 @@ HELPERS = Helpers()
 
 
 PATH_PHASES = ("main", "server", "storm", "preempt", "policy", "bridge",
-               "mesh", "entry", "device", "bench")
+               "mesh", "entry", "device", "multihost", "bench")
 
 
 def main() -> int:
@@ -5093,15 +5424,17 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
     import torch
 
     # K9 shared, which no path of either package calls; K11, which only
-    # the entry path calls (a stage of sharded_score_and_select); and
-    # K12-K14, whose path is the mesh phase's (K12 and K13 also the
-    # bench's multichip block): their counts are set to 0 before every
+    # the entry path calls (a stage of sharded_score_and_select); K12-K14,
+    # whose path is the mesh phase's (K12 and K13 also the bench's
+    # multichip block); and K15, whose path (the multihost phase's) runs
+    # in processes of its own: their counts are set to 0 before every
     # phase and read after it
     uncalled = {"chained_plan_picks_shared": tbatch.chained_plan_picks_shared_cuda,
                 "score_all": tscore.score_all_cuda,
                 "sharded_chained_plan": sharded_chained_plan_cuda,
                 "patch_rows_sharded": tbatch.patch_rows_sharded_cuda,
-                "storm_assignment_sharded": tsolve.storm_assignment_sharded_cuda}
+                "storm_assignment_sharded": tsolve.storm_assignment_sharded_cuda,
+                "patch_rows_hostlocal": tbatch.patch_rows_hostlocal_cuda}
     uncalled_by_phase = {}
     failures = []
     results = {}
@@ -5128,9 +5461,11 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
                      ("k12", lambda: check_k12(cuda)),
                      ("k13", lambda: check_k13(cuda)),
                      ("k14", lambda: check_k14(cuda)),
+                     ("k15", lambda: check_k15(cuda)),
                      ("mesh", lambda: check_mesh(cuda, card, results)),
                      ("entry", lambda: check_entry(cuda, card)),
                      ("device", lambda: check_device(cuda, card)),
+                     ("multihost", lambda: check_multihost(cuda, card)),
                      ("bench", lambda: check_bench(cuda, card)),
                      ("timing", lambda: time_kernels(cuda))):
         t0 = time.perf_counter()
@@ -5182,13 +5517,17 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
                "patch_rows_sharded": uncalled_by_phase["k13"][
                    "patch_rows_sharded"],
                "storm_assignment_sharded": uncalled_by_phase["k14"][
-                   "storm_assignment_sharded"]}
+                   "storm_assignment_sharded"],
+               "patch_rows_hostlocal": uncalled_by_phase["k15"][
+                   "patch_rows_hostlocal"]}
     if not failures:
         for name, want in (("chained_plan_picks_shared",
                             results["k9"]["shared_cases"]),
                            ("score_all", results["k11"]["cases"]),
                            ("storm_assignment_sharded",
-                            results["k14"]["launches"])):
+                            results["k14"]["launches"]),
+                           ("patch_rows_hostlocal",
+                            results["k15"]["launches"])):
             if checked[name] != want:
                 failures.append(f"{name}: {checked[name]} launches in its "
                                 f"check phase for {want} expected")
@@ -5218,6 +5557,9 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
         launches[name] = results["bench"]["launches"].get(name, 0) + sum(
             uncalled_by_phase[p][name] for p in PATH_PHASES)
     launches.update(results["mesh"]["launches"])
+    # K15's path runs in the multihost phase's processes: their counts
+    multihost = results["multihost"]["launches"]
+    launches["patch_rows_hostlocal"] = multihost["patch_rows_hostlocal"]
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -5250,6 +5592,8 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
          "nomad_tpu/ops/batch.py:1130", "k13"),
         ("storm_assignment_sharded", "nomad_tpu_torch/csrc/storm_sharded.cu",
          "nomad_tpu/ops/solve.py:354", "k14"),
+        ("patch_rows_hostlocal", "nomad_tpu_torch/csrc/patch_rows_hostlocal.cu",
+         "nomad_tpu/ops/batch.py:1183", "k15"),
     ):
         tm = results["timing"][name]
         kernels.append({
@@ -5280,6 +5624,11 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
             kernels[-1]["launches_per_chunk"] = {
                 "d1": tm["launches_per_chunk"],
                 "d8": tm["d8"]["launches_per_chunk"]}
+        if name in multihost:
+            # the multihost path's processes (2 ranks, a pod head, a peer)
+            kernels[-1]["launches_multihost"] = multihost[name]
+        if name == "patch_rows_hostlocal":
+            kernels[-1]["shape"] = tm["shape"]
         if name == "storm_assignment_sharded":
             kernels[-1]["rounds"] = tm["rounds"]
             kernels[-1]["launches_per_solve"] = {

@@ -36,11 +36,13 @@ drives the node-sharded chained planner (kernel K12) chunk by chunk with
 its sharded usage carry, and one sharded mirror patch (kernel K13), at
 each shard count: on the card through a `DistMesh` over an NCCL group
 (one rank: the card count), on the CPU on a `VirtualMesh` of 1, 2, 4
-and 8 shards.  Its ``per_device_flops`` and
+and 8 shards.  Its ``multihost`` row (`BENCH_MULTIHOST`, on by default)
+spawns `parallel/dist_smoke.py`'s world of 2 ranks x 2 shards over gloo
+(on the card, or the CPU with ``--device cpu``): end-to-end placements/s
+through the distributed mesh, per-host bytes a flush, and the storm
+solve sharded against one device.  Its ``per_device_flops`` and
 ``flops_scaling_first_to_last`` (XLA's cost analysis) have no source in
-the port, and its ``multihost`` row waits for `dist_smoke.py`, which
-drives the batch worker's mesh path: both are left out.  A failed sweep
-fails the bench.
+the port and are left out.  A failed sweep or row fails the bench.
 
 The main path computes in f64.  Nothing here catches a device failure:
 a failed build, launch or a `DeviceFault` ends the run non-zero.
@@ -96,6 +98,7 @@ class Knobs:
     kernel_nodes: int = 2_000
     kernel_e: int = 64
     multichip: bool = True  # BENCH_MULTICHIP
+    multihost: bool = True  # BENCH_MULTIHOST: the block's multihost row
 
     @classmethod
     def from_env(cls, env=os.environ) -> "Knobs":
@@ -110,6 +113,7 @@ class Knobs:
             kernel_nodes=int(env.get("BENCH_KERNEL_NODES", min(nodes, 2000))),
             kernel_e=int(env.get("BENCH_KERNEL_E", 64)),
             multichip=env.get("BENCH_MULTICHIP", "1") == "1",
+            multihost=env.get("BENCH_MULTIHOST", "1") == "1",
         )
 
 
@@ -521,20 +525,31 @@ def bench_kernel_only(knobs: Knobs, device) -> Dict[str, float]:
     return results
 
 
-def bench_multichip(device) -> Dict:
+def bench_multichip(device, multihost: bool = True) -> Dict:
     """The ``multichip`` block: the sharded chained pipeline over shard
-    counts (`parallel/multichip.py`).  Nothing is caught: a failed
-    sweep ends the bench non-zero."""
+    counts (`parallel/multichip.py`), and its ``multihost`` row unless
+    `multihost` is False.  Nothing is caught: a failed sweep or world
+    ends the bench non-zero."""
     from .parallel.multichip import multichip_sweep
 
     t0 = time.time()
-    block = multichip_sweep(device=device)
+    block = multichip_sweep(device=device, multihost=multihost)
     for p in block["points"]:
         log(f"multichip d={p['n_devices']} ({block['mesh']}): "
             f"{p['placements_per_sec']} placements/s, "
             f"{p['bytes_per_flush_delta']}B delta vs "
             f"{p['bytes_per_flush_full']}B full per flush")
-    log(f"multichip sweep in {time.time() - t0:.1f}s")
+    mh = block.get("multihost")
+    if mh:
+        log(f"multichip multihost: {mh['procs']} procs x "
+            f"{mh['devices_per_host']} shards on {mh['device']}, "
+            f"{mh['placements_per_sec']} placements/s e2e, "
+            f"{mh['bytes_per_flush_delta_per_host']}B delta vs "
+            f"{mh['bytes_per_flush_full_per_host']}B full per host/flush, "
+            f"storm sharded {mh['storm_solve_sharded_ms']}ms vs single "
+            f"{mh['storm_solve_single_device_ms']}ms "
+            f"(bit_identical={mh['storm_bit_identical']})")
+    log(f"multichip sweep took {time.time() - t0:.1f}s")
     return block
 
 
@@ -588,7 +603,8 @@ def run(knobs: Knobs, device) -> Dict:
     _preflight(device)
     e2e = bench_e2e(knobs, device)
     kernel = bench_kernel_only(knobs, device)
-    multichip = bench_multichip(device) if knobs.multichip else None
+    multichip = (bench_multichip(device, knobs.multihost)
+                 if knobs.multichip else None)
     parity_ok = e2e["same"] == e2e["n_check"]
     if not parity_ok:
         log(f"PARITY FAILURE: {e2e['same']}/{e2e['n_check']} — zeroing "

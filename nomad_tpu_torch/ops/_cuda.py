@@ -45,6 +45,7 @@ SOURCES = {
     "sharded_chain": "sharded_chain.cu",
     "patch_rows_sharded": "patch_rows_sharded.cu",
     "storm_sharded": "storm_sharded.cu",
+    "patch_rows_hostlocal": "patch_rows_hostlocal.cu",
 }
 HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh")
 
@@ -935,6 +936,35 @@ def launch_patch_rows_sharded(col, idx, vals, lo: int) -> None:
         idx.shape[0], int(col.dtype == torch.float64), dev.index,
     )
     _launch("patch_rows_sharded", "nk_patch_rows_sharded", args, dev)
+
+
+# the shard pointers K15 takes by value (kMaxShards in its source)
+HOSTLOCAL_MAX_SHARDS = 64
+
+
+class PatchRowsHostlocalArgs(ctypes.Structure):
+    """Mirror of `PatchRowsHostlocalArgs` in csrc/patch_rows_hostlocal.cu."""
+
+    _fields_ = [
+        ("shards", _P * HOSTLOCAL_MAX_SHARDS), ("idx", _P), ("vals", _P),
+        ("L", _I), ("size", _I), ("w", _I), ("is_f64", _I), ("device", _I),
+    ]
+
+
+def launch_patch_rows_hostlocal(shards, idx, vals) -> None:
+    """K15 on the current stream for this process's L shards at once:
+    shards[l][idx[l]] = vals[l] where 0 <= idx[l] < size."""
+    L = len(shards)
+    if L > HOSTLOCAL_MAX_SHARDS:
+        raise RuntimeError(f"K15 takes at most {HOSTLOCAL_MAX_SHARDS} local "
+                           f"shards, got {L}")
+    dev = shards[0].device
+    ptrs = (_P * HOSTLOCAL_MAX_SHARDS)(*[t.data_ptr() for t in shards])
+    args = PatchRowsHostlocalArgs(
+        ptrs, idx.data_ptr(), vals.data_ptr(), L, shards[0].shape[0],
+        idx.shape[1], int(shards[0].dtype == torch.float64), dev.index,
+    )
+    _launch("patch_rows_hostlocal", "nk_patch_rows_hostlocal", args, dev)
 
 
 _SS_PTRS = (

@@ -22,7 +22,13 @@ Two JAX programs of that module become hand-written CUDA kernels here:
   benchmark's kernel-only `kernel-chained` rate;
 * `batch_plan_picks` (there `:1391`, a vmap of `plan_picks`) -> kernel
   K10, `csrc/batch_plan.cu`: E independent evals over their own
-  BatchInputs, behind the kernel-only `kernel-batch` rate.
+  BatchInputs, behind the kernel-only `kernel-batch` rate;
+* `patch_rows_sharded` (there `:1130`) -> kernel K13,
+  `csrc/patch_rows_sharded.cu`, and `patch_rows_hostlocal` (there
+  `:1183`, with `hostlocal_staging` `:1234`) -> kernel K15,
+  `csrc/patch_rows_hostlocal.cu`: the delta flush of a node-sharded
+  usage mirror, from one replicated staging (one process) or from each
+  process's own shard-local staging rows (a world of several).
 
 Each pick scores every node against the usage and collision columns
 carried from the earlier picks, runs the rotated limited walk, and
@@ -1704,3 +1710,98 @@ def patch_rows_sharded(mesh, col, idx, vals):
     if mesh.device.type == "cpu":
         return patch_rows_sharded_twin(mesh, col, idx, vals)
     return patch_rows_sharded_cuda(mesh, col, idx, vals)
+
+
+def hostlocal_staging(mesh, idx: np.ndarray, capacity: int):
+    """The index staging of `patch_rows_hostlocal` for a dirty-row set
+    (`idx`, sorted global rows): ``(idx_stack [D, w] i32 shard-local,
+    per_dev, w)``, where ``per_dev[d]`` is the slice of `idx` in shard
+    d (the caller gathers each column's values with it), w the pow2
+    bucket (floor 8) of the largest per-shard count and padding the
+    shard size.  Every process computes the same stack from the shared
+    dirty log and ships only its own shards' rows."""
+    n_dev = int(mesh.n_shards)
+    size = int(capacity) // n_dev
+    idx = np.asarray(idx)
+    per_dev = [idx[(idx >= d * size) & (idx < (d + 1) * size)]
+               for d in range(n_dev)]
+    w = pow2_bucket(max(1, max(len(s) for s in per_dev)), floor=8)
+    idx_stack = np.full((n_dev, w), size, np.int32)
+    for d, sel in enumerate(per_dev):
+        idx_stack[d, :len(sel)] = sel - d * size
+    return idx_stack, per_dev, w
+
+
+def _check_patch_hostlocal(mesh, col, idx_stack, vals_stack):
+    shards = col.shards
+    n_local = len(mesh.local_shards)
+    if len(shards) != n_local:
+        raise ValueError("a Sharded column of another mesh")
+    if idx_stack.dim() != 2 or idx_stack.shape[0] != n_local \
+            or vals_stack.shape != idx_stack.shape:
+        raise ValueError(f"patch_rows_hostlocal needs idx and vals stacks of "
+                         f"[{n_local}, w]: one row per local shard")
+    if idx_stack.dtype != torch.int32:
+        raise TypeError("idx must be int32")
+    size = shards[0].shape[0]
+    for t in shards:
+        if t.dim() != 1 or t.shape[0] != size:
+            raise ValueError("the shards of a column are [C // D] each")
+        if vals_stack.dtype != t.dtype:
+            raise TypeError(f"vals must be {t.dtype}")
+        if t.device != idx_stack.device or vals_stack.device != t.device:
+            raise ValueError("col, idx and vals must share a device")
+
+
+def patch_rows_hostlocal_twin(mesh, col, idx_stack, vals_stack):
+    """`patch_rows_hostlocal` in plain torch: local shard l stores row l
+    of the staging (``shard[idx] = vals``, indices shard-local), and
+    indices outside [0, size) (padding is the shard size) are dropped.
+    In place; returns col."""
+    _check_patch_hostlocal(mesh, col, idx_stack, vals_stack)
+    for l, t in enumerate(col.shards):
+        idx = idx_stack[l]
+        keep = (idx >= 0) & (idx < t.shape[0])
+        t[idx[keep].long()] = vals_stack[l][keep]
+    return col
+
+
+def patch_rows_hostlocal_cuda(mesh, col, idx_stack, vals_stack):
+    """K15 on the current stream: the same store for all of this
+    process's shards in one launch (one block row a local shard).
+    `launches` counts kernel launches.  A failed build or launch raises
+    `DeviceFault`.  Returns col."""
+    from ..device.core import DeviceFault
+    from . import _cuda
+
+    _check_patch_hostlocal(mesh, col, idx_stack, vals_stack)
+    if mesh.device.type != "cuda":
+        raise ValueError(f"patch_rows_hostlocal_cuda needs a mesh on the "
+                         f"card, got {mesh.device}")
+    for t in col.shards:
+        if not t.is_contiguous():
+            raise ValueError("patch_rows_hostlocal_cuda patches contiguous "
+                             "shards")
+    try:
+        _cuda.launch_patch_rows_hostlocal(
+            col.shards, idx_stack.contiguous(), vals_stack.contiguous())
+    except RuntimeError as exc:  # a build, bind or launch failure
+        raise DeviceFault(f"K15 patch_rows_hostlocal failed: {exc}") from exc
+    patch_rows_hostlocal_cuda.launches += 1
+    return col
+
+
+patch_rows_hostlocal_cuda.launches = 0
+
+
+def patch_rows_hostlocal(mesh, col, idx_stack, vals_stack):
+    """The delta-sync primitive of a node-sharded usage mirror in a world
+    of several processes: `col` (a `Sharded` column of `mesh`) takes
+    this process's rows of the `hostlocal_staging` stack, ``[L, w]``
+    indices (shard-local, i32) and values, row l for local shard l, in
+    place.  Padding (the shard size) is dropped.  Bit-identical to
+    `patch_rows_sharded` on the same dirty set.  K15 on a mesh on the
+    card, the twin on the CPU."""
+    if mesh.device.type == "cpu":
+        return patch_rows_hostlocal_twin(mesh, col, idx_stack, vals_stack)
+    return patch_rows_hostlocal_cuda(mesh, col, idx_stack, vals_stack)

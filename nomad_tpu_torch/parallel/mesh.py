@@ -22,19 +22,37 @@ that shards only over ``nodes`` runs replicated over it.
   mesh.  Each collective is the exact in-process reduction, in ascending
   shard order.  A program that shards only over ``nodes`` computes the
   same on every eval row, so it runs the node axis once.
-* `DistMesh(group, n_evals=E)`: one shard per rank of a
-  `torch.distributed` group of E x D ranks (gloo on the CPU, NCCL on the
-  card).  Rank r is eval row ``r // D`` and node shard ``r % D``, the
-  row-major ``reshape(evals, nodes)`` of the JAX mesh; the node-axis
-  collectives run over the subgroup of the rank's eval row, `gather_evals`
-  over that of its node column.  NCCL puts no two ranks on one device,
-  so on one card its only size is 1 x 1.
+* `DistMesh(group, n_evals=E, shards_per_rank=L)`: L node shards per
+  rank of a `torch.distributed` group of E x D / L ranks (gloo, whose
+  collectives take CPU and CUDA tensors; or NCCL on the card).  With R =
+  D / L ranks an eval row, rank r is eval row ``r // R`` and holds node
+  shards ``(r % R) * L`` to ``(r % R) * L + L - 1``, the row-major
+  ``reshape(evals, nodes)`` of the JAX mesh over its processes' devices;
+  the node-axis collectives run over the subgroup of the rank's eval row
+  (each rank sends its L records, the result stays in ascending shard
+  order), `gather_evals` over that of its node column.  L is the JAX
+  package's devices per process: its launcher's
+  ``--xla_force_host_platform_device_count``.  NCCL puts no two ranks on
+  one device; gloo does, so two processes can share one card.  The
+  device resolves as every entry point's does (`resolve_device`): the
+  card unless the caller asks for ``"cpu"``, whatever the backend.
 
 `make_mesh` is the JAX `make_mesh` (`mesh.py:234`) without its CPU
 fallback: the `DistMesh` of the process group with the axes the JAX one
 resolves (`mesh_axes`: two eval rows when the count is even and at
 least 4), and a mesh that cannot be built raises.  E x D shards in one
 process are a `VirtualMesh`.
+
+The multi-process world (JAX `mesh.py:56-232`): `dist_config` reads the
+``NOMAD_TPU_DIST*`` knobs (``NOMAD_TPU_DIST=1``, ``_COORD`` host:port,
+``_PROCS``, ``_ID``, namespaced by ``NOMAD_TPU_DIST_NS``) and raises on a
+malformed one; `distributed_init` joins the gloo world they describe
+(``tcp://`` at the coordinator), once, and never falls back to one
+process.  ``NOMAD_TPU_SHARDS_PER_RANK`` (`shards_per_rank`) is L.
+`host_count`, `is_multihost`, `local_device_positions` and
+`local_device_count` describe a mesh's processes; `mesh_put` places a
+host column as this process's shards, cutting its own rows on the host
+and uploading only those, so no process ships another's slice.
 
 `sharded_score_and_select` (JAX `mesh.py:278`) is one select on a node
 mesh: K11 (`csrc/score_all.cu`) scores each shard's contiguous columns,
@@ -90,7 +108,9 @@ is on the CPU, and nothing falls back from one to the other.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+import os
+from datetime import timedelta
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -190,13 +210,16 @@ class NodeMesh:
             return x
         t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                             else x)
+        size = self.shard_size(t.shape[axis])
+        # this process's shards are contiguous: cut them where the column
+        # lies, then move only those rows
+        first, n = self.local_shards[0], len(self.local_shards)
+        t = t.narrow(axis, first * size, n * size)
         if dtype is not None:
             t = t.to(dtype)
         t = t.to(self.device)
-        size = self.shard_size(t.shape[axis])
-        return Sharded(tuple(t.narrow(axis, s * size, size).clone(
-            memory_format=torch.contiguous_format)
-                             for s in self.local_shards))
+        return Sharded(tuple(t.narrow(axis, i * size, size).clone(
+            memory_format=torch.contiguous_format) for i in range(n)))
 
     def unshard(self, x: Sharded) -> torch.Tensor:
         """The whole [C] column of a `Sharded` one (every process gets
@@ -236,15 +259,19 @@ class VirtualMesh(NodeMesh):
 
 
 class DistMesh(NodeMesh):
-    """One shard per rank of a `torch.distributed` group of
-    ``n_evals * n_shards`` ranks: rank r is eval row r // D and node
-    shard r % D.  The group must be initialised and of exactly that size
-    (fewer raise: no rank holds two shards).  With more than one eval
-    row, every rank creates the rows' and the columns' subgroups, in the
-    same order."""
+    """L node shards per rank of a `torch.distributed` group of
+    ``n_evals * n_shards / L`` ranks: with R = n_shards / L ranks an
+    eval row, rank r is eval row r // R and holds node shards
+    (r % R) * L to (r % R) * L + L - 1.  The group must be initialised
+    and of exactly that size (other sizes raise).  With more than one
+    eval row, every rank creates the rows' and the columns' subgroups,
+    in the same order.  The device is the card unless `device` says
+    ``"cpu"``, over gloo as over NCCL (an NCCL group must be on the
+    card)."""
 
     def __init__(self, group=None, n_shards: Optional[int] = None,
-                 device: DeviceLike = None, n_evals: int = 1) -> None:
+                 device: DeviceLike = None, n_evals: int = 1,
+                 shards_per_rank: int = 1) -> None:
         import torch.distributed as dist
 
         if not dist.is_available() or not dist.is_initialized():
@@ -253,36 +280,41 @@ class DistMesh(NodeMesh):
                 "(init_process_group first)")
         world = dist.get_world_size(group)
         ev = int(n_evals)
+        per = int(shards_per_rank)
+        if per < 1:
+            raise ValueError(f"a rank holds at least one shard, got {per}")
         if ev < 1 or world % ev != 0:
             raise ValueError(
                 f"{ev} eval rows asked of a group of {world} ranks")
-        n = world // ev if n_shards is None else int(n_shards)
-        if n * ev != world:
+        row_ranks = world // ev
+        n = row_ranks * per if n_shards is None else int(n_shards)
+        if n != row_ranks * per:
             raise ValueError(
                 f"{ev} x {n} (evals, nodes) shards asked of a group of "
-                f"{world} ranks: a DistMesh holds one shard per rank")
+                f"{world} ranks: a DistMesh holds {per} shard(s) per rank")
         self.group = group
         self.n_shards = n
         self.n_evals = ev
+        self.shards_per_rank = per
+        self.n_procs = world
         self.rank = dist.get_rank(group)
-        self.local_shards = (self.rank % n,)
-        self.local_evals = (self.rank // n,)
+        col = self.rank % row_ranks
+        self.local_shards = tuple(range(col * per, col * per + per))
+        self.local_evals = (self.rank // row_ranks,)
         self.node_group = group
         self.eval_group = None
         if ev > 1:
             ranks = [r if group is None else dist.get_global_rank(group, r)
                      for r in range(world)]
             for row in range(ev):
-                g = dist.new_group(ranks[row * n:(row + 1) * n])
+                g = dist.new_group(ranks[row * row_ranks:(row + 1) * row_ranks])
                 if row == self.local_evals[0]:
                     self.node_group = g
-            for col in range(n):
-                g = dist.new_group(ranks[col::n])
-                if col == self.local_shards[0]:
+            for c in range(row_ranks):
+                g = dist.new_group(ranks[c::row_ranks])
+                if c == col:
                     self.eval_group = g
         backend = dist.get_backend(group)
-        if device is None:
-            device = "cuda" if backend == "nccl" else "cpu"
         self.device = resolve_device(device)
         if backend == "nccl" and self.device.type != "cuda":
             raise ValueError("an NCCL group exchanges CUDA tensors")
@@ -290,15 +322,19 @@ class DistMesh(NodeMesh):
     def gather(self, locals_, out=None):
         import torch.distributed as dist
 
-        if len(locals_) != 1:
-            raise ValueError("a DistMesh rank holds one shard")
-        t = locals_[0].contiguous()
-        if t.dtype == torch.bool:  # over the wire as bytes
-            g = self.gather([t.view(torch.uint8)]).view(torch.bool)
-            return g if out is None else out.copy_(g)
-        parts = [torch.empty_like(t) for _ in range(self.n_shards)]
-        dist.all_gather(parts, t, group=self.node_group)
-        return torch.stack(parts, out=out)
+        if len(locals_) != len(self.local_shards):
+            raise ValueError(
+                f"a DistMesh rank holds {len(self.local_shards)} shard(s): "
+                "one tensor per local shard is needed")
+        t = torch.stack([x.contiguous() for x in locals_])
+        wire = t.view(torch.uint8) if t.dtype == torch.bool else t  # bytes
+        parts = [torch.empty_like(wire)
+                 for _ in range(self.n_shards // self.shards_per_rank)]
+        dist.all_gather(parts, wire, group=self.node_group)
+        g = torch.cat(parts)
+        if t.dtype == torch.bool:
+            g = g.view(torch.bool)
+        return g if out is None else out.copy_(g)
 
     def gather_evals(self, locals_):
         import torch.distributed as dist
@@ -326,14 +362,16 @@ def mesh_axes(n_devices: int, eval_axis: Optional[int] = None) -> Tuple[int, int
 
 
 def make_mesh(n_devices: Optional[int] = None,
-              eval_axis: Optional[int] = None, *, group=None) -> DistMesh:
+              eval_axis: Optional[int] = None, *, group=None,
+              device: DeviceLike = None, shards_per_rank: int = 1) -> DistMesh:
     """The (evals, nodes) mesh over the `torch.distributed` group's ranks
-    (the default group unless `group`), one shard each; `n_devices` must
-    equal the group's size (None: its size).  The axes resolve as the
-    JAX `make_mesh`'s (`mesh_axes`): by default two eval rows for an even
-    count of at least 4.  There is no fallback: a missing group or one
-    of another size raises.  E x D shards in one process are a
-    `VirtualMesh`."""
+    (the default group unless `group`), `shards_per_rank` shards each;
+    `n_devices` must equal the group's size times that (None: that
+    product).  The axes resolve as the JAX `make_mesh`'s (`mesh_axes`):
+    by default two eval rows for an even count of at least 4.  `device`
+    resolves as every entry point's: the card unless ``"cpu"``.  There is
+    no fallback: a missing group or one of another size raises.  E x D
+    shards in one process are a `VirtualMesh`."""
     if n_devices is None:
         import torch.distributed as dist
 
@@ -341,9 +379,154 @@ def make_mesh(n_devices: Optional[int] = None,
             raise RuntimeError(
                 "make_mesh needs an initialised torch.distributed group "
                 "(init_process_group first)")
-        n_devices = dist.get_world_size(group)
+        n_devices = dist.get_world_size(group) * int(shards_per_rank)
     evals, nodes = mesh_axes(n_devices, eval_axis)
-    return DistMesh(group, nodes, n_evals=evals)
+    return DistMesh(group, nodes, device=device, n_evals=evals,
+                    shards_per_rank=shards_per_rank)
+
+
+# ---------------------------------------------------------------------------
+# the multi-process world: the NOMAD_TPU_DIST* knobs, its processes, and
+# the placement of host columns as each process's own shards
+# ---------------------------------------------------------------------------
+
+# how long `distributed_init` waits for every member of the world
+DIST_INIT_TIMEOUT_S = 300.0
+# the knob of `shards_per_rank`: the node shards each rank holds
+SHARDS_PER_RANK_ENV = "NOMAD_TPU_SHARDS_PER_RANK"
+
+
+class DistConfig(NamedTuple):
+    coordinator: str  # host:port of rank 0's store
+    num_processes: int
+    process_id: int
+
+
+def _dist_knob(name: str, default: str) -> str:
+    """One NOMAD_TPU_DIST* knob, namespaced: with NOMAD_TPU_DIST_NS set
+    (say ``f1``), ``NOMAD_TPU_DIST_COORD_F1`` wins over
+    ``NOMAD_TPU_DIST_COORD``, so one shared environment can describe
+    several worlds and each process picks its own by the selector."""
+    ns = os.environ.get("NOMAD_TPU_DIST_NS", "")
+    if ns:
+        val = os.environ.get(f"{name}_{ns.upper()}")
+        if val is not None:
+            return val
+    return os.environ.get(name, default)
+
+
+def dist_config() -> Optional[DistConfig]:
+    """The NOMAD_TPU_DIST* knobs, or None when the multi-process world
+    is not asked for (`NOMAD_TPU_DIST` != 1).  Asked for, a malformed
+    process count or id raises instead of being coerced: a member that
+    fell back to one process would leave its peers waiting in their
+    first collective."""
+    if os.environ.get("NOMAD_TPU_DIST") != "1":
+        return None
+    coord = _dist_knob("NOMAD_TPU_DIST_COORD", "127.0.0.1:8476")
+    try:
+        procs = int(_dist_knob("NOMAD_TPU_DIST_PROCS", "1"))
+        pid = int(_dist_knob("NOMAD_TPU_DIST_ID", "0"))
+    except ValueError as exc:
+        raise ValueError(
+            "NOMAD_TPU_DIST=1 but NOMAD_TPU_DIST_PROCS/NOMAD_TPU_DIST_ID "
+            "are not integers: a member that fell back to one process "
+            f"would leave its peers waiting in their first collective ({exc})"
+        ) from exc
+    if procs <= 1:
+        # the documented off-switch: <= 1 keeps the world off
+        return DistConfig(coord, 1, 0)
+    if not 0 <= pid < procs:
+        raise ValueError(
+            f"NOMAD_TPU_DIST_ID={pid} out of range for "
+            f"NOMAD_TPU_DIST_PROCS={procs}")
+    return DistConfig(coord, procs, pid)
+
+
+def distributed_init() -> bool:
+    """Join the gloo world of the NOMAD_TPU_DIST* knobs
+    (``init_process_group("gloo", init_method="tcp://<coordinator>")``),
+    once.  Returns True when this process is a member of a world of
+    several, False for one process (knobs unset, or
+    NOMAD_TPU_DIST_PROCS <= 1), where nothing needs a coordinator.  A
+    malformed knob, a coordinator that does not answer within
+    DIST_INIT_TIMEOUT_S, or a group already made of another size or
+    rank raises: nothing falls back to one process."""
+    cfg = dist_config()
+    if cfg is None or cfg.num_processes <= 1:
+        return False
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if (world, rank) != (cfg.num_processes, cfg.process_id):
+            raise ValueError(
+                f"a torch.distributed group of {world} ranks (this rank "
+                f"{rank}) exists, but NOMAD_TPU_DIST* describes "
+                f"{cfg.num_processes} (this rank {cfg.process_id})")
+        return True
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{cfg.coordinator}",
+        world_size=cfg.num_processes, rank=cfg.process_id,
+        timeout=timedelta(seconds=DIST_INIT_TIMEOUT_S))
+    return True
+
+
+def shards_per_rank() -> int:
+    """NOMAD_TPU_SHARDS_PER_RANK (default 1): the node shards each rank
+    of a worker's mesh holds, the JAX package's devices per process.
+    A value that is not a positive integer raises."""
+    raw = os.environ.get(SHARDS_PER_RANK_ENV, "1")
+    try:
+        per = int(raw)
+    except ValueError:
+        per = 0
+    if per < 1:
+        raise ValueError(
+            f"NOMAD_TPU_SHARDS_PER_RANK={raw!r}: a rank holds at least "
+            "one shard")
+    return per
+
+
+def host_count(mesh: NodeMesh) -> int:
+    """Distinct processes holding shards of this mesh."""
+    return int(getattr(mesh, "n_procs", 1))
+
+
+def is_multihost(mesh: NodeMesh) -> bool:
+    return host_count(mesh) > 1
+
+
+def local_device_positions(mesh: NodeMesh) -> list:
+    """Positions along the mesh's flattened (evals, nodes) order that
+    this process holds: the rows of a per-shard staging stack it
+    ships."""
+    return [e * mesh.n_shards + s
+            for e in mesh.local_evals for s in mesh.local_shards]
+
+
+def local_device_count(mesh: NodeMesh) -> int:
+    """This process's shards on the mesh: the divisor of every per-host
+    traffic figure."""
+    return len(local_device_positions(mesh))
+
+
+def mesh_put(mesh: NodeMesh, arr,
+             upload: Optional[Callable[[np.ndarray], torch.Tensor]] = None
+             ) -> Sharded:
+    """A host [C] column as this process's shards of `mesh`: its own
+    rows are cut on the host and only those are uploaded (`upload`, a
+    host array to a tensor of its own on the mesh's device; by default a
+    copy), so no process ships another's slice and the column never
+    crosses the mesh whole.  The shards are contiguous views of the one
+    upload."""
+    host = arr.numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    size = mesh.shard_size(host.shape[0])
+    first, n = mesh.local_shards[0], len(mesh.local_shards)
+    block = np.ascontiguousarray(host[first * size:(first + n) * size])
+    t = (upload(block) if upload is not None
+         else torch.from_numpy(block).to(mesh.device, copy=True))
+    return Sharded(tuple(t.narrow(0, i * size, size) for i in range(n)))
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,19 @@ ranks, one here (the sweep makes a one-rank group when none exists).
 NCCL puts no two ranks on one device, so D shards on one card are the
 `VirtualMesh`'s; those are not multi-GPU scaling.
 
+The ``multihost`` row (`multihost_point`, on unless
+``multichip_sweep(multihost=False)``) spawns `dist_smoke.py`'s lockstep
+world (2 ranks x 2 shards over gloo, on the card unless the sweep is on
+the CPU) and reports its end-to-end placements/s through the
+distributed mesh, the per-host bytes of a flush (K15's O(dirty rows)
+delta against the full upload), and the storm solve on the mesh (K14)
+against one device (K5) with its parity verdict.  Ranks sharing one
+card exchange through the host: that is not multi-GPU scaling.  Where
+the JAX row turns a failure into a skip row, the port's raises: nothing
+on its paths hides a failure.
+
 Left out: ``per_device_flops`` and ``flops_scaling_first_to_last`` are
-XLA's compiled cost analysis, which the port has no source for; the
-``multihost`` row spawns `dist_smoke.py`, which drives the batch
-worker's mesh path (a later slice).
+XLA's compiled cost analysis, which the port has no source for.
 """
 from __future__ import annotations
 
@@ -164,6 +173,36 @@ def nccl_group(device: torch.device) -> bool:
     return True
 
 
+def multihost_point(procs: int = 2, shards_per_proc: int = 2,
+                    timeout: float = 420.0, device=None) -> dict:
+    """The ``multichip`` block's multi-process row: `dist_smoke.launch`
+    (`procs` ranks of `shards_per_proc` shards over gloo; the card unless
+    `device` is "cpu") and its end-to-end placements/s through the
+    distributed mesh, per-host bytes a flush (delta and full) and the
+    storm solve sharded against one device with its parity verdict.  A
+    failed or timed-out world raises (the JAX row returns a skip row
+    instead)."""
+    from .dist_smoke import launch
+
+    row = launch(procs=procs, shards_per_proc=shards_per_proc,
+                 timeout=timeout, device=device)
+    return {
+        "procs": row["procs"],
+        "devices_per_host": row["devices_per_host"],
+        "global_devices": row["global_devices"],
+        "device": row["device"],
+        "placements_per_sec": row["chain"]["placements_per_sec"],
+        "bytes_per_flush_delta_per_host": row["flush"][
+            "bytes_per_flush_delta_per_host"],
+        "bytes_per_flush_full_per_host": row["flush"][
+            "bytes_per_flush_full_per_host"],
+        "storm_solve_single_device_ms": row["storm_kernel"]["single_device_ms"],
+        "storm_solve_sharded_ms": row["storm_kernel"]["sharded_ms"],
+        "storm_bit_identical": row["storm_kernel"]["bit_identical"],
+        "zero_lost": row["zero_lost"],
+    }
+
+
 # the sweep's shape: arena rows, evals, picks, evals per launch, dirty
 # rows of the mirror patch (the JAX sweep's defaults)
 SWEEP_C, SWEEP_E, SWEEP_P, SWEEP_CHUNK, SWEEP_DIRTY = 1024, 16, 4, 8, 24
@@ -178,10 +217,12 @@ def multichip_sweep(
     dirty_rows: int = SWEEP_DIRTY,
     rounds: int = 3,
     device=None,
+    multihost: bool = True,
 ) -> dict:
     """Sweep the sharded chained pipeline over shard counts; returns the
-    bench's ``multichip`` block.  `device` None is the card (a DistMesh
-    over the NCCL group's ranks), "cpu" the VirtualMesh sweep."""
+    bench's ``multichip`` block, with the spawned processes'
+    ``multihost`` row unless opted out.  `device` None is the card (a
+    DistMesh over the NCCL group's ranks), "cpu" the VirtualMesh sweep."""
     import torch.distributed as dist
 
     from ..device import resolve_device
@@ -194,7 +235,7 @@ def multichip_sweep(
         if dev.type == "cuda":
             if device_counts is None:
                 device_counts = [dist.get_world_size()]
-            meshes = {int(d): make_mesh(int(d), eval_axis=1)
+            meshes = {int(d): make_mesh(int(d), eval_axis=1, device=dev)
                       for d in device_counts}
             kind = f"DistMesh ({dist.get_backend()})"
         else:
@@ -236,10 +277,14 @@ def multichip_sweep(
     finally:
         if made_group:
             dist.destroy_process_group()
-    return {
+    block = {
         "arena_nodes": C,
         "evals": E,
         "picks": P,
         "mesh": kind,
         "points": points,
     }
+    if multihost:
+        block["multihost"] = multihost_point(
+            device="cpu" if dev.type == "cpu" else None)
+    return block

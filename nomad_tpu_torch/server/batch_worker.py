@@ -84,17 +84,28 @@ the chunk prefix and takes the per-eval path, whose stack fuses the
 policy terms into K1; storms stay eligible, with policy rows staged
 into the K5 solve.
 
-The node-sharded mesh path (single host): with the Server's ``mesh=``
-(a `parallel.mesh.VirtualMesh` of D shards on the worker's device, or a
+The node-sharded mesh path: with the Server's ``mesh=`` (a
+`parallel.mesh.VirtualMesh` of D shards on the worker's device, or a
 `DistMesh`), or with NOMAD_TPU_MESH=1 and the `DistMesh` of the
-initialised torch.distributed group, the worker keeps a sharded usage
-mirror on the mesh (K13 delta patches), runs every arena that tiles
-over the mesh (one task group, no ports or devices, C % D == 0) as a
-chain of K12 chunks threading a sharded carry, and solves storms with
-K14 (`ops.solve.storm_assignment_sharded`).  Other arenas take the K3
-path, as the JAX package routes them.  A mesh that cannot be built
-raises at construction: nothing runs unsharded in its place.  Not
-ported: pods (the multi-host mesh).
+torch.distributed group (joined first from the NOMAD_TPU_DIST* knobs,
+NOMAD_TPU_SHARDS_PER_RANK shards a rank), the worker keeps a sharded
+usage mirror on the mesh, runs every arena that tiles over the mesh (one
+task group, no ports or devices, C % D == 0) as a chain of K12 chunks
+threading a sharded carry, and solves storms with K14
+(`ops.solve.storm_assignment_sharded`).  Other arenas take the K3 path,
+as the JAX package routes them.  A mesh that cannot be built raises at
+construction: nothing runs unsharded in its place.
+
+A mesh over several processes (``mesh.hosts`` > 1) keeps each process's
+mirror shards only: a full or bulk sync uploads this host's rows alone
+(`parallel.mesh.mesh_put`), and a delta flush builds the shard-local
+staging (`ops.batch.hostlocal_staging`) and stores it with one K15 launch
+a column (`patch_rows_hostlocal`), so a warm flush costs each host
+O(its dirty rows) bytes.  Every process must launch the same chunks in
+the same order: in lockstep, as `parallel/dist_smoke.py` drives them, or
+behind a pod head (NOMAD_TPU_POD_PORT, `parallel/pod.py`) that streams
+each mirror sync, chain launch and storm solve to its peers before it
+runs it.
 """
 from __future__ import annotations
 
@@ -955,6 +966,11 @@ class BatchWorker(Worker):
         self._usage_cache_sharded: Optional[dict] = None
         self._mesh_mirror_hits = 0
         self._mesh_mirror_misses = 0
+        # the processes the mesh spans (1: one process) and, on rank 0
+        # of a world of several with NOMAD_TPU_POD_PORT, the pod head's
+        # operation stream to its peers (parallel/pod.py)
+        self._mesh_hosts = 1
+        self._pod = None
         # arenas (and storms) that ran on the mesh
         self.mesh_used = 0
         self.mesh_storms = 0
@@ -1168,6 +1184,10 @@ class BatchWorker(Worker):
         super().stop()
         if self._replay_pool is not None:
             self._replay_pool.shutdown()
+        if self._pod is not None:
+            # the peers leave their loop on the service's "bye"
+            self._pod.close()
+            self._pod = None
 
     # -- device supervisor integration ---------------------------------
 
@@ -1247,10 +1267,11 @@ class BatchWorker(Worker):
 
     def _kernel_libraries(self) -> List[str]:
         """The kernel libraries of this worker's guarded stages: K3 and K4,
-        K5 for storms, and on a mesh K12-K14."""
+        K5 for storms, and on a mesh K12-K15."""
         names = ["chained_picks", "patch_rows", "storm_solve"]
         if self._mesh_requested:
-            names += ["sharded_chain", "patch_rows_sharded", "storm_sharded"]
+            names += ["sharded_chain", "patch_rows_sharded", "storm_sharded",
+                      "patch_rows_hostlocal"]
         return names
 
     def _load_kernels(self) -> None:
@@ -1267,50 +1288,61 @@ class BatchWorker(Worker):
 
     def _make_mesh(self):
         """The mesh this worker shards over: the Server's ``mesh=``, or
-        (NOMAD_TPU_MESH=1 without one) the `DistMesh` of the initialised
-        torch.distributed group, ``make_mesh(eval_axis=1)`` over its
-        ranks, capped by NOMAD_TPU_MESH_DEVICES (a DistMesh holds one
-        shard per rank, so a cap below the group's size raises).  The
-        JAX worker runs unsharded when its mesh cannot be built; the
-        port raises instead: a missing group, a one-rank group (the JAX
-        package shards only over more than one device) or a mesh whose
-        device is not the worker's.  Over a group of several ranks every
-        rank's worker must launch the same chunks in the same order:
-        the pod protocol that keeps them in step is not ported."""
-        import os as _os
-
-        from ..parallel.mesh import make_mesh
+        (NOMAD_TPU_MESH=1 without one) `parallel.pod.build_worker_mesh`:
+        the NOMAD_TPU_DIST* world joined first (`distributed_init`), then
+        ``make_mesh(eval_axis=1)`` over every rank's
+        NOMAD_TPU_SHARDS_PER_RANK shards, capped by
+        NOMAD_TPU_MESH_DEVICES, on the worker's device.  The JAX worker
+        runs unsharded when its mesh cannot be built; the port raises
+        instead: a missing group, a mesh of one shard, a mesh whose
+        device is not the worker's, or a pod of an undeclared width.
+        Sets ``_mesh_hosts`` (the ``mesh.hosts`` gauge) and, over
+        several processes, attaches the pod head (`_attach_pod`)."""
+        from ..parallel.mesh import host_count
+        from ..parallel.pod import build_worker_mesh
 
         mesh = self._mesh_given
         if mesh is None:
-            import torch.distributed as dist
-
-            if not dist.is_available() or not dist.is_initialized():
-                raise RuntimeError(
-                    "NOMAD_TPU_MESH=1 needs the Server's mesh= or an "
-                    "initialised torch.distributed group"
-                )
-            n = dist.get_world_size()
-            try:
-                cap = int(_os.environ.get("NOMAD_TPU_MESH_DEVICES", "0"))
-            except ValueError:
-                cap = 0
-            if cap > 0:
-                n = min(n, cap)
-            if n <= 1:
-                raise ValueError(
-                    f"NOMAD_TPU_MESH=1 over {n} rank: a node mesh needs "
-                    "more than one (or the Server's mesh=)"
-                )
-            mesh = make_mesh(n, eval_axis=1)
+            mesh = build_worker_mesh(self.device)
         if mesh.device != self.device:
             raise ValueError(
                 f"a mesh on {mesh.device} for a worker on {self.device}"
             )
+        self._mesh_hosts = host_count(mesh)
+        if self._mesh_hosts > 1:
+            self._attach_pod(mesh)
         metrics = getattr(self.server, "metrics", None)
         if metrics is not None:
-            metrics.set_gauge("mesh.hosts", 1.0)
+            metrics.set_gauge("mesh.hosts", float(self._mesh_hosts))
         return mesh
+
+    def _attach_pod(self, mesh) -> None:
+        """Pod-head mode: with NOMAD_TPU_POD_PORT set, rank 0 of a world
+        of several processes serves the mesh-operation stream its peers
+        replay (`parallel/pod.py`).  Idempotent: a mesh rebuilt after a
+        supervisor incident spans the same world, and the connected
+        peers keep following (the first sync after it is a full one).
+        A mesh whose width is not in `MESH_FANOUT_WIDTHS` raises: the
+        worker stops rather than head an undeclared pod."""
+        import os as _os
+
+        if self._pod is not None:
+            return
+        port = _os.environ.get("NOMAD_TPU_POD_PORT")
+        if not port:
+            return
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            return
+        from ..parallel.pod import MESH_FANOUT_WIDTHS, PodService
+
+        if mesh.n_shards not in MESH_FANOUT_WIDTHS:
+            raise RuntimeError(
+                f"undeclared fan-out pod width {mesh.n_shards} (declared: "
+                f"{MESH_FANOUT_WIDTHS})"
+            )
+        self._pod = PodService(int(port), n_peers=dist.get_world_size() - 1)
 
     def _live_mesh(self):
         """The mesh, for a stage about to use it.  Asked for and absent
@@ -2787,6 +2819,13 @@ class BatchWorker(Worker):
                 None if leaf is None else self._upload(np.asarray(leaf))
                 for leaf in problem.inputs
             ))
+            pod = self._pod if sharded else None
+            if pod is not None:
+                # the storm inputs are host numpy: the peers stage them
+                # on the mesh themselves and solve over their own mirror
+                # shards (synced by the _device_columns call above)
+                pod.send("storm", tuple(problem.inputs),
+                         problem.spread_fit, max_rounds)
             if sharded:
                 out = storm_assignment_sharded(
                     mesh, problem.spread_fit, max_rounds,
@@ -2799,7 +2838,12 @@ class BatchWorker(Worker):
                     max_rounds=max_rounds,
                 )
             # .cpu() waits on the worker's stream: the solve's fetch
-            return tuple(x.cpu().numpy() for x in out)
+            host_out = tuple(x.cpu().numpy() for x in out)
+            if pod is not None and pod.check:
+                from ..parallel.pod import result_digest
+
+                pod.check_results(result_digest(*host_out))
+            return host_out
 
     # -- optimistic parallel replay ------------------------------------
 
@@ -4042,18 +4086,39 @@ class BatchWorker(Worker):
         """The sharded usage mirror (see ``_device_columns``): keyed as
         the plain one plus the mesh width, so the first sync after a
         supervisor incident (a new epoch) or a rebuilt mesh re-uploads
-        it in full.  Uploads go through the worker's pinned staging and
-        are cut into the mesh's shards on the device."""
-        from ..ops.batch import patch_rows_sharded
+        it in full.  Uploads go through the worker's pinned staging,
+        each process's own rows only (`parallel.mesh.mesh_put`).
+
+        Over several processes every byte figure is this host's: a full
+        or bulk sync uploads its n_local / n_dev of the columns, and a
+        delta builds the shard-local [D, w] staging from the shared dirty
+        log (`hostlocal_staging`), ships only its own shards' rows (the
+        index staging once for all three columns) and stores them with
+        one K15 launch a column; a pod head streams each sync to its
+        peers first."""
+        from ..ops.batch import (
+            hostlocal_staging,
+            patch_rows_hostlocal,
+            patch_rows_sharded,
+        )
+        from ..parallel.mesh import mesh_put
 
         mesh = self._live_mesh()
         key = (
             self._backend_epoch, table.epoch, table.topo_generation,
             table.capacity, "sharded", mesh.n_shards,
         )
+        multihost = self._mesh_hosts > 1
+        pod = self._pod if multihost else None
+        n_dev = mesh.n_shards
+        local = list(mesh.local_shards)
+        n_local = len(local)
 
         def put(col):
-            return mesh.shard(self._upload(col))
+            return mesh_put(mesh, col, self._upload)
+
+        def per_host(nbytes: int) -> int:
+            return nbytes * n_local // n_dev if multihost else nbytes
 
         cache = self._usage_cache_sharded
         hit = False
@@ -4065,8 +4130,12 @@ class BatchWorker(Worker):
             host_cols = (
                 table.cpu_total, table.mem_total, table.disk_total,
             ) + host_used
+            if pod is not None:
+                # the peers rebuild their shards from the same columns
+                # before any launch can read them (FIFO)
+                pod.send("mirror_full", host_cols)
             cols = tuple(put(col) for col in host_cols)
-            bytes_up = sum(col.nbytes for col in host_cols)
+            bytes_up = per_host(sum(col.nbytes for col in host_cols))
             cache = {"key": key, "gen": gen, "cols": cols}
             self._usage_cache_sharded = cache
         else:
@@ -4074,8 +4143,33 @@ class BatchWorker(Worker):
             cols = cache["cols"]
             if len(rows) > max(64, table.capacity // 8):
                 # wide churn: one bulk upload beats many scatters
+                if pod is not None:
+                    pod.send("mirror_bulk", host_used)
                 cols = cols[:3] + tuple(put(col) for col in host_used)
-                bytes_up = sum(col.nbytes for col in host_used)
+                bytes_up = per_host(sum(col.nbytes for col in host_used))
+            elif rows and multihost:
+                idx = np.asarray(sorted(rows), dtype=np.int32)
+                if pod is not None:
+                    # the sorted dirty rows and their three value columns
+                    # once: each peer gathers its own shards' rows
+                    pod.send("mirror_delta", idx,
+                             tuple(src[idx] for src in host_used),
+                             table.capacity)
+                idx_stack, per_dev, width = hostlocal_staging(
+                    mesh, idx, table.capacity)
+                # this host's staging rows only; the index staging ships
+                # once for all three value columns
+                idx_dev = self._upload(idx_stack[local])
+                bytes_up += n_local * width * 4
+                for col, src in zip(cols[3:], host_used):
+                    vals = np.zeros((n_local, width), dtype=src.dtype)
+                    for i, d in enumerate(local):
+                        sel = per_dev[d]
+                        vals[i, :len(sel)] = src[sel]
+                    bytes_up += vals.nbytes
+                    patch_rows_hostlocal(mesh, col, idx_dev,
+                                         self._upload(vals))
+                hit = True
             elif rows:
                 idx = np.asarray(sorted(rows), dtype=np.int32)
                 # one replicated staging for every shard, padded to a
@@ -4838,8 +4932,32 @@ class BatchWorker(Worker):
         )
         if spread_arg is not None:
             args = args + (spread_arg,)
+        pod = self._pod
+        if pod is not None:
+            # the peers rebuild this launch from the host arguments and
+            # their own mirror or carry, which track ours message for
+            # message; the send comes first, so the collectives run in
+            # the stream's order on every member
+            pod.send(
+                "chain",
+                {
+                    "n_picks": asm.P,
+                    "spread_fit": asm.spread_fit,
+                    "with_spread": spread_arg is not None,
+                    "spread_even": (
+                        spread_arg is not None
+                        and spread_arg.even is not None
+                    ),
+                    "used": "mirror" if carry is None else "carry",
+                },
+                args[6:],
+            )
         with self._on_stream():
             rows, pulls, used_out = runner(*args)
+            if pod is not None and pod.check:
+                from ..parallel.pod import result_digest
+
+                pod.check_results(result_digest(rows, pulls))
             handle = self._fetchable(rows, pulls, (used_out, None, None))
         metrics = getattr(self.server, "metrics", None)
         if metrics is not None:

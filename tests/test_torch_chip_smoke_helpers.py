@@ -52,7 +52,7 @@ def test_host_runs_in_the_order_the_phases_ask():
                                "storm-cpu", "preempt-cpu", "preempt-oracle",
                                "bridge-cpu", "device-cpu"]
     assert _keys("host-b") == ["policy-cpu", "policy-oracle", "policy-storm-cpu",
-                               "entry-dryrun-cpu"]
+                               "entry-dryrun-cpu", "multihost-cpu"]
     # the entry phase's batched plan: its one CPU twin, last of twins-b's
     assert _keys("twins-b")[-1] == "entry-k10"
 

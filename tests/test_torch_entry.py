@@ -167,7 +167,8 @@ def test_batch_worker_loads_its_kernels_before_its_stages(monkeypatch):
     monkeypatch.setattr(Worker, "start", lambda self: order.append("thread"))
     worker.start()
     assert order == [["chained_picks", "patch_rows", "storm_solve",
-                      "sharded_chain", "patch_rows_sharded", "storm_sharded"],
+                      "sharded_chain", "patch_rows_sharded", "storm_sharded",
+                      "patch_rows_hostlocal"],
                      "thread"]
     plain = Server(batch_pipeline=True, device="cpu", heartbeat_ttl=1e9)
     monkeypatch.setattr(plain.workers[0], "device", torch.device("cuda"))

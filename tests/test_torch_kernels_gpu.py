@@ -6,8 +6,10 @@ K10 (csrc/batch_plan.cu), K11 (csrc/score_all.cu), K12
 (csrc/sharded_chain.cu, the node-sharded chained planner on a
 VirtualMesh of 1, 2, 4 and 8 shards), K13 (csrc/patch_rows_sharded.cu)
 and K14 (csrc/storm_sharded.cu, the node-sharded storm solve on a
-VirtualMesh of 1 and 8 shards, also equal to K5) against their plain
-twins, and the entry module's programs on (evals, nodes) meshes of 1 x 1,
+VirtualMesh of 1 and 8 shards, also equal to K5) and K15
+(csrc/patch_rows_hostlocal.cu, the per-host flush's one launch over a
+process's local shards, also equal to K13) against their plain twins,
+the entry module's programs on (evals, nodes) meshes of 1 x 1,
 1 x 8 and 2 x 4 (`sharded_score_and_select`, K11 + K6, equal to K1;
 `sharded_batch_plan`, K10 an eval row, equal to K10; the dryrun equal to
 its CPU run), on the card and on the CPU, at the main path's width (a
@@ -559,6 +561,116 @@ def test_patch_rows_sharded_kernel_matches_twin(cuda, width, d, dtype):
     assert np.array_equal(_bits(got), _bits(cmesh.unshard(twin)))
     whole = tbatch.patch_rows(col.clone().to(cuda), idx.to(cuda), vals.to(cuda))
     assert np.array_equal(_bits(got), _bits(whole))
+
+
+# -- K15: the per-host flush of a sharded mirror --------------------------------
+
+HOSTLOCAL_DIRTY = {
+    "one_shard": [0],
+    "several": [3, 8, 9, 17, 40, 63],
+    "two_full_shards": list(range(24, 48)),
+    "random20": "random20",
+    "rows1024": "rows1024",
+}
+
+
+def _hostlocal_case(name: str, C: int, seed: int):
+    rng = np.random.default_rng(seed)
+    dirty = HOSTLOCAL_DIRTY[name]
+    if dirty == "random20":
+        dirty = rng.choice(C, 20, replace=False)
+    elif dirty == "rows1024":
+        dirty = rng.choice(C, min(1024, C), replace=False)
+    idx = np.asarray(sorted(int(i) * C // 64 if C != 64 and name in (
+        "one_shard", "several", "two_full_shards") else int(i)
+        for i in dirty), np.int32)
+    return idx, rng.uniform(0.0, 1e4, C), rng.uniform(0.0, 1e4, C)
+
+
+def _shards_of(mesh, rank: int, per: int):
+    """`mesh` seen as rank `rank` of a world of `per` shards a rank."""
+    view = type("RankView", (), {})()
+    view.n_shards, view.device = mesh.n_shards, mesh.device
+    view.local_shards = tuple(range(rank * per, rank * per + per))
+    return view
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", sorted(HOSTLOCAL_DIRTY))
+@pytest.mark.parametrize("C", [64, 16384])
+@pytest.mark.parametrize("d,per", [(2, 1), (4, 2), (8, 4), (8, 1)])
+def test_patch_rows_hostlocal_kernel_matches_twin(cuda, d, per, C, name, dtype):
+    """K15 stores each rank's own [L, w] shard-local staging rows into
+    its L shards in one launch: every rank's result, put together, is
+    bit-equal to the twin on the card and on the CPU and to K13 with
+    the replicated staging."""
+    from nomad_tpu_torch.parallel.mesh import Sharded, VirtualMesh
+
+    idx, col_h, src = _hostlocal_case(name, C, d * 131 + per + C)
+    mesh = VirtualMesh(d, cuda)
+    stack, per_dev, w = tbatch.hostlocal_staging(mesh, idx, C)
+    col = torch.from_numpy(col_h).to(dtype)
+    full = mesh.shard(col)
+    twin_cpu = VirtualMesh(d, "cpu").shard(col)
+    for rank in range(d // per):
+        local = list(range(rank * per, rank * per + per))
+        view = _shards_of(mesh, rank, per)
+        vals = np.zeros((per, w))
+        for i, s in enumerate(local):
+            vals[i, :len(per_dev[s])] = src[per_dev[s]]
+        idx_l = torch.from_numpy(stack[local])
+        vals_l = torch.from_numpy(vals).to(dtype)
+        before = tbatch.patch_rows_hostlocal_cuda.launches
+        tbatch.patch_rows_hostlocal(
+            view, Sharded(tuple(full.shards[s] for s in local)),
+            idx_l.to(cuda), vals_l.to(cuda))
+        assert tbatch.patch_rows_hostlocal_cuda.launches - before == 1
+        cview = _shards_of(VirtualMesh(d, "cpu"), rank, per)
+        tbatch.patch_rows_hostlocal_twin(
+            cview, Sharded(tuple(twin_cpu.shards[s] for s in local)),
+            idx_l, vals_l)
+    got = mesh.unshard(full)
+    assert np.array_equal(_bits(got), _bits(torch.cat(twin_cpu.shards)))
+    card_twin = mesh.shard(col)
+    tbatch.patch_rows_hostlocal_twin(
+        mesh, card_twin, torch.from_numpy(stack).to(cuda),
+        torch.from_numpy(np.stack([
+            np.pad(src[per_dev[s]], (0, w - len(per_dev[s])))
+            for s in range(d)])).to(dtype).to(cuda))
+    assert np.array_equal(_bits(got), _bits(mesh.unshard(card_twin)))
+    width = tbatch.pow2_bucket(len(idx), floor=8)
+    idx_p = np.full(width, C, np.int32)
+    idx_p[:len(idx)] = idx
+    vals_p = np.zeros(width)
+    vals_p[:len(idx)] = src[idx]
+    k13 = tbatch.patch_rows_sharded(
+        mesh, mesh.shard(col), torch.from_numpy(idx_p).to(cuda),
+        torch.from_numpy(vals_p).to(dtype).to(cuda))
+    assert np.array_equal(_bits(got), _bits(mesh.unshard(k13)))
+    want = col_h.copy()
+    want[idx] = src[idx]
+    assert np.array_equal(_bits(got), _bits(torch.from_numpy(want).to(dtype)))
+
+
+def test_patch_rows_hostlocal_kernel_rejects_cpu_and_too_many_shards(cuda):
+    from nomad_tpu_torch.ops import _cuda
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    mesh = VirtualMesh(2, cuda)
+    col = mesh.shard(torch.zeros(64, dtype=torch.float64))
+    idx = torch.full((2, 8), 32, dtype=torch.int32)
+    vals = torch.zeros((2, 8), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tbatch.patch_rows_hostlocal_cuda(
+            VirtualMesh(2, "cpu"),
+            VirtualMesh(2, "cpu").shard(torch.zeros(64, dtype=torch.float64)),
+            idx, vals)
+    with pytest.raises(ValueError):  # a CPU staging for card shards
+        tbatch.patch_rows_hostlocal_cuda(mesh, col, idx, vals)
+    with pytest.raises(RuntimeError):
+        _cuda.launch_patch_rows_hostlocal(
+            [torch.zeros(1, dtype=torch.float64, device=cuda)] * 65,
+            idx.to(cuda), vals.to(cuda))
 
 
 # -- K14: the node-sharded storm solve ------------------------------------------

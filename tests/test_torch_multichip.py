@@ -5,9 +5,10 @@ The port's sweep at its defaults runs 1, 2, 4 and 8 shards of a
 `VirtualMesh`, as the JAX sweep runs its virtual 8-device CPU mesh: the
 points, their chunk launches and byte keys equal the JAX sweep's
 (`multihost=False`), the keys the port has no source for
-(`per_device_flops`, `flops_scaling_first_to_last`, `multihost`) are
-absent, and the chain the sweep times decides the same rows as the JAX
-runner.  Then the bench with its multichip block on, in a subprocess at
+(`per_device_flops`, `flops_scaling_first_to_last`) are absent, its
+``multihost`` row (a spawned world of 2 gloo ranks x 2 shards) carries
+the JAX row's keys, and the chain the sweep times decides the same rows
+as the JAX runner.  Then the bench with its multichip block on, in a subprocess at
 a small size."""
 import json
 import os
@@ -45,14 +46,26 @@ def test_sweep_points_equal_the_jax_sweep(sweeps):
         assert p["placements_per_sec"] > 0 and j["placements_per_sec"] > 0
 
 
+# the keys of the JAX sweep's multihost row (multichip.py multihost_point)
+MULTIHOST_KEYS = {
+    "procs", "devices_per_host", "global_devices", "placements_per_sec",
+    "bytes_per_flush_delta_per_host", "bytes_per_flush_full_per_host",
+    "storm_solve_single_device_ms", "storm_solve_sharded_ms",
+    "storm_bit_identical", "zero_lost"}
+
+
 def test_sweep_leaves_out_what_it_has_no_source_for(sweeps):
     port, jax_block = sweeps
     assert "flops_scaling_first_to_last" in jax_block
-    for key in ("flops_scaling_first_to_last", "multihost"):
-        assert key not in port
+    assert "flops_scaling_first_to_last" not in port
     for p in port["points"]:
         assert "per_device_flops" not in p
     assert port["mesh"] == "VirtualMesh"
+    # the multihost row has its source now: the JAX row's keys, filled
+    mh = port["multihost"]
+    assert MULTIHOST_KEYS <= set(mh) and "skipped" not in mh
+    assert (mh["procs"], mh["global_devices"], mh["device"]) == (2, 4, "cpu")
+    assert mh["zero_lost"] is True and mh["storm_bit_identical"] is True
 
 
 def test_sweep_inputs_and_rows_equal_the_jax_sweep():
@@ -99,7 +112,7 @@ def test_sweep_chain_on_a_one_rank_dist_mesh(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
                             world_size=1, rank=0)
     try:
-        mesh = make_mesh(1)
+        mesh = make_mesh(1, device="cpu")
         got = chip_smoke.sweep_chain(mesh, sharded_chained_plan)
         chip_smoke._same_sharded(
             got, chip_smoke.sweep_chain(mesh, sharded_chained_plan_twin), "twin")
@@ -142,6 +155,14 @@ def test_bench_with_the_multichip_block():
     assert mc["mesh"] == "VirtualMesh"
     assert [p["n_devices"] for p in mc["points"]] == [1, 2, 4, 8]
     assert all(p["placements_per_sec"] > 0 for p in mc["points"])
+    # the multihost row: the lockstep world of 2 gloo ranks x 2 shards
+    mh = mc["multihost"]
+    assert (mh["procs"], mh["devices_per_host"], mh["global_devices"]) == (2, 2, 4)
+    assert mh["device"] == "cpu" and mh["zero_lost"] is True
+    assert mh["storm_bit_identical"] is True and mh["placements_per_sec"] > 0
+    assert (mh["bytes_per_flush_delta_per_host"]
+            < mh["bytes_per_flush_full_per_host"])
+    assert "multichip multihost: 2 procs x 2 shards on cpu" in out.stderr
     assert line["kernel_batch_placements_per_sec"] > 0
     assert line["parity_identical_evals"] == 2
     counts = [json.loads(x.split(" ", 1)[1]) for x in out.stderr.splitlines()
@@ -155,3 +176,5 @@ def test_bench_without_the_multichip_block():
     knobs = __import__("nomad_tpu_torch.bench", fromlist=["Knobs"]).Knobs
     assert knobs.from_env({"BENCH_MULTICHIP": "0"}).multichip is False
     assert knobs.from_env({}).multichip is True
+    assert knobs.from_env({"BENCH_MULTIHOST": "0"}).multihost is False
+    assert knobs.from_env({}).multihost is True

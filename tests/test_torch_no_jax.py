@@ -296,13 +296,14 @@ rows, _pulls, carry = run(*args)
 init = os.path.join(tempfile.mkdtemp(), "init")
 dist.init_process_group("gloo", init_method="file://" + init, world_size=1,
                         rank=0)
-mesh = DistMesh()
+mesh = DistMesh(device="cpu")
 drows = sharded_chained_plan(mesh, 3, with_spread=True, spread_even=True)(*args)[0]
 patch_rows_sharded(mesh, mesh.shard(torch.zeros(64, dtype=torch.float64)),
                    torch.tensor([3, 64], dtype=torch.int32),
                    torch.ones(2, dtype=torch.float64))
 dist.destroy_process_group()
-block = multichip_sweep(device="cpu", C=64, E=4, P=2, chunk=2, rounds=1)
+block = multichip_sweep(device="cpu", C=64, E=4, P=2, chunk=2, rounds=1,
+                        multihost=False)
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -349,7 +350,7 @@ cols, inp, max_rounds = storm_case(3, 4, 16, 64, "dogpile")
 init = os.path.join(tempfile.mkdtemp(), "init")
 dist.init_process_group("gloo", init_method="file://" + init, world_size=1,
                         rank=0)
-out = storm_assignment_sharded(DistMesh(), False, max_rounds)(
+out = storm_assignment_sharded(DistMesh(device="cpu"), False, max_rounds)(
     storm_inputs(inp, "cpu"), storm_columns(cols, "cpu"))
 dist.destroy_process_group()
 bad = sorted(
@@ -359,6 +360,25 @@ bad = sorted(
 )
 print(placed, worker.mesh_used > 0, worker.mesh_storms, int(out.rounds) > 0,
       bad)
+"""
+
+
+DIST_SCRIPT = r"""
+import sys
+from nomad_tpu_torch.parallel import dist_smoke, pod
+from nomad_tpu_torch.parallel.dist_smoke import launch, launch_pod
+
+row = launch(procs=2, shards_per_proc=2, device="cpu", timeout=120,
+             extra_env={"PYTHONHASHSEED": "0"})
+head = launch_pod(shards_per_proc=2, device="cpu", timeout=120,
+                  extra_env={"PYTHONHASHSEED": "0"})
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "nomad_tpu" or m.startswith("nomad_tpu.")
+)
+print(row["zero_lost"], row["loaded"], head["digests_checked"] > 0,
+      head["loaded"], head["peer"]["loaded"], bad)
 """
 
 
@@ -463,6 +483,14 @@ def test_port_mesh_server_loads_no_jax():
     assert _run_fresh(MESH_SERVER_SCRIPT) == "9 True 1 True []"
 
 
+def test_port_multi_process_world_loads_no_jax():
+    """The lockstep world of 2 gloo ranks x 2 shards (`dist_smoke.launch`)
+    and a pod (a head Server and a `pod.py` peer) run with neither JAX
+    nor the JAX package in the launcher or in any spawned rank, head or
+    peer (each reports its own `sys.modules`)."""
+    assert _run_fresh(DIST_SCRIPT) == "True [] True [] [] []"
+
+
 def test_port_entry_module_loads_no_jax():
     """The port's entry module (`entry()`, `dryrun_multichip(8)` on a 2 x
     4 VirtualMesh: the sharded select and batched planner, the meshed
@@ -496,6 +524,8 @@ def test_port_sources_import_no_jax():
             "nomad_tpu_torch/parallel/__init__.py",
             "nomad_tpu_torch/parallel/mesh.py",
             "nomad_tpu_torch/parallel/multichip.py",
+            "nomad_tpu_torch/parallel/pod.py",
+            "nomad_tpu_torch/parallel/dist_smoke.py",
             "nomad_tpu_torch/server/server.py",
             "nomad_tpu_torch/entry.py",
             "chip_smoke.py"} <= scanned

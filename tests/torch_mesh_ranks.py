@@ -67,16 +67,16 @@ def rank_main(rank: int, world: int, init_file: str, out: str,
         # the JAX default axes: (2, world / 2) from 4 ranks; and every
         # rank as an eval row of one node shard
         res = {"axes": mesh_axes(world)}
-        default = make_mesh()
+        default = make_mesh(device="cpu")
         res["default_mesh"] = (default.n_evals, default.n_shards)
-        rows = make_mesh(world, eval_axis=world)
+        rows = make_mesh(world, eval_axis=world, device="cpu")
         res["eval_mesh"] = (rows.n_evals, rows.n_shards, rows.local_evals,
                             rows.local_shards)
-        mesh = make_mesh(eval_axis=1)
+        mesh = make_mesh(eval_axis=1, device="cpu")
         res.update({s: chain_results(mesh, s) for s in scenarios})
         res["collectives"] = collectives(mesh, rank)
         try:  # more shards than ranks: no rank holds two
-            make_mesh(world + 1, eval_axis=1)
+            make_mesh(world + 1, eval_axis=1, device="cpu")
             res["too_many_shards"] = "built"
         except ValueError as exc:
             res["too_many_shards"] = str(exc)
@@ -123,7 +123,7 @@ def storm_rank_main(rank: int, world: int, init_file: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
-        res = storm_results(make_mesh(eval_axis=1))
+        res = storm_results(make_mesh(eval_axis=1, device="cpu"))
         res["loaded"] = sorted(
             m for m in sys.modules
             if m in ("jax", "jaxlib", "nomad_tpu")
@@ -165,7 +165,7 @@ def eval_rank_main(rank: int, world: int, init_file: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
-        mesh = make_mesh()  # the JAX default axes: 2 x world / 2
+        mesh = make_mesh(device="cpu")  # the JAX default axes: 2 x world / 2
         res = eval_mesh_results(mesh)
         res["mesh"] = (mesh.n_evals, mesh.n_shards, mesh.local_evals,
                        mesh.local_shards)
@@ -174,5 +174,86 @@ def eval_rank_main(rank: int, world: int, init_file: str, out: str) -> None:
             if m in ("jax", "jaxlib", "nomad_tpu")
             or m.startswith(("jax.", "nomad_tpu.")))
         torch.save(res, f"{out}/eval{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+# -- several shards a rank: 2 ranks x 2 shards ---------------------------------
+
+HOSTLOCAL_C = 64
+HOSTLOCAL_DIRTY = ([0], [3, 8, 9, 17, 40, 63], list(range(24, 48)), "random20")
+
+
+def hostlocal_dirty_sets(seed: int = 13) -> list:
+    """The dirty sets of the JAX package's hostlocal test
+    (`tests/test_dist_mesh.py`), the last one drawn from `seed`, each
+    with its new values: [(idx sorted i32, values f64[C])]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for dirty in HOSTLOCAL_DIRTY:
+        if dirty == "random20":
+            dirty = rng.choice(HOSTLOCAL_C, 20, replace=False).tolist()
+        out.append((np.asarray(sorted(dirty), np.int32),
+                    rng.random(HOSTLOCAL_C)))
+    return out
+
+
+def hostlocal_results(mesh, col_host) -> list:
+    """`patch_rows_hostlocal` (the twin on the CPU) of every dirty set
+    into `col_host` placed on `mesh`, this process's staging rows only;
+    each result whole ([C], unsharded over the mesh)."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops.batch import hostlocal_staging, patch_rows_hostlocal
+    from nomad_tpu_torch.parallel.mesh import mesh_put
+
+    out = []
+    local = list(mesh.local_shards)
+    for idx, src in hostlocal_dirty_sets():
+        stack, per_dev, w = hostlocal_staging(mesh, idx, HOSTLOCAL_C)
+        vals = np.zeros((len(local), w))
+        for i, d in enumerate(local):
+            vals[i, :len(per_dev[d])] = src[per_dev[d]]
+        col = mesh_put(mesh, col_host)
+        patch_rows_hostlocal(mesh, col, torch.from_numpy(stack[local]),
+                             torch.from_numpy(vals))
+        out.append(mesh.unshard(col))
+    return out
+
+
+def multi_shard_rank_main(rank: int, world: int, init_file: str, out: str,
+                          per: int) -> None:
+    """A rank of `per` shards: the chained planner's twin over every
+    scenario, the sharded storm's twin, the hostlocal flush and the
+    collectives on ``make_mesh(eval_axis=1, shards_per_rank=per)``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nomad_tpu_torch.ops.cases import SHARDED_CHAIN_SCENARIOS
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(eval_axis=1, device="cpu", shards_per_rank=per)
+        res = {"mesh": (mesh.n_evals, mesh.n_shards, mesh.local_shards)}
+        res.update({s: chain_results(mesh, s) for s in SHARDED_CHAIN_SCENARIOS})
+        res["storm"] = storm_results(mesh)
+        col = np.random.default_rng(13).random(HOSTLOCAL_C)
+        res["hostlocal"] = hostlocal_results(mesh, col)
+        res["gather"] = mesh.gather([torch.tensor([s, 10 * s], dtype=torch.int32)
+                                     for s in mesh.local_shards])
+        res["bool"] = mesh.gather([torch.tensor([s % 2 == 0, True])
+                                   for s in mesh.local_shards])
+        res["loaded"] = sorted(
+            m for m in sys.modules
+            if m in ("jax", "jaxlib", "nomad_tpu")
+            or m.startswith(("jax.", "nomad_tpu.")))
+        torch.save(res, f"{out}/multi{rank}.pt")
     finally:
         dist.destroy_process_group()
