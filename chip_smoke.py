@@ -176,7 +176,7 @@ k12. Kernel K12 (the node-sharded chained planner, csrc/sharded_chain.cu,
    P = 4, the carry threaded) on a DistMesh over this process's
    one-rank NCCL group, bit-equal to the twin on that mesh, to the CPU
    twin at D in {1, 2, 4, 8} and (rows, pulls) to K9.
-k13. Kernel K13 (the sharded mirror patch, csrc/patch_rows_sharded.cu)
+k13. Kernel K13 (the sharded mirror patch, csrc/patch_rows_mesh.cu)
    at W in {8, 1024, 16384} with padding idx == C, D in {1, 2, 4, 8},
    f64 and f32: bit-equal to the twin and to K4 on the unsharded column;
    then the multichip block's delta patch on the NCCL DistMesh, bit-equal
@@ -202,7 +202,7 @@ mesh. The mesh path: the port's batched `Server(mesh=VirtualMesh(8,
    equal to the storm phase's K5 run.  K12, K13 and K14 launched, no
    errors.
 k15. Kernel K15 (the per-host flush of a sharded mirror,
-   csrc/patch_rows_hostlocal.cu: one launch stores a process's own
+   csrc/patch_rows_mesh.cu: one launch stores a process's own
    shard-local staging rows into all of its L shards) on a VirtualMesh
    of D shards on the card seen as D / L processes, (D, L) in {(2, 1),
    (4, 1), (4, 2), (8, 1), (8, 2), (8, 4)}, arenas of 64 and 16,384
@@ -3126,7 +3126,7 @@ def time_kernels(cuda) -> dict:
     out.update(time_storm_sharded(cuda))
     out.update(time_entry_programs(cuda))
     out["patch_rows_hostlocal"] = time_hostlocal_kernel(cuda)
-    for v in out.values():
+    for v in list(out.values()) + [out["patch_rows_hostlocal"]["flush3"]]:
         v.setdefault("library_ms", None)
         _bound(v)
     print("timing shapes (bytes, walk reach in pulls, auction rounds, operations, "
@@ -3145,22 +3145,34 @@ def time_kernels(cuda) -> dict:
                     f"{v['plain_ms']:.6f} ms, bound {v['bound_ms']:.9f} ms "
                     f"({v['bound_by']}; {v['bytes']} B, {v['pulls']} pulls)")
     print("K9-K11 timing (f64, CUDA events): " + "; ".join(rows), flush=True)
-    print(f"K12/K13 timing (f64, CUDA events; D shards of a VirtualMesh on "
+    print(f"K12 timing (f64, CUDA events; D shards of a VirtualMesh on "
           f"one card, not multi-GPU scaling) on {device_line()}: " + "; ".join(
               f"{k} ({v['shape']}) {v['ms']:.6f} ms, twin {v['plain_ms']:.6f} ms, "
               f"bound {v['bound_ms']:.9f} ms ({v['bound_by']}; {v['bytes']} B)"
-              + (f", {v['launches_per_chunk']} launches a chunk"
-                 if "launches_per_chunk" in v else "")
-              + (f", index_copy_ {v['library_ms']:.6f} ms"
-                 if v.get("library_ms") else "")
-              for k, v in out.items() if k.startswith(("sharded", "patch_rows_sharded"))),
+              f", {v['launches_per_chunk']} launches a chunk"
+              for k, v in out.items() if k.startswith("sharded_chained_plan_d")),
           flush=True)
     k15 = out["patch_rows_hostlocal"]
-    print(f"K15 timing (f64, CUDA events, the multihost flush's shape "
-          f"{k15['shape']}) on {device_line()}: {k15['ms']:.6f} ms, twin "
-          f"{k15['plain_ms']:.6f} ms, index_copy_ {k15['library_ms']:.6f} ms, "
-          f"bound {k15['bound_ms']:.9f} ms ({k15['bound_by']}; "
-          f"{k15['bytes']} B)", flush=True)
+    print(f"K13/K15 timing (f64, CUDA events; one launch a call as a flush "
+          f"launches it, bound once; index_copy_ the calls a plain port would make) "
+          f"on {device_line()}: " + "; ".join(
+              f"{k} ({v['shape']}) {v['ms']:.6f} ms, checked call "
+              f"{v['call_ms']:.6f} ms"
+              + (f", per-call entry point {v['wrapper_ms']:.6f} ms, twin "
+                 f"{v['plain_ms']:.6f} ms" if "wrapper_ms" in v else "")
+              + f", {v.get('library_calls', 1)} x index_copy_ "
+              f"{v['library_ms']:.6f} ms, bound {v['bound_ms']:.9f} ms "
+              f"({v['bound_by']}; {v['bytes']} B)"
+              + (f"; the flush as the worker runs it (host clock, staging, "
+                 f"copy and synchronize) {v['flush_host_ms']:.6f} ms"
+                 if "flush_host_ms" in v else "")
+              for k, v in (("patch_rows_sharded_d1", out["patch_rows_sharded_d1"]),
+                           ("patch_rows_sharded_d8", out["patch_rows_sharded_d8"]),
+                           ("patch_rows_sharded_flush3",
+                            out["patch_rows_sharded_flush3"]),
+                           ("patch_rows_hostlocal", k15),
+                           ("patch_rows_hostlocal_flush3", k15["flush3"]))),
+          flush=True)
     print(f"K14 timing (f64, CUDA events, the storm path's problem; D shards "
           f"of a VirtualMesh on one card) on {device_line()}: " + "; ".join(
               f"{k} ({v['shape']}, {v['rounds']} rounds, "
@@ -3173,6 +3185,7 @@ def time_kernels(cuda) -> dict:
     for name in ("sharded_chained_plan", "patch_rows_sharded",
                  "storm_assignment_sharded"):
         out[name] = dict(out[f"{name}_d1"], d8=out[f"{name}_d8"])
+    out["patch_rows_sharded"]["flush3"] = out["patch_rows_sharded_flush3"]
     print("policy timing (f64, CUDA events): "
           + "; ".join(
               f"{k} {out[k]['ms']:.6f} ms (policy off {out[base]['ms']:.6f}), "
@@ -3905,18 +3918,25 @@ def check_k12(cuda) -> dict:
 def check_k13(cuda) -> dict:
     """K13 against its twin at W in {8, 1024, 16384} with padding
     idx == C, D in {1, 2, 4, 8}, f64 and f32: every shard bit-equal to
-    the twin's, and the whole column to K4's on the unsharded column.
-    Then the multichip block's delta patch (the sweep's column, 24
-    dirty rows in a W = 32 staging) on the DistMesh over a one-rank
-    NCCL group: bit-equal to the twin there, on the CPU, and to K4."""
+    the twin's, and the whole column to K4's on the unsharded column,
+    one launch a call for all D shards.  The stacked form (the mirror's
+    flush: three columns, a negative row beside the padding, shards as
+    views of one block) in one launch, bit-equal to its twin on the card
+    and on the CPU and to the three per-column calls, on the VirtualMesh
+    and, at D = 4, on a rank of shards 2 and 3.  Then the multichip
+    block's delta patch (the sweep's column, 24 dirty rows in a W = 32
+    staging) on the DistMesh over a one-rank NCCL group: bit-equal to
+    the twin there, on the CPU, and to K4."""
     import numpy as np
     import torch
 
     from nomad_tpu_torch.ops import batch as tbatch
-    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh, mesh_put
 
     n_cases = 0
+    n_stacked = 0
     max_err = 0.0
+    want = 0
     launches0 = tbatch.patch_rows_sharded_cuda.launches
     for dtype in (torch.float64, torch.float32):
         for width in PATCH_WIDTHS:
@@ -3929,10 +3949,17 @@ def check_k13(cuda) -> dict:
             vals = torch.from_numpy(rng.uniform(0.0, 1e4, width)).to(dtype)
             whole = tbatch.patch_rows(col.clone().to(cuda), idx.to(cuda),
                                       vals.to(cuda)).cpu()
+            # the stacked form's three columns and staging: the same rows,
+            # one of the padding slots a negative row
+            cols3 = torch.from_numpy(rng.uniform(0.0, 1e4, (3, C_CHECK))).to(dtype)
+            idx3 = idx.clone()
+            idx3[n] = -1
+            vals3 = torch.from_numpy(rng.uniform(0.0, 1e4, (3, width))).to(dtype)
             for d in K12_COUNTS:
                 mesh = VirtualMesh(d, cuda)
                 sh = tbatch.patch_rows_sharded(mesh, mesh.shard(col),
                                                idx.to(cuda), vals.to(cuda))
+                want += 1
                 got = mesh.unshard(sh).cpu()
                 cmesh = VirtualMesh(d, "cpu")
                 twin = cmesh.unshard(tbatch.patch_rows_sharded_twin(
@@ -3943,6 +3970,40 @@ def check_k13(cuda) -> dict:
                       f"{tag}: kernel != K4 on the unsharded column")
                 max_err = max(max_err, _max_abs(got, twin))
                 n_cases += 1
+                views = [(mesh, cmesh)]
+                if d == 4:
+                    rank, crank = VirtualMesh(4, cuda), VirtualMesh(4, "cpu")
+                    rank.local_shards = crank.local_shards = (2, 3)
+                    views.append((rank, crank))
+                for m, cm in views:
+                    def place(mm):
+                        # the host columns as `mm`'s shards, views of one
+                        # upload a column (the mirror's layout)
+                        return tuple(mesh_put(mm, c) for c in cols3)
+
+                    stacked = place(m)
+                    tbatch.RowPatch(m, stacked)(idx3.to(cuda), vals3.to(cuda))
+                    card_twin = tbatch.patch_rows_sharded_cols_twin(
+                        m, place(m), idx3.to(cuda), vals3.to(cuda))
+                    cpu_twin = tbatch.patch_rows_sharded_cols_twin(
+                        cm, place(cm), idx3, vals3)
+                    per_col = place(m)
+                    for k, c in enumerate(per_col):
+                        tbatch.patch_rows_sharded(m, c, idx3.to(cuda),
+                                                  vals3[k].to(cuda))
+                    want += 4
+                    tag3 = f"K13 stacked {dtype} W={width} D={d} shards {m.local_shards}"
+                    for k in range(3):
+                        got3 = torch.cat(stacked[k].shards).cpu()
+                        for other, what in ((card_twin, "the card twin"),
+                                            (cpu_twin, "the CPU twin"),
+                                            (per_col, "the per-column calls")):
+                            check(bool((_bits(got3) == _bits(
+                                torch.cat(other[k].shards).cpu())).all()),
+                                  f"{tag3} column {k}: kernel != {what}")
+                        max_err = max(max_err, _max_abs(
+                            got3, torch.cat(cpu_twin[k].shards)))
+                    n_stacked += 1
     # the multichip block's delta patch on the NCCL DistMesh: the
     # sweep's column and staging
     from nomad_tpu_torch.parallel import multichip as tmulti
@@ -3968,14 +4029,19 @@ def check_k13(cuda) -> dict:
     max_err = max(max_err, _max_abs(got, twin))
     n_cases += 1
     launched = tbatch.patch_rows_sharded_cuda.launches - launches0
-    want = 2 * len(PATCH_WIDTHS) * sum(K12_COUNTS) + 1
-    check(launched == want, f"K13 launched {launched} times for {want} shards")
+    want += 1
+    check(launched == want, f"K13 launched {launched} times for {want} calls "
+          f"(one a call, whatever the shards and columns)")
     print(f"K13: {n_cases} cases exact (f64 and f32, D in {K12_COUNTS}, "
-          f"padding dropped) against the twin and K4 on the unsharded "
-          f"column, and the multichip block's patch on the one-rank NCCL "
-          f"DistMesh against the card and CPU twins and K4, "
-          f"max_abs_err={max_err}", flush=True)
-    return {"max_abs_err": max_err, "cases": n_cases}
+          f"padding dropped; one launch a call) against the twin and K4 on "
+          f"the unsharded column; {n_stacked} stacked cases (three columns "
+          f"in one launch, a negative row and padding dropped, the "
+          f"VirtualMesh and a rank of shards 2-3 of 4) against the card and "
+          f"CPU twins and the per-column calls; and the multichip block's "
+          f"patch on the one-rank NCCL DistMesh against the card and CPU "
+          f"twins and K4, max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases + n_stacked,
+            "launches": launched}
 
 
 def time_sharded_kernels(cuda) -> dict:
@@ -4044,28 +4110,44 @@ def time_sharded_kernels(cuda) -> dict:
     idx[:n] = np.sort(rng.choice(C_CHECK, n, replace=False))
     idx_t = torch.from_numpy(idx).to(cuda)
     vals = torch.from_numpy(rng.uniform(0.0, 1e4, width)).to(cuda)
-    idx_valid = idx_t[:n].long()
-    vals_valid = vals[:n]
+    vals1 = vals.unsqueeze(0)
     for d in (1, 8):
         mesh = VirtualMesh(d, cuda)
         sh = mesh.shard(col)
-        cmesh = mesh
-        entry = {
-            "ms": cuda_time_ms(lambda: tbatch.patch_rows_sharded_cuda(
+        size = C_CHECK // d
+        # the calls a plain port would make: index_copy_ into each shard
+        # of the rows it owns
+        own = []
+        for s_, t in enumerate(sh.shards):
+            mine = (idx[:n] >= s_ * size) & (idx[:n] < (s_ + 1) * size)
+            own.append((t, torch.from_numpy(idx[:n][mine] - s_ * size).long().to(cuda),
+                        vals[:n][torch.from_numpy(mine).to(cuda)]))
+
+        def library():
+            for t, i, v in own:
+                t.index_copy_(0, i, v)
+
+        patch = tbatch.RowPatch(mesh, (sh,))
+        ptrs = (idx_t.data_ptr(), vals1.data_ptr(), width)
+        out[f"patch_rows_sharded_d{d}"] = {
+            # the launch as a flush makes it: bound once, the staging's
+            # addresses and width
+            "ms": cuda_time_ms(lambda: patch.launch(*ptrs), n=200),
+            # the bound patch's checked call on staging tensors
+            "call_ms": cuda_time_ms(lambda: patch(idx_t, vals1), n=200),
+            # the per-column entry point, which binds on every call
+            "wrapper_ms": cuda_time_ms(lambda: tbatch.patch_rows_sharded_cuda(
                 mesh, sh, idx_t, vals), n=200),
             "plain_ms": cuda_time_ms(lambda: tbatch.patch_rows_sharded_twin(
-                cmesh, sh, idx_t, vals), n=50, warmup=3),
-            # every shard reads the W indices; the staged rows are read
-            # and stored once
-            "bytes": d * width * 4 + n * (8 + 8),
+                mesh, sh, idx_t, vals), n=50, warmup=3),
+            "library_ms": cuda_time_ms(library, n=200),
+            "library_calls": d,
+            # the W indices read once; the staged rows read and stored
+            "bytes": width * 4 + n * (8 + 8),
             "flops": 0,
             "shape": f"W={width} D={d}",
-            "library_ms": None,
         }
-        if d == 1:
-            entry["library_ms"] = cuda_time_ms(
-                lambda: sh.shards[0].index_copy_(0, idx_valid, vals_valid), n=200)
-        out[f"patch_rows_sharded_d{d}"] = entry
+    out["patch_rows_sharded_flush3"] = time_flush3(cuda, hostlocal=False)
     (sharded_chained_plan_cuda.launches, sharded_chained_plan_cuda.chunks,
      tbatch.patch_rows_sharded_cuda.launches) = saved
     return out
@@ -4263,6 +4345,7 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
                "storm_assignment_sharded": tsolve.storm_assignment_sharded_cuda}
     for w in counted.values():
         w.launches = 0
+    tbatch.RowPatch.flushes = tbatch.RowPatch.copies = 0
     jobs = server_stream()[:MESH_JOBS]
     server = Server(num_schedulers=1, seed=1, batch_pipeline=True,
                     heartbeat_ttl=1e9, device=cuda,
@@ -4287,6 +4370,15 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
     storm = run_storm(cuda, True, "storm on the mesh",
                       mesh=VirtualMesh(MESH_SHARDS, cuda))
     launches = {k: w.launches for k, w in counted.items()}
+    flushes = {"flushes": tbatch.RowPatch.flushes,
+               "copies": tbatch.RowPatch.copies}
+    # every K13 launch of the path is a delta flush's one launch, and each
+    # flush moved one staging buffer
+    check(flushes["flushes"] > 0
+          and launches["patch_rows_sharded"] == flushes["flushes"]
+          == flushes["copies"],
+          f"a delta flush is not one K13 launch and one staging copy: "
+          f"{launches['patch_rows_sharded']} launches for {flushes}")
     check(stats["errors"] == 0 and storm["errors"] == 0,
           f"the meshed workers counted errors: {stats['errors']}, "
           f"{storm['errors']}")
@@ -4319,12 +4411,14 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
           f"storm of {STORM_JOBS} children on the mesh {storm_rate:.1f} "
           f"placements/s ({storm['seconds']:.2f} s), counters "
           f"{json.dumps(storm['counters'])} identical to the K5 run; launches "
-          f"{json.dumps(launches)}; timings (s) "
+          f"{json.dumps(launches)}; delta flushes and their staging copies "
+          f"{json.dumps(flushes)} (one K13 launch a flush); timings (s) "
           f"{json.dumps({k: round(v, 4) for k, v in timings.items()})}; storm "
           f"timings (s) "
           f"{json.dumps({k: round(v, 4) for k, v in storm['timings'].items()})}",
           flush=True)
-    return {"launches": launches, "stats": stats, "placements_per_s": rate,
+    return {"launches": launches, "flushes": flushes, "stats": stats,
+            "placements_per_s": rate,
             "storm_placements_per_s": storm_rate, "timings": timings,
             "storm_timings": storm["timings"]}
 
@@ -4401,13 +4495,40 @@ def _k15_run(mesh, col, idx, src, per: int, patch):
     return mesh.unshard(full).cpu()
 
 
+def _k15_run_cols(mesh, cols, idx, srcs, per: int, patch):
+    """`_k15_run` for the stacked form: `patch` (a K15 `RowPatch` call
+    or the stacked twin) of three columns [3, C] with their sources [3, C], one
+    call a process; the columns put together [3, C] on the host."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.parallel.mesh import Sharded, mesh_put
+
+    C = cols.shape[1]
+    stack, per_dev, w = tbatch.hostlocal_staging(mesh, idx, C)
+    full = [mesh_put(mesh, c.numpy()) for c in cols]
+    for r in range(mesh.n_shards // per):
+        local = list(range(r * per, r * per + per))
+        vals = np.zeros((len(cols), per, w))
+        for i, d in enumerate(local):
+            vals[:, i, :len(per_dev[d])] = srcs[:, per_dev[d]]
+        patch(_RankView(mesh, local),
+              tuple(Sharded(tuple(f.shards[d] for d in local)) for f in full),
+              torch.from_numpy(stack[local]).to(mesh.device),
+              torch.from_numpy(vals).to(cols.dtype).to(mesh.device))
+    return torch.stack([mesh.unshard(f).cpu() for f in full])
+
+
 def check_k15(cuda) -> dict:
     """K15 against its twin on the card and on the CPU at every
     (D, L) of K15_SHAPES, C in {64, 16,384}, the JAX test's four dirty
     sets and 1,024 rows, f64 and f32: each process's L shards take its
     own staging rows in one launch, and the column put together is
     bit-equal to the twins', to K13's with the replicated staging and to
-    the host oracle's."""
+    the host oracle's.  The stacked form (three columns in the same one
+    launch a process): bit-equal to its CPU twin and to the host oracle,
+    its first column to the per-column launch's."""
     import numpy as np
     import torch
 
@@ -4415,6 +4536,7 @@ def check_k15(cuda) -> dict:
     from nomad_tpu_torch.parallel.mesh import VirtualMesh
 
     n_cases = 0
+    n_stacked = 0
     max_err = 0.0
     launches0 = tbatch.patch_rows_hostlocal_cuda.launches
     want_launches = 0
@@ -4454,13 +4576,37 @@ def check_k15(cuda) -> dict:
                               f"{tag}: kernel != {what}")
                     max_err = max(max_err, _max_abs(got, cpu_twin))
                     n_cases += 1
+                    # the stacked form: the column and two more
+                    cols3 = torch.stack([col, col * 0.5 + 1.0, col + 7.0])
+                    srcs = np.stack([src, src * 2.0, src + 3.0])
+                    got3 = _k15_run_cols(
+                        mesh, cols3, idx, srcs, per,
+                        lambda m, c, i, v: tbatch.RowPatch(
+                            m, c, hostlocal=True)(i, v))
+                    want_launches += d // per
+                    twin3 = _k15_run_cols(
+                        cmesh, cols3, idx, srcs, per,
+                        tbatch.patch_rows_hostlocal_cols_twin)
+                    oracle3 = cols3.clone()
+                    oracle3[:, torch.from_numpy(idx).long()] = torch.from_numpy(
+                        srcs[:, idx]).to(dtype)
+                    check(bool((_bits(got3) == _bits(twin3)).all()),
+                          f"{tag} stacked: kernel != the CPU twin")
+                    check(bool((_bits(got3) == _bits(oracle3)).all()),
+                          f"{tag} stacked: kernel != the host oracle")
+                    check(bool((_bits(got3[0]) == _bits(got)).all()),
+                          f"{tag} stacked: column 0 != the per-column launch")
+                    max_err = max(max_err, _max_abs(got3, twin3))
+                    n_stacked += 1
     launched = tbatch.patch_rows_hostlocal_cuda.launches - launches0
     check(launched == want_launches,
           f"K15 launched {launched} times for {want_launches} processes")
     print(f"K15: {n_cases} cases exact (f64 and f32, (D, L) in {K15_SHAPES}, "
           f"C in {K15_ARENAS}, {len(K15_SETS)} dirty sets; one launch a "
           f"process) against the card and CPU twins, K13 with the replicated "
-          f"staging and the host oracle, max_abs_err={max_err}", flush=True)
+          f"staging and the host oracle; {n_stacked} stacked cases (three "
+          f"columns, the same one launch a process) against the CPU twin and "
+          f"the host oracle, max_abs_err={max_err}", flush=True)
     return {"max_abs_err": max_err, "cases": n_cases, "launches": launched}
 
 
@@ -4548,6 +4694,15 @@ def check_multihost(cuda, card: str) -> dict:
         check(all(p[name] > 0 for p in procs),
               f"{name} was not launched in every process: "
               f"{[p[name] for p in procs]}")
+    # every process's K15 launches are its delta flushes, one staging copy
+    # each; the ranks' explicit flush is one of each
+    flushes = row["flushes_ranks"] + [prow["flushes"], prow["peer"]["flushes"]]
+    for p, f in zip(procs, flushes):
+        check(p["patch_rows_hostlocal"] == f["flushes"] == f["copies"],
+              f"a per-host flush is not one K15 launch and one staging copy: "
+              f"{p['patch_rows_hostlocal']} launches for {f}")
+    check((flush["launches"], flush["copies"], flush["flushes"]) == (1, 1, 1),
+          f"the ranks' delta flush: {flush}")
     launches = {name: sum(p[name] for p in procs) for name in names}
     for k in ("chain", "storm"):
         row[k].pop("placed")
@@ -4561,8 +4716,10 @@ def check_multihost(cuda, card: str) -> dict:
           f"placements, {prow['digests_checked']} digests equal, sent "
           f"{json.dumps(prow['sent'])}; placements equal to the unsharded CPU "
           f"run; launches by process "
-          f"{json.dumps(procs)}", flush=True)
+          f"{json.dumps(procs)}, delta flushes and staging copies by process "
+          f"{json.dumps(flushes)}", flush=True)
     return {"launches": launches, "launches_by_process": procs,
+            "flushes_by_process": flushes,
             "seconds": {"world": t_lock, "pod": t_pod}, "row": row,
             "pod": {k: v for k, v in prow.items()
                     if k not in ("placed", "storm_placed")}}
@@ -4571,14 +4728,15 @@ def check_multihost(cuda, card: str) -> dict:
 def time_hostlocal_kernel(cuda) -> dict:
     """K15 at the multihost path's flush shape (K15_TIMING: L = 2 local
     shards of 4,096 rows, w = 8, three quarters of each staging row
-    dirty), the shards views of one upload as the mirror holds them;
-    beside it the twin on the card and `index_copy_` into that block
-    (one call, the same rows)."""
+    dirty), the shards views of one upload as the mirror holds them,
+    launched as a flush launches it (a bound `RowPatch`); beside it the
+    per-column entry point, the twin on the card and `index_copy_` into
+    that block (one call, the same rows)."""
     import numpy as np
     import torch
 
     from nomad_tpu_torch.ops import batch as tbatch
-    from nomad_tpu_torch.parallel.mesh import Sharded
+    from nomad_tpu_torch.parallel.mesh import Sharded, VirtualMesh
 
     saved = tbatch.patch_rows_hostlocal_cuda.launches
     L, w, size = K15_TIMING
@@ -4592,15 +4750,18 @@ def time_hostlocal_kernel(cuda) -> dict:
     vals = rng.uniform(0.0, 1e4, (L, w))
     idx_t = torch.from_numpy(idx).to(cuda)
     vals_t = torch.from_numpy(vals).to(cuda)
-    from nomad_tpu_torch.parallel.mesh import VirtualMesh
-
+    vals1 = vals_t.unsqueeze(0)
     view = _RankView(VirtualMesh(2 * L, cuda), range(L))
     flat_idx = torch.from_numpy(np.concatenate(
         [idx[l, :n].astype(np.int64) + l * size for l in range(L)])).to(cuda)
     flat_vals = torch.from_numpy(np.concatenate(
         [vals[l, :n] for l in range(L)])).to(cuda)
+    patch = tbatch.RowPatch(view, (col,), hostlocal=True)
+    ptrs = (idx_t.data_ptr(), vals1.data_ptr(), w)
     out = {
-        "ms": cuda_time_ms(lambda: tbatch.patch_rows_hostlocal_cuda(
+        "ms": cuda_time_ms(lambda: patch.launch(*ptrs), n=200),
+        "call_ms": cuda_time_ms(lambda: patch(idx_t, vals1), n=200),
+        "wrapper_ms": cuda_time_ms(lambda: tbatch.patch_rows_hostlocal_cuda(
             view, col, idx_t, vals_t), n=200),
         "plain_ms": cuda_time_ms(lambda: tbatch.patch_rows_hostlocal_twin(
             view, col, idx_t, vals_t), n=50, warmup=3),
@@ -4611,7 +4772,115 @@ def time_hostlocal_kernel(cuda) -> dict:
         "flops": 0,
         "shape": f"L={L} w={w} shard={size}",
     }
+    out["flush3"] = time_flush3(cuda, hostlocal=True)
     tbatch.patch_rows_hostlocal_cuda.launches = saved
+    return out
+
+
+FLUSH_TIMING_ROWS = 768  # the mesh flush's dirty rows: W = 1,024
+
+
+def time_flush3(cuda, hostlocal: bool) -> dict:
+    """The mirror's three-column delta flush at the mesh phase's shape (a
+    VirtualMesh of 8 shards over the 16,384-row arena, FLUSH_TIMING_ROWS
+    dirty rows, the replicated staging: K13) or the multihost flush's
+    (a process of L = 2 of 4 shards, 4,096 rows a shard, six dirty rows a
+    shard: w = 8, K15); the columns views of one block a column, as the
+    mirror holds them.  Kernel only (CUDA events): one launch of a bound
+    `RowPatch` beside the three `index_copy_` calls a plain port would
+    make into the same blocks.  Then the flush as the worker runs it
+    (host clock, mean of 200): from the sorted dirty rows and their
+    values to a synchronized patched mirror, staging and copy included."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.parallel.mesh import Sharded, VirtualMesh
+
+    counter = (tbatch.patch_rows_hostlocal_cuda if hostlocal
+               else tbatch.patch_rows_sharded_cuda)
+    saved = (counter.launches, tbatch.RowPatch.flushes, tbatch.RowPatch.copies)
+    rng = np.random.default_rng(7016 + hostlocal)
+    if hostlocal:
+        L, w, size = K15_TIMING
+        mesh = _RankView(VirtualMesh(2 * L, cuda), range(L))
+        C = 2 * L * size
+        rows = np.concatenate([d * size + np.sort(rng.choice(size, w - 2,
+                                                             replace=False))
+                               for d in range(2 * L)]).astype(np.int32)
+    else:
+        L, C = 8, C_CHECK
+        mesh = VirtualMesh(L, cuda)
+        size = C // L
+        rows = np.sort(rng.choice(C, FLUSH_TIMING_ROWS, replace=False)
+                       ).astype(np.int32)
+    blocks = [torch.from_numpy(rng.uniform(0.0, 1e4, L * size)).to(cuda)
+              for _ in range(3)]
+    cols = tuple(Sharded(tuple(b.narrow(0, l * size, size) for l in range(L)))
+                 for b in blocks)
+    vals = rng.uniform(0.0, 1e4, (3, len(rows)))
+    patch = tbatch.RowPatch(mesh, cols, hostlocal=hostlocal)
+    # the staging as the flush builds it, on the card
+    if hostlocal:
+        stack, per_dev, w = tbatch.hostlocal_staging(mesh, rows, C)
+        local = list(mesh.local_shards)
+        idx = stack[local]
+        v = np.zeros((3, L, w))
+        for i, d in enumerate(local):
+            v[:, i, :len(per_dev[d])] = vals[:, np.searchsorted(rows, per_dev[d])]
+        mine = np.concatenate([per_dev[d] for d in local])
+    else:
+        W = tbatch.pow2_bucket(len(rows), floor=8)
+        idx = np.full(W, C, np.int32)
+        idx[:len(rows)] = rows
+        v = np.zeros((3, W))
+        v[:, :len(rows)] = vals
+        mine = rows
+    idx_t = torch.from_numpy(idx).to(cuda)
+    v_t = torch.from_numpy(v).to(cuda)
+    first = mesh.local_shards[0] * size
+    lib_idx = torch.from_numpy(mine.astype(np.int64) - first).to(cuda)
+    lib_vals = torch.from_numpy(vals[:, np.searchsorted(rows, mine)]).to(cuda)
+
+    def library():
+        for b, lv in zip(blocks, lib_vals):
+            b.index_copy_(0, lib_idx, lv)
+
+    ptrs = (idx_t.data_ptr(), v_t.data_ptr(), idx.shape[-1])
+    out = {
+        "ms": cuda_time_ms(lambda: patch.launch(*ptrs), n=200),
+        "call_ms": cuda_time_ms(lambda: patch(idx_t, v_t), n=200),
+        "library_ms": cuda_time_ms(library, n=200),
+        "library_calls": 3,
+        # the staged indices read once, the owned rows' three values read
+        # and stored
+        "bytes": idx.size * 4 + len(mine) * 3 * (8 + 8),
+        "flops": 0,
+        "shape": (f"K=3 L={L} w={idx.shape[-1]} shard={size} "
+                  f"({'hostlocal, K15' if hostlocal else 'replicated, K13'}), "
+                  f"{len(mine)} dirty rows of this process"),
+    }
+    row_vals = tuple(vals)
+    before = (counter.launches, tbatch.RowPatch.flushes, tbatch.RowPatch.copies)
+    for _ in range(20):
+        patch.flush(rows, row_vals, C)
+    torch.cuda.synchronize()
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        patch.flush(rows, row_vals, C)
+        torch.cuda.synchronize()
+    out["flush_host_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    steps = (counter.launches - before[0], tbatch.RowPatch.flushes - before[1],
+             tbatch.RowPatch.copies - before[2])
+    check(steps == (20 + reps,) * 3,
+          f"the timed flushes were not one launch and one copy each: {steps}")
+    want = torch.from_numpy(vals)
+    for b, v_ in zip(blocks, want):
+        check(bool((b.cpu()[torch.from_numpy(mine.astype(np.int64) - first)]
+                    == v_[torch.from_numpy(np.searchsorted(rows, mine))]).all()),
+              "the timed flush did not store its rows")
+    counter.launches, tbatch.RowPatch.flushes, tbatch.RowPatch.copies = saved
     return out
 
 
@@ -5526,6 +5795,7 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
                            ("score_all", results["k11"]["cases"]),
                            ("storm_assignment_sharded",
                             results["k14"]["launches"]),
+                           ("patch_rows_sharded", results["k13"]["launches"]),
                            ("patch_rows_hostlocal",
                             results["k15"]["launches"])):
             if checked[name] != want:
@@ -5588,11 +5858,11 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
          "nomad_tpu/ops/score.py:282", "k11"),
         ("sharded_chained_plan", "nomad_tpu_torch/csrc/sharded_chain.cu",
          "nomad_tpu/parallel/mesh.py:484", "k12"),
-        ("patch_rows_sharded", "nomad_tpu_torch/csrc/patch_rows_sharded.cu",
+        ("patch_rows_sharded", "nomad_tpu_torch/csrc/patch_rows_mesh.cu",
          "nomad_tpu/ops/batch.py:1130", "k13"),
         ("storm_assignment_sharded", "nomad_tpu_torch/csrc/storm_sharded.cu",
          "nomad_tpu/ops/solve.py:354", "k14"),
-        ("patch_rows_hostlocal", "nomad_tpu_torch/csrc/patch_rows_hostlocal.cu",
+        ("patch_rows_hostlocal", "nomad_tpu_torch/csrc/patch_rows_mesh.cu",
          "nomad_tpu/ops/batch.py:1183", "k15"),
     ):
         tm = results["timing"][name]
@@ -5615,7 +5885,18 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
         if "d8" in tm:
             # eight shards of a VirtualMesh on the one card
             kernels[-1]["d8"] = {k: tm["d8"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by")}
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for k in ("call_ms", "wrapper_ms"):
+            if k in tm:
+                # K13/K15: the bound patch's checked call, the per-call
+                # entry point (the kernel's "ms" is the flush's launch)
+                kernels[-1][k] = tm[k]
+        if "flush3" in tm:
+            # the mirror's three-column flush: the kernel's one launch, the
+            # three index_copy_ calls, and the flush on the host clock
+            kernels[-1]["flush3"] = {k: tm["flush3"][k] for k in (
+                "ms", "library_ms", "bound_ms", "bound_by", "flush_host_ms",
+                "shape")}
         if name in ("sharded_chained_plan", "patch_rows_sharded"):
             kernels[-1]["launches_bench"] = results["bench"]["launches"][name]
         if name == "sharded_chained_plan":

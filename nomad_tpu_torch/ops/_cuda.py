@@ -43,9 +43,8 @@ SOURCES = {
     "batch_plan": "batch_plan.cu",
     "score_all": "score_all.cu",
     "sharded_chain": "sharded_chain.cu",
-    "patch_rows_sharded": "patch_rows_sharded.cu",
+    "patch_rows_mesh": "patch_rows_mesh.cu",
     "storm_sharded": "storm_sharded.cu",
-    "patch_rows_hostlocal": "patch_rows_hostlocal.cu",
 }
 HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh")
 
@@ -201,16 +200,28 @@ class PlanPicksArgs(ctypes.Structure):
     ]
 
 
+_FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def _bind(name: str, fn_name: str, args_type) -> ctypes._CFuncPtr:
+    """The library's entry `fn_name` taking (args_type*, stream), its
+    argtypes and restype set once for the process."""
+    fn = _FNS.get((name, fn_name))
+    if fn is None:
+        fn = getattr(library(name), fn_name)
+        fn.argtypes = [ctypes.POINTER(args_type), _P]
+        fn.restype = _I
+        _FNS[(name, fn_name)] = fn
+    return fn
+
+
 def _launch(name: str, fn_name: str, args: ctypes.Structure,
             device: torch.device) -> None:
-    lib = library(name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.POINTER(type(args)), _P]
-    fn.restype = _I
+    fn = _bind(name, fn_name, type(args))
     stream = torch.cuda.current_stream(device).cuda_stream
     code = fn(ctypes.byref(args), _P(stream))
     if code != 0:
-        msg = lib.nk_error_string(code).decode()
+        msg = library(name).nk_error_string(code).decode()
         raise RuntimeError(f"{fn_name} launch failed: {msg} ({code})")
 
 
@@ -918,53 +929,62 @@ class ShardedChainStages:
         self._go(self._proc, self.ADVANCE, e, k)
 
 
-class PatchRowsShardedArgs(ctypes.Structure):
-    """Mirror of `PatchRowsShardedArgs` in csrc/patch_rows_sharded.cu."""
+# the table K13 and K15 take by value (kMaxCols, kMaxShards in
+# csrc/patch_rows_mesh.cu): at most PATCH_MAX_COLS columns of
+# PATCH_MAX_SHARDS local shards
+PATCH_MAX_COLS = 4
+PATCH_MAX_SHARDS = 64
+
+
+class PatchRowsMeshArgs(ctypes.Structure):
+    """Mirror of `PatchRowsMeshArgs` in csrc/patch_rows_mesh.cu."""
 
     _fields_ = [
-        ("col", _P), ("idx", _P), ("vals", _P),
-        ("lo", _I), ("size", _I), ("W", _I), ("is_f64", _I), ("device", _I),
+        ("cols", _P * (PATCH_MAX_COLS * PATCH_MAX_SHARDS)), ("idx", _P),
+        ("vals", _P), ("K", _I), ("L", _I), ("first", _I), ("size", _I),
+        ("W", _I), ("hostlocal", _I), ("is_f64", _I), ("device", _I),
     ]
 
 
-def launch_patch_rows_sharded(col, idx, vals, lo: int) -> None:
-    """K13 on the current stream for one shard: col[idx - lo] = vals
-    where 0 <= idx - lo < size."""
-    dev = col.device
-    args = PatchRowsShardedArgs(
-        col.data_ptr(), idx.data_ptr(), vals.data_ptr(), lo, col.shape[0],
-        idx.shape[0], int(col.dtype == torch.float64), dev.index,
-    )
-    _launch("patch_rows_sharded", "nk_patch_rows_sharded", args, dev)
+class RowPatchLaunch:
+    """K13 (``hostlocal=False``: a replicated staging of global rows) or
+    K15 (``hostlocal=True``: an [L, w] staging of shard-local rows)
+    bound to K columns of L local shards each: the library entry, its
+    argument block with the [K][L] shard pointers, the process's first
+    shard and the shard size, and the stream current when it is bound.
+    A call writes the staging's two pointers and width and launches on
+    that stream; it holds the shards, so their pointers stay valid."""
 
+    def __init__(self, shard_cols, first: int, hostlocal: bool) -> None:
+        K, L = len(shard_cols), len(shard_cols[0])
+        if K > PATCH_MAX_COLS or L > PATCH_MAX_SHARDS:
+            raise RuntimeError(
+                f"K13/K15 take at most {PATCH_MAX_COLS} columns of "
+                f"{PATCH_MAX_SHARDS} local shards, got {K} of {L}")
+        self._fn = _bind("patch_rows_mesh", "nk_patch_rows_mesh",
+                         PatchRowsMeshArgs)
+        dev = shard_cols[0][0].device
+        a = PatchRowsMeshArgs()
+        for k, shards in enumerate(shard_cols):
+            for l, t in enumerate(shards):
+                a.cols[k * PATCH_MAX_SHARDS + l] = t.data_ptr()
+        a.K, a.L, a.first, a.size = K, L, int(first), shard_cols[0][0].shape[0]
+        a.hostlocal = int(hostlocal)
+        a.is_f64 = int(shard_cols[0][0].dtype == torch.float64)
+        a.device = dev.index
+        self._args = a
+        self._ptr = ctypes.pointer(a)
+        self._stream = _P(torch.cuda.current_stream(dev).cuda_stream)
+        self._shards = shard_cols
 
-# the shard pointers K15 takes by value (kMaxShards in its source)
-HOSTLOCAL_MAX_SHARDS = 64
-
-
-class PatchRowsHostlocalArgs(ctypes.Structure):
-    """Mirror of `PatchRowsHostlocalArgs` in csrc/patch_rows_hostlocal.cu."""
-
-    _fields_ = [
-        ("shards", _P * HOSTLOCAL_MAX_SHARDS), ("idx", _P), ("vals", _P),
-        ("L", _I), ("size", _I), ("w", _I), ("is_f64", _I), ("device", _I),
-    ]
-
-
-def launch_patch_rows_hostlocal(shards, idx, vals) -> None:
-    """K15 on the current stream for this process's L shards at once:
-    shards[l][idx[l]] = vals[l] where 0 <= idx[l] < size."""
-    L = len(shards)
-    if L > HOSTLOCAL_MAX_SHARDS:
-        raise RuntimeError(f"K15 takes at most {HOSTLOCAL_MAX_SHARDS} local "
-                           f"shards, got {L}")
-    dev = shards[0].device
-    ptrs = (_P * HOSTLOCAL_MAX_SHARDS)(*[t.data_ptr() for t in shards])
-    args = PatchRowsHostlocalArgs(
-        ptrs, idx.data_ptr(), vals.data_ptr(), L, shards[0].shape[0],
-        idx.shape[1], int(shards[0].dtype == torch.float64), dev.index,
-    )
-    _launch("patch_rows_hostlocal", "nk_patch_rows_hostlocal", args, dev)
+    def __call__(self, idx_ptr: int, vals_ptr: int, width: int) -> None:
+        a = self._args
+        a.idx, a.vals, a.W = idx_ptr, vals_ptr, width
+        code = self._fn(self._ptr, self._stream)
+        if code != 0:
+            msg = library("patch_rows_mesh").nk_error_string(code).decode()
+            raise RuntimeError(f"nk_patch_rows_mesh launch failed: {msg} "
+                               f"({code})")
 
 
 _SS_PTRS = (

@@ -23,12 +23,12 @@ Two JAX programs of that module become hand-written CUDA kernels here:
 * `batch_plan_picks` (there `:1391`, a vmap of `plan_picks`) -> kernel
   K10, `csrc/batch_plan.cu`: E independent evals over their own
   BatchInputs, behind the kernel-only `kernel-batch` rate;
-* `patch_rows_sharded` (there `:1130`) -> kernel K13,
-  `csrc/patch_rows_sharded.cu`, and `patch_rows_hostlocal` (there
-  `:1183`, with `hostlocal_staging` `:1234`) -> kernel K15,
-  `csrc/patch_rows_hostlocal.cu`: the delta flush of a node-sharded
-  usage mirror, from one replicated staging (one process) or from each
-  process's own shard-local staging rows (a world of several).
+* `patch_rows_sharded` (there `:1130`) -> kernel K13 and
+  `patch_rows_hostlocal` (there `:1183`, with `hostlocal_staging`
+  `:1234`) -> kernel K15, both `csrc/patch_rows_mesh.cu`: the delta
+  flush of a node-sharded usage mirror, from one replicated staging
+  (one process) or from each process's own shard-local staging rows (a
+  world of several).
 
 Each pick scores every node against the usage and collision columns
 carried from the earlier picks, runs the rotated limited walk, and
@@ -1674,28 +1674,230 @@ def patch_rows_sharded_twin(mesh, col, idx, vals):
     return col
 
 
-def patch_rows_sharded_cuda(mesh, col, idx, vals):
-    """K13 on the current stream: the same scatter, one launch per local
-    shard (K4's one thread per staged index, with the shard's lo and
-    size).  `launches` counts kernel launches.  A failed build or launch
-    raises `DeviceFault`.  Returns col."""
+def _check_patch_cols(mesh, cols, idx, vals, hostlocal: bool):
+    """K Sharded columns of `mesh` (the same shard size, dtype and
+    device) and a staging of idx i32 [W] (replicated global rows) or
+    [L, w] (`hostlocal`: one row of shard-local rows a local shard) with
+    vals [K, *idx.shape] of the columns' dtype, on their device."""
+    n_local = len(mesh.local_shards)
+    if not cols:
+        raise ValueError("a row patch needs at least one column")
+    first = cols[0].shards[0] if cols[0].shards else None
+    for col in cols:
+        if len(col.shards) != n_local:
+            raise ValueError("a Sharded column of another mesh")
+        for t in col.shards:
+            if t.dim() != 1 or t.shape[0] != first.shape[0]:
+                raise ValueError("the shards of a column are [C // D] each")
+            if t.dtype != first.dtype:
+                raise TypeError(f"the columns must all be {first.dtype}")
+            if t.device != first.device:
+                raise ValueError("the columns must share a device")
+    if idx is None:
+        return
+    if hostlocal:
+        if idx.dim() != 2 or idx.shape[0] != n_local:
+            raise ValueError(f"patch_rows_hostlocal needs idx and vals stacks "
+                             f"of [{n_local}, w]: one row per local shard")
+    elif idx.dim() != 1:
+        raise ValueError("patch_rows_sharded needs a replicated idx[W]")
+    if tuple(vals.shape) != (len(cols),) + tuple(idx.shape):
+        raise ValueError(f"vals must be [{len(cols)}, *{tuple(idx.shape)}]: "
+                         "one staging row a column")
+    if idx.dtype != torch.int32:
+        raise TypeError("idx must be int32")
+    if vals.dtype != first.dtype:
+        raise TypeError(f"vals must be {first.dtype}")
+    if idx.device != first.device or vals.device != first.device:
+        raise ValueError("col, idx and vals must share a device")
+
+
+def patch_rows_sharded_cols_twin(mesh, cols, idx, vals):
+    """`patch_rows_sharded_twin` of K columns from one replicated
+    staging: column k stores ``vals[k]`` at `idx` (vals [K, W]).  In
+    place; returns cols."""
+    _check_patch_cols(mesh, cols, idx, vals, hostlocal=False)
+    for col, v in zip(cols, vals):
+        patch_rows_sharded_twin(mesh, col, idx, v)
+    return cols
+
+
+def _row_patch_kernel(hostlocal: bool) -> str:
+    return "K15 patch_rows_hostlocal" if hostlocal else "K13 patch_rows_sharded"
+
+
+def _bind_row_patch(mesh, cols, hostlocal: bool):
+    """K13 (or K15, `hostlocal`) bound to the checked columns' shards on
+    the card: the [K][L] shard-pointer table built once
+    (`_cuda.RowPatchLaunch`).  A failed build or bind raises
+    `DeviceFault`."""
     from ..device.core import DeviceFault
     from . import _cuda
 
-    _check_patch_sharded(mesh, col, idx, vals)
     if mesh.device.type != "cuda":
-        raise ValueError(f"patch_rows_sharded_cuda needs a mesh on the card, "
-                         f"got {mesh.device}")
-    idx = idx.contiguous()
-    vals = vals.contiguous()
-    for s, t in zip(mesh.local_shards, col.shards):
-        if not t.is_contiguous():
-            raise ValueError("patch_rows_sharded_cuda patches contiguous shards")
-        try:
-            _cuda.launch_patch_rows_sharded(t, idx, vals, s * t.shape[0])
-        except RuntimeError as exc:  # a build, bind or launch failure
-            raise DeviceFault(f"K13 patch_rows_sharded failed: {exc}") from exc
+        raise ValueError(f"{_row_patch_kernel(hostlocal)} needs a mesh on "
+                         f"the card, got {mesh.device}")
+    for col in cols:
+        for t in col.shards:
+            if not t.is_contiguous():
+                raise ValueError("a row patch stores into contiguous shards")
+    try:
+        return _cuda.RowPatchLaunch([col.shards for col in cols],
+                                    mesh.local_shards[0], hostlocal)
+    except RuntimeError as exc:  # a build, bind or table failure
+        raise DeviceFault(f"{_row_patch_kernel(hostlocal)} failed: "
+                          f"{exc}") from exc
+
+
+def _launch_row_patch(bound, hostlocal: bool, idx_ptr: int, vals_ptr: int,
+                      width: int) -> None:
+    """One launch of a bound K13/K15 on a staging on the card, counted on
+    `patch_rows_sharded_cuda` or `patch_rows_hostlocal_cuda`.  A refused
+    launch raises `DeviceFault`."""
+    try:
+        bound(idx_ptr, vals_ptr, width)
+    except RuntimeError as exc:
+        from ..device.core import DeviceFault
+
+        raise DeviceFault(f"{_row_patch_kernel(hostlocal)} failed: "
+                          f"{exc}") from exc
+    if hostlocal:
+        patch_rows_hostlocal_cuda.launches += 1
+    else:
         patch_rows_sharded_cuda.launches += 1
+
+
+class RowPatch:
+    """The delta flush of K columns of a node-sharded mirror, bound once:
+    the columns (`Sharded` tensors of `mesh`) are checked here, and on
+    the card the kernel's [K][L] shard-pointer table is built here, so a
+    flush only writes the staging and launches.  ``hostlocal=False``
+    takes a replicated staging of global rows (K13, one launch for every
+    local shard and column), ``hostlocal=True`` this process's [L, w]
+    rows of `hostlocal_staging` (K15).  A mirror rebuilds its RowPatch
+    whenever it replaces its column tensors (a full resync, a bulk
+    upload).  On a CPU mesh a call runs the twins.
+
+    `flush` stages one delta (indices and K value rows in one buffer,
+    pinned for the card), moves it with one copy and stores it with one
+    launch.  The class counts the flushes and the staging copies; the
+    launches count on `patch_rows_sharded_cuda` (K13) and
+    `patch_rows_hostlocal_cuda` (K15).  A failed build or launch raises
+    `DeviceFault`."""
+
+    flushes = 0  # delta flushes staged through `flush`
+    copies = 0  # their staging buffers moved to the mirror's device
+
+    def __init__(self, mesh, cols, hostlocal: bool = False) -> None:
+        cols = tuple(cols)
+        _check_patch_cols(mesh, cols, None, None, hostlocal)
+        self.mesh = mesh
+        self.cols = cols
+        self.hostlocal = hostlocal
+        self.dtype = cols[0].shards[0].dtype
+        self._shape_k = (len(cols),)
+        # the staging's leading dims: [W], or [L, w] for hostlocal
+        self._idx_lead = (len(mesh.local_shards),) if hostlocal else ()
+        self._np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
+        self._dev = cols[0].shards[0].get_device()
+        self._launch = None
+        if mesh.device.type != "cpu":
+            self._launch = _bind_row_patch(mesh, cols, hostlocal)
+
+    def __call__(self, idx, vals):
+        """Store the staging (idx [W] or [L, w] int32, vals [K, *idx])
+        into the columns in place, one launch on the card; returns the
+        columns."""
+        if self._launch is None:
+            if self.hostlocal:
+                return patch_rows_hostlocal_cols_twin(self.mesh, self.cols,
+                                                      idx, vals)
+            return patch_rows_sharded_cols_twin(self.mesh, self.cols, idx, vals)
+        if (idx.dtype is not torch.int32 or vals.dtype is not self.dtype
+                or vals.shape != self._shape_k + idx.shape
+                or idx.dim() == 0 or idx.shape[:-1] != self._idx_lead
+                or idx.get_device() != self._dev
+                or vals.get_device() != self._dev):
+            _check_patch_cols(self.mesh, self.cols, idx, vals, self.hostlocal)
+        if not (idx.is_contiguous() and vals.is_contiguous()):
+            idx, vals = idx.contiguous(), vals.contiguous()
+        self.launch(idx.data_ptr(), vals.data_ptr(), idx.shape[-1])
+        return self.cols
+
+    def launch(self, idx_ptr: int, vals_ptr: int, width: int) -> None:
+        """The launch a flush makes, unchecked: a staging already on the
+        card at these addresses (idx int32 [W] or [L, W], then vals
+        [K, *idx] of the columns' dtype, contiguous).  Card meshes only."""
+        _launch_row_patch(self._launch, self.hostlocal, idx_ptr, vals_ptr,
+                          width)
+
+    def flush(self, rows: np.ndarray, row_vals, capacity: int) -> int:
+        """One delta flush: `rows` the sorted global dirty rows (int32)
+        and `row_vals` the K columns' new values at them (``row_vals[k][j]``
+        for ``rows[j]``).  The staging is the replicated one (idx [W]
+        padded with `capacity`, W the pow2 bucket, floor 8, of the dirty
+        count) or, hostlocal, this process's rows of `hostlocal_staging`
+        ([L, w], padding the shard size; a shard's sorted rows are one
+        slice of `rows`); its indices and its K value rows [K, *idx]
+        share one buffer, the values 8-byte aligned after the indices,
+        pinned when bound for the card.  One copy (non_blocking, on the
+        current stream) moves it to the mirror's device, one launch
+        stores it.  Returns the staged bytes."""
+        mesh = self.mesh
+        rows = np.asarray(rows, dtype=np.int32)
+        vals = np.asarray(row_vals)
+        n_rows = len(rows)
+        if self.hostlocal:
+            size = capacity // mesh.n_shards
+            cut = np.searchsorted(rows, np.arange(mesh.n_shards + 1) * size)
+            width = pow2_bucket(max(1, int(np.diff(cut).max())), floor=8)
+            shape = (len(mesh.local_shards), width)
+        else:
+            width = pow2_bucket(n_rows, floor=8)
+            shape = (width,)
+        n = shape[0] * width if self.hostlocal else width
+        off = -(-4 * n // 8) * 8
+        nbytes = off + len(self.cols) * n * self.dtype.itemsize
+        buf = torch.empty(nbytes, dtype=torch.uint8,
+                          pin_memory=mesh.device.type == "cuda")
+        host = buf.numpy()
+        idx_h = host[:4 * n].view(np.int32).reshape(shape)
+        vals_h = host[off:].view(self._np_dtype).reshape(self._shape_k + shape)
+        if self.hostlocal:
+            idx_h.fill(size)
+            vals_h.fill(0)
+            for i, d in enumerate(mesh.local_shards):
+                a, b = cut[d], cut[d + 1]
+                idx_h[i, :b - a] = rows[a:b] - d * size
+                vals_h[:, i, :b - a] = vals[:, a:b]
+        else:
+            idx_h[:n_rows] = rows
+            idx_h[n_rows:] = capacity
+            vals_h[:, :n_rows] = vals
+            vals_h[:, n_rows:] = 0
+        dev = buf.to(mesh.device, non_blocking=True)
+        RowPatch.copies += 1
+        if self._launch is not None:
+            ptr = dev.data_ptr()
+            self.launch(ptr, ptr + off, width)
+        else:
+            self(dev[:4 * n].view(torch.int32).view(shape),
+                 dev[off:].view(self.dtype).view(self._shape_k + shape))
+        RowPatch.flushes += 1
+        return nbytes
+
+
+def patch_rows_sharded_cuda(mesh, col, idx, vals):
+    """K13 on the current stream for one column: the K = 1 case of the
+    flush's launch, one launch for every local shard (one thread a
+    staged row derives its shard from its global index).  `launches`
+    counts kernel launches.  A failed build or launch raises
+    `DeviceFault`.  Returns col."""
+    _check_patch_cols(mesh, (col,), idx, vals.unsqueeze(0), hostlocal=False)
+    bound = _bind_row_patch(mesh, (col,), hostlocal=False)
+    idx, vals = idx.contiguous(), vals.contiguous()
+    _launch_row_patch(bound, False, idx.data_ptr(), vals.data_ptr(),
+                      idx.shape[0])
     return col
 
 
@@ -1733,24 +1935,14 @@ def hostlocal_staging(mesh, idx: np.ndarray, capacity: int):
 
 
 def _check_patch_hostlocal(mesh, col, idx_stack, vals_stack):
-    shards = col.shards
-    n_local = len(mesh.local_shards)
-    if len(shards) != n_local:
+    if len(col.shards) != len(mesh.local_shards):
         raise ValueError("a Sharded column of another mesh")
-    if idx_stack.dim() != 2 or idx_stack.shape[0] != n_local \
-            or vals_stack.shape != idx_stack.shape:
+    if vals_stack.shape != idx_stack.shape:
         raise ValueError(f"patch_rows_hostlocal needs idx and vals stacks of "
-                         f"[{n_local}, w]: one row per local shard")
-    if idx_stack.dtype != torch.int32:
-        raise TypeError("idx must be int32")
-    size = shards[0].shape[0]
-    for t in shards:
-        if t.dim() != 1 or t.shape[0] != size:
-            raise ValueError("the shards of a column are [C // D] each")
-        if vals_stack.dtype != t.dtype:
-            raise TypeError(f"vals must be {t.dtype}")
-        if t.device != idx_stack.device or vals_stack.device != t.device:
-            raise ValueError("col, idx and vals must share a device")
+                         f"[{len(mesh.local_shards)}, w]: one row per local "
+                         "shard")
+    _check_patch_cols(mesh, (col,), idx_stack, vals_stack.unsqueeze(0),
+                      hostlocal=True)
 
 
 def patch_rows_hostlocal_twin(mesh, col, idx_stack, vals_stack):
@@ -1766,28 +1958,25 @@ def patch_rows_hostlocal_twin(mesh, col, idx_stack, vals_stack):
     return col
 
 
+def patch_rows_hostlocal_cols_twin(mesh, cols, idx_stack, vals_stack):
+    """`patch_rows_hostlocal_twin` of K columns from one staging: column
+    k stores ``vals_stack[k]`` ([K, L, w]).  In place; returns cols."""
+    _check_patch_cols(mesh, cols, idx_stack, vals_stack, hostlocal=True)
+    for col, v in zip(cols, vals_stack):
+        patch_rows_hostlocal_twin(mesh, col, idx_stack, v)
+    return cols
+
+
 def patch_rows_hostlocal_cuda(mesh, col, idx_stack, vals_stack):
-    """K15 on the current stream: the same store for all of this
-    process's shards in one launch (one block row a local shard).
+    """K15 on the current stream for one column: the K = 1 case of the
+    flush's launch, one launch for all of this process's shards.
     `launches` counts kernel launches.  A failed build or launch raises
     `DeviceFault`.  Returns col."""
-    from ..device.core import DeviceFault
-    from . import _cuda
-
     _check_patch_hostlocal(mesh, col, idx_stack, vals_stack)
-    if mesh.device.type != "cuda":
-        raise ValueError(f"patch_rows_hostlocal_cuda needs a mesh on the "
-                         f"card, got {mesh.device}")
-    for t in col.shards:
-        if not t.is_contiguous():
-            raise ValueError("patch_rows_hostlocal_cuda patches contiguous "
-                             "shards")
-    try:
-        _cuda.launch_patch_rows_hostlocal(
-            col.shards, idx_stack.contiguous(), vals_stack.contiguous())
-    except RuntimeError as exc:  # a build, bind or launch failure
-        raise DeviceFault(f"K15 patch_rows_hostlocal failed: {exc}") from exc
-    patch_rows_hostlocal_cuda.launches += 1
+    bound = _bind_row_patch(mesh, (col,), hostlocal=True)
+    idx, vals = idx_stack.contiguous(), vals_stack.contiguous()
+    _launch_row_patch(bound, True, idx.data_ptr(), vals.data_ptr(),
+                      idx.shape[1])
     return col
 
 

@@ -24,8 +24,9 @@ Per rank, in order:
    with the sharded carry threaded chunk to chunk, fetch, replay), zero
    lost evals.
 3. **Per-host flush**: the dirty rows of the chain's commits, then a
-   warm sharded mirror sync: the shard-local staging stored by K15
-   (`patch_rows_hostlocal`) must stage exactly the closed-form O(dirty
+   warm sharded mirror sync: the shard-local staging of the three usage
+   columns, moved with one copy and stored by one K15 launch
+   (`ops.batch.RowPatch`), must stage exactly the closed-form O(dirty
    rows) bytes per host, below the full upload's.
 4. **Storm**: a same-family backlog drained by the real
    ``_maybe_drain_storm`` and solved by K14 over the distributed mesh;
@@ -70,7 +71,7 @@ import time
 from typing import List, Optional
 
 from .mesh import SHARDS_PER_RANK_ENV
-from .pod import foreign_modules, launch_counts
+from .pod import flush_counts, foreign_modules, launch_counts
 
 SHARDS_PER_PROC = 2
 CHAIN_NODES = 12  # -> capacity 16: tiles over 4 shards
@@ -483,7 +484,10 @@ def run_worker() -> int:
         size = table.capacity // n_dev
         gen = worker._usage_cache_sharded["gen"]
         _, dirty = server.store.usage_delta_since(gen)
+        before = dict(launch_counts(), **flush_counts())
         worker._device_columns(table, sharded=True)
+        counts = {k: v - before[k]
+                  for k, v in dict(launch_counts(), **flush_counts()).items()}
         staged = server.metrics.get_gauge("mesh.bytes_per_flush")
         full = sum(c.nbytes for c in (
             table.cpu_total, table.mem_total, table.disk_total,
@@ -502,17 +506,24 @@ def run_worker() -> int:
             "bytes_per_flush_delta_per_host": staged,
             "bytes_per_flush_closed_form": want,
             "bytes_per_flush_full_per_host": full,
+            # this flush's K15 launches (0 on the CPU), staging copies
+            # and flushes: one each on the card
+            "launches": counts["patch_rows_hostlocal"],
+            "copies": counts["copies"],
+            "flushes": counts["flushes"],
         }
 
         # -- storm -----------------------------------------------------------
         result["storm"] = _drive_storm(server, worker, chain_jobs,
                                        world["family"])
         result["launches"] = launch_counts()
+        result["flushes"] = flush_counts()
         # every rank's counts (a collective: every rank calls it)
-        keys = sorted(result["launches"])
-        result["launches_ranks"] = [
-            dict(zip(keys, map(int, row))) for row in
-            _allgather([result["launches"][k] for k in keys])]
+        for name in ("launches", "flushes"):
+            keys = sorted(result[name])
+            result[f"{name}_ranks"] = [
+                dict(zip(keys, map(int, row))) for row in
+                _allgather([result[name][k] for k in keys])]
 
         # -- the kernel A/B: K14 on the mesh against K5 ----------------------
         result["storm_kernel"], assigned = _storm_ab(mesh, mesh.device)
@@ -594,7 +605,7 @@ def run_pod_head() -> int:
                   "digests_checked": pod.checked, "sent": dict(pod.sent),
                   "mesh_launches": worker.mesh_used, "errors": worker.errors,
                   "hosts": worker._mesh_hosts, "launches": launch_counts(),
-                  "loaded": foreign_modules()}
+                  "flushes": flush_counts(), "loaded": foreign_modules()}
     finally:
         server.stop()  # closes the pod: the peer leaves on "bye"
     print("POD_HEAD_JSON " + json.dumps(result), flush=True)

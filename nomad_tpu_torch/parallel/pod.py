@@ -18,8 +18,8 @@ columns as each process's own shards, `mesh.mesh_put`) stays local.  A
 mirror delta re-runs the per-host flush on the peer: the head ships only
 the sorted dirty rows and their three value columns (O(dirty rows) bytes
 on the wire), and the peer builds its own shard-local staging from them
-(`ops.batch.hostlocal_staging`) and stores it with K15
-(`patch_rows_hostlocal`).  Device tensors never cross the wire: a
+(`ops.batch.hostlocal_staging`) and stores the three columns with one
+K15 launch (`ops.batch.RowPatch.flush`).  Device tensors never cross the wire: a
 chain's usage columns come from the peer's own mirror ("mirror") or its
 own previous launch's carry ("carry"), which track the head's bit for
 bit because both applied the same stream.  Chains run through K12
@@ -247,6 +247,15 @@ def launch_counts() -> dict:
     }
 
 
+def flush_counts() -> dict:
+    """This process's delta flushes of a sharded mirror and their
+    staging copies (`ops.batch.RowPatch`; counted on the CPU too): one
+    of each a flush, beside one K13 or K15 launch on the card."""
+    from ..ops.batch import RowPatch
+
+    return {"flushes": RowPatch.flushes, "copies": RowPatch.copies}
+
+
 def foreign_modules() -> list:
     """Modules of JAX or of the JAX package this process has loaded: none
     may be (the port stands alone)."""
@@ -263,6 +272,7 @@ class PodPeer:
     def __init__(self, mesh) -> None:
         self.mesh = mesh
         self.mirror: Optional[tuple] = None
+        self.patch = None  # the RowPatch bound to the mirror's usage columns
         self.carry = None
         self.check = pod_check_enabled()
         self.ops: Dict[str, int] = {}
@@ -277,36 +287,27 @@ class PodPeer:
     def mirror_full(self, host_cols) -> None:
         from .mesh import mesh_put
 
-        self.mirror = tuple(mesh_put(self.mesh, col) for col in host_cols)
+        self._bind(tuple(mesh_put(self.mesh, col) for col in host_cols))
 
     def mirror_bulk(self, host_used) -> None:
         from .mesh import mesh_put
 
         assert self.mirror is not None, "bulk before full sync"
-        self.mirror = self.mirror[:3] + tuple(
-            mesh_put(self.mesh, col) for col in host_used)
+        self._bind(self.mirror[:3] + tuple(
+            mesh_put(self.mesh, col) for col in host_used))
+
+    def _bind(self, mirror: tuple) -> None:
+        from ..ops.batch import RowPatch
+
+        self.mirror = mirror
+        self.patch = RowPatch(self.mesh, mirror[3:], hostlocal=True)
 
     def mirror_delta(self, idx, vals3, capacity) -> None:
         """The per-host flush: this process's shard-local staging rows
-        from the sorted global dirty rows, each column's values gathered
-        from the wire values, stored by K15 in place."""
-        from ..ops.batch import hostlocal_staging, patch_rows_hostlocal
-
+        of the sorted global dirty rows and their three wire values, in
+        one staging copy, stored by one K15 launch in place."""
         assert self.mirror is not None, "delta before full sync"
-        idx = np.asarray(idx, dtype=np.int32)
-        idx_stack, per_dev, width = hostlocal_staging(self.mesh, idx, capacity)
-        local = list(self.mesh.local_shards)
-        idx_dev = self._upload(idx_stack[local])
-        for col, vals in zip(self.mirror[3:], vals3):
-            vals = np.asarray(vals)
-            vals_stack = np.zeros((len(local), width), dtype=vals.dtype)
-            for i, d in enumerate(local):
-                sel = per_dev[d]
-                # the wire values follow the sorted idx; the shard's rows
-                # map back by binary search
-                vals_stack[i, :len(sel)] = vals[np.searchsorted(idx, sel)]
-            patch_rows_hostlocal(self.mesh, col, idx_dev,
-                                 self._upload(vals_stack))
+        self.patch.flush(np.asarray(idx, dtype=np.int32), vals3, capacity)
 
     def chain(self, meta: dict, args_tail: tuple) -> Optional[str]:
         from .mesh import sharded_chained_plan
@@ -381,7 +382,7 @@ def run_peer(head_port: int, connect_timeout: float = 120.0,
     if mesh.device.type == "cuda":
         from ..ops import _cuda
 
-        _cuda.load(["sharded_chain", "storm_sharded", "patch_rows_hostlocal"])
+        _cuda.load(["sharded_chain", "storm_sharded", "patch_rows_mesh"])
     deadline = time.monotonic() + connect_timeout
     sock = None
     while sock is None:
@@ -401,7 +402,8 @@ def run_peer(head_port: int, connect_timeout: float = 120.0,
     finally:
         sock.close()
     return {"ops": peer.ops, "launches": launch_counts(),
-            "shards": list(mesh.local_shards), "loaded": foreign_modules()}
+            "flushes": flush_counts(), "shards": list(mesh.local_shards),
+            "loaded": foreign_modules()}
 
 
 def main(argv=None) -> int:

@@ -99,9 +99,9 @@ construction: nothing runs unsharded in its place.
 A mesh over several processes (``mesh.hosts`` > 1) keeps each process's
 mirror shards only: a full or bulk sync uploads this host's rows alone
 (`parallel.mesh.mesh_put`), and a delta flush builds the shard-local
-staging (`ops.batch.hostlocal_staging`) and stores it with one K15 launch
-a column (`patch_rows_hostlocal`), so a warm flush costs each host
-O(its dirty rows) bytes.  Every process must launch the same chunks in
+staging (`ops.batch.hostlocal_staging`) and stores the three usage
+columns with one K15 launch (`ops.batch.RowPatch`), so a warm flush
+costs each host O(its dirty rows) bytes.  Every process must launch the same chunks in
 the same order: in lockstep, as `parallel/dist_smoke.py` drives them, or
 behind a pod head (NOMAD_TPU_POD_PORT, `parallel/pod.py`) that streams
 each mirror sync, chain launch and storm solve to its peers before it
@@ -752,6 +752,9 @@ class BatchWorker(Worker):
         )
         # watchdog trips this worker met (each nacked its leases once)
         self.trips = 0
+        # held from a supervisor fault's nack to its record
+        # (`_hold_on_fault`), which drain_to_idle waits out
+        self.settling = threading.Lock()
         # fallback evals are the shapes batching didn't cover: the
         # exact host stack beats per-pick device round trips there
         self.host_fallback = True
@@ -961,8 +964,9 @@ class BatchWorker(Worker):
         # sharded runners per (picks, spread_fit, spread, even)
         self._sharded_runners: Dict[tuple, object] = {}
         # the sharded usage mirror: the six columns as Sharded tensors
-        # on the mesh, patched per shard through K13.  Same layout as
-        # _usage_cache, keyed also by the mesh width
+        # on the mesh and the RowPatch bound to its usage columns (one
+        # K13/K15 launch a delta flush).  Same layout as _usage_cache,
+        # keyed also by the mesh width
         self._usage_cache_sharded: Optional[dict] = None
         self._mesh_mirror_hits = 0
         self._mesh_mirror_misses = 0
@@ -1270,8 +1274,7 @@ class BatchWorker(Worker):
         K5 for storms, and on a mesh K12-K15."""
         names = ["chained_picks", "patch_rows", "storm_solve"]
         if self._mesh_requested:
-            names += ["sharded_chain", "patch_rows_sharded", "storm_sharded",
-                      "patch_rows_hostlocal"]
+            names += ["sharded_chain", "patch_rows_mesh", "storm_sharded"]
         return names
 
     def _load_kernels(self) -> None:
@@ -1374,6 +1377,16 @@ class BatchWorker(Worker):
             )
             self._sharded_runners[key] = runner
         return runner
+
+    def _hold_on_fault(self, held: List[Tuple[Evaluation, str]],
+                       exc: DeviceFault) -> None:
+        """Nack the aborted gulp's leases and record the fault, under
+        `settling`: `Server.drain_to_idle` takes that lock before it
+        reads `tripped`, so once every lease is back in the broker it
+        sees the trip this worker met, never the moment between."""
+        with self.settling:
+            self._abandon_leases(held)
+            self._met_supervisor_fault(exc)
 
     def _met_supervisor_fault(self, exc: DeviceFault) -> None:
         """A guarded stage raised the supervisor's fault: a watchdog
@@ -1656,8 +1669,7 @@ class BatchWorker(Worker):
                             leftover = []
                         except (DeviceTimeout, DeviceLost) as exc:
                             # the supervisor's fault: nack once, hold
-                            self._abandon_leases(storm)
-                            self._met_supervisor_fault(exc)
+                            self._hold_on_fault(storm, exc)
                             leftover = []
                         except DeviceFault as exc:
                             # the solve failed on the device: stop here,
@@ -1727,8 +1739,7 @@ class BatchWorker(Worker):
                 # the supervisor's fault (a watchdog trip, or LOST
                 # reached mid-chain): nothing of the chain past the
                 # fault committed — nack every lease once, then hold
-                self._abandon_leases(batch)
-                self._met_supervisor_fault(exc)
+                self._hold_on_fault(batch, exc)
                 leftover = []
             except DeviceFault as exc:
                 # the device path failed: stop here, leases nacked,
@@ -4073,10 +4084,12 @@ class BatchWorker(Worker):
         the ``batch_worker.input_cache_hit_rate`` gauge.
 
         ``sharded=True`` returns the sharded twin: the same columns as
-        `Sharded` tensors on the node mesh, patched per shard through
-        K13 (`ops.batch.patch_rows_sharded`), so a warm mesh flush ships
-        O(dirty rows) bytes; those bytes are the ``mesh.bytes_per_flush``
-        gauge and the delta-hit rate ``mesh.mirror_hit_rate``."""
+        `Sharded` tensors on the node mesh, whose delta flush stores the
+        three usage columns of every local shard with ONE K13 launch
+        from one staging copy (`ops.batch.RowPatch`), so a warm mesh
+        flush ships O(dirty rows) bytes; those bytes are the
+        ``mesh.bytes_per_flush`` gauge and the delta-hit rate
+        ``mesh.mirror_hit_rate``."""
         with self._usage_cache_lock, self._on_stream():
             if sharded:
                 return self._device_columns_sharded(table)
@@ -4087,20 +4100,19 @@ class BatchWorker(Worker):
         the plain one plus the mesh width, so the first sync after a
         supervisor incident (a new epoch) or a rebuilt mesh re-uploads
         it in full.  Uploads go through the worker's pinned staging,
-        each process's own rows only (`parallel.mesh.mesh_put`).
+        each process's own rows only (`parallel.mesh.mesh_put`).  Each
+        full or bulk sync binds the mirror's `RowPatch` to the new usage
+        tensors; a delta flush stages the sorted dirty rows and their
+        three values in one buffer, moves it with one copy on the
+        worker's stream and stores it with one launch: K13 from the
+        replicated staging in one process, K15 from this process's
+        shard-local rows (`hostlocal_staging`) over several.
 
         Over several processes every byte figure is this host's: a full
         or bulk sync uploads its n_local / n_dev of the columns, and a
-        delta builds the shard-local [D, w] staging from the shared dirty
-        log (`hostlocal_staging`), ships only its own shards' rows (the
-        index staging once for all three columns) and stores them with
-        one K15 launch a column; a pod head streams each sync to its
-        peers first."""
-        from ..ops.batch import (
-            hostlocal_staging,
-            patch_rows_hostlocal,
-            patch_rows_sharded,
-        )
+        delta ships only its own shards' staging rows; a pod head
+        streams each sync to its peers first."""
+        from ..ops.batch import RowPatch
         from ..parallel.mesh import mesh_put
 
         mesh = self._live_mesh()
@@ -4111,8 +4123,7 @@ class BatchWorker(Worker):
         multihost = self._mesh_hosts > 1
         pod = self._pod if multihost else None
         n_dev = mesh.n_shards
-        local = list(mesh.local_shards)
-        n_local = len(local)
+        n_local = len(mesh.local_shards)
 
         def put(col):
             return mesh_put(mesh, col, self._upload)
@@ -4136,59 +4147,30 @@ class BatchWorker(Worker):
                 pod.send("mirror_full", host_cols)
             cols = tuple(put(col) for col in host_cols)
             bytes_up = per_host(sum(col.nbytes for col in host_cols))
-            cache = {"key": key, "gen": gen, "cols": cols}
+            cache = {"key": key, "gen": gen, "cols": cols,
+                     "patch": RowPatch(mesh, cols[3:], hostlocal=multihost)}
             self._usage_cache_sharded = cache
         else:
             gen, rows = self.store.usage_delta_since(cache["gen"])
-            cols = cache["cols"]
             if len(rows) > max(64, table.capacity // 8):
                 # wide churn: one bulk upload beats many scatters
                 if pod is not None:
                     pod.send("mirror_bulk", host_used)
-                cols = cols[:3] + tuple(put(col) for col in host_used)
+                used = tuple(put(col) for col in host_used)
+                cache["cols"] = cache["cols"][:3] + used
+                cache["patch"] = RowPatch(mesh, used, hostlocal=multihost)
                 bytes_up = per_host(sum(col.nbytes for col in host_used))
-            elif rows and multihost:
-                idx = np.asarray(sorted(rows), dtype=np.int32)
-                if pod is not None:
-                    # the sorted dirty rows and their three value columns
-                    # once: each peer gathers its own shards' rows
-                    pod.send("mirror_delta", idx,
-                             tuple(src[idx] for src in host_used),
-                             table.capacity)
-                idx_stack, per_dev, width = hostlocal_staging(
-                    mesh, idx, table.capacity)
-                # this host's staging rows only; the index staging ships
-                # once for all three value columns
-                idx_dev = self._upload(idx_stack[local])
-                bytes_up += n_local * width * 4
-                for col, src in zip(cols[3:], host_used):
-                    vals = np.zeros((n_local, width), dtype=src.dtype)
-                    for i, d in enumerate(local):
-                        sel = per_dev[d]
-                        vals[i, :len(sel)] = src[sel]
-                    bytes_up += vals.nbytes
-                    patch_rows_hostlocal(mesh, col, idx_dev,
-                                         self._upload(vals))
-                hit = True
             elif rows:
                 idx = np.asarray(sorted(rows), dtype=np.int32)
-                # one replicated staging for every shard, padded to a
-                # pow2 bucket; padding indexes C (dropped on every shard)
-                width = _pow2(len(idx), floor=8)
-                idx_p = np.full(width, table.capacity, np.int32)
-                idx_p[: len(idx)] = idx
-                idx_dev = self._upload(idx_p)
-                bytes_up += idx_p.nbytes
-                for col, src in zip(cols[3:], host_used):
-                    vals = np.zeros(width, dtype=src.dtype)
-                    vals[: len(idx)] = src[idx]
-                    bytes_up += vals.nbytes
-                    patch_rows_sharded(mesh, col, idx_dev,
-                                       self._upload(vals))
+                vals = tuple(src[idx] for src in host_used)
+                if pod is not None:
+                    # the sorted dirty rows and their three value columns
+                    # once: each peer stages its own shards' rows
+                    pod.send("mirror_delta", idx, vals, table.capacity)
+                bytes_up = cache["patch"].flush(idx, vals, table.capacity)
                 hit = True
             else:
                 hit = True  # nothing changed since the last sync
-            cache["cols"] = cols
             cache["gen"] = gen
         if hit:
             self._mesh_mirror_hits += 1

@@ -68,6 +68,9 @@ from .worker import Worker
 LOG = logging.getLogger("nomad_tpu_torch.server")
 
 DEFAULT_HEARTBEAT_TTL = 30.0
+# how long drain_to_idle waits, while the device supervisor holds, for
+# the workers met by a trip to nack their leases and record it
+HOLD_SETTLE_S = 3.0
 
 # leadership failover telemetry, zero-registered at construction
 LEADERSHIP_COUNTERS = (
@@ -702,7 +705,10 @@ class Server:
         Raises the fault of a worker that stopped on one, a watchdog
         trip a worker met (once), and the device supervisor's fault
         while it holds the pipeline (LOST, RECOVERING): held evals stay
-        in the broker, and waiting on them would only time out."""
+        in the broker, and waiting on them would only time out.  While
+        it holds, the raise waits (at most HOLD_SETTLE_S) until the
+        workers met by the trip have nacked their leases and recorded
+        it (`_held_fault`)."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             for worker in self.workers:
@@ -713,7 +719,7 @@ class Server:
                     worker.tripped = None
                     raise tripped
             if self.device_supervisor.holding():
-                raise self.device_supervisor.fault()
+                raise self._held_fault(deadline)
             if (
                 self.broker.ready_count() == 0
                 and self.broker.stats["total_unacked"] == 0
@@ -722,3 +728,27 @@ class Server:
                 return True
             time.sleep(0.01)
         return False
+
+    def _held_fault(self, deadline: float) -> BaseException:
+        """What drain_to_idle raises while the supervisor holds.  The
+        watchdog's thread sets LOST before the worker that met the trip
+        has nacked its gulp, so first wait (until HOLD_SETTLE_S or the
+        caller's deadline) for the broker's unacked leases to reach 0,
+        then for each worker's `settling` lock, held from its nack to
+        its record of the trip.  A trip a worker recorded is raised
+        (once) before the supervisor's fault; past the bound the
+        supervisor's fault is raised as it stands."""
+        settle = min(deadline, time.monotonic() + HOLD_SETTLE_S)
+        while (self.broker.stats["total_unacked"]
+               and time.monotonic() < settle):
+            time.sleep(0.01)
+        for worker in self.workers:
+            lock = getattr(worker, "settling", None)
+            if lock is not None and lock.acquire(
+                    timeout=max(0.0, settle - time.monotonic())):
+                lock.release()
+            tripped = worker.tripped
+            if tripped is not None:
+                worker.tripped = None
+                return tripped
+        return self.device_supervisor.fault()

@@ -537,6 +537,61 @@ def test_wedge_launch_raises_device_timeout(monkeypatch):
             server.stop()
 
 
+@pytest.mark.parametrize("nack", ["late", "never"])
+def test_drain_raises_the_trip_once_its_gulp_is_back(monkeypatch, nack):
+    """The watchdog's thread sets LOST before the worker met by the trip
+    has nacked its gulp.  With that nack delayed 0.3 s, drain_to_idle
+    still raises the trip only once all six evals are back in the broker
+    and the worker has counted it; when the nack never comes, it raises
+    the supervisor's fault within its bound all the same."""
+    from nomad_tpu_torch.server import server as tserver
+    from nomad_tpu_torch.server.batch_worker import BatchWorker
+
+    release = threading.Event()
+    through = BatchWorker._abandon_leases
+
+    def delayed(self, held):
+        if nack == "late":
+            time.sleep(0.3)
+        else:
+            release.wait(30)
+        return through(self, held)
+
+    monkeypatch.setattr(BatchWorker, "_abandon_leases", delayed)
+    server, sup = faulted_server(monkeypatch, "wedge_launch")
+    try:
+        for node in make_nodes(TORCH, 12):
+            server.register_node(node)
+        jobs = make_jobs(TORCH, 6, "settle")
+        for job in jobs:
+            server.register_job(job)
+        worker = server.workers[0]
+        t0 = time.monotonic()
+        with pytest.raises(DeviceTimeout) as info:
+            server.drain_to_idle(30)
+        seen = (server.broker.ready_count(),
+                server.broker.stats["total_unacked"], worker.trips)
+        assert info.value.stage == "launch"
+        assert sup.state() == LOST
+        if nack == "late":
+            assert seen == (6, 0, 1)
+            assert time.monotonic() - t0 < 10.0
+            no_eval_lost(server, jobs)
+            # the trip was raised once: now the supervisor's fault
+            with pytest.raises(DeviceTimeout):
+                server.drain_to_idle(1)
+        else:
+            assert seen[1] > 0 and seen[2] == 0  # the gulp is still out
+            assert time.monotonic() - t0 < 10.0 + tserver.HOLD_SETTLE_S
+            release.set()
+            assert wait_until(lambda: worker.trips == 1)
+            assert wait_until(lambda: server.broker.ready_count() == 6)
+            no_eval_lost(server, jobs)
+    finally:
+        release.set()
+        server.stop()
+
+
 def test_slow_fetch_trip_commits_nothing_then_recovers(monkeypatch):
     want = run_unfaulted(TorchServer, TORCH, 12, 6, "slow", 7,
                          device="cpu")

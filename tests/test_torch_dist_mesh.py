@@ -141,6 +141,110 @@ def test_patch_rows_hostlocal_checks_its_staging():
     assert torch.equal(got, want)
 
 
+def _bits(a):
+    a = np.ascontiguousarray(a)
+    return a.view(np.int64 if a.dtype == np.float64 else np.int32)
+
+
+def _jax_hostlocal_cols(d, host, rows, vals):
+    """The JAX `patch_rows_hostlocal` of a dirty set applied column by
+    column on its d-device mesh ([K, C]); `vals` [K, n] follow `rows`."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from nomad_tpu.ops.batch import (
+        hostlocal_staging as jax_staging,
+        patch_rows_hostlocal as jax_patch,
+    )
+
+    C = host.shape[1]
+    jmesh = _jax_mesh(d)
+    sharding = NamedSharding(jmesh, P("nodes"))
+    stack, per_dev, w = jax_staging(jmesh, rows, C)
+    out = []
+    for h, v in zip(host, vals):
+        jvals = np.zeros((d, w), h.dtype)
+        for dev, sel in enumerate(per_dev):
+            jvals[dev, :len(sel)] = v[np.searchsorted(rows, sel)]
+        out.append(np.asarray(jax_patch(jmesh)(
+            jax.device_put(h, sharding), jax.device_put(stack, sharding),
+            jax.device_put(jvals, sharding))))
+    return np.stack(out)
+
+
+def _hostlocal_stack(mesh, rows, vals, C):
+    """This process's [L, w] staging and [K, L, w] values of a dirty set."""
+    stack, per_dev, w = tbatch.hostlocal_staging(mesh, rows, C)
+    local = list(mesh.local_shards)
+    vstack = np.zeros((len(vals), len(local), w), vals.dtype)
+    for i, d in enumerate(local):
+        pos = np.searchsorted(rows, per_dev[d])
+        vstack[:, i, :len(pos)] = vals[:, pos]
+    return stack[local], vstack
+
+
+@pytest.mark.parametrize("layout", ("clones", "views"))
+@pytest.mark.parametrize("dtype", (np.float64, np.float32))
+@pytest.mark.parametrize("n_dirty", (8, 1024))
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_stacked_hostlocal_twin_matches_jax_per_column(d, n_dirty, dtype,
+                                                       layout):
+    """`patch_rows_hostlocal_cols_twin` (K15's stacked twin) of
+    three columns from one [L, w] staging and [3, L, w] values equals
+    the JAX `patch_rows_hostlocal` column by column, on a VirtualMesh
+    and on a rank holding shards 2 and 3 of 4 (its rows of the JAX
+    result), with the shards as clones or as views of one block; a CPU
+    `RowPatch.flush` of the same dirty set gives the same."""
+    C = 2048
+    host, rows, vals = torch_mesh_ranks.flush_case(1600 + d + n_dirty, C,
+                                                   n_dirty, dtype)
+    want = _jax_hostlocal_cols(d, host, rows, vals)
+    meshes = [(VirtualMesh(d, "cpu"), slice(None))]
+    if d == 4:
+        rank = VirtualMesh(4, "cpu")
+        rank.local_shards = (2, 3)
+        meshes.append((rank, slice(C // 2, C)))
+    for mesh, rows_of in meshes:
+        for run in ("cols", "flush"):
+            cols = tuple(
+                (mesh.shard if layout == "clones" else
+                 lambda t, m=mesh: mesh_put(m, t))(torch.from_numpy(h.copy()))
+                for h in host)
+            if run == "cols":
+                stack, vstack = _hostlocal_stack(mesh, rows, vals, C)
+                tbatch.patch_rows_hostlocal_cols_twin(
+                    mesh, cols, torch.from_numpy(stack),
+                    torch.from_numpy(vstack))
+            else:
+                tbatch.RowPatch(mesh, cols, hostlocal=True).flush(
+                    rows, tuple(vals), C)
+            got = np.stack([torch.cat(c.shards).numpy() for c in cols])
+            assert np.array_equal(_bits(got), _bits(want[:, rows_of])), run
+
+
+def test_stacked_hostlocal_drops_padding_and_negative_rows():
+    mesh = VirtualMesh(2, "cpu")
+    cols = tuple(mesh.shard(torch.zeros(16, dtype=torch.float64))
+                 for _ in range(3))
+    idx = torch.full((2, 8), 8, dtype=torch.int32)  # padding: shard size
+    vals = torch.zeros((3, 2, 8), dtype=torch.float64)
+    idx[0, 0], idx[1, 0], idx[1, 1] = 3, -1, 7
+    vals[:, 0, 0] = torch.tensor([1.5, 2.5, 3.5])
+    vals[:, 1, 0] = 9.0
+    vals[:, 1, 1] = torch.tensor([4.5, 5.5, 6.5])
+    tbatch.RowPatch(mesh, cols, hostlocal=True)(idx, vals)
+    for k, col in enumerate(cols):
+        want = torch.zeros(16, dtype=torch.float64)
+        want[3], want[15] = 1.5 + k, 4.5 + k
+        assert torch.equal(mesh.unshard(col), want)
+    with pytest.raises(ValueError, match="one row per local shard"):
+        tbatch.RowPatch(mesh, cols, hostlocal=True)(idx[:1], vals[:, :1])
+    with pytest.raises(ValueError, match="one staging row a column"):
+        tbatch.patch_rows_hostlocal_cols_twin(mesh, cols, idx, vals[:2])
+    with pytest.raises(ValueError, match="on the card"):
+        tbatch.patch_rows_hostlocal_cuda(mesh, cols[0], idx, vals[0])
+
+
 def test_mesh_put_uploads_only_its_own_rows():
     """`mesh_put` cuts this process's rows on the host: a rank of
     shards 2 and 3 of 4 uploads rows [C / 2, C) and nothing else, as
@@ -351,6 +455,34 @@ def test_two_ranks_of_two_shards_equal_a_virtual_mesh_of_four(tmp_path):
                                         torch.from_numpy(idx_p),
                                         torch.from_numpy(vals_p))
         assert torch.equal(mesh.unshard(k13), patched)
+
+
+def test_two_rank_flush_equals_a_fresh_upload(tmp_path):
+    """2 gloo ranks x 2 shards: the mirror's three-column flush (one
+    staging moved once, one store: the counters), hostlocal and with the
+    replicated staging, leaves each rank's shards equal to a fresh upload
+    of the patched host columns, bit for bit."""
+    world, per = 2, 2
+    _spawn(world, torch_mesh_ranks.flush_rank_main,
+           lambda r: (r, world, str(tmp_path / "init"), str(tmp_path), per))
+    C = torch_mesh_ranks.FLUSH_C
+    cases = [(dtype, n) for dtype in (np.float64, np.float32)
+             for n in torch_mesh_ranks.FLUSH_DIRTY]
+    for rank in range(world):
+        got = torch.load(tmp_path / f"flush{rank}.pt")
+        assert got["local"] == (2 * rank, 2 * rank + 1)
+        view = VirtualMesh(world * per, "cpu")
+        view.local_shards = got["local"]
+        for kind in ("hostlocal", "replicated"):
+            for (dtype, n), (shards, steps) in zip(cases, got[kind]):
+                assert steps == (1, 1), (rank, kind, n)
+                host, rows, vals = torch_mesh_ranks.flush_case(n, C, n, dtype)
+                host[:, rows] = vals
+                for k, mine in enumerate(shards):
+                    fresh = mesh_put(view, torch.from_numpy(host[k]))
+                    for a, b in zip(mine, fresh.shards):
+                        assert np.array_equal(_bits(a.numpy()),
+                                              _bits(b.numpy())), (rank, kind)
 
 
 # -- the single-process distributed path -----------------------------------------

@@ -4,11 +4,12 @@
 K8 (csrc/canary.cu), K9 (csrc/chained_batch.cu, per-eval and shared),
 K10 (csrc/batch_plan.cu), K11 (csrc/score_all.cu), K12
 (csrc/sharded_chain.cu, the node-sharded chained planner on a
-VirtualMesh of 1, 2, 4 and 8 shards), K13 (csrc/patch_rows_sharded.cu)
+VirtualMesh of 1, 2, 4 and 8 shards), K13 (csrc/patch_rows_mesh.cu)
 and K14 (csrc/storm_sharded.cu, the node-sharded storm solve on a
 VirtualMesh of 1 and 8 shards, also equal to K5) and K15
-(csrc/patch_rows_hostlocal.cu, the per-host flush's one launch over a
-process's local shards, also equal to K13) against their plain twins,
+(csrc/patch_rows_mesh.cu, the per-host flush's one launch over a
+process's local shards, also equal to K13; both also on 16 and 64
+local shards, the table's bound) against their plain twins,
 the entry module's programs on (evals, nodes) meshes of 1 x 1,
 1 x 8 and 2 x 4 (`sharded_score_and_select`, K11 + K6, equal to K1;
 `sharded_batch_plan`, K10 an eval row, equal to K10; the dryrun equal to
@@ -554,7 +555,7 @@ def test_patch_rows_sharded_kernel_matches_twin(cuda, width, d, dtype):
     before = tbatch.patch_rows_sharded_cuda.launches
     sh = tbatch.patch_rows_sharded(mesh, mesh.shard(col), idx.to(cuda),
                                    vals.to(cuda))
-    assert tbatch.patch_rows_sharded_cuda.launches - before == d
+    assert tbatch.patch_rows_sharded_cuda.launches - before == 1  # all shards
     cmesh = VirtualMesh(d, "cpu")
     twin = tbatch.patch_rows_sharded_twin(cmesh, cmesh.shard(col), idx, vals)
     got = mesh.unshard(sh)
@@ -668,9 +669,118 @@ def test_patch_rows_hostlocal_kernel_rejects_cpu_and_too_many_shards(cuda):
     with pytest.raises(ValueError):  # a CPU staging for card shards
         tbatch.patch_rows_hostlocal_cuda(mesh, col, idx, vals)
     with pytest.raises(RuntimeError):
-        _cuda.launch_patch_rows_hostlocal(
-            [torch.zeros(1, dtype=torch.float64, device=cuda)] * 65,
-            idx.to(cuda), vals.to(cuda))
+        _cuda.RowPatchLaunch(
+            [[torch.zeros(1, dtype=torch.float64, device=cuda)] * 65], 0, True)
+
+
+# -- K13/K15 stacked: the mirror's flush, three columns in one launch -------------
+
+
+def _stacked(seed: int, width: int, dtype):
+    """Three host columns [3, C] (numpy), sorted dirty rows (three
+    quarters of W, over every shard) and their values [3, n]."""
+    rng = np.random.default_rng(seed)
+    n = max(1, width - width // 4)
+    host = rng.uniform(0.0, 1e4, (3, C))
+    rows = np.sort(rng.choice(C, n, replace=False)).astype(np.int32)
+    vals = rng.uniform(0.0, 1e4, (3, n))
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return host.astype(np_dtype), rows, vals.astype(np_dtype)
+
+
+def _staging(kind, mesh, rows, vals, width):
+    """The kernel's staging of a dirty set: replicated idx [W] (padding
+    C, two negative rows) with vals [3, W], or this view's hostlocal
+    [L, w] with [3, L, w] (a negative row in a padding slot)."""
+    if kind == "sharded":
+        idx = np.full(width, C, np.int32)
+        idx[:len(rows)] = rows
+        idx[len(rows)] = -1
+        if len(rows) + 2 < width:
+            idx[len(rows) + 1] = -C
+        v = np.zeros((3, width), vals.dtype)
+        v[:, :len(rows)] = vals
+        return idx, v
+    stack, per_dev, w = tbatch.hostlocal_staging(mesh, rows, C)
+    local = list(mesh.local_shards)
+    v = np.zeros((3, len(local), w), vals.dtype)
+    for i, s in enumerate(local):
+        pos = np.searchsorted(rows, per_dev[s])
+        v[:, i, :len(pos)] = vals[:, pos]
+        if len(pos) < w:
+            stack[s, len(pos)] = -1
+    return stack[local], v
+
+
+@pytest.mark.parametrize("layout", ["clones", "views"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("width", [8, 1024, 16384])
+@pytest.mark.parametrize("kind", ["sharded", "hostlocal"])
+def test_stacked_patch_kernel_matches_twin(cuda, kind, width, d, dtype, layout):
+    """K13 (replicated staging) and K15 (hostlocal staging) storing three
+    columns of every local shard in ONE launch: bit-equal to the stacked
+    twin on the card and on the CPU, and to the per-column kernel calls,
+    on a VirtualMesh up to the table's 64 shards and (d = 4) on a rank
+    of shards 2 and 3; a `RowPatch.flush` of the dirty set is one launch and one staging copy
+    and equals a fresh upload."""
+    from nomad_tpu_torch.parallel.mesh import Sharded, VirtualMesh, mesh_put
+
+    host, rows, vals = _stacked(width * 7 + d, width, dtype)
+    hostlocal = kind == "hostlocal"
+    one_fn = tbatch.patch_rows_hostlocal if hostlocal else tbatch.patch_rows_sharded
+    counter = (tbatch.patch_rows_hostlocal_cuda if hostlocal
+               else tbatch.patch_rows_sharded_cuda)
+    views = [(1, d)] + ([(1, 2)] if d == 4 else [])  # (rank, shards a rank)
+    for rank, per in views:
+        results = []
+        for dev in (cuda, "cpu"):
+            mesh = VirtualMesh(d, dev)
+            if per != d:
+                mesh.local_shards = tuple(range(rank * per, rank * per + per))
+            idx, v = _staging(kind, mesh, rows, vals, width)
+            it, vt = torch.from_numpy(idx), torch.from_numpy(v)
+
+            def place(h):
+                t = torch.from_numpy(h.copy())
+                return mesh.shard(t) if layout == "clones" else mesh_put(mesh, t)
+
+            cols = tuple(place(h) for h in host)
+            before = counter.launches
+            tbatch.RowPatch(mesh, cols, hostlocal=hostlocal)(
+                it.to(mesh.device), vt.to(mesh.device))
+            if dev == "cpu":
+                assert counter.launches == before
+            else:
+                assert counter.launches - before == 1
+                twin = tuple(place(h) for h in host)
+                (tbatch.patch_rows_hostlocal_cols_twin if hostlocal
+                 else tbatch.patch_rows_sharded_cols_twin)(
+                    mesh, twin, it.to(cuda), vt.to(cuda))
+                one = tuple(place(h) for h in host)
+                for k, col in enumerate(one):
+                    one_fn(mesh, col, it.to(cuda), vt[k].to(cuda))
+                assert counter.launches - before == 4
+                for other in (twin, one):
+                    for a, b in zip(cols, other):
+                        assert np.array_equal(_bits(torch.cat(a.shards)),
+                                              _bits(torch.cat(b.shards)))
+                flushed = tuple(place(h) for h in host)
+                patch = tbatch.RowPatch(mesh, flushed, hostlocal=hostlocal)
+                steps = (counter.launches, tbatch.RowPatch.copies)
+                patch.flush(rows, tuple(vals), C)
+                assert (counter.launches - steps[0],
+                        tbatch.RowPatch.copies - steps[1]) == (1, 1)
+                want = host.copy()
+                want[:, rows] = vals
+                fresh = tuple(place(h) for h in want)
+                for a, b in zip(flushed, fresh):
+                    assert np.array_equal(_bits(torch.cat(a.shards)),
+                                          _bits(torch.cat(b.shards)))
+            results.append(np.stack([torch.cat(c.shards).cpu().numpy()
+                                     for c in cols]))
+        assert np.array_equal(results[0].view(np.uint8),
+                              results[1].view(np.uint8))
 
 
 # -- K14: the node-sharded storm solve ------------------------------------------

@@ -213,12 +213,14 @@ def test_failed_kernel_launch_raises_device_fault(monkeypatch):
     monkeypatch.setattr(_cuda, "ShardedChainStages", broken)
     with pytest.raises(DeviceFault):
         tmesh.sharded_chained_plan_cuda(c)
-    monkeypatch.setattr(_cuda, "launch_patch_rows_sharded", broken)
+    monkeypatch.setattr(_cuda, "RowPatchLaunch", broken)
     sh = VirtualMesh(2, "cpu").shard(torch.zeros(C, dtype=torch.float64))
     with pytest.raises(DeviceFault):
         tbatch.patch_rows_sharded_cuda(
             cpu_mesh, sh, torch.tensor([1], dtype=torch.int32),
             torch.ones(1, dtype=torch.float64))
+    with pytest.raises(DeviceFault):
+        tbatch.RowPatch(cpu_mesh, (sh, sh, sh))
 
 
 @pytest.mark.parametrize("scenario", SHARDED_CHAIN_SCENARIOS)
@@ -263,6 +265,222 @@ def test_patch_rows_sharded_twin_matches_jax(d, width):
                                    torch.from_numpy(idx),
                                    torch.from_numpy(vals)).numpy()
     assert np.array_equal(got.view(np.int64), whole.view(np.int64))
+
+
+# -- the mirror's flush: K13 for three columns in one launch ----------------------
+
+STACK_C = 2048  # 1,024 dirty rows fit at every D
+
+
+def _stacked_case(seed, width, dtype):
+    """Three host columns [3, STACK_C] and a replicated staging of W:
+    three quarters sorted rows over every shard, two negative rows, the
+    rest padding (idx == C); vals [3, W]."""
+    rng = np.random.default_rng(seed)
+    host = rng.uniform(0.0, 1e4, (3, STACK_C)).astype(dtype)
+    n = max(1, width - width // 4)
+    idx = np.full(width, STACK_C, np.int32)
+    idx[:n] = np.sort(rng.choice(STACK_C, n, replace=False))
+    idx[n] = -1
+    if n + 2 < width:
+        idx[n + 1] = -STACK_C
+    vals = rng.uniform(0.0, 1e4, (3, width)).astype(dtype)
+    return host, idx, vals
+
+
+def _place(mesh, host, layout):
+    """One host column as `mesh`'s shards: clones (`mesh.shard`) or views
+    of one block (`mesh_put`)."""
+    from nomad_tpu_torch.parallel.mesh import mesh_put
+
+    t = torch.from_numpy(host.copy())
+    return mesh.shard(t) if layout == "clones" else mesh_put(mesh, t)
+
+
+def _jax_sharded_cols(d, host, idx, vals):
+    """The JAX `patch_rows_sharded` applied column by column on its
+    d-device mesh: [3, C]."""
+    from nomad_tpu.ops.batch import patch_rows_sharded as jax_patch
+    from nomad_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    fn = jax_patch(jax_mesh(d, eval_axis=1))
+    return np.stack([np.asarray(fn(h, idx, v)) for h, v in zip(host, vals)])
+
+
+def _bits64(a):
+    a = np.ascontiguousarray(a)
+    return a.view(np.int64 if a.dtype == np.float64 else np.int32)
+
+
+@pytest.mark.parametrize("layout", ("clones", "views"))
+@pytest.mark.parametrize("dtype", (np.float64, np.float32))
+@pytest.mark.parametrize("width", (8, 1024))
+@pytest.mark.parametrize("d", COUNTS)
+def test_stacked_sharded_twin_matches_jax_per_column(d, width, dtype, layout):
+    """`patch_rows_sharded_cols_twin` (K13's stacked twin) of three
+    columns from one replicated staging, padding and negative rows
+    dropped, equals the JAX `patch_rows_sharded` column by column, and
+    the per-column port calls, bit for bit; a CPU `RowPatch` bound to
+    the columns gives the same."""
+    host, idx, vals = _stacked_case(1400 + d + width, width, dtype)
+    want = _jax_sharded_cols(d, host, idx, vals)
+    mesh = VirtualMesh(d, "cpu")
+    before = tbatch.patch_rows_sharded_cuda.launches
+    for run in ("cols", "patch", "per_column"):
+        cols = tuple(_place(mesh, h, layout) for h in host)
+        it, vt = torch.from_numpy(idx), torch.from_numpy(vals)
+        if run == "cols":
+            assert tbatch.patch_rows_sharded_cols_twin(mesh, cols, it,
+                                                       vt) == cols
+        elif run == "patch":
+            tbatch.RowPatch(mesh, cols)(it, vt)
+        else:
+            for col, v in zip(cols, vt):
+                tbatch.patch_rows_sharded(mesh, col, it, v)
+        got = np.stack([mesh.unshard(c).numpy() for c in cols])
+        assert np.array_equal(_bits64(got), _bits64(want)), run
+    assert tbatch.patch_rows_sharded_cuda.launches == before  # twins only
+
+
+@pytest.mark.parametrize("layout", ("clones", "views"))
+@pytest.mark.parametrize("dtype", (np.float64, np.float32))
+@pytest.mark.parametrize("width", (8, 1024))
+def test_stacked_sharded_twin_on_a_rank_of_shards_2_and_3(width, dtype,
+                                                          layout):
+    """A rank holding shards 2 and 3 of 4 takes the replicated staging of
+    every shard's rows and stores only its own: its shards equal rows
+    [C / 2, C) of the JAX program on four devices."""
+    host, idx, vals = _stacked_case(1500 + width, width, dtype)
+    want = _jax_sharded_cols(4, host, idx, vals)[:, STACK_C // 2:]
+    rank = VirtualMesh(4, "cpu")
+    rank.local_shards = (2, 3)
+    cols = tuple(_place(rank, h, layout) for h in host)
+    tbatch.RowPatch(rank, cols)(torch.from_numpy(idx), torch.from_numpy(vals))
+    got = np.stack([torch.cat(c.shards).numpy() for c in cols])
+    assert np.array_equal(_bits64(got), _bits64(want))
+
+
+def test_stacked_patch_checks_its_staging():
+    mesh = VirtualMesh(2, "cpu")
+    cols = tuple(mesh.shard(torch.zeros(16, dtype=torch.float64))
+                 for _ in range(3))
+    idx = torch.full((8,), 16, dtype=torch.int32)
+    vals = torch.zeros((3, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="one staging row a column"):
+        tbatch.RowPatch(mesh, cols)(idx, vals[:2])
+    with pytest.raises(TypeError):
+        tbatch.RowPatch(mesh, cols)(idx.long(), vals)
+    with pytest.raises(TypeError):
+        tbatch.patch_rows_sharded_cols_twin(mesh, cols, idx, vals.float())
+    with pytest.raises(TypeError):
+        tbatch.RowPatch(mesh, cols[:2] + (mesh.shard(torch.zeros(16)),))
+    with pytest.raises(ValueError, match="another mesh"):
+        tbatch.RowPatch(mesh, (VirtualMesh(4, "cpu").shard(torch.zeros(16)),))
+    with pytest.raises(ValueError, match="on the card"):
+        tbatch.patch_rows_sharded_cuda(mesh, cols[0], idx, vals[0])
+
+
+def _mesh_server(mesh):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import Server
+
+    server = Server(num_schedulers=1, seed=3, batch_pipeline=True,
+                    heartbeat_ttl=1e9, device="cpu", mesh=mesh)
+    for i in range(64):
+        node = mock.node(id=f"flush-node-{i}")
+        node.node_resources.cpu = 4000 + 1000 * (i % 3)
+        server.register_node(node)
+    return server
+
+
+def _used(table):
+    return (table.cpu_used, table.mem_used, table.disk_used)
+
+
+def test_worker_flush_is_one_staging_and_equals_a_fresh_upload():
+    """A meshed worker's delta flush on a CPU VirtualMesh(4): one staging
+    buffer moved once and one store for all three usage columns (the
+    counters), and the mirror equals a fresh upload of the host columns
+    bit for bit, the rows it re-stored first spoiled on the mesh."""
+    from nomad_tpu_torch import mock
+
+    mesh = VirtualMesh(4, "cpu")
+    server = _mesh_server(mesh)
+    server.start()
+    try:
+        worker = server.workers[0]
+        table = server.store.node_table
+        worker._device_columns(table, sharded=True)
+        cold = worker._usage_cache_sharded["gen"]
+        for i in range(6):
+            job = mock.job(id=f"flush-{i}")
+            job.task_groups[0].count = 3
+            server.register_job(job)
+        assert server.drain_to_idle(60)
+        cache = worker._usage_cache_sharded
+        # replay the delta since the cold sync over spoiled rows
+        _gen, dirty = server.store.usage_delta_since(cold)
+        assert 0 < len(dirty) <= 64
+        size = table.capacity // 4
+        for col in cache["cols"][3:]:
+            for r in dirty:
+                col.shards[r // size][r % size] = -1.0
+        cache["gen"] = cold
+        flushes, copies = tbatch.RowPatch.flushes, tbatch.RowPatch.copies
+        width = tbatch.pow2_bucket(len(dirty), floor=8)
+        cols = worker._device_columns(table, sharded=True)
+        assert tbatch.RowPatch.flushes - flushes == 1
+        assert tbatch.RowPatch.copies - copies == 1
+        assert server.metrics.get_gauge("mesh.bytes_per_flush") == (
+            width * 4 + 3 * width * 8)
+        for col, host in zip(cols[3:], _used(table)):
+            assert np.array_equal(_bits64(mesh.unshard(col).numpy()),
+                                  _bits64(host))
+    finally:
+        server.stop()
+
+
+def test_flush_table_is_rebuilt_after_a_full_resync_and_a_bulk_upload(
+        monkeypatch):
+    """The mirror's `RowPatch` is bound to the usage tensors of the
+    latest full or bulk sync: a new node (a full resync) and a wide
+    churn (a bulk upload) each rebind it to the new tensors, and a delta
+    keeps it."""
+    from nomad_tpu_torch import mock
+
+    server = _mesh_server(VirtualMesh(2, "cpu"))
+    try:
+        worker = server.workers[0]
+        table = server.store.node_table
+
+        def bound():
+            cache = worker._usage_cache_sharded
+            patch = cache["patch"]
+            assert all(a is b for a, b in zip(patch.cols, cache["cols"][3:]))
+            assert len(patch.cols) == 3 and not patch.hostlocal
+            return patch
+
+        worker._device_columns(table, sharded=True)
+        first = bound()
+        worker._device_columns(table, sharded=True)  # nothing dirty
+        assert bound() is first
+        server.register_node(mock.node(id="flush-node-new"))
+        worker._device_columns(table, sharded=True)  # a full resync
+        full = bound()
+        assert full is not first
+        gen = worker._usage_cache_sharded["gen"]
+        monkeypatch.setattr(server.store, "usage_delta_since",
+                            lambda _g: (gen + 1, list(range(table.capacity))))
+        worker._device_columns(table, sharded=True)  # a bulk upload
+        bulk = bound()
+        assert bulk is not full
+        assert bulk.cols[0] is not full.cols[0]
+        monkeypatch.setattr(server.store, "usage_delta_since",
+                            lambda _g: (gen + 2, [0, 5]))
+        worker._device_columns(table, sharded=True)  # a delta
+        assert bound() is bulk
+    finally:
+        server.stop()
 
 
 def test_virtual_collectives_are_ordered_reductions():

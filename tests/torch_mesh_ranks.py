@@ -257,3 +257,71 @@ def multi_shard_rank_main(rank: int, world: int, init_file: str, out: str,
         torch.save(res, f"{out}/multi{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+# -- the mirror's flush: three columns, one staging, one launch -------------------
+
+FLUSH_C = 1024
+FLUSH_K = 3
+
+
+def flush_case(seed: int, C: int, n_dirty: int, dtype):
+    """A mirror's flush: host columns [K, C] of `dtype`, sorted dirty rows
+    (int32; spread over every shard) and their new values [K, n]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    host = rng.uniform(0.0, 1e4, (FLUSH_K, C)).astype(dtype)
+    rows = np.sort(rng.choice(C, n_dirty, replace=False)).astype(np.int32)
+    vals = rng.uniform(0.0, 1e4, (FLUSH_K, n_dirty)).astype(dtype)
+    return host, rows, vals
+
+
+FLUSH_DIRTY = (1, 20, 100)
+
+
+def flush_results(mesh, hostlocal: bool) -> list:
+    """`RowPatch.flush` of every FLUSH_DIRTY set (f64 and f32) into three
+    columns placed on `mesh` (`mesh_put`: views of one upload), this
+    process's shards; per case the flushed shards and the counters'
+    steps (flushes, copies)."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops.batch import RowPatch
+    from nomad_tpu_torch.parallel.mesh import mesh_put
+
+    out = []
+    for dtype in (np.float64, np.float32):
+        for n in FLUSH_DIRTY:
+            host, rows, vals = flush_case(n, FLUSH_C, n, dtype)
+            cols = tuple(mesh_put(mesh, torch.from_numpy(h)) for h in host)
+            patch = RowPatch(mesh, cols, hostlocal=hostlocal)
+            before = (RowPatch.flushes, RowPatch.copies)
+            patch.flush(rows, tuple(vals), FLUSH_C)
+            out.append(([[t.clone() for t in c.shards] for c in cols],
+                        (RowPatch.flushes - before[0],
+                         RowPatch.copies - before[1])))
+    return out
+
+
+def flush_rank_main(rank: int, world: int, init_file: str, out: str,
+                    per: int) -> None:
+    """A rank of `per` shards: the mirror's three-column flush, hostlocal
+    and replicated, of every FLUSH_DIRTY set."""
+    import torch
+    import torch.distributed as dist
+
+    from nomad_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(eval_axis=1, device="cpu", shards_per_rank=per)
+        res = {"local": mesh.local_shards,
+               "hostlocal": flush_results(mesh, True),
+               "replicated": flush_results(mesh, False)}
+        torch.save(res, f"{out}/flush{rank}.pt")
+    finally:
+        dist.destroy_process_group()
