@@ -37,16 +37,24 @@ Phases (any failure exits non-zero):
    and 8 shards on the one card, K13 at W = 1,024, K14 on the storm
    phase's own problem at D = 1 and 8, the entry phase's two programs on
    its 2 x 4 mesh (the select also at 1 x 1 and 1 x 8); for K4, K13 and
-   K15 also the nearest single PyTorch call (`index_copy_`).  This phase
-   runs last.
+   K15 also the nearest single PyTorch call (`index_copy_`).  K4, K8,
+   K13 and K15 are timed as their paths launch them (bound once), beside
+   the checked per-call entry point and the library call; the mirrors'
+   three-column flush and the canary's probe also on the host clock,
+   from staging to synchronize.  This phase runs last.
 6. Kernel K3 (the chained E x P planner, csrc/chained_picks.cu) against
    its twin over every chained scenario of `ops/cases.py`, at a
    16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
    (8, 64)}, f64 and f32: rows, pulls and every carry-out column
    bit-equal to the twin on the card (f64 and f32) and on the CPU
    (f64); a chain cut into chunks equals the single launch.
-7. Kernel K4 (the usage-mirror patch, csrc/patch_rows.cu) against its
-   twin at W in {8, 1024, 16384} with padding idx == C, bit-equal.
+7. Kernel K4 (the usage-mirror patch, the one-shard case of K13 in
+   csrc/patch_rows_mesh.cu) against its twin at W in {8, 1024, 16384}
+   with padding idx == C, bit-equal; then the unsharded mirror's bound
+   three-column flush (`RowPatch` over plain columns) at W in {8, 128,
+   1024, 2048}, f64 and f32, padding dropped: bit-equal to the twin's
+   flush and to three per-column K4 calls, one launch and one staging
+   copy a flush.
 8. The main path: the port's batched `Server()` (BatchWorker, K3 and K4
    on the card) on the same 10,000-node / 100,000-alloc cluster after
    `warm_shapes()`, fed 416 jobs (384 count-10 service jobs, 16 with a
@@ -56,7 +64,8 @@ Phases (any failure exits non-zero):
    explain capture off, as earlier versions ran it), and its first
    48 jobs through a sequential Server running the host oracle.  The
    placements must be identical, the batched worker must have prescored
-   evals with no errors, and K3 and K4 must have been launched.
+   evals with no errors, and K3 and K4 must have been launched: each
+   delta flush of the usage mirror one staging copy and one K4 launch.
 k5. Kernel K5 (the global storm solve, csrc/storm_solve.cu) against its
    twin on the card and on the CPU for every storm scenario of
    `ops/cases.py` and its weighted ones (policy rows: weighted, mixed,
@@ -123,13 +132,16 @@ bridge. The Go bridge path: the port's batched `Server()` on the card
 k8. Kernel K8 (the device supervisor's canary, csrc/canary.cu: a + 1 and
    its sum) against its twin on the card and on the CPU, n in {1, 8,
    1024}, f64 and f32: out and the sum bit-equal; ones(8) gives exactly
-   16.0.
+   16.0.  The same through the bound probe (`ops.canary.CanaryProbe`:
+   inputs, outputs and sum in mapped host memory, one launch a probe).
 device. The device supervisor on the same 10,000-node / 100,000-alloc
    cluster: (1) the batched `Server()` on the card with a 0.5 s probe
    interval drains the first 96 jobs of phase 8's stream: HEALTHY
    throughout, at least 4 canaries (K8 launches) and no watchdog trip,
    placements equal to a port Server's on the CPU; probe latency
-   p50/p99; (2) phase 8's 416 jobs with NOMAD_TPU_SUPERVISOR=0 and with
+   p50/p99; an idle supervisor's probes after its first, in a process
+   of its own: one K8 launch each, no device allocation, no copy (the
+   profiler's events); (2) phase 8's 416 jobs with NOMAD_TPU_SUPERVISOR=0 and with
    the supervisor on: placements/s of each, placements equal; (3)
    NOMAD_TPU_FAULT=flaky:3: HEALTHY -> DEGRADED -> LOST -> RECOVERING
    -> HEALTHY with K8 answering once the injected failures end; the 96
@@ -306,6 +318,7 @@ CPU_STORM_NACK_S = 2 * STORM_DRAIN_S  # the CPU storm runs' broker lease
 STORM_ROWS = (8, 1024)  # phase k5's A
 CHAIN_SHAPES = ((2, 16), (8, 64))  # phase 6's (E, P)
 PATCH_WIDTHS = (8, 1024, 16_384)  # phase 7's W
+FLUSH_WIDTHS = (8, 128, 1024, 2048)  # phase 7's three-column flush W
 WALK_WIDTHS = (8, 1024, 16_384)  # phase k6's C
 PREEMPT_JOBS = 10  # the preempt phase's priority-80 jobs
 POLICY_ORACLE_STEPS = 4  # the policy phase's host-oracle prefix
@@ -1119,9 +1132,59 @@ def check_k4(cuda) -> dict:
             check(bool((_bits(on_card) == _bits(twin)).all()), f"{tag}: kernel != twin")
             max_err = max(max_err, _max_abs(on_card, twin))
             n_cases += 1
-    print(f"K4: {n_cases} cases exact (f64 and f32, padding dropped), "
+    # the unsharded mirror's delta flush: three columns, one staging
+    # buffer, one copy, one bound launch (the W dirty rows' pow2 bucket)
+    saved = (tbatch.patch_rows_cuda.launches, tbatch.RowPatch.flushes,
+             tbatch.RowPatch.copies)
+    n_flush = 0
+    for dtype in (torch.float64, torch.float32):
+        for width in FLUSH_WIDTHS:
+            rng = np.random.default_rng(4400 + width)
+            base = [torch.from_numpy(rng.uniform(0.0, 1e4, C_CHECK)).to(dtype)
+                    for _ in range(3)]
+            n = width - width // 4
+            rows = np.sort(rng.choice(C_CHECK, n, replace=False)).astype(np.int32)
+            vals = rng.uniform(0.0, 1e4, (3, n))
+            cols = tuple(b.to(cuda) for b in base)
+            patch = tbatch.RowPatch(None, cols)
+            before = (tbatch.patch_rows_cuda.launches, tbatch.RowPatch.copies)
+            nbytes = patch.flush(rows, tuple(vals), C_CHECK)
+            torch.cuda.synchronize()
+            steps = (tbatch.patch_rows_cuda.launches - before[0],
+                     tbatch.RowPatch.copies - before[1])
+            tag = f"K4 flush {dtype} W={width}"
+            check(steps == (1, 1), f"{tag}: {steps} launches and copies, not one each")
+            item = base[0].element_size()
+            check(nbytes == width * 4 + 3 * width * item,
+                  f"{tag}: staged {nbytes} bytes")
+            twin = tuple(b.clone() for b in base)
+            tbatch.RowPatch(None, twin).flush(rows, tuple(vals), C_CHECK)
+            # the per-column calls the flush replaces, on the card
+            idx = np.full(width, C_CHECK, np.int32)
+            idx[:n] = rows
+            idx_t = torch.from_numpy(idx).to(cuda)
+            per_col = []
+            for b, v in zip(base, vals):
+                padded = np.zeros(width)
+                padded[:n] = v
+                per_col.append(tbatch.patch_rows(
+                    b.to(cuda), idx_t, torch.from_numpy(padded).to(dtype).to(cuda)))
+            torch.cuda.synchronize()
+            for got, want, other in zip(cols, twin, per_col):
+                check(bool((_bits(got) == _bits(want)).all()),
+                      f"{tag}: the flush != the twin's flush")
+                check(bool((_bits(got) == _bits(other)).all()),
+                      f"{tag}: the flush != three per-column K4 calls")
+                max_err = max(max_err, _max_abs(got, want))
+            n_flush += 1
+    (tbatch.patch_rows_cuda.launches, tbatch.RowPatch.flushes,
+     tbatch.RowPatch.copies) = saved
+    print(f"K4: {n_cases} cases exact (f64 and f32, padding dropped); the "
+          f"bound three-column flush: {n_flush} cases (W in "
+          f"{list(FLUSH_WIDTHS)}) bit-equal to the twin's flush and to the "
+          f"per-column calls, one launch and one staging copy each; "
           f"max_abs_err={max_err}", flush=True)
-    return {"max_abs_err": max_err, "cases": n_cases}
+    return {"max_abs_err": max_err, "cases": n_cases, "flush_cases": n_flush}
 
 
 # ---------------------------------------------------------------------------
@@ -1219,11 +1282,15 @@ def check_server(cuda, card: str) -> dict:
         log(f"  warm_shapes {time.perf_counter() - t0:.1f}s")
         tbatch.chained_picks_cuda.launches = 0
         tbatch.patch_rows_cuda.launches = 0
+        flushes0 = (tbatch.RowPatch.flushes, tbatch.RowPatch.copies)
         batched, lat, dt, placed = drive_server(server, server_stream(), "batched")
         launches = {
             "chained_picks": tbatch.chained_picks_cuda.launches,
             "patch_rows": tbatch.patch_rows_cuda.launches,
         }
+        # the usage mirror's delta flushes and their staging copies
+        flushes = (tbatch.RowPatch.flushes - flushes0[0],
+                   tbatch.RowPatch.copies - flushes0[1])
         stats = {k: getattr(worker, k) for k in (
             "prescored", "fallbacks", "errors", "cold_shape_fallbacks",
             "preempt_passthroughs", "replay_speculative",
@@ -1241,6 +1308,11 @@ def check_server(cuda, card: str) -> dict:
     print(f"main path (batched Server, cuda): launches {launches}; {stats}; "
           f"timings (s) {json.dumps({k: round(v, 4) for k, v in timings.items()})}",
           flush=True)
+    print(f"main path: {flushes[0]} delta flushes of the usage mirror, "
+          f"{flushes[1]} staging copies and {launches['patch_rows']} K4 "
+          f"launches: {flushes[1] / max(1, flushes[0]):.0f} copy and "
+          f"{launches['patch_rows'] / max(1, flushes[0]):.0f} launch a flush",
+          flush=True)
     check(stats["errors"] == 0, f"the batched worker counted {stats['errors']} errors")
     # the supervisor is live on the card and its guards never tripped
     check(stats["supervisor"]["enabled"] and stats["supervisor"]["state"] == "HEALTHY"
@@ -1255,6 +1327,11 @@ def check_server(cuda, card: str) -> dict:
     check(stats["cold_shape_fallbacks"] == 0, "a chunk waited on a cold shape")
     check(launches["chained_picks"] > 0, "K3 was not launched on the main path")
     check(launches["patch_rows"] > 0, "K4 was not launched on the main path")
+    check(flushes[0] > 0 and flushes[1] == flushes[0]
+          and launches["patch_rows"] == flushes[0],
+          f"the mirror's delta flushes were not one copy and one K4 launch "
+          f"each: {flushes[0]} flushes, {flushes[1]} copies, "
+          f"{launches['patch_rows']} launches")
 
     from nomad_tpu_torch.explain import EXPLAIN
 
@@ -1306,6 +1383,7 @@ def check_server(cuda, card: str) -> dict:
         flush=True,
     )
     return {"launches": launches, "placements_per_s": rate,
+            "flushes": flushes[0],
             "p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99),
             "seq_placements_per_s": placed / seq_dt, "stats": stats,
             "timings": timings, "wall_s": dt, "busy": busy,
@@ -2482,10 +2560,42 @@ def check_k8(cuda) -> dict:
             cases += 1
         _out, total = tcanary.canary_cuda(torch.ones(8, dtype=dtype, device=cuda))
         check(float(total) == 16.0, f"K8 on ones(8) gave {float(total)}, not 16.0")
+    # the supervisor's bound probe: the same kernel from mapped host memory
+    bound = 0
+    for dtype in (torch.float64, torch.float32):
+        for n in K8_SIZES:
+            a = torch.from_numpy(np.random.default_rng(8800 + n).normal(size=n))
+            a = a.to(dtype)
+            probe = tcanary.CanaryProbe(cuda, values=a, dtype=dtype)
+            try:
+                before = tcanary.canary_cuda.launches
+                total = probe.probe()
+                out = torch.from_numpy(probe.out())
+                check(tcanary.canary_cuda.launches == before + 1,
+                      f"the bound probe made {tcanary.canary_cuda.launches - before} launches")
+            finally:
+                probe.close()
+            t_out, t_total = tcanary.canary_plain(a)
+            check(np.array_equal(_bits(out), _bits(t_out)),
+                  f"the bound K8's out differs from the twin (n={n}, {dtype})")
+            check(np.array_equal(_bits(torch.tensor([total], dtype=dtype)),
+                                 _bits(t_total.reshape(1))),
+                  f"the bound K8's sum differs from the twin (n={n}, {dtype})")
+            max_err = max(max_err, _max_abs(out, t_out),
+                          abs(total - float(t_total)))
+            bound += 1
+        probe = tcanary.CanaryProbe(cuda, dtype=dtype)
+        try:
+            answers = [probe.probe() for _ in range(3)]
+        finally:
+            probe.close()
+        check(answers == [16.0] * 3, f"the bound probe on ones(8) gave {answers}")
     tcanary.canary_cuda.launches = saved
     print(f"K8: {cases} cases bit-equal to the twin on the card and the CPU "
           f"(f64 and f32, n in {list(K8_SIZES)}; out and the sum in the "
-          f"kernel's order); ones(8) -> 16.0; max_abs_err={max_err}", flush=True)
+          f"kernel's order); ones(8) -> 16.0; the bound probe (mapped host "
+          f"memory, one launch) {bound} cases bit-equal to the twin, ones(8) "
+          f"-> 16.0; max_abs_err={max_err}", flush=True)
     return {"max_abs_err": max_err}
 
 
@@ -2765,10 +2875,55 @@ def _no_eval_lost(server, jobs, label: str) -> None:
         check(len(names) == len(set(names)), f"{label}: {job.id} placed twice")
 
 
+def idle_probes_main() -> int:
+    """The device phase's idle probes, in a process of their own: a
+    throwaway supervisor probes once, then 32 times back to back (one K8
+    launch each, no device allocation), then 8 times under the profiler,
+    whose events must hold their 8 kernels and no copy: the process's
+    only profiler run (a later profiler run in the main process saw no
+    kernels).  Prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(HERE))
+    from nomad_tpu_torch.device import DeviceSupervisor
+    from nomad_tpu_torch.ops import canary as tcanary
+
+    cuda = torch.device("cuda", 0)
+    sup = DeviceSupervisor(expected=True, device=cuda, probe_interval_s=3600.0)
+    sup.prepare()
+    try:
+        first = sup.probe_once()
+        mem0 = torch.cuda.memory_allocated(cuda)
+        k0 = tcanary.canary_cuda.launches
+        all_ok = all(sup.probe_once() for _ in range(32))
+        launches = tcanary.canary_cuda.launches - k0
+        mem1 = torch.cuda.memory_allocated(cuda)
+        latency = sup.status()["probe_latency_ms"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                all_ok = sup.probe_once() and all_ok
+            torch.cuda.synchronize()
+    finally:
+        sup.close()
+    events = prof.key_averages()
+    print(json.dumps({
+        "first": first, "all_ok": all_ok, "launches": launches,
+        "mem_before": mem0, "mem_after": mem1, "latency_ms": latency,
+        "seen_kernels": sum(e.count for e in events
+                            if "canary_kernel" in e.key),
+        "seen_copies": sorted(e.key for e in events
+                              if "memcpy" in e.key.lower() or e.key in (
+                                  "aten::copy_", "aten::to", "aten::_to_copy")),
+    }), flush=True)
+    return 0
+
+
 def check_device(cuda, card: str) -> dict:
     """The device supervisor on the card: steady state, the guard's cost,
     a flaky round trip, a wedged launch and the preflight."""
-    from nomad_tpu_torch.device import DeviceSupervisor, DeviceTimeout
+    from nomad_tpu_torch.device import DeviceTimeout
     from nomad_tpu_torch.device.supervisor import (
         DEGRADED, HEALTHY, LOST, RECOVERING)
     from nomad_tpu_torch.ops import canary as tcanary
@@ -2805,24 +2960,41 @@ def check_device(cuda, card: str) -> dict:
     with SPLIT("wait"):
         on_cpu = HELPERS.get("device-cpu")
     check(steady == on_cpu, "the supervised card Server and the CPU Server diverge")
-    # the same probe on an idle process: a throwaway supervisor, 32
-    # probes back to back (its launches are not the path's)
-    idle_sup = DeviceSupervisor(expected=True, device=cuda, probe_interval_s=3600.0)
-    idle_sup.prepare()
-    saved = tcanary.canary_cuda.launches
-    check(all(idle_sup.probe_once() for _ in range(32)), "an idle probe failed")
-    tcanary.canary_cuda.launches = saved
-    idle = idle_sup.status()["probe_latency_ms"]
+    # the same probe on an idle process of its own (`idle_probes_main`)
+    proc = subprocess.run(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--idle-probes"],
+        cwd=str(HERE), capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"the idle probes exited {proc.returncode}: {proc.stderr[-1500:]}")
+    idle = json.loads(lines[-1])
+    check(idle["first"] and idle["all_ok"],
+          f"an idle probe failed: {idle}")
+    check(idle["launches"] == 32,
+          f"32 idle probes made {idle['launches']} K8 launches")
+    check(idle["mem_after"] == idle["mem_before"],
+          f"32 idle probes changed the card's allocated bytes from "
+          f"{idle['mem_before']} to {idle['mem_after']}")
+    check(idle["seen_kernels"] >= 8 and not idle["seen_copies"],
+          f"8 profiled probes: {idle['seen_kernels']} K8 kernels, copies "
+          f"{idle['seen_copies']}")
+    mem0 = idle["mem_before"]
+    seen_kernels = idle["seen_kernels"]
+    idle = idle["latency_ms"]
     probe = status["probe_latency_ms"]
     out["launches"] = {"canary": launches}
     out["probe_p50_ms"], out["probe_p99_ms"] = probe["p50"], probe["p99"]
     print(f"device (1) steady state on {card}: {len(jobs)} jobs in {steady_s:.2f} s, "
           f"HEALTHY throughout, {status['canary_ok']} canaries, K8 launches "
-          f"{launches}, probe latency (a thread handoff, the upload, K8, the "
-          f"fetch on the canary's stream; host clock) p50 {probe['p50']:.3f} ms "
+          f"{launches}, probe latency (a thread handoff, one bound K8 launch "
+          f"reading and writing mapped host memory, the wait on the canary's "
+          f"stream; host clock) p50 {probe['p50']:.3f} ms "
           f"p99 {probe['p99']:.3f} ms over {probe['count']} (beside the drain, "
           f"then idle); {idle['count']} probes of an idle process: p50 "
-          f"{idle['p50']:.3f} ms p99 {idle['p99']:.3f} ms; budgets "
+          f"{idle['p50']:.3f} ms p99 {idle['p99']:.3f} ms, after the first "
+          f"one K8 launch each, no device allocation ({mem0} bytes before "
+          f"and after), and under the profiler {seen_kernels} K8 kernels "
+          f"and no copy for 8 probes; budgets "
           f"{json.dumps(status['budgets'])}; placements equal to the CPU "
           f"Server's", flush=True)
 
@@ -3152,6 +3324,23 @@ def time_kernels(cuda) -> dict:
               f", {v['launches_per_chunk']} launches a chunk"
               for k, v in out.items() if k.startswith("sharded_chained_plan_d")),
           flush=True)
+    k4, k8 = out["patch_rows"], out["canary"]
+    print(f"K4/K8 timing (f64, CUDA events; the launch as the path makes it, "
+          f"bound once) on {device_line()}: K4 ({k4['shape']}) {k4['ms']:.6f} ms, "
+          f"checked call {k4['call_ms']:.6f} ms, per-call entry point "
+          f"{k4['wrapper_ms']:.6f} ms, twin {k4['plain_ms']:.6f} ms, index_copy_ "
+          f"{k4['library_ms']:.6f} ms, bound {k4['bound_ms']:.9f} ms; the "
+          f"mirror's flush ({out['patch_rows_flush3']['shape']}) one launch "
+          f"{out['patch_rows_flush3']['ms']:.6f} ms, checked call "
+          f"{out['patch_rows_flush3']['call_ms']:.6f} ms, 3 x index_copy_ "
+          f"{out['patch_rows_flush3']['library_ms']:.6f} ms, on the host clock "
+          f"(staging, copy, launch, synchronize) "
+          f"{out['patch_rows_flush3']['flush_host_ms']:.6f} ms; K8 (ones(8)) "
+          f"bound probe launch {k8['ms']:.6f} ms, per-call entry point "
+          f"{k8['call_ms']:.6f} ms, twin {k8['plain_ms']:.6f} ms, "
+          f"torch.add(a, 1).sum() {k8['library_ms']:.6f} ms, bound "
+          f"{k8['bound_ms']:.9f} ms; the probe on the host clock (reset, "
+          f"launch, event wait, read) {k8['probe_host_ms']:.6f} ms", flush=True)
     k15 = out["patch_rows_hostlocal"]
     print(f"K13/K15 timing (f64, CUDA events; one launch a call as a flush "
           f"launches it, bound once; index_copy_ the calls a plain port would make) "
@@ -3186,6 +3375,7 @@ def time_kernels(cuda) -> dict:
                  "storm_assignment_sharded"):
         out[name] = dict(out[f"{name}_d1"], d8=out[f"{name}_d8"])
     out["patch_rows_sharded"]["flush3"] = out["patch_rows_sharded_flush3"]
+    out["patch_rows"]["flush3"] = out["patch_rows_flush3"]
     print("policy timing (f64, CUDA events): "
           + "; ".join(
               f"{k} {out[k]['ms']:.6f} ms (policy off {out[base]['ms']:.6f}), "
@@ -3251,23 +3441,43 @@ def time_walk_kernel(cuda) -> dict:
 
 
 def time_canary_kernel(cuda) -> dict:
-    """K8 at the canary's shape: ones(8) in f64 on the card; beside it
-    the twin on the card and the one PyTorch call that computes the same
-    sum (`torch.add(a, 1).sum()`).  The bound counts the 8 values read
-    and the 8 values and the sum written (136 bytes) and 15 additions."""
+    """K8 at the canary's shape: ones(8) in f64.  The launch as the
+    supervisor's probe makes it (`CanaryProbe`, bound once: its inputs,
+    outputs and sum in mapped host memory, so the time includes the
+    kernel's reads and writes across the bus), the checked per-call
+    entry point on device tensors (`canary_cuda`, which allocates the
+    outputs every call), the twin on the card and the one PyTorch call
+    that computes the same sum (`torch.add(a, 1).sum()`).  Then the
+    probe as the supervisor runs it, on the host clock (mean of 1,000:
+    the sum reset, the launch, an event and its wait, the read).  The
+    bound counts the 8 values read and the 8 values and the sum written
+    (136 bytes) and 15 additions."""
     import torch
 
     from nomad_tpu_torch.ops import canary as tcanary
 
     saved = tcanary.canary_cuda.launches
     a = torch.ones(8, dtype=torch.float64, device=cuda)
-    out = {
-        "ms": cuda_time_ms(lambda: tcanary.canary_cuda(a)),
-        "plain_ms": cuda_time_ms(lambda: tcanary.canary_plain(a)),
-        "library_ms": cuda_time_ms(lambda: torch.add(a, 1).sum()),
-        "bytes": 8 * 8 + 8 * 8 + 8,
-        "flops": 8 + 7,
-    }
+    probe = tcanary.CanaryProbe(cuda)
+    try:
+        out = {
+            "ms": cuda_time_ms(probe.launch),
+            "call_ms": cuda_time_ms(lambda: tcanary.canary_cuda(a)),
+            "plain_ms": cuda_time_ms(lambda: tcanary.canary_plain(a)),
+            "library_ms": cuda_time_ms(lambda: torch.add(a, 1).sum()),
+            "bytes": 8 * 8 + 8 * 8 + 8,
+            "flops": 8 + 7,
+            "shape": "n=8 f64",
+        }
+        for _ in range(20):
+            probe.probe()
+        reps = 1000
+        t0 = time.perf_counter()
+        answers = {probe.probe() for _ in range(reps)}
+        out["probe_host_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    finally:
+        probe.close()
+    check(answers == {16.0}, f"the timed probes answered {answers}")
     tcanary.canary_cuda.launches = saved
     return out
 
@@ -3544,7 +3754,10 @@ def time_chain_kernels(cuda) -> dict:
     and 10,000 candidates; K4 at W = 128 staged rows (the pow2 bucket
     of one such chunk's 80 placements) into a 16,384-row column, beside
     `index_copy_` of the valid prefix (the nearest single PyTorch
-    call)."""
+    call): the launch as the mirror's flush makes it (bound once,
+    unchecked), the bound patch's checked call and the per-column entry
+    point, which binds on every call; then the three-column flush
+    (`time_mirror_flush`)."""
     import numpy as np
     import torch
 
@@ -3566,6 +3779,9 @@ def time_chain_kernels(cuda) -> dict:
     idx_valid = idx_t[:n].long()
     vals = torch.from_numpy(rng.uniform(0.0, 1e4, W)).to(cuda)
     vals_valid = vals[:n].contiguous()
+    vals1 = vals.unsqueeze(0)
+    patch = tbatch.RowPatch(None, (col,))
+    ptrs = (idx_t.data_ptr(), vals1.data_ptr(), W)
     f8 = 8
     k3_pulls = int(tbatch.chained_picks_cuda(prepared)[1].sum())
     return {
@@ -3589,7 +3805,14 @@ def time_chain_kernels(cuda) -> dict:
             "library_ms": None,
         },
         "patch_rows": {
-            "ms": cuda_time_ms(lambda: tbatch.patch_rows_cuda(col, idx_t, vals)),
+            # the launch as a flush makes it: bound once, the staging's
+            # addresses and width
+            "ms": cuda_time_ms(lambda: patch.launch(*ptrs)),
+            # the bound patch's checked call on staging tensors
+            "call_ms": cuda_time_ms(lambda: patch(idx_t, vals1)),
+            # the per-column entry point, which binds on every call
+            "wrapper_ms": cuda_time_ms(
+                lambda: tbatch.patch_rows_cuda(col, idx_t, vals)),
             "plain_ms": cuda_time_ms(
                 lambda: tbatch.patch_rows_twin(col, idx_t, vals)
             ),
@@ -3599,8 +3822,83 @@ def time_chain_kernels(cuda) -> dict:
             # idx and vals read once, the valid rows written once
             "bytes": W * (4 + f8) + n * f8,
             "flops": 0,
+            "shape": f"W={W} C={C_CHECK}",
         },
+        "patch_rows_flush3": time_mirror_flush(cuda, W, n),
     }
+
+
+def time_mirror_flush(cuda, W: int, n: int) -> dict:
+    """The unsharded mirror's three-column delta flush at the main path's
+    shape (n dirty rows of the 16,384-row arena, W their pow2 bucket),
+    into three [C] columns.  Kernel only (CUDA events): one launch of a
+    bound `RowPatch` over the plain columns beside the three
+    `index_copy_` calls a plain port would make.  Then the flush as the
+    worker runs it (host clock, mean of 200): from the sorted dirty rows
+    and their values to a synchronized patched mirror, staging and copy
+    included."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch as tbatch
+
+    saved = (tbatch.patch_rows_cuda.launches, tbatch.RowPatch.flushes,
+             tbatch.RowPatch.copies)
+    rng = np.random.default_rng(9004)
+    C = C_CHECK
+    rows = np.sort(rng.choice(C, n, replace=False)).astype(np.int32)
+    cols = tuple(torch.from_numpy(rng.uniform(0.0, 1e4, C)).to(cuda)
+                 for _ in range(3))
+    vals = rng.uniform(0.0, 1e4, (3, n))
+    patch = tbatch.RowPatch(None, cols)
+    idx = np.full(W, C, np.int32)
+    idx[:n] = rows
+    v = np.zeros((3, W))
+    v[:, :n] = vals
+    idx_t = torch.from_numpy(idx).to(cuda)
+    v_t = torch.from_numpy(v).to(cuda)
+    lib_idx = torch.from_numpy(rows.astype(np.int64)).to(cuda)
+    lib_vals = torch.from_numpy(vals).to(cuda)
+
+    def library():
+        for c, lv in zip(cols, lib_vals):
+            c.index_copy_(0, lib_idx, lv)
+
+    ptrs = (idx_t.data_ptr(), v_t.data_ptr(), W)
+    out = {
+        "ms": cuda_time_ms(lambda: patch.launch(*ptrs), n=200),
+        "call_ms": cuda_time_ms(lambda: patch(idx_t, v_t), n=200),
+        "library_ms": cuda_time_ms(library, n=200),
+        "library_calls": 3,
+        # the staged indices and the three value rows read once, the dirty
+        # rows of the three columns written once
+        "bytes": W * 4 + 3 * W * 8 + 3 * n * 8,
+        "flops": 0,
+        "shape": f"K=3 W={W} C={C} (unsharded, K4), {n} dirty rows",
+    }
+    row_vals = tuple(vals)
+    before = (tbatch.patch_rows_cuda.launches, tbatch.RowPatch.flushes,
+              tbatch.RowPatch.copies)
+    for _ in range(20):
+        patch.flush(rows, row_vals, C)
+    torch.cuda.synchronize()
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        patch.flush(rows, row_vals, C)
+        torch.cuda.synchronize()
+    out["flush_host_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    steps = (tbatch.patch_rows_cuda.launches - before[0],
+             tbatch.RowPatch.flushes - before[1],
+             tbatch.RowPatch.copies - before[2])
+    check(steps == (20 + reps,) * 3,
+          f"the timed unsharded flushes were not one launch and one copy each: {steps}")
+    for c, want in zip(cols, torch.from_numpy(vals)):
+        check(bool((c.cpu()[torch.from_numpy(rows.astype(np.int64))] == want).all()),
+              "the timed unsharded flush did not store its rows")
+    (tbatch.patch_rows_cuda.launches, tbatch.RowPatch.flushes,
+     tbatch.RowPatch.copies) = saved
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5636,6 +5934,8 @@ PATH_PHASES = ("main", "server", "storm", "preempt", "policy", "bridge",
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--helper":
         return helper_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1:] == ["--idle-probes"]:
+        return idle_probes_main()
     if not os.environ.get("PYTHONHASHSEED", "").isdigit():
         # one hash seed for this process and every helper it starts
         os.environ["PYTHONHASHSEED"] = str(random.randrange(1, 2**32))
@@ -5838,7 +6138,7 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
          "nomad_tpu/ops/batch.py:766", "k2"),
         ("chained_picks", "nomad_tpu_torch/csrc/chained_picks.cu",
          "nomad_tpu/ops/batch.py:905", "k3"),
-        ("patch_rows", "nomad_tpu_torch/csrc/patch_rows.cu",
+        ("patch_rows", "nomad_tpu_torch/csrc/patch_rows_mesh.cu",
          "nomad_tpu/ops/batch.py:1091", "k4"),
         ("storm_solve", "nomad_tpu_torch/csrc/storm_solve.cu",
          "nomad_tpu/ops/solve.py:113", "k5"),
@@ -5886,10 +6186,12 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
             # eight shards of a VirtualMesh on the one card
             kernels[-1]["d8"] = {k: tm["d8"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for k in ("call_ms", "wrapper_ms"):
+        for k in ("call_ms", "wrapper_ms", "probe_host_ms"):
             if k in tm:
-                # K13/K15: the bound patch's checked call, the per-call
-                # entry point (the kernel's "ms" is the flush's launch)
+                # K4/K13/K15: the bound patch's checked call, the per-call
+                # entry point (the kernel's "ms" is the flush's launch);
+                # K8: the per-call entry point, the probe on the host
+                # clock (its "ms" is the bound probe's launch)
                 kernels[-1][k] = tm[k]
         if "flush3" in tm:
             # the mirror's three-column flush: the kernel's one launch, the

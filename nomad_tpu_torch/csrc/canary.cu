@@ -17,7 +17,12 @@
 // What bounds it on an H100: nothing the card notices — 8 values in, 8
 // and a sum out (136 bytes), 15 additions.  A launch costs its launch
 // latency; what the supervisor measures with it is whether the card
-// answers at all.
+// answers at all.  So the supervisor's probe is bound once
+// (ops/canary.py CanaryProbe): its inputs, outputs and sum live in one
+// block of mapped pinned host memory (nk_mapped_alloc), the argument
+// block points at that block's device address, and a probe is this one
+// launch, whose loads of the inputs cross the bus from host memory and
+// whose stores of out and the sum cross back: no allocation, no copy.
 //
 // Launch: one block on the caller's stream; nothing is synchronised.
 
@@ -62,7 +67,9 @@ __global__ void canary_kernel(const T* __restrict__ a, T* __restrict__ out,
 }  // namespace
 
 extern "C" int nk_canary(const CanaryArgs* a, void* stream) {
-  cudaError_t err = cudaSetDevice(a->device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != a->device) err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a->threads < 1 || a->threads > kMaxThreads ||
       (a->threads & (a->threads - 1)) != 0 || a->n < 1) {
@@ -79,6 +86,35 @@ extern "C" int nk_canary(const CanaryArgs* a, void* stream) {
         static_cast<float*>(a->sum), a->n);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// A block of `bytes` of pinned host memory mapped into the address space
+// of `device`: *host is its host address, *dev the address a kernel
+// reads and writes it at.  Freed by nk_mapped_free.
+extern "C" int nk_mapped_alloc(size_t bytes, int device, void** host,
+                               void** dev) {
+  *host = nullptr;
+  *dev = nullptr;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* h = nullptr;
+  err = cudaHostAlloc(&h, bytes, cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* d = nullptr;
+  err = cudaHostGetDevicePointer(&d, h, 0);
+  if (err != cudaSuccess) {
+    cudaFreeHost(h);
+    return static_cast<int>(err);
+  }
+  *host = h;
+  *dev = d;
+  return 0;
+}
+
+extern "C" int nk_mapped_free(void* host) {
+  return static_cast<int>(cudaFreeHost(host));
 }
 
 extern "C" const char* nk_error_string(int code) {

@@ -1,7 +1,14 @@
-// Kernels K13 and K15: the delta-sync store into every node shard this
-// process holds of K usage columns of a node-sharded mirror, in place,
-// from one staging of dirty rows:
+// Kernels K4, K13 and K15: the delta-sync store into a usage mirror of
+// K columns, in place, from one staging of dirty rows.  The mirror is
+// node-sharded (K13, K15: every node shard this process holds) or
+// plain (K4: one [C] column a usage field, the one-shard case of K13):
 //
+//   K4 (hostlocal = 0, L = 1, first = 0, size = C): the batch worker's
+//     unsharded mirror and the per-column `patch_rows`, col[idx] = vals
+//     with idx outside [0, C) dropped.  Replaces the JAX program
+//     nomad_tpu/ops/batch.py:1091 patch_rows (`col.at[idx].set(vals,
+//     mode="drop")`, one program a column).  Plain twin:
+//     nomad_tpu_torch/ops/batch.py patch_rows_twin.
 //   K13 (hostlocal = 0): a replicated staging of global rows, idx [W];
 //     shard[idx - lo] = vals where the row is the shard's.  Replaces the
 //     JAX program nomad_tpu/ops/batch.py:1130 patch_rows_sharded (one
@@ -23,8 +30,11 @@
 // idx / size - first, where `first` is the process's first shard, and
 // drops the row unless 0 <= idx and the shard is local, so padding
 // (idx == C) and other processes' rows never store; a flush reads W
-// indices, not L * W.  K15's thread t stores into shard t / w and drops
-// an index outside [0, size).  The thread then stores its row into the
+// indices, not L * W.  For K4 (one shard of C rows) the padding index
+// C divides to shard 1 and is dropped, and a negative row is dropped
+// before the division, exactly as `mode="drop"` drops both.  K15's
+// thread t stores into shard t / w and drops an index outside
+// [0, size).  The thread then stores its row into the
 // K columns through a by-value table of [K][L] shard pointers (no table
 // upload, no per-shard launch).  A plain store: the shard is
 // bit-identical to the same rows of a fresh upload, and K13 and K15
@@ -33,11 +43,11 @@
 // What bounds it on an H100: the indices and K values a staged row read
 // and the owned rows stored, a few kilobytes a flush, microseconds
 // below the launch latency; the host's path to the launch is what the
-// flush pays, so the wrapper binds the table once per mirror and a
-// flush only writes the staging pointers and W.
+// flush pays, so the wrapper binds the table once per mirror (sharded
+// or plain) and a flush only writes the staging pointers and W.
 //
 // Launch: ceil(n / 256) blocks of 256 threads on the caller's stream,
-// n = W (K13) or L * W (K15); nothing is synchronised.
+// n = W (K4, K13) or L * W (K15); nothing is synchronised.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -112,7 +112,7 @@ def run_preflight(
             )
             time.sleep(min(_RETRY_SLEEP_S, max(0.0, remaining)))
     finally:
-        sup.stop()
+        sup.close()
     return {
         "state": UNREACHABLE,
         "attempts": attempts,

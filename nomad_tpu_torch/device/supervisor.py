@@ -6,10 +6,11 @@ do inline:
 
 1. **Health probes.**  A watchdog thread launches a tiny canary kernel
    (kernel K8, ``csrc/canary.cu``: ``a + 1`` on an 8-vector and its
-   sum, uploaded, launched and fetched on a CUDA stream of the canary's
-   own, on a sacrificial thread) on a configurable cadence, so a wedged
-   card is *detected* as LOST instead of hanging whichever thread
-   touches it next.
+   sum, bound once in ``prepare()`` to mapped pinned host memory and a
+   CUDA stream of the canary's own, so a probe is one launch and a wait
+   on that stream, on a sacrificial thread) on a configurable cadence,
+   so a wedged card is *detected* as LOST instead of hanging whichever
+   thread touches it next.
 
 2. **Stage watchdogs.**  ``guard(stage, fn)`` wraps the batch worker's
    assemble/launch/fetch/storm_solve stages with deadline monitors; a
@@ -276,9 +277,12 @@ class DeviceSupervisor:
         # relaunch window passes, so its eventual finally-clear can't
         # clobber a newer attempt's in-flight flag
         self._canary_gen = 0
-        # the canary's own CUDA stream, created once (prepare()): it
-        # waits on that stream alone, never behind the workers'
+        # the canary's own CUDA stream and K8 bound to it (an
+        # ops.canary.CanaryProbe), made once in prepare(): it waits on
+        # that stream alone, never behind the workers'; close() frees
+        # the probe's host block
         self._canary_stream = None
+        self._canary_probe = None
         self.failover_count = 0
         self.recovered_count = 0
         self.watchdog_trips = 0
@@ -343,7 +347,9 @@ class DeviceSupervisor:
     # -- lifecycle -----------------------------------------------------
 
     def prepare(self) -> None:
-        """Load K8 and make the canary's stream before the first probe,
+        """Load K8, make the canary's stream and bind the probe to it
+        (`ops.canary.CanaryProbe` on ``ones(8)``, f64: its block of
+        mapped host memory allocated once) before the first probe,
         outside any bounded call: the kernels' loader builds under one
         process-wide lock, which a parked canary thread must never
         hold.  A no-op unless the canary is K8 on a card."""
@@ -354,11 +360,12 @@ class DeviceSupervisor:
             return
         import torch
 
-        from ..ops import _cuda
+        from ..ops.canary import CanaryProbe
 
-        _cuda.library("canary")
         if self._canary_stream is None:
             self._canary_stream = torch.cuda.Stream(dev)
+        if self._canary_probe is None:
+            self._canary_probe = CanaryProbe(dev, stream=self._canary_stream)
 
     def start(self) -> None:
         """Start the probe thread (no-op when no card is expected —
@@ -382,6 +389,15 @@ class DeviceSupervisor:
         self._stop.set()
         # release every sacrificial thread parked on an injected wedge
         self.faults.stop_event.set()
+
+    def close(self) -> None:
+        """Stop, and free the bound probe's host block (at once, or when
+        an attempt still parked in it returns).  A later ``start()``
+        binds a new one."""
+        self.stop()
+        probe, self._canary_probe = self._canary_probe, None
+        if probe is not None:
+            probe.close()
 
     def _probe_loop(self) -> None:
         while not self._stop.wait(self.probe_interval_s):
@@ -523,12 +539,23 @@ class DeviceSupervisor:
 
     def _default_canary(self):
         """One K8 probe, the counterpart of the JAX package's jitted
-        ``a + 1`` canary: upload ``ones(8)`` (f64, the main path's
-        mode), launch K8 on the canary's own stream and fetch the sum
-        (16.0), waiting on that stream alone.  Small enough to be free,
-        end-to-end enough (copy in, launch, copy out) to catch a wedged
-        card.  On a CPU device the twin runs (the fault-injection
-        tests)."""
+        ``a + 1`` canary on ``ones(8)`` (f64, the main path's mode),
+        answering 16.0: the bound probe sets its sum to NaN, launches K8
+        once on the canary's own stream, waits on that stream alone and
+        reads the sum.  Small enough to be free, end-to-end enough (the
+        kernel reads its inputs from host memory and writes the sum
+        back across the bus) to catch a wedged card.  On a CPU device
+        the twin runs (the fault-injection tests).
+
+        A late write of an orphaned attempt cannot pass a later probe.
+        Every attempt launches on the one canary stream, which runs its
+        launches in order, and reads the sum only after its own event,
+        recorded behind its own launch, has completed: so whatever it
+        reads was stored by its own launch or by one that came after it
+        (an orphan whose launch was enqueued late, which stores the same
+        16.0 from the same inputs).  A launch that never runs leaves the
+        event pending, so the attempt times out; one that runs without
+        storing leaves the NaN, so it fails."""
         import torch
 
         from ..ops.canary import canary
@@ -537,19 +564,11 @@ class DeviceSupervisor:
         if dev.type != "cuda":
             _out, total = canary(torch.ones(8, dtype=torch.float64))
             return float(total)
-        if self._canary_stream is None:
+        probe = self._canary_probe
+        if probe is None:
             self.prepare()
-        stream = self._canary_stream
-        host = torch.ones(8, dtype=torch.float64).pin_memory()
-        fetched = torch.empty(1, dtype=torch.float64, pin_memory=True)
-        with torch.cuda.stream(stream):
-            x = host.to(dev, non_blocking=True)
-            _out, total = canary(x)
-            fetched.copy_(total.reshape(1), non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        done.synchronize()
-        return float(fetched[0])
+            probe = self._canary_probe
+        return probe.probe()
 
     def _canary_call(self):
         self.faults.canary_hook()

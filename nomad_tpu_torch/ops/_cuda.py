@@ -34,7 +34,6 @@ SOURCES = {
     "score_select": "score_select.cu",
     "plan_picks": "plan_picks.cu",
     "chained_picks": "chained_picks.cu",
-    "patch_rows": "patch_rows.cu",
     "storm_solve": "storm_solve.cu",
     "walk_only": "walk_only.cu",
     "batch_picks": "batch_picks.cu",
@@ -304,15 +303,6 @@ class ChainedPicksArgs(ctypes.Structure):
     ]
 
 
-class PatchRowsArgs(ctypes.Structure):
-    """Mirror of `PatchRowsArgs` in csrc/patch_rows.cu."""
-
-    _fields_ = [
-        ("col", _P), ("idx", _P), ("vals", _P),
-        ("C", _I), ("W", _I), ("is_f64", _I), ("device", _I),
-    ]
-
-
 def _ptr(t) -> int:
     """Device address of an optional tensor (0 for an absent one)."""
     return 0 if t is None else t.data_ptr()
@@ -409,18 +399,6 @@ def launch_chained_picks(p, used_out, ports_out, devs_out, rows, pulls,
     args.is_f64 = int(cols[0].dtype == torch.float64)
     args.device = dev.index
     _launch("chained_picks", "nk_chained_picks", args, dev)
-
-
-def launch_patch_rows(col, idx, vals) -> None:
-    """K4 on the current stream: col[idx] = vals, out-of-range idx
-    dropped."""
-    dev = col.device
-    args = PatchRowsArgs(
-        col.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-        col.shape[0], idx.shape[0], int(col.dtype == torch.float64),
-        dev.index,
-    )
-    _launch("patch_rows", "nk_patch_rows", args, dev)
 
 
 class StormArgs(ctypes.Structure):
@@ -604,6 +582,56 @@ def launch_canary(a, out, total, *, threads: int) -> None:
         int(a.dtype == torch.float64), dev.index,
     )
     _launch("canary", "nk_canary", args, dev)
+
+
+class CanaryLaunch:
+    """K8 bound to a block of mapped pinned host memory: the library
+    allocates the block once (`nk_mapped_alloc`: ``cudaHostAlloc`` with
+    ``cudaHostAllocMapped``, its device address from
+    ``cudaHostGetDevicePointer``), laid out as the n inputs, the n
+    outputs and the sum of `dtype`; the argument block points at the
+    device address, and the stream is the one given here.  A call is one
+    launch on that stream, reading and writing host memory across the
+    bus.  `host` is the block's host address; `free` returns it."""
+
+    def __init__(self, n: int, threads: int, dtype: torch.dtype,
+                 device: torch.device, stream) -> None:
+        lib = library("canary")
+        lib.nk_mapped_alloc.argtypes = [ctypes.c_size_t, _I,
+                                        ctypes.POINTER(_P), ctypes.POINTER(_P)]
+        lib.nk_mapped_alloc.restype = _I
+        lib.nk_mapped_free.argtypes = [_P]
+        lib.nk_mapped_free.restype = _I
+        self._lib = lib
+        self._fn = _bind("canary", "nk_canary", CanaryArgs)
+        item = torch.empty((), dtype=dtype).element_size()
+        host, dev = _P(), _P()
+        code = lib.nk_mapped_alloc((2 * n + 1) * item, device.index,
+                                   ctypes.byref(host), ctypes.byref(dev))
+        if code != 0:
+            msg = lib.nk_error_string(code).decode()
+            raise RuntimeError(f"nk_mapped_alloc failed: {msg} ({code})")
+        self.host = host.value
+        d = dev.value
+        self._args = CanaryArgs(d, d + n * item, d + 2 * n * item, n,
+                                threads, int(dtype == torch.float64),
+                                device.index)
+        self._ptr = ctypes.pointer(self._args)
+        self._stream = _P(stream.cuda_stream)
+
+    def __call__(self) -> None:
+        code = self._fn(self._ptr, self._stream)
+        if code != 0:
+            msg = self._lib.nk_error_string(code).decode()
+            raise RuntimeError(f"nk_canary launch failed: {msg} ({code})")
+
+    def free(self) -> None:
+        host, self.host = self.host, None
+        if host:
+            code = self._lib.nk_mapped_free(host)
+            if code != 0:
+                msg = self._lib.nk_error_string(code).decode()
+                raise RuntimeError(f"nk_mapped_free failed: {msg} ({code})")
 
 
 _SPREAD_PTRS = dict(sp_codes="codes", sp_desired="desired",
@@ -929,7 +957,7 @@ class ShardedChainStages:
         self._go(self._proc, self.ADVANCE, e, k)
 
 
-# the table K13 and K15 take by value (kMaxCols, kMaxShards in
+# the table K4, K13 and K15 take by value (kMaxCols, kMaxShards in
 # csrc/patch_rows_mesh.cu): at most PATCH_MAX_COLS columns of
 # PATCH_MAX_SHARDS local shards
 PATCH_MAX_COLS = 4
@@ -947,9 +975,10 @@ class PatchRowsMeshArgs(ctypes.Structure):
 
 
 class RowPatchLaunch:
-    """K13 (``hostlocal=False``: a replicated staging of global rows) or
-    K15 (``hostlocal=True``: an [L, w] staging of shard-local rows)
-    bound to K columns of L local shards each: the library entry, its
+    """K13 (``hostlocal=False``: a replicated staging of global rows; K4
+    is its case of one shard, ``first`` 0) or K15 (``hostlocal=True``:
+    an [L, w] staging of shard-local rows) bound to K columns of L local
+    shards each: the library entry, its
     argument block with the [K][L] shard pointers, the process's first
     shard and the shard size, and the stream current when it is bound.
     A call writes the staging's two pointers and width and launches on
@@ -959,7 +988,7 @@ class RowPatchLaunch:
         K, L = len(shard_cols), len(shard_cols[0])
         if K > PATCH_MAX_COLS or L > PATCH_MAX_SHARDS:
             raise RuntimeError(
-                f"K13/K15 take at most {PATCH_MAX_COLS} columns of "
+                f"K4/K13/K15 take at most {PATCH_MAX_COLS} columns of "
                 f"{PATCH_MAX_SHARDS} local shards, got {K} of {L}")
         self._fn = _bind("patch_rows_mesh", "nk_patch_rows_mesh",
                          PatchRowsMeshArgs)

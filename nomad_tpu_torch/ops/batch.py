@@ -11,8 +11,10 @@ Two JAX programs of that module become hand-written CUDA kernels here:
   `spread_contribution` `:155`) -> kernel K3, `csrc/chained_picks.cu`:
   E evals x P picks in one launch, serially equivalent, with the usage,
   static-port and device-instance carries threaded from eval to eval;
-* `patch_rows` (there `:1091`) -> kernel K4, `csrc/patch_rows.cu`: the
-  scatter that keeps the batch worker's device usage mirror current;
+* `patch_rows` (there `:1091`) -> kernel K4, the one-shard case of K13
+  in `csrc/patch_rows_mesh.cu`: the scatter that keeps the batch
+  worker's device usage mirror current, its three usage columns in one
+  launch a delta flush (`RowPatch` over plain columns);
 * `batch_plan_picks_shared` (there `:1331`, a vmap of `plan_picks`
   `:735`) -> kernel K7, `csrc/batch_picks.cu`: E independent evals x P
   picks over one shared snapshot, behind the bridge's ScoreBatch;
@@ -25,10 +27,10 @@ Two JAX programs of that module become hand-written CUDA kernels here:
   BatchInputs, behind the kernel-only `kernel-batch` rate;
 * `patch_rows_sharded` (there `:1130`) -> kernel K13 and
   `patch_rows_hostlocal` (there `:1183`, with `hostlocal_staging`
-  `:1234`) -> kernel K15, both `csrc/patch_rows_mesh.cu`: the delta
-  flush of a node-sharded usage mirror, from one replicated staging
-  (one process) or from each process's own shard-local staging rows (a
-  world of several).
+  `:1234`) -> kernel K15, both `csrc/patch_rows_mesh.cu` with K4: the
+  delta flush of a node-sharded usage mirror, from one replicated
+  staging (one process) or from each process's own shard-local staging
+  rows (a world of several).
 
 Each pick scores every node against the usage and collision columns
 carried from the earlier picks, runs the rotated limited walk, and
@@ -1626,16 +1628,19 @@ def patch_rows_twin(col, idx, vals):
 
 def patch_rows_cuda(col, idx, vals):
     """K4 on the current stream: the same scatter, one thread per
-    staged index.  Returns col."""
-    from . import _cuda
-
+    staged index, as the K = 1 case of the flush's launch (K13 over one
+    shard of C rows, bound on every call).  `launches` counts K4's
+    launches, the flushes' included.  A failed build or launch raises
+    `DeviceFault`.  Returns col."""
     _check_patch(col, idx, vals)
     if col.device.type != "cuda":
         raise ValueError(f"patch_rows_cuda needs CUDA tensors, got {col.device}")
     if not col.is_contiguous():
         raise ValueError("patch_rows_cuda patches a contiguous column")
-    _cuda.launch_patch_rows(col, idx.contiguous(), vals.contiguous())
-    patch_rows_cuda.launches += 1
+    bound = _bind_row_patch(_OneShard(col.device), (_Plain((col,)),), "K4")
+    idx, vals = idx.contiguous(), vals.contiguous()
+    _launch_row_patch(bound, "K4", idx.data_ptr(), vals.data_ptr(),
+                      idx.shape[0])
     return col
 
 
@@ -1722,12 +1727,31 @@ def patch_rows_sharded_cols_twin(mesh, cols, idx, vals):
     return cols
 
 
-def _row_patch_kernel(hostlocal: bool) -> str:
-    return "K15 patch_rows_hostlocal" if hostlocal else "K13 patch_rows_sharded"
+class _OneShard:
+    """The unsharded mirror as a mesh of one shard of C rows: K4 is K13's
+    case of one shard (``first`` 0, size C)."""
+
+    n_shards = 1
+    local_shards = (0,)
+
+    def __init__(self, device) -> None:
+        self.device = device
 
 
-def _bind_row_patch(mesh, cols, hostlocal: bool):
-    """K13 (or K15, `hostlocal`) bound to the checked columns' shards on
+class _Plain(NamedTuple):
+    """A plain [C] column as the one shard of a `_OneShard` mesh (the
+    duck of `parallel.mesh.Sharded`)."""
+
+    shards: tuple
+
+
+# the launch counter and error name of each row-patch kernel
+_ROW_PATCH = {"K4": "K4 patch_rows", "K13": "K13 patch_rows_sharded",
+              "K15": "K15 patch_rows_hostlocal"}
+
+
+def _bind_row_patch(mesh, cols, kernel: str):
+    """`kernel` (K4, K13 or K15) bound to the checked columns' shards on
     the card: the [K][L] shard-pointer table built once
     (`_cuda.RowPatchLaunch`).  A failed build or bind raises
     `DeviceFault`."""
@@ -1735,65 +1759,81 @@ def _bind_row_patch(mesh, cols, hostlocal: bool):
     from . import _cuda
 
     if mesh.device.type != "cuda":
-        raise ValueError(f"{_row_patch_kernel(hostlocal)} needs a mesh on "
-                         f"the card, got {mesh.device}")
+        raise ValueError(f"{_ROW_PATCH[kernel]} needs a mesh on the card, "
+                         f"got {mesh.device}")
     for col in cols:
         for t in col.shards:
             if not t.is_contiguous():
                 raise ValueError("a row patch stores into contiguous shards")
     try:
         return _cuda.RowPatchLaunch([col.shards for col in cols],
-                                    mesh.local_shards[0], hostlocal)
+                                    mesh.local_shards[0], kernel == "K15")
     except RuntimeError as exc:  # a build, bind or table failure
-        raise DeviceFault(f"{_row_patch_kernel(hostlocal)} failed: "
-                          f"{exc}") from exc
+        raise DeviceFault(f"{_ROW_PATCH[kernel]} failed: {exc}") from exc
 
 
-def _launch_row_patch(bound, hostlocal: bool, idx_ptr: int, vals_ptr: int,
+def _launch_row_patch(bound, kernel: str, idx_ptr: int, vals_ptr: int,
                       width: int) -> None:
-    """One launch of a bound K13/K15 on a staging on the card, counted on
-    `patch_rows_sharded_cuda` or `patch_rows_hostlocal_cuda`.  A refused
-    launch raises `DeviceFault`."""
+    """One launch of a bound K4/K13/K15 on a staging on the card, counted
+    on `patch_rows_cuda`, `patch_rows_sharded_cuda` or
+    `patch_rows_hostlocal_cuda`.  A refused launch raises
+    `DeviceFault`."""
     try:
         bound(idx_ptr, vals_ptr, width)
     except RuntimeError as exc:
         from ..device.core import DeviceFault
 
-        raise DeviceFault(f"{_row_patch_kernel(hostlocal)} failed: "
-                          f"{exc}") from exc
-    if hostlocal:
-        patch_rows_hostlocal_cuda.launches += 1
-    else:
+        raise DeviceFault(f"{_ROW_PATCH[kernel]} failed: {exc}") from exc
+    if kernel == "K4":
+        patch_rows_cuda.launches += 1
+    elif kernel == "K13":
         patch_rows_sharded_cuda.launches += 1
+    else:
+        patch_rows_hostlocal_cuda.launches += 1
 
 
 class RowPatch:
-    """The delta flush of K columns of a node-sharded mirror, bound once:
-    the columns (`Sharded` tensors of `mesh`) are checked here, and on
-    the card the kernel's [K][L] shard-pointer table is built here, so a
-    flush only writes the staging and launches.  ``hostlocal=False``
-    takes a replicated staging of global rows (K13, one launch for every
-    local shard and column), ``hostlocal=True`` this process's [L, w]
-    rows of `hostlocal_staging` (K15).  A mirror rebuilds its RowPatch
-    whenever it replaces its column tensors (a full resync, a bulk
-    upload).  On a CPU mesh a call runs the twins.
+    """The delta flush of K columns of a usage mirror, bound once: the
+    columns are checked here, and on the card the kernel's [K][L]
+    shard-pointer table is built here, so a flush only writes the
+    staging and launches.  The columns are `Sharded` tensors of `mesh`
+    or, with ``mesh=None``, plain [C] tensors of the unsharded mirror
+    (K4, the one-shard case: one launch for every column).  On a mesh,
+    ``hostlocal=False`` takes a replicated staging of global rows (K13,
+    one launch for every local shard and column), ``hostlocal=True``
+    this process's [L, w] rows of `hostlocal_staging` (K15).  A mirror
+    rebuilds its RowPatch whenever it replaces its column tensors (a
+    full resync, a bulk upload).  On the CPU a call runs the twins.
 
     `flush` stages one delta (indices and K value rows in one buffer,
     pinned for the card), moves it with one copy and stores it with one
     launch.  The class counts the flushes and the staging copies; the
-    launches count on `patch_rows_sharded_cuda` (K13) and
-    `patch_rows_hostlocal_cuda` (K15).  A failed build or launch raises
-    `DeviceFault`."""
+    launches count on `patch_rows_cuda` (K4), `patch_rows_sharded_cuda`
+    (K13) and `patch_rows_hostlocal_cuda` (K15).  A failed build or
+    launch raises `DeviceFault`."""
 
     flushes = 0  # delta flushes staged through `flush`
     copies = 0  # their staging buffers moved to the mirror's device
 
     def __init__(self, mesh, cols, hostlocal: bool = False) -> None:
         cols = tuple(cols)
-        _check_patch_cols(mesh, cols, None, None, hostlocal)
-        self.mesh = mesh
         self.cols = cols
         self.hostlocal = hostlocal
+        if mesh is None:
+            # the unsharded mirror: each column the one shard of C rows
+            if hostlocal:
+                raise ValueError("an unsharded mirror takes a replicated "
+                                 "staging, not a host-local one")
+            if not cols or not all(isinstance(t, torch.Tensor) for t in cols):
+                raise ValueError("an unsharded row patch takes [C] tensors")
+            mesh = _OneShard(cols[0].device)
+            cols = tuple(_Plain((t,)) for t in cols)
+            self.kernel = "K4"
+        else:
+            self.kernel = "K15" if hostlocal else "K13"
+        _check_patch_cols(mesh, cols, None, None, hostlocal)
+        self.mesh = mesh
+        self._shard_cols = cols
         self.dtype = cols[0].shards[0].dtype
         self._shape_k = (len(cols),)
         # the staging's leading dims: [W], or [L, w] for hostlocal
@@ -1802,23 +1842,29 @@ class RowPatch:
         self._dev = cols[0].shards[0].get_device()
         self._launch = None
         if mesh.device.type != "cpu":
-            self._launch = _bind_row_patch(mesh, cols, hostlocal)
+            self._launch = _bind_row_patch(mesh, cols, self.kernel)
 
     def __call__(self, idx, vals):
         """Store the staging (idx [W] or [L, w] int32, vals [K, *idx])
         into the columns in place, one launch on the card; returns the
         columns."""
+        mesh, cols = self.mesh, self._shard_cols
         if self._launch is None:
             if self.hostlocal:
-                return patch_rows_hostlocal_cols_twin(self.mesh, self.cols,
-                                                      idx, vals)
-            return patch_rows_sharded_cols_twin(self.mesh, self.cols, idx, vals)
+                patch_rows_hostlocal_cols_twin(mesh, cols, idx, vals)
+            elif self.kernel == "K4":
+                _check_patch_cols(mesh, cols, idx, vals, False)
+                for col, v in zip(self.cols, vals):
+                    patch_rows_twin(col, idx, v)
+            else:
+                patch_rows_sharded_cols_twin(mesh, cols, idx, vals)
+            return self.cols
         if (idx.dtype is not torch.int32 or vals.dtype is not self.dtype
                 or vals.shape != self._shape_k + idx.shape
                 or idx.dim() == 0 or idx.shape[:-1] != self._idx_lead
                 or idx.get_device() != self._dev
                 or vals.get_device() != self._dev):
-            _check_patch_cols(self.mesh, self.cols, idx, vals, self.hostlocal)
+            _check_patch_cols(mesh, cols, idx, vals, self.hostlocal)
         if not (idx.is_contiguous() and vals.is_contiguous()):
             idx, vals = idx.contiguous(), vals.contiguous()
         self.launch(idx.data_ptr(), vals.data_ptr(), idx.shape[-1])
@@ -1827,16 +1873,16 @@ class RowPatch:
     def launch(self, idx_ptr: int, vals_ptr: int, width: int) -> None:
         """The launch a flush makes, unchecked: a staging already on the
         card at these addresses (idx int32 [W] or [L, W], then vals
-        [K, *idx] of the columns' dtype, contiguous).  Card meshes only."""
-        _launch_row_patch(self._launch, self.hostlocal, idx_ptr, vals_ptr,
-                          width)
+        [K, *idx] of the columns' dtype, contiguous).  Card only."""
+        _launch_row_patch(self._launch, self.kernel, idx_ptr, vals_ptr, width)
 
     def flush(self, rows: np.ndarray, row_vals, capacity: int) -> int:
         """One delta flush: `rows` the sorted global dirty rows (int32)
         and `row_vals` the K columns' new values at them (``row_vals[k][j]``
         for ``rows[j]``).  The staging is the replicated one (idx [W]
         padded with `capacity`, W the pow2 bucket, floor 8, of the dirty
-        count) or, hostlocal, this process's rows of `hostlocal_staging`
+        count: 4 W + K W itemsize bytes, as many as an index upload and
+        K value uploads of width W) or, hostlocal, this process's rows of `hostlocal_staging`
         ([L, w], padding the shard size; a shard's sorted rows are one
         slice of `rows`); its indices and its K value rows [K, *idx]
         share one buffer, the values 8-byte aligned after the indices,
@@ -1894,9 +1940,9 @@ def patch_rows_sharded_cuda(mesh, col, idx, vals):
     counts kernel launches.  A failed build or launch raises
     `DeviceFault`.  Returns col."""
     _check_patch_cols(mesh, (col,), idx, vals.unsqueeze(0), hostlocal=False)
-    bound = _bind_row_patch(mesh, (col,), hostlocal=False)
+    bound = _bind_row_patch(mesh, (col,), "K13")
     idx, vals = idx.contiguous(), vals.contiguous()
-    _launch_row_patch(bound, False, idx.data_ptr(), vals.data_ptr(),
+    _launch_row_patch(bound, "K13", idx.data_ptr(), vals.data_ptr(),
                       idx.shape[0])
     return col
 
@@ -1973,9 +2019,9 @@ def patch_rows_hostlocal_cuda(mesh, col, idx_stack, vals_stack):
     `launches` counts kernel launches.  A failed build or launch raises
     `DeviceFault`.  Returns col."""
     _check_patch_hostlocal(mesh, col, idx_stack, vals_stack)
-    bound = _bind_row_patch(mesh, (col,), hostlocal=True)
+    bound = _bind_row_patch(mesh, (col,), "K15")
     idx, vals = idx_stack.contiguous(), vals_stack.contiguous()
-    _launch_row_patch(bound, True, idx.data_ptr(), vals.data_ptr(),
+    _launch_row_patch(bound, "K15", idx.data_ptr(), vals.data_ptr(),
                       idx.shape[1])
     return col
 

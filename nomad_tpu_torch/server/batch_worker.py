@@ -49,8 +49,9 @@ Because the kernel reproduces the sequential selection exactly
 fallback guarantees correctness for everything else.
 
 The port's device layer: the usage mirror is a set of torch tensors on
-the worker's device, patched in place through kernel K4
-(`ops.batch.patch_rows`); each chunk launches kernel K3
+the worker's device, patched in place through kernel K4 (a delta flush
+is one staging copy and one launch for the three usage columns,
+`ops.batch.RowPatch`); each chunk launches kernel K3
 (`ops.batch.chained_plan_picks_cols`) and copies its rows and pulls
 into pinned host memory behind an event.  Every launch, patch and copy
 of one worker runs on one CUDA stream, so chunk N+1 reads chunk N's
@@ -129,8 +130,8 @@ from ..ops.batch import (
     PreDeltas,
     SpreadInputs,
     StepDeltas,
+    RowPatch,
     chained_plan_picks_cols,
-    patch_rows,
     pow2_bucket as _pow2,
 )
 from ..ops.constraints import MaskCompiler
@@ -1270,11 +1271,12 @@ class BatchWorker(Worker):
         super().start()
 
     def _kernel_libraries(self) -> List[str]:
-        """The kernel libraries of this worker's guarded stages: K3 and K4,
-        K5 for storms, and on a mesh K12-K15."""
-        names = ["chained_picks", "patch_rows", "storm_solve"]
+        """The kernel libraries of this worker's guarded stages: K3, K4
+        (one library with K13 and K15), K5 for storms, and on a mesh
+        K12-K15."""
+        names = ["chained_picks", "patch_rows_mesh", "storm_solve"]
         if self._mesh_requested:
-            names += ["sharded_chain", "patch_rows_mesh", "storm_sharded"]
+            names += ["sharded_chain", "storm_sharded"]
         return names
 
     def _load_kernels(self) -> None:
@@ -4076,9 +4078,12 @@ class BatchWorker(Worker):
         changes; usage columns are patched in place through kernel K4
         from the store's dirty-row log (store.usage_delta_since):
         between consecutive flushes only the rows the interleaved plan
-        commits touched are scattered in.  Patching SETs the current
-        host values (never accumulated deltas), so the mirror is
-        bit-identical to a fresh upload.  The patch runs on the
+        commits touched are scattered in, the three usage columns with
+        ONE K4 launch from one staging copy (`ops.batch.RowPatch` over
+        the plain columns, bound at every full or bulk sync under the
+        worker's stream, which its launches then take).  Patching SETs
+        the current host values (never accumulated deltas), so the
+        mirror is bit-identical to a fresh upload.  The patch runs on the
         worker's stream behind every launch already enqueued, so no
         launch reads a row it did not expect.  Hit rate is exported as
         the ``batch_worker.input_cache_hit_rate`` gauge.
@@ -4213,36 +4218,29 @@ class BatchWorker(Worker):
             )
             cols = tuple(self._upload(col) for col in host_cols)
             bytes_up = sum(col.nbytes for col in host_cols)
-            cache = {"key": key, "gen": gen, "cols": cols}
+            cache = {"key": key, "gen": gen, "cols": cols,
+                     "patch": RowPatch(None, cols[3:])}
             self._usage_cache = cache
         else:
             gen, rows = self.store.usage_delta_since(cache["gen"])
-            cols = cache["cols"]
             host_used = (table.cpu_used, table.mem_used, table.disk_used)
             if len(rows) > max(64, table.capacity // 8):
                 # wide churn: one bulk upload beats many scatters
-                cols = cols[:3] + tuple(
-                    self._upload(col) for col in host_used
-                )
+                used = tuple(self._upload(col) for col in host_used)
+                cache["cols"] = cache["cols"][:3] + used
+                cache["patch"] = RowPatch(None, used)
                 bytes_up = sum(col.nbytes for col in host_used)
             elif rows:
+                # the sorted dirty rows padded to a pow2 bucket with C
+                # (out of range -> dropped), their three values after
+                # them: one staging buffer, one copy, one K4 launch
                 idx = np.asarray(sorted(rows), dtype=np.int32)
-                # pad the row axis to a pow2 bucket; padding indexes C
-                # (out of range -> dropped by the patch)
-                width = _pow2(len(idx), floor=8)
-                idx_p = np.full(width, table.capacity, np.int32)
-                idx_p[: len(idx)] = idx
-                idx_dev = self._upload(idx_p)
-                bytes_up += idx_p.nbytes
-                for col, src in zip(cols[3:], host_used):
-                    vals = np.zeros(width, dtype=src.dtype)
-                    vals[: len(idx)] = src[idx]
-                    bytes_up += vals.nbytes
-                    patch_rows(col, idx_dev, self._upload(vals))
+                bytes_up = cache["patch"].flush(
+                    idx, tuple(src[idx] for src in host_used),
+                    table.capacity)
                 hit = True
             else:
                 hit = True  # nothing changed since the last sync
-            cache["cols"] = cols
             cache["gen"] = gen
         if hit:
             self._input_cache_hits += 1

@@ -263,6 +263,8 @@ class Server:
         self._running = False
         self.revoke_leadership()
         self._heartbeat_deadlines.clear()
+        # the canary's bound probe (its host block); start() binds anew
+        self.device_supervisor.close()
 
     def establish_leadership(self, gen: Optional[int] = None) -> None:
         """Enable the leader-only services (reference leader.go:222):

@@ -166,11 +166,12 @@ def test_batch_worker_loads_its_kernels_before_its_stages(monkeypatch):
     monkeypatch.setattr(worker, "device", torch.device("cuda"))
     monkeypatch.setattr(Worker, "start", lambda self: order.append("thread"))
     worker.start()
-    assert order == [["chained_picks", "patch_rows", "storm_solve",
-                      "sharded_chain", "patch_rows_mesh", "storm_sharded"],
+    assert order == [["chained_picks", "patch_rows_mesh", "storm_solve",
+                      "sharded_chain", "storm_sharded"],
                      "thread"]
     plain = Server(batch_pipeline=True, device="cpu", heartbeat_ttl=1e9)
     monkeypatch.setattr(plain.workers[0], "device", torch.device("cuda"))
     order.clear()
     plain.workers[0].start()
-    assert order == [["chained_picks", "patch_rows", "storm_solve"], "thread"]
+    assert order == [["chained_picks", "patch_rows_mesh", "storm_solve"],
+                     "thread"]

@@ -1,7 +1,8 @@
 """Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
-(csrc/chained_picks.cu), K4 (csrc/patch_rows.cu), K5
+(csrc/chained_picks.cu), K4 (csrc/patch_rows_mesh.cu, per column and as
+the unsharded mirror's bound three-column flush), K5
 (csrc/storm_solve.cu), K6 (csrc/walk_only.cu), K7 (csrc/batch_picks.cu),
-K8 (csrc/canary.cu), K9 (csrc/chained_batch.cu, per-eval and shared),
+K8 (csrc/canary.cu, per call and as the supervisor's bound probe), K9 (csrc/chained_batch.cu, per-eval and shared),
 K10 (csrc/batch_plan.cu), K11 (csrc/score_all.cu), K12
 (csrc/sharded_chain.cu, the node-sharded chained planner on a
 VirtualMesh of 1, 2, 4 and 8 shards), K13 (csrc/patch_rows_mesh.cu)
@@ -215,6 +216,65 @@ def test_patch_rows_kernel_matches_twin(cuda, width, dtype):
     assert tbatch.patch_rows_cuda.launches == before + 1
     twin = tbatch.patch_rows_twin(col.clone(), idx, vals)
     assert (_bits(on_card) == _bits(twin)).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("width", [8, 128, 1024, 2048])
+def test_unsharded_flush_kernel_matches_twin_and_per_column(cuda, width, dtype):
+    """The unsharded mirror's delta flush (`RowPatch` over three plain
+    [C] columns): one staging copy and one K4 launch, bit-equal to the
+    twin's flush and to three per-column K4 calls, padding dropped."""
+    rng = np.random.default_rng(4400 + width)
+    base = [torch.from_numpy(rng.uniform(0.0, 1e4, C)).to(dtype)
+            for _ in range(3)]
+    n = width - width // 4
+    rows = np.sort(rng.choice(C, n, replace=False)).astype(np.int32)
+    vals = rng.uniform(0.0, 1e4, (3, n))
+    cols = tuple(b.to(cuda) for b in base)
+    patch = tbatch.RowPatch(None, cols)
+    steps = (tbatch.patch_rows_cuda.launches, tbatch.RowPatch.copies)
+    nbytes = patch.flush(rows, tuple(vals), C)
+    torch.cuda.synchronize()
+    assert (tbatch.patch_rows_cuda.launches - steps[0],
+            tbatch.RowPatch.copies - steps[1]) == (1, 1)
+    assert nbytes == width * 4 + 3 * width * base[0].element_size()
+    twin = tuple(b.clone() for b in base)
+    tbatch.RowPatch(None, twin).flush(rows, tuple(vals), C)
+    idx = np.full(width, C, np.int32)
+    idx[:n] = rows
+    idx = torch.from_numpy(idx).to(cuda)
+    for got, want, b, v in zip(cols, twin, base, vals):
+        padded = np.zeros(width)
+        padded[:n] = v
+        per_col = tbatch.patch_rows(b.to(cuda), idx,
+                                    torch.from_numpy(padded).to(dtype).to(cuda))
+        torch.cuda.synchronize()
+        assert (_bits(got) == _bits(want)).all()
+        assert (_bits(got) == _bits(per_col)).all()
+
+
+def test_unsharded_flush_after_a_rebind_writes_the_new_tensors(cuda):
+    """A bulk upload replaces the mirror's usage tensors and rebinds the
+    patch: the next flush stores into the new tensors and leaves the old
+    ones as they were."""
+    rng = np.random.default_rng(4499)
+    old = tuple(torch.zeros(C, dtype=torch.float64, device=cuda)
+                for _ in range(3))
+    rows = np.array([3, 77, 4096], np.int32)
+    tbatch.RowPatch(None, old).flush(rows, tuple(np.ones((3, 3))), C)
+    host = [rng.uniform(0.0, 1e4, C) for _ in range(3)]
+    new = tuple(torch.from_numpy(h).to(cuda) for h in host)
+    kept = [t.clone() for t in old]
+    rows2 = np.array([5, 16383], np.int32)
+    vals2 = rng.uniform(0.0, 1e4, (3, 2))
+    tbatch.RowPatch(None, new).flush(rows2, tuple(vals2), C)
+    torch.cuda.synchronize()
+    for t, k in zip(old, kept):
+        assert torch.equal(t, k)
+    for t, h, v in zip(new, host, vals2):
+        h = h.copy()
+        h[rows2] = v
+        assert (_bits(t) == _bits(torch.from_numpy(h))).all()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -451,6 +511,59 @@ def test_canary_kernel_answers_sixteen(cuda, dtype):
                                                 device=cuda))
     assert float(total) == 16.0 and total.dtype == dtype
     assert torch.equal(out.cpu(), torch.full((8,), 2.0, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 8, 1024, 1500])
+def test_bound_canary_probe_matches_twin(cuda, n, dtype):
+    """K8 bound to mapped host memory: out and the sum bit-equal to the
+    twin's, one launch a probe."""
+    a = torch.from_numpy(np.random.default_rng(8800 + n).normal(size=n))
+    a = a.to(dtype)
+    probe = tcanary.CanaryProbe(cuda, values=a, dtype=dtype)
+    try:
+        before = tcanary.canary_cuda.launches
+        total = probe.probe()
+        assert tcanary.canary_cuda.launches == before + 1
+        out = probe.out()
+    finally:
+        probe.close()
+    want_out, want_total = tcanary.canary_plain(a)
+    assert np.array_equal(_bits(torch.from_numpy(out)), _bits(want_out))
+    assert np.array_equal(_bits(torch.tensor([total], dtype=dtype)),
+                          _bits(want_total.reshape(1)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bound_canary_probe_answers_sixteen_without_allocating(cuda, dtype):
+    """The supervisor's probe on ones(8): 16.0 every time, one launch a
+    probe, and no device allocation after the first."""
+    probe = tcanary.CanaryProbe(cuda, dtype=dtype)
+    try:
+        assert probe.probe() == 16.0
+        mem = torch.cuda.memory_allocated(cuda)
+        before = tcanary.canary_cuda.launches
+        assert [probe.probe() for _ in range(16)] == [16.0] * 16
+        assert tcanary.canary_cuda.launches == before + 16
+        assert torch.cuda.memory_allocated(cuda) == mem
+        assert np.array_equal(probe.out(), np.full(8, 2.0))
+    finally:
+        probe.close()
+
+
+def test_supervisor_binds_its_probe_once(cuda):
+    from nomad_tpu_torch.device import DeviceSupervisor
+
+    sup = DeviceSupervisor(expected=True, device=cuda, probe_interval_s=3600.0)
+    sup.prepare()
+    probe = sup._canary_probe
+    assert probe is not None and probe.stream is sup._canary_stream
+    before = tcanary.canary_cuda.launches
+    assert all(sup.probe_once() for _ in range(4))
+    assert tcanary.canary_cuda.launches == before + 4
+    assert sup._canary_probe is probe
+    sup.close()
+    assert sup._canary_probe is None
 
 
 def test_launch_rejects_cpu_and_mixed_devices(cuda):
