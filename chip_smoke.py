@@ -1099,11 +1099,19 @@ def check_k3(cuda) -> dict:
         _same_chain((torch.cat(rows), torch.cat(pulls), carry), whole,
                     f"K3 chunked {scenario}")
         n_cut += 1
+        # the cooperative grid's answer does not depend on its size
+        full = tbatch.chained_picks_cuda.blocks
+        p = tbatch.prepare_chain(*args, **kwargs)
+        for cap in (1, 3):
+            _same_chain(tbatch.chained_picks_cuda(p, _max_blocks=cap), whole,
+                        f"K3 {scenario} on a grid of {cap} block(s)")
+        check(full > 3, f"K3 ran on a grid of {full} blocks")
     print(f"K3: {n_cases} cases exact against the twin on the card (f64 and "
           f"f32) and on the CPU (f64; rows, "
           f"pulls and the carry-out), {failed_picks} failed picks among "
-          f"them; {n_cut} chains cut into chunks equal the single launch; "
-          f"max_abs_err={max_err}", flush=True)
+          f"them; {n_cut} chains cut into chunks equal the single launch and "
+          f"the launches on grids of 1 and 3 blocks (the card's grid: {full} "
+          f"blocks); max_abs_err={max_err}", flush=True)
     return {"max_abs_err": max_err, "cases": n_cases}
 
 
@@ -3321,7 +3329,8 @@ def time_kernels(cuda) -> dict:
           f"one card, not multi-GPU scaling) on {device_line()}: " + "; ".join(
               f"{k} ({v['shape']}) {v['ms']:.6f} ms, twin {v['plain_ms']:.6f} ms, "
               f"bound {v['bound_ms']:.9f} ms ({v['bound_by']}; {v['bytes']} B)"
-              f", {v['launches_per_chunk']} launches a chunk"
+              f", {v['launches_per_chunk']} launch(es) a timed chunk, a "
+              f"grid of {v['blocks']} blocks"
               for k, v in out.items() if k.startswith("sharded_chained_plan_d")),
           flush=True)
     k4, k8 = out["patch_rows"], out["canary"]
@@ -3786,9 +3795,10 @@ def time_chain_kernels(cuda) -> dict:
     k3_pulls = int(tbatch.chained_picks_cuda(prepared)[1].sum())
     return {
         "chained_picks": {
-            # ~8 ms a launch, the twin ~50x that: 100 and 10 launches
+            # ~2-8 ms a launch, the twin ~50-200x that: 100 and 10 launches
             "ms": cuda_time_ms(lambda: tbatch.chained_picks_cuda(prepared),
                                n=100, warmup=5),
+            "blocks": tbatch.chained_picks_cuda.blocks,
             "plain_ms": cuda_time_ms(
                 lambda: tbatch.chained_picks_twin(prepared), n=10, warmup=1
             ),
@@ -4149,12 +4159,14 @@ def check_k12(cuda) -> dict:
         VirtualMesh,
         sharded_chained_plan,
         sharded_chained_plan_cuda,
+        stage_launches,
     )
 
     n_cases = placed = 0
     max_err = 0.0
     chains = 0
     chunks0 = sharded_chained_plan_cuda.chunks
+    launches0 = sharded_chained_plan_cuda.launches
     for scenario in SHARDED_CHAIN_SCENARIOS:
         case = _k12_case(scenario, *K12_SHAPE)
         for dtype, counts in ((torch.float64, K12_COUNTS), (torch.float32, (8,))):
@@ -4194,8 +4206,20 @@ def check_k12(cuda) -> dict:
               f"{tag}: rows or pulls differ from K9's")
         placed += int((cut[0] >= 0).sum())
         n_cases += 1
+    # a VirtualMesh chain is one cooperative launch
+    virtual = sharded_chained_plan_cuda.launches - launches0
+    check(virtual == chains, f"K12 made {virtual} launches for {chains} chains "
+          f"on a VirtualMesh (one cooperative launch a chain)")
+    staged0 = sharded_chained_plan_cuda.launches
     err, sweep_placed = check_sweep_chain(cuda)
-    chains += -(-tmulti.SWEEP_E // tmulti.SWEEP_CHUNK)
+    sweep_chains = -(-tmulti.SWEEP_E // tmulti.SWEEP_CHUNK)
+    chains += sweep_chains
+    # the NCCL DistMesh keeps the staged launches
+    staged = sharded_chained_plan_cuda.launches - staged0
+    want_staged = sweep_chains * stage_launches(
+        nccl_mesh(cuda), tmulti.SWEEP_CHUNK, tmulti.SWEEP_P)
+    check(staged == want_staged, f"K12 made {staged} staged launches on the "
+          f"NCCL DistMesh for {want_staged}")
     max_err = max(max_err, err)
     placed += sweep_placed
     n_cases += 1
@@ -4209,7 +4233,9 @@ def check_k12(cuda) -> dict:
           f"to one launch at D = 1 and 8; the multichip sweep's chain on "
           f"the one-rank NCCL DistMesh equal to the card twin there, to the "
           f"CPU twin at D in {K12_COUNTS} and to K9 ({sweep_placed} placed); "
-          f"{placed} placed picks; max_abs_err={max_err}", flush=True)
+          f"{placed} placed picks; {virtual} cooperative launches for as many "
+          f"VirtualMesh chains, {staged} staged launches for the NCCL "
+          f"DistMesh's {sweep_chains}; max_abs_err={max_err}", flush=True)
     return {"max_abs_err": max_err, "cases": n_cases, "chains": chains}
 
 
@@ -4346,7 +4372,9 @@ def time_sharded_kernels(cuda) -> dict:
     """K12 per chunk (E = 8, P = 10, the "plain" chain at the 16,384-row
     arena with 10,000 candidates) at D = 1 and D = 8 shards of a
     VirtualMesh on the card, timed over a prepared chain (the runner's
-    staging outside the timing; the usage carry reset before each run);
+    staging outside the timing; the launch's argument blocks filled in
+    each call, as for each chunk on the path; the usage carry reset
+    before each run), its launches counted over the timed chunks;
     K13 at W = 1,024 at D = 1 (beside `index_copy_` into the shard, the
     nearest single PyTorch call) and D = 8.  The D-shard times are one
     card holding D shards, not multi-GPU scaling."""
@@ -4392,12 +4420,22 @@ def time_sharded_kernels(cuda) -> dict:
         # the feasibility byte; the walk reads the permutation (i32) and
         # the gathered score and feasibility at it
         per_row = 7 * 8 + 4 + 1 + 8 + 1 + 4 + 8 + 1
+        # the launches of the timed chunks, counted as they run
+        launches0 = sharded_chained_plan_cuda.launches
+        chunks0 = sharded_chained_plan_cuda.chunks
+        ms = cuda_time_ms(kernel, n=10, warmup=2)
+        launches_per_chunk = ((sharded_chained_plan_cuda.launches - launches0)
+                              / (sharded_chained_plan_cuda.chunks - chunks0))
+        check(launches_per_chunk == stage_launches(mesh, E, P),
+              f"K12 made {launches_per_chunk} launches a timed chunk at "
+              f"D = {d}, for {stage_launches(mesh, E, P)}")
         out[f"sharded_chained_plan_d{d}"] = {
-            "ms": cuda_time_ms(kernel, n=10, warmup=2),
+            "ms": ms,
             "plain_ms": cuda_time_ms(twin, n=2, warmup=1),
             "bytes": E * P * N_CAND_CHECK * per_row,
             "flops": E * P * N_CAND_CHECK * FLOPS_PER_CANDIDATE,
-            "launches_per_chunk": stage_launches(mesh, E, P),
+            "launches_per_chunk": launches_per_chunk,
+            "blocks": sharded_chained_plan_cuda.blocks,
             "shape": f"E={E} P={P} D={d}",
         }
     width = 1024
@@ -4643,6 +4681,7 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
                "storm_assignment_sharded": tsolve.storm_assignment_sharded_cuda}
     for w in counted.values():
         w.launches = 0
+    sharded_chained_plan_cuda.chunks = 0
     tbatch.RowPatch.flushes = tbatch.RowPatch.copies = 0
     jobs = server_stream()[:MESH_JOBS]
     server = Server(num_schedulers=1, seed=1, batch_pipeline=True,
@@ -4700,6 +4739,14 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
               f"the meshed and the K5 storm runs diverge at {job_id}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the mesh path")
+    # a chunk on the VirtualMesh is one cooperative K12 launch (the
+    # storm run's Server may dispatch chunks of its own beside the
+    # chain run's)
+    chunks = sharded_chained_plan_cuda.chunks
+    check(launches["sharded_chained_plan"] == chunks >= stats["mesh_launches"],
+          f"the mesh path made {launches['sharded_chained_plan']} K12 launches "
+          f"for {chunks} chunks ({stats['mesh_launches']} dispatched by the "
+          f"chain run)")
     rate = placed / dt
     storm_rate = storm["placed"] / storm["seconds"]
     print(f"mesh path on {card}: VirtualMesh of {MESH_SHARDS} shards on the "
@@ -4716,7 +4763,7 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
           f"{json.dumps({k: round(v, 4) for k, v in storm['timings'].items()})}",
           flush=True)
     return {"launches": launches, "flushes": flushes, "stats": stats,
-            "placements_per_s": rate,
+            "chunks": chunks, "placements_per_s": rate,
             "storm_placements_per_s": storm_rate, "timings": timings,
             "storm_timings": storm["timings"]}
 
@@ -6130,6 +6177,9 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
     # K15's path runs in the multihost phase's processes: their counts
     multihost = results["multihost"]["launches"]
     launches["patch_rows_hostlocal"] = multihost["patch_rows_hostlocal"]
+    # the kernels redesigned as one cooperative launch a chunk
+    redesigned = {"chained_picks": "redesigned, PR 16",
+                  "sharded_chained_plan": "redesigned, PR 16"}
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -6174,6 +6224,11 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        if name in redesigned:
+            kernels[-1]["status"] = redesigned[name]
+        if "blocks" in tm:
+            # a cooperative launch's grid (1,024-thread blocks)
+            kernels[-1]["blocks"] = tm["blocks"]
         # the policy path's own count, beside the main path's
         if name in results["policy"]["launches"]:
             kernels[-1]["launches_policy"] = results["policy"]["launches"][name]
@@ -6204,6 +6259,7 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
         if name == "sharded_chained_plan":
             kernels[-1]["chunks"] = results["bench"]["launches"][
                 "sharded_chained_plan_chunks"]
+            kernels[-1]["chunks_mesh"] = results["mesh"]["chunks"]
             kernels[-1]["launches_per_chunk"] = {
                 "d1": tm["launches_per_chunk"],
                 "d8": tm["d8"]["launches_per_chunk"]}

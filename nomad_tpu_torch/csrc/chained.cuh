@@ -1,6 +1,8 @@
 // Shared device code of kernels K3 (chained_picks.cu), K9
-// (chained_batch.cu) and K10 (batch_plan.cu): one block runs the P
-// picks of one eval, with every option of the JAX pick scan.
+// (chained_batch.cu) and K10 (batch_plan.cu): the P picks of one eval,
+// with every option of the JAX pick scan.  K9 and K10 run them in one
+// block (run_eval); K3 over a cooperative grid (chained_grid.cuh), with
+// run_eval's serial steps shared.
 //
 // Replaces nomad_tpu/ops/batch.py _run_picks (:347) with per-pick group
 // routing, spread (spread_contribution :155), step deltas, pre-deltas,
@@ -372,6 +374,173 @@ __device__ __forceinline__ void spread_bump(const Chain<T>& c, int e, int t,
   }
 }
 
+// run_eval's serial steps, each on one thread; the grid chain
+// (chained_grid.cuh) runs the same ones.
+
+// 1. The eval's pre-deltas onto the node-space usage, in row order.
+template <typename T>
+__device__ void apply_pre(const Chain<T>& c, int e) {
+  const size_t b = static_cast<size_t>(e) * c.R;
+  for (int r = 0; r < c.R; ++r) {
+    const int row = c.pre_rows[b + r];
+    c.cpu_out[row] = c.cpu_out[row] + c.pre_cpu[b + r];
+    c.mem_out[row] = c.mem_out[row] + c.pre_mem[b + r];
+    c.disk_out[row] = c.disk_out[row] + c.pre_disk[b + r];
+  }
+}
+
+// 2. Walk position p of the candidate region into permuted space.
+template <typename T>
+__device__ __forceinline__ void gather_position(const Chain<T>& c, int e,
+                                                const int32_t* perm, int p) {
+  const int C = c.C;
+  const int row = perm[p];
+  c.tot_cpu[p] = c.cpu_total[row];
+  c.tot_mem[p] = c.mem_total[row];
+  c.tot_disk[p] = c.disk_total[row];
+  c.use_cpu[p] = c.cpu_out[row];
+  c.use_mem[p] = c.mem_out[row];
+  c.use_disk[p] = c.disk_out[row];
+  c.pen_p[p] = c.penalty != nullptr &&
+                       c.penalty[static_cast<size_t>(e) * C + row]
+                   ? kStaticPen
+                   : 0;
+  c.occ_p[p] = c.occ0 != nullptr ? c.occ0[static_cast<size_t>(e) * C + row]
+                                 : 0;
+  for (int g = 0; g < c.G; ++g) {
+    const size_t src = (static_cast<size_t>(e) * c.G + g) * C + row;
+    c.feas_p[g * C + p] = c.feasible[e * c.feas_es + g * C + row];
+    c.coll_p[g * C + p] = c.coll0 != nullptr ? c.coll0[src] : 0;
+    c.aff_p[g * C + p] = c.affinity != nullptr ? c.affinity[src] : T(0);
+    if (c.dev_aff != nullptr) c.daff_p[g * C + p] = c.dev_aff[src];
+  }
+  for (int s = 0; s < c.S; ++s) {
+    c.codes_p[s * C + p] =
+        c.sp_codes[(static_cast<size_t>(e) * c.S + s) * C + row];
+  }
+  for (int q = 0; q < c.Q; ++q) c.ports_p[q * C + p] = c.ports_out[q * C + row];
+  for (int d = 0; d < c.D; ++d) c.devs_p[d * C + p] = c.devs_out[d * C + row];
+}
+
+// 3a. Pick k of group t opens: its eviction and its penalty rows.
+template <typename T>
+__device__ void open_pick(const Chain<T>& c, int e, int k, int t,
+                          int n_cand) {
+  if (c.evict_rows == nullptr) return;
+  const int C = c.C;
+  const size_t ek = static_cast<size_t>(e) * c.P + k;
+  const int erow = c.evict_rows[ek];
+  if (erow >= 0) {
+    const int epos = c.inv[erow];
+    if (epos < n_cand) {
+      c.use_cpu[epos] = c.use_cpu[epos] + c.evict_cpu[ek];
+      c.use_mem[epos] = c.use_mem[epos] + c.evict_mem[ek];
+      c.use_disk[epos] = c.use_disk[epos] + c.evict_disk[ek];
+      c.coll_p[t * C + epos] = c.coll_p[t * C + epos] + c.evict_coll[ek];
+    }
+    if (c.sp_codes != nullptr) spread_bump(c, e, t, c.clr, erow, -1);
+  }
+  for (int j = 0; j < c.K; ++j) {
+    const int prow = c.penalty_rows[ek * c.K + j];
+    if (prow >= 0 && c.inv[prow] < n_cand) c.pen_p[c.inv[prow]] |= kRowPen;
+  }
+}
+
+// 3b. Pick k of group t closes on its walk: the winner's deltas, its row
+// and pulls, a failed group marked dead, the penalty rows cleared.
+// Returns the next walk offset.
+template <typename T>
+__device__ int close_pick(const Chain<T>& c, int e, int k, int t, int n_cand,
+                          int offset, int any, int win_w, int n_pulls,
+                          int32_t* rows, int32_t* pulls) {
+  const int C = c.C;
+  const size_t ek = static_cast<size_t>(e) * c.P + k;
+  const size_t sk = scalar_at(c, e, k);
+  const int32_t* perm = c.perm + static_cast<size_t>(e) * C;
+  if (any) {
+    int p = win_w + offset;
+    if (p >= n_cand) p -= n_cand;
+    rows[k] = perm[p];
+    c.use_cpu[p] = c.use_cpu[p] + c.ask_cpu[sk];
+    c.use_mem[p] = c.use_mem[p] + c.ask_mem[sk];
+    c.use_disk[p] = c.use_disk[p] + c.ask_disk[sk];
+    c.coll_p[t * C + p] = c.coll_p[t * C + p] + 1;
+    if (c.port_ask != nullptr) {
+      const uint8_t* ask =
+          c.port_ask + (static_cast<size_t>(e) * c.G + t) * c.Q;
+      for (int q = 0; q < c.Q; ++q) {
+        if (ask[q]) c.ports_p[q * C + p] = 1;
+      }
+    }
+    if (c.dev_ask != nullptr) {
+      const int32_t* ask =
+          c.dev_ask + (static_cast<size_t>(e) * c.G + t) * c.D;
+      for (int d = 0; d < c.D; ++d) {
+        c.devs_p[d * C + p] = c.devs_p[d * C + p] - ask[d];
+      }
+    }
+    if (c.sp_codes != nullptr) spread_bump(c, e, t, c.prop, 0, p);
+  } else {
+    // the scheduler coalesces a group's later placements after its
+    // first failure: that group's remaining picks are inert
+    rows[k] = kNoNode;
+    c.dead[t] = 1;
+  }
+  pulls[k] = n_pulls;
+  if (c.evict_rows != nullptr) {
+    for (int j = 0; j < c.K; ++j) {
+      const int prow = c.penalty_rows[ek * c.K + j];
+      if (prow >= 0 && c.inv[prow] < n_cand) {
+        c.pen_p[c.inv[prow]] &= kStaticPen;
+      }
+    }
+  }
+  return (offset + n_pulls) % n_cand;
+}
+
+// 4. The node-space carry, in the JAX program's order: asks of the
+// successful picks, then the applied evictions.  An active pick always
+// pulls at least one position (n_cand >= 1), so pulls > 0 marks the
+// picks whose eviction was applied.
+template <typename T>
+__device__ void rebuild_carry(const Chain<T>& c, int e, const int32_t* rows,
+                              const int32_t* pulls) {
+  const int C = c.C;
+  for (int k = 0; k < c.P; ++k) {
+    const int row = rows[k];
+    if (row < 0) continue;
+    const size_t sk = scalar_at(c, e, k);
+    const int t = group_of(c, e, k);
+    c.cpu_out[row] = c.cpu_out[row] + c.ask_cpu[sk];
+    c.mem_out[row] = c.mem_out[row] + c.ask_mem[sk];
+    c.disk_out[row] = c.disk_out[row] + c.ask_disk[sk];
+    if (c.port_ask != nullptr) {
+      const uint8_t* ask =
+          c.port_ask + (static_cast<size_t>(e) * c.G + t) * c.Q;
+      for (int q = 0; q < c.Q; ++q) {
+        if (ask[q]) c.ports_out[q * C + row] = 1;
+      }
+    }
+    if (c.dev_ask != nullptr) {
+      const int32_t* ask =
+          c.dev_ask + (static_cast<size_t>(e) * c.G + t) * c.D;
+      for (int d = 0; d < c.D; ++d) {
+        c.devs_out[d * C + row] = c.devs_out[d * C + row] - ask[d];
+      }
+    }
+  }
+  if (c.evict_rows != nullptr) {
+    for (int k = 0; k < c.P; ++k) {
+      const size_t ek = static_cast<size_t>(e) * c.P + k;
+      const int erow = c.evict_rows[ek];
+      if (pulls[k] <= 0 || erow < 0) continue;
+      c.cpu_out[erow] = c.cpu_out[erow] + c.evict_cpu[ek];
+      c.mem_out[erow] = c.mem_out[erow] + c.evict_mem[ek];
+      c.disk_out[erow] = c.disk_out[erow] + c.evict_disk[ek];
+    }
+  }
+}
+
 template <typename T>
 __device__ void run_eval(const Chain<T>& c, int e, int* sh_offset) {
   const int tid = threadIdx.x;
@@ -380,46 +549,11 @@ __device__ void run_eval(const Chain<T>& c, int e, int* sh_offset) {
   const int32_t* perm = c.perm + static_cast<size_t>(e) * C;
 
   // 1. pre-deltas onto the node-space usage, in order
-  if (c.pre_rows != nullptr && tid == 0) {
-    const size_t b = static_cast<size_t>(e) * c.R;
-    for (int r = 0; r < c.R; ++r) {
-      const int row = c.pre_rows[b + r];
-      c.cpu_out[row] = c.cpu_out[row] + c.pre_cpu[b + r];
-      c.mem_out[row] = c.mem_out[row] + c.pre_mem[b + r];
-      c.disk_out[row] = c.disk_out[row] + c.pre_disk[b + r];
-    }
-  }
+  if (c.pre_rows != nullptr && tid == 0) apply_pre(c, e);
   // 2. inverse walk order, then the candidate region in permuted space
   for (int p = tid; p < C; p += blockDim.x) c.inv[perm[p]] = p;
   __syncthreads();
-  for (int p = tid; p < n_cand; p += blockDim.x) {
-    const int row = perm[p];
-    c.tot_cpu[p] = c.cpu_total[row];
-    c.tot_mem[p] = c.mem_total[row];
-    c.tot_disk[p] = c.disk_total[row];
-    c.use_cpu[p] = c.cpu_out[row];
-    c.use_mem[p] = c.mem_out[row];
-    c.use_disk[p] = c.disk_out[row];
-    c.pen_p[p] = c.penalty != nullptr &&
-                         c.penalty[static_cast<size_t>(e) * C + row]
-                     ? kStaticPen
-                     : 0;
-    c.occ_p[p] = c.occ0 != nullptr ? c.occ0[static_cast<size_t>(e) * C + row]
-                                   : 0;
-    for (int g = 0; g < c.G; ++g) {
-      const size_t src = (static_cast<size_t>(e) * c.G + g) * C + row;
-      c.feas_p[g * C + p] = c.feasible[e * c.feas_es + g * C + row];
-      c.coll_p[g * C + p] = c.coll0 != nullptr ? c.coll0[src] : 0;
-      c.aff_p[g * C + p] = c.affinity != nullptr ? c.affinity[src] : T(0);
-      if (c.dev_aff != nullptr) c.daff_p[g * C + p] = c.dev_aff[src];
-    }
-    for (int s = 0; s < c.S; ++s) {
-      c.codes_p[s * C + p] =
-          c.sp_codes[(static_cast<size_t>(e) * c.S + s) * C + row];
-    }
-    for (int q = 0; q < c.Q; ++q) c.ports_p[q * C + p] = c.ports_out[q * C + row];
-    for (int d = 0; d < c.D; ++d) c.devs_p[d * C + p] = c.devs_out[d * C + row];
-  }
+  for (int p = tid; p < n_cand; p += blockDim.x) gather_position(c, e, perm, p);
   if (c.sp_codes != nullptr) {
     const size_t b = static_cast<size_t>(e) * c.S * c.V1;
     for (int i = tid; i < c.S * c.V1; i += blockDim.x) {
@@ -438,7 +572,6 @@ __device__ void run_eval(const Chain<T>& c, int e, int* sh_offset) {
   int32_t* rows = c.out_rows + static_cast<size_t>(e) * c.P;
   int32_t* pulls = c.out_pulls + static_cast<size_t>(e) * c.P;
   for (int k = 0; k < c.P; ++k) {
-    const size_t ek = static_cast<size_t>(e) * c.P + k;
     const size_t sk = scalar_at(c, e, k);
     const int t = group_of(c, e, k);
     // uniform across the block: dead was published by the barrier
@@ -451,23 +584,7 @@ __device__ void run_eval(const Chain<T>& c, int e, int* sh_offset) {
       }
       continue;
     }
-    if (tid == 0 && c.evict_rows != nullptr) {
-      const int erow = c.evict_rows[ek];
-      if (erow >= 0) {
-        const int epos = c.inv[erow];
-        if (epos < n_cand) {
-          c.use_cpu[epos] = c.use_cpu[epos] + c.evict_cpu[ek];
-          c.use_mem[epos] = c.use_mem[epos] + c.evict_mem[ek];
-          c.use_disk[epos] = c.use_disk[epos] + c.evict_disk[ek];
-          c.coll_p[t * C + epos] = c.coll_p[t * C + epos] + c.evict_coll[ek];
-        }
-        if (c.sp_codes != nullptr) spread_bump(c, e, t, c.clr, erow, -1);
-      }
-      for (int j = 0; j < c.K; ++j) {
-        const int prow = c.penalty_rows[ek * c.K + j];
-        if (prow >= 0 && c.inv[prow] < n_cand) c.pen_p[c.inv[prow]] |= kRowPen;
-      }
-    }
+    if (tid == 0) open_pick(c, e, k, t, n_cand);
     __syncthreads();
     if (c.sp_codes != nullptr) spread_slots(c, e, t);
     const int offset = *sh_offset;
@@ -479,92 +596,18 @@ __device__ void run_eval(const Chain<T>& c, int e, int* sh_offset) {
     const WalkOut<T> r = limited_walk<T>(n_cand, c.limit[sk], n_cand, c.s_w,
                                          c.f_w, score_at);
     if (tid == 0) {
-      if (r.any) {
-        int p = r.win_w + offset;
-        if (p >= n_cand) p -= n_cand;
-        rows[k] = perm[p];
-        c.use_cpu[p] = c.use_cpu[p] + c.ask_cpu[sk];
-        c.use_mem[p] = c.use_mem[p] + c.ask_mem[sk];
-        c.use_disk[p] = c.use_disk[p] + c.ask_disk[sk];
-        c.coll_p[t * C + p] = c.coll_p[t * C + p] + 1;
-        if (c.port_ask != nullptr) {
-          const uint8_t* ask =
-              c.port_ask + (static_cast<size_t>(e) * c.G + t) * c.Q;
-          for (int q = 0; q < c.Q; ++q) {
-            if (ask[q]) c.ports_p[q * C + p] = 1;
-          }
-        }
-        if (c.dev_ask != nullptr) {
-          const int32_t* ask =
-              c.dev_ask + (static_cast<size_t>(e) * c.G + t) * c.D;
-          for (int d = 0; d < c.D; ++d) {
-            c.devs_p[d * C + p] = c.devs_p[d * C + p] - ask[d];
-          }
-        }
-        if (c.sp_codes != nullptr) spread_bump(c, e, t, c.prop, 0, p);
-      } else {
-        // the scheduler coalesces a group's later placements after its
-        // first failure: that group's remaining picks are inert
-        rows[k] = kNoNode;
-        c.dead[t] = 1;
-      }
-      pulls[k] = r.pulls;
-      *sh_offset = (offset + r.pulls) % n_cand;
-      if (c.evict_rows != nullptr) {
-        for (int j = 0; j < c.K; ++j) {
-          const int prow = c.penalty_rows[ek * c.K + j];
-          if (prow >= 0 && c.inv[prow] < n_cand) {
-            c.pen_p[c.inv[prow]] &= kStaticPen;
-          }
-        }
-      }
+      *sh_offset = close_pick(c, e, k, t, n_cand, offset, r.any, r.win_w,
+                              r.pulls, rows, pulls);
     }
     __syncthreads();
   }
 
-  // 4. the node-space carry, in the JAX program's order: asks of the
-  // successful picks, then the applied evictions.  An active pick always
-  // pulls at least one position (n_cand >= 1), so pulls > 0 marks the
-  // picks whose eviction was applied.
-  if (c.chain && tid == 0) {
-    for (int k = 0; k < c.P; ++k) {
-      const int row = rows[k];
-      if (row < 0) continue;
-      const size_t sk = scalar_at(c, e, k);
-      const int t = group_of(c, e, k);
-      c.cpu_out[row] = c.cpu_out[row] + c.ask_cpu[sk];
-      c.mem_out[row] = c.mem_out[row] + c.ask_mem[sk];
-      c.disk_out[row] = c.disk_out[row] + c.ask_disk[sk];
-      if (c.port_ask != nullptr) {
-        const uint8_t* ask =
-            c.port_ask + (static_cast<size_t>(e) * c.G + t) * c.Q;
-        for (int q = 0; q < c.Q; ++q) {
-          if (ask[q]) c.ports_out[q * C + row] = 1;
-        }
-      }
-      if (c.dev_ask != nullptr) {
-        const int32_t* ask =
-            c.dev_ask + (static_cast<size_t>(e) * c.G + t) * c.D;
-        for (int d = 0; d < c.D; ++d) {
-          c.devs_out[d * C + row] = c.devs_out[d * C + row] - ask[d];
-        }
-      }
-    }
-    if (c.evict_rows != nullptr) {
-      for (int k = 0; k < c.P; ++k) {
-        const size_t ek = static_cast<size_t>(e) * c.P + k;
-        const int erow = c.evict_rows[ek];
-        if (pulls[k] <= 0 || erow < 0) continue;
-        c.cpu_out[erow] = c.cpu_out[erow] + c.evict_cpu[ek];
-        c.mem_out[erow] = c.mem_out[erow] + c.evict_mem[ek];
-        c.disk_out[erow] = c.disk_out[erow] + c.evict_disk[ek];
-      }
-    }
-  }
+  // 4. the node-space carry (a chain only)
+  if (c.chain && tid == 0) rebuild_carry(c, e, rows, pulls);
   __syncthreads();
 }
 
-// The chain (K3, K9): one persistent block loops over the evals, the
+// The chain of K9: one persistent block loops over the evals, the
 // usage, port and device carries in node space in the carry-out
 // tensors, which the prologue copies from the carry-in.
 template <typename T>

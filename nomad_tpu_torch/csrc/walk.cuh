@@ -203,6 +203,82 @@ __device__ __forceinline__ bool better(T s, int ord, T bs, int bord) {
   return s > bs || (s == bs && ord < bord);
 }
 
+// A walk's best (score, emit order) key with its position, and the
+// least walk position of the limit-th non-diverted node.
+template <typename T>
+struct Best {
+  T s;
+  int ord;
+  int w;
+  int lth;
+};
+
+// The best key and the least limit-th position over the block's
+// threads: a warp tree, then warp 0 over the warps' results.  Every
+// thread of the block must call it; every thread gets the result.
+template <typename T>
+__device__ Best<T> block_best(Best<T> v) {
+  __shared__ T red_s[kWarps];
+  __shared__ int red_ord[kWarps];
+  __shared__ int red_w[kWarps];
+  __shared__ int red_lth[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const T os = __shfl_down_sync(kFull, v.s, d);
+    const int oo = __shfl_down_sync(kFull, v.ord, d);
+    const int ow = __shfl_down_sync(kFull, v.w, d);
+    const int ol = __shfl_down_sync(kFull, v.lth, d);
+    if (better(os, oo, v.s, v.ord)) {
+      v.s = os;
+      v.ord = oo;
+      v.w = ow;
+    }
+    v.lth = min(v.lth, ol);
+  }
+  if (lane == 0) {
+    red_s[warp] = v.s;
+    red_ord[warp] = v.ord;
+    red_w[warp] = v.w;
+    red_lth[warp] = v.lth;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v.s = red_s[lane];
+    v.ord = red_ord[lane];
+    v.w = red_w[lane];
+    v.lth = red_lth[lane];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const T os = __shfl_down_sync(kFull, v.s, d);
+      const int oo = __shfl_down_sync(kFull, v.ord, d);
+      const int ow = __shfl_down_sync(kFull, v.w, d);
+      const int ol = __shfl_down_sync(kFull, v.lth, d);
+      if (better(os, oo, v.s, v.ord)) {
+        v.s = os;
+        v.ord = oo;
+        v.w = ow;
+      }
+      v.lth = min(v.lth, ol);
+    }
+    if (lane == 0) {
+      red_s[0] = v.s;
+      red_ord[0] = v.ord;
+      red_w[0] = v.w;
+      red_lth[0] = v.lth;
+    }
+  }
+  __syncthreads();
+  Best<T> out;
+  out.s = red_s[0];
+  out.ord = red_ord[0];
+  out.w = red_w[0];
+  out.lth = red_lth[0];
+  __syncthreads();  // red_* is reused by the next call
+  return out;
+}
+
 // Runs the limited walk over walk positions [0, n_walk).  score_at(w,
 // s, f) gives position w's score and feasibility.  `n_pulls_dry` is the
 // pull count when fewer than `limit` good nodes exist (the whole
@@ -214,10 +290,6 @@ __device__ WalkOut<T> limited_walk(int n_walk, int limit, int n_pulls_dry,
                                    uint8_t* __restrict__ f_w,
                                    ScoreAt score_at) {
   __shared__ int scan_smem[2 * kWarps + 2];
-  __shared__ T red_s[kWarps];
-  __shared__ int red_ord[kWarps];
-  __shared__ int red_w[kWarps];
-  __shared__ int red_lth[kWarps];
 
   const int tid = threadIdx.x;
   const int run = (n_walk + kThreads - 1) / kThreads;
@@ -294,61 +366,18 @@ __device__ WalkOut<T> limited_walk(int n_walk, int limit, int n_pulls_dry,
   }
 
   // block reduction: winner key and min limit-th position
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const T os = __shfl_down_sync(kFull, best_s, d);
-    const int oo = __shfl_down_sync(kFull, best_ord, d);
-    const int ow = __shfl_down_sync(kFull, best_w, d);
-    const int ol = __shfl_down_sync(kFull, lth, d);
-    if (better(os, oo, best_s, best_ord)) {
-      best_s = os;
-      best_ord = oo;
-      best_w = ow;
-    }
-    lth = min(lth, ol);
-  }
-  if (lane == 0) {
-    red_s[warp] = best_s;
-    red_ord[warp] = best_ord;
-    red_w[warp] = best_w;
-    red_lth[warp] = lth;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    best_s = red_s[lane];
-    best_ord = red_ord[lane];
-    best_w = red_w[lane];
-    lth = red_lth[lane];
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const T os = __shfl_down_sync(kFull, best_s, d);
-      const int oo = __shfl_down_sync(kFull, best_ord, d);
-      const int ow = __shfl_down_sync(kFull, best_w, d);
-      const int ol = __shfl_down_sync(kFull, lth, d);
-      if (better(os, oo, best_s, best_ord)) {
-        best_s = os;
-        best_ord = oo;
-        best_w = ow;
-      }
-      lth = min(lth, ol);
-    }
-    if (lane == 0) {
-      red_s[0] = best_s;
-      red_ord[0] = best_ord;
-      red_w[0] = best_w;
-      red_lth[0] = lth;
-    }
-  }
-  __syncthreads();
+  Best<T> v;
+  v.s = best_s;
+  v.ord = best_ord;
+  v.w = best_w;
+  v.lth = lth;
+  v = block_best<T>(v);
   WalkOut<T> out;
-  out.best = red_s[0];
-  out.any = red_ord[0] != kInt32Max ? 1 : 0;
-  out.win_w = red_w[0];
-  out.pulls = nd_count >= limit ? red_lth[0] + 1 : n_pulls_dry;
+  out.best = v.s;
+  out.any = v.ord != kInt32Max ? 1 : 0;
+  out.win_w = v.w;
+  out.pulls = nd_count >= limit ? v.lth + 1 : n_pulls_dry;
   out.feasible_count = feasible_count;
-  __syncthreads();  // red_* is reused by the next walk
   return out;
 }
 

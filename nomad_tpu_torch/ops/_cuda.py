@@ -15,6 +15,7 @@ failed build or a refused launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,7 +46,7 @@ SOURCES = {
     "patch_rows_mesh": "patch_rows_mesh.cu",
     "storm_sharded": "storm_sharded.cu",
 }
-HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh")
+HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh", "chained_grid.cuh")
 
 # exact IEEE arithmetic: no FMA contraction, no fast math, no
 # flush-to-zero, correctly rounded division
@@ -202,12 +203,20 @@ class PlanPicksArgs(ctypes.Structure):
 _FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
-def _bind(name: str, fn_name: str, args_type) -> ctypes._CFuncPtr:
+def _bind(name: str, fn_name: str, args_type,
+          size_fn: str = "") -> ctypes._CFuncPtr:
     """The library's entry `fn_name` taking (args_type*, stream), its
-    argtypes and restype set once for the process."""
+    argtypes and restype set once for the process; where the library
+    reports the argument block's size (`size_fn`), it is checked
+    against the ctypes mirror then."""
     fn = _FNS.get((name, fn_name))
     if fn is None:
-        fn = getattr(library(name), fn_name)
+        lib = library(name)
+        if size_fn and getattr(lib, size_fn)() != ctypes.sizeof(args_type):
+            raise RuntimeError(
+                f"{args_type.__name__} is {getattr(lib, size_fn)()} bytes "
+                f"in the library, {ctypes.sizeof(args_type)} in its mirror")
+        fn = getattr(lib, fn_name)
         fn.argtypes = [ctypes.POINTER(args_type), _P]
         fn.restype = _I
         _FNS[(name, fn_name)] = fn
@@ -293,12 +302,12 @@ class ChainedPicksArgs(ctypes.Structure):
             "pre_disk", "port_ask", "ports_in", "ports_out", "dev_ask",
             "devs_in", "devs_out", "dev_aff", "dev_aff_on", "occ0",
             "dh_tg", "f_scratch", "i_scratch", "b_scratch", "s_scratch",
-            "out_rows", "out_pulls",
+            "out_rows", "out_pulls", "gi_scratch", "gf_scratch",
         )
     ] + [
         (name, _I) for name in (
             "E", "P", "G", "C", "S", "V1", "K", "R", "Q", "D",
-            "spread_fit", "is_f64", "device",
+            "spread_fit", "is_f64", "device", "max_blocks", "blocks",
         )
     ]
 
@@ -328,28 +337,41 @@ def _scratch_lens(C, G=1, S=0, V1=0, Q=0, D=0) -> Tuple[int, ...]:
             3 * S * V1 + 4 * S + 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_lens() -> Tuple[int, int]:
+    """K3's grid records (csrc/chained_grid.cuh) as its library sizes
+    them, read once: their int32 elements and the largest grid."""
+    lib = library("chained_picks")
+    return lib.nk_chained_grid_ints(), lib.nk_chained_grid_max_blocks()
+
+
 def chained_scratch(p, dtype, device) -> Tuple[torch.Tensor, ...]:
     """K3's scratch: permuted-space float columns (totals, usage, walk
     scores, per-group affinities), int columns (inverse walk order,
     occupancy, per-group collisions, spread codes, device counts) and
     one failed flag per group, byte columns (penalty and walk flags,
-    per-group feasibility, ports) and the spread carries, each column
-    C long."""
+    per-group feasibility, ports), the spread carries, each column C
+    long; then the grid's per-block records (int and float)."""
     d = _chain_dims(p)
     f, i, b, s = _scratch_lens(d["C"], d["G"], d["S"], d["V1"], d["Q"],
                                d["D"])
+    grid_ints, grid_blocks = _grid_lens()
     return (
         torch.empty(f, dtype=dtype, device=device),
         torch.empty(i, dtype=torch.int32, device=device),
         torch.empty(b, dtype=torch.uint8, device=device),
         torch.empty(s, dtype=dtype, device=device),
+        torch.empty(grid_ints, dtype=torch.int32, device=device),
+        torch.empty(grid_blocks, dtype=dtype, device=device),
     )
 
 
 def launch_chained_picks(p, used_out, ports_out, devs_out, rows, pulls,
-                         scratch) -> None:
-    """K3 on the current stream over `ops.batch.prepare_chain` inputs
-    (contiguous CUDA tensors, checked by the wrapper)."""
+                         scratch, max_blocks: int = 0) -> int:
+    """K3, one cooperative launch on the current stream, over
+    `ops.batch.prepare_chain` inputs (contiguous CUDA tensors, checked
+    by the wrapper).  `max_blocks` caps the grid (0: as many blocks as
+    the card holds at once); returns the grid launched."""
     cols = p["cols"]
     dev = cols[0].device
     b, sp, dl, pre = p["batch"], p["spread"], p["deltas"], p["pre"]
@@ -368,7 +390,7 @@ def launch_chained_picks(p, used_out, ports_out, devs_out, rows, pulls,
         dev_aff=p["dev_aff"], dev_aff_on=p["dev_aff_on"], occ0=p["occ0"],
         dh_tg=p["dh_tg"], f_scratch=scratch[0], i_scratch=scratch[1],
         b_scratch=scratch[2], s_scratch=scratch[3], out_rows=rows,
-        out_pulls=pulls,
+        out_pulls=pulls, gi_scratch=scratch[4], gf_scratch=scratch[5],
     )
     if sp is not None:
         ptrs.update(
@@ -398,7 +420,9 @@ def launch_chained_picks(p, used_out, ports_out, devs_out, rows, pulls,
     args.spread_fit = int(p["spread_fit"])
     args.is_f64 = int(cols[0].dtype == torch.float64)
     args.device = dev.index
+    args.max_blocks = int(max_blocks)
     _launch("chained_picks", "nk_chained_picks", args, dev)
+    return args.blocks
 
 
 class StormArgs(ctypes.Structure):
@@ -856,19 +880,70 @@ class ShardedChainArgs(ctypes.Structure):
         (name, _I) for name in _SC_INTS]
 
 
+def _sharded_chain_block(c, sh, dev, coop: bool) -> ShardedChainArgs:
+    """One K12 argument block of chain `c`: the process's (`sh` None) or
+    local shard `sh`'s.  In a cooperative chain a shard's score outputs
+    point at its slice of the gathered [C] vectors and its walk records
+    at its row of the [D, width] tables, so no exchange is needed."""
+    sp = c.spread
+    ptrs = dict(
+        perm=c.perm, ask_cpu=c.ask[0], ask_mem=c.ask[1], ask_disk=c.ask[2],
+        desired=c.desired, limit=c.limit, wanted=c.wanted,
+        n_cand=c.n_cand, dh=c.dh, evict_rows=c.ev_rows,
+        evict_cpu=c.ev_vals[0], evict_mem=c.ev_vals[1],
+        evict_disk=c.ev_vals[2], evict_coll=c.ev_coll,
+        pen_rows=c.pen_rows, pre_rows=c.pre_rows, pre_cpu=c.pre_vals[0],
+        pre_mem=c.pre_vals[1], pre_disk=c.pre_vals[2],
+        sp_desired=c.sp_desired if sp else None,
+        sp_used0=c.sp_used0 if sp else None,
+        sp_prop0=c.sp_prop0 if sp else None,
+        sp_clr0=c.sp_clr0 if sp else None,
+        sp_weight=c.sp_weight if sp else None,
+        sp_active=c.sp_active if sp else None,
+        sp_even=c.sp_even if sp else None,
+        off=c.off, dead=c.dead, prop=c.prop, clr=c.clr, ev_oh=c.ev_oh,
+        oh=c.oh, rows_out=c.rows, pulls_out=c.pulls, final_g=c.final_g,
+        feas_g=c.feas_g, g_bad=c.g_bad, g_nd=c.g_nd, g_fin=c.g_fin,
+    )
+    if sh is not None:
+        ptrs.update(
+            tot_cpu=sh.tot[0], tot_mem=sh.tot[1], tot_disk=sh.tot[2],
+            use_cpu=sh.use[0], use_mem=sh.use[1], use_disk=sh.use[2],
+            coll=sh.coll, feas_in=sh.feas, aff_in=sh.aff,
+            coll0_in=sh.coll0, codes_in=sh.codes, final_l=sh.final_l,
+            feas_l=sh.feas_l, s_p=sh.s_p, f_p=sh.f_p,
+            rec_bad=sh.rec_bad, rec_nd=sh.rec_nd, rec_fin=sh.rec_fin,
+            oh_l=sh.oh_l, ev_oh_l=sh.ev_oh_l)
+        if coop:
+            ptrs.update(
+                final_l=c.final_g[sh.lo:sh.lo + c.size],
+                feas_l=c.feas_g[sh.lo:sh.lo + c.size],
+                rec_bad=c.g_bad[sh.s], rec_nd=c.g_nd[sh.s],
+                rec_fin=c.g_fin[sh.s])
+    args = ShardedChainArgs()
+    _fill(args, ptrs, dev)
+    dims = dict(E=c.E, P=c.P, C=c.C, Cl=c.size, D=c.D, K=c.K, R=c.R,
+                S=c.S, V1=c.V1, spread_fit=int(c.spread_fit),
+                is_f64=int(c.dtype == torch.float64), device=dev.index)
+    for name, v in dims.items():
+        setattr(args, name, v)
+    args.shard = -1 if sh is None else sh.s
+    return args
+
+
 class ShardedChainStages:
-    """K12's stages for one chain (`parallel/mesh.py _drive`): one args
-    block per local shard and one for the process, filled once; a
-    launch sets the stage, eval and pick and calls the library on the
-    current stream.  `launched` counts the kernel launches."""
+    """K12's stages for one chain (`parallel/mesh.py _drive`, a mesh
+    whose exchanges cross processes): one args block per local shard
+    and one for the process, filled once; a launch sets the stage, eval
+    and pick and calls the library on the current stream.  `launched`
+    counts the kernel launches."""
 
     BEGIN, PROLOGUE, SCORE, WALK_BAD, WALK_ND, WALK_FIN, COMMIT, ADVANCE = range(8)
 
     def __init__(self, c) -> None:
         lib = library("sharded_chain")
-        self._fn = lib.nk_sharded_chain
-        self._fn.argtypes = [ctypes.POINTER(ShardedChainArgs), _P]
-        self._fn.restype = _I
+        self._fn = _bind("sharded_chain", "nk_sharded_chain",
+                         ShardedChainArgs, "nk_sharded_chain_args_size")
         self._err = lib.nk_error_string
         dev = c.final_g.device
         code = lib.nk_set_device(dev.index)
@@ -876,50 +951,9 @@ class ShardedChainStages:
             raise RuntimeError(f"nk_set_device: {self._err(code).decode()}")
         self._stream = _P(torch.cuda.current_stream(dev).cuda_stream)
         self.launched = 0
-        sp = c.spread
-        common = dict(
-            perm=c.perm, ask_cpu=c.ask[0], ask_mem=c.ask[1], ask_disk=c.ask[2],
-            desired=c.desired, limit=c.limit, wanted=c.wanted,
-            n_cand=c.n_cand, dh=c.dh, evict_rows=c.ev_rows,
-            evict_cpu=c.ev_vals[0], evict_mem=c.ev_vals[1],
-            evict_disk=c.ev_vals[2], evict_coll=c.ev_coll,
-            pen_rows=c.pen_rows, pre_rows=c.pre_rows, pre_cpu=c.pre_vals[0],
-            pre_mem=c.pre_vals[1], pre_disk=c.pre_vals[2],
-            sp_desired=c.sp_desired if sp else None,
-            sp_used0=c.sp_used0 if sp else None,
-            sp_prop0=c.sp_prop0 if sp else None,
-            sp_clr0=c.sp_clr0 if sp else None,
-            sp_weight=c.sp_weight if sp else None,
-            sp_active=c.sp_active if sp else None,
-            sp_even=c.sp_even if sp else None,
-            off=c.off, dead=c.dead, prop=c.prop, clr=c.clr, ev_oh=c.ev_oh,
-            oh=c.oh, rows_out=c.rows, pulls_out=c.pulls, final_g=c.final_g,
-            feas_g=c.feas_g, g_bad=c.g_bad, g_nd=c.g_nd, g_fin=c.g_fin,
-        )
-        dims = dict(E=c.E, P=c.P, C=c.C, Cl=c.size, D=c.D, K=c.K, R=c.R,
-                    S=c.S, V1=c.V1, spread_fit=int(c.spread_fit),
-                    is_f64=int(c.dtype == torch.float64), device=dev.index)
-
-        def block(sh):
-            args = ShardedChainArgs()
-            ptrs = dict(common)
-            if sh is not None:
-                ptrs.update(
-                    tot_cpu=sh.tot[0], tot_mem=sh.tot[1], tot_disk=sh.tot[2],
-                    use_cpu=sh.use[0], use_mem=sh.use[1], use_disk=sh.use[2],
-                    coll=sh.coll, feas_in=sh.feas, aff_in=sh.aff,
-                    coll0_in=sh.coll0, codes_in=sh.codes, final_l=sh.final_l,
-                    feas_l=sh.feas_l, s_p=sh.s_p, f_p=sh.f_p,
-                    rec_bad=sh.rec_bad, rec_nd=sh.rec_nd, rec_fin=sh.rec_fin,
-                    oh_l=sh.oh_l, ev_oh_l=sh.ev_oh_l)
-            _fill(args, ptrs, dev)
-            for name, v in dims.items():
-                setattr(args, name, v)
-            args.shard = -1 if sh is None else sh.s
-            return args
-
-        self._proc = block(None)
-        self._args = {id(sh): block(sh) for sh in c.shards}
+        self._proc = _sharded_chain_block(c, None, dev, coop=False)
+        self._args = {id(sh): _sharded_chain_block(c, sh, dev, coop=False)
+                      for sh in c.shards}
 
     def _go(self, args, stage: int, e: int, k: int = 0) -> None:
         args.stage = stage
@@ -955,6 +989,60 @@ class ShardedChainStages:
 
     def advance(self, c, e, k):
         self._go(self._proc, self.ADVANCE, e, k)
+
+
+# the shards a cooperative K12 chain takes by value (kMaxCoopShards in
+# csrc/sharded_chain.cu)
+COOP_MAX_SHARDS = 32
+
+
+class ShardedCoopTable(ctypes.Structure):
+    """Mirror of `CoopTable` in csrc/sharded_chain.cu."""
+
+    _fields_ = [("sh", ShardedChainArgs * COOP_MAX_SHARDS), ("D", _I)]
+
+
+class ShardedCoopLaunch(ctypes.Structure):
+    """Mirror of `ShardedCoopLaunch` in csrc/sharded_chain.cu."""
+
+    _fields_ = [("table", ShardedCoopTable)] + [
+        (name, _I) for name in ("S", "V1", "is_f64", "device", "max_blocks",
+                                "blocks")]
+
+
+class ShardedChainCoop:
+    """K12 as one cooperative launch a chain, for a mesh whose shards all
+    live in this process on one card (a `VirtualMesh` of at most
+    COOP_MAX_SHARDS shards): the D per-shard argument blocks are the
+    launch's own parameters, so nothing is copied to the card before
+    it.  `max_blocks` caps the grid (0: as many 1,024-thread blocks as
+    the card holds at once); a grid the card cannot hold fails the
+    launch, which raises.  `blocks` is the grid launched."""
+
+    def __init__(self, c, max_blocks: int = 0) -> None:
+        if not 1 <= c.D <= COOP_MAX_SHARDS:
+            raise ValueError(f"a cooperative K12 chain takes 1 to "
+                             f"{COOP_MAX_SHARDS} shards, got {c.D}")
+        if sorted(sh.s for sh in c.shards) != list(range(c.D)):
+            raise ValueError("a cooperative K12 chain holds every shard")
+        dev = c.final_g.device
+        a = ShardedCoopLaunch(
+            S=c.S, V1=c.V1, is_f64=int(c.dtype == torch.float64),
+            device=dev.index, max_blocks=int(max_blocks), blocks=0)
+        for sh in c.shards:
+            a.table.sh[sh.s] = _sharded_chain_block(c, sh, dev, coop=True)
+        a.table.D = c.D
+        self._args = a
+        self._dev = dev
+        self.blocks = 0
+
+    def launch(self) -> None:
+        # the first bind in the process checks the mirror's size
+        _bind("sharded_chain", "nk_sharded_chain_coop", ShardedCoopLaunch,
+              "nk_sharded_coop_launch_size")
+        _launch("sharded_chain", "nk_sharded_chain_coop", self._args,
+                self._dev)
+        self.blocks = self._args.blocks
 
 
 # the table K4, K13 and K15 take by value (kMaxCols, kMaxShards in

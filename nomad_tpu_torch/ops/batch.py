@@ -1121,10 +1121,14 @@ def chained_picks_twin(p: dict):
             (used, ports, devs))
 
 
-def chained_picks_cuda(p: dict):
-    """Launch K3 on the current stream over prepared CUDA inputs.
-    Returns the same triple as the twin; the carry-out lives in fresh
-    tensors.  Nothing is synchronised."""
+def chained_picks_cuda(p: dict, _max_blocks: int = 0):
+    """Launch K3 on the current stream over prepared CUDA inputs: one
+    cooperative launch over the card.  Returns the same triple as the
+    twin; the carry-out lives in fresh tensors.  Nothing is
+    synchronised.  `_max_blocks` caps the grid (the card tests set it;
+    0: as many blocks as the card holds at once); `blocks` is the last
+    launch's grid.  A failed build or launch, a grid the card cannot
+    hold included, raises `DeviceFault`."""
     from . import _cuda
 
     dev = p["cols"][0].device
@@ -1142,13 +1146,20 @@ def chained_picks_cuda(p: dict):
     rows = torch.empty((E, P), dtype=torch.int32, device=dev)
     pulls = torch.empty((E, P), dtype=torch.int32, device=dev)
     scratch = _cuda.chained_scratch(p, dtype, dev)
-    _cuda.launch_chained_picks(p, used_out, ports_out, devs_out, rows,
-                               pulls, scratch)
+    try:
+        chained_picks_cuda.blocks = _cuda.launch_chained_picks(
+            p, used_out, ports_out, devs_out, rows, pulls, scratch,
+            _max_blocks)
+    except RuntimeError as exc:  # a build, bind or launch failure
+        from ..device.core import DeviceFault
+
+        raise DeviceFault(f"K3 chained_picks failed: {exc}") from exc
     chained_picks_cuda.launches += 1
     return rows, pulls, (used_out, ports_out, devs_out)
 
 
 chained_picks_cuda.launches = 0
+chained_picks_cuda.blocks = 0
 
 
 def chained_plan_picks_cols(cpu_total, mem_total, disk_total, used0_cpu,

@@ -767,10 +767,14 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="cpu for the plain twins (default: the card)")
     args = parser.parse_args(argv)
-    if args.worker:
-        return run_worker()
-    if args.pod_head:
-        return run_pod_head()
+    if args.worker or args.pod_head:
+        rc = run_worker() if args.worker else run_pod_head()
+        # a stopped Server's daemon sweeper outlives stop(); one woken
+        # during the interpreter's shutdown can abort the rank after its
+        # row is printed, so the rank leaves without that shutdown
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     if args.pod:
         row = launch_pod(args.shards_per_proc, args.timeout, args.device)
         row.pop("placed")

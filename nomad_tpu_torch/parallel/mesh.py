@@ -65,9 +65,12 @@ node axis and runs K10 (`csrc/batch_plan.cu`) over its own evals; the
 rows are gathered over the eval axis, so every process gets all [E, P].
 
 `sharded_chained_plan` (JAX `mesh.py:484`, its walk `_sharded_walk`
-`:329`) is K12 (`csrc/sharded_chain.cu`).  One pick runs as stages
-launched per shard, with the mesh's exchanges between them, where the
-JAX program's collectives fall:
+`:329`) is K12 (`csrc/sharded_chain.cu`).  One pick runs as stages per
+shard, with the mesh's exchanges between them, where the JAX program's
+collectives fall.  On a `DistMesh` (exchanges across processes) each
+stage is a launch and each exchange a collective; on a `VirtualMesh`
+the whole chain is one cooperative launch whose grid barriers take the
+exchanges' place (the stages write straight into the gathered buffers):
 
   score     the pick's eviction (owner only), then every node of the
             shard scored and its feasibility; all_gather of both [C]
@@ -904,9 +907,12 @@ def _drive(c: _Chain, stages) -> None:
 
 
 def stage_launches(mesh: NodeMesh, n_evals: int, n_picks: int) -> int:
-    """Kernel launches of one chain of K12 in this process: per eval
-    begin + a prologue per shard, per pick five stages per shard and
-    one advance."""
+    """Kernel launches of one chain of K12 in this process: one
+    cooperative launch on a `VirtualMesh`; on any other mesh (its
+    exchanges cross processes) per eval begin + a prologue per local
+    shard, per pick five stages per local shard and one advance."""
+    if isinstance(mesh, VirtualMesh):
+        return 1
     d = len(mesh.local_shards)
     return n_evals * (1 + d + n_picks * (5 * d + 1))
 
@@ -1212,25 +1218,42 @@ def sharded_chain_twin(c: _Chain) -> None:
     _drive(c, _TwinStages)
 
 
-def sharded_chained_plan_cuda(c: _Chain) -> None:
-    """K12 over a prepared chain: its stages as CUDA launches on the
-    current stream, with the mesh's exchanges between them; nothing is
-    synchronised.  `launches` counts kernel launches, `chunks` the
-    chains launched."""
+def sharded_chained_plan_cuda(c: _Chain, _max_blocks: int = 0) -> None:
+    """K12 over a prepared chain on the current stream; nothing is
+    synchronised.  The mesh's kind picks the launch: on a `VirtualMesh`
+    (every shard in this process on one card) one cooperative launch
+    runs the whole chain, its exchanges in device memory; on a
+    `DistMesh` the stages are launched one by one with the mesh's
+    collectives between them.  Either fills its argument blocks anew
+    for each call, as the path prepares a chain a chunk.  Any failure,
+    a cooperative launch the card cannot hold included, raises
+    `DeviceFault`: nothing falls back to the other launch path or to the
+    twin.  `launches` counts kernel launches, `chunks` the chains
+    launched, `blocks` the last cooperative grid.  `_max_blocks` caps
+    the cooperative grid (the card tests set it; 0: the occupancy
+    API's)."""
     from ..ops import _cuda
 
     if c.mesh.device.type != "cuda":
         raise ValueError(f"K12 needs a mesh on the card, got {c.mesh.device}")
     try:
-        stages = _cuda.ShardedChainStages(c)
-        _drive(c, stages)
+        if isinstance(c.mesh, VirtualMesh):
+            coop = _cuda.ShardedChainCoop(c, _max_blocks)
+            coop.launch()
+            sharded_chained_plan_cuda.blocks = coop.blocks
+            launched = 1
+        else:
+            stages = _cuda.ShardedChainStages(c)
+            _drive(c, stages)
+            launched = stages.launched
     except DeviceFault:
         raise
     except Exception as exc:  # a build, bind or launch failure
         raise DeviceFault(f"K12 sharded_chain failed: {exc}") from exc
-    sharded_chained_plan_cuda.launches += stages.launched
+    sharded_chained_plan_cuda.launches += launched
     sharded_chained_plan_cuda.chunks += 1
 
 
 sharded_chained_plan_cuda.launches = 0
 sharded_chained_plan_cuda.chunks = 0
+sharded_chained_plan_cuda.blocks = 0

@@ -37,6 +37,18 @@ from nomad_tpu_torch.parallel.dist_smoke import reference
 print(json.dumps(reference("cpu")))
 """
 
+# A stopped Server leaves daemon threads (the broker's and the heartbeat
+# sweepers) that stop() does not join; one of them woken while the
+# interpreter shuts down can abort the child (SIGABRT, "FATAL: exception
+# not rethrown") after its line is printed.  So each child flushes its
+# output and leaves without the interpreter's shutdown.
+EXIT = r"""
+import os as _os, sys as _sys
+_sys.stdout.flush()
+_sys.stderr.flush()
+_os._exit(0)
+"""
+
 # the JAX package's Server on the same world: its dist_smoke's recipes
 # (the same ids, seeds and sizes), drained as test_torch_mesh_server
 # drains it, the family registered under the broker's lock as one wave
@@ -78,7 +90,7 @@ def _fresh(script: str, extra: dict) -> dict:
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
-    out = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+    out = subprocess.run([sys.executable, "-c", script + EXIT], cwd=str(REPO),
                          env=env, capture_output=True, text=True,
                          timeout=SPAWN_LIMIT_S)
     assert out.returncode == 0, out.stderr[-3000:]

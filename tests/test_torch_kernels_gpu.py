@@ -200,6 +200,66 @@ def test_chained_picks_kernel_matches_twin(cuda, scenario, E, P, dtype):
     _same_chain(kernel, twin_cpu)
 
 
+# K3 is one cooperative grid: its answer must not depend on the grid.
+# Grids of one block, three blocks and the card's full grid; candidate
+# regions wider and narrower than the grid (60 < 132 blocks); limit 1.
+GRID_CAPS = (1, 3, 0)
+GRID_SCENARIOS = ("plain", "evict_spread", "spread_mixed_groups", "tight",
+                  "ports_devices_groups", "everything", "wide_groups")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["wide", "few", "limit1"])
+@pytest.mark.parametrize("scenario", GRID_SCENARIOS)
+def test_chained_picks_grid_matches_twin_at_any_grid(cuda, scenario, variant,
+                                                     dtype):
+    n_cand = 60 if variant == "few" else N_CAND
+    cols, kw = chain_case(5600 + GRID_SCENARIOS.index(scenario), C, n_cand,
+                          scenario, 2, 16)
+    if variant == "limit1":
+        kw["batch"]["limit"] = np.ones_like(kw["batch"]["limit"])
+    args, kwargs = chain_case_to_torch(cols, kw, cuda, dtype)
+    p = tbatch.prepare_chain(*args, **kwargs)
+    twin_card = tbatch.chained_picks_twin(p)
+    args_cpu, kwargs_cpu = chain_case_to_torch(cols, kw, "cpu", dtype)
+    twin_cpu = tbatch.chained_plan_picks_cols(*args_cpu, return_carry=True,
+                                              **kwargs_cpu)
+    _same_chain(twin_card, twin_cpu)
+    grids = set()
+    for cap in GRID_CAPS:
+        before = tbatch.chained_picks_cuda.launches
+        kernel = tbatch.chained_picks_cuda(p, _max_blocks=cap)
+        torch.cuda.synchronize()
+        assert tbatch.chained_picks_cuda.launches == before + 1
+        grids.add(tbatch.chained_picks_cuda.blocks)
+        _same_chain(kernel, twin_card)
+    # the full grid is more than one block and more than three
+    assert len(grids) == 3 and min(grids) == 1 and max(grids) > 3
+    if scenario == "tight":
+        assert bool((twin_cpu[0] == -1).any())  # a group died
+
+
+def test_chained_picks_grid_beyond_the_card_raises(cuda):
+    from nomad_tpu_torch.device.core import DeviceFault
+
+    cols, kw = chain_case(5700, C, N_CAND, "plain", 2, 4)
+    args, kwargs = chain_case_to_torch(cols, kw, cuda)
+    p = tbatch.prepare_chain(*args, **kwargs)
+    tbatch.chained_picks_cuda(p)
+    full = tbatch.chained_picks_cuda.blocks
+    torch.cuda.synchronize()
+    before = tbatch.chained_picks_cuda.launches
+    # more blocks than the card holds at once: the cooperative launch is
+    # refused, and nothing runs in its place
+    with pytest.raises(DeviceFault):
+        tbatch.chained_picks_cuda(p, _max_blocks=full + 1)
+    with pytest.raises(DeviceFault):
+        tbatch.chained_picks_cuda(p, _max_blocks=100_000)
+    assert tbatch.chained_picks_cuda.launches == before
+    # a refused launch leaves nothing behind: the next one runs
+    _same_chain(tbatch.chained_picks_cuda(p), tbatch.chained_picks_twin(p))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("width", [8, 1024, 16384])
 def test_patch_rows_kernel_matches_twin(cuda, width, dtype):
@@ -642,13 +702,119 @@ def test_sharded_chain_kernel_matches_twin(cuda, scenario, d, dtype):
                      [mesh.unshard(c).cpu() for c in carry],
                      sharded_chained_plan_cuda.launches - before))
     kern, twin, twin_cpu = outs
-    assert kern[3] > 0 and twin[3] == 0
+    # one cooperative launch a chain on a VirtualMesh
+    assert kern[3] == 1 and twin[3] == 0
     for other in (twin, twin_cpu):
         assert torch.equal(kern[0], other[0])
         assert torch.equal(kern[1], other[1])
         for a, b in zip(kern[2], other[2]):
             assert np.array_equal(_bits(a), _bits(b))
     assert bool((kern[0] >= 0).any())
+
+
+def _sharded_outputs(c):
+    from nomad_tpu_torch.parallel.mesh import Sharded
+
+    return (c.rows.cpu(), c.pulls.cpu(),
+            [c.mesh.unshard(Sharded(tuple(sh.use[i] for sh in c.shards))).cpu()
+             for i in range(3)])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("scenario", ["everything", "spread_even"])
+def test_sharded_chain_kernel_at_any_grid(cuda, scenario, d, dtype):
+    """The cooperative K12's answer does not depend on its grid: one
+    block (it runs every shard's walk in turn), three, the full grid;
+    a grid beyond what the card holds raises DeviceFault."""
+    from nomad_tpu_torch.device.core import DeviceFault
+    from nomad_tpu_torch.ops.cases import sharded_chain_case
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        prepare_sharded_chain,
+        sharded_chain_twin,
+        sharded_chained_plan_cuda,
+    )
+    from nomad_tpu_torch.state.convert import sharded_case_args
+
+    case = sharded_chain_case(650 + d, SHARDED_C, SHARDED_N_CAND, scenario,
+                              6, 8)
+    kw = dict(with_spread=case["spread"] is not None,
+              spread_even=case["spread_even"])
+
+    def chain():
+        mesh = VirtualMesh(d, cuda)
+        return prepare_sharded_chain(
+            mesh, 8, sharded_case_args(case, cuda, dtype), **kw)
+
+    twin = chain()
+    sharded_chain_twin(twin)
+    want = _sharded_outputs(twin)
+    for cap in (1, 3, 0):
+        c = chain()
+        sharded_chained_plan_cuda(c, _max_blocks=cap)
+        torch.cuda.synchronize()
+        got = _sharded_outputs(c)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for a, b in zip(got[2], want[2]):
+            assert np.array_equal(_bits(a), _bits(b))
+    c = chain()
+    before = sharded_chained_plan_cuda.launches
+    with pytest.raises(DeviceFault):
+        sharded_chained_plan_cuda(c, _max_blocks=100_000)
+    assert sharded_chained_plan_cuda.launches == before
+    assert bool((c.rows.cpu() == -1).all())  # nothing ran in its place
+    # a refused launch leaves nothing behind: the next one runs
+    sharded_chained_plan_cuda(c)
+    got = _sharded_outputs(c)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scenario", ["plain", "everything", "spread_percent",
+                                      "spread_even"])
+def test_sharded_chain_staged_on_a_dist_mesh_matches_twin(cuda, scenario,
+                                                          dtype):
+    """A DistMesh keeps the staged K12 (its exchanges are collectives):
+    a one-rank NCCL group's mesh, its launches the staged count."""
+    import torch.distributed as dist
+
+    from nomad_tpu_torch.ops.cases import sharded_chain_case
+    from nomad_tpu_torch.parallel.mesh import (
+        VirtualMesh,
+        make_mesh,
+        sharded_chained_plan,
+        sharded_chained_plan_cuda,
+        sharded_chained_plan_twin,
+        stage_launches,
+    )
+    from nomad_tpu_torch.parallel.multichip import nccl_group
+    from nomad_tpu_torch.state.convert import sharded_case_args
+
+    E, P = 6, 8
+    case = sharded_chain_case(660, SHARDED_C, SHARDED_N_CAND, scenario, E, P)
+    kw = dict(with_spread=case["spread"] is not None,
+              spread_even=case["spread_even"], return_carry=True)
+    made = nccl_group(torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh(1, eval_axis=1)
+        outs = []
+        for m, plan in ((mesh, sharded_chained_plan),
+                        (VirtualMesh(1, "cpu"), sharded_chained_plan_twin)):
+            before = sharded_chained_plan_cuda.launches
+            rows, pulls, carry = plan(m, P, **kw)(
+                *sharded_case_args(case, m.device, dtype))
+            outs.append((rows.cpu(), pulls.cpu(),
+                         [m.unshard(c_).cpu() for c_ in carry],
+                         sharded_chained_plan_cuda.launches - before))
+        kern, twin = outs
+        assert kern[3] == stage_launches(mesh, E, P) > 1
+        assert torch.equal(kern[0], twin[0]) and torch.equal(kern[1], twin[1])
+        for a, b in zip(kern[2], twin[2]):
+            assert np.array_equal(_bits(a), _bits(b))
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

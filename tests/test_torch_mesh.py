@@ -26,6 +26,7 @@ from nomad_tpu_torch.ops.cases import (
     sharded_chain_case,
 )
 from nomad_tpu_torch.parallel.mesh import (
+    NodeMesh,
     VirtualMesh,
     make_mesh,
     mesh_axes,
@@ -500,8 +501,17 @@ def test_virtual_collectives_are_ordered_reductions():
 
 
 def test_stage_launch_count():
-    assert stage_launches(VirtualMesh(8, "cpu"), 8, 10) == 8 * (1 + 8 + 10 * 41)
-    assert stage_launches(VirtualMesh(1, "cpu"), 2, 3) == 2 * (1 + 1 + 3 * 6)
+    # one cooperative launch a chain on a VirtualMesh of any width
+    assert stage_launches(VirtualMesh(8, "cpu"), 8, 10) == 1
+    assert stage_launches(VirtualMesh(1, "cpu"), 2, 3) == 1
+    # staged on a mesh whose exchanges cross processes: per eval begin
+    # and a prologue a local shard, per pick five stages a shard and one
+    # advance (a bare NodeMesh stands for a DistMesh rank's shards)
+    staged = NodeMesh()
+    staged.local_shards = tuple(range(8))
+    assert stage_launches(staged, 8, 10) == 8 * (1 + 8 + 10 * 41)
+    staged.local_shards = (0,)
+    assert stage_launches(staged, 2, 3) == 2 * (1 + 1 + 3 * 6)
 
 
 def test_mesh_that_cannot_be_built_raises(tmp_path):
