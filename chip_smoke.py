@@ -1477,6 +1477,7 @@ def check_k5(cuda) -> dict:
     n_cases = 0
     max_err = 0.0
     rounds = {}
+    before = tsolve.storm_assignment_cuda.launches
     for dtype in (torch.float64, torch.float32):
         for si, (scenario, make, scenario_tag) in enumerate(_k5_scenarios()):
             for A in STORM_ROWS:
@@ -1503,11 +1504,17 @@ def check_k5(cuda) -> dict:
                 n_cases += 1
     full = [r for k, r in rounds.items() if f"A={STORM_ROWS[-1]}/" in k]
     check(max(full) >= 3, "no full-width K5 case ran 3 or more rounds")
+    launched = tsolve.storm_assignment_cuda.launches - before
+    check(launched == n_cases,
+          f"K5 counted {launched} launches for {n_cases} solves")
     check(rounds[f"policy_dogpile/A={STORM_ROWS[-1]}/float64"] >= 3,
           "the full-width weighted dogpile ran fewer than 3 rounds")
     print(f"K5: {n_cases} cases ({2 * len(STORM_ROWS) * len(POLICY_STORM_SCENARIOS)}"
           f" weighted) exact on card and CPU (f64 and f32; all six "
-          f"outputs), max_abs_err={max_err}; auction rounds per case: "
+          f"outputs), max_abs_err={max_err}; one solve a launch ({launched} "
+          f"for {n_cases}), the rounds one cooperative auction of "
+          f"{tsolve.storm_assignment_cuda.blocks} blocks of 1,024 threads; "
+          f"auction rounds per case: "
           f"{json.dumps(rounds)}", flush=True)
     return {"max_abs_err": max_err, "cases": n_cases, "rounds": rounds}
 
@@ -1684,6 +1691,10 @@ def check_storm(cuda, card: str) -> dict:
         lambda: tsolve.storm_assignment_cuda(*path_args), n=5, warmup=1)
     path["bound_ms"] = max(path["bytes"] / HBM_BYTES_PER_S,
                            path["flops"] / F64_FLOPS) * 1e3
+    path["blocks"] = tsolve.storm_assignment_cuda.blocks
+    path["stamps"] = storm_stamps(
+        lambda **kw: tsolve.storm_assignment_cuda(*path_args, **kw), inp,
+        problem.max_rounds, cuda)
     tsolve.storm_assignment_cuda.launches = launches["storm_solve"]
     print(
         f"storm path on {card}: {STORM_JOBS} dispatch children, K5 launches "
@@ -1693,7 +1704,9 @@ def check_storm(cuda, card: str) -> dict:
         f"{rate_on:.1f} placements/s ({on['seconds']:.2f} s), K5 alone on "
         f"this run's problem (A={problem.inputs.ask.shape[0]}, "
         f"E={problem.inputs.feasible.shape[0]}, {path['rounds']} rounds) "
-        f"{path['ms']:.4f} ms (bound {path['bound_ms']:.6f} ms), storm off "
+        f"{path['ms']:.4f} ms (bound {path['bound_ms']:.6f} ms; one "
+        f"cooperative auction of {path['blocks']} blocks; stamps "
+        f"{_stamps_line(path['stamps'])}), storm off "
         f"{rate_off:.1f} placements/s ({off['seconds']:.2f} s); score sum on "
         f"{on['score_sum']:.4f} off {off['score_sum']:.4f} delta "
         f"{on['score_sum'] - off['score_sum']:.4f}; timings on (s) "
@@ -1744,6 +1757,30 @@ def k5_work(inp, out) -> dict:
     }
 
 
+def storm_stamps(solve, inp, max_rounds: int, cuda) -> dict:
+    """One more solve (`solve(stamps=...)`, K5 or K14) with the kernels'
+    timer stamps, read as storm_timing.py reads them: microseconds of the
+    score and walk passes and of each phase of a round, summed over the
+    rounds, in all and by the rows unassigned when the round began."""
+    import torch
+
+    from nomad_tpu_torch.ops import _cuda
+    from storm_timing import stamp_split
+
+    stamps = torch.zeros(_cuda.storm_stamp_len(max_rounds), dtype=torch.int64,
+                         device=cuda)
+    out = solve(stamps=stamps)
+    torch.cuda.synchronize()
+    return stamp_split(stamps, inp, out)
+
+
+def _stamps_line(split: dict) -> str:
+    """A stamp split as one short phrase (ms)."""
+    phases = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in split["rounds"].items())
+    return (f"score {split['score'] / 1e3:.3f} ms, walk "
+            f"{split['walk'] / 1e3:.3f} ms, rounds {phases} ms")
+
+
 def time_storm_kernel(cuda, policy: bool = False) -> dict:
     """K5 at the storm path's full width (A = E = 1,024 rows and evals,
     the 16,384-row arena, f64) on the `dogpile` case; with `policy`, the
@@ -1765,6 +1802,10 @@ def time_storm_kernel(cuda, policy: bool = False) -> dict:
         "library_ms": None,
     }
     out.update(k5_work(args[0], tsolve.storm_assignment_cuda(*args)))
+    out["blocks"] = tsolve.storm_assignment_cuda.blocks
+    out["stamps"] = storm_stamps(
+        lambda **kw: tsolve.storm_assignment_cuda(*args, **kw), args[0],
+        max_rounds, cuda)
     return out
 
 
@@ -3374,10 +3415,19 @@ def time_kernels(cuda) -> dict:
     print(f"K14 timing (f64, CUDA events, the storm path's problem; D shards "
           f"of a VirtualMesh on one card) on {device_line()}: " + "; ".join(
               f"{k} ({v['shape']}, {v['rounds']} rounds, "
-              f"{v['launches_per_solve']} launches) {v['ms']:.6f} ms, twin "
+              f"{v['launches_per_solve']} launches, one cooperative auction of "
+              f"{v['blocks']} blocks) {v['ms']:.6f} ms, twin "
               f"{v['plain_ms']:.6f} ms, bound {v['bound_ms']:.9f} ms "
-              f"({v['bound_by']}; {v['bytes']} B, {v['flops']} ops)"
+              f"({v['bound_by']}; {v['bytes']} B, {v['flops']} ops); stamps "
+              f"{_stamps_line(v['stamps'])}"
               for k, v in out.items() if k.startswith("storm_assignment_sharded")),
+          flush=True)
+    print(f"K5 timing (f64, CUDA events) on {device_line()}: " + "; ".join(
+        f"{k} ({v['rounds']} rounds, one cooperative auction of {v['blocks']} "
+        f"blocks) {v['ms']:.6f} ms, twin {v['plain_ms']:.6f} ms, bound "
+        f"{v['bound_ms']:.9f} ms; stamps {_stamps_line(v['stamps'])}"
+        for k, v in (("dogpile", out["storm_solve"]),
+                     ("weighted dogpile", out["storm_solve_policy"]))),
           flush=True)
     # the kernels line's entries: one card shard (D = 1), eight beside
     for name in ("sharded_chained_plan", "patch_rows_sharded",
@@ -4583,10 +4633,17 @@ def check_k14(cuda) -> dict:
     max_err = 0.0
     rounds = {}
     d1 = {}
+    per_solve = {}
     for key, (dt, si, A, d) in _k14_params():
         mesh = VirtualMesh(d, cuda)
+        before = tsolve.storm_assignment_sharded_cuda.launches
         kern = k14_run(mesh, tsolve.storm_assignment_sharded, dt, si, A)
-        expected += tsolve.storm_stage_launches(mesh, int(kern.rounds))
+        n = tsolve.storm_assignment_sharded_cuda.launches - before
+        # a score stage a shard, the walk, one cooperative launch
+        check(n == tsolve.storm_stage_launches(mesh, int(kern.rounds)) == d + 2,
+              f"K14 {key}: {n} launches a solve on a VirtualMesh of {d}")
+        per_solve[f"virtual_d{d}"] = n
+        expected += n
         inp, cols, max_rounds, _w = _k14_inputs(dt, si, A, cuda)
         k5 = _to_cpu(tsolve.storm_assignment_cuda(inp, cols, False, max_rounds))
         with SPLIT("wait"):
@@ -4602,8 +4659,14 @@ def check_k14(cuda) -> dict:
         n_cases += 1
     dt, si, A = "float64", _k5_index("dogpile"), STORM_ROWS[-1]
     nccl = nccl_mesh(cuda)
+    before = tsolve.storm_assignment_sharded_cuda.launches
     kern = k14_run(nccl, tsolve.storm_assignment_sharded, dt, si, A)
-    expected += tsolve.storm_stage_launches(nccl, int(kern.rounds))
+    n = tsolve.storm_assignment_sharded_cuda.launches - before
+    # staged: the host launches the stages and reads the flag every round
+    check(n == tsolve.storm_stage_launches(nccl, int(kern.rounds)),
+          f"K14 on the NCCL DistMesh: {n} launches a solve")
+    per_solve["nccl_distmesh"] = n
+    expected += n
     max_err = max(max_err, _same_storm(
         kern, d1[(dt, si, A)], f"K14 dogpile A={A} on the NCCL DistMesh"))
     n_cases += 1
@@ -4612,10 +4675,13 @@ def check_k14(cuda) -> dict:
     print(f"K14: {n_cases} cases exact against the twin on the card and the "
           f"CPU (all six outputs) and equal to K5, at D in {K14_COUNTS} (f64; "
           f"f32 and weighted at D = 8) and on the one-rank NCCL DistMesh; "
-          f"rounds {json.dumps(rounds)}; {expected} stage launches; "
-          f"max_abs_err={max_err}", flush=True)
+          f"rounds {json.dumps(rounds)}; {expected} launches; a solve's "
+          f"launches (on a VirtualMesh a score stage a shard, the walk and "
+          f"one cooperative launch, no host read a round; staged on the "
+          f"DistMesh) {json.dumps(per_solve)}; max_abs_err={max_err}",
+          flush=True)
     return {"max_abs_err": max_err, "cases": n_cases, "launches": expected,
-            "rounds": rounds}
+            "rounds": rounds, "launches_per_solve": per_solve}
 
 
 def time_storm_sharded(cuda) -> dict:
@@ -4637,8 +4703,12 @@ def time_storm_sharded(cuda) -> dict:
         mesh = VirtualMesh(d, cuda)
         st = tsolve.prepare_sharded_storm(mesh, inp, cols, spread_fit,
                                           max_rounds)
+        before = tsolve.storm_assignment_sharded_cuda.launches
         res = tsolve.storm_assignment_sharded_cuda(st)
+        launched = tsolve.storm_assignment_sharded_cuda.launches - before
         rounds = int(res.rounds)
+        check(launched == tsolve.storm_stage_launches(mesh, rounds),
+              f"K14 at D = {d}: {launched} launches a solve")
         work = k5_work(inp, res)
         A, C = st.A, st.C
         f = 8
@@ -4654,7 +4724,11 @@ def time_storm_sharded(cuda) -> dict:
             "bytes": work["bytes"] + exchange,
             "flops": work["flops"],
             "rounds": rounds,
-            "launches_per_solve": tsolve.storm_stage_launches(mesh, rounds),
+            "launches_per_solve": launched,
+            "blocks": tsolve.storm_assignment_sharded_cuda.blocks,
+            "stamps": storm_stamps(
+                lambda **kw: tsolve.storm_assignment_sharded_cuda(st, **kw),
+                inp, max_rounds, cuda),
             "shape": f"A={A} E={st.E} C={C} D={d}",
         }
     tsolve.storm_assignment_sharded_cuda.launches = saved
@@ -4739,6 +4813,12 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
               f"the meshed and the K5 storm runs diverge at {job_id}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the mesh path")
+    # each meshed storm solve: a score stage a shard, the walk and one
+    # cooperative launch for its rounds
+    k14_per_solve = launches["storm_assignment_sharded"] / storm["mesh_storms"]
+    check(k14_per_solve == MESH_SHARDS + 2,
+          f"the meshed storm made {launches['storm_assignment_sharded']} K14 "
+          f"launches for {storm['mesh_storms']} solves")
     # a chunk on the VirtualMesh is one cooperative K12 launch (the
     # storm run's Server may dispatch chunks of its own beside the
     # chain run's)
@@ -4755,7 +4835,9 @@ def check_mesh(cuda, card: str, results: dict) -> dict:
           f"placements/s, identical to phase 8's card run; {json.dumps(stats)}; "
           f"storm of {STORM_JOBS} children on the mesh {storm_rate:.1f} "
           f"placements/s ({storm['seconds']:.2f} s), counters "
-          f"{json.dumps(storm['counters'])} identical to the K5 run; launches "
+          f"{json.dumps(storm['counters'])} identical to the K5 run "
+          f"({storm['mesh_storms']} K14 solves, {k14_per_solve:.0f} launches "
+          f"a solve); launches "
           f"{json.dumps(launches)}; delta flushes and their staging copies "
           f"{json.dumps(flushes)} (one K13 launch a flush); timings (s) "
           f"{json.dumps({k: round(v, 4) for k, v in timings.items()})}; storm "
@@ -6180,6 +6262,10 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
     # the kernels redesigned as one cooperative launch a chunk
     redesigned = {"chained_picks": "redesigned, PR 16",
                   "sharded_chained_plan": "redesigned, PR 16"}
+    # the storm auction, one cooperative launch a solve since its redesign
+    redesigned.update(dict.fromkeys(
+        ("storm_solve", "storm_assignment_sharded"),
+        "redesigned: one cooperative launch a solve"))
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",

@@ -1,8 +1,23 @@
 // Kernel K14: the node-sharded storm assignment — K5's solve with the
 // node axis split over a mesh — behind the batch worker's storm path on
-// a node mesh (NOMAD_TPU_MESH=1 with NOMAD_TPU_STORM=1).  One launch per
-// stage and shard, with the mesh's exchanges between them
-// (nomad_tpu_torch/ops/solve.py _drive_storm drives them).
+// a node mesh (NOMAD_TPU_MESH=1 with NOMAD_TPU_STORM=1).
+//
+// On a VirtualMesh (every shard in this process, on one card, at most
+// kMaxCoopShards) the score stage a shard, the mesh's gather and the walk
+// are launched as below, then the rounds and the epilogue are ONE
+// cooperative launch (k_auction_coop): csrc/storm_round.cuh's rounds
+// (K5's) over the D shards, whose argument blocks are the launch's own
+// parameters (StormCoopTable, by value).  The exchanges stay in device
+// memory with the mesh's semantics: the bids reduce by (value + jitter,
+// lowest id) over (row, shard) items (pmax, then pmin of the ids at the
+// max), and reads at a node are the owner's value plus +0.0 from every
+// other shard in shard order (psum).  The progress flag is read on the
+// card: no host read a round.
+//
+// On a DistMesh (the shards spread over processes) one launch per stage
+// and shard, with the mesh's collectives between them
+// (nomad_tpu_torch/ops/solve.py _drive_storm drives them); the stages
+// share storm_round.cuh's jitter, bid order and budget.
 //
 // Replaces the JAX program nomad_tpu/ops/solve.py:354
 // storm_assignment_sharded (its shard_map body _run, :406-620).  Plain
@@ -58,7 +73,7 @@
 //
 // What bounds it on an H100: the score pass writes the [A, C] matrix
 // across the shards and the walk reads it once gathered (bytes); each
-// round's bid re-reads the unassigned rows of it.  Launch latency
+// round's bid re-reads the bidding rows of it.  Staged, launch latency
 // dominates: 5 launches a shard and 2 a process every round, plus the
 // exchanges and the host's read of the progress flag.
 //
@@ -68,6 +83,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "storm_round.cuh"
 #include "walk.cuh"
 
 // Mirrored field for field by the ctypes Structure in ops/_cuda.py.
@@ -132,6 +148,7 @@ struct StormShardedArgs {
   int32_t* out_pulls;  // [A]
   void* out_score;     // T [A]
   int32_t* out_rounds;  // [1]
+  long long* stamps;    // storm_round.cuh's stamp buffer, or null
   int E;
   int A;
   int C;
@@ -145,6 +162,37 @@ struct StormShardedArgs {
   int spread_fit;
   int is_f64;
   int device;
+};
+
+// The D per-shard argument blocks of a cooperative solve, passed to the
+// kernel by value (CUDA 12.1's large kernel parameters, up to 32,764
+// bytes on sm_70 and later), with the round scratch.
+constexpr int kMaxCoopShards = 32;
+
+struct StormCoopTable {
+  StormShardedArgs sh[kMaxCoopShards];
+  int D;
+};
+
+struct StormCoopParams {
+  StormCoopTable table;
+  void* round;  // storm::scratch_bytes(A, C, D) bytes of scratch
+};
+
+static_assert(sizeof(StormCoopParams) <= 32764,
+              "StormCoopParams exceeds the kernel parameter limit");
+#if CUDART_VERSION < 12010
+#error "K14's cooperative solve needs CUDA 12.1's large kernel parameters"
+#endif
+
+// The cooperative launch of one solve's rounds and epilogue.  Mirrored
+// by the ctypes Structure in ops/_cuda.py.
+struct StormCoopLaunch {
+  StormCoopParams params;  // passed to the kernel by value
+  int is_f64;
+  int device;
+  int max_blocks;  // 0: as many blocks as the card holds at once
+  int blocks;      // out: the grid launched
 };
 
 namespace {
@@ -170,8 +218,8 @@ constexpr int kScoreThreads = 256;
 constexpr int kBidThreads = 256;
 constexpr int kBidWarps = kBidThreads / 32;
 constexpr int kRowThreads = 128;
-constexpr uint32_t kJitterRow = 0x9E3779B9u;  // int32 -1640531527
-constexpr uint32_t kJitterNode = 40503u;
+using storm::bid_better;
+using storm::jitter;
 
 // typed views of the untyped pointers
 template <typename T>
@@ -180,15 +228,6 @@ struct V {
   __device__ const T* t(const void* p) const { return static_cast<const T*>(p); }
   __device__ T* w(void* p) const { return static_cast<T*>(p); }
 };
-
-template <typename T>
-__device__ __forceinline__ T jitter(int a, int c) {
-  // K5's lattice at the global node id: (row * -1640531527 + node *
-  // 40503) & 0xFFFF with int32 wraparound, in uint32
-  const uint32_t h = (static_cast<uint32_t>(a) * kJitterRow +
-                      static_cast<uint32_t>(c) * kJitterNode) & 0xFFFFu;
-  return static_cast<T>(h) / T(65536) * static_cast<T>(1e-6);
-}
 
 template <typename T>
 __device__ __forceinline__ bool unassigned(const StormShardedArgs& a, int r) {
@@ -225,6 +264,9 @@ __global__ void __launch_bounds__(kScoreThreads) k_score(StormShardedArgs a) {
   const V<T> x{a};
   const int r = blockIdx.y;
   const int l = blockIdx.x * kScoreThreads + threadIdx.x;
+  if (a.stamps != nullptr && a.shard == 0 && r == 0 && l == 0) {
+    storm::stamp(a.stamps + 1);
+  }
   if (l >= a.S) return;
   const int e = a.eval_of[r];
   const size_t el = static_cast<size_t>(e) * a.S + l;
@@ -269,6 +311,9 @@ template <typename T>
 __global__ void __launch_bounds__(nk::kThreads) k_walk(StormShardedArgs a) {
   const V<T> x{a};
   const int r = blockIdx.x;
+  if (a.stamps != nullptr && r == 0 && threadIdx.x == 0) {
+    storm::stamp(a.stamps + 2);
+  }
   const int e = a.eval_of[r];
   const int32_t* perm = a.perm + static_cast<size_t>(e) * a.C;
   const T* scores = x.t(a.scores_g);
@@ -292,12 +337,6 @@ __global__ void __launch_bounds__(nk::kThreads) k_walk(StormShardedArgs a) {
   if (r == 0) {
     for (int i = threadIdx.x; i < a.max_rounds; i += blockDim.x) a.progress[i] = 0;
   }
-}
-
-// bid key: larger value + jitter first, then the lower node id
-template <typename T>
-__device__ __forceinline__ bool bid_better(T vj, int c, T bvj, int bc) {
-  return vj > bvj || (vj == bvj && c < bc);
 }
 
 template <typename T>
@@ -413,18 +452,9 @@ __global__ void k_budget(StormShardedArgs a) {
     mx1 = fmax(mx1, ask[3 * j + 1]);
     mx2 = fmax(mx2, ask[3 * j + 2]);
   }
-  const T tiny = static_cast<T>(1e-9);
-  const T mx[3] = {mx0, mx1, mx2};
   const T* free = x.t(a.free_l) + 3 * l;
-  T m = T(INFINITY);
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    if (mx[d] > T(0)) {
-      const T q = floor(free[d] / (mx[d] > tiny ? mx[d] : tiny));
-      m = q < m ? q : m;
-    }
-  }
-  x.w(a.m_term)[i] = m;
+  x.w(a.m_term)[i] = storm::budget<T>(free[0], free[1], free[2], mx0, mx1,
+                                      mx2);
 }
 
 template <typename T>
@@ -509,6 +539,78 @@ __global__ void k_finish(StormShardedArgs a) {
   x.w(a.out_score)[r] = solved ? x.t(a.score_read)[r] : T(0);
 }
 
+// ---- the cooperative solve (every shard in this process, one card) ----
+
+template <typename T>
+struct TableShards {
+  const StormShardedArgs* sh;
+  __device__ storm::ShardView<T> view(int s) const {
+    const StormShardedArgs& a = sh[s];
+    return {static_cast<const T*>(a.scores_l), a.feas_l,
+            static_cast<T*>(a.free_l), static_cast<T*>(a.price_l)};
+  }
+};
+
+// The rounds and the epilogue after the score stages, the gather and the
+// walk: free capacity and prices are the score stage's, the warm start
+// and assigned = -1 the walk's.
+template <typename T>
+__global__ void __launch_bounds__(storm::kThreads, 1)
+    k_auction_coop(const __grid_constant__ StormCoopParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const StormShardedArgs& a = p.table.sh[0];
+  storm::Round<T> r;
+  r.ask = static_cast<const T*>(a.ask);
+  r.real = a.real;
+  r.rows0 = a.rows0;
+  r.pulls0 = a.pulls0;
+  r.n_cand = a.n_cand;
+  r.eval_of = a.eval_of;
+  r.assigned = a.assigned;
+  r.acc_round = a.acc_round;
+  r.progress = a.progress;
+  r.out_pulls = a.out_pulls;
+  r.out_score = static_cast<T*>(a.out_score);
+  r.out_rounds = a.out_rounds;
+  r.round = p.round;
+  r.stamps = a.stamps;
+  r.A = a.A;
+  r.C = a.C;
+  r.S = a.S;
+  r.D = p.table.D;
+  r.max_rounds = a.max_rounds;
+  storm::run_auction<T>(r, TableShards<T>{p.table.sh}, smem);
+}
+
+template <typename T>
+cudaError_t launch_coop(StormCoopLaunch& L, cudaStream_t s) {
+  const int A = L.params.table.sh[0].A;
+  const void* kern = reinterpret_cast<const void*>(k_auction_coop<T>);
+  const size_t smem = storm::smem_bytes(A, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, k_auction_coop<T>, storm::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, L.device);
+  if (err != cudaSuccess) return err;
+  const int blocks = min(L.max_blocks > 0 ? L.max_blocks : per_sm * sms,
+                         storm::kMaxGrid);
+  if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
+  L.blocks = blocks;
+  void* kargs[] = {&L.params};
+  err = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(storm::kThreads),
+                                    kargs, smem, s);
+  // a refused launch also sets the runtime's last error: clear it, or
+  // the next launch's check would report it again
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 template <typename T>
 cudaError_t launch(const StormShardedArgs& a, cudaStream_t s) {
   const int row_blocks = (a.A + kRowThreads - 1) / kRowThreads;
@@ -565,6 +667,35 @@ extern "C" int nk_storm_sharded(const StormShardedArgs* a, void* stream) {
   const cudaError_t err = a->is_f64 ? launch<double>(*a, s)
                                     : launch<float>(*a, s);
   return static_cast<int>(err);
+}
+
+extern "C" int nk_storm_coop(StormCoopLaunch* L, void* stream) {
+  if (L->params.table.D < 1 || L->params.table.D > kMaxCoopShards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(L->device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = L->is_f64 ? launch_coop<double>(*L, s) : launch_coop<float>(*L, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of a cooperative solve's round scratch (StormCoopParams.round).
+extern "C" long long nk_storm_coop_round_bytes(int A, int C, int D,
+                                               int is_f64) {
+  return static_cast<long long>(storm::scratch_bytes(
+      A, C, D, is_f64 ? sizeof(double) : sizeof(float)));
+}
+
+// sizeof the argument block and of the cooperative launch, which the
+// ctypes mirrors must match.
+extern "C" int nk_storm_sharded_args_size() {
+  return static_cast<int>(sizeof(StormShardedArgs));
+}
+
+extern "C" int nk_storm_coop_launch_size() {
+  return static_cast<int>(sizeof(StormCoopLaunch));
 }
 
 extern "C" int nk_set_device(int device) {

@@ -46,7 +46,8 @@ SOURCES = {
     "patch_rows_mesh": "patch_rows_mesh.cu",
     "storm_sharded": "storm_sharded.cu",
 }
-HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh", "chained_grid.cuh")
+HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh", "chained_grid.cuh",
+           "storm_round.cuh")
 
 # exact IEEE arithmetic: no FMA contraction, no fast math, no
 # flush-to-zero, correctly rounded division
@@ -425,6 +426,13 @@ def launch_chained_picks(p, used_out, ports_out, devs_out, rows, pulls,
     return args.blocks
 
 
+def storm_stamp_len(max_rounds: int) -> int:
+    """Entries of a K5 or K14 stamp buffer (csrc/storm_round.cuh stamp):
+    the stamps a round, three kernel starts, the auction's set-up
+    barrier, and up to three a round."""
+    return 5 + 3 * max(1, max_rounds)
+
+
 class StormArgs(ctypes.Structure):
     """Mirror of `StormArgs` in csrc/storm_solve.cu."""
 
@@ -435,31 +443,52 @@ class StormArgs(ctypes.Structure):
             "limit", "n_cand", "eval_of", "penalty", "ask", "desired",
             "real", "pre_cpu", "pre_mem", "pre_disk", "policy_tput",
             "policy_has", "policy_mig", "scores", "feas",
-            "s_walk", "f_walk", "free_cap", "price", "bid_v", "bid_c",
-            "has_bid", "accepted", "progress", "pulls0", "out_assigned",
-            "out_pulls", "out_round", "out_score", "out_greedy",
-            "out_rounds",
+            "s_walk", "f_walk", "free_cap", "price", "round", "progress",
+            "pulls0", "out_assigned", "out_pulls", "out_round", "out_score",
+            "out_greedy", "out_rounds", "stamps",
         )
     ] + [
         (name, _I) for name in (
-            "E", "A", "C", "max_rounds", "spread_fit", "is_f64", "device",
+            "max_blocks", "blocks", "E", "A", "C", "max_rounds",
+            "spread_fit", "is_f64", "device",
         )
     ]
 
 
-def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int):
+def _round_bytes(name: str, fn_name: str, *args) -> int:
+    """The library's size of a solve's round scratch (csrc/storm_round.cuh
+    scratch_bytes)."""
+    fn = getattr(library(name), fn_name)
+    fn.argtypes = [_I] * len(args)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
+def _check_stamps(stamps, max_rounds: int, dev) -> None:
+    if stamps.dtype != torch.int64 or stamps.device != dev or (
+            stamps.numel() < storm_stamp_len(max_rounds)):
+        raise ValueError(f"stamps must be int64 on {dev} of at least "
+                         f"{storm_stamp_len(max_rounds)} entries")
+
+
+def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int,
+                       stamps=None, max_blocks: int = 0):
     """K5 on the current stream over a checked `ops.solve.StormInputs`
     (the three policy fields all tensors for a weighted storm, all None
     otherwise) and the six node columns (contiguous CUDA tensors).
-    Allocates the
-    outputs and the scratch (two [A, C] score copies and two [A, C]
-    byte masks) and returns (assigned, pulls, accept_round, score,
-    greedy, rounds) as device tensors."""
+    Allocates the outputs and the scratch (two [A, C] score copies, two
+    [A, C] byte masks and the rounds' scratch) and returns ((assigned,
+    pulls, accept_round, score, greedy, rounds) as device tensors, the
+    auction's grid).  `stamps`, an int64 tensor of at least
+    `storm_stamp_len(max_rounds)` entries or None, takes the kernels'
+    %globaltimer stamps (`csrc/storm_round.cuh stamp`); `max_blocks`
+    caps the auction's grid (0: as many blocks as the card holds)."""
     dev = cols[0].device
     dtype = cols[0].dtype
     E, C = inp.feasible.shape
     A = inp.ask.shape[0]
     i32 = torch.int32
+    is_f64 = int(dtype == torch.float64)
     out = dict(
         out_assigned=torch.empty(A, dtype=i32, device=dev),
         out_pulls=torch.empty(A, dtype=i32, device=dev),
@@ -475,10 +504,9 @@ def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int):
         f_walk=torch.empty((A, C), dtype=torch.uint8, device=dev),
         free_cap=torch.empty((C, 3), dtype=dtype, device=dev),
         price=torch.empty(C, dtype=dtype, device=dev),
-        bid_v=torch.empty(A, dtype=dtype, device=dev),
-        bid_c=torch.empty(A, dtype=i32, device=dev),
-        has_bid=torch.empty(A, dtype=i32, device=dev),
-        accepted=torch.empty(A, dtype=i32, device=dev),
+        round=torch.empty(_round_bytes("storm_solve", "nk_storm_round_bytes",
+                                       A, C, is_f64),
+                          dtype=torch.uint8, device=dev),
         progress=torch.empty(max(1, max_rounds), dtype=i32, device=dev),
         pulls0=torch.empty(A, dtype=i32, device=dev),
     )
@@ -494,21 +522,23 @@ def launch_storm_solve(inp, cols, *, spread_fit: bool, max_rounds: int):
         policy_mig=inp.policy_mig_term,
         **scratch, **out,
     )
+    if stamps is not None:
+        _check_stamps(stamps, max_rounds, dev)
+        ptrs["stamps"] = stamps
     args = StormArgs()
-    for name, t in ptrs.items():
-        if t is None:
-            continue  # an absent policy field: a null pointer
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {dev}")
-        setattr(args, name, t.data_ptr())
+    _fill(args, ptrs, dev)
     args.E, args.A, args.C = E, A, C
     args.max_rounds = max_rounds
     args.spread_fit = int(spread_fit)
-    args.is_f64 = int(dtype == torch.float64)
+    args.is_f64 = is_f64
     args.device = dev.index
+    args.max_blocks = int(max_blocks)
+    # the first bind in the process checks the mirror's size
+    _bind("storm_solve", "nk_storm_solve", StormArgs, "nk_storm_args_size")
     _launch("storm_solve", "nk_storm_solve", args, dev)
-    return (out["out_assigned"], out["out_pulls"], out["out_round"],
-            out["out_score"], out["out_greedy"], out["out_rounds"][0])
+    return ((out["out_assigned"], out["out_pulls"], out["out_round"],
+             out["out_score"], out["out_greedy"], out["out_rounds"][0]),
+            args.blocks)
 
 
 class WalkOnlyArgs(ctypes.Structure):
@@ -1113,7 +1143,7 @@ _SS_PTRS = (
     "m_term", "score_term", "scores_g", "feas_g", "s_walk", "f_walk", "gmax",
     "best_c", "reads", "m_at_bid", "score_read", "rows0", "pulls0", "bid_c",
     "bid_v", "has_bid", "accepted", "assigned", "acc_round", "progress",
-    "out_pulls", "out_score", "out_rounds",
+    "out_pulls", "out_score", "out_rounds", "stamps",
 )
 _SS_INTS = ("E", "A", "C", "S", "D", "shard", "lo", "rnd", "max_rounds",
             "stage", "spread_fit", "is_f64", "device")
@@ -1126,20 +1156,69 @@ class StormShardedArgs(ctypes.Structure):
         (name, _I) for name in _SS_INTS]
 
 
+def _storm_blocks(st, dev, stamps=None):
+    """K14's argument blocks for one solve: the process's and one a local
+    shard (keyed by id), with `stamps` (or null) in the process's and
+    shard 0's."""
+    common = dict(
+        perm=st.perm, limit=st.limit, n_cand=st.n_cand,
+        eval_of=st.eval_of, ask=st.ask, desired=st.desired, real=st.real,
+        policy_has=st.has_tput, scores_g=st.scores_g, feas_g=st.feas_g,
+        s_walk=st.s_walk, f_walk=st.f_walk, gmax=st.gmax,
+        best_c=st.best_c, reads=st.reads, m_at_bid=st.m_at_bid,
+        score_read=st.score_read, rows0=st.rows0, pulls0=st.pulls0,
+        bid_c=st.bid_c, bid_v=st.bid_v, has_bid=st.has_bid,
+        accepted=st.accepted, assigned=st.assigned,
+        acc_round=st.acc_round, progress=st.progress,
+        out_pulls=st.out_pulls, out_score=st.out_score,
+        out_rounds=st.out_rounds,
+    )
+    dims = dict(E=st.E, A=st.A, C=st.C, S=st.S, D=st.D,
+                max_rounds=st.max_rounds, spread_fit=int(st.spread_fit),
+                is_f64=int(st.dtype == torch.float64), device=dev.index)
+
+    def block(sh):
+        args = StormShardedArgs()
+        ptrs = dict(common)
+        if sh is None or sh.s == 0:
+            ptrs["stamps"] = stamps
+        if sh is not None:
+            ptrs.update(
+                cpu_total=sh.tot[0], mem_total=sh.tot[1],
+                disk_total=sh.tot[2], cpu_used=sh.used[0],
+                mem_used=sh.used[1], disk_used=sh.used[2],
+                pre_cpu=sh.pre[0], pre_mem=sh.pre[1], pre_disk=sh.pre[2],
+                feasible=sh.feasible, affinity=sh.affinity,
+                collisions=sh.collisions, penalty=sh.penalty,
+                policy_tput=sh.tput, policy_mig=sh.mig,
+                scores_l=sh.scores, feas_l=sh.feas, free_l=sh.free,
+                price_l=sh.price, rec_max=sh.rec_max, rec_idx=sh.rec_idx,
+                cand=sh.cand, terms=sh.terms, m_term=sh.m_term,
+                score_term=sh.score_term)
+        _fill(args, ptrs, dev)
+        for name, v in dims.items():
+            setattr(args, name, v)
+        args.shard = -1 if sh is None else sh.s
+        args.lo = 0 if sh is None else sh.lo
+        return args
+
+    return block(None), {id(sh): block(sh) for sh in st.shards}
+
+
 class StormShardedStages:
     """K14's stages for one solve (`ops/solve.py _drive_storm`): one args
     block per local shard and one for the process, filled once; a launch
     sets the stage and round and calls the library on the current
-    stream.  `launched` counts the kernel launches."""
+    stream.  `launched` counts the kernel launches.  `stamps` (int64 on
+    the card, or None) takes the score and walk stages' timer stamps."""
 
     (SCORE, WALK, BID, CAND, READ, BIDS, BUDGET, ACCEPT, DEBIT, EPI_READ,
      FINISH) = range(11)
 
-    def __init__(self, st) -> None:
+    def __init__(self, st, stamps=None) -> None:
         lib = library("storm_sharded")
-        self._fn = lib.nk_storm_sharded
-        self._fn.argtypes = [ctypes.POINTER(StormShardedArgs), _P]
-        self._fn.restype = _I
+        self._fn = _bind("storm_sharded", "nk_storm_sharded",
+                         StormShardedArgs, "nk_storm_sharded_args_size")
         self._err = lib.nk_error_string
         dev = st.gmax.device
         code = lib.nk_set_device(dev.index)
@@ -1147,48 +1226,9 @@ class StormShardedStages:
             raise RuntimeError(f"nk_set_device: {self._err(code).decode()}")
         self._stream = _P(torch.cuda.current_stream(dev).cuda_stream)
         self.launched = 0
-        common = dict(
-            perm=st.perm, limit=st.limit, n_cand=st.n_cand,
-            eval_of=st.eval_of, ask=st.ask, desired=st.desired, real=st.real,
-            policy_has=st.has_tput, scores_g=st.scores_g, feas_g=st.feas_g,
-            s_walk=st.s_walk, f_walk=st.f_walk, gmax=st.gmax,
-            best_c=st.best_c, reads=st.reads, m_at_bid=st.m_at_bid,
-            score_read=st.score_read, rows0=st.rows0, pulls0=st.pulls0,
-            bid_c=st.bid_c, bid_v=st.bid_v, has_bid=st.has_bid,
-            accepted=st.accepted, assigned=st.assigned,
-            acc_round=st.acc_round, progress=st.progress,
-            out_pulls=st.out_pulls, out_score=st.out_score,
-            out_rounds=st.out_rounds,
-        )
-        dims = dict(E=st.E, A=st.A, C=st.C, S=st.S, D=st.D,
-                    max_rounds=st.max_rounds, spread_fit=int(st.spread_fit),
-                    is_f64=int(st.dtype == torch.float64), device=dev.index)
-
-        def block(sh):
-            args = StormShardedArgs()
-            ptrs = dict(common)
-            if sh is not None:
-                ptrs.update(
-                    cpu_total=sh.tot[0], mem_total=sh.tot[1],
-                    disk_total=sh.tot[2], cpu_used=sh.used[0],
-                    mem_used=sh.used[1], disk_used=sh.used[2],
-                    pre_cpu=sh.pre[0], pre_mem=sh.pre[1], pre_disk=sh.pre[2],
-                    feasible=sh.feasible, affinity=sh.affinity,
-                    collisions=sh.collisions, penalty=sh.penalty,
-                    policy_tput=sh.tput, policy_mig=sh.mig,
-                    scores_l=sh.scores, feas_l=sh.feas, free_l=sh.free,
-                    price_l=sh.price, rec_max=sh.rec_max, rec_idx=sh.rec_idx,
-                    cand=sh.cand, terms=sh.terms, m_term=sh.m_term,
-                    score_term=sh.score_term)
-            _fill(args, ptrs, dev)
-            for name, v in dims.items():
-                setattr(args, name, v)
-            args.shard = -1 if sh is None else sh.s
-            args.lo = 0 if sh is None else sh.lo
-            return args
-
-        self._proc = block(None)
-        self._args = {id(sh): block(sh) for sh in st.shards}
+        if stamps is not None:
+            _check_stamps(stamps, st.max_rounds, dev)
+        self._proc, self._args = _storm_blocks(st, dev, stamps)
 
     def _go(self, args, stage: int, rnd: int = 0) -> None:
         args.stage = stage
@@ -1232,3 +1272,68 @@ class StormShardedStages:
 
     def finish(self, st, rounds):
         self._go(self._proc, self.FINISH, rounds)
+
+
+# the shards a cooperative K14 solve takes by value (kMaxCoopShards in
+# csrc/storm_sharded.cu)
+STORM_COOP_MAX_SHARDS = 32
+
+
+class StormCoopTable(ctypes.Structure):
+    """Mirror of `StormCoopTable` in csrc/storm_sharded.cu."""
+
+    _fields_ = [("sh", StormShardedArgs * STORM_COOP_MAX_SHARDS), ("D", _I)]
+
+
+class StormCoopParams(ctypes.Structure):
+    """Mirror of `StormCoopParams` in csrc/storm_sharded.cu."""
+
+    _fields_ = [("table", StormCoopTable), ("round", _P)]
+
+
+class StormCoopLaunch(ctypes.Structure):
+    """Mirror of `StormCoopLaunch` in csrc/storm_sharded.cu."""
+
+    _fields_ = [("params", StormCoopParams)] + [
+        (name, _I) for name in ("is_f64", "device", "max_blocks", "blocks")]
+
+
+class StormShardedCoop:
+    """K14's rounds and epilogue as one cooperative launch, for a solve
+    whose shards all live in this process on one card (a `VirtualMesh`
+    of at most STORM_COOP_MAX_SHARDS shards): the D per-shard argument
+    blocks are the launch's own parameters, the round scratch is
+    allocated here.  `max_blocks` caps the grid (0: as many 1,024-thread
+    blocks as the card holds at once); a grid the card cannot hold fails
+    the launch, which raises.  `blocks` is the grid launched."""
+
+    def __init__(self, st, stamps=None, max_blocks: int = 0) -> None:
+        if not 1 <= st.D <= STORM_COOP_MAX_SHARDS:
+            raise ValueError(f"a cooperative K14 solve takes 1 to "
+                             f"{STORM_COOP_MAX_SHARDS} shards, got {st.D}")
+        if sorted(sh.s for sh in st.shards) != list(range(st.D)):
+            raise ValueError("a cooperative K14 solve holds every shard")
+        dev = st.gmax.device
+        if stamps is not None:
+            _check_stamps(stamps, st.max_rounds, dev)
+        is_f64 = int(st.dtype == torch.float64)
+        self._round = torch.empty(
+            _round_bytes("storm_sharded", "nk_storm_coop_round_bytes", st.A,
+                         st.C, st.D, is_f64), dtype=torch.uint8, device=dev)
+        a = StormCoopLaunch(is_f64=is_f64, device=dev.index,
+                            max_blocks=int(max_blocks), blocks=0)
+        _proc, blocks = _storm_blocks(st, dev, stamps)
+        for sh in st.shards:
+            a.params.table.sh[sh.s] = blocks[id(sh)]
+        a.params.table.D = st.D
+        a.params.round = self._round.data_ptr()
+        self._args = a
+        self._dev = dev
+        self.blocks = 0
+
+    def launch(self) -> None:
+        # the first bind in the process checks the mirror's size
+        _bind("storm_sharded", "nk_storm_coop", StormCoopLaunch,
+              "nk_storm_coop_launch_size")
+        _launch("storm_sharded", "nk_storm_coop", self._args, self._dev)
+        self.blocks = self._args.blocks

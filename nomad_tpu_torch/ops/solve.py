@@ -30,9 +30,13 @@ all-zero rows, which add nothing float-exactly.
 
 The node-sharded solve (`storm_assignment_sharded`, JAX `:354`) is
 kernel K14, `csrc/storm_sharded.cu`: the same auction with the node axis
-split over a `parallel.mesh` node mesh.  K14 runs in stages launched
-per shard, with the mesh's exchanges between them where the JAX
-program's collectives fall (`_drive_storm`):
+split over a `parallel.mesh` node mesh.  On a `VirtualMesh` (every shard
+in this process on one card) its score stage a shard, the gather and the
+walk are launched, then the rounds and the epilogue are one cooperative
+launch: K5's rounds (`csrc/storm_round.cuh`) over the shards, the
+exchanges and the progress flag in device memory.  On a `DistMesh` K14
+runs in stages launched per shard, with the mesh's exchanges between
+them where the JAX program's collectives fall (`_drive_storm`):
 
   score     per shard, every (row, local node) score and feasibility,
             the shard's free capacity; the mesh gathers both [A, S]
@@ -56,8 +60,8 @@ then each round
             prices of the nodes it owns;
 
 and an epilogue (the score's ownership read, psum, then pulls, score
-and rounds).  The twin (`storm_assignment_sharded_twin`) runs the same
-stages in torch on the same mesh.  Every exchange is exact, so the
+and rounds).  The twin (`storm_assignment_sharded_twin`) runs these
+stages in torch on any mesh.  Every exchange is exact, so the
 result is bit-equal to the JAX program at the same D and, but for the
 sign of a zero score at D > 1, to the single-device solve.
 """
@@ -283,8 +287,9 @@ def storm_assignment_twin(inp: StormInputs, cols, spread_fit: bool,
                           max_rounds: int) -> StormOut:
     """Plain twin of the JAX `storm_assignment`, op for op: the same
     broadcast score matrix, per-row warm-start walk, int32 jitter
-    lattice and auction rounds (a Python loop with the JAX `cond`).
-    Three steps are written in another form that gives the same bits:
+    lattice and auction rounds (`storm_auction_twin`, a Python loop with
+    the JAX `cond`).  Three steps of a round are written in another form
+    that gives the same bits:
     the per-node max ask is a scatter-max over the bidders (a max is
     exact in any order), the nodes that received a bid come from their
     bidders, and the debit `free - acc_oh.T @ ask` adds each node's
@@ -296,23 +301,47 @@ def storm_assignment_twin(inp: StormInputs, cols, spread_fit: bool,
     dtype = cpu_t.dtype
     dev = cpu_t.device
     i32 = torch.int32
-    A = inp.ask.shape[0]
     C = cpu_t.shape[0]
 
     feas, scores, si = storm_scores(inp, cols, spread_fit)
     rows0, pulls0 = _walk_rows(feas, scores, si.perm, si.limit,
                                si.n_candidates)
+    free = torch.stack([cpu_t - si.cpu_used, mem_t - si.mem_used,
+                        disk_t - si.disk_used], dim=1)
+    assigned, acc_round, rnd = storm_auction_twin(
+        feas, scores, rows0, inp.ask, inp.real, free, max_rounds)
+    solved = assigned >= 0
+    kept_walk = solved & (assigned == rows0)
+    pulls = torch.where(kept_walk, pulls0, si.n_candidates).to(i32)
+    score = torch.where(
+        solved,
+        torch.gather(
+            scores, 1, torch.clamp(assigned, 0, C - 1).long()[:, None]
+        )[:, 0],
+        torch.zeros((), dtype=dtype, device=dev),
+    )
+    return StormOut(assigned, pulls, acc_round, score, rows0,
+                    torch.tensor(rnd, dtype=i32, device=dev))
 
+
+def storm_auction_twin(feas, scores, rows0, ask, real, free,
+                       max_rounds: int, state: bool = False):
+    """The JAX program's auction rounds (its `while_loop` over `body`) on
+    the [A, C] feasibility and score matrices, the warm start rows0, the
+    asks [A, 3], the real-row mask and the nodes' free capacity [C, 3]:
+    returns (assigned, accept_round, rounds), and with `state` the final
+    free capacity and prices after them."""
+    dtype = scores.dtype
+    dev = scores.device
+    i32 = torch.int32
+    A, C = scores.shape
     neg_inf = torch.full((), -float("inf"), dtype=dtype, device=dev)
     row_ids = torch.arange(A, dtype=i32, device=dev)
     jitter = storm_jitter(A, C, dtype, dev)
-    free = torch.stack([cpu_t - si.cpu_used, mem_t - si.mem_used,
-                        disk_t - si.disk_used], dim=1)
     rows0_c = torch.clamp(rows0, 0, C - 1).long()
     eps = torch.tensor(PRICE_EPS, dtype=dtype, device=dev)
     tiny = torch.tensor(1e-9, dtype=dtype, device=dev)
     inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    ask = inp.ask
 
     assigned = torch.full((A,), NO_NODE, dtype=i32, device=dev)
     price = torch.zeros(C, dtype=dtype, device=dev)
@@ -320,7 +349,7 @@ def storm_assignment_twin(inp: StormInputs, cols, spread_fit: bool,
     rnd = 0
     progress = True
     while rnd < max_rounds and progress:
-        unass = (assigned == NO_NODE) & inp.real
+        unass = (assigned == NO_NODE) & real
         # an assigned or padding row's values are all -inf: its argmax
         # is node 0 and it makes no bid, so only the unassigned rows
         # are scanned (the same result, far less work in late rounds)
@@ -385,26 +414,23 @@ def storm_assignment_twin(inp: StormInputs, cols, spread_fit: bool,
         rnd += 1
         progress = bool(torch.any(accepted))
 
-    solved = assigned >= 0
-    kept_walk = solved & (assigned == rows0)
-    pulls = torch.where(kept_walk, pulls0, si.n_candidates).to(i32)
-    score = torch.where(
-        solved,
-        torch.gather(
-            scores, 1, torch.clamp(assigned, 0, C - 1).long()[:, None]
-        )[:, 0],
-        torch.zeros((), dtype=dtype, device=dev),
-    )
-    return StormOut(assigned, pulls, acc_round, score, rows0,
-                    torch.tensor(rnd, dtype=i32, device=dev))
+    if state:
+        return assigned, acc_round, rnd, free, price
+    return assigned, acc_round, rnd
 
 
 def storm_assignment_cuda(inp: StormInputs, cols, spread_fit: bool,
-                          max_rounds: int) -> StormOut:
+                          max_rounds: int, stamps=None,
+                          _max_blocks: int = 0) -> StormOut:
     """Launch K5 on the current stream of the tensors' CUDA device:
     the score matrix, the warm-start walks and the auction (one
     cooperative launch whose round loop stays on the card).  Returns
-    the six outputs as device tensors; nothing is synchronised."""
+    the six outputs as device tensors; nothing is synchronised.
+    `stamps` (int64 on the card, `_cuda.storm_stamp_len(max_rounds)`
+    long, or None on every path) takes the kernels' timer stamps.
+    `launches` counts solves, `blocks` is the last auction's grid;
+    `_max_blocks` caps it (the card tests set it; 0: as many 1,024-thread
+    blocks as the card holds)."""
     from . import _cuda
 
     dev = _check(inp, cols)
@@ -414,13 +440,16 @@ def storm_assignment_cuda(inp: StormInputs, cols, spread_fit: bool,
         raise ValueError(f"max_rounds must be >= 0, got {max_rounds}")
     cols = tuple(c.contiguous() for c in cols)
     inp = StormInputs(*(None if t is None else t.contiguous() for t in inp))
-    out = _cuda.launch_storm_solve(inp, cols, spread_fit=spread_fit,
-                                   max_rounds=max_rounds)
+    out, blocks = _cuda.launch_storm_solve(
+        inp, cols, spread_fit=spread_fit, max_rounds=max_rounds,
+        stamps=stamps, max_blocks=_max_blocks)
     storm_assignment_cuda.launches += 1
+    storm_assignment_cuda.blocks = blocks
     return StormOut(*out)
 
 
 storm_assignment_cuda.launches = 0
+storm_assignment_cuda.blocks = 0
 
 
 def storm_assignment(inp: StormInputs, cols, spread_fit: bool,
@@ -616,20 +645,29 @@ def prepare_sharded_storm(mesh, inp: StormInputs, cols,
     return st
 
 
-def _drive_storm(st: _Storm, stages) -> int:
-    """The launch sequence of one sharded solve, the same for K14 and its
-    twin, with the mesh's exchanges between the stages; returns the
-    rounds run.  The host reads one progress flag a round: replicated
-    math, so every process of a `DistMesh` reads the same value."""
+def _storm_prologue(st: _Storm, stages) -> None:
+    """The score stage a shard, the solve's one full gather (the warm
+    start walks the global permuted order) and the walk."""
+    mesh = st.mesh
+    for sh in st.shards:
+        stages.score(st, sh)
+    mesh.gather([sh.scores for sh in st.shards], out=st.scores_g)
+    mesh.gather([sh.feas for sh in st.shards], out=st.feas_g)
+    stages.walk(st)
+
+
+def _read_progress(st: _Storm, rnd: int) -> bool:
+    """The host's read of round `rnd`'s progress flag (replicated math:
+    every process of a `DistMesh` reads the same value)."""
+    return bool(int(st.progress[rnd]))
+
+
+def _storm_rounds(st: _Storm, stages) -> int:
+    """The auction rounds with the mesh's exchanges between the stages,
+    and the epilogue; returns the rounds run.  The host reads one
+    progress flag a round."""
     mesh = st.mesh
     shards = st.shards
-    for sh in shards:
-        stages.score(st, sh)
-    # the one full gather of the solve: the warm start walks the
-    # global permuted order
-    mesh.gather([sh.scores for sh in shards], out=st.scores_g)
-    mesh.gather([sh.feas for sh in shards], out=st.feas_g)
-    stages.walk(st)
     rnd = 0
     while rnd < st.max_rounds:
         for sh in shards:
@@ -649,7 +687,7 @@ def _drive_storm(st: _Storm, stages) -> int:
         for sh in shards:
             stages.debit(st, sh)
         rnd += 1
-        if not int(st.progress[rnd - 1]):
+        if not _read_progress(st, rnd - 1):
             break
     for sh in shards:
         stages.epi_read(st, sh)
@@ -658,12 +696,27 @@ def _drive_storm(st: _Storm, stages) -> int:
     return rnd
 
 
+def _drive_storm(st: _Storm, stages) -> int:
+    """The launch sequence of one staged sharded solve, the same for K14
+    on a `DistMesh` and for its twin, with the mesh's exchanges between
+    the stages; returns the rounds run."""
+    _storm_prologue(st, stages)
+    return _storm_rounds(st, stages)
+
+
 def storm_stage_launches(mesh, rounds: int) -> int:
     """Kernel launches of one K14 solve of `rounds` auction rounds in
-    this process: a score and an epilogue read per shard, the walk and
-    the finish once; a round five stages per shard (bid, cand, read,
-    budget, debit) and two per process (bids, accept)."""
+    this process.  On a `VirtualMesh`: a score stage a shard, the walk,
+    and one cooperative launch for the rounds and the epilogue.  On any
+    other mesh (its exchanges cross processes): a score and an epilogue
+    read per shard, the walk and the finish once; a round five stages per
+    shard (bid, cand, read, budget, debit) and two per process (bids,
+    accept)."""
+    from ..parallel.mesh import VirtualMesh
+
     d = len(mesh.local_shards)
+    if isinstance(mesh, VirtualMesh):
+        return d + 2
     return 2 * d + 2 + rounds * (5 * d + 2)
 
 
@@ -883,28 +936,51 @@ def storm_assignment_sharded_twin(mesh, spread_fit: bool, max_rounds: int,
     return _sharded_runner(mesh, spread_fit, max_rounds, weighted, False)
 
 
-def storm_assignment_sharded_cuda(st: _Storm) -> StormOut:
-    """K14 over a prepared solve: its stages as CUDA launches on the
-    current stream, the mesh's exchanges between them, and one host read
-    of the progress flag a round.  `launches` counts kernel launches.  A
-    failed build or launch raises `DeviceFault`."""
+def storm_assignment_sharded_cuda(st: _Storm, stamps=None,
+                                  _max_blocks: int = 0) -> StormOut:
+    """K14 over a prepared solve on the current stream; nothing is
+    synchronised.  The mesh's kind picks the launches: on a `VirtualMesh`
+    (every shard in this process on one card) the score stages, the
+    gather and the walk, then ONE cooperative launch for the rounds and
+    the epilogue, its exchanges and its progress flag in device memory
+    (no host read a round); on a `DistMesh` the stages one by one with
+    the mesh's collectives between them and one host read of the
+    progress flag a round.  Any failure, a cooperative launch the card
+    cannot hold included, raises `DeviceFault`: nothing falls back to the
+    other launch path or to the twin.  `launches` counts kernel launches,
+    `blocks` the last cooperative grid.  `stamps` (int64 on the card,
+    `_cuda.storm_stamp_len(max_rounds)` long, or None on every path)
+    takes the kernels' timer stamps; `_max_blocks` caps the cooperative
+    grid (the card tests set it; 0: as the card holds)."""
     from ..device.core import DeviceFault
+    from ..parallel.mesh import VirtualMesh
     from . import _cuda
 
     if st.mesh.device.type != "cuda":
         raise ValueError(f"K14 needs a mesh on the card, got {st.mesh.device}")
     try:
-        stages = _cuda.StormShardedStages(st)
-        _drive_storm(st, stages)
+        if isinstance(st.mesh, VirtualMesh):
+            # the shard count is checked before anything is built
+            coop = _cuda.StormShardedCoop(st, stamps, _max_blocks)
+            stages = _cuda.StormShardedStages(st, stamps)
+            _storm_prologue(st, stages)
+            coop.launch()
+            storm_assignment_sharded_cuda.blocks = coop.blocks
+            launched = stages.launched + 1
+        else:
+            stages = _cuda.StormShardedStages(st, stamps)
+            _drive_storm(st, stages)
+            launched = stages.launched
     except DeviceFault:
         raise
     except Exception as exc:  # a build, bind or launch failure
         raise DeviceFault(f"K14 storm_sharded failed: {exc}") from exc
-    storm_assignment_sharded_cuda.launches += stages.launched
+    storm_assignment_sharded_cuda.launches += launched
     return _out(st)
 
 
 storm_assignment_sharded_cuda.launches = 0
+storm_assignment_sharded_cuda.blocks = 0
 
 
 def _sharded_runner(mesh, spread_fit: bool, max_rounds: int, weighted: bool,

@@ -384,6 +384,75 @@ def test_storm_solve_policy_kernel_matches_twin(cuda, scenario, A, dtype):
         assert (_bits(k) == _bits(tp)).all()
 
 
+def _same_storm_bits(kern, other):
+    for k, o in zip(kern, other):
+        assert k.dtype == o.dtype
+        assert (_bits(k) == _bits(o)).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scenario", ["dogpile", "infeasible_rows",
+                                      "padding_rows", "pre_deltas", "ties",
+                                      "round_budget2"])
+def test_storm_solve_kernel_above_one_block_of_rows(cuda, scenario, dtype):
+    """A = 2,048 rows (twice the rows block 0 holds in shared memory, so
+    the round's arrays live in device memory) on a 2,048-row arena: all
+    six outputs bit-equal to the twin on the card and on the CPU."""
+    A = width = 2048
+    cols, inp, max_rounds = storm_case(4400 + STORM_SCENARIOS.index(scenario),
+                                       A, A, width, scenario)
+    card = (storm_inputs(inp, cuda, dtype), storm_columns(cols, cuda, dtype))
+    kern = tsolve.storm_assignment_cuda(*card, False, max_rounds)
+    torch.cuda.synchronize()
+    _same_storm_bits(kern, tsolve.storm_assignment_twin(*card, False,
+                                                        max_rounds))
+    _same_storm_bits(kern, tsolve.storm_assignment_twin(
+        storm_inputs(inp, "cpu", dtype), storm_columns(cols, "cpu", dtype),
+        False, max_rounds))
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 132])
+@pytest.mark.parametrize("scenario", ["dogpile", "penalty_affinity_collisions",
+                                      "pre_deltas"])
+def test_storm_solve_kernel_any_grid(cuda, scenario, blocks):
+    """The auction's outputs do not depend on its grid: one block, three,
+    and one a multiprocessor give the twin's bits (phase B's items and
+    their reduction change with the grid, the bids do not)."""
+    A = 1024
+    cols, inp, max_rounds = storm_case(4500 + STORM_SCENARIOS.index(scenario),
+                                       A, A, C, scenario)
+    card = (storm_inputs(inp, cuda), storm_columns(cols, cuda))
+    kern = tsolve.storm_assignment_cuda(*card, False, max_rounds,
+                                        _max_blocks=blocks)
+    torch.cuda.synchronize()
+    assert tsolve.storm_assignment_cuda.blocks == blocks
+    _same_storm_bits(kern, tsolve.storm_assignment_twin(*card, False,
+                                                        max_rounds))
+
+
+def test_storm_solve_kernel_stamps(cuda):
+    """The stamp buffer: the stamps a round, the three kernels' starts and
+    two barriers a round, in time order; the solve is unchanged."""
+    from nomad_tpu_torch.ops import _cuda
+
+    cols, inp, max_rounds = storm_case(4600, 1024, 1024, C, "dogpile")
+    card = (storm_inputs(inp, cuda), storm_columns(cols, cuda))
+    stamps = torch.zeros(_cuda.storm_stamp_len(max_rounds), dtype=torch.int64,
+                         device=cuda)
+    kern = tsolve.storm_assignment_cuda(*card, False, max_rounds,
+                                        stamps=stamps)
+    torch.cuda.synchronize()
+    _same_storm_bits(kern, tsolve.storm_assignment_cuda(*card, False,
+                                                        max_rounds))
+    s = stamps.cpu().tolist()
+    rounds = int(kern.rounds)
+    assert s[0] == 2 and rounds >= 3
+    used = s[1:5 + 2 * rounds]
+    assert all(t > 0 for t in used)
+    assert used == sorted(used)
+    assert all(t == 0 for t in s[5 + 2 * rounds:])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("limit", [1, 2, 14, INT32_MAX])
 @pytest.mark.parametrize("width", [8, 1024, 16384])
@@ -1071,12 +1140,14 @@ K14_CASES = [("dogpile", 64, 1024), ("penalty_affinity_collisions", 64, 1024),
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
 @pytest.mark.parametrize("scenario,A,width", K14_CASES)
 def test_storm_sharded_kernel_matches_twin(cuda, scenario, A, width, d, dtype):
     """K14 against its twin on the card and on the CPU (all six outputs,
-    bits), its launches against the stage count, and K5 on the same
-    inputs (equal values; a zero score's sign may differ at d > 1)."""
+    bits), its launches against the stage count (on a VirtualMesh a
+    score stage a shard, the walk and one cooperative launch), and K5 on
+    the same inputs (bits at d = 1; equal values at d > 1, where a zero
+    score reads +0.0 through the other shards)."""
     from nomad_tpu_torch.parallel.mesh import VirtualMesh
 
     weighted = scenario.startswith("policy_")
@@ -1100,11 +1171,58 @@ def test_storm_sharded_kernel_matches_twin(cuda, scenario, A, width, d, dtype):
     for other in (twin, twin_cpu):
         for a, b in zip(kern, other):
             assert np.array_equal(_bits(a), _bits(b))
+    assert n == d + 2
     k5 = tsolve.storm_assignment_cuda(storm_inputs(inp, cuda, dtype),
                                       storm_columns(cols, cuda, dtype), False,
                                       max_rounds)
     for a, b in zip(kern, k5):
         assert torch.equal(a, b.cpu())
+        if d == 1:
+            assert np.array_equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 8])
+def test_storm_sharded_kernel_above_one_block_of_rows(cuda, d, dtype):
+    """K14's cooperative solve at A = 2,048 rows on a 2,048-row arena (the
+    round's arrays in device memory) against its CPU twin and K5."""
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    cols, inp, max_rounds = storm_case(4700, 2048, 2048, 2048, "dogpile")
+    kern = tsolve.storm_assignment_sharded(VirtualMesh(d, cuda), False,
+                                           max_rounds)(
+        storm_inputs(inp, cuda, dtype), storm_columns(cols, cuda, dtype))
+    torch.cuda.synchronize()
+    twin = tsolve.storm_assignment_sharded_twin(VirtualMesh(d, "cpu"), False,
+                                                max_rounds)(
+        storm_inputs(inp, "cpu", dtype), storm_columns(cols, "cpu", dtype))
+    for a, b in zip(kern, twin):
+        assert np.array_equal(_bits(a), _bits(b))
+    k5 = tsolve.storm_assignment_cuda(storm_inputs(inp, cuda, dtype),
+                                      storm_columns(cols, cuda, dtype), False,
+                                      max_rounds)
+    for a, b in zip(kern, k5):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("blocks", [1, 5])
+def test_storm_sharded_kernel_any_grid(cuda, blocks):
+    """K14's cooperative solve on a capped grid gives the twin's bits."""
+    from nomad_tpu_torch.parallel.mesh import VirtualMesh
+
+    cols, inp, max_rounds = storm_case(4800, 1024, 1024, C, "dogpile")
+    st = tsolve.prepare_sharded_storm(
+        VirtualMesh(8, cuda), storm_inputs(inp, cuda), storm_columns(cols, cuda),
+        False, max_rounds)
+    kern = [x.cpu() for x in tsolve.storm_assignment_sharded_cuda(
+        st, _max_blocks=blocks)]
+    torch.cuda.synchronize()
+    assert tsolve.storm_assignment_sharded_cuda.blocks == blocks
+    twin = tsolve.storm_assignment_sharded_twin(VirtualMesh(8, cuda), False,
+                                                max_rounds)(
+        storm_inputs(inp, cuda), storm_columns(cols, cuda))
+    for a, b in zip(kern, twin):
+        assert np.array_equal(_bits(a), _bits(b))
 
 
 # -- the (evals, nodes) mesh programs: K11 + K6 and K10 -----------------------

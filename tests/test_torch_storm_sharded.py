@@ -267,8 +267,16 @@ def test_failed_kernel_launch_raises_device_fault(monkeypatch):
 
 
 def test_stage_launch_count():
-    assert tsolve.storm_stage_launches(VirtualMesh(1, "cpu"), 369) == 4 + 369 * 7
-    assert tsolve.storm_stage_launches(VirtualMesh(8, "cpu"), 10) == 18 + 10 * 42
+    # a VirtualMesh: a score stage a shard, the walk and one cooperative
+    # launch, whatever the rounds
+    assert tsolve.storm_stage_launches(VirtualMesh(1, "cpu"), 369) == 3
+    assert tsolve.storm_stage_launches(VirtualMesh(8, "cpu"), 10) == 10
+    # any other mesh (a DistMesh's local shards): the staged launches
+    from types import SimpleNamespace
+
+    for d, rounds, want in ((1, 369, 4 + 369 * 7), (8, 10, 18 + 10 * 42)):
+        local = SimpleNamespace(local_shards=list(range(d)))
+        assert tsolve.storm_stage_launches(local, rounds) == want
 
 
 @pytest.mark.parametrize("world", (2, 4))
