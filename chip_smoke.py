@@ -3305,6 +3305,9 @@ def time_kernels(cuda) -> dict:
     # pulls in this run), not every candidate: the walks stop early
     k1_pulls = int(tscore.score_select_cuda(k1).out_i[1])
     k2_pulls = int(tbatch.plan_picks_cuda(*k2)[1].sum())
+    # the picks walk on from where the last stopped: the positions they
+    # reach are the first k2_pulls of the rotation, at most the region
+    k2_reached = min(k2_pulls, N_CAND_CHECK)
     out = {
         "score_select": {
             "ms": cuda_time_ms(lambda: tscore.score_select_cuda(k1)),
@@ -3321,9 +3324,10 @@ def time_kernels(cuda) -> dict:
             "plain_ms": cuda_time_ms(
                 lambda: tbatch.run_picks(*k2), n=20, warmup=2
             ),
-            # the candidate rows of every column read once (the tail is
-            # never walked) and the [2, P] result written
-            "bytes": N_CAND_CHECK * (7 * 8 + 2 * 1 + 2 * 4) + 2 * 16 * 4,
+            # the reached positions' perm entries and rows (six columns,
+            # affinity, feasibility, penalty, collisions) read once and
+            # the [2, P] result written
+            "bytes": k2_reached * (7 * 8 + 2 * 1 + 2 * 4) + 2 * 16 * 4,
             "pulls": k2_pulls,
             "flops": k2_pulls * FLOPS_PER_CANDIDATE,
         },
@@ -3544,12 +3548,13 @@ def time_canary_kernel(cuda) -> dict:
 def time_batch_kernel(cuda) -> dict:
     """K7 at the bridge phase's call shape: E = 64 evals of the `bridge`
     case (counts 1-10, so P = 10), 10,000 candidates of the 16,384-row
-    arena, f64; beside it the twin on the card.  The bound counts the
-    candidate rows of the six columns and the feasibility byte, the
-    first n_cand entries of each perm, the per-eval asks, counts and
-    limits once, and the [E, P] rows written; the operations count the
-    candidates the walks reach in this run (their pulls, read from K2,
-    which runs K7's pick body one eval at a time)."""
+    arena, f64; beside it the twin on the card.  The walks reach, in
+    this run, the positions of each eval's picks (their pulls, read from
+    K2, which runs K7's pick body one eval at a time): the bound counts
+    those perm entries, the rows they name (six columns and the
+    feasibility byte, each row once over all evals), the per-eval asks,
+    counts and limits once, and the [E, P] rows written; the operations
+    count the pulls."""
     from nomad_tpu_torch.ops import batch as tbatch
     from nomad_tpu_torch.ops.cases import batch_shared_case
     from nomad_tpu_torch.state.convert import (
@@ -3564,6 +3569,8 @@ def time_batch_kernel(cuda) -> dict:
     kw = batch_shared_inputs_from_numpy(case, cuda)
     saved = tbatch.batch_plan_picks_shared_cuda.launches
     pulls = 0
+    reached = 0  # perm entries the walks read
+    rows = []  # the rows they name
     for k in range(E):
         inp = batch_inputs_from_numpy(dict(
             feasible=case["feasible"], base_cpu_used=case["base_cpu_used"],
@@ -3577,16 +3584,22 @@ def time_batch_kernel(cuda) -> dict:
             desired_count=case["desired_count"][k], limit=case["limit"][k],
             distinct_hosts=False,
         ), cuda)
-        pulls += int(tbatch.plan_picks_cuda(
+        eval_pulls = int(tbatch.plan_picks_cuda(
             kw["cpu_total"], kw["mem_total"], kw["disk_total"], inp, n, P
         )[1].sum())
+        pulls += eval_pulls
+        # the picks walk on from where the last stopped
+        reached += min(eval_pulls, n)
+        rows.append(case["perms"][k][:min(eval_pulls, n)])
+    n_rows = len(np.unique(np.concatenate(rows)))
     out = {
         "ms": cuda_time_ms(lambda: tbatch.batch_plan_picks_shared_cuda(**kw),
                            n=200, warmup=5),
         "plain_ms": cuda_time_ms(
             lambda: tbatch.batch_plan_picks_shared_twin(**kw), n=20, warmup=2
         ),
-        "bytes": n * (6 * 8 + 1) + E * n * 4 + E * (3 * 8 + 2 * 4) + E * P * 4,
+        "bytes": (n_rows * (6 * 8 + 1) + reached * 4 + E * (3 * 8 + 2 * 4)
+                  + E * P * 4),
         "pulls": pulls,
         "flops": pulls * FLOPS_PER_CANDIDATE,
         "library_ms": None,
@@ -6266,6 +6279,11 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
     redesigned.update(dict.fromkeys(
         ("storm_solve", "storm_assignment_sharded"),
         "redesigned: one cooperative launch a solve"))
+    # the shared pick body: each pick scores only the positions it reaches
+    redesigned.update(dict.fromkeys(
+        ("plan_picks", "batch_picks"),
+        "redesigned: a prefix walk a pick, a position scored once an eval "
+        "until it is won"))
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",

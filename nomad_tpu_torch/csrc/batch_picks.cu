@@ -7,28 +7,30 @@
 // collisions, penalty and affinity zero.  Plain twin:
 // nomad_tpu_torch/ops/batch.py batch_plan_picks_shared_twin.
 //
-// Design: a grid of E blocks of 1,024 threads, one block per eval, each
-// running K2's pick body (picks.cuh) on its own slice of the scratch:
-// the prologue gathers the shared columns through perms[e], then every
-// one of the P picks runs (wanted = P, as the JAX plan_picks passes
-// wanted=None; the host drops the picks past an eval's count).  No
-// block reads another's state, so the blocks need no ordering and
-// spread over the SMs; E > 132 runs in waves.  The compiled vmapped
-// program keeps `fitness * RN(1/18)` and the add of the anti-affinity
-// term in one loop fusion, as plan_picks_full does, so K2's __fma_rn
-// carries over; the anti-affinity term divides by the eval's own count.
+// Design: a grid of E blocks, one block per eval, each running K2's
+// pick body (picks.cuh): every pick a prefix walk over the shared
+// columns through perms[e] that reads and scores only the positions it
+// reaches, the eval's usage carry a bitmap and a list in the block's
+// shared memory (or its slice of the wrapper's scratch), its scores
+// cached in the wrapper's scratch.  Every one of
+// the P picks runs (wanted = P, as the JAX plan_picks passes
+// wanted=None; the host drops the picks past an eval's count).  No block
+// reads another's state, so the blocks need no ordering; they are
+// narrow (kPickThreads, a few hundred), so several share an SM when E
+// exceeds the 132 SMs.  The compiled vmapped program keeps `fitness *
+// RN(1/18)` and the add of the anti-affinity term in one loop fusion, as
+// plan_picks_full does, so K2's __fma_rn carries over; the anti-affinity
+// term divides by the eval's own count.
 //
-// What bounds it on an H100: each block's serial chain of P picks,
-// each three barriered passes over n_cand positions with two double
-// pows a position, as K2.  The least traffic is the candidate rows of
-// six columns and the feasibility byte, the first n_cand entries of
-// every perm and the [E, P] rows (~3.3 MB at E = 64, n_cand = 10,000,
-// f64: ~1 us at 3.35 TB/s).  The scratch, 8 T + 4 + 2 bytes per
-// candidate and eval (~45 MB at that shape in f64), no longer sits in
-// L2 as K2's 1.2 MB does, so the picks re-read it from device memory.
+// What bounds it on an H100: each block's serial chain of P picks, each
+// a step or two of a coalesced perm load and dependent random row loads,
+// two double pows a feasible position and one barrier a step; on long
+// walks the random row loads of the cheap test.  The least traffic is the
+// reached positions' perm entries and rows of six columns and the
+// feasibility byte, the per-eval asks, counts and limits, and the
+// [E, P] rows.
 //
-// Launch: E blocks on the caller's stream; scratch comes from the
-// wrapper; nothing is synchronised.
+// Launch: E blocks on the caller's stream; nothing is synchronised.
 
 #include "picks.cuh"
 
@@ -47,9 +49,8 @@ struct BatchPicksArgs {
   const void* ask_disk;
   const void* desired;     // int32 [E]
   const void* limit;       // int32 [E]
-  void* f_scratch;         // T [E, 8, n_cand]
-  void* i_scratch;         // int32 [E, n_cand]
-  void* b_scratch;         // uint8 [E, 2, n_cand]
+  void* carry;             // uint8 [E, carry_bytes], or null: shared memory
+  void* scores;            // T [E, n_cand]: the evals' score caches
   void* out;               // int32 [E, n_picks]
   int E;
   int n_cand;
@@ -73,18 +74,18 @@ struct Batch {
   const T* __restrict__ ask_disk;
   const int32_t* __restrict__ desired;
   const int32_t* __restrict__ limit;
-  T* f_scratch;
-  int32_t* i_scratch;
-  uint8_t* b_scratch;
+  unsigned char* carry;  // global scratch, or null
+  size_t carry_stride;
+  T* scores;
   int32_t* out;
   int C;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(nk::kThreads)
+__global__ void __launch_bounds__(nk::kPickThreads)
     batch_picks_kernel(const Batch<T> b) {
+  extern __shared__ __align__(16) unsigned char carry_smem[];
   const int e = blockIdx.x;
-  const size_t n = static_cast<size_t>(b.shared.n_cand);
   Picks<T> c = b.shared;
   c.perm = b.perms + static_cast<size_t>(e) * b.C;
   c.ask_cpu = b.ask_cpu[e];
@@ -94,13 +95,13 @@ __global__ void __launch_bounds__(nk::kThreads)
   c.limit = b.limit[e];
   c.rows = b.out + static_cast<size_t>(e) * c.n_picks;
   c.pulls = nullptr;
-  nk::bind_scratch<T>(c, b.f_scratch + e * 8 * n, b.i_scratch + e * n,
-                      b.b_scratch + e * 2 * n);
-  nk::run_eval<T>(c);
+  c.scores = b.scores + static_cast<size_t>(e) * c.n_cand;
+  nk::run_eval<T>(c, b.carry != nullptr ? b.carry + e * b.carry_stride
+                                        : carry_smem);
 }
 
 template <typename T>
-Batch<T> typed(const BatchPicksArgs& a) {
+cudaError_t launch(const BatchPicksArgs& a, cudaStream_t s) {
   Batch<T> b;
   Picks<T>& c = b.shared;
   c.cpu_total = static_cast<const T*>(a.cpu_total);
@@ -123,12 +124,13 @@ Batch<T> typed(const BatchPicksArgs& a) {
   b.ask_disk = static_cast<const T*>(a.ask_disk);
   b.desired = static_cast<const int32_t*>(a.desired);
   b.limit = static_cast<const int32_t*>(a.limit);
-  b.f_scratch = static_cast<T*>(a.f_scratch);
-  b.i_scratch = static_cast<int32_t*>(a.i_scratch);
-  b.b_scratch = static_cast<uint8_t*>(a.b_scratch);
+  b.carry = static_cast<unsigned char*>(a.carry);
+  b.carry_stride = nk::carry_bytes(a.n_cand, a.n_picks, sizeof(T));
+  b.scores = static_cast<T*>(a.scores);
   b.out = static_cast<int32_t*>(a.out);
   b.C = a.C;
-  return b;
+  const size_t smem = b.carry != nullptr ? 0 : b.carry_stride;
+  return nk::launch_picks(batch_picks_kernel<T>, a.E, smem, s, b);
 }
 
 }  // namespace
@@ -136,17 +138,18 @@ Batch<T> typed(const BatchPicksArgs& a) {
 extern "C" int nk_batch_picks(const BatchPicksArgs* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (a->E < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->is_f64) {
-    batch_picks_kernel<double>
-        <<<a->E, nk::kThreads, 0, s>>>(typed<double>(*a));
-  } else {
-    batch_picks_kernel<float>
-        <<<a->E, nk::kThreads, 0, s>>>(typed<float>(*a));
-  }
-  return static_cast<int>(cudaGetLastError());
+  err = a->is_f64 ? launch<double>(*a, s) : launch<float>(*a, s);
+  return static_cast<int>(err);
 }
+
+// One eval's carry bytes and the most that lives in shared memory, as
+// this library lays them out: the wrapper sizes its scratch from these.
+extern "C" size_t nk_pick_carry_bytes(int n_cand, int n_picks, int t_size) {
+  return nk::carry_bytes(n_cand, n_picks, static_cast<size_t>(t_size));
+}
+
+extern "C" size_t nk_pick_carry_smem_max() { return nk::kCarrySmemMax; }
 
 extern "C" const char* nk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,31 +1,76 @@
 // Shared device code of kernels K2 (plan_picks.cu) and K7
 // (batch_picks.cu): one block runs the P sequential picks of one eval
-// over permuted-space copies of its columns.
+// as prefix walks that score only the positions a pick reaches.
 //
 // Replaces the pick scan of nomad_tpu/ops/batch.py _run_picks (:347)
 // for a single group (T = 1, no spread, deltas, ports or devices), as
-// plan_picks_full (:766) and plan_picks (:735) run it.
+// plan_picks_full (:766) and plan_picks (:735) run it, with the walk of
+// _walk (:281) and _rotated_prefix (:268).
 //
-// The prologue (gather_candidates) copies the candidate region of every
-// column through `perm` into scratch, so each pick reads contiguous
-// memory: walk position w is permuted index (w + offset) mod n_cand, a
-// rotation with one wrap (the JAX program's closed-form
-// _rotated_prefix, taken as an index map).  Tail positions (>= n_cand)
-// are never feasible and never rotate, so they are not walked.  Each
-// pick scores the region, runs the shared limited walk (walk.cuh), then
-// thread 0 scatters the winner's usage and collision deltas and
-// advances the offset; a barrier publishes them to the next pick.
-// After the first failed pick the rest are inert (rows -1, pulls 0), as
-// in the JAX scan.
+// Walk position w of a pick is permuted position (offset + w) mod
+// n_cand; tail positions (>= n_cand) are never feasible and never
+// rotate, so they are not walked.  The block walks in steps: a pick's
+// first step covers kPickFirst positions and each next one twice as
+// many, up to kPickThreads * kPickWide, position base + r *
+// kPickThreads + t on thread t.  A thread reads its positions' rows
+// through `perm` (coalesced), then the columns of a cheap test (static
+// feasibility and cpu fit) through the read-only path, and only for a
+// row that passes it the rest of its columns and its score.  Warp
+// ballots and one table of per-(sub-step, warp) counts give every
+// position its feasible and bad ranks.  Across steps the block carries
+// the running feasible and bad counts, each thread its best (score,
+// emit order, position) over the non-diverted positions with order <
+// limit, and shared memory the diverted positions (the first kMaxSkip
+// bad ones) and the walk position of the limit-th non-diverted node.
+//
+// Why a prefix gives the full walk's bits (walk.cuh limited_walk): a
+// non-diverted feasible position's emit order is its rank among them, a
+// diverted one's nd_count + r (or 1 - r) >= nd_count.  Once the
+// non-diverted count reaches `limit`, only orders < limit compete, so
+// the winner is one of the first `limit` non-diverted positions, all at
+// or before the limit-th (pulls = lth + 1); whether a position is
+// diverted is a prefix count of bad positions.  The walk stops after
+// that step.  Otherwise it consumes the region (pulls = n_cand) and the
+// diverted positions compete at the end with their orders from the
+// totals.
+//
+// The carry: positions an earlier pick of the eval won are marked in a
+// bitmap of n_cand bits; for each, a list entry (first-won order) holds
+// its usage and collisions, updated as x = x + ask in pick order, the
+// twin's order of additions.  A position's score and feasibility depend
+// only on its row, the eval's ask and count, and its usage and
+// collisions, which change only when it is won.  So a scored position
+// is marked known (with its feasibility in a third bitmap and, when
+// feasible, its score in the eval's score cache), a later pick reads it
+// back instead of rescoring it, and a win clears the mark: a walk that
+// passes a position again (a long walk, every pick) pays its dependent
+// row loads and pows once an eval.  Only a walk's steps of kPickThreads
+// or more positions record: a short walk's marks would cost more than
+// any later pick reads back.  The bitmaps and the list live in dynamic
+// shared memory, or in a per-eval slice of global scratch where they do
+// not fit; the score cache, n_cand values of T an eval, in global
+// scratch (written only where scored).  After the first failed pick the
+// rest are inert (rows -1, pulls 0), as in the JAX scan.
 #pragma once
 
 #include "walk.cuh"
 
 namespace nk {
 
-// permuted-space static bits
-constexpr uint8_t kStaticFeasible = 1;
-constexpr uint8_t kPenalty = 2;
+// The walk's shape, chosen on the card (PERF.md §6): K2's block and
+// each of K7's blocks run kPickThreads threads; a pick's first step
+// covers kPickFirst positions, each next one twice as many up to
+// kPickWide positions a thread.
+constexpr int kPickThreads = 256;
+constexpr int kPickWarps = kPickThreads / 32;
+constexpr int kPickFirst = 64;
+constexpr int kPickWide = 2;
+constexpr int kPickWidest = kPickThreads * kPickWide;
+// the step's table of (sub-step, warp) counts, spread over a warp's lanes
+constexpr int kTableLane = (kPickWide * kPickWarps + 31) / 32;
+static_assert(kPickThreads % 32 == 0 && kPickThreads <= 1024,
+              "whole warps, one block");
+static_assert(kPickFirst >= 1 && kPickWide >= 1, "a step covers positions");
 
 template <typename T>
 struct Picks {
@@ -42,18 +87,7 @@ struct Picks {
   const uint8_t* __restrict__ penalty;
   const T* __restrict__ affinity;
   const int32_t* __restrict__ perm;
-  // permuted-space columns and carries
-  T* cpu_total_p;
-  T* mem_total_p;
-  T* disk_total_p;
-  T* cpu_p;
-  T* mem_p;
-  T* disk_p;
-  T* aff_p;
-  T* s_w;
-  int32_t* coll_p;
-  uint8_t* bits_p;
-  uint8_t* f_w;
+  T* scores;       // [n_cand]: the eval's score cache
   int32_t* rows;   // [n_picks]
   int32_t* pulls;  // [n_picks], or null
   T ask_cpu, ask_mem, ask_disk, desired;
@@ -61,91 +95,406 @@ struct Picks {
   bool distinct_hosts, spread_fit;
 };
 
-// Point the permuted-space columns at one eval's scratch: f holds 8
-// columns of T, i one of int32 and b two of bytes, each n_cand long.
+// A carry of at most this many bytes lives in dynamic shared memory;
+// a larger one in the global scratch the wrapper passes, sized by the
+// library's nk_pick_carry_bytes and nk_pick_carry_smem_max.
+constexpr size_t kCarrySmemMax = 64 * 1024;
+
+// One eval's carry over its picks (see the header comment).
 template <typename T>
-__host__ __device__ inline void bind_scratch(Picks<T>& c, T* f, int32_t* i,
-                                             uint8_t* b) {
-  const size_t n = static_cast<size_t>(c.n_cand);
-  c.cpu_total_p = f;
-  c.mem_total_p = f + n;
-  c.disk_total_p = f + 2 * n;
-  c.cpu_p = f + 3 * n;
-  c.mem_p = f + 4 * n;
-  c.disk_p = f + 5 * n;
-  c.aff_p = f + 6 * n;
-  c.s_w = f + 7 * n;
-  c.coll_p = i;
-  c.bits_p = b;
-  c.f_w = b + n;
+struct Carry {
+  T* cpu;          // [n_picks]
+  T* mem;
+  T* disk;
+  int32_t* pos;    // [n_picks]: permuted position of each entry
+  int32_t* coll;   // [n_picks]
+  uint32_t* won;   // [ceil(n_cand / 32)] each
+  uint32_t* known;
+  uint32_t* feas;
+};
+
+// Bytes of one eval's carry, a multiple of 16.
+__host__ __device__ inline size_t carry_bytes(int n_cand, int n_picks,
+                                              size_t t_size) {
+  const size_t words = (static_cast<size_t>(n_cand) + 31) / 32;
+  const size_t b = 3 * static_cast<size_t>(n_picks) * t_size +
+                   8 * static_cast<size_t>(n_picks) + 12 * words;
+  return (b + 15) & ~static_cast<size_t>(15);
 }
 
-// The prologue: the candidate region of every column, in walk order.
 template <typename T>
-__device__ void gather_candidates(const Picks<T>& c) {
-  for (int p = threadIdx.x; p < c.n_cand; p += blockDim.x) {
-    const int row = c.perm[p];
-    c.cpu_total_p[p] = c.cpu_total[row];
-    c.mem_total_p[p] = c.mem_total[row];
-    c.disk_total_p[p] = c.disk_total[row];
-    c.cpu_p[p] = c.cpu_used[row];
-    c.mem_p[p] = c.mem_used[row];
-    c.disk_p[p] = c.disk_used[row];
-    c.aff_p[p] = c.affinity != nullptr ? c.affinity[row] : T(0);
-    c.coll_p[p] = c.collisions != nullptr ? c.collisions[row] : 0;
-    c.bits_p[p] = (c.feasible[row] ? kStaticFeasible : 0) |
-                  (c.penalty != nullptr && c.penalty[row] ? kPenalty : 0);
+__device__ inline Carry<T> bind_carry(unsigned char* base, int n_cand,
+                                      int n_picks) {
+  Carry<T> c;
+  const size_t p = static_cast<size_t>(n_picks);
+  const int words = (n_cand + 31) / 32;
+  c.cpu = reinterpret_cast<T*>(base);
+  c.mem = c.cpu + p;
+  c.disk = c.mem + p;
+  c.pos = reinterpret_cast<int32_t*>(c.disk + p);
+  c.coll = c.pos + p;
+  c.won = reinterpret_cast<uint32_t*>(c.coll + p);
+  c.known = c.won + words;
+  c.feas = c.known + words;
+  return c;
+}
+
+__device__ __forceinline__ bool bit(const uint32_t* m, int p) {
+  return (m[p >> 5] >> (p & 31)) & 1u;
+}
+
+// Sets bit p of `m` for the lanes of `mask`, whose positions `p` are
+// the warp's consecutive run from lane 0's unless that run wraps past
+// n_cand: then each lane sets its own.  Every lane of the warp calls it.
+__device__ __forceinline__ void set_bits(uint32_t* m, unsigned mask, int p,
+                                         int n_cand) {
+  const int p0 = __shfl_sync(kFull, p, 0);
+  if (mask == 0u) return;
+  if (p0 + 31 < n_cand) {
+    if ((threadIdx.x & 31) == 0) {
+      const int sh = p0 & 31;
+      atomicOr(&m[p0 >> 5], mask << sh);
+      if (sh != 0) atomicOr(&m[(p0 >> 5) + 1], mask >> (32 - sh));
+    }
+  } else if ((mask >> (threadIdx.x & 31)) & 1u) {
+    atomicOr(&m[p >> 5], 1u << (p & 31));
   }
 }
 
-// The pick loop over the permuted-space carries: writes rows[k] (and
-// pulls[k]) for k in [0, n_picks).
+// The block's walk state in static shared memory.
 template <typename T>
-__device__ void pick_loop(const Picks<T>& c, int* sh_offset, int* sh_dead) {
+struct PickShared {
+  int counts[2][kPickWide * kPickWarps];  // feasible | bad << 16
+  T div_s[kMaxSkip];
+  int div_w[kMaxSkip];
+  int lth;
+  T red_s[kPickWarps];
+  int red_ord[kPickWarps];
+  int red_w[kPickWarps];
+  int offset;
+  int dead;
+  int n_won;
+};
+
+// Position p's entry in the carry list (p must be marked won).
+template <typename T>
+__device__ __forceinline__ int find_won(const Carry<T>& cr, int n_won, int p) {
+  int i = 0;
+  while (i < n_won - 1 && cr.pos[i] != p) ++i;
+  return i;
+}
+
+// The rest of permuted position p's row once its cheap test passed
+// (static feasibility and cpu fit): its score, and whether it is
+// feasible.  `cpu` is its cpu usage (the carry's where it was won).
+template <typename T>
+__device__ __forceinline__ void score_rest(const Picks<T>& c,
+                                           const Carry<T>& cr, int n_won,
+                                           int p, int row, T cpu_total,
+                                           T cpu, T& s, bool& f) {
+  const T mem_total = __ldg(c.mem_total + row);
+  const T disk_total = __ldg(c.disk_total + row);
+  T mem = __ldg(c.mem_used + row);
+  T disk = __ldg(c.disk_used + row);
+  int coll = c.collisions != nullptr ? __ldg(c.collisions + row) : 0;
+  const bool pen = c.penalty != nullptr && __ldg(c.penalty + row) != 0;
+  const T aff = c.affinity != nullptr ? __ldg(c.affinity + row) : T(0);
+  if (bit(cr.won, p)) {
+    const int i = find_won(cr, n_won, p);
+    mem = cr.mem[i];
+    disk = cr.disk[i];
+    coll = cr.coll[i];
+  }
+  const T cpu_after = cpu + c.ask_cpu;
+  const T mem_after = mem + c.ask_mem;
+  const T disk_after = disk + c.ask_disk;
+  f = (mem_after <= mem_total) & (disk_after <= disk_total) &
+      !(c.distinct_hosts & (coll > 0));
+  if (f) {
+    s = score_node<T, false>(cpu_total, mem_total, cpu_after, mem_after,
+                             coll, pen, aff, T(0), c.desired, c.spread_fit);
+  }
+}
+
+// One pick's prefix walk from `offset`.  Every thread of the block
+// calls it; thread 0 gets the winner's walk position (-1 for none) and
+// the pulls.  Step k covers min(kPickFirst * 2^k, kPickWidest) walk
+// positions, position base + r * kPickThreads + t on thread t.
+template <typename T>
+__device__ void prefix_walk(const Picks<T>& c, const Carry<T>& cr,
+                            PickShared<T>& sh, int offset, int n_won,
+                            bool& cached, int* win_w, int* pulls) {
   const int n_cand = c.n_cand;
+  constexpr int B = kPickThreads;
+  constexpr int nw = kPickWarps;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int feas_run = 0;  // feasible positions walked, block-uniform
+  int bad_run = 0;   // bad positions walked, block-uniform
+  T best_s = -INFINITY;
+  int best_ord = kInt32Max;
+  int best_w = -1;
+  bool stopped = false;
+  int base = 0;
+  int width = min(kPickFirst, kPickWidest);
+  for (int step = 0; base < n_cand; ++step) {
+    const int R = (width + B - 1) / B;
+    // a walk records what it scores only once a step gives every thread
+    // a position: a short walk would pay for marks no later pick reads
+    const bool record = width >= B;
+    int* tab = sh.counts[step & 1];
+    T s[kPickWide];
+    bool f[kPickWide];
+    bool fresh[kPickWide];  // scored in this step
+    int p[kPickWide];
+    int row[kPickWide];
+    // the loads in three rounds, each over all of the thread's
+    // positions: a known position's score from the cache, an unknown
+    // one's perm entry (coalesced); then the cheap test's three columns;
+    // then the rest of a row that passed it
+#pragma unroll
+    for (int r = 0; r < kPickWide; ++r) {
+      const int w = base + r * B + threadIdx.x;
+      p[r] = offset + w;
+      if (p[r] >= n_cand) p[r] -= n_cand;
+      const bool valid = r < R &&
+                         r * B + static_cast<int>(threadIdx.x) < width &&
+                         w < n_cand;
+      const bool known = cached && valid && bit(cr.known, p[r]);
+      f[r] = known && bit(cr.feas, p[r]);
+      s[r] = f[r] ? c.scores[p[r]] : T(0);
+      fresh[r] = valid && !known;
+      row[r] = fresh[r] ? __ldg(c.perm + p[r]) : 0;
+    }
+    T cpu_total[kPickWide];
+    T cpu[kPickWide];
+#pragma unroll
+    for (int r = 0; r < kPickWide; ++r) {
+      if (fresh[r]) {
+        f[r] = __ldg(c.feasible + row[r]) != 0;
+        cpu_total[r] = __ldg(c.cpu_total + row[r]);
+        cpu[r] = __ldg(c.cpu_used + row[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kPickWide; ++r) {
+      if (fresh[r] && f[r]) {
+        if (bit(cr.won, p[r])) cpu[r] = cr.cpu[find_won(cr, n_won, p[r])];
+        f[r] = cpu[r] + c.ask_cpu <= cpu_total[r];
+        if (f[r]) {
+          score_rest<T>(c, cr, n_won, p[r], row[r], cpu_total[r], cpu[r],
+                        s[r], f[r]);
+          if (f[r]) c.scores[p[r]] = s[r];
+        }
+      }
+    }
+    unsigned fmask[kPickWide];
+    unsigned bmask[kPickWide];
+#pragma unroll
+    for (int r = 0; r < kPickWide; ++r) {
+      if (r < R) {
+        fmask[r] = __ballot_sync(kFull, f[r]);
+        bmask[r] = __ballot_sync(kFull, f[r] && s[r] <= T(0));
+        if (lane == 0) {
+          tab[r * nw + warp] = __popc(fmask[r]) | (__popc(bmask[r]) << 16);
+        }
+        if (record) {
+          // remember what this step scored
+          set_bits(cr.known, __ballot_sync(kFull, fresh[r]), p[r], n_cand);
+          set_bits(cr.feas, __ballot_sync(kFull, fresh[r] && f[r]), p[r],
+                   n_cand);
+        }
+      }
+    }
+    cached = cached || record;
+    __syncthreads();
+    // the table's R * nw entries in walk order, (sub-step, warp), m to
+    // a lane: one warp scan gives every entry's exclusive prefix
+    const int n_ent = R * nw;
+    const int m = (n_ent + 31) >> 5;
+    int loc[kTableLane];
+    int lane_sum = 0;
+#pragma unroll
+    for (int i = 0; i < kTableLane; ++i) {
+      const int idx = lane * m + i;
+      const int v = i < m && idx < n_ent ? tab[idx] : 0;
+      loc[i] = lane_sum;
+      lane_sum += v;
+    }
+    int incl = lane_sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const int lane_excl = incl - lane_sum;
+    const int total = __shfl_sync(kFull, incl, 31);
+#pragma unroll
+    for (int r = 0; r < kPickWide; ++r) {
+      if (r < R) {
+        // entry (r, warp) lives at lane j / m, slot j % m (the same for
+        // the whole warp)
+        const int j = r * nw + warp;
+        const int k = j - (j / m) * m;
+        int mine = lane_excl + loc[0];
+#pragma unroll
+        for (int i = 1; i < kTableLane; ++i) {
+          if (k == i) mine = lane_excl + loc[i];
+        }
+        const int excl = __shfl_sync(kFull, mine, j / m);
+        if (f[r]) {
+          const int w = base + r * B + threadIdx.x;
+          const int feas_before =
+              feas_run + (excl & 0xffff) + __popc(fmask[r] & below);
+          const int bad_before =
+              bad_run + (excl >> 16) + __popc(bmask[r] & below);
+          const bool bad = ((bmask[r] >> lane) & 1u) != 0;
+          if (bad && bad_before < kMaxSkip) {
+            // diverted: its rank among the diverted is its bad rank
+            sh.div_s[bad_before] = s[r];
+            sh.div_w[bad_before] = w;
+          } else {
+            const int ord = feas_before - min(bad_before, kMaxSkip);
+            if (ord < c.limit && better(s[r], ord, best_s, best_ord)) {
+              best_s = s[r];
+              best_ord = ord;
+              best_w = w;
+            }
+            if (ord + 1 == c.limit) sh.lth = w;
+          }
+        }
+      }
+    }
+    feas_run += total & 0xffff;
+    bad_run += total >> 16;
+    base += width;
+    width = min(2 * width, kPickWidest);
+    if (feas_run - min(bad_run, kMaxSkip) >= c.limit) {
+      stopped = true;
+      break;
+    }
+  }
+
+  // the block's best key: a warp tree, then warp 0 over the warps
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const T os = __shfl_down_sync(kFull, best_s, d);
+    const int oo = __shfl_down_sync(kFull, best_ord, d);
+    const int ow = __shfl_down_sync(kFull, best_w, d);
+    if (better(os, oo, best_s, best_ord)) {
+      best_s = os;
+      best_ord = oo;
+      best_w = ow;
+    }
+  }
+  if (lane == 0) {
+    sh.red_s[warp] = best_s;
+    sh.red_ord[warp] = best_ord;
+    sh.red_w[warp] = best_w;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  best_s = lane < nw ? sh.red_s[lane] : T(-INFINITY);
+  best_ord = lane < nw ? sh.red_ord[lane] : kInt32Max;
+  best_w = lane < nw ? sh.red_w[lane] : -1;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const T os = __shfl_down_sync(kFull, best_s, d);
+    const int oo = __shfl_down_sync(kFull, best_ord, d);
+    const int ow = __shfl_down_sync(kFull, best_w, d);
+    if (better(os, oo, best_s, best_ord)) {
+      best_s = os;
+      best_ord = oo;
+      best_w = ow;
+    }
+  }
+  if (lane != 0) return;
+  if (stopped) {
+    *pulls = sh.lth + 1;
+  } else {
+    // the region is consumed: the diverted positions compete with
+    // their orders from the totals
+    *pulls = n_cand;
+    const int nd_count = feas_run - min(bad_run, kMaxSkip);
+    const int n_div = min(bad_run, kMaxSkip);
+    const bool reverse = (n_div == 2) && (nd_count > 0);
+    for (int r = 0; r < n_div; ++r) {
+      const int ord = nd_count + (reverse ? 1 - r : r);
+      if (ord < c.limit && better(sh.div_s[r], ord, best_s, best_ord)) {
+        best_s = sh.div_s[r];
+        best_ord = ord;
+        best_w = sh.div_w[r];
+      }
+    }
+  }
+  *win_w = best_ord != kInt32Max ? best_w : -1;
+}
+
+// The P picks of one eval, `carry` its carry bytes (shared or global).
+// Writes rows[k] (and pulls[k]) for k in [0, n_picks).
+template <typename T>
+__device__ void run_eval(const Picks<T>& c, unsigned char* carry) {
+  __shared__ PickShared<T> sh;
+  const Carry<T> cr = bind_carry<T>(carry, c.n_cand, c.n_picks);
+  const int words = (c.n_cand + 31) >> 5;
+  // won, known and feas are one run of words
+  for (int i = threadIdx.x; i < 3 * words; i += kPickThreads) cr.won[i] = 0u;
+  if (threadIdx.x == 0) {
+    sh.offset = 0;
+    sh.dead = 0;
+    sh.n_won = 0;
+  }
+  __syncthreads();
+  const int n_cand = c.n_cand;
+  bool cached = false;  // a walk has recorded scores (block-uniform)
   for (int k = 0; k < c.n_picks; ++k) {
-    const int offset = *sh_offset;
-    auto score_at = [&](int w, T& s, bool& f) {
-      int p = w + offset;
-      if (p >= n_cand) p -= n_cand;
-      const T cpu_after = c.cpu_p[p] + c.ask_cpu;
-      const T mem_after = c.mem_p[p] + c.ask_mem;
-      const T disk_after = c.disk_p[p] + c.ask_disk;
-      const T cpu_total = c.cpu_total_p[p];
-      const T mem_total = c.mem_total_p[p];
-      const bool fit = (cpu_after <= cpu_total) & (mem_after <= mem_total) &
-                       (disk_after <= c.disk_total_p[p]);
-      const int coll = c.coll_p[p];
-      const uint8_t bits = c.bits_p[p];
-      f = ((bits & kStaticFeasible) != 0) & fit &
-          !(c.distinct_hosts & (coll > 0));
-      s = score_node<T, false>(cpu_total, mem_total, cpu_after, mem_after,
-                               coll, (bits & kPenalty) != 0, c.aff_p[p],
-                               T(0), c.desired, c.spread_fit);
-    };
-    const WalkOut<T> r =
-        limited_walk<T>(n_cand, c.limit, n_cand, c.s_w, c.f_w, score_at);
+    const int offset = sh.offset;
+    const int n_won = sh.n_won;
+    int win_w = -1;
+    int pulls = 0;
+    prefix_walk<T>(c, cr, sh, offset, n_won, cached, &win_w, &pulls);
     if (threadIdx.x == 0) {
-      if (r.any) {
-        int p = r.win_w + offset;
+      if (win_w >= 0) {
+        int p = win_w + offset;
         if (p >= n_cand) p -= n_cand;
-        c.rows[k] = c.perm[p];
-        c.cpu_p[p] = c.cpu_p[p] + c.ask_cpu;
-        c.mem_p[p] = c.mem_p[p] + c.ask_mem;
-        c.disk_p[p] = c.disk_p[p] + c.ask_disk;
-        c.coll_p[p] = c.coll_p[p] + 1;
+        const int row = c.perm[p];
+        c.rows[k] = row;
+        int i;
+        if (bit(cr.won, p)) {
+          i = find_won(cr, n_won, p);
+        } else {
+          // first win of this position: its entry starts from the
+          // node's base usage and collisions
+          i = n_won;
+          cr.pos[i] = p;
+          cr.cpu[i] = c.cpu_used[row];
+          cr.mem[i] = c.mem_used[row];
+          cr.disk[i] = c.disk_used[row];
+          cr.coll[i] = c.collisions != nullptr ? c.collisions[row] : 0;
+          cr.won[p >> 5] |= 1u << (p & 31);
+          sh.n_won = n_won + 1;
+        }
+        cr.cpu[i] = cr.cpu[i] + c.ask_cpu;
+        cr.mem[i] = cr.mem[i] + c.ask_mem;
+        cr.disk[i] = cr.disk[i] + c.ask_disk;
+        cr.coll[i] = cr.coll[i] + 1;
+        // its usage changed: the next pick that reaches it rescores it
+        // (the bits are only ever set while a walk scores)
+        cr.known[p >> 5] &= ~(1u << (p & 31));
+        cr.feas[p >> 5] &= ~(1u << (p & 31));
       } else {
         c.rows[k] = kNoNode;
-        *sh_dead = 1;
+        sh.dead = 1;
       }
-      if (c.pulls != nullptr) c.pulls[k] = r.pulls;
-      *sh_offset = (offset + r.pulls) % n_cand;
+      if (c.pulls != nullptr) c.pulls[k] = pulls;
+      sh.offset = (offset + pulls) % n_cand;
     }
     __syncthreads();
-    if (*sh_dead) {
+    if (sh.dead) {
       // the scheduler coalesces the group's later placements after its
       // first failure: the remaining picks are inert
-      for (int j = k + 1 + threadIdx.x; j < c.n_picks; j += blockDim.x) {
+      for (int j = k + 1 + threadIdx.x; j < c.n_picks; j += kPickThreads) {
         c.rows[j] = kNoNode;
         if (c.pulls != nullptr) c.pulls[j] = 0;
       }
@@ -154,18 +503,21 @@ __device__ void pick_loop(const Picks<T>& c, int* sh_offset, int* sh_dead) {
   }
 }
 
-// One eval in one block: the prologue, then the picks.
-template <typename T>
-__device__ void run_eval(const Picks<T>& c) {
-  __shared__ int sh_offset;
-  __shared__ int sh_dead;
-  gather_candidates<T>(c);
-  if (threadIdx.x == 0) {
-    sh_offset = 0;
-    sh_dead = 0;
+// Launch `kern(arg)` on `grid` blocks of kPickThreads with the carry
+// in `smem` bytes of dynamic shared memory (0 when it is in global
+// scratch).
+template <typename Arg>
+inline cudaError_t launch_picks(void (*kern)(Arg), int grid, size_t smem,
+                                cudaStream_t s, const Arg& arg) {
+  if (grid < 1 || smem > kCarrySmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
-  __syncthreads();
-  pick_loop<T>(c, &sh_offset, &sh_dead);
+  kern<<<grid, kPickThreads, smem, s>>>(arg);
+  return cudaGetLastError();
 }
 
 }  // namespace nk

@@ -5,20 +5,26 @@
 // (via the single-group _run_picks :347, _walk :281, _rotated_prefix
 // :268).  Plain twin: nomad_tpu_torch/ops/batch.py run_picks.
 //
-// Design: one block of 1,024 threads runs the eval's pick body
-// (picks.cuh, shared with K7): a prologue gathers the candidate region
-// of every column through `perm` into permuted-space scratch, then the
-// picks score, walk (walk.cuh) and scatter one after another.
+// Design: one block runs the eval's pick body (picks.cuh, shared with
+// K7): each pick is a prefix walk that reads and scores only the
+// positions it reaches, in steps that start at kPickFirst positions and
+// double up to kPickThreads x kPickWide, and stops after the step
+// holding the limit-th non-diverted feasible position; the picks' usage
+// carry is a bitmap and a list in shared memory, its scores cached in
+// the wrapper's scratch.  There is no prologue.
 //
-// What bounds it on an H100: per pick it reads about n_cand * (7 * 8 +
-// 6) bytes from L2 (~1 MB at 16k candidates in f64) and does two
-// double pows per node; with P picks in sequence and three barriered
-// passes per pick it is bound by the latency of one SM's serial chain,
-// not by bandwidth.  The single block gives up the other SMs; K7
-// (batch_picks.cu) runs the same pick body in one block per eval.
+// What bounds it on an H100: on a short walk, the latency of one SM's
+// serial chain of P picks, each a coalesced perm load, dependent random
+// row loads from L2, two double pows a feasible position, one barrier a
+// step and the close; on a long walk (most rows unfit), the random row
+// loads of the cheap test, one 32-byte sector each.  The least traffic
+// is the reached positions' rows (perm entry, six columns, feasibility,
+// collisions, penalty, affinity) and the [2, P] result.  The picks are
+// sequential, so the block stays one; a grid barrier (~1.1 us) would
+// cost more than a pick's step saves.
 //
-// Launch: one block on the caller's stream; scratch comes from the
-// wrapper; nothing is synchronised.
+// Launch: one block on the caller's stream with the carry in dynamic
+// shared memory (or the wrapper's scratch); nothing is synchronised.
 
 #include "picks.cuh"
 
@@ -35,9 +41,8 @@ struct PlanPicksArgs {
   const void* penalty;     // uint8 [C]
   const void* affinity;
   const void* perm;        // int32 [C]
-  void* f_scratch;         // T [8, n_cand]
-  void* i_scratch;         // int32 [n_cand]
-  void* b_scratch;         // uint8 [2, n_cand]
+  void* carry;             // uint8 [carry_bytes], or null: shared memory
+  void* scores;            // T [n_cand]: the score cache
   void* out;               // int32 [2, n_picks]: rows; pulls
   double ask_cpu;
   double ask_mem;
@@ -58,14 +63,22 @@ namespace {
 using nk::Picks;
 
 template <typename T>
-__global__ void __launch_bounds__(nk::kThreads)
-    plan_picks_kernel(const Picks<T> c) {
-  nk::run_eval<T>(c);
+struct Plan {
+  Picks<T> c;
+  unsigned char* carry;  // global scratch, or null
+};
+
+template <typename T>
+__global__ void __launch_bounds__(nk::kPickThreads)
+    plan_picks_kernel(const Plan<T> p) {
+  extern __shared__ __align__(16) unsigned char carry_smem[];
+  nk::run_eval<T>(p.c, p.carry != nullptr ? p.carry : carry_smem);
 }
 
 template <typename T>
-Picks<T> typed(const PlanPicksArgs& a) {
-  Picks<T> c;
+cudaError_t launch(const PlanPicksArgs& a, cudaStream_t s) {
+  Plan<T> p;
+  Picks<T>& c = p.c;
   c.cpu_total = static_cast<const T*>(a.cpu_total);
   c.mem_total = static_cast<const T*>(a.mem_total);
   c.disk_total = static_cast<const T*>(a.disk_total);
@@ -77,6 +90,7 @@ Picks<T> typed(const PlanPicksArgs& a) {
   c.penalty = static_cast<const uint8_t*>(a.penalty);
   c.affinity = static_cast<const T*>(a.affinity);
   c.perm = static_cast<const int32_t*>(a.perm);
+  c.scores = static_cast<T*>(a.scores);
   c.rows = static_cast<int32_t*>(a.out);
   c.pulls = c.rows + a.n_picks;
   // host doubles round to T here exactly as the twin's torch.as_tensor
@@ -89,10 +103,10 @@ Picks<T> typed(const PlanPicksArgs& a) {
   c.n_picks = a.n_picks;
   c.distinct_hosts = a.distinct_hosts != 0;
   c.spread_fit = a.spread_fit != 0;
-  nk::bind_scratch<T>(c, static_cast<T*>(a.f_scratch),
-                      static_cast<int32_t*>(a.i_scratch),
-                      static_cast<uint8_t*>(a.b_scratch));
-  return c;
+  p.carry = static_cast<unsigned char*>(a.carry);
+  const size_t smem =
+      p.carry != nullptr ? 0 : nk::carry_bytes(a.n_cand, a.n_picks, sizeof(T));
+  return nk::launch_picks(plan_picks_kernel<T>, 1, smem, s, p);
 }
 
 }  // namespace
@@ -101,13 +115,17 @@ extern "C" int nk_plan_picks(const PlanPicksArgs* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->is_f64) {
-    plan_picks_kernel<double><<<1, nk::kThreads, 0, s>>>(typed<double>(*a));
-  } else {
-    plan_picks_kernel<float><<<1, nk::kThreads, 0, s>>>(typed<float>(*a));
-  }
-  return static_cast<int>(cudaGetLastError());
+  err = a->is_f64 ? launch<double>(*a, s) : launch<float>(*a, s);
+  return static_cast<int>(err);
 }
+
+// One eval's carry bytes and the most that lives in shared memory, as
+// this library lays them out: the wrapper sizes its scratch from these.
+extern "C" size_t nk_pick_carry_bytes(int n_cand, int n_picks, int t_size) {
+  return nk::carry_bytes(n_cand, n_picks, static_cast<size_t>(t_size));
+}
+
+extern "C" size_t nk_pick_carry_smem_max() { return nk::kCarrySmemMax; }
 
 extern "C" const char* nk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -191,14 +191,38 @@ class PlanPicksArgs(ctypes.Structure):
         ("cpu_total", _P), ("mem_total", _P), ("disk_total", _P),
         ("cpu_used", _P), ("mem_used", _P), ("disk_used", _P),
         ("feasible", _P), ("collisions", _P), ("penalty", _P),
-        ("affinity", _P), ("perm", _P),
-        ("f_scratch", _P), ("i_scratch", _P), ("b_scratch", _P),
+        ("affinity", _P), ("perm", _P), ("carry", _P), ("scores", _P),
         ("out", _P),
         ("ask_cpu", _D), ("ask_mem", _D), ("ask_disk", _D),
         ("desired", _I), ("limit", _I), ("n_cand", _I), ("C", _I),
         ("n_picks", _I), ("distinct_hosts", _I), ("spread_fit", _I),
         ("is_f64", _I), ("device", _I),
     ]
+
+
+@functools.lru_cache(maxsize=None)
+def _carry_fns(name: str):
+    """The pick library `name`'s (csrc/picks.cuh) carry sizes: its
+    bytes-an-eval function and the most it keeps in shared memory."""
+    lib = library(name)
+    fn = lib.nk_pick_carry_bytes
+    fn.argtypes = [_I, _I, _I]
+    fn.restype = ctypes.c_size_t
+    lib.nk_pick_carry_smem_max.restype = ctypes.c_size_t
+    return fn, lib.nk_pick_carry_smem_max()
+
+
+def pick_carry(name: str, E: int, n_cand: int, n_picks: int, dtype,
+               device):
+    """Global scratch for E evals' pick carries (three usage columns, a
+    position and a collision count a pick, three bitmaps of n_cand bits)
+    as K2's or K7's library (`name`) lays them out, where one does not
+    fit a block's shared memory; else None (the kernel keeps it there)."""
+    fn, smem_max = _carry_fns(name)
+    size = fn(n_cand, n_picks, torch.finfo(dtype).bits // 8)
+    if size <= smem_max:
+        return None
+    return torch.empty((E, size), dtype=torch.uint8, device=device)
 
 
 _FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
@@ -262,12 +286,14 @@ def launch_score_select(cols, s_scratch, f_scratch, out_i, out_best, *,
     _launch("score_select", "nk_score_select", args, dev)
 
 
-def launch_plan_picks(cols, f_scratch, i_scratch, b_scratch, out, *,
+def launch_plan_picks(cols, carry, scores, out, *,
                       ask: Tuple[float, float, float], desired: int,
                       limit: int, n_candidates: int, n_picks: int,
                       distinct_hosts: bool, spread_fit: bool) -> None:
     """K2 on the current stream.  `cols` maps column names (totals and
-    BatchInputs fields) to contiguous CUDA tensors."""
+    BatchInputs fields) to contiguous CUDA tensors; `carry` is the
+    eval's carry scratch, or None for shared memory; `scores` its score
+    cache (T [n_cand])."""
     dev = cols["cpu_total"].device
     args = PlanPicksArgs(
         cols["cpu_total"].data_ptr(), cols["mem_total"].data_ptr(),
@@ -276,8 +302,7 @@ def launch_plan_picks(cols, f_scratch, i_scratch, b_scratch, out, *,
         cols["base_disk_used"].data_ptr(), cols["feasible"].data_ptr(),
         cols["base_collisions"].data_ptr(), cols["penalty"].data_ptr(),
         cols["affinity_score"].data_ptr(), cols["perm"].data_ptr(),
-        f_scratch.data_ptr(), i_scratch.data_ptr(), b_scratch.data_ptr(),
-        out.data_ptr(),
+        _ptr(carry), scores.data_ptr(), out.data_ptr(),
         ask[0], ask[1], ask[2],
         desired, limit, n_candidates, cols["cpu_total"].shape[0],
         n_picks, int(distinct_hosts), int(spread_fit),
@@ -574,8 +599,7 @@ class BatchPicksArgs(ctypes.Structure):
         (name, _P) for name in (
             "cpu_total", "mem_total", "disk_total", "cpu_used", "mem_used",
             "disk_used", "feasible", "perms", "ask_cpu", "ask_mem",
-            "ask_disk", "desired", "limit", "f_scratch", "i_scratch",
-            "b_scratch", "out",
+            "ask_disk", "desired", "limit", "carry", "scores", "out",
         )
     ] + [
         (name, _I) for name in (
@@ -584,12 +608,13 @@ class BatchPicksArgs(ctypes.Structure):
     ]
 
 
-def launch_batch_picks(named, f_scratch, i_scratch, b_scratch, out, *,
-                       n_candidates: int, n_picks: int,
-                       spread_fit: bool) -> None:
+def launch_batch_picks(named, carry, scores, out, *, n_candidates: int,
+                       n_picks: int, spread_fit: bool) -> None:
     """K7 on the current stream.  `named` maps the argument names of
     `ops.batch.batch_plan_picks_shared` to contiguous CUDA tensors (the
-    wrapper has checked them); one block per row of `perms`."""
+    wrapper has checked them); one block per row of `perms`.  `carry`
+    is the evals' [E, carry_bytes] scratch, or None for shared memory;
+    `scores` their score caches (T [E, n_cand])."""
     dev = named["cpu_total"].device
     ptrs = dict(
         cpu_total=named["cpu_total"], mem_total=named["mem_total"],
@@ -598,9 +623,10 @@ def launch_batch_picks(named, f_scratch, i_scratch, b_scratch, out, *,
         feasible=named["feasible"], perms=named["perms"],
         ask_cpu=named["ask_cpu"], ask_mem=named["ask_mem"],
         ask_disk=named["ask_disk"], desired=named["desired_count"],
-        limit=named["limit"], f_scratch=f_scratch, i_scratch=i_scratch,
-        b_scratch=b_scratch, out=out,
+        limit=named["limit"], scores=scores, out=out,
     )
+    if carry is not None:
+        ptrs["carry"] = carry
     args = BatchPicksArgs()
     for name, t in ptrs.items():
         if t.device != dev or not t.is_contiguous():

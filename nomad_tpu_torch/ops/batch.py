@@ -667,16 +667,14 @@ def plan_picks_cuda(cpu_total, mem_total, disk_total, inp: BatchInputs,
     if n_picks < 1:
         raise ValueError(f"n_picks must be >= 1, got {n_picks}")
     cols = {n: t.contiguous() for n, t in named.items()}
-    dtype = cpu_total.dtype
-    # permuted-space columns, carries and per-pick walk scratch: 8
-    # floats, one int and two bytes per candidate (~1.2 MB in f64 at
-    # 16k candidates), resident in L2
-    f_scratch = torch.empty((8, n_cand), dtype=dtype, device=dev)
-    i_scratch = torch.empty(n_cand, dtype=torch.int32, device=dev)
-    b_scratch = torch.empty((2, n_cand), dtype=torch.uint8, device=dev)
     out = torch.empty((2, n_picks), dtype=torch.int32, device=dev)
+    # the score cache: written only where a pick scores
+    scores = torch.empty(n_cand, dtype=cpu_total.dtype, device=dev)
     _cuda.launch_plan_picks(
-        cols, f_scratch, i_scratch, b_scratch, out,
+        cols,
+        _cuda.pick_carry("plan_picks", 1, n_cand, n_picks, cpu_total.dtype,
+                         dev),
+        scores, out,
         ask=(
             _host_float(inp.ask_cpu),
             _host_float(inp.ask_mem),
@@ -894,16 +892,16 @@ def batch_plan_picks_shared_cuda(cpu_total, mem_total, disk_total, feasible,
     if int(limit.min()) < 1:
         raise ValueError("limit must be >= 1")
     named = {n: t.contiguous() for n, t in named.items()}
-    dtype = cpu_total.dtype
-    # K2's scratch for every eval: 8 floats, one int and two bytes per
-    # candidate (~45 MB at E = 64, 10,000 candidates in f64: out of L2)
-    f_scratch = torch.empty((E, 8, n_cand), dtype=dtype, device=dev)
-    i_scratch = torch.empty((E, n_cand), dtype=torch.int32, device=dev)
-    b_scratch = torch.empty((E, 2, n_cand), dtype=torch.uint8, device=dev)
     out = torch.empty((E, n_picks), dtype=torch.int32, device=dev)
-    _cuda.launch_batch_picks(named, f_scratch, i_scratch, b_scratch, out,
-                             n_candidates=n_cand, n_picks=n_picks,
-                             spread_fit=spread_fit)
+    # the evals' score caches: written only where a pick scores
+    scores = torch.empty((E, n_cand), dtype=cpu_total.dtype, device=dev)
+    _cuda.launch_batch_picks(
+        named,
+        _cuda.pick_carry("batch_picks", E, n_cand, n_picks, cpu_total.dtype,
+                         dev),
+        scores, out,
+        n_candidates=n_cand, n_picks=n_picks, spread_fit=spread_fit,
+    )
     batch_plan_picks_shared_cuda.launches += 1
     return out
 

@@ -19,6 +19,10 @@ its CPU run), on the card and on the CPU, at the main path's width (a
 C in {8, 1024, 16384}; K7 with 1, 10,000 and 16,384 candidates and
 (E, P) up to (256, 16) and (8, 64); K8 at n in {1, 8, 1024, 1500}; K9
 and K10 at (E, P) in {(2, 16), (8, 64)} and the benchmark's (64, 10)).
+K2 and K7 also at their prefix walk's edges, per block shape: regions
+one short of a pick's first step, as long, one longer and one longer
+than two steps, a node that wins twice, walks through the whole region,
+and a carry beyond shared memory (540,000 candidates).
 K1, K5 and K11 also on their policy cases (throughput, migration, both
 and inert selects; weighted, mixed and dogpile storms).  Exact equality
 of every output, in f64 and in f32.
@@ -507,6 +511,106 @@ def test_batch_picks_kernel_matches_twin(cuda, scenario, n_cand, E, P,
         **batch_shared_inputs_from_numpy(case, "cpu", dtype))
     assert torch.equal(kernel, twin_card)
     assert torch.equal(kernel, twin_cpu)
+
+
+# K2's and K7's prefix walk (csrc/picks.cuh) at its edges: a pick's
+# first step covers PICK_FIRST positions (`kPickFirst`) and each next
+# step twice as many; a candidate region one short of the first step, as
+# long, one longer, and one longer than two steps, with a limit whose
+# walk crosses the first step; a node that wins again (few candidates,
+# many picks); walks that run through the whole region
+PICK_FIRST = 64
+PICK_EDGES = ["step_below", "step_at", "step_above", "two_steps_above",
+              "wins_twice", "whole_region"]
+
+
+def _pick_edge(edge: str):
+    """(n_cand, K2 scenario, K2 limit, P, K7 scenario) of an edge case."""
+    step = {"step_below": PICK_FIRST - 1, "step_at": PICK_FIRST,
+            "step_above": PICK_FIRST + 1,
+            "two_steps_above": 3 * PICK_FIRST + 1}
+    if edge in step:
+        return step[edge], "plain", PICK_FIRST, 16, "mixed"
+    if edge == "wins_twice":
+        return 5, "plain", 2, 32, "bridge"
+    return N_CAND, "out_of_room", INT32_MAX, 16, "tight"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("edge", PICK_EDGES)
+def test_plan_picks_prefix_walk_edges(cuda, edge, dtype):
+    n_cand, scenario, limit, P, _ = _pick_edge(edge)
+    cols, inp = batch_case(4500 + PICK_EDGES.index(edge), C, n_cand,
+                           scenario, limit, P)
+
+    def args(dev):
+        t = {k: torch.from_numpy(v).to(dev, dtype) for k, v in cols.items()}
+        return (t["cpu_total"], t["mem_total"], t["disk_total"],
+                batch_inputs_from_numpy(inp, dev, dtype=dtype), n_cand, P,
+                False)
+
+    before = tbatch.plan_picks_cuda.launches
+    kernel = tbatch.plan_picks_cuda(*args(cuda)).cpu()
+    assert tbatch.plan_picks_cuda.launches == before + 1
+    assert torch.equal(kernel, torch.stack(tbatch.run_picks(*args(cuda))).cpu())
+    assert torch.equal(kernel, torch.stack(tbatch.run_picks(*args("cpu"))))
+    rows, pulls = kernel[0], kernel[1]
+    if edge == "wins_twice":
+        placed = rows[rows >= 0].tolist()
+        assert len(placed) > len(set(placed))
+    elif edge == "whole_region":
+        assert int(pulls[0]) == n_cand
+    else:
+        assert int(pulls[0]) > PICK_FIRST or n_cand <= PICK_FIRST
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("edge", PICK_EDGES)
+def test_batch_picks_prefix_walk_edges(cuda, edge, dtype):
+    n_cand, _, _, P, scenario = _pick_edge(edge)
+    E = 8
+    case = batch_shared_case(8500 + PICK_EDGES.index(edge), C, n_cand,
+                             scenario, E, P)
+    if edge.startswith("step") or edge.startswith("two"):
+        case["limit"][:] = PICK_FIRST  # the walk crosses the first step
+    on_card = batch_shared_inputs_from_numpy(case, cuda, dtype)
+    before = tbatch.batch_plan_picks_shared_cuda.launches
+    kernel = tbatch.batch_plan_picks_shared_cuda(**on_card).cpu()
+    assert tbatch.batch_plan_picks_shared_cuda.launches == before + 1
+    assert torch.equal(kernel,
+                       tbatch.batch_plan_picks_shared_twin(**on_card).cpu())
+    assert torch.equal(kernel, tbatch.batch_plan_picks_shared_twin(
+        **batch_shared_inputs_from_numpy(case, "cpu", dtype)))
+    if edge == "wins_twice":
+        assert any(len(set(r[r >= 0].tolist())) < int((r >= 0).sum())
+                   for r in kernel)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pick_carry_beyond_shared_memory(cuda, dtype):
+    """A candidate region whose bitmaps pass the shared-memory bound
+    (540,000 positions): K2 and K7 keep the carry in the wrapper's global
+    scratch, the same kernel, equal to the twins."""
+    from nomad_tpu_torch.ops import _cuda
+
+    big = 540_000
+    for name in ("plan_picks", "batch_picks"):
+        assert _cuda.pick_carry(name, 2, big, 8, dtype, cuda) is not None
+    cols, inp = batch_case(4600, big, big, "plain", 14, 8)
+
+    def args(dev):
+        t = {k: torch.from_numpy(v).to(dev, dtype) for k, v in cols.items()}
+        return (t["cpu_total"], t["mem_total"], t["disk_total"],
+                batch_inputs_from_numpy(inp, dev, dtype=dtype), big, 8,
+                False)
+
+    kernel = tbatch.plan_picks_cuda(*args(cuda)).cpu()
+    assert torch.equal(kernel, torch.stack(tbatch.run_picks(*args("cpu"))))
+    case = batch_shared_case(8600, big, big, "mixed", 2, 8)
+    kernel = tbatch.batch_plan_picks_shared_cuda(
+        **batch_shared_inputs_from_numpy(case, cuda, dtype)).cpu()
+    assert torch.equal(kernel, tbatch.batch_plan_picks_shared_twin(
+        **batch_shared_inputs_from_numpy(case, "cpu", dtype)))
 
 
 # every scenario at (2, 16) and (8, 64); the bench's (64, 10) with and

@@ -515,7 +515,8 @@ def test_port_sources_import_no_jax():
     sources = sorted(PORT.rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "chain_timing.py",
                                  "mirror_probe_timing.py",
-                                 "row_patch_timing.py", "storm_timing.py")]
+                                 "row_patch_timing.py", "storm_timing.py",
+                                 "picks_timing.py")]
     scanned = {p.relative_to(REPO).as_posix() for p in sources}
     # the storm, preemption and bridge slices' modules are in the scan
     assert {"nomad_tpu_torch/ops/solve.py",
@@ -542,7 +543,8 @@ def test_port_sources_import_no_jax():
             "nomad_tpu_torch/parallel/dist_smoke.py",
             "nomad_tpu_torch/server/server.py",
             "nomad_tpu_torch/entry.py",
-            "chip_smoke.py", "chain_timing.py", "storm_timing.py"} <= scanned
+            "chip_smoke.py", "chain_timing.py", "storm_timing.py",
+            "picks_timing.py"} <= scanned
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
