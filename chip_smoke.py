@@ -12,8 +12,15 @@ Phases (any failure exits non-zero):
    at a 16,384-row arena with 10,000 candidates, over the edge cases of
    `nomad_tpu_torch/ops/cases.py` and its policy cases (throughput,
    migration, both, inert; limit 14 and unlimited), in f64 and f32:
-   every output and every node's score must be bit-equal on the card
-   and on the CPU.
+   every output, and the feasibility and score of every position the
+   kernel walked (every node's score is held through K11), must be
+   bit-equal on the card and on the CPU.  Then `SELECT_EDGES`, each on
+   the launch shape K1's rule takes: to the grid whole regions, a few
+   candidates at the front of the arena, two diverted nodes, all bad, a
+   limit equal to the candidates (all good); to the prefix walk a
+   limited walk over few feasible nodes, a few candidates, all bad, two
+   diverted nodes behind fewer good ones than the limit, a limit one
+   below the candidates.
    Also counts how often the card's f32-rounded 10^x differs from the
    CPU's on 10^6 seeded inputs.
 3. Kernel K2 (the look-ahead pick scan, csrc/plan_picks.cu) against its
@@ -156,7 +163,9 @@ k9. Kernel K9 (the chained planner over per-eval BatchInputs,
    csrc/chained_batch.cu) against its twin on the card and on the CPU,
    at a 16,384-row arena with 10,000 candidates, (E, P) in {(2, 16),
    (8, 64), (64, 10)}, f64 and f32, over `batched_case` scenarios with
-   and without spread, step deltas, pre-deltas and `wanted`; and its
+   and without spread, step deltas, pre-deltas and `wanted`, and long
+   walks (every limit unlimited) with step deltas and pre-deltas, with
+   and without spread; and its
    shared mode (one [C] feasibility column) over `batch_shared_case`:
    the [E, P] rows bit-equal (the CPU twin in f64, as in phase 6).
 k10. Kernel K10 (E independent evals over their own BatchInputs,
@@ -442,12 +451,45 @@ def _max_abs(a, b) -> float:
     )
 
 
+def _k1_walk_check(out, cpu, tag: str, spread_fit: bool = False) -> float:
+    """K1's walk scratch against the CPU twin: every position the kernel
+    walked (all C on its grid) with the twin's feasibility and bad flag,
+    every feasible one with the twin's score bits (each node's score is
+    held through K11 in phase k11).  Returns the max abs error."""
+    import torch
+
+    from nomad_tpu_torch.ops import score as tscore
+
+    walked = int(out.out_i[3])
+    C = cpu.perm.shape[0]
+    check(1 <= walked <= C and (out.route == "prefix" or walked == C),
+          f"{tag}: walked {walked} of {C}")
+    feas, scores = tscore.score_vectors(cpu, spread_fit)
+    perm = cpu.perm.long()[:walked]
+    f = feas[perm]
+    flags = out.flags_walk.cpu()[:walked]
+    check(torch.equal((flags & 1).bool(), f)
+          and torch.equal((flags & 2).bool(), f & (scores[perm] <= 0)),
+          f"{tag}: walked feasibility differs from the CPU twin")
+    got = out.scores_walk.cpu()[:walked][f]
+    want = scores[perm][f]
+    check(bool((_bits(got) == _bits(want)).all()),
+          f"{tag}: walked scores differ from the CPU twin")
+    return _max_abs(got, want) if want.numel() else 0.0
+
+
 def check_k1(cuda) -> dict:
     import numpy as np
     import torch
 
     from nomad_tpu_torch.ops import score as tscore
-    from nomad_tpu_torch.ops.cases import INT32_MAX, SCORE_SCENARIOS, score_case
+    from nomad_tpu_torch.ops.cases import (
+        INT32_MAX,
+        SCORE_SCENARIOS,
+        SELECT_EDGES,
+        score_case,
+        select_edge_case,
+    )
     from nomad_tpu_torch.state.convert import score_inputs_from_numpy
 
     n_cases = 0
@@ -467,8 +509,6 @@ def check_k1(cuda) -> dict:
                             out.out_i[1])
                     twin_card = tscore.score_and_select_twin(card, spread_fit)
                     twin_cpu = tscore.score_and_select_twin(cpu, spread_fit)
-                    _, scores_cpu = tscore.score_vectors(cpu, spread_fit)
-                    scores_cpu = scores_cpu[cpu.perm.long()]
                     tag = f"K1 {dtype} {scenario} limit={limit} spread_fit={spread_fit}"
                     for k, tc, tp in zip(kern, twin_card, twin_cpu):
                         check(bool((_bits(k) == _bits(tc)).all()),
@@ -476,9 +516,8 @@ def check_k1(cuda) -> dict:
                         check(bool((_bits(k) == _bits(tp)).all()),
                               f"{tag}: kernel != twin on CPU")
                         max_err = max(max_err, _max_abs(k, tc))
-                    check(bool((_bits(out.scores_walk) == _bits(scores_cpu)).all()),
-                          f"{tag}: per-node scores differ from the CPU twin")
-                    max_err = max(max_err, _max_abs(out.scores_walk, scores_cpu))
+                    max_err = max(max_err, _k1_walk_check(out, cpu, tag,
+                                                          spread_fit))
                     n_cases += 1
     # the policy branch: throughput, migration, both and inert selects
     from nomad_tpu_torch.ops.cases import (
@@ -499,8 +538,6 @@ def check_k1(cuda) -> dict:
                 kern = (out.out_i[0], out.best[0], out.out_i[2], out.out_i[1])
                 twin_card = tscore.score_and_select_twin(card)
                 twin_cpu = tscore.score_and_select_twin(cpu)
-                _, scores_cpu = tscore.score_vectors(cpu)
-                scores_cpu = scores_cpu[cpu.perm.long()]
                 tag = f"K1 policy {dtype} {scenario} limit={limit}"
                 for k, tc, tp in zip(kern, twin_card, twin_cpu):
                     check(bool((_bits(k) == _bits(tc)).all()),
@@ -508,18 +545,58 @@ def check_k1(cuda) -> dict:
                     check(bool((_bits(k) == _bits(tp)).all()),
                           f"{tag}: kernel != twin on CPU")
                     max_err = max(max_err, _max_abs(k, tc))
-                check(bool((_bits(out.scores_walk) == _bits(scores_cpu)).all()),
-                      f"{tag}: per-node scores differ from the CPU twin")
-                max_err = max(max_err, _max_abs(out.scores_walk, scores_cpu))
+                max_err = max(max_err, _k1_walk_check(out, cpu, tag))
                 n_policy += 1
     n_cases += n_policy
+    # the launch shapes at their edges, each on the shape the rule takes
+    # (the grid iff limit >= n_candidates): whole regions in f64 and f32,
+    # a limited walk over few feasible nodes, few candidates at the front
+    # of the arena, two diverted nodes, all bad, a limit at and one below
+    # the candidates; the path's packed form (no feasible count) gives
+    # the same row and pulls
+    n_edges = 0
+    for dtype in (torch.float64, torch.float32):
+        for ei, edge in enumerate(sorted(SELECT_EDGES)):
+            case = select_edge_case(5200 + ei, C_CHECK, N_CAND_CHECK, edge)
+            card = score_inputs_from_numpy(case, cuda, dtype=dtype)
+            cpu = score_inputs_from_numpy(case, "cpu", dtype=dtype)
+            twin_card = tscore.score_and_select_twin(card)
+            twin_cpu = tscore.score_and_select_twin(cpu)
+            shape = ("grid" if case["limit"] >= case["n_candidates"]
+                     else "prefix")
+            tag = f"K1 edge {dtype} {edge} ({shape})"
+            before = tscore.score_select_cuda.launches
+            out = tscore.score_select_cuda(card)
+            quick = tscore.score_select_cuda(card, count=False)
+            torch.cuda.synchronize()
+            check(tscore.score_select_cuda.launches == before + 2,
+                  f"{tag}: one launch a call")
+            check(out.route == shape, f"{tag}: took {out.route}")
+            kern = (out.out_i[0], out.best[0], out.out_i[2], out.out_i[1])
+            for k, tc, tp in zip(kern, twin_card, twin_cpu):
+                check(bool((_bits(k) == _bits(tc)).all()),
+                      f"{tag}: kernel != twin on card")
+                check(bool((_bits(k) == _bits(tp)).all()),
+                      f"{tag}: kernel != twin on CPU")
+                max_err = max(max_err, _max_abs(k, tc))
+            check(quick.out_i.cpu().tolist()[:2]
+                  == [int(kern[0]), int(kern[3])],
+                  f"{tag}: the packed form differs")
+            # the grid gives the count always; the prefix walk not unasked
+            check(int(quick.out_i[2]) == (int(kern[2]) if shape == "grid"
+                                          else -1),
+                  f"{tag}: the packed form's count")
+            max_err = max(max_err, _k1_walk_check(out, cpu, tag))
+            n_edges += 1
+    n_cases += n_edges
     # the card's f32-rounded 10^x against the CPU's
     x = torch.from_numpy(np.random.default_rng(17).uniform(-1.0, 1.0, 1_000_000))
     p_cpu = tscore._pow10(x, torch.float64)
     p_card = tscore._pow10(x.to(cuda), torch.float64).cpu()
     pow_mismatch = int((p_cpu != p_card).sum())
-    print(f"K1: {n_cases} cases ({n_policy} with policy terms) exact on "
-          f"card and CPU (f64 and f32), "
+    print(f"K1: {n_cases} cases ({n_policy} with policy terms, {n_edges} "
+          f"at the launch shapes' edges) exact on card and CPU (f64 and "
+          f"f32; every walked position's feasibility and score), "
           f"max_abs_err={max_err}; torch.pow f32-rounded 10^x card vs CPU "
           f"mismatches: {pow_mismatch} of 1000000", flush=True)
     return {"max_abs_err": max_err, "cases": n_cases,
@@ -2654,8 +2731,11 @@ def check_k8(cuda) -> dict:
 
 # without any option, and with all of them (spread, step deltas,
 # pre-deltas, wanted, little room, per-eval candidate counts,
-# distinct_hosts); the twins on the card and CPU take most of the time
-K9_SCENARIOS = ("plain", "everything")
+# distinct_hosts), and long walks with step deltas and pre-deltas, with
+# the score cache and without it (spread); the twins on the card and CPU
+# take most of the time
+K9_SCENARIOS = ("plain", "everything", "unlimited_evict",
+                "unlimited_spread_evict")
 # (scenario, n_candidates as one scalar or one per eval)
 K10_CASES = (("plain", "scalar"), ("everything", "per_eval"))
 BATCHED_SHAPES = ((2, 16), (8, 64), (64, 10))  # phases k9/k10's (E, P)
@@ -3310,12 +3390,16 @@ def time_kernels(cuda) -> dict:
     k2_reached = min(k2_pulls, N_CAND_CHECK)
     out = {
         "score_select": {
-            "ms": cuda_time_ms(lambda: tscore.score_select_cuda(k1)),
+            # as the stack's packed select launches it (no feasible count)
+            "ms": cuda_time_ms(
+                lambda: tscore.score_select_cuda(k1, count=False)),
             "plain_ms": cuda_time_ms(lambda: tscore.score_and_select_twin(k1),
                                      n=200, warmup=3),
-            # every input column read once (all C walk positions) and
-            # 16 bytes written
-            "bytes": C_CHECK * (8 * 8 + 2 * 1 + 2 * 4) + 16,
+            # the positions the walk must reach (its pulls): each one's
+            # perm entry and row (eight f64 columns, feasibility and
+            # penalty bytes, collisions int32) read once, 16 bytes
+            # written
+            "bytes": k1_pulls * (4 + 8 * 8 + 2 * 1 + 4) + 16,
             "pulls": k1_pulls,
             "flops": k1_pulls * FLOPS_PER_CANDIDATE,
         },
@@ -3464,7 +3548,8 @@ def time_policy_select(cuda) -> dict:
         cuda)
     pulls = int(tscore.score_select_cuda(k1).out_i[1])
     return {
-        "ms": cuda_time_ms(lambda: tscore.score_select_cuda(k1)),
+        # as the stack's packed select launches it (the grid, by K1's rule)
+        "ms": cuda_time_ms(lambda: tscore.score_select_cuda(k1, count=False)),
         "plain_ms": cuda_time_ms(lambda: tscore.score_and_select_twin(k1),
                                  n=200, warmup=3),
         # every input column read once (all C walk positions: eight f64
@@ -3619,16 +3704,21 @@ def _batched_on_cpu(args) -> tuple:
         for a in args)
 
 
-def _candidate_bytes(q, per_node: int, per_row: int) -> int:
+def _candidate_bytes(q, per_node: int, per_row: int, pulls=None) -> int:
     """Bytes of a K9/K10 launch's candidate region: `per_node` bytes at
     each arena row that some eval's first n_cand walk positions hold
     (the node columns), `per_row` bytes at each eval's own n_cand
     positions (its per-eval columns and perm), and each eval's scalars
     (three asks, count, limit, distinct_hosts) and its P rows written.
-    The tail past n_cand carries no set entries and is not read."""
+    The tail past n_cand carries no set entries and is not read.  With
+    the launch's [E, P] `pulls`, only the positions its picks reach
+    count: eval e's walks cover the first min(sum of its pulls, n_cand)
+    positions of its walk order."""
     import torch
 
     n = q["n_cand"].tolist()
+    if pulls is not None:
+        n = [min(int(r), c) for r, c in zip(pulls.sum(dim=1).tolist(), n)]
     perm = q["batch"].perm
     union = torch.unique(torch.cat(
         [perm[e, :n[e]] for e in range(q["E"])])).numel()
@@ -3682,8 +3772,9 @@ def _time_k9_k10(args, label: str) -> dict:
             "ms": cuda_time_ms(lambda: tbatch.launch_chained_plan(q),
                                n=50, warmup=3),
             "plain_ms": k9_plain_ms,
-            # totals and eval 0's base usage (the chain reads no other row)
-            "bytes": _candidate_bytes(q, 6 * 8, per_row),
+            # at the rows its picks reach: totals and eval 0's base usage
+            # (the chain reads no other row)
+            "bytes": _candidate_bytes(q, 6 * 8, per_row, k9_pulls),
             "pulls": k9_reach,
             "flops": k9_reach * FLOPS_PER_CANDIDATE,
             "shape": label,
@@ -3698,7 +3789,7 @@ def _time_k9_k10(args, label: str) -> dict:
             "flops": k10_reach * FLOPS_PER_CANDIDATE,
             "shape": label,
         },
-        "rows": k9_rows,
+        "rows": (k9_rows, k9_pulls),
     }
 
 
@@ -3740,7 +3831,7 @@ def time_batched_kernels(cuda) -> dict:
         inp["n_cand"], tbench.TG_COUNT)["batch"]
     bench_args = (*cols, batch, inp["n_cand"], tbench.TG_COUNT)
     out = _time_k9_k10(bench_args, "bench")
-    k9_rows = out.pop("rows")
+    k9_rows, k9_pulls = out.pop("rows")
     b = batch
     shared = dict(
         cpu_total=cols[0], mem_total=cols[1], disk_total=cols[2],
@@ -3769,10 +3860,10 @@ def time_batched_kernels(cuda) -> dict:
             lambda: tbatch.chained_plan_picks_shared_cuda(**shared),
             n=50, warmup=3),
         "plain_ms": shared_plain_ms,
-        # at the candidate rows: totals, usage and the feasibility byte
-        # once; each eval's n_cand perm entries, scalars and rows
+        # at the rows the picks reach: totals, usage and the feasibility
+        # byte once; each eval's reached perm entries, scalars and rows
         "bytes": _candidate_bytes(
-            tbatch.prepare_batched(*bench_args), 6 * f8 + 1, 4),
+            tbatch.prepare_batched(*bench_args), 6 * f8 + 1, 4, k9_pulls),
         "pulls": out["chained_plan_picks"]["pulls"],
         "flops": out["chained_plan_picks"]["flops"],
         "shape": "bench",
@@ -6284,6 +6375,15 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
         ("plan_picks", "batch_picks"),
         "redesigned: a prefix walk a pick, a position scored once an eval "
         "until it is won"))
+    redesigned["score_select"] = (
+        "redesigned: two launch shapes by its rule, a prefix walk where the "
+        "limit lies below the candidates, else one cooperative grid whose "
+        "per-block summaries one warp combines")
+    redesigned.update(dict.fromkeys(
+        ("chained_plan_picks", "chained_plan_picks_shared"),
+        "redesigned: a prefix walk a pick through the eval's perm, no "
+        "gather of the region, the node-space carry overlaid by the eval's "
+        "entries"))
     kernels = []
     for name, source, replaces, check_key in (
         ("score_select", "nomad_tpu_torch/csrc/score_select.cu",
@@ -6341,6 +6441,11 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
         if "arena16k" in tm:
             kernels[-1]["arena16k"] = {k: tm["arena16k"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")}
+        if name == "score_select":
+            # K1's grid shape: the policy path's unlimited select
+            kernels[-1]["policy_grid"] = {
+                k: results["timing"]["score_select_policy"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")}
         if "d8" in tm:
             # eight shards of a VirtualMesh on the one card
             kernels[-1]["d8"] = {k: tm["d8"][k] for k in (

@@ -1,8 +1,9 @@
-// Shared device code of kernels K3 (chained_picks.cu), K9
-// (chained_batch.cu) and K10 (batch_plan.cu): the P picks of one eval,
-// with every option of the JAX pick scan.  K9 and K10 run them in one
-// block (run_eval); K3 over a cooperative grid (chained_grid.cuh), with
-// run_eval's serial steps shared.
+// Shared device code of kernels K3 (chained_picks.cu) and K10
+// (batch_plan.cu): the P picks of one eval, with every option of the JAX
+// pick scan.  K10 runs them in one block (run_eval); K3 over a
+// cooperative grid (chained_grid.cuh), with run_eval's serial steps
+// shared.  K9 (chained_batch.cu) takes the argument block, the spread
+// state and the score from here and walks through chained_prefix.cuh.
 //
 // Replaces nomad_tpu/ops/batch.py _run_picks (:347) with per-pick group
 // routing, spread (spread_contribution :155), step deltas, pre-deltas,
@@ -169,6 +170,19 @@ __host__ __device__ inline size_t s_scratch_len(const Chain<T>& c) {
   return 3 * static_cast<size_t>(c.S) * c.V1 + 4 * c.S + 1;
 }
 
+// Point the spread state (S and V1 set) at `s`.
+template <typename T>
+__host__ __device__ inline void bind_spread(Chain<T>& c, T* s) {
+  const size_t sv = static_cast<size_t>(c.S) * c.V1;
+  c.prop = s;
+  c.clr = s + sv;
+  c.comb = s + 2 * sv;
+  c.sl_min = s + 3 * sv;
+  c.sl_max = s + 3 * sv + c.S;
+  c.sl_has = s + 3 * sv + 2 * c.S;
+  c.sl_act = s + 3 * sv + 3 * c.S;
+}
+
 // Point the scratch columns at one eval's slices (the shapes E, G, C,
 // S, V1, Q and D set).
 template <typename T>
@@ -194,14 +208,7 @@ __host__ __device__ inline void bind_scratch(Chain<T>& c, T* f, int32_t* i,
   c.f_w = b + n;
   c.feas_p = b + 2 * n;
   c.ports_p = b + (2 + c.G) * n;
-  const size_t sv = static_cast<size_t>(c.S) * c.V1;
-  c.prop = s;
-  c.clr = s + sv;
-  c.comb = s + 2 * sv;
-  c.sl_min = s + 3 * sv;
-  c.sl_max = s + 3 * sv + c.S;
-  c.sl_has = s + 3 * sv + 2 * c.S;
-  c.sl_act = s + 3 * sv + 3 * c.S;
+  bind_spread<T>(c, s);
 }
 
 template <typename T>
@@ -216,15 +223,17 @@ __device__ __forceinline__ int group_of(const Chain<T>& c, int e, int k) {
                              : 0;
 }
 
-// The spread boost of walk position p (twin: spread_contribution),
-// the S stanza terms added in order starting from zero.
-template <typename T>
-__device__ __forceinline__ T spread_total(const Chain<T>& c, int e, int p) {
+// The spread boost of a node whose stanza s has value slot code_at(s)
+// (twin: spread_contribution), the S stanza terms added in order
+// starting from zero.
+template <typename T, typename CodeAt>
+__device__ __forceinline__ T spread_boost(const Chain<T>& c, int e,
+                                          CodeAt code_at) {
   const T zero = T(0);
   const T one = T(1);
   T total = zero;
   for (int s = 0; s < c.S; ++s) {
-    const int code = c.codes_p[s * c.C + p];
+    const int code = code_at(s);
     const T used_node = c.comb[s * c.V1 + code];
     const T dn = c.sp_desired[(static_cast<size_t>(e) * c.S + s) * c.V1 +
                               code];
@@ -252,6 +261,12 @@ __device__ __forceinline__ T spread_total(const Chain<T>& c, int e, int p) {
     total = total + contrib;
   }
   return total;
+}
+
+// The spread boost of walk position p (its codes in permuted space).
+template <typename T>
+__device__ __forceinline__ T spread_total(const Chain<T>& c, int e, int p) {
+  return spread_boost(c, e, [&](int s) { return c.codes_p[s * c.C + p]; });
 }
 
 // Score and feasibility of walk position p for pick k of group t
@@ -605,27 +620,6 @@ __device__ void run_eval(const Chain<T>& c, int e, int* sh_offset) {
   // 4. the node-space carry (a chain only)
   if (c.chain && tid == 0) rebuild_carry(c, e, rows, pulls);
   __syncthreads();
-}
-
-// The chain of K9: one persistent block loops over the evals, the
-// usage, port and device carries in node space in the carry-out
-// tensors, which the prologue copies from the carry-in.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) chain_kernel(const Chain<T> c) {
-  __shared__ int sh_offset;
-  for (int i = threadIdx.x; i < c.C; i += blockDim.x) {
-    c.cpu_out[i] = c.cpu_in[i];
-    c.mem_out[i] = c.mem_in[i];
-    c.disk_out[i] = c.disk_in[i];
-  }
-  for (int i = threadIdx.x; i < c.Q * c.C; i += blockDim.x) {
-    c.ports_out[i] = c.ports_in[i];
-  }
-  for (int i = threadIdx.x; i < c.D * c.C; i += blockDim.x) {
-    c.devs_out[i] = c.devs_in[i];
-  }
-  __syncthreads();
-  for (int e = 0; e < c.E; ++e) run_eval<T>(c, e, &sh_offset);
 }
 
 // Null every option pointer and set the K3 defaults: [E, G, C]

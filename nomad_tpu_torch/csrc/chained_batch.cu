@@ -12,24 +12,47 @@
 // nomad_tpu_torch/ops/batch.py chained_plan_picks_twin and
 // chained_plan_picks_shared_twin.
 //
-// Design: K3's chain (chained.cuh chain_kernel, run_eval) with one group
-// (G = 1) and no ports, devices or group-level options.  Each per-eval
-// column is addressed by an eval stride: feasibility [E, C] (stride C)
-// or one shared [C] (stride 0); collisions, penalty and affinity
-// [E, C] or null (zero).  The per-eval scalars (asks, count, limit) are
-// [E] and every pick of an eval reads its eval's.  The static penalty
-// column and the pick's penalty rows both apply.  Only eval 0's base
-// usage starts the chain (the JAX program reads base_*_used[0]); the
-// wrapper passes that row as the carry-in.
+// Design: one block of 256 threads runs the chain (chained_prefix.cuh):
+// the evals in order, each pick a prefix walk (picks.cuh) that reads and
+// scores only the positions it reaches, in steps of 64 positions
+// doubling to 512, and stops after the step holding the limit-th
+// non-diverted feasible position.  There is no per-eval prologue: no
+// inverse of the walk order and no gather of the candidate region.  A
+// position's row comes through perm[e]; its usage is the node-space
+// carry (the carry-in, overlaid by the rows the chain has rebuilt so far)
+// overlaid by the eval's own entries for the rows its evictions and wins
+// touched.  Each per-eval column is addressed by an eval stride:
+// feasibility [E, C] (stride C) or one shared [C] (stride 0);
+// collisions, penalty and affinity [E, C] or null (zero).  The per-eval
+// scalars (asks, count, limit) are [E] and every pick of an eval reads
+// its eval's.  The static penalty column and the pick's penalty rows
+// both apply.  Only eval 0's base usage starts the chain (the JAX program
+// reads base_*_used[0]); the wrapper passes that row as the carry-in.
 //
-// What bounds it on an H100: as K3, one SM runs a serial chain of three
-// barriered passes per pick over the candidate region; it is bound by
-// that chain's latency, not by bandwidth.
+// Exactness: a position's score is K3's (chained.cuh score_position for
+// one group); the walk's bits are the prefix argument of picks.cuh (a
+// non-diverted position's emit order is its rank among them, a
+// diverted one's at least their count, so once `limit` of them are
+// walked no later position can win); the entries add in the pick scan's
+// order and the carry is rebuilt in the JAX program's (asks, then
+// evictions), so both orders of floating-point additions are kept
+// (chained_prefix.cuh names the hazards).
 //
-// Launch: one block of 1,024 threads on the caller's stream; scratch
-// and the carry-out come from the wrapper; nothing is synchronised.
+// What bounds it on an H100: the chain is serial (eval e scores against
+// what evals < e left), so it is one SM's latency: a short walk is a step
+// or two of a coalesced perm load, dependent row loads from L2, two
+// double pows a feasible position, a barrier and a warp scan, and thread
+// 0's close; an unlimited walk crosses the whole region in steps of 512
+// positions, most of them read back from the score cache after the
+// eval's first pick.  The least traffic is the reached rows' columns and
+// the [E, P] rows.
+//
+// Launch: one block of 256 threads on the caller's stream, the carry in
+// dynamic shared memory (or the wrapper's global scratch where it does
+// not fit); the score cache and its row map, the spread state and the
+// carry-out come from the wrapper; nothing is synchronised.
 
-#include "chained.cuh"
+#include "chained_prefix.cuh"
 
 // Mirrored field for field by the ctypes Structure in ops/_cuda.py.
 // A null pointer marks an absent option.
@@ -75,9 +98,9 @@ struct ChainedBatchArgs {
   const void* pre_cpu;       // T [E, R]
   const void* pre_mem;
   const void* pre_disk;
-  void* f_scratch;           // T [9 * C]
-  void* i_scratch;           // int32 [(3 + S) * C + 1]
-  void* b_scratch;           // uint8 [3 * C]
+  void* carry;               // uint8 [nk_chain_carry_bytes], or null
+  void* scores;              // T [C]: the score cache
+  void* pos_of;              // int32 [C]: a cached row's position
   void* s_scratch;           // T [3 * S * V1 + 4 * S + 1]
   void* out_rows;            // int32 [E, P]
   void* out_pulls;           // int32 [E, P]
@@ -152,13 +175,22 @@ nk::Chain<T> typed(const ChainedBatchArgs& a) {
   c.feas_es = a.feas_shared ? 0 : static_cast<size_t>(a.C);
   c.sc_e = 1;  // [E] scalars: every pick reads its eval's
   c.sc_k = 0;
-  nk::bind_scratch<T>(c, static_cast<T*>(a.f_scratch),
-                      static_cast<int32_t*>(a.i_scratch),
-                      static_cast<uint8_t*>(a.b_scratch),
-                      static_cast<T*>(a.s_scratch));
+  nk::bind_spread<T>(c, static_cast<T*>(a.s_scratch));
   c.out_rows = static_cast<int32_t*>(a.out_rows);
   c.out_pulls = static_cast<int32_t*>(a.out_pulls);
   return c;
+}
+
+template <typename T>
+cudaError_t launch(const ChainedBatchArgs& a, cudaStream_t s) {
+  nk::ChainLaunch<T> l;
+  l.c = typed<T>(a);
+  l.carry = static_cast<unsigned char*>(a.carry);
+  l.scores = static_cast<T*>(a.scores);
+  l.pos_of = static_cast<int32_t*>(a.pos_of);
+  const size_t smem =
+      l.carry != nullptr ? 0 : nk::chain_carry_bytes(a.C, a.P, sizeof(T));
+  return nk::launch_picks(nk::chain_prefix_kernel<T>, 1, smem, s, l);
 }
 
 }  // namespace
@@ -167,13 +199,17 @@ extern "C" int nk_chained_batch(const ChainedBatchArgs* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->is_f64) {
-    nk::chain_kernel<double><<<1, nk::kThreads, 0, s>>>(typed<double>(*a));
-  } else {
-    nk::chain_kernel<float><<<1, nk::kThreads, 0, s>>>(typed<float>(*a));
-  }
-  return static_cast<int>(cudaGetLastError());
+  err = a->is_f64 ? launch<double>(*a, s) : launch<float>(*a, s);
+  return static_cast<int>(err);
 }
+
+// The chain's carry bytes and the most that lives in shared memory: the
+// wrapper sizes its scratch from these.
+extern "C" size_t nk_chain_carry_bytes(int C, int P, int t_size) {
+  return nk::chain_carry_bytes(C, P, static_cast<size_t>(t_size));
+}
+
+extern "C" size_t nk_chain_carry_smem_max() { return nk::kCarrySmemMax; }
 
 extern "C" const char* nk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

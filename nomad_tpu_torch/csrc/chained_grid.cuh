@@ -1,7 +1,7 @@
 // Kernel K3's grid chain (chained_picks.cu): the chained planner of
 // chained.cuh run by one cooperative grid over the whole card instead
-// of one block.  K9 and K10 keep the one-block chain (chain_kernel,
-// run_eval).
+// of one block.  K10 keeps chained.cuh's one-block chain (run_eval);
+// K9 walks its picks as prefix walks (chained_prefix.cuh).
 //
 // Every eval runs run_eval's steps, with the walk of each pick split
 // over the grid:

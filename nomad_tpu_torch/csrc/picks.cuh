@@ -1,6 +1,10 @@
-// Shared device code of kernels K2 (plan_picks.cu) and K7
-// (batch_picks.cu): one block runs the P sequential picks of one eval
-// as prefix walks that score only the positions a pick reaches.
+// The prefix walk, shared by kernels K1 (score_select.cu, its one-pick
+// shape), K2 (plan_picks.cu), K7 (batch_picks.cu) and K9
+// (chained_batch.cu through chained_prefix.cuh): one block walks a pick
+// in steps and scores only the positions the pick reaches.  The step
+// machinery (`prefix_walk`) takes a source that scores a step's
+// positions; K2's and K7's source, their carry and their P picks an eval
+// (`run_eval`) follow it here.
 //
 // Replaces the pick scan of nomad_tpu/ops/batch.py _run_picks (:347)
 // for a single group (T = 1, no spread, deltas, ports or devices), as
@@ -9,10 +13,11 @@
 //
 // Walk position w of a pick is permuted position (offset + w) mod
 // n_cand; tail positions (>= n_cand) are never feasible and never
-// rotate, so they are not walked.  The block walks in steps: a pick's
-// first step covers kPickFirst positions and each next one twice as
-// many, up to kPickThreads * kPickWide, position base + r *
-// kPickThreads + t on thread t.  A thread reads its positions' rows
+// rotate, so they are not walked (K1 walks all C positions without a
+// rotation).  The block walks in steps: a pick's first step covers
+// kPickFirst positions and each next one twice as many, up to
+// kPickThreads * kPickWide, position base + r * kPickThreads + t on
+// thread t.  In K2's and K7's source a thread reads its positions' rows
 // through `perm` (coalesced), then the columns of a cheap test (static
 // feasibility and cpu fit) through the read-only path, and only for a
 // row that passes it the rest of its columns and its score.  Warp
@@ -30,9 +35,9 @@
 // the winner is one of the first `limit` non-diverted positions, all at
 // or before the limit-th (pulls = lth + 1); whether a position is
 // diverted is a prefix count of bad positions.  The walk stops after
-// that step.  Otherwise it consumes the region (pulls = n_cand) and the
-// diverted positions compete at the end with their orders from the
-// totals.
+// that step.  Otherwise it consumes the region (pulls = n_cand, K1's
+// n_candidates) and the diverted positions compete at the end with their
+// orders from the totals.
 //
 // The carry: positions an earlier pick of the eval won are marked in a
 // bitmap of n_cand bits; for each, a list entry (first-won order) holds
@@ -60,7 +65,8 @@ namespace nk {
 // The walk's shape, chosen on the card (PERF.md §6): K2's block and
 // each of K7's blocks run kPickThreads threads; a pick's first step
 // covers kPickFirst positions, each next one twice as many up to
-// kPickWide positions a thread.
+// kPickWide positions a thread.  K1's prefix walk and K9's block take
+// the same shape.
 constexpr int kPickThreads = 256;
 constexpr int kPickWarps = kPickThreads / 32;
 constexpr int kPickFirst = 64;
@@ -176,6 +182,18 @@ struct PickShared {
   int n_won;
 };
 
+// What one pick's walk gives: thread 0's winner (walk position, -1 for
+// none), pulls and best score; every thread's count of walked positions
+// (the steps' extent) and of the feasible ones among them.
+template <typename T>
+struct WalkEnd {
+  int win_w;
+  int pulls;
+  T best;
+  int walked;
+  int feasible;
+};
+
 // Position p's entry in the carry list (p must be marked won).
 template <typename T>
 __device__ __forceinline__ int find_won(const Carry<T>& cr, int n_won, int p) {
@@ -216,17 +234,22 @@ __device__ __forceinline__ void score_rest(const Picks<T>& c,
   }
 }
 
-// One pick's prefix walk from `offset`.  Every thread of the block
-// calls it; thread 0 gets the winner's walk position (-1 for none) and
-// the pulls.  Step k covers min(kPickFirst * 2^k, kPickWidest) walk
-// positions, position base + r * kPickThreads + t on thread t.
-template <typename T>
-__device__ void prefix_walk(const Picks<T>& c, const Carry<T>& cr,
-                            PickShared<T>& sh, int offset, int n_won,
-                            bool& cached, int* win_w, int* pulls) {
-  const int n_cand = c.n_cand;
+// One pick's prefix walk over walk positions [0, n_walk) from `offset`:
+// walk position w is source position (offset + w) mod n_walk.  Every
+// thread of the block calls it.  Step k covers min(kPickFirst * 2^k,
+// kPickWidest) walk positions, position base + r * kPickThreads + t on
+// thread t; `src.step(p, valid, R, record, s, f)` scores a step's source
+// positions (each thread its kPickWide, of which the first R sub-steps
+// hold positions), and it or `src.note(r, p, f, record)`, called for each
+// such sub-step r after its count ballots, keeps what it likes where
+// `record` is set (steps of kPickThreads positions or more).  A walk
+// that does not stop consumes the region: its pulls are `n_dry`.
+template <typename T, typename Src>
+__device__ WalkEnd<T> prefix_walk(Src& src, PickShared<T>& sh, int n_walk,
+                                  int offset, int limit, int n_dry) {
   constexpr int B = kPickThreads;
   constexpr int nw = kPickWarps;
+  constexpr int W = kPickWide;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -238,76 +261,37 @@ __device__ void prefix_walk(const Picks<T>& c, const Carry<T>& cr,
   bool stopped = false;
   int base = 0;
   int width = min(kPickFirst, kPickWidest);
-  for (int step = 0; base < n_cand; ++step) {
+  for (int step = 0; base < n_walk; ++step) {
     const int R = (width + B - 1) / B;
-    // a walk records what it scores only once a step gives every thread
-    // a position: a short walk would pay for marks no later pick reads
-    const bool record = width >= B;
     int* tab = sh.counts[step & 1];
-    T s[kPickWide];
-    bool f[kPickWide];
-    bool fresh[kPickWide];  // scored in this step
-    int p[kPickWide];
-    int row[kPickWide];
-    // the loads in three rounds, each over all of the thread's
-    // positions: a known position's score from the cache, an unknown
-    // one's perm entry (coalesced); then the cheap test's three columns;
-    // then the rest of a row that passed it
+    int p[W];
+    bool valid[W];
 #pragma unroll
-    for (int r = 0; r < kPickWide; ++r) {
+    for (int r = 0; r < W; ++r) {
       const int w = base + r * B + threadIdx.x;
       p[r] = offset + w;
-      if (p[r] >= n_cand) p[r] -= n_cand;
-      const bool valid = r < R &&
-                         r * B + static_cast<int>(threadIdx.x) < width &&
-                         w < n_cand;
-      const bool known = cached && valid && bit(cr.known, p[r]);
-      f[r] = known && bit(cr.feas, p[r]);
-      s[r] = f[r] ? c.scores[p[r]] : T(0);
-      fresh[r] = valid && !known;
-      row[r] = fresh[r] ? __ldg(c.perm + p[r]) : 0;
+      if (p[r] >= n_walk) p[r] -= n_walk;
+      valid[r] = r < R && r * B + static_cast<int>(threadIdx.x) < width &&
+                 w < n_walk;
     }
-    T cpu_total[kPickWide];
-    T cpu[kPickWide];
+    T s[W];
+    bool f[W];
+    // a walk records what it scores only once a step gives every thread
+    // a position: a short walk would pay for marks no later pick reads
+    src.step(p, valid, R, width >= B, s, f);
+    unsigned fmask[W];
+    unsigned bmask[W];
 #pragma unroll
-    for (int r = 0; r < kPickWide; ++r) {
-      if (fresh[r]) {
-        f[r] = __ldg(c.feasible + row[r]) != 0;
-        cpu_total[r] = __ldg(c.cpu_total + row[r]);
-        cpu[r] = __ldg(c.cpu_used + row[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kPickWide; ++r) {
-      if (fresh[r] && f[r]) {
-        if (bit(cr.won, p[r])) cpu[r] = cr.cpu[find_won(cr, n_won, p[r])];
-        f[r] = cpu[r] + c.ask_cpu <= cpu_total[r];
-        if (f[r]) {
-          score_rest<T>(c, cr, n_won, p[r], row[r], cpu_total[r], cpu[r],
-                        s[r], f[r]);
-          if (f[r]) c.scores[p[r]] = s[r];
-        }
-      }
-    }
-    unsigned fmask[kPickWide];
-    unsigned bmask[kPickWide];
-#pragma unroll
-    for (int r = 0; r < kPickWide; ++r) {
+    for (int r = 0; r < W; ++r) {
       if (r < R) {
         fmask[r] = __ballot_sync(kFull, f[r]);
         bmask[r] = __ballot_sync(kFull, f[r] && s[r] <= T(0));
         if (lane == 0) {
           tab[r * nw + warp] = __popc(fmask[r]) | (__popc(bmask[r]) << 16);
         }
-        if (record) {
-          // remember what this step scored
-          set_bits(cr.known, __ballot_sync(kFull, fresh[r]), p[r], n_cand);
-          set_bits(cr.feas, __ballot_sync(kFull, fresh[r] && f[r]), p[r],
-                   n_cand);
-        }
+        src.note(r, p[r], f[r], width >= B);
       }
     }
-    cached = cached || record;
     __syncthreads();
     // the table's R * nw entries in walk order, (sub-step, warp), m to
     // a lane: one warp scan gives every entry's exclusive prefix
@@ -331,7 +315,7 @@ __device__ void prefix_walk(const Picks<T>& c, const Carry<T>& cr,
     const int lane_excl = incl - lane_sum;
     const int total = __shfl_sync(kFull, incl, 31);
 #pragma unroll
-    for (int r = 0; r < kPickWide; ++r) {
+    for (int r = 0; r < W; ++r) {
       if (r < R) {
         // entry (r, warp) lives at lane j / m, slot j % m (the same for
         // the whole warp)
@@ -356,12 +340,12 @@ __device__ void prefix_walk(const Picks<T>& c, const Carry<T>& cr,
             sh.div_w[bad_before] = w;
           } else {
             const int ord = feas_before - min(bad_before, kMaxSkip);
-            if (ord < c.limit && better(s[r], ord, best_s, best_ord)) {
+            if (ord < limit && better(s[r], ord, best_s, best_ord)) {
               best_s = s[r];
               best_ord = ord;
               best_w = w;
             }
-            if (ord + 1 == c.limit) sh.lth = w;
+            if (ord + 1 == limit) sh.lth = w;
           }
         }
       }
@@ -370,7 +354,7 @@ __device__ void prefix_walk(const Picks<T>& c, const Carry<T>& cr,
     bad_run += total >> 16;
     base += width;
     width = min(2 * width, kPickWidest);
-    if (feas_run - min(bad_run, kMaxSkip) >= c.limit) {
+    if (feas_run - min(bad_run, kMaxSkip) >= limit) {
       stopped = true;
       break;
     }
@@ -394,42 +378,123 @@ __device__ void prefix_walk(const Picks<T>& c, const Carry<T>& cr,
     sh.red_w[warp] = best_w;
   }
   __syncthreads();
-  if (warp != 0) return;
-  best_s = lane < nw ? sh.red_s[lane] : T(-INFINITY);
-  best_ord = lane < nw ? sh.red_ord[lane] : kInt32Max;
-  best_w = lane < nw ? sh.red_w[lane] : -1;
+  WalkEnd<T> out;
+  out.walked = min(base, n_walk);
+  out.feasible = feas_run;
+  out.win_w = -1;
+  out.pulls = 0;
+  out.best = -INFINITY;
+  if (warp == 0) {
+    best_s = lane < nw ? sh.red_s[lane] : T(-INFINITY);
+    best_ord = lane < nw ? sh.red_ord[lane] : kInt32Max;
+    best_w = lane < nw ? sh.red_w[lane] : -1;
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const T os = __shfl_down_sync(kFull, best_s, d);
-    const int oo = __shfl_down_sync(kFull, best_ord, d);
-    const int ow = __shfl_down_sync(kFull, best_w, d);
-    if (better(os, oo, best_s, best_ord)) {
-      best_s = os;
-      best_ord = oo;
-      best_w = ow;
-    }
-  }
-  if (lane != 0) return;
-  if (stopped) {
-    *pulls = sh.lth + 1;
-  } else {
-    // the region is consumed: the diverted positions compete with
-    // their orders from the totals
-    *pulls = n_cand;
-    const int nd_count = feas_run - min(bad_run, kMaxSkip);
-    const int n_div = min(bad_run, kMaxSkip);
-    const bool reverse = (n_div == 2) && (nd_count > 0);
-    for (int r = 0; r < n_div; ++r) {
-      const int ord = nd_count + (reverse ? 1 - r : r);
-      if (ord < c.limit && better(sh.div_s[r], ord, best_s, best_ord)) {
-        best_s = sh.div_s[r];
-        best_ord = ord;
-        best_w = sh.div_w[r];
+    for (int d = 16; d > 0; d >>= 1) {
+      const T os = __shfl_down_sync(kFull, best_s, d);
+      const int oo = __shfl_down_sync(kFull, best_ord, d);
+      const int ow = __shfl_down_sync(kFull, best_w, d);
+      if (better(os, oo, best_s, best_ord)) {
+        best_s = os;
+        best_ord = oo;
+        best_w = ow;
       }
     }
+    if (lane == 0) {
+      if (stopped) {
+        out.pulls = sh.lth + 1;
+      } else {
+        // the region is consumed: the diverted positions compete with
+        // their orders from the totals
+        out.pulls = n_dry;
+        const int nd_count = feas_run - min(bad_run, kMaxSkip);
+        const int n_div = min(bad_run, kMaxSkip);
+        const bool reverse = (n_div == 2) && (nd_count > 0);
+        for (int r = 0; r < n_div; ++r) {
+          const int ord = nd_count + (reverse ? 1 - r : r);
+          if (ord < limit && better(sh.div_s[r], ord, best_s, best_ord)) {
+            best_s = sh.div_s[r];
+            best_ord = ord;
+            best_w = sh.div_w[r];
+          }
+        }
+      }
+      out.win_w = best_ord != kInt32Max ? best_w : -1;
+      out.best = best_s;
+    }
   }
-  *win_w = best_ord != kInt32Max ? best_w : -1;
+  return out;
 }
+
+// K2's and K7's source: a position's score and feasibility from its
+// row (read through `perm`), the eval's ask and count, and its usage and
+// collisions (the carry's where it was won); or, where a wide step of an
+// earlier pick scored it and no win changed it since, from the score
+// cache.
+template <typename T>
+struct PickSource {
+  const Picks<T>& c;
+  const Carry<T>& cr;
+  int n_won;
+  bool cached;  // a walk has recorded scores (block-uniform)
+
+  template <int W>
+  __device__ __forceinline__ void step(const int (&p)[W],
+                                       const bool (&valid)[W], int,
+                                       bool record, T (&s)[W], bool (&f)[W]) {
+    bool fresh[W];  // scored in this step
+    int row[W];
+    // the loads in three rounds, each over all of the thread's
+    // positions: a known position's score from the cache, an unknown
+    // one's perm entry (coalesced); then the cheap test's three columns;
+    // then the rest of a row that passed it
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      const bool known = cached && valid[r] && bit(cr.known, p[r]);
+      f[r] = known && bit(cr.feas, p[r]);
+      s[r] = f[r] ? c.scores[p[r]] : T(0);
+      fresh[r] = valid[r] && !known;
+      row[r] = fresh[r] ? __ldg(c.perm + p[r]) : 0;
+    }
+    T cpu_total[W];
+    T cpu[W];
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      if (fresh[r]) {
+        f[r] = __ldg(c.feasible + row[r]) != 0;
+        cpu_total[r] = __ldg(c.cpu_total + row[r]);
+        cpu[r] = __ldg(c.cpu_used + row[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      if (fresh[r] && f[r]) {
+        if (bit(cr.won, p[r])) cpu[r] = cr.cpu[find_won(cr, n_won, p[r])];
+        f[r] = cpu[r] + c.ask_cpu <= cpu_total[r];
+        if (f[r]) {
+          score_rest<T>(c, cr, n_won, p[r], row[r], cpu_total[r], cpu[r],
+                        s[r], f[r]);
+          if (f[r]) c.scores[p[r]] = s[r];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < W; ++r) scored[r] = fresh[r];
+    cached = cached || record;
+  }
+
+  // Remembers what sub-step r of the step scored, where `record` is set.
+  // Called from the walk's count ballots, after the step's table entry:
+  // marking the cache before the ballots lengthened a step's path to its
+  // barrier (K2's and K7's long walks ran 2-4 % slower so).
+  __device__ __forceinline__ void note(int r, int p, bool f, bool record) {
+    if (record) {
+      set_bits(cr.known, __ballot_sync(kFull, scored[r]), p, c.n_cand);
+      set_bits(cr.feas, __ballot_sync(kFull, scored[r] && f), p, c.n_cand);
+    }
+  }
+
+  bool scored[kPickWide];  // the last step's positions scored afresh
+};
 
 // The P picks of one eval, `carry` its carry bytes (shared or global).
 // Writes rows[k] (and pulls[k]) for k in [0, n_picks).
@@ -447,13 +512,15 @@ __device__ void run_eval(const Picks<T>& c, unsigned char* carry) {
   }
   __syncthreads();
   const int n_cand = c.n_cand;
-  bool cached = false;  // a walk has recorded scores (block-uniform)
+  PickSource<T> src{c, cr, 0, false, {}};
   for (int k = 0; k < c.n_picks; ++k) {
     const int offset = sh.offset;
     const int n_won = sh.n_won;
-    int win_w = -1;
-    int pulls = 0;
-    prefix_walk<T>(c, cr, sh, offset, n_won, cached, &win_w, &pulls);
+    src.n_won = n_won;
+    const WalkEnd<T> walk =
+        prefix_walk<T>(src, sh, n_cand, offset, c.limit, n_cand);
+    const int win_w = walk.win_w;
+    const int pulls = walk.pulls;
     if (threadIdx.x == 0) {
       if (win_w >= 0) {
         int p = win_w + offset;

@@ -47,7 +47,7 @@ SOURCES = {
     "storm_sharded": "storm_sharded.cu",
 }
 HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh", "chained_grid.cuh",
-           "storm_round.cuh")
+           "chained_prefix.cuh", "storm_round.cuh")
 
 # exact IEEE arithmetic: no FMA contraction, no fast math, no
 # flush-to-zero, correctly rounded division
@@ -175,13 +175,26 @@ class ScoreSelectArgs(ctypes.Structure):
         ("feasible", _P), ("collisions", _P), ("penalty", _P),
         ("affinity", _P), ("spread", _P), ("perm", _P),
         ("tput_term", _P), ("mig_term", _P),
-        ("s_scratch", _P), ("f_scratch", _P), ("out_i", _P),
-        ("out_best", _P),
+        ("s_scratch", _P), ("f_scratch", _P), ("summary", _P),
+        ("out_i", _P), ("out_best", _P),
         ("ask_cpu", _D), ("ask_mem", _D), ("ask_disk", _D),
         ("has_tput", _D),
         ("desired", _I), ("limit", _I), ("n_candidates", _I), ("C", _I),
         ("spread_fit", _I), ("is_f64", _I), ("device", _I),
+        ("count", _I),
     ]
+
+
+@functools.lru_cache(maxsize=1024)
+def select_summary_bytes(C: int, t_size: int, limit: int,
+                         n_candidates: int) -> int:
+    """Bytes of K1's per-block summaries for C rows: 0 where its rule
+    (csrc/score_select.cu `takes_grid`) takes the prefix walk, which
+    reads none."""
+    fn = library("score_select").nk_select_summary_bytes
+    fn.argtypes = [_I, _I, _I, _I]
+    fn.restype = ctypes.c_size_t
+    return int(fn(C, t_size, limit, n_candidates))
 
 
 class PlanPicksArgs(ctypes.Structure):
@@ -201,15 +214,17 @@ class PlanPicksArgs(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=None)
-def _carry_fns(name: str):
-    """The pick library `name`'s (csrc/picks.cuh) carry sizes: its
-    bytes-an-eval function and the most it keeps in shared memory."""
+def _carry_fns(name: str, prefix: str = "nk_pick"):
+    """The library `name`'s carry sizes (csrc/picks.cuh for K2 and K7,
+    `prefix` nk_pick; csrc/chained_prefix.cuh for K9, nk_chain): its
+    bytes function and the most it keeps in shared memory."""
     lib = library(name)
-    fn = lib.nk_pick_carry_bytes
+    fn = getattr(lib, f"{prefix}_carry_bytes")
     fn.argtypes = [_I, _I, _I]
     fn.restype = ctypes.c_size_t
-    lib.nk_pick_carry_smem_max.restype = ctypes.c_size_t
-    return fn, lib.nk_pick_carry_smem_max()
+    smem_max = getattr(lib, f"{prefix}_carry_smem_max")
+    smem_max.restype = ctypes.c_size_t
+    return fn, smem_max()
 
 
 def pick_carry(name: str, E: int, n_cand: int, n_picks: int, dtype,
@@ -261,13 +276,22 @@ def _launch(name: str, fn_name: str, args: ctypes.Structure,
 def launch_score_select(cols, s_scratch, f_scratch, out_i, out_best, *,
                         tput_term, has_tput: float, mig_term,
                         ask: Tuple[float, float, float], desired: int,
-                        limit: int, n_candidates: int,
-                        spread_fit: bool) -> None:
+                        limit: int, n_candidates: int, spread_fit: bool,
+                        count: bool) -> str:
     """K1 on the current stream.  `cols` maps ScoreInputs column names
     to contiguous CUDA tensors (the wrapper has checked them);
     `tput_term` and `mig_term` are the policy groups' contiguous
-    columns, or None for an absent group."""
+    columns, or None for an absent group.  `count` asks the prefix walk
+    for the feasible count too.  Returns the launch shape the kernel's
+    rule takes ("grid" where limit >= n_candidates, else "prefix"), and
+    allocates the per-block summaries for the grid alone."""
     dev = cols["cpu_total"].device
+    dtype = cols["cpu_total"].dtype
+    C = cols["cpu_total"].shape[0]
+    size = select_summary_bytes(C, torch.finfo(dtype).bits // 8, limit,
+                                n_candidates)
+    summary = (torch.empty(size, dtype=torch.uint8, device=dev) if size
+               else None)
     args = ScoreSelectArgs(
         cols["cpu_total"].data_ptr(), cols["mem_total"].data_ptr(),
         cols["disk_total"].data_ptr(), cols["cpu_used"].data_ptr(),
@@ -276,14 +300,15 @@ def launch_score_select(cols, s_scratch, f_scratch, out_i, out_best, *,
         cols["penalty"].data_ptr(), cols["affinity_score"].data_ptr(),
         cols["spread_boost"].data_ptr(), cols["perm"].data_ptr(),
         _ptr(tput_term), _ptr(mig_term),
-        s_scratch.data_ptr(), f_scratch.data_ptr(), out_i.data_ptr(),
-        out_best.data_ptr(),
+        s_scratch.data_ptr(), f_scratch.data_ptr(), _ptr(summary),
+        out_i.data_ptr(), out_best.data_ptr(),
         ask[0], ask[1], ask[2], has_tput,
-        desired, limit, n_candidates, cols["cpu_total"].shape[0],
-        int(spread_fit), int(cols["cpu_total"].dtype == torch.float64),
-        dev.index,
+        desired, limit, n_candidates, C,
+        int(spread_fit), int(dtype == torch.float64), dev.index,
+        int(count),
     )
     _launch("score_select", "nk_score_select", args, dev)
+    return "grid" if size else "prefix"
 
 
 def launch_plan_picks(cols, carry, scores, out, *,
@@ -769,7 +794,7 @@ class ChainedBatchArgs(ctypes.Structure):
             "sp_clr0", "sp_weight", "sp_active", "sp_even", "sp_group",
             "evict_rows", "evict_cpu", "evict_mem", "evict_disk",
             "evict_coll", "penalty_rows", "pre_rows", "pre_cpu", "pre_mem",
-            "pre_disk", "f_scratch", "i_scratch", "b_scratch", "s_scratch",
+            "pre_disk", "carry", "scores", "pos_of", "s_scratch",
             "out_rows", "out_pulls",
         )
     ] + [
@@ -787,15 +812,21 @@ def launch_chained_batch(named, spread, deltas, pre, *, E: int, P: int,
     `ChainedBatchArgs` (node columns, carry-in and carry-out, the
     per-eval columns and scalars, the outputs) to contiguous CUDA
     tensors or None; the optional tuples come from
-    `ops.batch.prepare_batched`.  Allocates the scratch."""
+    `ops.batch.prepare_batched`.  Allocates the scratch: the score cache
+    (T [C]) and its row map (int32 [C]; the kernel trusts no entry it
+    did not write in the same eval), the spread state, and the chain's
+    carry where it does not fit the block's shared memory."""
     dev = named["cpu_total"].device
     S, V1 = _spread_dims(spread)
-    f, i, b, s = _scratch_lens(C, 1, S, V1)
+    s = _scratch_lens(C, 1, S, V1)[3]
+    fn, smem_max = _carry_fns("chained_batch", "nk_chain")
+    carry = fn(C, P, torch.finfo(dtype).bits // 8)
     ptrs = dict(named, **_option_ptrs(spread, deltas, pre))
     ptrs.update(
-        f_scratch=torch.empty(f, dtype=dtype, device=dev),
-        i_scratch=torch.empty(i, dtype=torch.int32, device=dev),
-        b_scratch=torch.empty(b, dtype=torch.uint8, device=dev),
+        carry=(None if carry <= smem_max
+               else torch.empty(carry, dtype=torch.uint8, device=dev)),
+        scores=torch.empty(C, dtype=dtype, device=dev),
+        pos_of=torch.empty(C, dtype=torch.int32, device=dev),
         s_scratch=torch.empty(s, dtype=dtype, device=dev),
     )
     args = ChainedBatchArgs()

@@ -157,6 +157,46 @@ def _policy_rows(rng, n: int, C: int, tput, mig):
     return tput_term, np.asarray(tput, np.float64), mig_term
 
 
+# K1's launch shapes at their edges (csrc/score_select.cu: its rule sends
+# limit >= n_candidates to the grid, a lower limit to the prefix walk):
+# (scenario, limit, n_candidates, or None for the caller's).  To the
+# grid: a whole-region select; a few candidates at the front of a large
+# arena; two diverted nodes behind good ones and alone; four bad nodes
+# and no good one (three diverted, one emitted); a limit equal to the
+# candidates, every one feasible and good ("all_good"), so the limit-th
+# non-diverted position ends the walk in a later block.  To the prefix
+# walk: a limited walk that runs long (40 feasible nodes, limit 14); a
+# few candidates, limited; four bad nodes; two diverted nodes behind
+# fewer good ones than the limit and alone, so the walk consumes the
+# region; a limit one below the candidates, every one good.
+SELECT_EDGES: Dict[str, Tuple[str, int, object]] = {
+    "whole_region": ("mixed", INT32_MAX, None),
+    "few_cand_whole": ("mixed", INT32_MAX, 300),
+    "two_diverted": ("div2", INT32_MAX, None),
+    "two_diverted_alone": ("div2_nogood", INT32_MAX, None),
+    "all_bad_whole": ("div4_nogood", INT32_MAX, None),
+    "limit_is_cands": ("all_good", 300, 300),
+    "long_limited": ("div0", 14, None),
+    "few_cand_limited": ("mixed", 14, 300),
+    "all_bad": ("div4_nogood", 14, None),
+    "two_diverted_limited": ("div2", 64, None),
+    "two_diverted_alone_limited": ("div2_nogood", 14, None),
+    "limit_below_cands": ("all_good", 299, 300),
+}
+
+
+def select_edge_case(seed: int, C: int, n_cand: int, edge: str) -> Dict:
+    """One K1 input at a launch-shape edge (`SELECT_EDGES`)."""
+    scenario, limit, n = SELECT_EDGES[edge]
+    n = n_cand if n is None else n
+    if scenario != "all_good":
+        return score_case(seed, C, n, scenario, limit)
+    # every candidate statically feasible; each fits and scores > 0
+    case = score_case(seed, C, n, "all_infeasible", limit)
+    case["feasible"][case["perm"][:n]] = True
+    return case
+
+
 # K1 with a policy: which groups the select carries.  "inert" is a
 # policy job whose groups are both inert (armed coefficients, no live
 # allocs yet): no PolicyTerms, but the unlimited walk all the same.
@@ -330,6 +370,8 @@ def _chain_case(seed: int, C: int, n_cand: int, opts, E: int,
     limit_t = np.where(
         rng.random((E, T)) < 0.5, INT32_MAX, rng.integers(2, 20, (E, T))
     )
+    if "unlimited" in opts:  # (K9's long walks only) every limit INT32_MAX
+        limit_t[:] = INT32_MAX
     batch = dict(
         feasible=feasible, perm=perm, ask_cpu=ask[0], ask_mem=ask[1],
         ask_disk=ask[2],
@@ -490,6 +532,11 @@ BATCHED_SCENARIOS: Dict[str, Tuple[str, ...]] = {
     "job_dh": ("job_dh",),
     "everything": ("spread_pct", "spread_even", "evict", "wanted", "tight",
                    "few_cand", "job_dh"),
+    # long walks: every pick consumes its region, with the score cache
+    # (step deltas and pre-deltas, no spread) and without it (spread too)
+    "unlimited_evict": ("evict", "unlimited"),
+    "unlimited_spread_evict": ("spread_pct", "spread_even", "evict",
+                               "unlimited"),
 }
 
 
@@ -529,6 +576,31 @@ def batched_case(seed: int, C: int, n_cand: int, scenario: str, E: int,
         desired_count=b["desired_count"][:, 0].copy(),
         limit=b["limit"][:, 0].copy(), distinct_hosts=b["distinct_hosts"],
     )
+    return cols, kw
+
+
+def batched_cache_case(seed: int, C: int, n_cand: int, E: int,
+                       P: int) -> Tuple[Dict, Dict]:
+    """A `batched_case` "unlimited_evict" whose every eval meets each
+    rule of K9's score cache on its long walks: each pick's first
+    penalty row is a position the walks have scored; a full node (scored
+    infeasible) is emptied by the eviction before pick 3 and has the
+    best affinity, so under worst fit (spread_fit) it wins pick 3, which
+    a stale cache would miss."""
+    cols, kw = batched_case(seed, C, n_cand, "unlimited_evict", E, P)
+    b, dl = kw["batch"], kw["deltas"]
+    for e in range(E):
+        dl["penalty_rows"][e, 1:, 0] = b["perm"][e, 5]
+        r = int(b["perm"][e, 7])
+        b["feasible"][e, r] = True
+        b["affinity_score"][e] = np.minimum(b["affinity_score"][e], 0.5)
+        b["affinity_score"][e, r] = 1.0
+        b["base_collisions"][e, r] = 0
+        b["penalty"][e, r] = False
+        for col in ("cpu", "mem"):
+            b[f"base_{col}_used"][0, r] = cols[f"{col}_total"][r]
+            dl[f"evict_{col}"][e, 3] = -cols[f"{col}_total"][r]
+        dl["evict_rows"][e, 3] = r
     return cols, kw
 
 

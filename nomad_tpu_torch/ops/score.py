@@ -416,18 +416,30 @@ def _host_float(value: Scalar) -> float:
 
 
 class K1Out(NamedTuple):
-    """K1's device outputs.  `scores_walk` is the kernel's working copy
-    of every score in walk order (scores_walk[i] = score of perm[i]),
-    which checks compare bit for bit with the twin's."""
+    """K1's device outputs.  `out_i` holds the row, the pulls, the
+    feasible count (-1 where the prefix walk ran without `count`) and
+    the walked positions (`walked`).  The walk scratch holds what the
+    kernel scored, in walk order: for w < walked, `flags_walk[w]` is
+    1 | 2 * bad where position w is feasible (0 elsewhere), and
+    `scores_walk[w]` its score where feasible; checks compare those
+    bit for bit with the twin's.  `route` is the launch shape the
+    kernel's rule took: "grid" where limit >= n_candidates, else
+    "prefix"."""
 
-    out_i: torch.Tensor  # i32[3]: row, pulls, feasible_count
+    out_i: torch.Tensor  # i32[4]: row, pulls, feasible_count, walked
     best: torch.Tensor  # f[1]
     scores_walk: torch.Tensor  # f[C]
+    flags_walk: torch.Tensor  # u8[C]
+    route: str
 
 
-def score_select_cuda(inp: ScoreInputs, spread_fit: bool = False) -> K1Out:
+def score_select_cuda(inp: ScoreInputs, spread_fit: bool = False,
+                      count: bool = True) -> K1Out:
     """Launch K1 on the tensors' CUDA device (current stream); nothing
-    is synchronised."""
+    is synchronised.  K1 takes its prefix walk where the walk may stop
+    early (limit < n_candidates) and its grid where it consumes the
+    region.  `count=False` lets the prefix walk skip the feasible count
+    (out_i[2] is then -1)."""
     from . import _cuda
 
     dev = _check_inputs(inp)
@@ -444,10 +456,10 @@ def score_select_cuda(inp: ScoreInputs, spread_fit: bool = False) -> K1Out:
     dtype = inp.cpu_total.dtype
     s_scratch = torch.empty(C, dtype=dtype, device=dev)
     f_scratch = torch.empty(C, dtype=torch.uint8, device=dev)
-    out_i = torch.empty(3, dtype=torch.int32, device=dev)
+    out_i = torch.empty(4, dtype=torch.int32, device=dev)
     out_best = torch.empty(1, dtype=dtype, device=dev)
     pol = inp.policy or PolicyTerms()
-    _cuda.launch_score_select(
+    took = _cuda.launch_score_select(
         cols, s_scratch, f_scratch, out_i, out_best,
         tput_term=None if pol.tput_term is None else pol.tput_term.contiguous(),
         has_tput=0.0 if pol.has_tput is None else _host_float(pol.has_tput),
@@ -461,9 +473,10 @@ def score_select_cuda(inp: ScoreInputs, spread_fit: bool = False) -> K1Out:
         limit=limit,
         n_candidates=n_cand,
         spread_fit=spread_fit,
+        count=count,
     )
     score_select_cuda.launches += 1
-    return K1Out(out_i, out_best, s_scratch)
+    return K1Out(out_i, out_best, s_scratch, f_scratch, took)
 
 
 score_select_cuda.launches = 0
@@ -482,12 +495,13 @@ def score_and_select(inp: ScoreInputs, spread_fit: bool = False):
 
 def score_and_select_packed(inp: ScoreInputs, spread_fit: bool = False):
     """score_and_select packed into ONE i32[2] tensor ([chosen_row,
-    pulls]) so the host pays a single device->host copy per select."""
+    pulls]) so the host pays a single device->host copy per select; the
+    kernel skips the feasible count, which this select does not read."""
     dev = _check_inputs(inp)
     if dev.type == "cpu":
         row, _best, _n, pulls = score_and_select_twin(inp, spread_fit)
         return torch.stack([row.to(torch.int32), pulls.to(torch.int32)])
-    return score_select_cuda(inp, spread_fit).out_i[:2]
+    return score_select_cuda(inp, spread_fit, count=False).out_i[:2]
 
 
 def _check_walk(feasible, scores, perm) -> torch.device:

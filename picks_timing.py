@@ -1,32 +1,43 @@
-"""Time the PyTorch port's pick kernels on the card, K2 (the per-eval
-stack's look-ahead, `plan_picks_cuda`) and K7 (the bridge's
-`ScoreBatch`, `batch_plan_picks_shared_cuda`), for one or more checkouts
-of the repo, so that two commits are compared on the same card in one
-run:
+"""Time the PyTorch port's prefix-walk kernels on the card — K2 (the
+per-eval stack's look-ahead, `plan_picks_cuda`), K7 (the bridge's
+`ScoreBatch`, `batch_plan_picks_shared_cuda`), K9 (the bench's chained
+planner, `launch_chained_plan`) and K1 (the per-eval select,
+`score_and_select_packed`) — for one or more checkouts of the repo, so
+that two commits are compared on the same card in one run:
 
     python3 picks_timing.py [TREE ...]
 
 Each TREE (default: the directory of this script) is timed in a process
 of its own, in the order given: pass a parent around its change as
 ``PARENT CHANGE CHANGE PARENT``.  The shapes are chip_smoke.py's timing
-phase's, in f64, over a 16,384-row arena with 10,000 candidates: K2 on
-the "plain" case at limit 14 and P = 16 (`time_kernels`), K7 on E = 64
-evals x P = 10 of the "bridge" case (`time_batch_kernel`); and the cases
-whose walks run long: K2 "out_of_room" (limit 14, P = 16), K7 "tight"
-and "fit_nowhere".  For each tree and case it checks the kernel's output
-against its twin on the card once, then prints one JSON line with, per
-case:
+phase's, in f64, over a 16,384-row arena with 10,000 candidates unless
+named: K2 on the "plain" case at limit 14 and P = 16 (`time_kernels`),
+K7 on E = 64 evals x P = 10 of the "bridge" case (`time_batch_kernel`);
+K9 at the bench's kernel-only shape (its 2,000-node world: a 2,048-row
+arena, 2,000 candidates, E = 64 x P = 10) and at the 16k arena
+(`batched_case` "plain", E = 64 x P = 10; `time_batched_kernels`); K1
+at limit 14 on the "mixed" case and with both policy groups unlimited
+(`time_kernels`, `time_policy_select`); and the cases whose walks run
+long: K2 "out_of_room" (limit 14, P = 16), K7 "tight" and "fit_nowhere",
+K1 "div0" (40 feasible nodes, limit 14).  K1 runs the launch shape its
+rule takes (its grid where limit >= n_candidates, its prefix walk
+elsewhere); to time a shape off the rule, pass as a TREE a copy of the
+port under `build/` with the rule (`takes_grid` in csrc/score_select.cu)
+edited.
+For each tree and case it checks the kernel's output against its twin
+on the card once, then prints one JSON line with, per case:
 
 - ``ms``: the device time of one launch, from `torch.profiler` (CUPTI)
-  over 100 calls after 10: the mean device time of the kernels whose
-  name holds the kernel's (``plan_picks_kernel``, ``batch_picks_kernel``);
-- ``call_ms``: the CUDA-event mean of 200 calls after 10 as
+  over 100 calls after 10 (K9 50): the mean device time of the kernels
+  whose name holds the kernel's (``plan_picks_kernel``,
+  ``batch_picks_kernel``, ``chain`` for K9, ``select`` for K1);
+- ``call_ms``: the CUDA-event mean of 200 calls after 10 (K9 50) as
   chip_smoke.py times them (where a call's host work outlasts its
   kernel, this is the host's rate: K7's wrapper reads its limits'
   minimum, a device-to-host copy, every call);
 - ``launches``: the wrapper's count a call over the timed calls;
-- ``pulls``: the positions the walks consumed, K2's from its own output,
-  K7's from K2 run one eval at a time.
+- ``pulls``: the positions the walks consumed, K2's, K9's and K1's from
+  their own output, K7's from K2 run one eval at a time.
 
 The card's name and power limit come first, as nvidia-smi gives them.
 Exits 1 without a card, or if any tree's run fails."""
@@ -40,6 +51,12 @@ K2_CASES = (("plain", 7001), ("out_of_room", 7003))
 K2_LIMIT, K2_P = 14, 16
 K7_CASES = (("bridge", 9200), ("tight", 9201), ("fit_nowhere", 9202))
 K7_E, K7_P = 64, 10
+K9_E, K9_P = 64, 10
+# (case, score_case scenario, seed, limit): the path's select, the
+# weighted select (both policy groups) and a limited walk that runs long
+K1_CASES = (("limit14_mixed", "mixed", 7000, 14),
+            ("policy_both", "both", 7002, 2**31 - 1),
+            ("long_div0", "div0", 7003, 14))
 N, WARMUP = 200, 10
 
 
@@ -60,8 +77,8 @@ def _time_ms(fn, n: int = N, warmup: int = WARMUP) -> float:
 
 
 def _profiled_ms(fn, kernel: str, n: int = 100, warmup: int = WARMUP):
-    """Mean device ms of the kernels named like `kernel` over `n` calls,
-    from the profiler's CUPTI trace (None if it recorded none)."""
+    """Mean device ms of the kernels whose name holds `kernel` over `n`
+    calls, from the profiler's CUPTI trace (None if it recorded none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,29 +136,68 @@ def _k7_pulls(case, kw, cuda) -> int:
     return pulls
 
 
-def _timed(wrapper, call, kernel: str) -> dict:
+def _timed(wrapper, call, kernel: str, n: int = N) -> dict:
     before = wrapper.launches
-    call_ms = _time_ms(call)
-    launches = (wrapper.launches - before) / (N + WARMUP)
-    return {"ms": _profiled_ms(call, kernel), "call_ms": call_ms,
-            "launches": launches}
+    call_ms = _time_ms(call, n)
+    launches = (wrapper.launches - before) / (n + WARMUP)
+    return {"ms": _profiled_ms(call, kernel, min(n, 100)),
+            "call_ms": call_ms, "launches": launches}
+
+
+def _k9_cases(cuda):
+    """K9's prepared inputs: the bench's kernel-only launch and the 16k
+    arena's, as chip_smoke.py's time_batched_kernels builds them."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch import bench as tbench
+    from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import batched_case
+    from nomad_tpu_torch.state.convert import batched_case_to_torch
+
+    world = tbench.kernel_world(2000)
+    inp = tbench.kernel_inputs(world, K9_E)
+    cols = [torch.from_numpy(np.ascontiguousarray(c)).to(cuda)
+            for c in inp["cols"]]
+    perms = tbench.kernel_perms(world, list(range(K9_E)))
+    batch = tbatch.prepare_batched(
+        *cols, tbatch.BatchInputs(perm=perms, **inp["shared"]),
+        inp["n_cand"], tbench.TG_COUNT)["batch"]
+    yield "k9_bench", tbatch.prepare_batched(*cols, batch, inp["n_cand"],
+                                             tbench.TG_COUNT)
+    cols16, kw16 = batched_case(9600, C, N_CAND, "plain", K9_E, K9_P)
+    args, kwargs = batched_case_to_torch(cols16, kw16, cuda)
+    yield "k9_arena16k", tbatch.prepare_batched(*args, **kwargs)
+
+
+def _k1_input(scenario: str, seed: int, limit: int, cuda):
+    from nomad_tpu_torch.ops.cases import policy_score_case, score_case
+    from nomad_tpu_torch.state.convert import score_inputs_from_numpy
+
+    if scenario == "both":
+        case = policy_score_case(seed, C, N_CAND, scenario, limit)
+    else:
+        case = score_case(seed, C, N_CAND, scenario, limit)
+    return score_inputs_from_numpy(case, cuda)
 
 
 def measure(tree: str) -> dict:
-    """The timings of `tree`'s K2 and K7, in this process."""
+    """The timings of `tree`'s K2, K7, K9 and K1, in this process."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
 
     from nomad_tpu_torch.ops import _cuda
     from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops import score as tscore
     from nomad_tpu_torch.ops.cases import batch_shared_case
     from nomad_tpu_torch.state.convert import batch_shared_inputs_from_numpy
 
     if not tbatch.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"imported {tbatch.__file__}, not {tree}'s port")
     cuda = torch.device("cuda", 0)
-    _cuda.load(["plan_picks", "batch_picks"])
+    _cuda.load(["plan_picks", "batch_picks", "chained_batch",
+                "score_select"])
     out = {"tree": tree}
     for scenario, seed in K2_CASES:
         args = _k2_args(scenario, seed, cuda)
@@ -166,6 +222,28 @@ def measure(tree: str) -> dict:
                    lambda kw=kw: tbatch.batch_plan_picks_shared_cuda(**kw),
                    "batch_picks_kernel"),
             pulls=_k7_pulls(case, kw, cuda))
+    for name, q in _k9_cases(cuda):
+        rows, pulls = (t.cpu() for t in tbatch.launch_chained_plan(q))
+        twin = tbatch.chained_picks_twin(tbatch.batched_as_chain(q))
+        if not (torch.equal(rows, twin[0].cpu())
+                and torch.equal(pulls, twin[1].cpu())):
+            raise RuntimeError(f"K9 {name}: the kernel differs from its twin")
+        out[name] = dict(
+            _timed(tbatch.chained_plan_picks_cuda,
+                   lambda q=q: tbatch.launch_chained_plan(q), "chain", n=50),
+            pulls=int(pulls.sum()))
+    for name, scenario, seed, limit in K1_CASES:
+        k1 = _k1_input(scenario, seed, limit, cuda)
+        twin = tscore.score_and_select_twin(k1)
+        want = (int(twin[0]), float(twin[1]), int(twin[2]), int(twin[3]))
+        got = tscore.score_select_cuda(k1)
+        if (int(got.out_i[0]), float(got.best[0]), int(got.out_i[2]),
+                int(got.out_i[1])) != want:
+            raise RuntimeError(f"K1 {name}: the kernel differs from its twin")
+        out[f"k1_{name}"] = dict(
+            _timed(tscore.score_select_cuda,
+                   lambda k1=k1: tscore.score_and_select_packed(k1), "select"),
+            pulls=want[3])
     return out
 
 

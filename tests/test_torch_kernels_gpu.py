@@ -23,6 +23,11 @@ K2 and K7 also at their prefix walk's edges, per block shape: regions
 one short of a pick's first step, as long, one longer and one longer
 than two steps, a node that wins twice, walks through the whole region,
 and a carry beyond shared memory (540,000 candidates).
+K1 also with each launch shape (its prefix walk and its grid) forced at
+its edges (whole regions, a limited walk that runs long, few
+candidates, two diverted nodes, all bad), the walk scratch held where
+it was written.  K9 also on long walks with step deltas, pre-deltas and
+spread (rows and pulls) and with its carry beyond shared memory.
 K1, K5 and K11 also on their policy cases (throughput, migration, both
 and inert selects; weighted, mixed and dogpile storms).  Exact equality
 of every output, in f64 and in f32.
@@ -47,15 +52,18 @@ from nomad_tpu_torch.ops.cases import (
     POLICY_SCORE_SCENARIOS,
     POLICY_STORM_SCENARIOS,
     SCORE_SCENARIOS,
+    SELECT_EDGES,
     STORM_SCENARIOS,
     WALK_SCENARIOS,
     batch_case,
     batch_shared_case,
+    batched_cache_case,
     batched_case,
     chain_case,
     policy_score_case,
     policy_storm_case,
     score_case,
+    select_edge_case,
     storm_case,
     walk_case,
 )
@@ -88,6 +96,26 @@ def _bits(t):
     return a.view(np.int64 if a.dtype == np.float64 else np.int32)
 
 
+def _same_walk(out, on_cpu, spread_fit=False) -> int:
+    """K1's walk scratch against the CPU twin: every position the kernel
+    walked (all C on its grid) with the twin's feasibility and bad flag,
+    and every feasible one with the twin's score bits.  Returns the
+    walked positions."""
+    walked = int(out.out_i[3])
+    assert 1 <= walked <= on_cpu.perm.shape[0]
+    if out.route == "grid":
+        assert walked == on_cpu.perm.shape[0]
+    feas, scores = tscore.score_vectors(on_cpu, spread_fit)
+    perm = on_cpu.perm.long()[:walked]
+    f = feas[perm]
+    flags = out.flags_walk.cpu()[:walked]
+    assert torch.equal((flags & 1).bool(), f)
+    assert torch.equal((flags & 2).bool(), f & (scores[perm] <= 0))
+    got = out.scores_walk.cpu()[:walked][f]
+    assert (_bits(got) == _bits(scores[perm][f])).all()
+    return walked
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("spread_fit", [False, True])
 @pytest.mark.parametrize("limit", [2, 14, INT32_MAX])
@@ -111,10 +139,11 @@ def test_score_select_kernel_matches_twin(cuda, scenario, limit, spread_fit,
         assert (_bits(k) == _bits(tp)).all()
     packed = tscore.score_and_select_packed(on_card, spread_fit=spread_fit)
     assert packed.cpu().tolist() == [int(kernel[0]), int(kernel[3])]
-    # every node's score, not only the winner's (two pows per node)
-    walk_scores = tscore.score_select_cuda(on_card, spread_fit).scores_walk
-    _, cpu_scores = tscore.score_vectors(on_cpu, spread_fit)
-    assert (_bits(walk_scores) == _bits(cpu_scores[on_cpu.perm.long()])).all()
+    # every score the kernel computed, not only the winner's (two pows a
+    # node): the positions it walked (every node's score is held through
+    # K11, test_score_all_kernel_matches_twin)
+    _same_walk(tscore.score_select_cuda(on_card, spread_fit), on_cpu,
+               spread_fit)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -136,9 +165,55 @@ def test_score_select_policy_kernel_matches_twin(cuda, scenario, limit,
     for k, tc, tp in zip(kernel, twin_card, twin_cpu):
         assert (_bits(k) == _bits(tc)).all()
         assert (_bits(k) == _bits(tp)).all()
-    _, cpu_scores = tscore.score_vectors(on_cpu)
-    assert (_bits(out.scores_walk)
-            == _bits(cpu_scores[on_cpu.perm.long()])).all()
+    _same_walk(out, on_cpu)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("edge", sorted(SELECT_EDGES))
+def test_score_select_launch_shapes_at_edges(cuda, edge, dtype):
+    """K1 at the edges of `SELECT_EDGES`, each on the launch shape its
+    rule takes (the grid where limit >= n_candidates, the prefix walk
+    elsewhere): every output and every score it computed bit-equal to
+    the twin on the card and on the CPU; one launch a call; the packed
+    select's row and pulls without the feasible count."""
+    case = select_edge_case(3700 + sorted(SELECT_EDGES).index(edge), C,
+                            N_CAND, edge)
+    on_card = score_inputs_from_numpy(case, cuda, dtype=dtype)
+    on_cpu = score_inputs_from_numpy(case, "cpu", dtype=dtype)
+    grid = case["limit"] >= case["n_candidates"]
+    before = tscore.score_select_cuda.launches
+    out = tscore.score_select_cuda(on_card)
+    torch.cuda.synchronize()
+    assert tscore.score_select_cuda.launches == before + 1
+    assert out.route == ("grid" if grid else "prefix")
+    kernel = (out.out_i[0], out.best[0], out.out_i[2], out.out_i[1])
+    twin_card = tscore.score_and_select_twin(on_card)
+    twin_cpu = tscore.score_and_select_twin(on_cpu)
+    for k, tc, tp in zip(kernel, twin_card, twin_cpu):
+        assert (_bits(k) == _bits(tc)).all()
+        assert (_bits(k) == _bits(tp)).all()
+    walked = _same_walk(out, on_cpu)
+    if not grid and int(kernel[3]) < case["n_candidates"]:
+        assert walked >= int(kernel[3])  # stopped after its limit-th
+    quick = tscore.score_select_cuda(on_card, count=False)
+    assert quick.out_i.cpu().tolist()[:2] == [int(kernel[0]), int(kernel[3])]
+    assert int(quick.out_i[2]) == (int(kernel[2]) if grid else -1)
+
+
+@pytest.mark.parametrize("edge", sorted(SELECT_EDGES))
+def test_score_select_rule(cuda, edge):
+    """K1's rule, read from what the kernel did: the grid (every
+    position walked, the feasible count always given) where the limit
+    reaches the candidates, the prefix walk (no count when not asked)
+    elsewhere."""
+    case = select_edge_case(3800, C, N_CAND, edge)
+    out = tscore.score_select_cuda(score_inputs_from_numpy(case, cuda),
+                                   count=False)
+    got = out.out_i.cpu().tolist()
+    if case["limit"] >= case["n_candidates"]:
+        assert got[3] == C and got[2] >= 0
+    else:
+        assert got[2] == -1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -617,7 +692,8 @@ def test_pick_carry_beyond_shared_memory(cuda, dtype):
 # without every option
 BATCHED_CASES = [(s, E, P) for s in sorted(BATCHED_SCENARIOS)
                  for E, P in ((2, 16), (8, 64))] + [
-    ("plain", 64, 10), ("everything", 64, 10)]
+    ("plain", 64, 10), ("everything", 64, 10),
+    ("unlimited_spread_evict", 64, 10)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -656,6 +732,64 @@ def test_chained_shared_kernel_matches_twin(cuda, scenario, E, P, dtype):
         **batch_shared_inputs_from_numpy(case, "cpu", dtype))
     assert torch.equal(kernel, twin_card)
     assert torch.equal(kernel, twin_cpu)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scenario", ["unlimited_evict",
+                                      "unlimited_spread_evict", "everything"])
+def test_chained_batch_pulls_match_twin(cuda, scenario, dtype):
+    """K9's rows and pulls (the positions each prefix walk consumed)
+    equal the twin's on long walks, with the score cache (step deltas,
+    pre-deltas) and without it (spread too), in one launch."""
+    cols, kw = batched_case(
+        5650 + sorted(BATCHED_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, 8, 16)
+    args, kwargs = batched_case_to_torch(cols, kw, cuda, dtype)
+    q = tbatch.prepare_batched(*args, **kwargs)
+    before = tbatch.chained_plan_picks_cuda.launches
+    rows, pulls = tbatch.launch_chained_plan(q)
+    assert tbatch.chained_plan_picks_cuda.launches == before + 1
+    twin = tbatch.chained_picks_twin(tbatch.batched_as_chain(q))
+    assert torch.equal(rows.cpu(), twin[0].cpu())
+    assert torch.equal(pulls.cpu(), twin[1].cpu())
+    if scenario.startswith("unlimited"):
+        active = twin[1].cpu() > 0
+        assert bool((pulls.cpu()[active] == q["n_cand"].cpu()[:, None]
+                     .expand_as(pulls)[active]).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chained_batch_cache_rules(cuda, dtype):
+    """K9's score cache on long walks where each of its rules decides a
+    pick (`batched_cache_case`: penalty rows it holds, an evicted row it
+    holds that must win next), under worst fit: rows and pulls equal to
+    the twin's on the card and the CPU."""
+    cols, kw = batched_cache_case(5670, C, N_CAND, 8, 16)
+    args, kwargs = batched_case_to_torch(cols, kw, cuda, dtype)
+    q = tbatch.prepare_batched(*args, spread_fit=True, **kwargs)
+    rows, pulls = tbatch.launch_chained_plan(q)
+    twin = tbatch.chained_picks_twin(tbatch.batched_as_chain(q))
+    assert torch.equal(rows.cpu(), twin[0].cpu())
+    assert torch.equal(pulls.cpu(), twin[1].cpu())
+    args_cpu, kwargs_cpu = batched_case_to_torch(cols, kw, "cpu", dtype)
+    assert torch.equal(rows.cpu(), tbatch.chained_plan_picks(
+        *args_cpu, spread_fit=True, **kwargs_cpu))
+    assert all(int(rows[e, 3]) == int(kw["batch"]["perm"][e, 7])
+               for e in range(8))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chained_carry_beyond_shared_memory(cuda, dtype):
+    """An arena whose row bitmaps pass the shared-memory bound (200,000
+    rows): K9 keeps its carry in the wrapper's global scratch, the same
+    kernel, equal to the twin."""
+    big = 200_000
+    cols, kw = batched_case(5660, big, 150_000, "unlimited_evict", 2, 8)
+    args, kwargs = batched_case_to_torch(cols, kw, cuda, dtype)
+    kernel = tbatch.chained_plan_picks_cuda(*args, **kwargs).cpu()
+    args_cpu, kwargs_cpu = batched_case_to_torch(cols, kw, "cpu", dtype)
+    assert torch.equal(kernel, tbatch.chained_plan_picks(*args_cpu,
+                                                         **kwargs_cpu))
 
 
 # n_candidates one scalar where every eval has the same candidate

@@ -40,18 +40,29 @@ import jax
 import jax.numpy as jnp
 
 from nomad_tpu.ops import batch as jbatch
+from nomad_tpu.ops import score as jscore
 from nomad_tpu_torch.ops import batch as tbatch
 from nomad_tpu_torch.ops.cases import (
     BATCH_SCENARIOS,
     BATCH_SHARED_SCENARIOS,
+    BATCHED_SCENARIOS,
     INT32_MAX,
+    POLICY_SCORE_SCENARIOS,
+    SCORE_SCENARIOS,
+    SELECT_EDGES,
     batch_case,
     batch_shared_case,
+    batched_cache_case,
+    batched_case,
+    policy_score_case,
+    score_case,
+    select_edge_case,
 )
 from nomad_tpu_torch.ops.score import INV_18, MAX_SKIP, NO_NODE, _pow10, fma
 from nomad_tpu_torch.state.convert import (
     batch_inputs_from_numpy,
     batch_shared_inputs_from_numpy,
+    batched_case_to_torch,
 )
 
 
@@ -70,13 +81,14 @@ def _steps(n_cand: int, threads: int, first: int, wide: int):
 
 
 def prefix_walk(score_at, limit: int, n_cand: int, threads: int,
-                first: int, wide: int):
+                first: int, wide: int, n_dry=None):
     """One pick's prefix walk over walk positions [0, n_cand).
     `score_at(ws, record)` gives the scores and feasibility of a step's
     walk positions `ws` (the only positions read); `record` is set on
     steps of `threads` positions or more, whose scores the pick body
-    keeps.  Returns (win_w
-    or -1, pulls, positions scored)."""
+    keeps.  A walk that does not stop pulls `n_dry` (default n_cand; K1
+    walks all C positions and pulls its n_candidates).  Returns (win_w
+    or -1, pulls, positions scored, the winner's score or -inf)."""
     feas_run = bad_run = 0
     best = {}  # thread -> (score, order, walk position)
     div = [None] * MAX_SKIP  # the diverted positions' (score, w)
@@ -118,7 +130,7 @@ def prefix_walk(score_at, limit: int, n_cand: int, threads: int,
     if stopped:
         pulls = lth + 1
     else:
-        pulls = n_cand
+        pulls = n_cand if n_dry is None else n_dry
         nd_count = feas_run - min(bad_run, MAX_SKIP)
         n_div = min(bad_run, MAX_SKIP)
         reverse = n_div == 2 and nd_count > 0
@@ -126,7 +138,7 @@ def prefix_walk(score_at, limit: int, n_cand: int, threads: int,
             ord_ = nd_count + (1 - r if reverse else r)
             if ord_ < limit and _better(div[r][0], ord_, win[0], win[1]):
                 win = (div[r][0], ord_, div[r][1])
-    return (win[2] if win[1] != INT32_MAX else -1), pulls, scored
+    return (win[2] if win[1] != INT32_MAX else -1), pulls, scored, win[0]
 
 
 # -- the stepped walk against the JAX _walk ----------------------------------
@@ -174,7 +186,7 @@ def _check_walk(scores, feasible, offset, limit, n_cand, threads, first,
     # walk position w is permuted position (w + offset) mod n_cand
     order = (np.arange(n_cand) + offset) % n_cand
     s_w, f_w = scores[order], feasible[order]
-    win_w, pulls_m, scored = prefix_walk(
+    win_w, pulls_m, scored, _best = prefix_walk(
         lambda ws, _: (s_w[ws].tolist(), f_w[ws].tolist()), limit, n_cand,
         threads, first, wide)
     assert (win_w >= 0) == bool(any_e)
@@ -218,9 +230,9 @@ def test_prefix_walk_every_offset_with_two_diverted(threads, first, wide,
 
 
 def _score_positions(rows, used, coll, pen, aff, totals, ask, desired,
-                     spread_fit, dtype):
+                     spread_fit, dtype, spread=None):
     """score_node over a step's rows (torch, `dtype`): the kernel's
-    arithmetic a position."""
+    arithmetic a position, with the spread boost where given."""
     cpu_total, mem_total = totals[0][rows], totals[1][rows]
     one = torch.ones((), dtype=dtype)
     zero = torch.zeros((), dtype=dtype)
@@ -241,6 +253,9 @@ def _score_positions(rows, used, coll, pen, aff, totals, ask, desired,
     has_aff = aff != 0.0
     score_sum = score_sum + torch.where(has_aff, aff, zero)
     count = count + has_aff.to(dtype)
+    if spread is not None:
+        score_sum = score_sum + spread
+        count = count + (spread != 0.0).to(dtype)
     return score_sum / count
 
 
@@ -300,8 +315,8 @@ def prefix_picks(cols, perm, n_cand: int, n_picks: int, ask, desired: int,
         return s.tolist(), f.tolist()
 
     for _k in range(n_picks):
-        win_w, n_pulls, n_scored = prefix_walk(score_at, limit, n_cand,
-                                               threads, first, wide)
+        win_w, n_pulls, n_scored, _best = prefix_walk(
+            score_at, limit, n_cand, threads, first, wide)
         scored.append(n_scored)
         if win_w < 0:
             pulls.append(n_pulls)
@@ -489,3 +504,498 @@ def test_prefix_picks_match_jax_batch_plan_picks_shared(scenario, n_cand,
         **batch_shared_inputs_from_numpy(case, "cpu", torch.float32))
     np.testing.assert_array_equal(_k7_model(case, threads, first, wide,
                                             torch.float32), f32.numpy())
+
+
+# -- K1's two launch shapes (csrc/score_select.cu) --------------------------
+
+
+def _jax_select_inputs(case):
+    f = np.float64
+    pol = case.get("policy")
+    policy = None if pol is None else jscore.PolicyTerms(
+        tput_term=pol["tput_term"],
+        has_tput=None if pol["has_tput"] is None
+        else np.asarray(pol["has_tput"], f),
+        mig_term=pol["mig_term"],
+    )
+    return jscore.ScoreInputs(
+        cpu_total=case["cpu_total"], mem_total=case["mem_total"],
+        disk_total=case["disk_total"], cpu_used=case["cpu_used"],
+        mem_used=case["mem_used"], disk_used=case["disk_used"],
+        feasible=case["feasible"], collisions=case["collisions"],
+        penalty=case["penalty"], affinity_score=case["affinity_score"],
+        spread_boost=case["spread_boost"], perm=case["perm"],
+        ask_cpu=f(case["ask_cpu"]), ask_mem=f(case["ask_mem"]),
+        ask_disk=f(case["ask_disk"]),
+        desired_count=np.int32(case["desired_count"]),
+        limit=np.int32(case["limit"]),
+        n_candidates=np.int32(case["n_candidates"]), policy=policy,
+    )
+
+
+def _walk_columns(jin, perm, spread_fit):
+    """Every walk position's feasibility and score: the JAX `score_all`
+    read through the walk order."""
+    feas, scores = jscore.score_all(jin, spread_fit=spread_fit)
+    return np.asarray(feas)[perm], np.asarray(scores)[perm]
+
+
+def select_prefix(f_w, s_w, perm, limit, n_cand, threads, first, wide):
+    """K1's prefix walk: one pick over all C walk positions, no rotation,
+    pulls n_candidates where the walk is dry; then the sweep of the
+    positions it did not walk for the feasible count.  Returns (row,
+    best, feasible_count, pulls, positions walked)."""
+    C = len(f_w)
+    win_w, pulls, walked, best = prefix_walk(
+        lambda ws, _: (s_w[ws].tolist(), f_w[ws].tolist()), limit, C,
+        threads, first, wide, n_dry=n_cand)
+    count = int(f_w[:walked].sum()) + int(f_w[walked:].sum())
+    row = int(perm[win_w]) if win_w >= 0 else NO_NODE
+    return row, best, count, pulls, walked
+
+
+def _better_sw(s, w, bs, bw):
+    return s > bs or (s == bs and w < bw)
+
+
+def select_grid(f_w, s_w, perm, limit, n_cand, nb):
+    """K1's grid: nb blocks, block b the walk positions [b * span, (b + 1)
+    * span); each block's summary (feasible and bad counts, its first
+    MAX_SKIP bad positions, its best (score, position) over the rest);
+    the combine in block order, with the rescan of the block that holds
+    the limit-th non-diverted position.  Returns (row, best,
+    feasible_count, pulls)."""
+    C = len(f_w)
+    span = -(-C // nb)
+    none = INT32_MAX
+    sums = []
+    for b in range(nb):
+        lo = min(b * span, C)
+        hi = min(lo + span, C)
+        nf = nbad = 0
+        bads = []
+        bs, bw = -np.inf, none
+        for w in range(lo, hi):
+            if not f_w[w]:
+                continue
+            nf += 1
+            s = s_w[w]
+            if s <= 0.0:
+                nbad += 1
+                if len(bads) < MAX_SKIP:
+                    bads.append((s, w))
+                    continue
+            if _better_sw(s, w, bs, bw):
+                bs, bw = s, w
+        sums.append((nf, nbad, bs, bw, bads))
+    f_tot = sum(x[0] for x in sums)
+    b_tot = sum(x[1] for x in sums)
+    nd_count = f_tot - min(b_tot, MAX_SKIP)
+    stop = nd_count >= limit
+    div = [None] * MAX_SKIP
+    bs, bw = -np.inf, none
+    held = None
+    fb = bb = 0
+    for b, (nf, nbad, s_b, w_b, bads) in enumerate(sums):
+        fa, ba = fb + nf, bb + nbad
+        nd_before = fb - min(bb, MAX_SKIP)
+        nd_after = fa - min(ba, MAX_SKIP)
+        all_in = not stop or nd_after < limit
+        for j, (s, w) in enumerate(bads):
+            if bb + j < MAX_SKIP:
+                div[bb + j] = (s, w)
+            elif all_in and _better_sw(s, w, bs, bw):
+                bs, bw = s, w
+        if all_in:
+            if w_b != none and _better_sw(s_b, w_b, bs, bw):
+                bs, bw = s_b, w_b
+        elif nd_before < limit:
+            held = (b, fb, bb)
+        fb, bb = fa, ba
+    lth = -1
+    if stop:
+        b, run_f, run_b = held
+        for w in range(b * span, min(b * span + span, C)):
+            if not f_w[w]:
+                continue
+            bad = bool(s_w[w] <= 0.0)
+            if not (bad and run_b < MAX_SKIP):
+                ord_ = run_f - min(run_b, MAX_SKIP)
+                if ord_ < limit and _better_sw(s_w[w], w, bs, bw):
+                    bs, bw = s_w[w], w
+                if ord_ + 1 == limit:
+                    lth = w
+            run_f += 1
+            run_b += bad
+    best_ord = -1 if bw != none else INT32_MAX
+    win = bw if bw != none else -1
+    if not stop:
+        n_div = min(b_tot, MAX_SKIP)
+        reverse = n_div == 2 and nd_count > 0
+        for r in range(n_div):
+            ord_ = nd_count + (1 - r if reverse else r)
+            if ord_ < limit and _better(div[r][0], ord_, bs, best_ord):
+                bs, best_ord, win = div[r][0], ord_, div[r][1]
+    row = int(perm[win]) if win >= 0 else NO_NODE
+    return row, bs, f_tot, (lth + 1 if stop else n_cand)
+
+
+SELECT_SHAPES = [(256, 64, 2), (32, 8, 2), (8, 1, 4)]
+SELECT_GRIDS = [1, 3, 8, 64]
+
+
+def _same_select(got, want):
+    row, best, count, pulls = got[:4]
+    assert row == int(want[0])
+    assert np.float64(best).view(np.int64) == np.float64(want[1]).view(
+        np.int64)
+    assert count == int(want[2])
+    assert pulls == int(want[3])
+
+
+def _check_select_shapes(case, spread_fit=False):
+    jin = _jax_select_inputs(case)
+    want = [np.asarray(x) for x in jscore.score_and_select(
+        jin, spread_fit=spread_fit)]
+    perm = case["perm"]
+    f_w, s_w = _walk_columns(jin, perm, spread_fit)
+    limit, n_cand = int(case["limit"]), int(case["n_candidates"])
+    for shape in SELECT_SHAPES:
+        got = select_prefix(f_w, s_w, perm, limit, n_cand, *shape)
+        _same_select(got, want)
+        if got[3] < n_cand:  # a walk that stopped: at most its steps
+            assert got[4] >= got[3]
+    for nb in SELECT_GRIDS:
+        _same_select(select_grid(f_w, s_w, perm, limit, n_cand, nb), want)
+
+
+def _all_bad(case):
+    """Every feasible candidate scores <= 0: penalised, affinity -1."""
+    case["penalty"][:] = True
+    case["affinity_score"][:] = -1.0
+    return case
+
+
+@pytest.mark.parametrize("spread_fit", [False, True])
+@pytest.mark.parametrize("limit", [2, 14, INT32_MAX])
+@pytest.mark.parametrize("n_cand", [200, 60])
+@pytest.mark.parametrize("scenario", sorted(SCORE_SCENARIOS) + ["all_bad"])
+def test_select_shapes_match_jax_score_and_select(scenario, n_cand, limit,
+                                                  spread_fit):
+    """K1's prefix walk (three block shapes) and its grid (1-64 blocks)
+    against the JAX `score_and_select` on a 256-row arena: fewer
+    candidates than rows, limits that stop early and the unlimited
+    walk, 0-4 bad nodes with and without good ones (two diverted
+    replayed reversed behind a good node), all of them bad."""
+    seed = 2800 + (sorted(SCORE_SCENARIOS) + ["all_bad"]).index(scenario)
+    if scenario == "all_bad":
+        case = _all_bad(score_case(seed, C, n_cand, "mixed", limit))
+    else:
+        case = score_case(seed, C, n_cand, scenario, limit)
+    _check_select_shapes(case, spread_fit)
+
+
+@pytest.mark.parametrize("limit", [2, 14, INT32_MAX])
+@pytest.mark.parametrize("scenario", sorted(POLICY_SCORE_SCENARIOS))
+def test_select_shapes_match_jax_with_policy_terms(scenario, limit):
+    seed = 2900 + sorted(POLICY_SCORE_SCENARIOS).index(scenario)
+    _check_select_shapes(policy_score_case(seed, C, 200, scenario, limit))
+
+
+@pytest.mark.parametrize("edge", sorted(SELECT_EDGES))
+def test_select_edges_match_jax_score_and_select(edge):
+    """K1's launch-shape edges (`SELECT_EDGES`, which chip_smoke.py and
+    the card tests run on the shape K1's rule takes) on a 1,024-row
+    arena: both shapes' models against the JAX `score_and_select`, among
+    them a limit equal to the candidates, every one feasible and good,
+    whose limit-th position ends the grid's walk in a later block."""
+    _check_select_shapes(select_edge_case(
+        2950 + sorted(SELECT_EDGES).index(edge), 1024, 600, edge))
+
+
+# -- K9's chain of prefix walks (csrc/chained_prefix.cuh) -------------------
+
+
+def _spread_totals(sp, e, prop, clr, dtype):
+    """Every row's spread boost (node layout) at the pick's state: the
+    twin's `spread_contribution` over the eval's codes."""
+    codes = torch.from_numpy(sp["codes"][e]).long()
+    desired = torch.from_numpy(sp["desired"][e]).to(dtype)
+    V1 = desired.shape[1]
+    desired_node = torch.gather(desired, 1, codes)
+    safe = torch.where(desired_node != 0, desired_node,
+                       torch.ones((), dtype=dtype))
+    even = sp.get("even")
+    return tbatch.spread_contribution(
+        codes, desired_node, codes == V1 - 1, safe,
+        torch.from_numpy(sp["used0"][e]).to(dtype), prop, clr,
+        torch.from_numpy(sp["weight"][e]).to(dtype),
+        torch.from_numpy(sp["active"][e]),
+        None if even is None else torch.from_numpy(even[e]))
+
+
+def chained_prefix(cols, kw, threads, first, wide, dtype, spread_fit=False):
+    """K9's chain as the kernel runs it (one group): the node-space carry
+    (the carry-in overlaid by the rows rebuilt so far), and per eval its
+    pre-deltas, its entries (a row's usage and collisions this eval,
+    made at its first eviction or win and updated in pick order), its
+    score cache by walk position (off with spread; written only on steps
+    of `threads` positions or more, with each recorded row's position in
+    `pos_of`, which outlives the eval and is trusted only where the
+    eval's walk order maps it back; cleared at a won position and,
+    through `pos_of`, at an evicted row; cleared at the pick's penalty
+    rows when it opens, which its steps then score afresh and do not
+    record), each pick a prefix walk through the eval's walk order, then
+    the carry rebuilt: asks in pick order, then the applied evictions.
+    Returns (rows, pulls, cache stats)."""
+    b = kw["batch"]
+    E, C_ = b["perm"].shape
+    P = kw["n_picks"]
+    sp, dl, pre = kw.get("spread"), kw.get("deltas"), kw.get("pre")
+    totals = tuple(torch.from_numpy(cols[k]).to(dtype)
+                   for k in ("cpu_total", "mem_total", "disk_total"))
+    carry_in = [torch.from_numpy(b[f"base_{k}_used"][0]).to(dtype)
+                for k in ("cpu", "mem", "disk")]
+    dirty = {}  # row -> its node-space usage, where rebuilt
+
+    def carry(row):
+        return dirty.get(row) or [c[row] for c in carry_in]
+
+    def add_carry(row, d):
+        cur = carry(row)
+        dirty[row] = [cur[i] + d[i] for i in range(3)]
+
+    def scal(x):
+        return torch.tensor(x, dtype=dtype)
+
+    stats = {"hits": 0, "cleared": 0, "bypassed": 0}
+    pos_of = {}  # row -> the walk position a step recorded it at
+    rows_out = np.full((E, P), NO_NODE, np.int32)
+    pulls_out = np.zeros((E, P), np.int32)
+    for e in range(E):
+        if pre is not None:
+            for r in range(pre["rows"].shape[1]):
+                add_carry(int(pre["rows"][e, r]),
+                          [scal(pre[k][e, r]) for k in ("cpu", "mem", "disk")])
+        ask = [scal(b[f"ask_{k}"][e]) for k in ("cpu", "mem", "disk")]
+        desired = scal(float(b["desired_count"][e]))
+        perm = b["perm"][e]
+        n_cand, limit = int(kw["n_candidates"][e]), int(b["limit"][e])
+        dh = bool(b["distinct_hosts"][e])
+        feas = torch.from_numpy(b["feasible"][e])
+        coll0 = b["base_collisions"][e]
+        static_pen = b["penalty"][e]
+        aff = torch.from_numpy(b["affinity_score"][e]).to(dtype)
+        entries = {}
+        known = {}
+        cache_on = sp is None
+        if sp is not None:
+            V1 = sp["desired"].shape[2]
+            codes = sp["codes"][e]
+            prop = torch.from_numpy(sp["proposed0"][e]).to(dtype)
+            clr = torch.from_numpy(sp["cleared0"][e]).to(dtype)
+
+        def entry(row):
+            if row not in entries:
+                entries[row] = [*carry(row), int(coll0[row])]
+            return entries[row]
+
+        def forget(row, perm=perm, n_cand=n_cand, known=known):
+            p = pos_of.get(row, -1)
+            return (0 <= p < n_cand and int(perm[p]) == row
+                    and known.pop(p, None) is not None)
+
+        offset, dead = 0, False
+        for k in range(P):
+            if k >= int(kw["wanted"][e]) or dead:
+                continue
+            pen_rows = set()
+            if dl is not None:
+                erow = int(dl["evict_rows"][e, k])
+                if erow >= 0:
+                    ent = entry(erow)
+                    for i, name in enumerate(("cpu", "mem", "disk")):
+                        ent[i] = ent[i] + scal(dl[f"evict_{name}"][e, k])
+                    ent[3] = ent[3] + int(dl["evict_coll"][e, k])
+                    stats["cleared"] += forget(erow)
+                    if sp is not None:
+                        clr = clr + torch.nn.functional.one_hot(
+                            torch.from_numpy(codes[:, erow]).long(),
+                            V1).to(dtype)
+                pen_rows = {int(r) for r in dl["penalty_rows"][e, k] if r >= 0}
+                stats["bypassed"] += sum(forget(r) for r in pen_rows)
+            spread_tot = (_spread_totals(sp, e, prop, clr, dtype)
+                          if sp is not None else None)
+
+            def score_fresh(rws):
+                r = torch.tensor(rws, dtype=torch.long)
+                used = [torch.stack([entries[x][i] if x in entries
+                                     else carry(x)[i] for x in rws])
+                        for i in range(3)]
+                coll = torch.tensor([entries[x][3] if x in entries
+                                     else int(coll0[x]) for x in rws],
+                                    dtype=torch.int32)
+                pen = torch.tensor([bool(static_pen[x]) or x in pen_rows
+                                    for x in rws])
+                after = [u + a for u, a in zip(used, ask)]
+                f = (feas[r] & (after[0] <= totals[0][r])
+                     & (after[1] <= totals[1][r]) & (after[2] <= totals[2][r]))
+                if dh:
+                    f = f & ~(coll > 0)
+                s = _score_positions(
+                    r, used, coll, pen, aff[r], totals, ask, desired,
+                    spread_fit, dtype,
+                    None if spread_tot is None else spread_tot[r])
+                return s.tolist(), f.tolist()
+
+            def score_at(ws, record, offset=offset, pen_rows=pen_rows):
+                ps = [(w + offset) % n_cand for w in ws]
+                fresh = [p for p in ps if p not in known]
+                stats["hits"] += len(ps) - len(fresh)
+                rws = [int(perm[p]) for p in fresh]
+                got = (dict(zip(fresh, zip(*score_fresh(rws))))
+                       if fresh else {})
+                if record and cache_on:
+                    for p, x in zip(fresh, rws):
+                        if x not in pen_rows:
+                            known[p] = got[p]
+                            pos_of[x] = p
+                out = [got[p] if p in got else known[p] for p in ps]
+                return [o[0] for o in out], [o[1] for o in out]
+
+            win_w, n_pulls, _, _ = prefix_walk(score_at, limit, n_cand,
+                                               threads, first, wide)
+            pulls_out[e, k] = n_pulls
+            if win_w < 0:
+                dead = True
+            else:
+                row = int(perm[(win_w + offset) % n_cand])
+                rows_out[e, k] = row
+                ent = entry(row)
+                for i in range(3):
+                    ent[i] = ent[i] + ask[i]
+                ent[3] = ent[3] + 1
+                known.pop((win_w + offset) % n_cand, None)
+                if sp is not None:
+                    prop = prop + torch.nn.functional.one_hot(
+                        torch.from_numpy(codes[:, row]).long(), V1).to(dtype)
+            offset = (offset + n_pulls) % n_cand
+        for k in range(P):
+            if rows_out[e, k] >= 0:
+                add_carry(int(rows_out[e, k]), ask)
+        if dl is not None:
+            for k in range(P):
+                erow = int(dl["evict_rows"][e, k])
+                if pulls_out[e, k] > 0 and erow >= 0:
+                    add_carry(erow, [scal(dl[f"evict_{n}"][e, k])
+                                     for n in ("cpu", "mem", "disk")])
+    return rows_out, pulls_out, stats
+
+
+def _jax_chained(cols, kw, spread_fit=False):
+    extra = {}
+    for name, cls in (("spread", jbatch.SpreadInputs),
+                      ("deltas", jbatch.StepDeltas),
+                      ("pre", jbatch.PreDeltas)):
+        if kw.get(name) is not None:
+            extra[name] = cls(**kw[name])
+    return np.asarray(jbatch.chained_plan_picks(
+        cols["cpu_total"], cols["mem_total"], cols["disk_total"],
+        jbatch.BatchInputs(**kw["batch"]), kw["n_candidates"],
+        kw["n_picks"], spread_fit=spread_fit, wanted=kw["wanted"], **extra))
+
+
+def _twin_pulls(cols, kw, dtype):
+    args, kwargs = batched_case_to_torch(cols, kw, "cpu", dtype)
+    q = tbatch.prepare_batched(*args, **kwargs)
+    rows, pulls = tbatch.chained_picks_twin(tbatch.batched_as_chain(q))[:2]
+    return rows.numpy(), pulls.numpy()
+
+
+CHAIN_SHAPES = [(256, 64, 2), (32, 8, 2), (8, 2, 2)]
+
+
+@pytest.mark.parametrize("threads,first,wide", CHAIN_SHAPES)
+@pytest.mark.parametrize("scenario", sorted(BATCHED_SCENARIOS))
+def test_chained_prefix_matches_jax_chained_plan_picks(scenario, threads,
+                                                       first, wide):
+    """The chain of prefix walks against the JAX `chained_plan_picks`
+    (rows) and the port's twin (pulls), under x64: spread, step deltas,
+    pre-deltas, `wanted`, distinct_hosts, little room, per-eval
+    candidate counts, and long walks with and without the score cache."""
+    E, P = 4, 12
+    cols, kw = batched_case(
+        2700 + 10 * sorted(BATCHED_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, E, P)
+    rows, pulls, _ = chained_prefix(cols, kw, threads, first, wide,
+                                    torch.float64)
+    np.testing.assert_array_equal(rows, _jax_chained(cols, kw))
+    np.testing.assert_array_equal(pulls, _twin_pulls(cols, kw,
+                                                     torch.float64)[1])
+
+
+@pytest.mark.parametrize("scenario", ["everything", "unlimited_evict",
+                                      "unlimited_spread_evict"])
+def test_chained_prefix_matches_the_f32_twin(scenario):
+    E, P = 4, 12
+    cols, kw = batched_case(
+        2750 + sorted(BATCHED_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, E, P)
+    rows, pulls, _ = chained_prefix(cols, kw, 32, 8, 2, torch.float32)
+    want_rows, want_pulls = _twin_pulls(cols, kw, torch.float32)
+    np.testing.assert_array_equal(rows, want_rows)
+    np.testing.assert_array_equal(pulls, want_pulls)
+
+
+def test_chained_prefix_cache_rules_are_exercised():
+    """On long walks with step deltas the cache is read, an evicted row
+    it held is cleared, and a penalty row it held is cleared for the
+    pick: each rule met at least once, and the chain still equals the
+    JAX program's."""
+    E, P = 4, 12
+    cols, kw = batched_cache_case(2790, C, N_CAND, E, P)
+    rows, _pulls, stats = chained_prefix(cols, kw, 8, 2, 2, torch.float64,
+                                         spread_fit=True)
+    np.testing.assert_array_equal(rows, _jax_chained(cols, kw,
+                                                     spread_fit=True))
+    assert all(rows[e, 3] == kw["batch"]["perm"][e, 7] for e in range(E))
+    assert stats["hits"] > 0 and stats["cleared"] > 0
+    assert stats["bypassed"] > 0
+
+
+def _shared_as_batched_case(case):
+    """A `batch_shared_case` in `batched_case`'s layout: every eval the
+    same feasibility and usage, no collisions, penalty or affinity,
+    distinct_hosts off, each eval wanting its count."""
+    E, C_ = case["perms"].shape
+    rep = lambda x: np.repeat(np.asarray(x)[None], E, axis=0)  # noqa: E731
+    batch = dict(
+        feasible=rep(case["feasible"]),
+        base_cpu_used=rep(case["base_cpu_used"]),
+        base_mem_used=rep(case["base_mem_used"]),
+        base_disk_used=rep(case["base_disk_used"]),
+        base_collisions=np.zeros((E, C_), np.int32),
+        penalty=np.zeros((E, C_), bool), affinity_score=np.zeros((E, C_)),
+        perm=case["perms"], ask_cpu=case["ask_cpu"], ask_mem=case["ask_mem"],
+        ask_disk=case["ask_disk"], desired_count=case["desired_count"],
+        limit=case["limit"], distinct_hosts=np.zeros(E, bool))
+    cols = {k: case[k] for k in ("cpu_total", "mem_total", "disk_total")}
+    kw = dict(batch=batch,
+              n_candidates=np.full(E, case["n_candidates"], np.int32),
+              n_picks=case["n_picks"], wanted=case["desired_count"])
+    return cols, kw
+
+
+@pytest.mark.parametrize("threads,first,wide", CHAIN_SHAPES)
+@pytest.mark.parametrize("scenario", BATCH_SHARED_SCENARIOS)
+def test_chained_prefix_matches_jax_chained_plan_picks_shared(
+        scenario, threads, first, wide):
+    E, P = 4, 10
+    case = batch_shared_case(
+        4700 + 10 * BATCH_SHARED_SCENARIOS.index(scenario), C, N_CAND,
+        scenario, E, P)
+    want = np.asarray(jbatch.chained_plan_picks_shared(**case))
+    cols, kw = _shared_as_batched_case(case)
+    rows, _pulls, _ = chained_prefix(cols, kw, threads, first, wide,
+                                     torch.float64)
+    np.testing.assert_array_equal(rows, want)
