@@ -91,9 +91,13 @@ storm. The storm path: the port's batched `Server()` with
    each mode and the score-sum delta.
 k6. Kernel K6 (the walk alone over a host-built score vector,
    csrc/walk_only.cu) against its twin on the card and on the CPU for
-   every walk scenario of `ops/cases.py`, C in {8, 1024, 16384}, limits
-   1, 2, 14 and unlimited, f64 and f32: row, best, feasible count and
-   pulls bit-equal.
+   every walk scenario of `ops/cases.py` (a feasible tail past
+   n_candidates among them), C in {8, 1024, 16384}, limits 1, 2, 14,
+   n_candidates and unlimited, f64 and f32, each on the launch shape
+   its rule takes (the prefix walk below the candidates, the grid
+   otherwise), with the feasible count and without it: row, best,
+   feasible count (-1 where the prefix walk ran without it) and pulls
+   bit-equal; then every rotation of a 37-row arena's candidates.
 preempt. Preemption-mode selects: the same 10,000-node / 100,000-alloc
    cluster (priority-50 filler allocs) with service preemption on, and
    10 count-1 priority-80 jobs that only a preemption can place, through
@@ -169,8 +173,11 @@ k9. Kernel K9 (the chained planner over per-eval BatchInputs,
    shared mode (one [C] feasibility column) over `batch_shared_case`:
    the [E, P] rows bit-equal (the CPU twin in f64, as in phase 6).
 k10. Kernel K10 (E independent evals over their own BatchInputs,
-   csrc/batch_plan.cu) the same way, with and without spread,
-   n_candidates one scalar or one per eval.
+   csrc/batch_plan.cu) the same way, rows and pulls, with and without
+   spread, n_candidates one scalar or one per eval; then the (64, 10)
+   cases tiled to 1,280 evals, more blocks than the card holds at once
+   (the tiled rows and pulls), and a 200,000-row arena whose carry
+   lives in global scratch.
 k11. Kernel K11 (every node's score and feasibility, no walk,
    csrc/score_all.cu) against its twin over every score and
    policy-score scenario of `ops/cases.py`, both fits, f64 and f32:
@@ -1900,43 +1907,69 @@ def check_k6(cuda) -> dict:
 
     n_cases = 0
     max_err = 0.0
+    routes = {"prefix": 0, "grid": 0}
+
+    def one(case, dtype, np_dtype, limit, tag):
+        nonlocal max_err
+
+        def tensors(dev):
+            return (torch.from_numpy(case["feasible"]).to(dev),
+                    torch.from_numpy(case["scores"]).to(dev),
+                    torch.from_numpy(case["perm"]).to(dev))
+
+        card = tensors(cuda)
+        n_cand = case["n_candidates"]
+        twins = [(where, tscore.limited_walk_argmax(*args, limit, n_cand))
+                 for where, args in (("card", card), ("CPU", tensors("cpu")))]
+        for count in (True, False):
+            buf = tscore.walk_only_cuda(*card, limit, n_cand, count)
+            route = tscore.walk_only_cuda.route
+            torch.cuda.synchronize()
+            kern = tscore.unpack_walk(buf.cpu(), dtype)
+            check(route == ("grid" if limit >= n_cand else "prefix"),
+                  f"{tag}: K6 took its {route} against its rule")
+            routes[route] += 1
+            for where, twin in twins:
+                want = (int(twin[0]), float(twin[1]),
+                        int(twin[2]) if count or route == "grid" else -1,
+                        int(twin[3]))
+                check(kern[0::2] == want[0::2] and kern[3] == want[3],
+                      f"{tag} count={count}: kernel != twin on {where}: "
+                      f"{kern} vs {want}")
+                b_k = np.asarray(kern[1], np_dtype)
+                b_t = twin[1].cpu().numpy()
+                check(b_k.tobytes() == b_t.tobytes(),
+                      f"{tag}: best differs from the twin on {where}")
+                if np.isfinite(b_k) and np.isfinite(b_t):
+                    max_err = max(max_err, float(abs(b_k - b_t)))
+
     for dtype, np_dtype in ((torch.float64, np.float64),
                             (torch.float32, np.float32)):
         for si, scenario in enumerate(sorted(WALK_SCENARIOS)):
             for width in WALK_WIDTHS:
-                for limit in (1, 2, 14, INT32_MAX):
+                n_cand = max(1, (4 * width) // 5)
+                for limit in (1, 2, 14, n_cand, INT32_MAX):
                     case = walk_case(9700 + 10 * si + width % 7, width,
                                      scenario, limit, np_dtype)
-
-                    def tensors(dev):
-                        return (torch.from_numpy(case["feasible"]).to(dev),
-                                torch.from_numpy(case["scores"]).to(dev),
-                                torch.from_numpy(case["perm"]).to(dev))
-
-                    card = tensors(cuda)
-                    buf = tscore.walk_only_cuda(*card, limit,
-                                                case["n_candidates"])
-                    torch.cuda.synchronize()
-                    kern = tscore.unpack_walk(buf.cpu(), dtype)
-                    tag = f"K6 {dtype} {scenario} C={width} limit={limit}"
-                    for where, dev_args in (("card", card),
-                                            ("CPU", tensors("cpu"))):
-                        twin = tscore.limited_walk_argmax(
-                            *dev_args, limit, case["n_candidates"])
-                        want = (int(twin[0]), float(twin[1]), int(twin[2]),
-                                int(twin[3]))
-                        check(kern[0::2] == want[0::2] and kern[3] == want[3],
-                              f"{tag}: kernel != twin on {where}: {kern} vs {want}")
-                        b_k = np.asarray(kern[1], np_dtype)
-                        b_t = twin[1].cpu().numpy()
-                        check(b_k.tobytes() == b_t.tobytes(),
-                              f"{tag}: best differs from the twin on {where}")
-                        if np.isfinite(b_k) and np.isfinite(b_t):
-                            max_err = max(max_err, float(abs(b_k - b_t)))
+                    one(case, dtype, np_dtype, limit,
+                        f"K6 {dtype} {scenario} C={width} limit={limit}")
+                    n_cases += 1
+        # every rotation of the candidates, as the stack's pull offset
+        # turns its walk order
+        for scenario in ("div2", "tail"):
+            case = walk_case(9790 + len(scenario), 37, scenario, 3, np_dtype)
+            perm, n_cand = case["perm"], case["n_candidates"]
+            for off in range(n_cand):
+                rotated = np.concatenate([perm[off:n_cand], perm[:off],
+                                          perm[n_cand:]]).astype(np.int32)
+                for limit in (3, INT32_MAX):
+                    one(dict(case, perm=rotated), dtype, np_dtype, limit,
+                        f"K6 {dtype} {scenario} offset {off} limit={limit}")
                     n_cases += 1
     print(f"K6: {n_cases} cases exact on card and CPU (f64 and f32; row, best, "
-          f"feasible count and pulls), max_abs_err={max_err}", flush=True)
-    return {"max_abs_err": max_err, "cases": n_cases}
+          f"feasible count and pulls; each with and without the count; "
+          f"launches by shape {routes}), max_abs_err={max_err}", flush=True)
+    return {"max_abs_err": max_err, "cases": n_cases, "routes": routes}
 
 
 def preempt_jobs():
@@ -2797,37 +2830,77 @@ def check_k9(cuda) -> dict:
     return {"max_abs_err": 0.0, "cases": n_cases, "shared_cases": shared_cases}
 
 
+K10_TILES = 20  # phase k10's (64, 10) cases tiled to 1,280 evals
+K10_CARRY = (200_000, 150_000, 2, 8)  # a carry beyond shared memory: C, n, E, P
+
+
 def check_k10(cuda) -> dict:
     """K10 against its twin: per-eval BatchInputs with and without
-    spread, n_candidates one scalar or one per eval; bit-equal rows on
-    the card (f64, f32) and on the CPU (f64)."""
+    spread, n_candidates one scalar or one per eval; bit-equal rows and
+    pulls on the card (f64, f32) and on the CPU (f64).  Then the (64,
+    10) cases tiled to more evals than the card holds blocks at once
+    (waves: the tiled rows and pulls), and an arena whose carry lives
+    in global scratch."""
     import torch
 
     from nomad_tpu_torch.ops import batch as tbatch
+    from nomad_tpu_torch.ops.cases import tiled_batched
 
     n_cases = placed = 0
+    waves = {}
     for dtype in (torch.float64, torch.float32):
+        dt = str(dtype)[6:]
         for scenario, nc_mode in K10_CASES:
             for E, P in BATCHED_SHAPES:
                 args, spread = _k10_inputs(scenario, nc_mode, E, P, cuda, dtype)
-                kern = tbatch.batch_plan_picks_cuda(*args, spread=spread).cpu()
+                q = tbatch.prepare_batched(*args, spread=spread)
+                kern = torch.stack(tbatch.launch_batch_plan(q)).cpu()
                 tag = f"K10 {dtype} {scenario} ({nc_mode}) E={E} P={P}"
-                check(tuple(kern.shape) == (E, P), f"{tag}: shape")
+                check(tuple(kern.shape) == (2, E, P), f"{tag}: shape")
                 with SPLIT("wait"):
                     twin_card = HELPERS.get(
-                        f"card-k10-{str(dtype)[6:]}-{scenario}-{nc_mode}-{E}-{P}")
-                check(torch.equal(kern, twin_card), f"{tag}: kernel != twin on card")
-                if dtype == torch.float64:
+                        f"card-k10-{dt}-{scenario}-{nc_mode}-{E}-{P}")
+                check(torch.equal(kern, twin_card),
+                      f"{tag}: rows or pulls != twin on card")
+                if dtype == torch.float64:  # as in phase 6
                     with SPLIT("wait"):
                         twin_cpu = HELPERS.get(f"k10-{scenario}-{nc_mode}-{E}-{P}")
-                    check(torch.equal(kern, twin_cpu), f"{tag}: kernel != twin on CPU")
-                placed += int((kern >= 0).sum())
+                    check(torch.equal(kern, twin_cpu),
+                          f"{tag}: rows or pulls != twin on CPU")
+                placed += int((kern[0] >= 0).sum())
                 n_cases += 1
+                if (E, P) == BATCHED_SHAPES[-1]:
+                    # the same evals tiled: blocks in waves, each on its
+                    # own slice of the state
+                    big = tiled_batched(q, K10_TILES)
+                    at_once = tbatch.batch_plan_blocks_at_once(
+                        q["C"], P, dtype, cuda)
+                    check(big["E"] > at_once,
+                          f"{tag}: {big['E']} evals fit the card at once "
+                          f"({at_once})")
+                    tiled = torch.stack(tbatch.launch_batch_plan(big)).cpu()
+                    check(torch.equal(tiled, kern.repeat(1, K10_TILES, 1)),
+                          f"{tag}: tiled to {big['E']} evals, rows or pulls "
+                          f"!= the tiled {E}")
+                    waves[f"{scenario}-{dt}"] = (big["E"], at_once)
+                    n_cases += 1
+        q = tbatch.prepare_batched(*_k10_carry_inputs(cuda, dtype))
+        kern = torch.stack(tbatch.launch_batch_plan(q)).cpu()
+        with SPLIT("wait"):
+            check(torch.equal(kern, HELPERS.get(f"card-k10-carry-{dt}")),
+                  f"K10 {dtype} carry in global scratch: != twin on card")
+            if dtype == torch.float64:
+                check(torch.equal(kern, HELPERS.get("k10-carry")),
+                      f"K10 {dtype} carry in global scratch: != twin on CPU")
+        placed += int((kern[0] >= 0).sum())
+        n_cases += 1
     check(placed > 0, "K10 placed nothing in any case")
     print(f"K10: {n_cases} cases exact against the twin on the card (f64 and "
-          f"f32) and on the CPU (f64; E x P rows bit-equal, {K10_CASES}, "
-          f"{placed} placed picks)", flush=True)
-    return {"max_abs_err": 0.0, "cases": n_cases}
+          f"f32) and on the CPU (f64; E x P rows and pulls bit-equal, "
+          f"{K10_CASES}, {placed} placed picks); tiled (evals, blocks at "
+          f"once) {waves}; the carry in global scratch at C = "
+          f"{K10_CARRY[0]}", flush=True)
+    return {"max_abs_err": 0.0, "cases": n_cases, "waves": waves}
 
 
 def check_k11(cuda) -> dict:
@@ -3564,28 +3637,42 @@ def time_policy_select(cuda) -> dict:
 def time_walk_kernel(cuda) -> dict:
     """K6 at the preempt path's shape: the 16,384-row arena with 13,107
     candidates, f64, a spliced score vector (`walk_case` "spliced") and
-    the service visit limit ceil(log2 10,000) = 14; beside it the twin
-    on the card.  The bound counts each input byte once (feasible,
-    scores and perm of every position) plus the 32-byte result, and two
-    f64 comparisons a position."""
+    the service visit limit ceil(log2 10,000) = 14, as the preemption
+    loop launches it (no feasible count): the prefix walk; and unlimited
+    (a group with affinities, spreads or policy terms): the grid.
+    Beside each the twin on the card.  The bound counts each input byte
+    once at the positions the walk must reach (feasible, score and perm
+    entry of its pulls; the grid all C) plus the 32-byte result, and two
+    comparisons a position."""
     import torch
 
     from nomad_tpu_torch.ops import score as tscore
-    from nomad_tpu_torch.ops.cases import walk_case
+    from nomad_tpu_torch.ops.cases import INT32_MAX, walk_case
 
-    case = walk_case(9800, C_CHECK, "spliced", 14)
-    args = (torch.from_numpy(case["feasible"]).to(cuda),
-            torch.from_numpy(case["scores"]).to(cuda),
-            torch.from_numpy(case["perm"]).to(cuda), 14,
-            case["n_candidates"])
-    return {
-        "ms": cuda_time_ms(lambda: tscore.walk_only_cuda(*args)),
-        "plain_ms": cuda_time_ms(lambda: tscore.limited_walk_argmax(*args),
-                                 n=200, warmup=3),
-        "bytes": C_CHECK * (1 + 8 + 4) + 32,
-        "flops": 2 * C_CHECK,
-        "library_ms": None,
-    }
+    out = {}
+    for key, seed, limit in (("prefix", 9800, 14), ("grid", 9801, INT32_MAX)):
+        case = walk_case(seed, C_CHECK, "spliced", limit)
+        args = (torch.from_numpy(case["feasible"]).to(cuda),
+                torch.from_numpy(case["scores"]).to(cuda),
+                torch.from_numpy(case["perm"]).to(cuda), limit,
+                case["n_candidates"])
+        pulls = int(tscore.walk_only_cuda(*args, False)[2])
+        check(tscore.walk_only_cuda.route == key,
+              f"K6 timing: the {key} case took the {tscore.walk_only_cuda.route}")
+        reached = pulls if key == "prefix" else C_CHECK
+        out[key] = {
+            "ms": cuda_time_ms(lambda: tscore.walk_only_cuda(*args, False)),
+            "plain_ms": cuda_time_ms(
+                lambda: tscore.limited_walk_argmax(*args), n=200, warmup=3),
+            "bytes": reached * (1 + 8 + 4) + 32,
+            "flops": 2 * reached,
+            "pulls": pulls,
+            "library_ms": None,
+        }
+    entry = out.pop("prefix")
+    _bound(out["grid"])
+    entry["grid"] = out["grid"]
+    return entry
 
 
 def time_canary_kernel(cuda) -> dict:
@@ -3753,10 +3840,11 @@ def _time_k9_k10(args, label: str) -> dict:
     check(torch.equal(k9_rows, tbatch.chained_plan_picks(*cpu_args)),
           f"K9 at the {label} shape: kernel != twin on CPU")
     k10_rows, k10_pulls = (t.cpu() for t in tbatch.launch_batch_plan(q))
-    k10_twin, k10_plain_ms = cuda_time_once(
-        lambda: tbatch.batch_plan_rows_twin(q))
-    check(torch.equal(k10_rows, k10_twin.cpu()),
+    k10_twin, k10_plain_ms = cuda_time_once(lambda: tbatch.batch_plan_twin(q))
+    check(torch.equal(k10_rows, k10_twin[0].cpu()),
           f"K10 at the {label} shape: kernel != twin on card")
+    check(torch.equal(k10_pulls, k10_twin[1].cpu()),
+          f"K10 at the {label} shape: pulls != twin's on card")
     check(torch.equal(k10_rows, tbatch.batch_plan_picks(*cpu_args)),
           f"K10 at the {label} shape: kernel != twin on CPU")
     print(f"K9/K10 at the {label} shape: rows bit-equal to the twins on "
@@ -3783,8 +3871,9 @@ def _time_k9_k10(args, label: str) -> dict:
             "ms": cuda_time_ms(lambda: tbatch.launch_batch_plan(q),
                                n=50, warmup=3),
             "plain_ms": k10_plain_ms,
-            # totals, and every eval's own base usage
-            "bytes": _candidate_bytes(q, 3 * 8, per_row + 3 * 8),
+            # at the rows its picks reach: totals, and every eval's own
+            # base usage
+            "bytes": _candidate_bytes(q, 3 * 8, per_row + 3 * 8, k10_pulls),
             "pulls": k10_reach,
             "flops": k10_reach * FLOPS_PER_CANDIDATE,
             "shape": label,
@@ -5824,13 +5913,39 @@ def _k10_inputs(scenario: str, nc_mode: str, E: int, P: int, dev, dtype):
     return args, kwargs.get("spread")
 
 
-def _k10_cpu(scenario: str, nc_mode: str, E: int, P: int):
+def _k10_carry_inputs(dev, dtype):
+    """Phase k10's arena whose carry passes shared memory (`K10_CARRY`):
+    `prepare_batched` arguments."""
+    from nomad_tpu_torch.ops.cases import batched_case
+    from nomad_tpu_torch.state.convert import batched_case_to_torch
+
+    C, n, E, P = K10_CARRY
+    cols, kw = batched_case(9450, C, n, "unlimited_evict", E, P)
+    return batched_case_to_torch(cols, kw, dev, dtype)[0]
+
+
+def _k10_twin(args, spread=None):
+    """K10's twin over `batch_plan_picks` arguments: rows and pulls,
+    [2, E, P] on the CPU."""
     import torch
 
     from nomad_tpu_torch.ops import batch as tbatch
 
-    args, spread = _k10_inputs(scenario, nc_mode, E, P, "cpu", torch.float64)
-    return tbatch.batch_plan_picks(*args, spread=spread)
+    q = tbatch.prepare_batched(*args, spread=spread)
+    return torch.stack(tbatch.batch_plan_twin(q)).cpu()
+
+
+def _k10_cpu(scenario: str, nc_mode: str, E: int, P: int):
+    import torch
+
+    return _k10_twin(*_k10_inputs(scenario, nc_mode, E, P, "cpu",
+                                  torch.float64))
+
+
+def _k10_carry_cpu():
+    import torch
+
+    return _k10_twin(_k10_carry_inputs("cpu", torch.float64))
 
 
 K9_SHARED_SHAPES = ((8, 16), (64, 10))  # phase k9's shared-mode (E, P)
@@ -5863,6 +5978,7 @@ def twin_jobs():
         for E, P in BATCHED_SHAPES:
             yield (f"k10-{scenario}-{nc_mode}-{E}-{P}", _k10_cpu,
                    (scenario, nc_mode, E, P))
+    yield "k10-carry", _k10_carry_cpu, ()
     for key, args in _k12_params():
         yield key, _k12_cpu_twin, args
     for d in K12_COUNTS:
@@ -5928,11 +6044,14 @@ def _k9_shared_card(dtype_name: str, scenario: str, E: int, P: int):
 def _k10_card(dtype_name: str, scenario: str, nc_mode: str, E: int, P: int):
     import torch
 
-    from nomad_tpu_torch.ops import batch as tbatch
+    return _k10_twin(*_k10_inputs(scenario, nc_mode, E, P, _card(),
+                                  getattr(torch, dtype_name)))
 
-    args, spread = _k10_inputs(scenario, nc_mode, E, P, _card(),
-                               getattr(torch, dtype_name))
-    return tbatch.batch_plan_picks_twin(*args, spread=spread).cpu()
+
+def _k10_carry_card(dtype_name: str):
+    import torch
+
+    return _k10_twin(_k10_carry_inputs(_card(), getattr(torch, dtype_name)))
 
 
 def _k12_card(dtype_name: str, scenario: str, E: int, P: int, d: int,
@@ -5975,6 +6094,7 @@ def card_twin_jobs():
             for E, P in BATCHED_SHAPES:
                 yield (f"card-k10-{dt}-{scenario}-{nc_mode}-{E}-{P}", _k10_card,
                        (dt, scenario, nc_mode, E, P))
+        yield f"card-k10-carry-{dt}", _k10_carry_card, (dt,)
     for scenario in SHARDED_CHAIN_SCENARIOS:
         for dt, counts in (("float64", K12_COUNTS), ("float32", (8,))):
             for d in counts:
@@ -6379,6 +6499,13 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
         "redesigned: two launch shapes by its rule, a prefix walk where the "
         "limit lies below the candidates, else one cooperative grid whose "
         "per-block summaries one warp combines")
+    redesigned["walk_only"] = (
+        "redesigned: K1's two launch shapes by its rule over the given "
+        "vectors, a prefix walk where the limit lies below the candidates, "
+        "else the shared cooperative grid")
+    redesigned["batch_plan_picks"] = (
+        "redesigned: one 256-thread block an eval running K9's eval body "
+        "in its per-eval mode, a prefix walk a pick")
     redesigned.update(dict.fromkeys(
         ("chained_plan_picks", "chained_plan_picks_shared"),
         "redesigned: a prefix walk a pick through the eval's perm, no "
@@ -6446,6 +6573,10 @@ def _build_and_run(cuda, card, smi, t_start) -> int:
             kernels[-1]["policy_grid"] = {
                 k: results["timing"]["score_select_policy"][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by")}
+        if name == "walk_only":
+            # K6's grid shape: an unlimited preemption walk
+            kernels[-1]["grid"] = {k: tm["grid"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
         if "d8" in tm:
             # eight shards of a VirtualMesh on the one card
             kernels[-1]["d8"] = {k: tm["d8"][k] for k in (

@@ -1,9 +1,9 @@
-// Shared device code of kernels K3 (chained_picks.cu) and K10
-// (batch_plan.cu): the P picks of one eval, with every option of the JAX
-// pick scan.  K10 runs them in one block (run_eval); K3 over a
-// cooperative grid (chained_grid.cuh), with run_eval's serial steps
-// shared.  K9 (chained_batch.cu) takes the argument block, the spread
-// state and the score from here and walks through chained_prefix.cuh.
+// Shared device code of kernel K3 (chained_picks.cu through
+// chained_grid.cuh): the P picks of one eval, with every option of the
+// JAX pick scan, in steps that the grid chain runs.  K9
+// (chained_batch.cu) and K10 (batch_plan.cu) take the argument block, the
+// spread state and the score from here and walk through
+// chained_prefix.cuh.
 //
 // Replaces nomad_tpu/ops/batch.py _run_picks (:347) with per-pick group
 // routing, spread (spread_contribution :155), step deltas, pre-deltas,
@@ -11,29 +11,30 @@
 // column and distinct_hosts at job and group level, and the walk
 // (_walk :281, _rotated_prefix :268).
 //
-// `run_eval` is one eval:
-//   1. adds its pre-deltas to the node-space usage (thread 0, in row
-//      order, as XLA's serial scatter adds them);
+// One eval, as chained_grid.cuh runs it:
+//   1. adds its pre-deltas to the node-space usage (one thread, in row
+//      order, as XLA's serial scatter adds them; `apply_pre`);
 //   2. builds the inverse of its walk order and gathers its candidate
 //      region (walk positions < n_cand) through `perm` into
-//      permuted-space scratch, as K2's prologue does;
-//   3. runs its P picks: thread 0 applies the pick's eviction and marks
-//      its penalty rows, the per-slot spread state (combined use map,
-//      min and max for even stanzas) is rebuilt, every thread scores its
-//      run of walk positions inside the shared limited walk (walk.cuh),
-//      and thread 0 scatters the winner's deltas, advances the offset,
-//      records a failed group as dead and clears the penalty rows;
+//      permuted-space scratch (`gather_position`);
+//   3. runs its P picks: one thread applies the pick's eviction and marks
+//      its penalty rows (`open_pick`), the per-slot spread state
+//      (combined use map, min and max for even stanzas) is rebuilt
+//      (`spread_slots`), the walk scores its positions
+//      (`score_position`), and one thread scatters the winner's deltas,
+//      advances the offset, records a failed group as dead and clears the
+//      penalty rows (`close_pick`);
 //   4. (a chain only) rebuilds the node-space carry exactly as the JAX
-//      program does: every successful pick's ask in pick order, then
-//      every applied eviction in pick order.  In floating point
-//      (u + a1) + a2 and (u + a2) + a1 can differ, so the order is part
-//      of the result.
+//      program does (`rebuild_carry`): every successful pick's ask in
+//      pick order, then every applied eviction in pick order.  In
+//      floating point (u + a1) + a2 and (u + a2) + a1 can differ, so the
+//      order is part of the result.
 // The per-eval collision columns and spread carries start from that
 // eval's inputs; only usage, ports and devices chain across evals.
 //
 // Layouts.  A per-eval column is addressed as [e * stride + ...]: K3
-// passes [E, G, C] feasibility, K9 [E, C] (G = 1) or one shared [C]
-// (stride 0).  The per-pick scalars (asks, count, limit) sit at
+// passes [E, G, C] feasibility, K9 and K10 [E, C] (G = 1), K9 also one
+// shared [C] (stride 0).  The per-pick scalars (asks, count, limit) sit at
 // e * sc_e + k * sc_k: [E, P] in K3 (P, 1), [E] in K9 and K10 (1, 0).
 // A null `tg_idx` routes every pick to group 0.  The static penalty
 // column (K9, K10) and the pick's penalty rows (K3, K9) both apply, as
@@ -69,7 +70,8 @@ struct Chain {
   const T* cpu_in;
   const T* mem_in;
   const T* disk_in;
-  T* cpu_out;  // node-space usage: the carry, or (K10) the eval's base
+  T* cpu_out;  // node-space usage: the carry (K10: unused, its base in
+               // *_in)
   T* mem_out;
   T* disk_out;
   const uint8_t* __restrict__ feasible;
@@ -389,8 +391,8 @@ __device__ __forceinline__ void spread_bump(const Chain<T>& c, int e, int t,
   }
 }
 
-// run_eval's serial steps, each on one thread; the grid chain
-// (chained_grid.cuh) runs the same ones.
+// The eval's serial steps, each on one thread, as the grid chain
+// (chained_grid.cuh) runs them.
 
 // 1. The eval's pre-deltas onto the node-space usage, in row order.
 template <typename T>
@@ -554,72 +556,6 @@ __device__ void rebuild_carry(const Chain<T>& c, int e, const int32_t* rows,
       c.disk_out[erow] = c.disk_out[erow] + c.evict_disk[ek];
     }
   }
-}
-
-template <typename T>
-__device__ void run_eval(const Chain<T>& c, int e, int* sh_offset) {
-  const int tid = threadIdx.x;
-  const int C = c.C;
-  const int n_cand = c.n_cand[e];
-  const int32_t* perm = c.perm + static_cast<size_t>(e) * C;
-
-  // 1. pre-deltas onto the node-space usage, in order
-  if (c.pre_rows != nullptr && tid == 0) apply_pre(c, e);
-  // 2. inverse walk order, then the candidate region in permuted space
-  for (int p = tid; p < C; p += blockDim.x) c.inv[perm[p]] = p;
-  __syncthreads();
-  for (int p = tid; p < n_cand; p += blockDim.x) gather_position(c, e, perm, p);
-  if (c.sp_codes != nullptr) {
-    const size_t b = static_cast<size_t>(e) * c.S * c.V1;
-    for (int i = tid; i < c.S * c.V1; i += blockDim.x) {
-      c.prop[i] = c.sp_prop0[b + i];
-      c.clr[i] = c.sp_clr0[b + i];
-    }
-  }
-  if (tid == 0) {
-    *sh_offset = 0;
-    for (int g = 0; g < c.G; ++g) c.dead[g] = 0;
-  }
-  __syncthreads();
-
-  // 3. the picks
-  const int wanted = c.wanted[e];
-  int32_t* rows = c.out_rows + static_cast<size_t>(e) * c.P;
-  int32_t* pulls = c.out_pulls + static_cast<size_t>(e) * c.P;
-  for (int k = 0; k < c.P; ++k) {
-    const size_t sk = scalar_at(c, e, k);
-    const int t = group_of(c, e, k);
-    // uniform across the block: dead was published by the barrier
-    // that ended the previous pick
-    const bool active = k < wanted && !c.dead[t];
-    if (!active) {
-      if (tid == 0) {
-        rows[k] = kNoNode;
-        pulls[k] = 0;
-      }
-      continue;
-    }
-    if (tid == 0) open_pick(c, e, k, t, n_cand);
-    __syncthreads();
-    if (c.sp_codes != nullptr) spread_slots(c, e, t);
-    const int offset = *sh_offset;
-    auto score_at = [&](int w, T& s, bool& f) {
-      int p = w + offset;
-      if (p >= n_cand) p -= n_cand;
-      score_position(c, e, k, t, p, s, f);
-    };
-    const WalkOut<T> r = limited_walk<T>(n_cand, c.limit[sk], n_cand, c.s_w,
-                                         c.f_w, score_at);
-    if (tid == 0) {
-      *sh_offset = close_pick(c, e, k, t, n_cand, offset, r.any, r.win_w,
-                              r.pulls, rows, pulls);
-    }
-    __syncthreads();
-  }
-
-  // 4. the node-space carry (a chain only)
-  if (c.chain && tid == 0) rebuild_carry(c, e, rows, pulls);
-  __syncthreads();
 }
 
 // Null every option pointer and set the K3 defaults: [E, G, C]

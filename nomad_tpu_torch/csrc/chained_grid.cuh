@@ -1,9 +1,9 @@
 // Kernel K3's grid chain (chained_picks.cu): the chained planner of
 // chained.cuh run by one cooperative grid over the whole card instead
-// of one block.  K10 keeps chained.cuh's one-block chain (run_eval);
-// K9 walks its picks as prefix walks (chained_prefix.cuh).
+// of one block.  K9 and K10 walk their picks as prefix walks
+// (chained_prefix.cuh).
 //
-// Every eval runs run_eval's steps, with the walk of each pick split
+// Every eval runs chained.cuh's steps, with the walk of each pick split
 // over the grid:
 //   * the pre-deltas stay on one thread, in row order; the inverse walk
 //     order and the gather of the candidate region into permuted space
@@ -19,9 +19,9 @@
 //     block 0 reduces the blocks' bests, thread 0 closes the pick
 //     (row, pulls, the winner's deltas, the offset, a dead group) and
 //     opens the next active one.  Four grid barriers a pick;
-//   * the node-space carry is rebuilt on one thread at the eval's end,
-//     as run_eval does: every successful pick's ask in pick order, then
-//     every applied eviction in pick order.
+//   * the node-space carry is rebuilt on one thread at the eval's end
+//     (chained.cuh rebuild_carry): every successful pick's ask in pick
+//     order, then every applied eviction in pick order.
 // Pass C's emit order is limited_walk's (walk.cuh), from the grid-wide
 // prefix counts: non-diverted positions first, then the diverted ones,
 // two of them replayed reversed after a good emission.  The emitted

@@ -2,34 +2,40 @@
 // runs E evals x P picks, serially, and each pick walks only the prefix
 // of its eval's walk order that it reaches, with picks.cuh's step
 // machinery (`prefix_walk`) and a source of its own (`ChainSource`).
+// Kernel K10 (batch_plan.cu) runs the same eval body in a per-eval mode
+// (`kPerEval`): one block an eval, each over its own base usage, nothing
+// chained.
 //
 // Replaces the eval scan of nomad_tpu/ops/batch.py:801
 // chained_plan_picks (and :1262 chained_plan_picks_shared) with one
-// group, its pick scan _run_picks (:347) and walk _walk (:281).
+// group, its pick scan _run_picks (:347) and walk _walk (:281); in the
+// per-eval mode the vmapped plan_picks (:735) of :1391 batch_plan_picks.
 //
 // No per-eval prologue: there is no inverse of the walk order and no
 // gather of the candidate region.  Walk position w of pick k is permuted
 // position (offset + w) mod n_cand; its row comes through perm[e]; the
 // row's columns are read where they lie (node space, per-eval [E, C]
 // columns at e * C, feasibility at the eval's stride, 0 for the shared
-// mode).  Its usage is the chain's node-space carry, overlaid by the
+// mode).  Its usage is the chain's node-space carry (in the per-eval
+// mode the eval's own base usage, row e of [E, C]), overlaid by the
 // eval's own entries.
 //
 // State, in one carry (dynamic shared memory, or the wrapper's global
-// scratch where it does not fit):
+// scratch where it does not fit; in the per-eval mode one a block):
 //   dirty    C bits by row, the launch: rows whose node-space usage
 //            lives in *_out (the others still hold *_in; nothing copies
-//            the arena in)
+//            the arena in); unused in the per-eval mode
 //   touched  C bits by row, the eval: rows with an entry
 //   entries  2P at most (a pick's eviction row and its winner): row,
 //            usage and collisions this eval, updated in pick order
 //   known,   n_cand bits by walk position, the eval: positions whose
 //   feas     score and feasibility sit in the score cache (T [C] by
-//            position, global scratch), as in K2
+//            position, global scratch; one a block in the per-eval
+//            mode), as in K2
 // and in global scratch pos_of (int32 [C] by row): the walk position at
 // which a step recorded the row, held only while perm[e] maps it back
 // to the row, so an eviction or a penalty row finds its position without
-// an inverse of the walk order.
+// an inverse of the walk order (the per-eval mode has neither).
 //
 // Where trouble lies, and what the design does about it:
 //   * Two orders of additions.  Inside an eval a row's usage follows the
@@ -59,7 +65,8 @@
 //     steps of kPickThreads positions or more record.
 //   * Spread.  The per-slot spread state (combined use map, min and max)
 //     is rebuilt a pick (chained.cuh spread_slots); each reached position
-//     reads its own codes, sp_codes[e, s, row].
+//     reads its own codes, sp_codes[e, s, row].  The state lives where
+//     the Chain points it: K10 points each block at its own slice.
 //
 // Exactness: a position's score is score_position's (chained.cuh) for
 // one group: every float op in the JAX program's order through
@@ -148,17 +155,32 @@ __device__ __forceinline__ int find_entry(const ChainCarry<T>& cr, int n_ent,
   return i;
 }
 
-// Row `row`'s entry, made from the node-space carry and the eval's base
+// A row's node-space usage of one column: the chain's carry, or in the
+// per-eval mode (`kPerEval`, K10) eval e's own base usage, [E, C] at
+// `in`, which nothing writes.
+template <typename T, bool kPerEval>
+__device__ __forceinline__ T usage_at(const T* in, const T* out,
+                                      const uint32_t* dirty, size_t col_at,
+                                      int row) {
+  if (kPerEval) return __ldg(in + col_at + row);
+  return carry_at(in, out, dirty, row);
+}
+
+// Row `row`'s entry, made from the node-space usage and the eval's base
 // collisions at its first touch (one thread).
-template <typename T>
+template <typename T, bool kPerEval = false>
 __device__ int entry_for(const Chain<T>& c, const ChainCarry<T>& cr, int e,
                          int row, int& n_ent) {
   if (bit(cr.touched, row)) return find_entry(cr, n_ent, row);
   const int i = n_ent++;
+  const size_t col_at = static_cast<size_t>(e) * c.C;
   cr.row[i] = row;
-  cr.cpu[i] = carry_at(c.cpu_in, c.cpu_out, cr.dirty, row);
-  cr.mem[i] = carry_at(c.mem_in, c.mem_out, cr.dirty, row);
-  cr.disk[i] = carry_at(c.disk_in, c.disk_out, cr.dirty, row);
+  cr.cpu[i] = usage_at<T, kPerEval>(c.cpu_in, c.cpu_out, cr.dirty, col_at,
+                                    row);
+  cr.mem[i] = usage_at<T, kPerEval>(c.mem_in, c.mem_out, cr.dirty, col_at,
+                                    row);
+  cr.disk[i] = usage_at<T, kPerEval>(c.disk_in, c.disk_out, cr.dirty, col_at,
+                                     row);
   cr.coll[i] =
       c.coll0 != nullptr ? c.coll0[static_cast<size_t>(e) * c.C + row] : 0;
   set_bit(cr.touched, row);
@@ -167,10 +189,11 @@ __device__ int entry_for(const Chain<T>& c, const ChainCarry<T>& cr, int e,
 
 // K9's source: a position's score and feasibility from its row, the
 // eval's scalars, the row's usage and collisions (its entry's, else the
-// carry's and the base), the static and the pick's penalty, and the
-// spread state; or, where a wide step of an earlier pick of the eval
-// scored it and nothing changed it since, from the score cache.
-template <typename T>
+// carry's, or in the per-eval mode the eval's base usage, and the base
+// collisions), the static and the pick's penalty, and the spread state;
+// or, where a wide step of an earlier pick of the eval scored it and
+// nothing changed it since, from the score cache.
+template <typename T, bool kPerEval = false>
 struct ChainSource {
   const Chain<T>& c;
   const ChainCarry<T>& cr;
@@ -183,6 +206,11 @@ struct ChainSource {
   T ask_cpu, ask_mem, ask_disk, want;
   int e, n_ent, n_cand;
   bool dh, cache_on, cached;
+
+  __device__ __forceinline__ T usage(const T* in, const T* out,
+                                     int row) const {
+    return usage_at<T, kPerEval>(in, out, cr.dirty, col_at, row);
+  }
 
   __device__ __forceinline__ bool pick_penalized(int row) const {
     if (pen_rows == nullptr) return false;
@@ -205,8 +233,8 @@ struct ChainSource {
       disk = cr.disk[ent];
       coll = cr.coll[ent];
     } else {
-      mem = carry_at(c.mem_in, c.mem_out, cr.dirty, row);
-      disk = carry_at(c.disk_in, c.disk_out, cr.dirty, row);
+      mem = usage(c.mem_in, c.mem_out, row);
+      disk = usage(c.disk_in, c.disk_out, row);
       coll = c.coll0 != nullptr ? __ldg(c.coll0 + col_at + row) : 0;
     }
     const T cpu_after = cpu + ask_cpu;
@@ -264,7 +292,7 @@ struct ChainSource {
         cpu_total[r] = __ldg(c.cpu_total + row[r]);
         ent[r] = bit(cr.touched, row[r]) ? find_entry(cr, n_ent, row[r]) : -1;
         cpu[r] = ent[r] >= 0 ? cr.cpu[ent[r]]
-                             : carry_at(c.cpu_in, c.cpu_out, cr.dirty, row[r]);
+                             : usage(c.cpu_in, c.cpu_out, row[r]);
       }
     }
 #pragma unroll
@@ -282,7 +310,8 @@ struct ChainSource {
         if (r < R) {
           const bool keep = fresh[r] && !pen[r];
           if (keep) {
-            pos_of[row[r]] = p[r];
+            // the per-eval mode evicts nothing: no row is looked up
+            if (!kPerEval) pos_of[row[r]] = p[r];
             if (f[r]) scores[p[r]] = s[r];
           }
           set_bits(cr.known, __ballot_sync(kFull, keep), p[r], n_cand);
@@ -310,8 +339,11 @@ __device__ __forceinline__ void forget_row(const ChainCarry<T>& cr,
 }
 
 // One eval of the chain (every thread of the block): its pre-deltas,
-// its P picks, the node-space carry rebuilt.
-template <typename T>
+// its P picks, the node-space carry rebuilt.  In the per-eval mode
+// (`kPerEval`, K10: eval e over its own base usage, nothing chained)
+// there are no pre-deltas, evictions or penalty rows and nothing is
+// written to node space: only the picks run.
+template <typename T, bool kPerEval = false>
 __device__ void run_chain_eval(const Chain<T>& c, const ChainCarry<T>& cr,
                                PickShared<T>& sh, T* scores,
                                int32_t* pos_of, int e) {
@@ -321,7 +353,7 @@ __device__ void run_chain_eval(const Chain<T>& c, const ChainCarry<T>& cr,
   const int32_t* perm = c.perm + static_cast<size_t>(e) * C;
   const int words = (C + 31) >> 5;
   // 1. pre-deltas onto the node-space usage, in row order
-  if (c.pre_rows != nullptr && tid == 0) {
+  if (!kPerEval && c.pre_rows != nullptr && tid == 0) {
     const size_t b = static_cast<size_t>(e) * c.R;
     for (int r = 0; r < c.R; ++r) {
       add_carry(c, cr, c.pre_rows[b + r], c.pre_cpu[b + r], c.pre_mem[b + r],
@@ -344,7 +376,7 @@ __device__ void run_chain_eval(const Chain<T>& c, const ChainCarry<T>& cr,
   }
   __syncthreads();
 
-  ChainSource<T> src{c, cr, perm, nullptr, scores, pos_of,
+  ChainSource<T, kPerEval> src{c, cr, perm, nullptr, scores, pos_of,
                      static_cast<size_t>(e) * c.feas_es,
                      static_cast<size_t>(e) * C};
   src.e = e;
@@ -367,7 +399,7 @@ __device__ void run_chain_eval(const Chain<T>& c, const ChainCarry<T>& cr,
     }
     const size_t ek = static_cast<size_t>(e) * c.P + k;
     const size_t sk = scalar_at(c, e, k);
-    if (tid == 0 && c.evict_rows != nullptr) {
+    if (!kPerEval && tid == 0 && c.evict_rows != nullptr) {
       // 2. the pick's eviction, before it scores
       const int erow = c.evict_rows[ek];
       if (erow >= 0) {
@@ -389,7 +421,7 @@ __device__ void run_chain_eval(const Chain<T>& c, const ChainCarry<T>& cr,
     if (c.sp_codes != nullptr) spread_slots(c, e, 0);
     // 3. the walk
     src.n_ent = sh.n_won;
-    src.pen_rows = c.evict_rows != nullptr && c.K > 0
+    src.pen_rows = !kPerEval && c.evict_rows != nullptr && c.K > 0
                        ? c.penalty_rows + ek * c.K
                        : nullptr;
     src.ask_cpu = c.ask_cpu[sk];
@@ -407,7 +439,7 @@ __device__ void run_chain_eval(const Chain<T>& c, const ChainCarry<T>& cr,
         if (p >= n_cand) p -= n_cand;
         const int row = perm[p];
         rows[k] = row;
-        const int i = entry_for(c, cr, e, row, sh.n_won);
+        const int i = entry_for<T, kPerEval>(c, cr, e, row, sh.n_won);
         cr.cpu[i] = cr.cpu[i] + c.ask_cpu[sk];
         cr.mem[i] = cr.mem[i] + c.ask_mem[sk];
         cr.disk[i] = cr.disk[i] + c.ask_disk[sk];
@@ -427,6 +459,7 @@ __device__ void run_chain_eval(const Chain<T>& c, const ChainCarry<T>& cr,
   // 5. the node-space carry in the JAX program's order: asks of the
   // successful picks, then the applied evictions (an active pick pulls
   // at least one position)
+  if (kPerEval) return;
   if (tid == 0) {
     for (int k = 0; k < c.P; ++k) {
       if (rows[k] < 0) continue;

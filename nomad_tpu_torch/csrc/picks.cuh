@@ -1,10 +1,11 @@
-// The prefix walk, shared by kernels K1 (score_select.cu, its one-pick
-// shape), K2 (plan_picks.cu), K7 (batch_picks.cu) and K9
-// (chained_batch.cu through chained_prefix.cuh): one block walks a pick
-// in steps and scores only the positions the pick reaches.  The step
-// machinery (`prefix_walk`) takes a source that scores a step's
-// positions; K2's and K7's source, their carry and their P picks an eval
-// (`run_eval`) follow it here.
+// The prefix walk, shared by kernels K1 (score_select.cu) and K6
+// (walk_only.cu) in their one-pick shape, K2 (plan_picks.cu), K7
+// (batch_picks.cu), and K9 (chained_batch.cu) and K10 (batch_plan.cu)
+// through chained_prefix.cuh: one block walks a pick in steps and reads
+// or scores only the positions the pick reaches.  The step machinery
+// (`prefix_walk`) takes a source that gives a step's positions' scores
+// and feasibility; K2's and K7's source, their carry and their P picks
+// an eval (`run_eval`) follow it here.
 //
 // Replaces the pick scan of nomad_tpu/ops/batch.py _run_picks (:347)
 // for a single group (T = 1, no spread, deltas, ports or devices), as
@@ -13,8 +14,8 @@
 //
 // Walk position w of a pick is permuted position (offset + w) mod
 // n_cand; tail positions (>= n_cand) are never feasible and never
-// rotate, so they are not walked (K1 walks all C positions without a
-// rotation).  The block walks in steps: a pick's first step covers
+// rotate, so they are not walked (K1 and K6 walk all C positions without
+// a rotation).  The block walks in steps: a pick's first step covers
 // kPickFirst positions and each next one twice as many, up to
 // kPickThreads * kPickWide, position base + r * kPickThreads + t on
 // thread t.  In K2's and K7's source a thread reads its positions' rows
@@ -66,7 +67,7 @@ namespace nk {
 // each of K7's blocks run kPickThreads threads; a pick's first step
 // covers kPickFirst positions, each next one twice as many up to
 // kPickWide positions a thread.  K1's prefix walk and K9's block take
-// the same shape.
+// the same shape, and so do K6's and K10's.
 constexpr int kPickThreads = 256;
 constexpr int kPickWarps = kPickThreads / 32;
 constexpr int kPickFirst = 64;
@@ -423,6 +424,20 @@ __device__ WalkEnd<T> prefix_walk(Src& src, PickShared<T>& sh, int n_walk,
     }
   }
   return out;
+}
+
+// The sum of `mine` over the block's kPickThreads threads: every thread
+// calls it and gets the sum (K1's and K6's sweep of the positions a
+// walk did not reach).
+__device__ __forceinline__ int block_sum(int mine) {
+  __shared__ int red[kPickWarps];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) mine += __shfl_down_sync(kFull, mine, d);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mine;
+  __syncthreads();
+  int sum = 0;
+  for (int i = 0; i < kPickWarps; ++i) sum += red[i];
+  return sum;
 }
 
 // K2's and K7's source: a position's score and feasibility from its

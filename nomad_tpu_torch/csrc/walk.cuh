@@ -1,6 +1,11 @@
-// Shared device code of kernels K1 (score_select.cu), K2
-// (plan_picks.cu), K3 (chained_picks.cu), K5 (storm_solve.cu) and K7
-// (batch_picks.cu): the per-node score and the shuffled limited walk.
+// Shared device code: the per-node score (`score_node`), which every
+// kernel that scores a node uses (K1, K2, K3, K5, K7, K9, K10, K11, K12,
+// K14), the walk's constants and winner key, the block scans that K3's
+// and K12's walks use, and the shuffled limited walk of one block
+// (`limited_walk`), which K5 (storm_solve.cu) and K14 (storm_sharded.cu)
+// run for their warm start.  K1, K2, K6, K7, K9 and K10 walk as prefix
+// walks (picks.cuh), K1's and K6's whole-region selects on a grid
+// (walk_grid.cuh).
 //
 // Replaces the arithmetic that the JAX programs share:
 //   nomad_tpu/ops/score.py  _pow10 (:69), _score_vectors (:110) with
@@ -8,10 +13,10 @@
 //                           _limited_walk_argmax (:186)
 //   nomad_tpu/ops/batch.py  _walk (:281), _rotated_prefix (:268)
 //
-// One block of kThreads threads walks n_walk positions; thread t owns
-// the contiguous run [t*run, (t+1)*run), so block-exclusive scans of
-// per-thread counts give every position its rank in walk order.  The
-// walk is three passes over the run:
+// `limited_walk`: one block of kThreads threads walks n_walk positions;
+// thread t owns the contiguous run [t*run, (t+1)*run), so block-exclusive
+// scans of per-thread counts give every position its rank in walk order.
+// The walk is three passes over the run:
 //   A  score each position, flag feasible and "bad" (score <= 0), store
 //      both in scratch (each thread re-reads only its own positions);
 //   B  rank the bad positions; the first kMaxSkip are diverted;

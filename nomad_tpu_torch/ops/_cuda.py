@@ -46,8 +46,8 @@ SOURCES = {
     "patch_rows_mesh": "patch_rows_mesh.cu",
     "storm_sharded": "storm_sharded.cu",
 }
-HEADERS = ("walk.cuh", "picks.cuh", "chained.cuh", "chained_grid.cuh",
-           "chained_prefix.cuh", "storm_round.cuh")
+HEADERS = ("walk.cuh", "picks.cuh", "walk_grid.cuh", "chained.cuh",
+           "chained_grid.cuh", "chained_prefix.cuh", "storm_round.cuh")
 
 # exact IEEE arithmetic: no FMA contraction, no fast math, no
 # flush-to-zero, correctly rounded division
@@ -186,12 +186,14 @@ class ScoreSelectArgs(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=1024)
-def select_summary_bytes(C: int, t_size: int, limit: int,
-                         n_candidates: int) -> int:
-    """Bytes of K1's per-block summaries for C rows: 0 where its rule
-    (csrc/score_select.cu `takes_grid`) takes the prefix walk, which
-    reads none."""
-    fn = library("score_select").nk_select_summary_bytes
+def summary_bytes(name: str, C: int, t_size: int, limit: int,
+                  n_candidates: int) -> int:
+    """Bytes of the grid's per-block summaries (csrc/walk_grid.cuh) for
+    a C-position walk of K1 (`name` "score_select") or K6 ("walk_only"):
+    0 where their rule (`takes_grid`) takes the prefix walk, which reads
+    none."""
+    fn = getattr(library(name), {"score_select": "nk_select_summary_bytes",
+                                 "walk_only": "nk_walk_summary_bytes"}[name])
     fn.argtypes = [_I, _I, _I, _I]
     fn.restype = ctypes.c_size_t
     return int(fn(C, t_size, limit, n_candidates))
@@ -216,8 +218,9 @@ class PlanPicksArgs(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def _carry_fns(name: str, prefix: str = "nk_pick"):
     """The library `name`'s carry sizes (csrc/picks.cuh for K2 and K7,
-    `prefix` nk_pick; csrc/chained_prefix.cuh for K9, nk_chain): its
-    bytes function and the most it keeps in shared memory."""
+    `prefix` nk_pick; csrc/chained_prefix.cuh for K9, nk_chain, and K10,
+    nk_plan): its bytes function and the most it keeps in shared
+    memory."""
     lib = library(name)
     fn = getattr(lib, f"{prefix}_carry_bytes")
     fn.argtypes = [_I, _I, _I]
@@ -288,8 +291,8 @@ def launch_score_select(cols, s_scratch, f_scratch, out_i, out_best, *,
     dev = cols["cpu_total"].device
     dtype = cols["cpu_total"].dtype
     C = cols["cpu_total"].shape[0]
-    size = select_summary_bytes(C, torch.finfo(dtype).bits // 8, limit,
-                                n_candidates)
+    size = summary_bytes("score_select", C, torch.finfo(dtype).bits // 8,
+                         limit, n_candidates)
     summary = (torch.empty(size, dtype=torch.uint8, device=dev) if size
                else None)
     args = ScoreSelectArgs(
@@ -595,26 +598,34 @@ class WalkOnlyArgs(ctypes.Structure):
     """Mirror of `WalkOnlyArgs` in csrc/walk_only.cu."""
 
     _fields_ = [
-        ("feasible", _P), ("scores", _P), ("perm", _P),
-        ("s_scratch", _P), ("f_scratch", _P), ("out", _P),
+        ("feasible", _P), ("scores", _P), ("perm", _P), ("summary", _P),
+        ("out", _P),
         ("limit", _I), ("n_candidates", _I), ("C", _I),
-        ("is_f64", _I), ("device", _I),
+        ("is_f64", _I), ("device", _I), ("count", _I),
     ]
 
 
-def launch_walk_only(feasible, scores, perm, s_scratch, f_scratch, out, *,
-                     limit: int, n_candidates: int) -> None:
+def launch_walk_only(feasible, scores, perm, out, *, limit: int,
+                     n_candidates: int, count: bool) -> str:
     """K6 on the current stream over contiguous CUDA tensors (checked by
     the wrapper): the walk of `scores`/`feasible` in `perm` order into
-    the int64[4] `out`."""
+    the int64[4] `out`.  `count` asks the prefix walk for the feasible
+    count too.  Returns the launch shape the kernel's rule takes ("grid"
+    where limit >= n_candidates, else "prefix"), and allocates the
+    per-block summaries for the grid alone."""
     dev = scores.device
+    C = scores.shape[0]
+    size = summary_bytes("walk_only", C, torch.finfo(scores.dtype).bits // 8,
+                         limit, n_candidates)
+    summary = (torch.empty(size, dtype=torch.uint8, device=dev) if size
+               else None)
     args = WalkOnlyArgs(
         feasible.data_ptr(), scores.data_ptr(), perm.data_ptr(),
-        s_scratch.data_ptr(), f_scratch.data_ptr(), out.data_ptr(),
-        limit, n_candidates, scores.shape[0],
-        int(scores.dtype == torch.float64), dev.index,
+        _ptr(summary), out.data_ptr(), limit, n_candidates, C,
+        int(scores.dtype == torch.float64), dev.index, int(count),
     )
     _launch("walk_only", "nk_walk_only", args, dev)
+    return "grid" if size else "prefix"
 
 
 class BatchPicksArgs(ctypes.Structure):
@@ -851,8 +862,8 @@ class BatchPlanArgs(ctypes.Structure):
             "ask_disk", "desired", "limit", "distinct_hosts", "n_cand",
             "wanted", "collisions", "penalty", "affinity", "sp_codes",
             "sp_desired", "sp_used0", "sp_prop0", "sp_clr0", "sp_weight",
-            "sp_active", "sp_even", "sp_group", "f_scratch", "i_scratch",
-            "b_scratch", "s_scratch", "out_rows", "out_pulls",
+            "sp_active", "sp_even", "sp_group", "carry", "scores",
+            "s_scratch", "out_rows", "out_pulls",
         )
     ] + [
         (name, _I) for name in (
@@ -864,14 +875,19 @@ class BatchPlanArgs(ctypes.Structure):
 def launch_batch_plan(q, rows, pulls) -> None:
     """K10 on the current stream over `ops.batch.prepare_batched`
     inputs (contiguous CUDA tensors): one block per eval, each with its
-    own slice of the scratch allocated here."""
+    own slice of the scratch allocated here: the score cache (T [C] an
+    eval, without spread), the spread state (with spread), and the
+    carry where one does not fit a block's shared memory."""
     cols = q["cols"]
     dev = cols[0].device
     dtype = cols[0].dtype
     b = q["batch"]
-    E, C = q["E"], q["C"]
+    E, P, C = q["E"], q["P"], q["C"]
     S, V1 = _spread_dims(q["spread"])
-    f, i, bb, s = _scratch_lens(C, 1, S, V1)
+    s = _scratch_lens(C, 1, S, V1)[3]
+    fn, smem_max = _carry_fns("batch_plan", "nk_plan")
+    carry = fn(C, P, torch.finfo(dtype).bits // 8)
+    spread = q["spread"] is not None
     ptrs = dict(
         cpu_total=cols[0], mem_total=cols[1], disk_total=cols[2],
         cpu_used=b.base_cpu_used, mem_used=b.base_mem_used,
@@ -881,20 +897,35 @@ def launch_batch_plan(q, rows, pulls) -> None:
         distinct_hosts=b.distinct_hosts, n_cand=q["n_cand"],
         wanted=q["wanted"], collisions=b.base_collisions,
         penalty=b.penalty, affinity=b.affinity_score,
-        f_scratch=torch.empty(E * f, dtype=dtype, device=dev),
-        i_scratch=torch.empty(E * i, dtype=torch.int32, device=dev),
-        b_scratch=torch.empty(E * bb, dtype=torch.uint8, device=dev),
-        s_scratch=torch.empty(E * s, dtype=dtype, device=dev),
+        carry=(None if carry <= smem_max else
+               torch.empty((E, carry), dtype=torch.uint8, device=dev)),
+        scores=(None if spread else
+                torch.empty((E, C), dtype=dtype, device=dev)),
+        s_scratch=(torch.empty((E, s), dtype=dtype, device=dev) if spread
+                   else None),
         out_rows=rows, out_pulls=pulls,
         **_option_ptrs(q["spread"], None, None),
     )
     args = BatchPlanArgs()
     _fill(args, ptrs, dev)
-    args.E, args.P, args.C, args.S, args.V1 = E, q["P"], C, S, V1
+    args.E, args.P, args.C, args.S, args.V1 = E, P, C, S, V1
     args.spread_fit = int(q["spread_fit"])
     args.is_f64 = int(dtype == torch.float64)
     args.device = dev.index
     _launch("batch_plan", "nk_batch_plan", args, dev)
+
+
+def plan_blocks_at_once(C: int, P: int, dtype, device) -> int:
+    """The most K10 blocks the card holds at once for a C-row arena and
+    P picks (csrc/batch_plan.cu `nk_plan_blocks_at_once`)."""
+    fn = library("batch_plan").nk_plan_blocks_at_once
+    fn.argtypes = [_I, _I, _I, _I]
+    fn.restype = _I
+    n = fn(C, P, int(dtype == torch.float64), torch.device(device).index or 0)
+    if n < 0:
+        msg = library("batch_plan").nk_error_string(-n).decode()
+        raise RuntimeError(f"nk_plan_blocks_at_once failed: {msg} ({-n})")
+    return n
 
 
 class ScoreAllArgs(ctypes.Structure):

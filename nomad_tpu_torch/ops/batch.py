@@ -1520,15 +1520,16 @@ def chained_plan_picks_shared(cpu_total, mem_total, disk_total, feasible,
     return chained_plan_picks_shared_cuda(*args)
 
 
-def batch_plan_rows_twin(q: dict):
+def batch_plan_twin(q: dict):
     """K10's twin over `prepare_batched` inputs: E independent
     `plan_picks`, each over its own BatchInputs (its own base usage,
     feasibility, collisions, penalty, affinity and walk order) and its
-    own spread, every pick wanted.  Returns rows i32[E, P]."""
+    own spread, every pick wanted.  Returns (rows, pulls), each
+    i32[E, P], as K10's `launch_batch_plan`."""
     b = q["batch"]
     E, P = q["E"], q["P"]
     dev = q["cols"][0].device
-    rows = []
+    rows, pulls = [], []
     for e in range(E):
         tg = TGInputs(
             tg_idx=torch.zeros(P, dtype=torch.int32, device=dev),
@@ -1539,7 +1540,7 @@ def batch_plan_rows_twin(q: dict):
             desired_count=b.desired_count[e].expand(P),
             limit=b.limit[e].expand(P),
         )
-        r, _pulls, _used, _ports, _devs = _run_picks(
+        r, n, _used, _ports, _devs = _run_picks(
             *q["cols"],
             (b.base_cpu_used[e], b.base_mem_used[e], b.base_disk_used[e]),
             b.perm[e], tg, b.distinct_hosts[e], q["n_cand"][e], P,
@@ -1547,9 +1548,17 @@ def batch_plan_rows_twin(q: dict):
             penalty=b.penalty[e],
         )
         rows.append(r)
+        pulls.append(n.to(torch.int32))
     if not rows:
-        return torch.empty((0, P), dtype=torch.int32, device=dev)
-    return torch.stack(rows)
+        empty = torch.empty((0, P), dtype=torch.int32, device=dev)
+        return empty, empty
+    return torch.stack(rows), torch.stack(pulls)
+
+
+def batch_plan_rows_twin(q: dict):
+    """K10's twin over `prepare_batched` inputs (`batch_plan_twin`):
+    rows i32[E, P]."""
+    return batch_plan_twin(q)[0]
 
 
 def batch_plan_picks_twin(cpu_total, mem_total, disk_total,
@@ -1580,6 +1589,14 @@ def launch_batch_plan(q: dict):
     _cuda.launch_batch_plan(q, rows, pulls)
     batch_plan_picks_cuda.launches += 1
     return rows, pulls
+
+
+def batch_plan_blocks_at_once(C: int, P: int, dtype, device) -> int:
+    """The most K10 blocks (one an eval) the card holds at once for a
+    C-row arena and P picks; a launch of more evals runs in waves."""
+    from . import _cuda
+
+    return _cuda.plan_blocks_at_once(C, P, dtype, device)
 
 
 def batch_plan_picks_cuda(cpu_total, mem_total, disk_total,

@@ -604,6 +604,24 @@ def batched_cache_case(seed: int, C: int, n_cand: int, E: int,
     return cols, kw
 
 
+def tiled_batched(q: Dict, tiles: int) -> Dict:
+    """`ops.batch.prepare_batched` inputs with every per-eval tensor
+    repeated `tiles` times along the eval axis (the node columns
+    shared): K10's rows and pulls for them are its rows and pulls for
+    `q`, repeated, however many of the evals' blocks run at once."""
+    def tile(x):
+        if x is None or x.dim() == 0:
+            return x
+        return x.repeat(tiles, *([1] * (x.dim() - 1))).contiguous()
+
+    spread = q["spread"]
+    return dict(q, E=q["E"] * tiles, n_cand=tile(q["n_cand"]),
+                wanted=tile(q["wanted"]),
+                batch=type(q["batch"])(*map(tile, q["batch"])),
+                spread=None if spread is None
+                else type(spread)(*map(tile, spread)))
+
+
 # storm solver (K5) scenarios; each case carries its own round budget
 STORM_SCENARIOS = (
     "uncontended",  # room for every row: the warm start is the answer
@@ -790,6 +808,7 @@ WALK_SCENARIOS: Dict[str, Tuple[int, int]] = {
     "div2_nogood": (2, 0),
     "spliced": (-1, -1),
     "all_neg_inf": (0, 0),
+    "tail": (-1, -1),
 }
 
 
@@ -797,7 +816,10 @@ def walk_case(seed: int, C: int, scenario: str, limit: int,
               dtype=np.float64) -> Dict:
     """One K6 input: `feasible` bool[C], `scores` [C] in `dtype` (-inf
     where infeasible, as the preemption path stages them), the walk
-    order `perm` (candidates first), `limit` and `n_candidates`."""
+    order `perm` (candidates first), `limit` and `n_candidates`.
+    "tail" has six good candidates and up to twelve feasible positions
+    past n_candidates, one of them scoring -0.0 (bad): a limit of 14
+    stops inside the tail, which the walk reaches as the JAX walk does."""
     rng = np.random.default_rng(seed)
     n_cand = max(1, (4 * C) // 5)
     perm = rng.permutation(C).astype(np.int32)
@@ -818,6 +840,14 @@ def walk_case(seed: int, C: int, scenario: str, limit: int,
         if len(good) >= 4:
             src, *dst = rng.choice(good, size=4, replace=False)
             scores[dst] = scores[src]
+    elif scenario == "tail":
+        keep = rng.choice(cand, min(6, n_cand), replace=False)
+        feasible[keep] = True
+        scores[keep] = rng.uniform(0.05, 1.0, len(keep))
+        tail = rng.choice(perm[n_cand:], min(12, C - n_cand), replace=False)
+        feasible[tail] = True
+        scores[tail] = rng.uniform(0.05, 1.0, len(tail))
+        scores[tail[:1]] = -0.0
     elif scenario != "all_neg_inf":
         n_bad, n_good = WALK_SCENARIOS[scenario]
         n_good = min(n_good, n_cand - n_bad)

@@ -523,11 +523,17 @@ def _check_walk(feasible, scores, perm) -> torch.device:
     return dev
 
 
-def walk_only_cuda(feasible, scores, perm, limit, n_candidates):
+def walk_only_cuda(feasible, scores, perm, limit, n_candidates,
+                   count: bool = True):
     """Launch K6 on the tensors' CUDA device (current stream): the
     limited walk over a host-built score vector.  Returns the int64[4]
     result buffer ([row, feasible_count, pulls, bits of best]) on the
-    card; nothing is synchronised."""
+    card; nothing is synchronised.  K6 takes its prefix walk where the
+    walk may stop early (limit < n_candidates) and its grid where it
+    consumes the region; `count=False` lets the prefix walk skip the
+    feasible count ([1] is then -1; the grid always counts).
+    `walk_only_cuda.route` is the shape the last launch took ("prefix"
+    or "grid")."""
     from . import _cuda
 
     dev = _check_walk(feasible, scores, perm)
@@ -536,22 +542,23 @@ def walk_only_cuda(feasible, scores, perm, limit, n_candidates):
     C = scores.shape[0]
     limit = _host_int(limit)
     n_cand = _host_int(n_candidates)
+    if C < 1:
+        raise ValueError("walk_only_cuda needs at least one position")
     if limit < 1:
         raise ValueError(f"limit must be >= 1, got {limit}")
     if not 0 <= n_cand <= C:
         raise ValueError(f"n_candidates {n_cand} outside [0, {C}]")
-    s_scratch = torch.empty(C, dtype=scores.dtype, device=dev)
-    f_scratch = torch.empty(C, dtype=torch.uint8, device=dev)
     out = torch.empty(4, dtype=torch.int64, device=dev)
-    _cuda.launch_walk_only(
-        feasible.contiguous(), scores.contiguous(), perm.contiguous(),
-        s_scratch, f_scratch, out, limit=limit, n_candidates=n_cand,
+    walk_only_cuda.route = _cuda.launch_walk_only(
+        feasible.contiguous(), scores.contiguous(), perm.contiguous(), out,
+        limit=limit, n_candidates=n_cand, count=count,
     )
     walk_only_cuda.launches += 1
     return out
 
 
 walk_only_cuda.launches = 0
+walk_only_cuda.route = ""
 
 
 def unpack_walk(buf: torch.Tensor, dtype: torch.dtype):
@@ -565,17 +572,21 @@ def unpack_walk(buf: torch.Tensor, dtype: torch.dtype):
     return int(raw[0]), best, int(raw[1]), int(raw[2])
 
 
-def walk_only(feasible, scores, perm, limit, n_candidates):
+def walk_only(feasible, scores, perm, limit, n_candidates,
+              count: bool = True):
     """(chosen_row, best, feasible_count, pulls) as Python numbers: K6
     for CUDA tensors, fetched with one device->host copy; the twin
-    `limited_walk_argmax` for CPU tensors."""
+    `limited_walk_argmax` for CPU tensors.  `count=False` is for a
+    caller that does not read the feasible count (the preemption loop):
+    K6's prefix walk then skips it and gives -1 (its grid and the twin
+    give the count)."""
     dev = _check_walk(feasible, scores, perm)
     if dev.type == "cpu":
         row, best, n, pulls = limited_walk_argmax(
             feasible, scores, perm, limit, n_candidates
         )
         return int(row), float(best), int(n), int(pulls)
-    buf = walk_only_cuda(feasible, scores, perm, limit, n_candidates)
+    buf = walk_only_cuda(feasible, scores, perm, limit, n_candidates, count)
     return unpack_walk(buf.cpu(), scores.dtype)
 
 

@@ -596,8 +596,10 @@ def _select_runner(mesh: NodeMesh, spread_fit: bool, kernel: Optional[bool]):
         final = mesh.all_gather(final_l)
         feasible = mesh.all_gather(feas_l)
         if use_kernel:
+            # the JAX program returns the feasible count: K6 counts
             return _walk_outputs(tscore.walk_only_cuda(
-                feasible, final, perm, inp.limit, inp.n_candidates), dtype)
+                feasible, final, perm, inp.limit, inp.n_candidates,
+                count=True), dtype)
         return tscore.limited_walk_argmax(feasible, final, perm, inp.limit,
                                           inp.n_candidates)
 

@@ -635,8 +635,9 @@ class CudaGenericStack:
         while True:
             chosen_row, _best, _n, pulls = _on_device(
                 "the preemption walk (K6)",
+                # the count is not read: K6's prefix walk skips it
                 lambda: walk_only(feasible_d, scores_d, perm_d, limit,
-                                  n_cand),
+                                  n_cand, False),
             )
             if chosen_row == NO_NODE:
                 if n_cand:

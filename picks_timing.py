@@ -1,9 +1,11 @@
 """Time the PyTorch port's prefix-walk kernels on the card — K2 (the
 per-eval stack's look-ahead, `plan_picks_cuda`), K7 (the bridge's
 `ScoreBatch`, `batch_plan_picks_shared_cuda`), K9 (the bench's chained
-planner, `launch_chained_plan`) and K1 (the per-eval select,
-`score_and_select_packed`) — for one or more checkouts of the repo, so
-that two commits are compared on the same card in one run:
+planner, `launch_chained_plan`), K10 (the bench's independent planner,
+`launch_batch_plan`), K1 (the per-eval select,
+`score_and_select_packed`) and K6 (the preemption walk,
+`walk_only_cuda`) — for one or more checkouts of the repo, so that two
+commits are compared on the same card in one run:
 
     python3 picks_timing.py [TREE ...]
 
@@ -15,32 +17,38 @@ named: K2 on the "plain" case at limit 14 and P = 16 (`time_kernels`),
 K7 on E = 64 evals x P = 10 of the "bridge" case (`time_batch_kernel`);
 K9 at the bench's kernel-only shape (its 2,000-node world: a 2,048-row
 arena, 2,000 candidates, E = 64 x P = 10) and at the 16k arena
-(`batched_case` "plain", E = 64 x P = 10; `time_batched_kernels`); K1
+(`batched_case` "plain", E = 64 x P = 10; `time_batched_kernels`), K10
+over the same two launches' inputs; K1
 at limit 14 on the "mixed" case and with both policy groups unlimited
 (`time_kernels`, `time_policy_select`); and the cases whose walks run
 long: K2 "out_of_room" (limit 14, P = 16), K7 "tight" and "fit_nowhere",
-K1 "div0" (40 feasible nodes, limit 14).  K1 runs the launch shape its
-rule takes (its grid where limit >= n_candidates, its prefix walk
-elsewhere); to time a shape off the rule, pass as a TREE a copy of the
-port under `build/` with the rule (`takes_grid` in csrc/score_select.cu)
-edited.
+K1 "div0" (40 feasible nodes, limit 14); K6 on a "spliced" score
+vector of the 16,384-row arena (13,107 candidates) at limit 14, as the
+preemption loop launches it (no feasible count where the wrapper takes
+the flag), and unlimited (`time_walk_kernel`).  K1 and K6 run the
+launch shape their rule takes (their grid where limit >= n_candidates,
+their prefix walk elsewhere); to time a shape off the rule, pass as a
+TREE a copy of the port under `build/` with the rule (`takes_grid` in
+csrc/walk_grid.cuh) edited.
 For each tree and case it checks the kernel's output against its twin
 on the card once, then prints one JSON line with, per case:
 
 - ``ms``: the device time of one launch, from `torch.profiler` (CUPTI)
   over 100 calls after 10 (K9 50): the mean device time of the kernels
   whose name holds the kernel's (``plan_picks_kernel``,
-  ``batch_picks_kernel``, ``chain`` for K9, ``select`` for K1);
+  ``batch_picks_kernel``, ``chain`` for K9, ``batch_plan`` for K10,
+  ``select`` for K1, ``walk_only`` for K6);
 - ``call_ms``: the CUDA-event mean of 200 calls after 10 (K9 50) as
   chip_smoke.py times them (where a call's host work outlasts its
   kernel, this is the host's rate: K7's wrapper reads its limits'
   minimum, a device-to-host copy, every call);
 - ``launches``: the wrapper's count a call over the timed calls;
-- ``pulls``: the positions the walks consumed, K2's, K9's and K1's from
-  their own output, K7's from K2 run one eval at a time.
+- ``pulls``: the positions the walks consumed, K2's, K9's, K10's, K1's
+  and K6's from their own output, K7's from K2 run one eval at a time.
 
 The card's name and power limit come first, as nvidia-smi gives them.
 Exits 1 without a card, or if any tree's run fails."""
+import inspect
 import json
 import os
 import subprocess
@@ -57,6 +65,10 @@ K9_E, K9_P = 64, 10
 K1_CASES = (("limit14_mixed", "mixed", 7000, 14),
             ("policy_both", "both", 7002, 2**31 - 1),
             ("long_div0", "div0", 7003, 14))
+# (case, walk_case scenario, seed, limit): the preemption walk's select
+# and an unlimited one (a group with affinities, spreads or policy terms)
+K6_CASES = (("limit14_spliced", "spliced", 9800, 14),
+            ("unlimited_spliced", "spliced", 9801, 2**31 - 1))
 N, WARMUP = 200, 10
 
 
@@ -182,7 +194,8 @@ def _k1_input(scenario: str, seed: int, limit: int, cuda):
 
 
 def measure(tree: str) -> dict:
-    """The timings of `tree`'s K2, K7, K9 and K1, in this process."""
+    """The timings of `tree`'s K2, K7, K9, K10, K1 and K6, in this
+    process."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -190,14 +203,14 @@ def measure(tree: str) -> dict:
     from nomad_tpu_torch.ops import _cuda
     from nomad_tpu_torch.ops import batch as tbatch
     from nomad_tpu_torch.ops import score as tscore
-    from nomad_tpu_torch.ops.cases import batch_shared_case
+    from nomad_tpu_torch.ops.cases import batch_shared_case, walk_case
     from nomad_tpu_torch.state.convert import batch_shared_inputs_from_numpy
 
     if not tbatch.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"imported {tbatch.__file__}, not {tree}'s port")
     cuda = torch.device("cuda", 0)
     _cuda.load(["plan_picks", "batch_picks", "chained_batch",
-                "score_select"])
+                "score_select", "batch_plan", "walk_only"])
     out = {"tree": tree}
     for scenario, seed in K2_CASES:
         args = _k2_args(scenario, seed, cuda)
@@ -232,6 +245,15 @@ def measure(tree: str) -> dict:
             _timed(tbatch.chained_plan_picks_cuda,
                    lambda q=q: tbatch.launch_chained_plan(q), "chain", n=50),
             pulls=int(pulls.sum()))
+        k10 = name.replace("k9", "k10")
+        rows, pulls = (t.cpu() for t in tbatch.launch_batch_plan(q))
+        if not torch.equal(rows, tbatch.batch_plan_rows_twin(q).cpu()):
+            raise RuntimeError(f"K10 {k10}: the kernel differs from its twin")
+        out[k10] = dict(
+            _timed(tbatch.batch_plan_picks_cuda,
+                   lambda q=q: tbatch.launch_batch_plan(q), "batch_plan",
+                   n=50),
+            pulls=int(pulls.sum()))
     for name, scenario, seed, limit in K1_CASES:
         k1 = _k1_input(scenario, seed, limit, cuda)
         twin = tscore.score_and_select_twin(k1)
@@ -244,6 +266,25 @@ def measure(tree: str) -> dict:
             _timed(tscore.score_select_cuda,
                    lambda k1=k1: tscore.score_and_select_packed(k1), "select"),
             pulls=want[3])
+    # the count flag where the tree's wrapper has it (the preemption
+    # loop's call); a tree without it always counts
+    flag = (False,) if "count" in inspect.signature(
+        tscore.walk_only_cuda).parameters else ()
+    for name, scenario, seed, limit in K6_CASES:
+        case = walk_case(seed, C, scenario, limit)
+        k6 = (torch.from_numpy(case["feasible"]).to(cuda),
+              torch.from_numpy(case["scores"]).to(cuda),
+              torch.from_numpy(case["perm"]).to(cuda), limit,
+              case["n_candidates"])
+        twin = tscore.limited_walk_argmax(*k6)
+        got = tscore.walk_only_cuda(*k6, *flag).cpu().tolist()
+        if (got[0], got[2]) != (int(twin[0]), int(twin[3])):
+            raise RuntimeError(f"K6 {name}: the kernel differs from its twin")
+        out[f"k6_{name}"] = dict(
+            _timed(tscore.walk_only_cuda,
+                   lambda k6=k6: tscore.walk_only_cuda(*k6, *flag),
+                   "walk_only"),
+            pulls=got[2])
     return out
 
 

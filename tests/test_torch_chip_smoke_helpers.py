@@ -37,8 +37,9 @@ def test_card_twins_cover_both_dtypes_of_each_check():
     assert by_phase["k9"] == 2 * len(chip_smoke.K9_SCENARIOS) * len(
         chip_smoke.BATCHED_SHAPES)
     assert by_phase["k9s"] == 2 * len(chip_smoke.K9_SHARED_SHAPES)
+    # K10: every case and shape, and the carry beyond shared memory
     assert by_phase["k10"] == 2 * len(chip_smoke.K10_CASES) * len(
-        chip_smoke.BATCHED_SHAPES)
+        chip_smoke.BATCHED_SHAPES) + 2
     assert by_phase["k12"] == len(SHARDED_CHAIN_SCENARIOS) * (
         len(chip_smoke.K12_COUNTS) + 1) + 2
     # K14: both row counts at every D (f64), f32 and weighted at D = 8

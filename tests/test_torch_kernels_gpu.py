@@ -1,9 +1,12 @@
 """Kernels K1 (csrc/score_select.cu), K2 (csrc/plan_picks.cu), K3
 (csrc/chained_picks.cu), K4 (csrc/patch_rows_mesh.cu, per column and as
 the unsharded mirror's bound three-column flush), K5
-(csrc/storm_solve.cu), K6 (csrc/walk_only.cu), K7 (csrc/batch_picks.cu),
+(csrc/storm_solve.cu), K6 (csrc/walk_only.cu, on each launch shape, with
+the count and without it), K7 (csrc/batch_picks.cu),
 K8 (csrc/canary.cu, per call and as the supervisor's bound probe), K9 (csrc/chained_batch.cu, per-eval and shared),
-K10 (csrc/batch_plan.cu), K11 (csrc/score_all.cu), K12
+K10 (csrc/batch_plan.cu, rows and pulls, also with E beyond the blocks
+the card holds at once and its carry beyond shared memory), K11
+(csrc/score_all.cu), K12
 (csrc/sharded_chain.cu, the node-sharded chained planner on a
 VirtualMesh of 1, 2, 4 and 8 shards), K13 (csrc/patch_rows_mesh.cu)
 and K14 (csrc/storm_sharded.cu, the node-sharded storm solve on a
@@ -65,6 +68,7 @@ from nomad_tpu_torch.ops.cases import (
     score_case,
     select_edge_case,
     storm_case,
+    tiled_batched,
     walk_case,
 )
 from nomad_tpu_torch.state.convert import (
@@ -532,38 +536,73 @@ def test_storm_solve_kernel_stamps(cuda):
     assert all(t == 0 for t in s[5 + 2 * rounds:])
 
 
+def _walk_tensors(case, dev):
+    return (torch.from_numpy(case["feasible"]).to(dev),
+            torch.from_numpy(case["scores"]).to(dev),
+            torch.from_numpy(case["perm"]).to(dev))
+
+
+def _same_walk_only(cuda, case, dtype, limit, count=True) -> str:
+    """One K6 launch against the twin on the card and on the CPU (row,
+    best bits, pulls; the feasible count, or -1 where the prefix walk
+    ran without it).  Returns the launch shape."""
+    card = _walk_tensors(case, cuda)
+    before = tscore.walk_only_cuda.launches
+    buf = tscore.walk_only_cuda(*card, limit, case["n_candidates"], count)
+    torch.cuda.synchronize()
+    assert tscore.walk_only_cuda.launches == before + 1
+    route = tscore.walk_only_cuda.route
+    assert route == ("grid" if limit >= case["n_candidates"] else "prefix")
+    row, best, n, pulls = tscore.unpack_walk(buf.cpu(), dtype)
+    for twin in (
+        tscore.limited_walk_argmax(*card, limit, case["n_candidates"]),
+        tscore.limited_walk_argmax(*_walk_tensors(case, "cpu"), limit,
+                                   case["n_candidates"]),
+    ):
+        assert (row, pulls) == (int(twin[0]), int(twin[3]))
+        assert n == (int(twin[2]) if count or route == "grid" else -1)
+        got = torch.tensor([best], dtype=dtype)
+        assert (_bits(got) == _bits(twin[1].cpu().reshape(1))).all()
+    return route
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("limit", [1, 2, 14, INT32_MAX])
+@pytest.mark.parametrize("limit", [1, 2, 14, "n_cand", INT32_MAX])
 @pytest.mark.parametrize("width", [8, 1024, 16384])
 @pytest.mark.parametrize("scenario", sorted(WALK_SCENARIOS))
 def test_walk_only_kernel_matches_twin(cuda, scenario, width, limit, dtype):
+    """K6 on the shape its rule takes (its grid where the limit reaches
+    the candidates, its prefix walk elsewhere), with the feasible count
+    and without it (the preemption loop's call): every output bit-equal
+    to the twin on the card and on the CPU; the stack's wrapper gives
+    the same numbers."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    case = walk_case(4100 + width + limit % 97, width, scenario, limit,
-                     np_dtype)
+    n_cand = max(1, (4 * width) // 5)
+    lim = n_cand if limit == "n_cand" else limit
+    case = walk_case(4100 + width + lim % 97, width, scenario, lim, np_dtype)
+    for count in (True, False):
+        _same_walk_only(cuda, case, dtype, lim, count)
+    card = _walk_tensors(case, cuda)
+    twin = tscore.limited_walk_argmax(*card, lim, n_cand)
+    assert tscore.walk_only(*card, lim, n_cand)[::2] == (int(twin[0]),
+                                                         int(twin[2]))
 
-    def tensors(dev):
-        return (torch.from_numpy(case["feasible"]).to(dev),
-                torch.from_numpy(case["scores"]).to(dev),
-                torch.from_numpy(case["perm"]).to(dev))
 
-    card = tensors(cuda)
-    before = tscore.walk_only_cuda.launches
-    buf = tscore.walk_only_cuda(*card, limit, case["n_candidates"])
-    torch.cuda.synchronize()
-    assert tscore.walk_only_cuda.launches == before + 1
-    row, best, count, pulls = tscore.unpack_walk(buf.cpu(), dtype)
-    for twin in (
-        tscore.limited_walk_argmax(*card, limit, case["n_candidates"]),
-        tscore.limited_walk_argmax(*tensors("cpu"), limit,
-                                   case["n_candidates"]),
-    ):
-        assert (row, count, pulls) == (int(twin[0]), int(twin[2]),
-                                       int(twin[3]))
-        got = torch.tensor([best], dtype=dtype)
-        assert (_bits(got) == _bits(twin[1].cpu().reshape(1))).all()
-    # the stack's wrapper: one launch, the same numbers
-    assert tscore.walk_only(*card, limit, case["n_candidates"])[::2] == (
-        row, count)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scenario", ["div2", "spliced", "tail"])
+def test_walk_only_kernel_at_every_offset(cuda, scenario, dtype):
+    """A 37-row arena at every rotation of its candidates (the stack's
+    walk order at each pull offset), limits 3 and unlimited: both
+    shapes, the diverted positions at each place of the wrap."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    for limit in (3, INT32_MAX):
+        case = walk_case(4400 + len(scenario), 37, scenario, limit, np_dtype)
+        perm, n_cand = case["perm"], case["n_candidates"]
+        for off in range(n_cand):
+            rotated = np.concatenate([perm[off:n_cand], perm[:off],
+                                      perm[n_cand:]]).astype(np.int32)
+            _same_walk_only(cuda, dict(case, perm=rotated), dtype, limit,
+                            count=False)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -801,7 +840,10 @@ K10_CASES = [(s, "scalar", E, P) for s in ("plain", "spread", "tight",
              for E, P in ((2, 16), (8, 64))] + [
     ("few_cand", "per_eval", 2, 16), ("few_cand", "per_eval", 8, 64),
     ("everything", "per_eval", 8, 64), ("plain", "scalar", 64, 10),
-    ("everything", "per_eval", 64, 10)]
+    ("everything", "per_eval", 64, 10),
+    # long walks with the score cache (no spread) and without it
+    ("unlimited_evict", "per_eval", 8, 16),
+    ("unlimited_spread_evict", "per_eval", 8, 16)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -829,6 +871,53 @@ def test_batch_plan_kernel_matches_twin(cuda, scenario, E, P, n_cand_mode,
     twin_cpu = tbatch.batch_plan_picks(*args_cpu, spread=spread_cpu)
     assert torch.equal(kernel, twin_card)
     assert torch.equal(kernel, twin_cpu)
+    # the pulls (the positions each prefix walk consumed)
+    q = tbatch.prepare_batched(*args, spread=spread)
+    pulls = tbatch.launch_batch_plan(q)[1].cpu()
+    assert torch.equal(pulls, tbatch.batch_plan_twin(q)[1].cpu())
+    assert torch.equal(pulls, tbatch.batch_plan_twin(
+        tbatch.prepare_batched(*args_cpu, spread=spread_cpu))[1])
+
+
+def _k10_q(cols, kw, dev, dtype):
+    """K10's `prepare_batched` inputs for a `batched_case` (its spread
+    kept; its step deltas, pre-deltas and `wanted` are the chain's)."""
+    args, kwargs = batched_case_to_torch(cols, kw, dev, dtype)
+    return tbatch.prepare_batched(*args, spread=kwargs.get("spread"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scenario", ["plain", "everything"])
+def test_batch_plan_beyond_the_blocks_at_once(cuda, scenario, dtype):
+    """E larger than the K10 blocks the card holds at once: the bench's
+    64 evals tiled 20 times (1,280 blocks run in waves) give the tiled
+    rows and pulls of the 64, which equal the twin's; no block reads
+    another's carry, score cache or spread state."""
+    E, P, tiles = 64, 10, 20
+    cols, kw = batched_case(5880 + len(scenario), C, N_CAND, scenario, E, P)
+    q = _k10_q(cols, kw, cuda, dtype)
+    rows, pulls = (t.cpu() for t in tbatch.launch_batch_plan(q))
+    twin = tbatch.batch_plan_twin(q)
+    assert torch.equal(rows, twin[0].cpu())
+    assert torch.equal(pulls, twin[1].cpu())
+    big = tiled_batched(q, tiles)
+    assert big["E"] > tbatch.batch_plan_blocks_at_once(C, P, dtype, cuda)
+    big_rows, big_pulls = (t.cpu() for t in tbatch.launch_batch_plan(big))
+    assert torch.equal(big_rows, rows.repeat(tiles, 1))
+    assert torch.equal(big_pulls, pulls.repeat(tiles, 1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_batch_plan_carry_beyond_shared_memory(cuda, dtype):
+    """An arena whose row bitmaps pass the shared-memory bound (200,000
+    rows): K10 keeps each block's carry in its slice of the wrapper's
+    global scratch, the same kernel, equal to the twin."""
+    cols, kw = batched_case(5890, 200_000, 150_000, "unlimited_evict", 2, 8)
+    q = _k10_q(cols, kw, cuda, dtype)
+    rows, pulls = tbatch.launch_batch_plan(q)
+    twin = tbatch.batch_plan_twin(_k10_q(cols, kw, "cpu", dtype))
+    assert torch.equal(rows.cpu(), twin[0])
+    assert torch.equal(pulls.cpu(), twin[1])
 
 
 def _score_all_cases():

@@ -1,4 +1,5 @@
-"""K2's and K7's prefix walk (`csrc/picks.cuh`), on the CPU.
+"""The prefix walk (`csrc/picks.cuh`) and the whole-region grid
+(`csrc/walk_grid.cuh`) of kernels K1, K2, K6, K7, K9 and K10, on the CPU.
 
 * `prefix_walk` is a plain model of how the pick body walks one pick:
   in steps of `first` positions (a pick's first step), each next one
@@ -29,6 +30,21 @@
   (K7: rows) over `BATCH_SHARED_SCENARIOS`, under x64, and in f32
   against the port's twins.  Cases include a node that wins twice and
   a group that dies part way.
+* `select_prefix` and `select_grid` are K1's two launch shapes over the
+  JAX `score_all`'s walk columns; `grid_walk` is the grid of
+  `walk_grid.cuh` over a source, which K1's (the walk scratch) and K6's
+  (`walk_only_grid`: the given vectors through perm) models share.
+  `walk_only_prefix` is K6's prefix walk, with and without the count.
+  Both of K6's shapes are held against the JAX `_walk_only`
+  (`nomad_tpu/sched/tpu_stack.py:95`) over `walk_case` vectors, a
+  feasible tail past n_candidates and every rotation of a small arena.
+* `prefix_eval` is K9's eval body (`chained_prefix.cuh`), a generator
+  that yields after each pick: `chained_prefix` runs the evals in order
+  over the chain's carry (K9), `batch_plan_prefix` runs them as K10's
+  concurrent blocks, interleaved pick by pick, each over its own base
+  usage and with its own slice of the score cache and spread state.
+  K10's is held against the JAX `batch_plan_picks`
+  (`nomad_tpu/ops/batch.py:1391`; rows) and the port's twin (pulls).
 """
 import numpy as np
 import pytest
@@ -41,6 +57,7 @@ import jax.numpy as jnp
 
 from nomad_tpu.ops import batch as jbatch
 from nomad_tpu.ops import score as jscore
+from nomad_tpu.sched.tpu_stack import _walk_only
 from nomad_tpu_torch.ops import batch as tbatch
 from nomad_tpu_torch.ops.cases import (
     BATCH_SCENARIOS,
@@ -50,6 +67,7 @@ from nomad_tpu_torch.ops.cases import (
     POLICY_SCORE_SCENARIOS,
     SCORE_SCENARIOS,
     SELECT_EDGES,
+    WALK_SCENARIOS,
     batch_case,
     batch_shared_case,
     batched_cache_case,
@@ -57,6 +75,7 @@ from nomad_tpu_torch.ops.cases import (
     policy_score_case,
     score_case,
     select_edge_case,
+    walk_case,
 )
 from nomad_tpu_torch.ops.score import INV_18, MAX_SKIP, NO_NODE, _pow10, fma
 from nomad_tpu_torch.state.convert import (
@@ -558,14 +577,17 @@ def _better_sw(s, w, bs, bw):
     return s > bs or (s == bs and w < bw)
 
 
-def select_grid(f_w, s_w, perm, limit, n_cand, nb):
-    """K1's grid: nb blocks, block b the walk positions [b * span, (b + 1)
-    * span); each block's summary (feasible and bad counts, its first
-    MAX_SKIP bad positions, its best (score, position) over the rest);
-    the combine in block order, with the rescan of the block that holds
-    the limit-th non-diverted position.  Returns (row, best,
-    feasible_count, pulls)."""
-    C = len(f_w)
+def grid_walk(flags_at, score_at, C, limit, n_dry, nb):
+    """The grid of `csrc/walk_grid.cuh` (K1's and K6's whole-region
+    shape) over walk positions [0, C): nb blocks, block b the positions
+    [b * span, (b + 1) * span); each block's summary (feasible and bad
+    counts, its first MAX_SKIP bad positions, its best (score, position)
+    over the rest); the combine in block order, with the rescan of the
+    block that holds the limit-th non-diverted position.  The source:
+    `flags_at(w)` gives position w's (feasible, bad), `score_at(w)` the
+    score of a feasible one; the rescan reads a score only where the
+    position competes.  Returns (win_w or -1, best, feasible_count,
+    pulls)."""
     span = -(-C // nb)
     none = INT32_MAX
     sums = []
@@ -576,11 +598,12 @@ def select_grid(f_w, s_w, perm, limit, n_cand, nb):
         bads = []
         bs, bw = -np.inf, none
         for w in range(lo, hi):
-            if not f_w[w]:
+            f, bad = flags_at(w)
+            if not f:
                 continue
             nf += 1
-            s = s_w[w]
-            if s <= 0.0:
+            s = score_at(w)
+            if bad:
                 nbad += 1
                 if len(bads) < MAX_SKIP:
                     bads.append((s, w))
@@ -616,13 +639,15 @@ def select_grid(f_w, s_w, perm, limit, n_cand, nb):
     if stop:
         b, run_f, run_b = held
         for w in range(b * span, min(b * span + span, C)):
-            if not f_w[w]:
+            f, bad = flags_at(w)
+            if not f:
                 continue
-            bad = bool(s_w[w] <= 0.0)
             if not (bad and run_b < MAX_SKIP):
                 ord_ = run_f - min(run_b, MAX_SKIP)
-                if ord_ < limit and _better_sw(s_w[w], w, bs, bw):
-                    bs, bw = s_w[w], w
+                if ord_ < limit:
+                    s = score_at(w)
+                    if _better_sw(s, w, bs, bw):
+                        bs, bw = s, w
                 if ord_ + 1 == limit:
                     lth = w
             run_f += 1
@@ -636,8 +661,17 @@ def select_grid(f_w, s_w, perm, limit, n_cand, nb):
             ord_ = nd_count + (1 - r if reverse else r)
             if ord_ < limit and _better(div[r][0], ord_, bs, best_ord):
                 bs, best_ord, win = div[r][0], ord_, div[r][1]
-    row = int(perm[win]) if win >= 0 else NO_NODE
-    return row, bs, f_tot, (lth + 1 if stop else n_cand)
+    return win, bs, f_tot, (lth + 1 if stop else n_dry)
+
+
+def select_grid(f_w, s_w, perm, limit, n_cand, nb):
+    """K1's grid: `grid_walk` over the walk scratch (the flags and
+    scores its first pass wrote in walk order).  Returns (row, best,
+    feasible_count, pulls)."""
+    win, best, count, pulls = grid_walk(
+        lambda w: (bool(f_w[w]), bool(f_w[w] and s_w[w] <= 0.0)),
+        lambda w: s_w[w], len(f_w), limit, n_cand, nb)
+    return (int(perm[win]) if win >= 0 else NO_NODE), best, count, pulls
 
 
 SELECT_SHAPES = [(256, 64, 2), (32, 8, 2), (8, 1, 4)]
@@ -713,6 +747,131 @@ def test_select_edges_match_jax_score_and_select(edge):
         2950 + sorted(SELECT_EDGES).index(edge), 1024, 600, edge))
 
 
+# -- K6's given-score walk in K1's two shapes (csrc/walk_only.cu) ----------
+
+
+def walk_only_prefix(feasible, scores, perm, limit, n_cand, threads, first,
+                     wide, count):
+    """K6's prefix walk: one pick over all C walk positions, no rotation,
+    each step reading only its positions' perm entries, then those rows'
+    feasibility and (where feasible) score as given; pulls n_candidates
+    where the walk is dry.  With `count` the positions it did not walk
+    are then swept for feasibility alone; without it the count is -1.
+    Returns (row, best, feasible_count, pulls, positions walked)."""
+    C = len(perm)
+    walked_feasible = [0]
+
+    def step(ws, _record):
+        rows = perm[ws]
+        f = feasible[rows]
+        walked_feasible[0] += int(f.sum())
+        return np.where(f, scores[rows], 0.0).tolist(), f.tolist()
+
+    win_w, pulls, walked, best = prefix_walk(step, limit, C, threads, first,
+                                             wide, n_dry=n_cand)
+    n = (walked_feasible[0] + int(feasible[perm[walked:]].sum()) if count
+         else -1)
+    row = int(perm[win_w]) if win_w >= 0 else NO_NODE
+    return row, best, n, pulls, walked
+
+
+def walk_only_grid(feasible, scores, perm, limit, n_cand, nb):
+    """K6's grid: `grid_walk` whose source reads the given vectors
+    through perm in every pass (no scratch).  Returns (row, best,
+    feasible_count, pulls)."""
+    def flags_at(w):
+        r = perm[w]
+        return bool(feasible[r]), bool(feasible[r] and scores[r] <= 0.0)
+
+    win, best, count, pulls = grid_walk(
+        flags_at, lambda w: scores[perm[w]], len(perm), limit, n_cand, nb)
+    return (int(perm[win]) if win >= 0 else NO_NODE), best, count, pulls
+
+
+_jax_walk_only = jax.jit(_walk_only)
+WALK_GRIDS = [1, 3, 128]
+
+
+def _same_walk_only(got, want, count=True):
+    row, best, n, pulls = got[:4]
+    assert row == int(want[0])
+    assert np.asarray(best, want[1].dtype).tobytes() == want[1].tobytes()
+    assert n == (int(want[2]) if count else -1)
+    assert pulls == int(want[3])
+
+
+def _check_walk_only(case, grids=WALK_GRIDS):
+    """Both of K6's shapes against the JAX `_walk_only`: the prefix walk
+    at every schedule of `SCHEDULES`, with the count and without it, and
+    the grid over `grids` blocks."""
+    feasible, scores, perm = case["feasible"], case["scores"], case["perm"]
+    limit, n_cand = int(case["limit"]), int(case["n_candidates"])
+    want = [np.asarray(x) for x in _jax_walk_only(
+        feasible, scores, perm, np.int32(limit), np.int32(n_cand))]
+    for shape in SCHEDULES:
+        for count in (True, False):
+            got = walk_only_prefix(feasible, scores, perm, limit, n_cand,
+                                   *shape, count)
+            _same_walk_only(got, want, count)
+            if got[3] < n_cand:  # a walk that stopped: at most its steps
+                assert got[4] >= got[3]
+    for nb in grids:
+        _same_walk_only(walk_only_grid(feasible, scores, perm, limit, n_cand,
+                                       nb), want)
+
+
+WALK_C = 256
+WALK_LIMITS = [1, 2, 14, "n_cand", INT32_MAX]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("limit", WALK_LIMITS)
+@pytest.mark.parametrize("scenario", sorted(WALK_SCENARIOS))
+def test_walk_only_shapes_match_jax_walk_only(scenario, limit, dtype):
+    """K6's prefix walk (every schedule, count on and off) and its grid
+    (1, 3 and 128 blocks) against the JAX `_walk_only` over `walk_case`
+    vectors: spliced scores, limit 1, a limit equal to the candidates
+    and beyond them, 0-4 bad positions (two diverted behind good nodes),
+    none feasible, a feasible tail past n_candidates."""
+    seed = 3100 + sorted(WALK_SCENARIOS).index(scenario)
+    n_cand = (4 * WALK_C) // 5
+    lim = n_cand if limit == "n_cand" else limit
+    _check_walk_only(walk_case(seed, WALK_C, scenario, lim, dtype))
+
+
+@pytest.mark.parametrize("limit", [1, 2, 3, 14, INT32_MAX])
+@pytest.mark.parametrize("scenario", ["div2", "div4", "spliced", "tail"])
+def test_walk_only_shapes_at_every_offset(scenario, limit):
+    """A 37-position arena at every rotation of its candidates (the
+    stack's walk order at each pull offset, the vacant rows after): two
+    bad positions behind a good node and the reversed replay, the
+    diverted positions at each place of the wrap, the tail."""
+    seed = 3200 + ["div2", "div4", "spliced", "tail"].index(scenario)
+    case = walk_case(seed, 37, scenario, limit)
+    perm, n_cand = case["perm"], int(case["n_candidates"])
+    for off in range(n_cand):
+        rotated = np.concatenate([perm[off:n_cand], perm[:off],
+                                  perm[n_cand:]]).astype(np.int32)
+        _check_walk_only(dict(case, perm=rotated), grids=[1, 3, 37])
+
+
+def test_walk_only_two_diverted_behind_a_good_node():
+    """Two bad positions behind one good one, limit beyond the region:
+    the walk consumes it and the diverted pair is replayed reversed; a
+    third bad position after them competes as non-diverted."""
+    C = 40
+    perm = np.random.default_rng(3300).permutation(C).astype(np.int32)
+    feasible = np.zeros(C, bool)
+    scores = np.full(C, -np.inf)
+    for w, s in ((3, 0.5), (7, -0.25), (9, -0.0), (20, -0.5)):
+        feasible[perm[w]] = True
+        scores[perm[w]] = s
+    for limit in (1, 2, 3, 4, 5, INT32_MAX):
+        _check_walk_only(dict(feasible=feasible, scores=scores, perm=perm,
+                              limit=limit, n_candidates=32),
+                         grids=[1, 2, 3, 40])
+
+
 # -- K9's chain of prefix walks (csrc/chained_prefix.cuh) -------------------
 
 
@@ -734,26 +893,155 @@ def _spread_totals(sp, e, prop, clr, dtype):
         None if even is None else torch.from_numpy(even[e]))
 
 
-def chained_prefix(cols, kw, threads, first, wide, dtype, spread_fit=False):
-    """K9's chain as the kernel runs it (one group): the node-space carry
-    (the carry-in overlaid by the rows rebuilt so far), and per eval its
-    pre-deltas, its entries (a row's usage and collisions this eval,
-    made at its first eviction or win and updated in pick order), its
-    score cache by walk position (off with spread; written only on steps
-    of `threads` positions or more, with each recorded row's position in
-    `pos_of`, which outlives the eval and is trusted only where the
-    eval's walk order maps it back; cleared at a won position and,
-    through `pos_of`, at an evicted row; cleared at the pick's penalty
-    rows when it opens, which its steps then score afresh and do not
-    record), each pick a prefix walk through the eval's walk order, then
-    the carry rebuilt: asks in pick order, then the applied evictions.
-    Returns (rows, pulls, cache stats)."""
+def prefix_eval(e, cols, kw, threads, first, wide, dtype, spread_fit,
+                usage, slot, pos_of, stats, rows_out, pulls_out):
+    """Eval e as `run_chain_eval` runs it (one group), a generator that
+    yields once its start is done and after each pick, so that a caller
+    can interleave evals as concurrent blocks run them.  `usage(row)`
+    gives a row's node-space usage (K9: the chain's carry; K10: the
+    eval's own base); `slot` holds the block's state, which the eval's
+    start resets: its score cache by walk position (off with spread;
+    written only on steps of `threads` positions or more; cleared at a
+    won position and, through `pos_of`, at an evicted row; cleared at
+    the pick's penalty rows when it opens, which its steps then score
+    afresh and do not record) and its spread state.  `pos_of` (K9 only:
+    None in the per-eval mode, which has no evictions or penalty rows)
+    maps a recorded row to its walk position, outlives the eval and is
+    trusted only where the eval's walk order maps it back.  Entries (a
+    row's usage and collisions this eval) are made at a row's first
+    eviction or win and updated in pick order.  Writes rows_out[e] and
+    pulls_out[e]."""
     b = kw["batch"]
-    E, C_ = b["perm"].shape
     P = kw["n_picks"]
-    sp, dl, pre = kw.get("spread"), kw.get("deltas"), kw.get("pre")
+    sp, dl = kw.get("spread"), kw.get("deltas")
     totals = tuple(torch.from_numpy(cols[k]).to(dtype)
                    for k in ("cpu_total", "mem_total", "disk_total"))
+
+    def scal(x):
+        return torch.tensor(x, dtype=dtype)
+
+    ask = [scal(b[f"ask_{k}"][e]) for k in ("cpu", "mem", "disk")]
+    desired = scal(float(b["desired_count"][e]))
+    perm = b["perm"][e]
+    n_cand, limit = int(kw["n_candidates"][e]), int(b["limit"][e])
+    dh = bool(b["distinct_hosts"][e])
+    feas = torch.from_numpy(b["feasible"][e])
+    coll0 = b["base_collisions"][e]
+    static_pen = b["penalty"][e]
+    aff = torch.from_numpy(b["affinity_score"][e]).to(dtype)
+    entries = {}
+    cache_on = sp is None
+    # the block's state starts over with the eval
+    slot["known"] = {}
+    if sp is not None:
+        V1 = sp["desired"].shape[2]
+        codes = sp["codes"][e]
+        slot["prop"] = torch.from_numpy(sp["proposed0"][e]).to(dtype)
+        slot["clr"] = torch.from_numpy(sp["cleared0"][e]).to(dtype)
+    yield
+
+    def entry(row):
+        if row not in entries:
+            entries[row] = [*usage(row), int(coll0[row])]
+        return entries[row]
+
+    def forget(row):
+        p = pos_of.get(row, -1)
+        return (0 <= p < n_cand and int(perm[p]) == row
+                and slot["known"].pop(p, None) is not None)
+
+    def bump(key, row):
+        slot[key] = slot[key] + torch.nn.functional.one_hot(
+            torch.from_numpy(codes[:, row]).long(), V1).to(dtype)
+
+    offset, dead = 0, False
+    for k in range(P):
+        if k >= int(kw["wanted"][e]) or dead:
+            continue
+        pen_rows = set()
+        if dl is not None:
+            erow = int(dl["evict_rows"][e, k])
+            if erow >= 0:
+                ent = entry(erow)
+                for i, name in enumerate(("cpu", "mem", "disk")):
+                    ent[i] = ent[i] + scal(dl[f"evict_{name}"][e, k])
+                ent[3] = ent[3] + int(dl["evict_coll"][e, k])
+                stats["cleared"] += forget(erow)
+                if sp is not None:
+                    bump("clr", erow)
+            pen_rows = {int(r) for r in dl["penalty_rows"][e, k] if r >= 0}
+            stats["bypassed"] += sum(forget(r) for r in pen_rows)
+        spread_tot = (_spread_totals(sp, e, slot["prop"], slot["clr"], dtype)
+                      if sp is not None else None)
+
+        def score_fresh(rws, pen_rows=pen_rows, spread_tot=spread_tot):
+            r = torch.tensor(rws, dtype=torch.long)
+            used = [torch.stack([entries[x][i] if x in entries
+                                 else usage(x)[i] for x in rws])
+                    for i in range(3)]
+            coll = torch.tensor([entries[x][3] if x in entries
+                                 else int(coll0[x]) for x in rws],
+                                dtype=torch.int32)
+            pen = torch.tensor([bool(static_pen[x]) or x in pen_rows
+                                for x in rws])
+            after = [u + a for u, a in zip(used, ask)]
+            f = (feas[r] & (after[0] <= totals[0][r])
+                 & (after[1] <= totals[1][r]) & (after[2] <= totals[2][r]))
+            if dh:
+                f = f & ~(coll > 0)
+            s = _score_positions(
+                r, used, coll, pen, aff[r], totals, ask, desired,
+                spread_fit, dtype,
+                None if spread_tot is None else spread_tot[r])
+            return s.tolist(), f.tolist()
+
+        def score_at(ws, record, offset=offset, pen_rows=pen_rows,
+                     score_fresh=score_fresh):
+            known = slot["known"]
+            ps = [(w + offset) % n_cand for w in ws]
+            fresh = [p for p in ps if p not in known]
+            stats["hits"] += len(ps) - len(fresh)
+            rws = [int(perm[p]) for p in fresh]
+            got = (dict(zip(fresh, zip(*score_fresh(rws))))
+                   if fresh else {})
+            if record and cache_on:
+                for p, x in zip(fresh, rws):
+                    if x not in pen_rows:
+                        known[p] = got[p]
+                        if pos_of is not None:
+                            pos_of[x] = p
+            out = [got[p] if p in got else known[p] for p in ps]
+            return [o[0] for o in out], [o[1] for o in out]
+
+        win_w, n_pulls, _, _ = prefix_walk(score_at, limit, n_cand,
+                                           threads, first, wide)
+        pulls_out[e, k] = n_pulls
+        if win_w < 0:
+            dead = True
+        else:
+            row = int(perm[(win_w + offset) % n_cand])
+            rows_out[e, k] = row
+            ent = entry(row)
+            for i in range(3):
+                ent[i] = ent[i] + ask[i]
+            ent[3] = ent[3] + 1
+            slot["known"].pop((win_w + offset) % n_cand, None)
+            if sp is not None:
+                bump("prop", row)
+        offset = (offset + n_pulls) % n_cand
+        yield
+
+
+def chained_prefix(cols, kw, threads, first, wide, dtype, spread_fit=False):
+    """K9's chain as the kernel runs it (one group, one block): the
+    node-space carry (the carry-in overlaid by the rows rebuilt so far),
+    and per eval its pre-deltas, then `prefix_eval` over the carry,
+    then the carry rebuilt: asks in pick order, then the applied
+    evictions.  Returns (rows, pulls, cache stats)."""
+    b = kw["batch"]
+    E, _C = b["perm"].shape
+    P = kw["n_picks"]
+    dl, pre = kw.get("deltas"), kw.get("pre")
     carry_in = [torch.from_numpy(b[f"base_{k}_used"][0]).to(dtype)
                 for k in ("cpu", "mem", "disk")]
     dirty = {}  # row -> its node-space usage, where rebuilt
@@ -770,6 +1058,7 @@ def chained_prefix(cols, kw, threads, first, wide, dtype, spread_fit=False):
 
     stats = {"hits": 0, "cleared": 0, "bypassed": 0}
     pos_of = {}  # row -> the walk position a step recorded it at
+    slot = {}  # the block's state
     rows_out = np.full((E, P), NO_NODE, np.int32)
     pulls_out = np.zeros((E, P), np.int32)
     for e in range(E):
@@ -777,109 +1066,11 @@ def chained_prefix(cols, kw, threads, first, wide, dtype, spread_fit=False):
             for r in range(pre["rows"].shape[1]):
                 add_carry(int(pre["rows"][e, r]),
                           [scal(pre[k][e, r]) for k in ("cpu", "mem", "disk")])
+        for _ in prefix_eval(e, cols, kw, threads, first, wide, dtype,
+                             spread_fit, carry, slot, pos_of, stats,
+                             rows_out, pulls_out):
+            pass
         ask = [scal(b[f"ask_{k}"][e]) for k in ("cpu", "mem", "disk")]
-        desired = scal(float(b["desired_count"][e]))
-        perm = b["perm"][e]
-        n_cand, limit = int(kw["n_candidates"][e]), int(b["limit"][e])
-        dh = bool(b["distinct_hosts"][e])
-        feas = torch.from_numpy(b["feasible"][e])
-        coll0 = b["base_collisions"][e]
-        static_pen = b["penalty"][e]
-        aff = torch.from_numpy(b["affinity_score"][e]).to(dtype)
-        entries = {}
-        known = {}
-        cache_on = sp is None
-        if sp is not None:
-            V1 = sp["desired"].shape[2]
-            codes = sp["codes"][e]
-            prop = torch.from_numpy(sp["proposed0"][e]).to(dtype)
-            clr = torch.from_numpy(sp["cleared0"][e]).to(dtype)
-
-        def entry(row):
-            if row not in entries:
-                entries[row] = [*carry(row), int(coll0[row])]
-            return entries[row]
-
-        def forget(row, perm=perm, n_cand=n_cand, known=known):
-            p = pos_of.get(row, -1)
-            return (0 <= p < n_cand and int(perm[p]) == row
-                    and known.pop(p, None) is not None)
-
-        offset, dead = 0, False
-        for k in range(P):
-            if k >= int(kw["wanted"][e]) or dead:
-                continue
-            pen_rows = set()
-            if dl is not None:
-                erow = int(dl["evict_rows"][e, k])
-                if erow >= 0:
-                    ent = entry(erow)
-                    for i, name in enumerate(("cpu", "mem", "disk")):
-                        ent[i] = ent[i] + scal(dl[f"evict_{name}"][e, k])
-                    ent[3] = ent[3] + int(dl["evict_coll"][e, k])
-                    stats["cleared"] += forget(erow)
-                    if sp is not None:
-                        clr = clr + torch.nn.functional.one_hot(
-                            torch.from_numpy(codes[:, erow]).long(),
-                            V1).to(dtype)
-                pen_rows = {int(r) for r in dl["penalty_rows"][e, k] if r >= 0}
-                stats["bypassed"] += sum(forget(r) for r in pen_rows)
-            spread_tot = (_spread_totals(sp, e, prop, clr, dtype)
-                          if sp is not None else None)
-
-            def score_fresh(rws):
-                r = torch.tensor(rws, dtype=torch.long)
-                used = [torch.stack([entries[x][i] if x in entries
-                                     else carry(x)[i] for x in rws])
-                        for i in range(3)]
-                coll = torch.tensor([entries[x][3] if x in entries
-                                     else int(coll0[x]) for x in rws],
-                                    dtype=torch.int32)
-                pen = torch.tensor([bool(static_pen[x]) or x in pen_rows
-                                    for x in rws])
-                after = [u + a for u, a in zip(used, ask)]
-                f = (feas[r] & (after[0] <= totals[0][r])
-                     & (after[1] <= totals[1][r]) & (after[2] <= totals[2][r]))
-                if dh:
-                    f = f & ~(coll > 0)
-                s = _score_positions(
-                    r, used, coll, pen, aff[r], totals, ask, desired,
-                    spread_fit, dtype,
-                    None if spread_tot is None else spread_tot[r])
-                return s.tolist(), f.tolist()
-
-            def score_at(ws, record, offset=offset, pen_rows=pen_rows):
-                ps = [(w + offset) % n_cand for w in ws]
-                fresh = [p for p in ps if p not in known]
-                stats["hits"] += len(ps) - len(fresh)
-                rws = [int(perm[p]) for p in fresh]
-                got = (dict(zip(fresh, zip(*score_fresh(rws))))
-                       if fresh else {})
-                if record and cache_on:
-                    for p, x in zip(fresh, rws):
-                        if x not in pen_rows:
-                            known[p] = got[p]
-                            pos_of[x] = p
-                out = [got[p] if p in got else known[p] for p in ps]
-                return [o[0] for o in out], [o[1] for o in out]
-
-            win_w, n_pulls, _, _ = prefix_walk(score_at, limit, n_cand,
-                                               threads, first, wide)
-            pulls_out[e, k] = n_pulls
-            if win_w < 0:
-                dead = True
-            else:
-                row = int(perm[(win_w + offset) % n_cand])
-                rows_out[e, k] = row
-                ent = entry(row)
-                for i in range(3):
-                    ent[i] = ent[i] + ask[i]
-                ent[3] = ent[3] + 1
-                known.pop((win_w + offset) % n_cand, None)
-                if sp is not None:
-                    prop = prop + torch.nn.functional.one_hot(
-                        torch.from_numpy(codes[:, row]).long(), V1).to(dtype)
-            offset = (offset + n_pulls) % n_cand
         for k in range(P):
             if rows_out[e, k] >= 0:
                 add_carry(int(rows_out[e, k]), ask)
@@ -889,6 +1080,37 @@ def chained_prefix(cols, kw, threads, first, wide, dtype, spread_fit=False):
                 if pulls_out[e, k] > 0 and erow >= 0:
                     add_carry(erow, [scal(dl[f"evict_{n}"][e, k])
                                      for n in ("cpu", "mem", "disk")])
+    return rows_out, pulls_out, stats
+
+
+def batch_plan_prefix(cols, kw, threads, first, wide, dtype,
+                      spread_fit=False, slot_of=lambda e: e):
+    """K10 as the kernel runs it: one block an eval, each `prefix_eval`
+    in the per-eval mode (its own base usage, row e of base_*_used,
+    nothing written to node space, no pre-deltas, evictions or penalty
+    rows, every pick wanted), the blocks' picks interleaved pick by pick
+    as concurrent blocks run them, eval e's state in slot `slot_of(e)`.
+    Returns (rows, pulls, cache stats)."""
+    b = kw["batch"]
+    E, _C = b["perm"].shape
+    P = kw["n_picks"]
+    kw = dict(kw, deltas=None, pre=None, wanted=np.full(E, P, np.int32))
+    base = [torch.from_numpy(b[f"base_{k}_used"]).to(dtype)
+            for k in ("cpu", "mem", "disk")]
+    stats = {"hits": 0, "cleared": 0, "bypassed": 0}
+    slots = {}
+    rows_out = np.full((E, P), NO_NODE, np.int32)
+    pulls_out = np.zeros((E, P), np.int32)
+    blocks = [prefix_eval(e, cols, kw, threads, first, wide, dtype,
+                          spread_fit,
+                          lambda row, e=e: [u[e, row] for u in base],
+                          slots.setdefault(slot_of(e), {}), None, stats,
+                          rows_out, pulls_out)
+              for e in range(E)]
+    while blocks:
+        for blk in list(blocks):
+            if next(blk, StopIteration) is StopIteration:
+                blocks.remove(blk)
     return rows_out, pulls_out, stats
 
 
@@ -999,3 +1221,125 @@ def test_chained_prefix_matches_jax_chained_plan_picks_shared(
     rows, _pulls, _ = chained_prefix(cols, kw, threads, first, wide,
                                      torch.float64)
     np.testing.assert_array_equal(rows, want)
+
+
+# -- K10: K9's eval body one block an eval (csrc/batch_plan.cu) -------------
+
+
+def _k10_n_cand(kw, mode):
+    """n_candidates as `batch_plan_picks` takes it: one per eval, or one
+    scalar (the least eval's region) for every eval."""
+    nc = np.asarray(kw["n_candidates"], np.int32)
+    return nc if mode == "per_eval" else np.int32(nc.min())
+
+
+def _jax_batch_plan(cols, kw, n_cand, spread_fit=False):
+    extra = ({} if kw.get("spread") is None
+             else {"spread": jbatch.SpreadInputs(**kw["spread"])})
+    return np.asarray(jbatch.batch_plan_picks(
+        cols["cpu_total"], cols["mem_total"], cols["disk_total"],
+        jbatch.BatchInputs(**kw["batch"]), n_cand, kw["n_picks"],
+        spread_fit=spread_fit, **extra))
+
+
+def _k10_twin(cols, kw, n_cand, dtype, spread_fit=False):
+    """The port's plain twin of K10 on the CPU: `batch_plan_picks_twin`'s
+    rows and `batch_plan_twin`'s pulls."""
+    args, kwargs = batched_case_to_torch(cols, kw, "cpu", dtype)
+    spread = kwargs.get("spread")
+    rows = tbatch.batch_plan_picks_twin(*args[:4], n_cand, args[5],
+                                        spread_fit, spread=spread)
+    pulls = tbatch.batch_plan_twin(tbatch.prepare_batched(
+        *args[:4], n_cand, args[5], spread_fit, spread=spread))[1]
+    return rows.numpy(), pulls.numpy()
+
+
+def _k10_model(cols, kw, n_cand, threads, first, wide, dtype,
+               spread_fit=False):
+    E = kw["batch"]["perm"].shape[0]
+    kw = dict(kw, n_candidates=np.broadcast_to(n_cand, (E,)))
+    return batch_plan_prefix(cols, kw, threads, first, wide, dtype,
+                             spread_fit)
+
+
+# n_candidates one per eval in every scenario, one scalar where every
+# eval has the same candidate region: a scalar below an eval's region
+# would put feasible entries in its walk's tail, which no caller does
+K10_MODES = [(s, "per_eval") for s in sorted(BATCHED_SCENARIOS)] + [
+    (s, "scalar") for s in sorted(BATCHED_SCENARIOS)
+    if "few_cand" not in BATCHED_SCENARIOS[s]]
+
+
+@pytest.mark.parametrize("threads,first,wide", CHAIN_SHAPES)
+@pytest.mark.parametrize("scenario,n_cand_mode", K10_MODES)
+def test_batch_plan_prefix_matches_jax_batch_plan_picks(scenario,
+                                                        n_cand_mode, threads,
+                                                        first, wide):
+    """K10's blocks (the per-eval mode of K9's eval body, interleaved
+    pick by pick) against the JAX `batch_plan_picks` (rows) and the
+    port's twin (pulls), under x64: each eval over its own base usage,
+    feasibility, collisions, penalty, affinity, distinct_hosts and
+    spread, every pick wanted (the cases' step deltas, pre-deltas and
+    `wanted` are the chain's, not K10's), n_candidates one per eval or
+    one scalar, long walks with the score cache and without it."""
+    E, P = 4, 12
+    cols, kw = batched_case(
+        2850 + 10 * sorted(BATCHED_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, E, P)
+    n_cand = _k10_n_cand(kw, n_cand_mode)
+    rows, pulls, _ = _k10_model(cols, kw, n_cand, threads, first, wide,
+                                torch.float64)
+    np.testing.assert_array_equal(rows, _jax_batch_plan(cols, kw, n_cand))
+    np.testing.assert_array_equal(
+        pulls, _k10_twin(cols, kw, n_cand, torch.float64)[1])
+
+
+@pytest.mark.parametrize("scenario", ["everything", "spread",
+                                      "unlimited_evict",
+                                      "unlimited_spread_evict"])
+def test_batch_plan_prefix_matches_the_f32_twin(scenario):
+    E, P = 4, 12
+    cols, kw = batched_case(
+        2880 + sorted(BATCHED_SCENARIOS).index(scenario), C, N_CAND,
+        scenario, E, P)
+    n_cand = _k10_n_cand(kw, "per_eval")
+    rows, pulls, _ = _k10_model(cols, kw, n_cand, 32, 8, 2, torch.float32)
+    want_rows, want_pulls = _k10_twin(cols, kw, n_cand, torch.float32)
+    np.testing.assert_array_equal(rows, want_rows)
+    np.testing.assert_array_equal(pulls, want_pulls)
+
+
+@pytest.mark.parametrize("spread_fit", [False, True])
+def test_batch_plan_prefix_reads_its_score_cache(spread_fit):
+    """The cache case (`batched_cache_case`, its step deltas dropped:
+    K10 has none) on long walks: every eval's later picks read back
+    what its earlier steps scored, and the rows still equal the JAX
+    program's; 16 evals, so that the blocks' slices of the cache and the
+    spread state are many."""
+    E, P = 16, 12
+    cols, kw = batched_cache_case(2890, C, N_CAND, E, P)
+    n_cand = _k10_n_cand(kw, "per_eval")
+    rows, pulls, stats = _k10_model(cols, kw, n_cand, 8, 2, 2,
+                                    torch.float64, spread_fit)
+    np.testing.assert_array_equal(
+        rows, _jax_batch_plan(cols, kw, n_cand, spread_fit))
+    np.testing.assert_array_equal(
+        pulls, _k10_twin(cols, kw, n_cand, torch.float64, spread_fit)[1])
+    assert stats["hits"] > 0
+
+
+def test_batch_plan_prefix_blocks_keep_their_own_state():
+    """Sixteen evals with spread, interleaved pick by pick: a block's
+    spread state is its own.  Eval 0 alone gives the same rows as eval 0
+    among the others (its slice is not another block's)."""
+    E, P = 16, 6
+    cols, kw = batched_case(2895, C, N_CAND, "spread", E, P)
+    n_cand = _k10_n_cand(kw, "per_eval")
+    rows, _, _ = _k10_model(cols, kw, n_cand, 32, 8, 2, torch.float64)
+    np.testing.assert_array_equal(rows, _jax_batch_plan(cols, kw, n_cand))
+    one = {k: v[:1] if isinstance(v, np.ndarray) and v.ndim and
+           v.shape[0] == E else v for k, v in kw["batch"].items()}
+    sp = {k: None if v is None else v[:1] for k, v in kw["spread"].items()}
+    alone, _, _ = _k10_model(cols, dict(kw, batch=one, spread=sp), n_cand[:1],
+                             32, 8, 2, torch.float64)
+    np.testing.assert_array_equal(alone[0], rows[0])
